@@ -13,10 +13,12 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    the least time the card could take (``bound_ms``) and, where one
    PyTorch call computes the same function, that call (``library_ms``);
 4. serves yi-6b at full width and depth (random weights from a seed)
-   through ``ContinuousEngine``: 4 slots, 8 requests, prompts of 64-512
-   tokens, 32 new tokens, greedy, luq_fp4 logits head, once with an int8
-   and once with a luq_fp4 KV cache, on the ``cuda`` backend; every
-   request must finish with its 32 tokens and every kernel must have run;
+   through ``ContinuousEngine`` with the workload of
+   ``repro_torch/launch/workload.py``: 4 slots, 8 requests, prompts of
+   64-512 tokens, 32 new tokens, greedy, luq_fp4 logits head, once with an
+   int8 and once with a luq_fp4 KV cache, on the ``cuda`` backend; every
+   request must finish with its 32 tokens and every kernel (both branches
+   of the matmul) must have run;
 5. checks the engine against the oneshot driver for one request.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -38,7 +40,6 @@ import sys
 import time
 from pathlib import Path
 
-import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -51,8 +52,7 @@ F32_FLOPS_PER_S = 67e12
 # floor, two exp2, clamps, compares, selects, sign, two products)
 LUQ_OPS = 24
 
-SEED = 0
-SLOTS, MAX_SEQ, REQUESTS, NEW_TOKENS = 4, 1024, 8, 32
+SEED = 0                  # of the kernel checks' inputs
 
 
 def bound(nbytes: float, flops: float):
@@ -103,8 +103,8 @@ def check_kv_quant_rows(torch, ops, ref, fmt, shape, reps=50):
     }
 
 
-def check_decode_attn(torch, ops, ref, kvc, fmt, reps=50):
-    B, KV, g, hd, S = SLOTS, 4, 8, 128, MAX_SEQ
+def check_decode_attn(torch, ops, ref, kvc, fmt, B, S, reps=50):
+    KV, g, hd = 4, 8, 128
     pos_list = [63, 300, 700, S - 1]                      # ragged positions
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     kc, ks = kvc.kv_quant(fmt, torch.randn(B, KV, S, hd, device="cuda",
@@ -148,46 +148,51 @@ def check_decode_attn(torch, ops, ref, kvc, fmt, reps=50):
     }
 
 
-def check_luq_matmul(torch, ops, ref, reps=10):
-    """4 slot rows x the (4096, 64000) head, one uniform draw per row."""
-    R, K, N = SLOTS, 4096, 64000
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+def check_luq_matmul(torch, ops, ref, per_row, rows, reps=10):
+    """The logits head, (R, 4096) x (4096, 64000): at decode ``rows`` slot
+    rows with one uniform draw and one scale each (``ub`` (R, K, N)); at
+    prefill one row, a shared (K, N) draw and a scalar scale."""
+    R, K, N = (rows if per_row else 1), 4096, 64000
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2 + per_row)
     a = torch.randn(R, K, device="cuda", generator=gen)
     b = torch.randn(K, N, device="cuda", generator=gen) / 64
     ua = torch.rand(R, K, device="cuda", generator=gen)
-    ub = torch.rand(R, K, N, device="cuda", generator=gen)
-    alpha_a, alpha_b = a.abs().amax(dim=1), b.abs().amax()
+    ub = torch.rand(*((R,) if per_row else ()), K, N, device="cuda",
+                    generator=gen)
+    alpha_a = a.abs().amax(dim=1) if per_row else a.abs().amax()
+    alpha_b = b.abs().amax()
     args = (a, b, ua, ub, alpha_a, alpha_b)
     out = ops.luq_matmul(*args)
     want = ref.luq_matmul_ref(*args)
-    aq = ref.luq_fp4(a, ua, alpha_a[:, None])
+    aq = ref.luq_fp4(a, ua, alpha_a.reshape(-1, 1))
+    bq = torch.stack([ref.luq_fp4(b, ub[i] if per_row else ub, alpha_b)
+                      for i in range(R)])
     err = (out - want).abs().max().item()
     for i in range(R):
-        bq = ref.luq_fp4(b, ub[i], alpha_b)
-        tol = 1e-5 * (aq[i].abs() @ bq.abs()) + 1e-6
+        tol = 1e-5 * (aq[i].abs() @ bq[i].abs()) + 1e-6
         if not ((out[i] - want[i]).abs() <= tol).all():
             raise AssertionError(f"luq_matmul row {i} outside tolerance "
                                  f"(max abs err {err})")
-        del bq
     # the yardstick: one batched product of operands quantized beforehand
-    bq_all = torch.stack([ref.luq_fp4(b, ub[i], alpha_b) for i in range(R)])
     aq3 = aq[:, None, :]
-    nbytes = 4 * (2 * R * K + K * N + R * K * N + R + 1 + R * N)
-    flops = 2 * R * K * N + LUQ_OPS * (R * K * N + R * K)
+    nbytes = 4 * (2 * R * K + K * N + ub.numel() + alpha_a.numel() + 1
+                  + R * N)
+    flops = 2 * R * K * N + LUQ_OPS * (ub.numel() + R * K)
     result = {
         "max_abs_err": err,
         "ms": time_ms(torch, lambda: ops.luq_matmul(*args), reps),
         "plain_ms": time_ms(torch, lambda: ref.luq_matmul_ref(*args), 3),
         **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
-        "library_ms": time_ms(torch, lambda: torch.bmm(aq3, bq_all), reps),
+        "library_ms": time_ms(torch, lambda: torch.bmm(aq3, bq), reps),
     }
-    del bq_all, ub
+    del bq, ub
     return result
 
 
-def serve_yi6b(torch, kv_fmt, model, params, ops):
-    """Serve 8 requests through the engine; returns its summary and the
-    launch counts of the run."""
+def serve_yi6b(torch, kv_fmt, model, params, ops, wl):
+    """Serve the workload's requests through the engine; returns its
+    summary and the launch counts of the run, the matmul's also by
+    branch."""
     from repro_torch.config import ServeConfig
     from repro_torch.quant import backend as qbackend
     from repro_torch.serve import ContinuousEngine
@@ -198,26 +203,26 @@ def serve_yi6b(torch, kv_fmt, model, params, ops):
         _, actual = get(fmt, "cuda")
         if actual != "cuda":
             raise AssertionError(f"{get.__name__}({fmt!r}) runs on {actual}")
-    serve = ServeConfig(max_slots=SLOTS, max_seq=MAX_SEQ,
-                        max_new_tokens=NEW_TOKENS, kv_fmt=kv_fmt)
+    serve = ServeConfig(max_slots=wl.SLOTS, max_seq=wl.MAX_SEQ,
+                        max_new_tokens=wl.NEW_TOKENS, kv_fmt=kv_fmt)
     engine = ContinuousEngine(model, params, serve)
-    vocab = model.config.vocab_size
-    rng = np.random.RandomState(SEED)
-    engine.submit(rng.randint(0, vocab, 64), max_new_tokens=2)   # warm-up
+    prompts = wl.prompts(model.config.vocab_size)
+    engine.submit(prompts[0][:wl.PROMPT_MIN], max_new_tokens=2)   # warm-up
     engine.run()
     engine.reset()
-    lengths = rng.randint(64, 513, REQUESTS)
-    for n in lengths:
-        engine.submit(rng.randint(0, vocab, n), max_new_tokens=NEW_TOKENS)
+    for p in prompts:
+        engine.submit(p, max_new_tokens=wl.NEW_TOKENS)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     results = engine.run()
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
-    if sorted(results) != list(range(REQUESTS)):
+    launches["luq_matmul[decode]"] = ops.LUQ_MATMUL_LAUNCHES["per_row"]
+    launches["luq_matmul[prefill]"] = ops.LUQ_MATMUL_LAUNCHES["shared"]
+    if sorted(results) != list(range(wl.REQUESTS)):
         raise AssertionError(f"served {sorted(results)}")
     for rid, r in results.items():
-        if r.status != "ok" or r.tokens.size != NEW_TOKENS:
+        if r.status != "ok" or r.tokens.size != wl.NEW_TOKENS:
             raise AssertionError(f"request {rid}: {r.status}, "
                                  f"{r.tokens.size} tokens")
         if not ((r.tokens >= 0) & (r.tokens < model.config.padded_vocab)).all():
@@ -226,7 +231,7 @@ def serve_yi6b(torch, kv_fmt, model, params, ops):
     if zero:
         raise AssertionError(f"kernels not launched on the main path: {zero}")
     summary = engine.metrics.summary()
-    summary["prompt_lengths"] = lengths.tolist()
+    summary["prompt_lengths"] = [p.size for p in prompts]
     return summary, launches
 
 
@@ -255,6 +260,7 @@ def main() -> int:
 
     # 2. build
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.launch import workload as wl
     from repro_torch.quant import kv_cache as kvc
     t0 = time.perf_counter()
     build.load_library()
@@ -267,26 +273,29 @@ def main() -> int:
     # 3. each kernel against its plain version at the path's shapes
     checks = {}
     for fmt in ("int8", "luq_fp4"):
-        decode = check_kv_quant_rows(torch, ops, ref, fmt, (SLOTS, 4, 128))
+        decode = check_kv_quant_rows(torch, ops, ref, fmt, (wl.SLOTS, 4, 128))
         prefill = check_kv_quant_rows(torch, ops, ref, fmt, (32, 1, 4, 512, 128))
         print(f"kv_quant_rows[{fmt}] decode {decode}")
         print(f"kv_quant_rows[{fmt}] prefill (32x1x4x512 rows) {prefill}")
         checks[f"kv_quant_rows[{fmt}]"] = decode
-        attn = check_decode_attn(torch, ops, ref, kvc, fmt)
+        attn = check_decode_attn(torch, ops, ref, kvc, fmt, wl.SLOTS,
+                                 wl.MAX_SEQ)
         print(f"decode_attn_fused[{fmt}] {attn}")
         checks[f"decode_attn_fused[{fmt}]"] = attn
-    checks["luq_matmul"] = check_luq_matmul(torch, ops, ref)
-    print(f"luq_matmul {checks['luq_matmul']}")
+    for branch, per_row in (("decode", True), ("prefill", False)):
+        name = f"luq_matmul[{branch}]"
+        checks[name] = check_luq_matmul(torch, ops, ref, per_row, wl.SLOTS)
+        print(f"{name} {checks[name]}")
     torch.cuda.empty_cache()
 
     # 4. serve yi-6b at full width and depth
     from repro_torch.config import QuantConfig
     from repro_torch.configs import get_config
     from repro_torch.models.registry import build_model
-    model = build_model(get_config("yi-6b"), QuantConfig(fmt="luq_fp4",
+    model = build_model(get_config(wl.ARCH), QuantConfig(fmt=wl.QUANT_FMT,
                                                          backend="cuda"))
     t0 = time.perf_counter()
-    params = model.prepare(model.init(SEED))
+    params = model.prepare(model.init(wl.SEED))
     torch.cuda.synchronize()
     print(f"yi-6b: init + bf16 cast {(time.perf_counter() - t0) * 1e3} ms, "
           f"{sum(t.numel() for t in params.values()) / 1e9:.3f} B params")
@@ -301,7 +310,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     launches = {}
     for kv_fmt in ("int8", "luq_fp4"):
-        summary, counts = serve_yi6b(torch, kv_fmt, model, params, ops)
+        summary, counts = serve_yi6b(torch, kv_fmt, model, params, ops, wl)
         print(f"serve yi-6b kv={kv_fmt}: {summary['n_requests']} requests, "
               f"{summary['total_new_tokens']} tokens, "
               f"{summary['tokens_per_sec']} tok/s, "
@@ -340,10 +349,9 @@ def main() -> int:
     }
     kernels = []
     for name, numbers in checks.items():
-        base = name.split("[")[0]
-        fmt = name[len(base) + 1:-1] if "[" in name else None
-        n = (launches[fmt][base] if fmt
-             else sum(c[base] for c in launches.values()))
+        base, _, tag = name.rstrip("]").partition("[")
+        n = (launches[tag][base] if tag in launches      # that KV format's run
+             else sum(c[name] for c in launches.values()))     # both runs
         src, replaces = sources[base]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": n, **numbers})

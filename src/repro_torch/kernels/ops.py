@@ -24,13 +24,18 @@ from repro_torch.quant import kv_cache as kvc
 #: Kernel launches per wrapper since the last :func:`reset_launch_counts`.
 #: Only launches of a kernel count; CPU calls of the plain versions do not.
 LAUNCHES = {"luq_matmul": 0, "kv_quant_rows": 0, "decode_attn_fused": 0}
+#: The ``luq_matmul`` launches of :data:`LAUNCHES` by the kernel's branch:
+#: ``shared`` uniforms ``ub`` (K, N) for all rows (prefill), or ``per_row``
+#: uniforms (R, K, N) (the decode tick's per-slot logits head).
+LUQ_MATMUL_LAUNCHES = {"shared": 0, "per_row": 0}
 
 _KV_FMT_CODE = {"int8": 0, "luq_fp4": 1}
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, LUQ_MATMUL_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _on_cpu(*tensors) -> bool:
@@ -109,6 +114,7 @@ def luq_matmul(a, b, ua, ub, alpha_a, alpha_b) -> torch.Tensor:
                 stream)
             _raise_on_error(lib, err, "luq_matmul")
             LAUNCHES["luq_matmul"] += 1
+            LUQ_MATMUL_LAUNCHES["per_row" if per_row else "shared"] += 1
     return out
 
 

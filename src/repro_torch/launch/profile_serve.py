@@ -1,40 +1,45 @@
-"""Where a serving run's time goes: a torch.profiler breakdown.
+"""Where a serving run's time goes: a torch.profiler breakdown on the GPU.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --kv-fmt int8
 
-Builds the model (random weights from ``--seed``), runs the continuous
-engine once to warm up, then profiles one run of the same workload as
-``chip_smoke.py`` by default (yi-6b, 4 slots, 8 requests with prompts of
-64-512 tokens, 32 new tokens, greedy, luq_fp4 logits head) and prints:
-the wall time of an unprofiled run and per decode tick; the kernels'
-device time and the device's idle share over that run; host time of the
-admissions (prefill), of the decode ticks and, within both, of the logits
-head (``qlogits``: uniform draws, scales and the quantized matmul); and
-the kernels with the most device time and the operators with the most
-host time.  Kernels launched through ``ctypes`` are not tied to a host
-range, so the device time shown for a range covers PyTorch's operators
-only.  ``--trace PATH`` also writes a Chrome trace.  On the
-CPU (``--device cpu --smoke``) it profiles the host only, as a
-rehearsal.
+Serves the workload of ``launch/workload.py`` (the one ``chip_smoke.py``
+drives: yi-6b, 4 slots, 8 requests) once to warm up, times one unprofiled
+run, then profiles one more run and prints:
+
+* the wall time of the unprofiled run and per decode tick;
+* from the profiled run's trace alone: the span of the run (its
+  ``engine.run`` range), the device's busy time within it (the union of
+  the intervals of its kernels and copies) and the idle share.  The
+  profiler slows the host, so this idle share is at least the unprofiled
+  run's;
+* host time of the admissions (prefill), of the decode ticks and, within
+  both, of the logits head (``qlogits``: uniform draws, scales and the
+  quantized matmul);
+* the kernels with the most device time and the operators with the most
+  host time.
+
+Kernels launched through ``ctypes`` are not tied to a host range, so the
+device time shown for a range covers PyTorch's operators only.
+``--trace PATH`` also writes a Chrome trace.
 """
 from __future__ import annotations
 
 import argparse
 import time
 
-import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from repro_torch.config import QuantConfig, ServeConfig
-from repro_torch.configs import get_config, get_smoke_config, list_archs
+from repro_torch.configs import get_config
+from repro_torch.launch import workload as wl
 from repro_torch.models import common as cm
 from repro_torch.models.registry import build_model
 from repro_torch.serve import ContinuousEngine
 
-
-RANGES = ("engine.admit", "engine.tick", "qlogits")
+RANGES = ("engine.run", "engine.admit", "engine.tick", "qlogits")
+TOP = 15
 
 
 def _device_us(evt, self_only=True) -> float:
@@ -54,45 +59,40 @@ def _ranged(fn, name):
     return wrapped
 
 
+def union_us(intervals, lo: float, hi: float) -> float:
+    """Length of the union of the ``(start, end)`` intervals within
+    ``[lo, hi]``."""
+    busy, covered = 0.0, lo
+    for start, end in sorted(intervals):
+        start, end = max(start, covered), min(end, hi)
+        if end > start:
+            busy += end - start
+            covered = end
+    return busy
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="yi-6b", choices=list_archs())
-    ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--device", default="cuda")
-    ap.add_argument("--quant-fmt", default="luq_fp4")
-    ap.add_argument("--backend", default="cuda", choices=["ref", "cuda"])
     ap.add_argument("--kv-fmt", default="int8",
                     choices=["none", "int8", "luq_fp4"])
-    ap.add_argument("--slots", type=int, default=4)
-    ap.add_argument("--max-seq", type=int, default=1024)
-    ap.add_argument("--requests", type=int, default=8)
-    ap.add_argument("--prompt-min", type=int, default=64)
-    ap.add_argument("--prompt-max", type=int, default=512)
-    ap.add_argument("--gen", type=int, default=32)
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--top", type=int, default=15)
-    ap.add_argument("--trace", default=None)
+    ap.add_argument("--trace", default=None,
+                    help="also write a Chrome trace to this path")
     args = ap.parse_args(argv)
 
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    model = build_model(cfg, QuantConfig(fmt=args.quant_fmt,
-                                         backend=args.backend),
-                        device=args.device)
-    params = model.prepare(model.init(args.seed))
+    cfg = get_config(wl.ARCH)
+    model = build_model(cfg, QuantConfig(fmt=wl.QUANT_FMT, backend="cuda"))
+    params = model.prepare(model.init(wl.SEED))
     engine = ContinuousEngine(model, params, ServeConfig(
-        max_slots=args.slots, max_seq=args.max_seq, max_new_tokens=args.gen,
-        kv_fmt=args.kv_fmt), device=model.device)
-    rng = np.random.RandomState(args.seed)
-    lengths = rng.randint(args.prompt_min, args.prompt_max + 1, args.requests)
-    prompts = [rng.randint(0, cfg.vocab_size, n) for n in lengths]
-    on_gpu = model.device.type == "cuda"
+        max_slots=wl.SLOTS, max_seq=wl.MAX_SEQ, max_new_tokens=wl.NEW_TOKENS,
+        kv_fmt=args.kv_fmt))
+    prompts = wl.prompts(cfg.vocab_size)
 
     def run():
         engine.reset()
         for p in prompts:
-            engine.submit(p, max_new_tokens=args.gen)
-        engine.run()
-        if on_gpu:
+            engine.submit(p, max_new_tokens=wl.NEW_TOKENS)
+        with record_function("engine.run"):
+            engine.run()
             torch.cuda.synchronize()
 
     run()                                           # warm-up
@@ -102,36 +102,40 @@ def main(argv=None):
     engine._admit = _ranged(engine._admit, "engine.admit")
     engine._tick = _ranged(engine._tick, "engine.tick")
     cm.qlogits = _ranged(cm.qlogits, "qlogits")
-    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
-                                           if on_gpu else [])
-    with profile(activities=activities) as prof:
-        t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         run()
-        wall = time.perf_counter() - t0
-    events = prof.key_averages()
     ticks = engine.metrics.decode_ticks
-    print(f"{cfg.name} kv={args.kv_fmt} quant={args.quant_fmt} "
-          f"backend={args.backend} on {model.device}: {args.requests} "
-          f"requests x {args.gen} tokens, prompts {lengths.tolist()}, "
-          f"{args.slots} slots, {ticks} decode ticks; wall {plain_wall * 1e3} "
-          f"ms ({plain_wall / ticks * 1e3} ms per decode tick, admissions "
-          f"included), under the profiler {wall * 1e3} ms")
+    print(f"{cfg.name} kv={args.kv_fmt} quant={wl.QUANT_FMT} backend=cuda: "
+          f"{wl.REQUESTS} requests x {wl.NEW_TOKENS} tokens, prompts "
+          f"{[p.size for p in prompts]}, {wl.SLOTS} slots, {ticks} decode "
+          f"ticks; unprofiled wall {plain_wall * 1e3} ms ({plain_wall / ticks * 1e3} "
+          f"ms per decode tick, admissions included)")
+
+    trace = prof.events()
+    span = next(e.time_range for e in trace if e.key == "engine.run"
+                and e.device_type == DeviceType.CPU)
+    busy_us = union_us([(e.time_range.start, e.time_range.end)
+                        for e in trace if _is_kernel(e)],
+                       span.start, span.end)
+    print(f"profiled run: span {span.elapsed_us() / 1e3} ms, device busy "
+          f"{busy_us / 1e3} ms (union of its kernels and copies), idle "
+          f"share {1 - busy_us / span.elapsed_us()}")
+
+    events = prof.key_averages()
     for e in events:
         if e.key in RANGES and e.device_type == DeviceType.CPU:
             print(f"  {e.key}: {e.count} calls, host {e.cpu_time_total / 1e3} "
                   f"ms (under the profiler), device time of the PyTorch "
                   f"operators inside {_device_us(e, self_only=False) / 1e3} ms")
-    if on_gpu:
-        kernels = [e for e in events if _is_kernel(e)]
-        busy_us = sum(_device_us(e) for e in kernels)
-        print(f"device kernel time {busy_us / 1e3} ms; idle share of the "
-              f"unprofiled run {1 - busy_us / 1e6 / plain_wall}")
-        print("kernels with the most device time:")
-        for e in sorted(kernels, key=_device_us, reverse=True)[:args.top]:
-            print(f"  {_device_us(e) / 1e3:12.3f} ms  {e.count:7d} calls  "
-                  f"{e.key[:90]}")
+    kernels = [e for e in events if _is_kernel(e)]
+    print(f"summed device time of the kernels and copies "
+          f"{sum(_device_us(e) for e in kernels) / 1e3} ms; the most:")
+    for e in sorted(kernels, key=_device_us, reverse=True)[:TOP]:
+        print(f"  {_device_us(e) / 1e3:12.3f} ms  {e.count:7d} calls  "
+              f"{e.key[:90]}")
     print("operators with the most host time (under the profiler):")
-    print(events.table(sort_by="self_cpu_time_total", row_limit=args.top,
+    print(events.table(sort_by="self_cpu_time_total", row_limit=TOP,
                        max_name_column_width=60))
     if args.trace:
         prof.export_chrome_trace(args.trace)

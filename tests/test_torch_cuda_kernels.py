@@ -69,7 +69,10 @@ def test_luq_matmul_close(cuda, per_row):
                     generator=gen)
     alpha_a = a.abs().amax(dim=1) if per_row else a.abs().amax()
     alpha_b = b.abs().amax()
+    ops.reset_launch_counts()
     out = ops.luq_matmul(a, b, ua, ub, alpha_a, alpha_b)
+    assert ops.LUQ_MATMUL_LAUNCHES == {"shared": int(not per_row),
+                                       "per_row": int(per_row)}
     want = ref.luq_matmul_ref(a, b, ua, ub, alpha_a, alpha_b)
     aq = ref.luq_fp4(a, ua, alpha_a.reshape(-1, 1))
     bound = torch.stack([
@@ -86,3 +89,4 @@ def test_launch_counts_count_kernel_launches_only(cuda):
     ops.kv_quant_rows(x.cpu(), "int8")         # plain version: not counted
     assert ops.LAUNCHES == {"luq_matmul": 0, "kv_quant_rows": 1,
                             "decode_attn_fused": 0}
+    assert ops.LUQ_MATMUL_LAUNCHES == {"shared": 0, "per_row": 0}

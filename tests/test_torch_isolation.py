@@ -87,3 +87,4 @@ def test_kernel_wrappers_never_send_device_tensors_to_plain_versions():
                               scale=1.0)
     assert ops.LAUNCHES == {"luq_matmul": 0, "kv_quant_rows": 0,
                             "decode_attn_fused": 0}
+    assert ops.LUQ_MATMUL_LAUNCHES == {"shared": 0, "per_row": 0}

@@ -111,7 +111,7 @@ def test_prefill_logits_and_cache_match_jax(arch, kv_fmt):
             np.testing.assert_array_equal(ours, theirs)
 
 
-def _fill_slots(prefill, prompts, cache, to_array):
+def _fill_slots(prefill, prompts, cache):
     """Prefill each prompt (B=1) into its slot of a zeroed slot cache."""
     for slot, prompt in enumerate(prompts):
         _, pc = prefill(prompt)
@@ -119,14 +119,16 @@ def _fill_slots(prefill, prompts, cache, to_array):
             if name == "pos":
                 arr[slot] = int(pc["pos"])
             else:
-                upd = to_array(pc[name])
-                arr[:, slot:slot + 1, :, :upd.shape[3]] = upd
+                arr[:, slot:slot + 1, :, :pc[name].shape[3]] = pc[name]
     return cache
 
 
 @pytest.mark.parametrize("arch", ["yi-6b", "gemma-7b"])
 @pytest.mark.parametrize("kv_fmt", KV_FMTS)
 def test_teacher_forced_decode_slots_match_jax(arch, kv_fmt):
+    """Both decoders start from one slot cache with ragged positions: the
+    port's prefills, which the test above holds against JAX's (codes
+    bitwise), copied into JAX's cache layout."""
     jmodel, jparams = jax_model(arch)
     model, params = port_model(arch)
     params = model.prepare(params)
@@ -137,13 +139,11 @@ def test_teacher_forced_decode_slots_match_jax(arch, kv_fmt):
     tcache = {n: torch.zeros(shape, dtype=dt) for n, (shape, dt) in spec.items()}
     _fill_slots(lambda p: model.prefill(
         params, {"tokens": torch.from_numpy(p[None])}, kv_fmt=kv_fmt),
-        prompts, tcache, lambda t: t)
+        prompts, tcache)
     jspec = jmodel.slot_cache_spec(K, S, kv_fmt=kv_fmt)
-    jcache = {n: np.zeros(s.shape, s.dtype) for n, s in jspec.items()}
-    _fill_slots(lambda p: jmodel.prefill(
-        jparams, {"tokens": jnp.asarray(p[None])}, kv_fmt=kv_fmt),
-        prompts, jcache, np.asarray)
-    jcache = {n: jnp.asarray(a) for n, a in jcache.items()}
+    assert sorted(jspec) == sorted(tcache)
+    jcache = {n: jnp.asarray(_np(tcache[n]).astype(s.dtype))
+              for n, s in jspec.items()}
     forced = np.random.default_rng(7).integers(0, vocab, (3, K)).astype(
         np.int32)
     active = np.array([True, True, True])
