@@ -20,7 +20,6 @@ run, then profiles one more run and prints:
 
 Kernels launched through ``ctypes`` are not tied to a host range, so the
 device time shown for a range covers PyTorch's operators only.
-``--trace PATH`` also writes a Chrome trace.
 """
 from __future__ import annotations
 
@@ -75,8 +74,6 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--kv-fmt", default="int8",
                     choices=["none", "int8", "luq_fp4"])
-    ap.add_argument("--trace", default=None,
-                    help="also write a Chrome trace to this path")
     args = ap.parse_args(argv)
 
     cfg = get_config(wl.ARCH)
@@ -109,8 +106,9 @@ def main(argv=None):
     print(f"{cfg.name} kv={args.kv_fmt} quant={wl.QUANT_FMT} backend=cuda: "
           f"{wl.REQUESTS} requests x {wl.NEW_TOKENS} tokens, prompts "
           f"{[p.size for p in prompts]}, {wl.SLOTS} slots, {ticks} decode "
-          f"ticks; unprofiled wall {plain_wall * 1e3} ms ({plain_wall / ticks * 1e3} "
-          f"ms per decode tick, admissions included)")
+          f"ticks; unprofiled wall {plain_wall * 1e3} ms "
+          f"({plain_wall / ticks * 1e3} ms per decode tick, admissions "
+          f"included)")
 
     trace = prof.events()
     span = next(e.time_range for e in trace if e.key == "engine.run"
@@ -137,9 +135,6 @@ def main(argv=None):
     print("operators with the most host time (under the profiler):")
     print(events.table(sort_by="self_cpu_time_total", row_limit=TOP,
                        max_name_column_width=60))
-    if args.trace:
-        prof.export_chrome_trace(args.trace)
-        print(f"trace written to {args.trace}")
 
 
 if __name__ == "__main__":
