@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's training and serving paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -9,32 +9,45 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
 1. prints the card (``nvidia-smi`` name and power limit) and versions;
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. holds each kernel against its plain PyTorch version on the card at the
-   yi-6b shapes of the serving path, and times kernel, plain version,
-   the least time the card could take (``bound_ms``) and, where one
-   PyTorch call computes the same function, that call (``library_ms``);
-4. serves yi-6b at full width and depth (random weights from a seed)
+   shapes of its path (ResNet-18 training: ``luq_quant`` and
+   ``per_sample_clip``; yi-6b serving: the other three), and times
+   kernel, plain version, the least time the card could take
+   (``bound_ms``) and, where PyTorch computes the same function,
+   that yardstick (``library_ms``);
+4. trains ResNet-18 at full width (random init from a seed, synthetic
+   data) with DP-SGD under the DPQuant scheduler through
+   ``repro_torch.train_loop.Trainer``, with the options of
+   ``repro_torch.launch.train --arch resnet18 --mode dpquant --fmt
+   luq_fp4 --backend cuda --clip-backend fused``: 2 epochs x 3 steps of
+   256 images in microbatches of 64, analysis in epoch 0 (10 probe runs x
+   2 reps at a probe batch of 64); every loss finite, k = 8 quantized
+   layers each epoch, epsilon > 0, 44 clip launches, and quantizer
+   launches that match the policies the scheduler chose;
+5. serves yi-6b at full width and depth (random weights from a seed)
    through ``ContinuousEngine`` with the workload of
    ``repro_torch/launch/workload.py``: 4 slots, 8 requests, prompts of
    64-512 tokens, 32 new tokens, greedy, luq_fp4 logits head, once with an
    int8 and once with a luq_fp4 KV cache, on the ``cuda`` backend; every
    request must finish with its 32 tokens and every kernel (both branches
    of the matmul) must have run;
-5. checks the engine against the oneshot driver for one request.
+6. checks the engine against the oneshot driver for one request.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
 script exits non-zero; without a GPU, or without the repository around
 it, it exits non-zero before printing a result.
 
-Tolerances: KV codes and scales bitwise; decode attention atol = rtol =
-1e-5 (float32, summed in another order); the quantized matmul within
-1e-5 of the sum of absolute products per output (the operands agree
-bitwise, only the summation order differs).  TF32 is off for the plain
-versions and the library calls.
+Tolerances: KV codes and scales bitwise; LUQ codes bitwise; decode
+attention atol = rtol = 1e-5 (float32, summed in another order); the
+quantized matmul within 1e-5 of the sum of absolute products per output
+(the operands agree bitwise, only the summation order differs); the clip:
+norms rtol 1e-5, the sum within 1e-5 of sum_b |scale_b g_bd| per column.
+TF32 is off everywhere (training, plain versions, library calls).
 """
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -189,6 +202,163 @@ def check_luq_matmul(torch, ops, ref, per_row, rows, reps=10):
     return result
 
 
+def check_luq_quant(torch, ops, ref, rows, n, reps=50):
+    """LUQ-FP4 of (rows, n) against one shared (n,) draw and per-row
+    scales, with the rounding's edge values mixed in: exact powers of two
+    times alpha, one ulp below them, zeros, and (with several rows) a row
+    that is all zero (alpha = 0)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    x = torch.randn(rows, n, device="cuda", generator=gen).clamp(-3.5, 3.5)
+    u = torch.rand(n, device="cuda", generator=gen)
+    alpha0 = 4.0
+    x[:, 0] = alpha0
+    levels = alpha0 * 2.0 ** -torch.arange(0, 9, device="cuda")
+    below = torch.nextafter(levels, torch.zeros_like(levels))
+    edges = torch.cat([levels, -levels, below, -below,
+                       torch.zeros(4, device="cuda")])
+    x[:, 1:1 + edges.numel()] = edges
+    if rows > 1:
+        x[1] = 0.0
+    alpha = x.abs().amax(dim=1)
+    out = ops.luq_quant(x, u, alpha)
+    want = ref.luq_quant_ref(x, u, alpha)
+    if not torch.equal(out, want):
+        bad = (out != want).sum().item()
+        raise AssertionError(f"luq_quant ({rows} x {n}): {bad} codes differ "
+                             "from the plain version")
+    nbytes = 4 * (2 * x.numel() + u.numel() + rows)
+    return {
+        "max_abs_err": 0.0,
+        "ms": time_ms(torch, lambda: ops.luq_quant(x, u, alpha), reps),
+        "plain_ms": time_ms(torch, lambda: ref.luq_quant_ref(x, u, alpha), reps),
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(nbytes, LUQ_OPS * x.numel()))),
+        "library_ms": None,
+    }
+
+
+def check_per_sample_clip(torch, ops, ref, B, D, reps=10):
+    """Per-example clip and sum of (B, D) rows, with a zero row and a row
+    whose norm is below C; the yardstick is two PyTorch calls:
+    ``torch.linalg.vector_norm(g, dim=1)``, then ``scale @ g``."""
+    C = 1.0
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    g = torch.randn(B, D, device="cuda", generator=gen) * 1e-3
+    g[0] = 0.0
+    g[1] *= 0.1 / g[1].norm()
+    out, norms = ops.clip_and_sum(g, C)
+    want, want_norms = ref.per_sample_clip_ref(g, C)
+    torch.testing.assert_close(norms, want_norms, rtol=1e-5, atol=0.0)
+    scale = torch.clamp(C / torch.clamp(want_norms, min=1e-12), max=1.0)
+    err = (out - want).abs()
+    tol = 1e-5 * (scale @ g.abs()) + 1e-12
+    if not (err <= tol).all():
+        raise AssertionError(f"clip_and_sum outside tolerance (max abs err "
+                             f"{err.max().item()})")
+    max_err = err.max().item()
+    del err, tol
+
+    def two_calls():
+        n = torch.linalg.vector_norm(g, dim=1)
+        return torch.clamp(C / torch.clamp(n, min=1e-12), max=1.0) @ g
+
+    lib = two_calls()
+    torch.testing.assert_close(lib, want, rtol=1e-4, atol=1e-6)
+    nbytes = 4 * (B * D + D + B)
+    return {
+        "max_abs_err": max_err,
+        "ms": time_ms(torch, lambda: ops.clip_and_sum(g, C), reps),
+        "plain_ms": time_ms(torch, lambda: ref.per_sample_clip_ref(g, C), reps),
+        **dict(zip(("bound_ms", "bound_by"), bound(nbytes, 4.0 * B * D))),
+        "library_ms": time_ms(torch, two_calls, reps),
+    }
+
+
+def train_resnet18(torch, ops, wl):
+    """DP-SGD on ResNet-18 under the DPQuant scheduler, the training
+    workload of ``repro_torch/launch/workload.py`` (section 4 of the
+    module docstring); returns the launch counts of the run."""
+    from repro_torch.models.resnet import conv_layers
+    from repro_torch.quant import backend as qbackend
+    from repro_torch.train_loop import Trainer
+
+    if (qbackend.get_quantizer("luq_fp4", "cuda")[1] != "cuda"
+            or qbackend.get_clip_sum("fused")[1] != "cuda"):
+        raise AssertionError("the quantizer or the fused clip does not run "
+                             "on the cuda backend")
+    run, ds, ev = wl.train_setup()
+    cfg = run.model
+    batch, micro = run.global_batch, run.dp.microbatch_size
+    steps, epochs = run.steps_per_epoch, wl.TRAIN_EPOCHS
+    tr = Trainer(run, ds, eval_dataset=ev, mode="dpquant", device="cuda")
+    print(f"resnet18: {sum(t.numel() for t in tr.params.values())} params; "
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
+          f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    policies, analysis_s = [], []
+    t0 = time.perf_counter()
+    for _ in range(epochs):
+        (stats,) = tr.train(1)[-1:]
+        policies.append(tr.scheduler.current.layers)
+        analysis_s.append(tr.last_analysis_s)
+        print(f"epoch {stats.epoch}: loss={stats.loss:.4f} "
+              f"eps={stats.eps:.3f} k={stats.quantized_layers} "
+              f"acc={stats.accuracy} (loss {stats.loss!r}, eps "
+              f"{stats.eps!r}, wall {stats.wall_s!r} s, analysis "
+              f"{tr.last_analysis_s!r} s, layers {list(policies[-1])})")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    launches.update({f"luq_quant[{k}]": v
+                     for k, v in ops.LUQ_QUANT_LAUNCHES.items()})
+    steps_ms = sorted(t * 1e3 for t in tr.step_wall_s[1:])
+    med = steps_ms[len(steps_ms) // 2]
+    print(f"train resnet18: {epochs} epochs x {steps} steps of {batch} "
+          f"images: median step {med!r} ms (steps after the first: "
+          f"{steps_ms}), {batch / med * 1e3!r} images/s, analysis by "
+          f"epoch {analysis_s!r} s, wall {wall!r} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30!r} GiB, launches "
+          f"{launches}")
+
+    for s in tr.history:
+        if not math.isfinite(s.loss):
+            raise AssertionError(f"epoch {s.epoch}: loss {s.loss}")
+        if s.quantized_layers != 8:
+            raise AssertionError(f"epoch {s.epoch}: k = {s.quantized_layers}")
+        if not s.eps > 0:
+            raise AssertionError(f"epoch {s.epoch}: eps = {s.eps}")
+    n_micro = batch // micro
+    # a probe step runs one probe batch of max(micro, min(32, batch))
+    # examples: here one microbatch; 10 probe runs (the baseline and one
+    # per layer) x reps
+    probe_micro = max(micro, min(run.dp.analysis_batch_size, batch)) // micro
+    reps = run.dp.analysis_reps
+    probe_runs = len(tr.scheduler.policies) + 1
+    want_clip = (epochs * steps * n_micro + probe_runs * reps * probe_micro)
+    if launches["clip_and_sum"] != want_clip:
+        raise AssertionError(f"clip_and_sum launched "
+                             f"{launches['clip_and_sum']} times, want "
+                             f"{want_clip}")
+    convs = conv_layers(cfg)
+    # quantized convs summed over every microbatch: the probes (each
+    # singleton policy x reps; the baseline probe and evaluate quantize
+    # nothing) and the train steps
+    q_convs = reps * probe_micro * sum(convs)
+    q_convs += sum(steps * n_micro * sum(convs[i] for i in layers)
+                   for layers in policies)
+    want_q = {"luq_quant": 6 * q_convs, "luq_quant[one_row]": 2 * q_convs,
+              "luq_quant[rows]": 4 * q_convs}
+    for name, n in want_q.items():
+        if launches[name] != n:
+            raise AssertionError(f"{name} launched {launches[name]} times, "
+                                 f"want {n} (policies {policies})")
+    del tr
+    torch.cuda.empty_cache()
+    return launches
+
+
 def serve_yi6b(torch, kv_fmt, model, params, ops, wl):
     """Serve the workload's requests through the engine; returns its
     summary and the launch counts of the run, the matmul's also by
@@ -227,9 +397,11 @@ def serve_yi6b(torch, kv_fmt, model, params, ops, wl):
                                  f"{r.tokens.size} tokens")
         if not ((r.tokens >= 0) & (r.tokens < model.config.padded_vocab)).all():
             raise AssertionError(f"request {rid}: token ids out of range")
-    zero = [k for k, n in launches.items() if n == 0]
+    zero = [k for k, n in launches.items()
+            if n == 0 and k not in ("luq_quant", "clip_and_sum")]
     if zero:
-        raise AssertionError(f"kernels not launched on the main path: {zero}")
+        raise AssertionError(f"kernels not launched on the serving path: "
+                             f"{zero}")
     summary = engine.metrics.summary()
     summary["prompt_lengths"] = [p.size for p in prompts]
     return summary, launches
@@ -286,9 +458,21 @@ def main() -> int:
         name = f"luq_matmul[{branch}]"
         checks[name] = check_luq_matmul(torch, ops, ref, per_row, wl.SLOTS)
         print(f"{name} {checks[name]}")
+    # ResNet-18 training shapes: the largest weight (3x3x512x512) whole,
+    # and the largest activation under vmap (64 examples x 32x32x64)
+    for name, rows, n in (("luq_quant[weight]", 1, 3 * 3 * 512 * 512),
+                          ("luq_quant[activation]", 64, 32 * 32 * 64)):
+        checks[name] = check_luq_quant(torch, ops, ref, rows, n)
+        print(f"{name} ({rows} x {n}) {checks[name]}")
+    checks["per_sample_clip"] = check_per_sample_clip(torch, ops, ref, 64,
+                                                      11_190_891)
+    print(f"per_sample_clip (64 x 11190891) {checks['per_sample_clip']}")
     torch.cuda.empty_cache()
 
-    # 4. serve yi-6b at full width and depth
+    # 4. train ResNet-18 at full width under the DPQuant scheduler
+    train_launches = train_resnet18(torch, ops, wl)
+
+    # 5. serve yi-6b at full width and depth
     from repro_torch.config import QuantConfig
     from repro_torch.configs import get_config
     from repro_torch.models.registry import build_model
@@ -321,7 +505,7 @@ def main() -> int:
         launches[kv_fmt] = counts
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30} GiB")
 
-    # 5. engine vs oneshot, one request, same shapes on both sides
+    # 6. engine vs oneshot, one request, same shapes on both sides
     from repro_torch.config import ServeConfig
     from repro_torch.serve import (ContinuousEngine, build_oneshot_fns,
                                    oneshot_generate)
@@ -346,12 +530,23 @@ def main() -> int:
                               "src/repro/kernels/decode_attn.py:114"),
         "luq_matmul": ("src/repro_torch/kernels/csrc/luq_matmul.cu",
                        "src/repro/kernels/quant_matmul.py:62"),
+        "luq_quant": ("src/repro_torch/kernels/csrc/luq_quant.cu",
+                      "src/repro/kernels/luq_quant.py:51"),
+        "per_sample_clip": ("src/repro_torch/kernels/csrc/per_sample_clip.cu",
+                            "src/repro/kernels/per_sample_clip.py:64"),
     }
+    train_counts = {"luq_quant[weight]": train_launches["luq_quant[one_row]"],
+                    "luq_quant[activation]": train_launches["luq_quant[rows]"],
+                    "per_sample_clip": train_launches["clip_and_sum"]}
     kernels = []
     for name, numbers in checks.items():
         base, _, tag = name.rstrip("]").partition("[")
-        n = (launches[tag][base] if tag in launches      # that KV format's run
-             else sum(c[name] for c in launches.values()))     # both runs
+        if name in train_counts:                          # the training run
+            n = train_counts[name]
+        elif tag in launches:                             # that KV format's run
+            n = launches[tag][base]
+        else:                                             # both serving runs
+            n = sum(c[name] for c in launches.values())
         src, replaces = sources[base]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": n, **numbers})

@@ -6,7 +6,8 @@ imports ``torch`` and numpy only; the JAX package is the numerical
 reference the tests hold it against.
 
 Ported so far: the serving path (continuous batching over a quantized
-slot-pool KV cache with the LUQ logits head), with hand-written CUDA
-kernels for ``kv_quant``, ``decode_attn`` and the quantized matmul in
-``repro_torch.kernels``.
+slot-pool KV cache with the LUQ logits head) and DP-SGD training of
+ResNet-18 under the DPQuant scheduler, with hand-written CUDA kernels in
+``repro_torch.kernels`` for ``kv_quant``, ``decode_attn``, the quantized
+matmul, the LUQ-FP4 quantizer and the per-example clip.
 """

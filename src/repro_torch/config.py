@@ -1,12 +1,13 @@
 """Config dataclasses and device resolution.
 
-The counterpart of ``repro.config``, cut to what the serving path reads.
-Dtypes are strings (as in the JAX package) mapped to ``torch.dtype`` by
-:func:`torch_dtype`.
+The counterpart of ``repro.config``, cut to what the ported paths read
+(serving, and DP-SGD training of the ResNet family).  Dtypes are strings
+(as in the JAX package) mapped to ``torch.dtype`` by :func:`torch_dtype`.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 import torch
 
@@ -52,7 +53,7 @@ def _round_up(x: int, m: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture description (dense decoder-only LMs in this slice)."""
+    """Architecture description (dense decoder-only LMs and ResNets)."""
 
     name: str
     family: str
@@ -63,6 +64,11 @@ class ModelConfig:
     head_dim: int = 0
     d_ff: int = 0
     vocab_size: int = 0
+    # --- cnn ---
+    num_classes: int = 0
+    image_size: int = 32
+    in_channels: int = 3
+    resnet_blocks: Tuple[int, ...] = ()
     mlp_activation: str = "geglu"        # geglu | swiglu | gelu | relu
     tie_embeddings: bool = True
     rope_theta: float = 10_000.0
@@ -85,11 +91,18 @@ class ModelConfig:
             return 0
         return _round_up(self.vocab_size, self.pad_vocab_to)
 
+    def policy_len(self) -> int:
+        """Number of schedulable layers for DPQuant."""
+        if self.family == "resnet":
+            return sum(self.resnet_blocks) + 1
+        return self.n_layers
+
 
 @dataclasses.dataclass(frozen=True)
 class QuantConfig:
-    """Low-precision config: ``fmt`` (serving: the logits head's format)
-    and the quantizer ``backend``.
+    """Low-precision config: ``fmt`` (training: the fake-quantized GEMMs;
+    serving: the logits head), which GEMMs of a quantized layer quantize
+    their inputs, and the quantizer ``backend``.
 
     ``backend``: ``"ref"`` = plain PyTorch formats; ``"cuda"`` = the
     hand-written kernels of ``repro_torch.kernels`` (their plain versions
@@ -98,7 +111,63 @@ class QuantConfig:
     """
 
     fmt: str = "luq_fp4"    # luq_fp4 | int4 | fp8_e4m3 | fp8_e5m2 | bf16 | none
+    quantize_fwd: bool = True
+    quantize_dgrad: bool = True   # paper A.12: quantize inputs of dgrad GEMM
+    quantize_wgrad: bool = True   # ... and of wgrad GEMM
     backend: str = "cuda"
+
+
+@dataclasses.dataclass(frozen=True)
+class DPConfig:
+    """DP-SGD and DPQuant-analysis knobs (the JAX package's, cut to the
+    ported vmap engine)."""
+
+    enabled: bool = True
+    clip_norm: float = 1.0
+    noise_multiplier: float = 1.0
+    delta: float = 1e-5
+    microbatch_size: int = 1
+    # "ref": per-leaf norms and a scaled sum in PyTorch; "fused": flatten
+    # each microbatch's per-example grads to (B, D) and run the
+    # per_sample_clip kernel (repro_torch.kernels).
+    clip_backend: str = "ref"
+    # "vmap" materializes per-example grads with torch.func; "ghost" is
+    # not ported yet and raises.
+    grad_mode: str = "vmap"
+    # DPQuant analysis (paper Table 3 defaults)
+    analysis_interval: int = 2       # epochs between COMPUTELOSSIMPACT runs
+    analysis_reps: int = 2           # R
+    analysis_batch_size: int = 32    # n_sample
+    analysis_clip: float = 0.01      # C_measure
+    analysis_noise: float = 0.5      # sigma_measure
+    ema_alpha: float = 0.3           # EMA decay for policy scores
+    beta: float = 10.0               # softmax temperature
+    quant_fraction: float = 0.9      # fraction of layers quantized
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimConfig:
+    name: str = "sgd"                # sgd | momentum | adam | adamw
+    lr: float = 0.5
+    momentum: float = 0.0
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    warmup_steps: int = 0
+    schedule: str = "constant"       # constant | cosine | linear
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    quant: QuantConfig = QuantConfig()
+    dp: DPConfig = DPConfig()
+    optim: OptimConfig = OptimConfig()
+    seed: int = 0
+    global_batch: int = 1024
+    steps: int = 100
+    steps_per_epoch: int = 10
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,4 +1,4 @@
-"""Architecture registry for the dense-LM presets.
+"""Architecture registry: the dense-LM presets and ResNet-18.
 
 ``get_config(arch_id)`` returns the full-scale ModelConfig;
 ``get_smoke_config(arch_id)`` a reduced same-family config for CPU tests.
@@ -11,7 +11,7 @@ from typing import Dict, List
 
 from repro_torch.config import ModelConfig
 
-_MODULES = ["gemma_7b", "yi_9b", "yi_6b", "stablelm_3b"]
+_MODULES = ["gemma_7b", "yi_9b", "yi_6b", "stablelm_3b", "resnet18"]
 
 _REGISTRY: Dict[str, dict] = {}
 

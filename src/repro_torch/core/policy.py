@@ -1,0 +1,61 @@
+"""Quantization policies (paper §5.2).
+
+The counterpart of ``repro.core.policy``.  A *policy* is a set of layers
+to run quantized.  DPQuant's estimator scores candidate policies;
+Algorithm 2 samples ``m`` of them and quantizes the union of their layers.
+The default candidate set is one singleton policy per layer (so the score
+of policy i estimates layer i's loss sensitivity R(l_i)).
+
+Policies materialize as a host-side tuple of bools, one per layer: the
+model branches on them in Python, so a layer that is not quantized runs
+no quantizer at all (the JAX package selects with ``lax.cond`` on traced
+flags to avoid recompiling; eager PyTorch has nothing to recompile).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Sequence, Tuple
+
+import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantPolicy:
+    """An immutable set of layer indices to quantize."""
+    layers: Tuple[int, ...]
+    n_layers: int
+
+    def flags(self) -> Tuple[bool, ...]:
+        chosen = set(self.layers)
+        return tuple(i in chosen for i in range(self.n_layers))
+
+    def __len__(self):
+        return len(self.layers)
+
+
+def full_policy(n_layers: int) -> QuantPolicy:
+    return QuantPolicy(tuple(range(n_layers)), n_layers)
+
+
+def empty_policy(n_layers: int) -> QuantPolicy:
+    return QuantPolicy((), n_layers)
+
+
+def singleton_policies(n_layers: int, group_size: int = 1) -> List[QuantPolicy]:
+    """Candidate policy set P: one policy per layer (or per group)."""
+    out = []
+    for start in range(0, n_layers, group_size):
+        layers = tuple(range(start, min(start + group_size, n_layers)))
+        out.append(QuantPolicy(layers, n_layers))
+    return out
+
+
+def union_policy(policies: Sequence[QuantPolicy], n_layers: int) -> QuantPolicy:
+    layers = sorted({l for p in policies for l in p.layers})
+    return QuantPolicy(tuple(layers), n_layers)
+
+
+def random_policy(n_layers: int, k: int, rng: np.random.RandomState) -> QuantPolicy:
+    """A uniformly random k-subset — the paper's static random baseline."""
+    layers = tuple(sorted(rng.choice(n_layers, size=k, replace=False).tolist()))
+    return QuantPolicy(layers, n_layers)

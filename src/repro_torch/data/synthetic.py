@@ -1,0 +1,57 @@
+"""Deterministic synthetic image data (offline: no downloads).
+
+The counterpart of ``repro.data.synthetic.ImageClassDataset``:
+class-conditional Gaussian prototypes plus noise at a configurable image
+size and number of classes (GTSRB-like: 43 classes, CIFAR-like: 10).  The
+numpy generation is the JAX package's, draw for draw, so the same seed
+gives the same images and labels in both packages; ``get`` returns CPU
+tensors, which the trainer moves to its device.
+
+Examples are index-addressable (``get(indices)``) so the Poisson
+subsampler can draw arbitrary subsets, and memoized: the first epoch pays
+the Python-loop generation, later epochs are a numpy gather.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class ImageClassDataset:
+    n: int
+    num_classes: int
+    image_size: int = 32
+    channels: int = 3
+    noise: float = 0.6
+    seed: int = 0
+
+    def __post_init__(self):
+        rng = np.random.RandomState(self.seed)
+        d = self.image_size * self.image_size * self.channels
+        self.prototypes = rng.randn(self.num_classes, d).astype(np.float32)
+        self.labels = rng.randint(0, self.num_classes,
+                                  size=self.n).astype(np.int32)
+        self._noise_seed = rng.randint(0, 2**31 - 1, size=self.n)
+        self._cache: dict = {}
+
+    def _example(self, idx: int) -> np.ndarray:
+        x = self._cache.get(idx)
+        if x is None:
+            d = self.image_size * self.image_size * self.channels
+            r = np.random.RandomState(self._noise_seed[idx])
+            x = (self.prototypes[self.labels[idx]]
+                 + self.noise * r.randn(d)).astype(np.float32)
+            self._cache[idx] = x
+        return x
+
+    def get(self, indices: np.ndarray) -> dict:
+        """{"image": (n, H, W, C) float32, "label": (n,) int32}, on the CPU."""
+        ys = self.labels[indices]
+        xs = np.stack([self._example(int(idx)) for idx in indices])
+        xs = xs.reshape(len(indices), self.image_size, self.image_size,
+                        self.channels)
+        return {"image": torch.from_numpy(xs),
+                "label": torch.from_numpy(np.ascontiguousarray(ys))}

@@ -1,0 +1,99 @@
+"""Per-example gradient clipping for DP-SGD.
+
+The counterpart of ``repro.dp.clip``.  The batch is split into
+microbatches; within a microbatch the per-example gradients come from
+``torch.func.vmap(grad_and_value(...))``, and a Python loop over the
+microbatches accumulates the *sum of clipped* gradients.  Peak live state
+is one gradient accumulator plus one microbatch of per-example gradients.
+
+Two clip paths with the same metrics: ``"ref"`` takes per-leaf norms and
+a scaled sum in PyTorch; ``"fused"`` flattens the microbatch's
+per-example gradients to one (B, D) matrix and runs the ``clip_sum`` op,
+on CUDA the ``per_sample_clip`` kernel (``repro_torch.kernels``).
+"""
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import torch
+from torch.func import grad_and_value, vmap
+
+
+def _fused_clip_sum(grads: dict, mb: int, clip_norm: float):
+    """Flatten per-example grads to (B, D), clip and sum them in the
+    ``clip_sum`` op, unflatten the summed row."""
+    from repro_torch.quant import backend as qbackend
+    flat = torch.cat([g.reshape(mb, -1).float() for g in grads.values()],
+                     dim=1)
+    clip_impl, _ = qbackend.get_clip_sum("fused")
+    clipped_flat, norms = clip_impl(flat, clip_norm)
+    del flat
+    clipped, start = {}, 0
+    for name, g in grads.items():
+        size = g[0].numel()
+        clipped[name] = clipped_flat[start:start + size].reshape(g.shape[1:])
+        start += size
+    return clipped, norms
+
+
+def per_example_clipped_grad_sum(
+    loss_fn: Callable,
+    params: dict,
+    batch: dict,
+    *,
+    clip_norm: float,
+    microbatch_size: int,
+    clip_backend: str = "ref",
+) -> Tuple[dict, dict]:
+    """Sum over the batch of per-example clipped gradients.
+
+    ``loss_fn(params, example)`` returns the scalar loss of ONE example
+    (leading batch dim already stripped).  Returns ``(grad_sum, metrics)``:
+    ``metrics`` holds the mean loss, the mean and max per-example gradient
+    norm and the fraction of examples clipped, as 0-dim tensors on the
+    params' device (no host sync).
+    """
+    if clip_backend not in ("ref", "fused"):
+        raise ValueError(f"clip_backend must be 'ref' or 'fused', "
+                         f"got {clip_backend!r}")
+    n = next(iter(batch.values())).shape[0]
+    mb = microbatch_size
+    if n % mb != 0:
+        raise ValueError(f"batch {n} not divisible by microbatch {mb}")
+    # randomness="same": the quantizers draw inside the vmapped function,
+    # one draw shared by every example (as the JAX package's unbatched key)
+    per_example = vmap(grad_and_value(loss_fn), in_dims=(None, 0),
+                       randomness="same")
+
+    acc = {k: torch.zeros_like(p, dtype=torch.float32)
+           for k, p in params.items()}
+    device = next(iter(params.values())).device
+    loss_sum = torch.zeros((), dtype=torch.float32, device=device)
+    all_norms = []
+    for i in range(n // mb):
+        micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+        grads, losses = per_example(params, micro)
+        if clip_backend == "fused":
+            clipped, norms = _fused_clip_sum(grads, mb, clip_norm)
+        else:
+            sq = sum(g.float().square().sum(dim=tuple(range(1, g.dim())))
+                     for g in grads.values())
+            norms = torch.sqrt(sq)
+            scale = torch.clamp(clip_norm / torch.clamp(norms, min=1e-12),
+                                max=1.0)
+            clipped = {k: torch.einsum("b...,b->...", g.float(), scale)
+                       for k, g in grads.items()}
+        del grads
+        for k in acc:
+            acc[k] += clipped[k]
+        loss_sum += losses.sum()
+        all_norms.append(norms)
+
+    norms = torch.cat(all_norms)
+    metrics = {
+        "loss": loss_sum / n,
+        "grad_norm_mean": norms.mean(),
+        "grad_norm_max": norms.max(),
+        "clip_fraction": (norms > clip_norm).float().mean(),
+    }
+    return acc, metrics

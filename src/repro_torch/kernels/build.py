@@ -1,6 +1,7 @@
 """Build and load the CUDA kernels of ``repro_torch.kernels.csrc``.
 
-Each ``*.cu`` source has a plain C interface.  The first call of
+Each ``*.cu`` source has a plain C interface (``*.cuh`` headers beside
+them are included, not compiled on their own).  The first call of
 :func:`load_library` compiles every source with ``nvcc`` for ``sm_90a``,
 one ``nvcc`` per source, all started together, links the objects into one
 shared library and loads it with ``ctypes``.  The library is cached under
@@ -24,7 +25,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("luq_matmul.cu", "kv_quant.cu", "decode_attn.cu")
+SOURCES = ("luq_matmul.cu", "kv_quant.cu", "decode_attn.cu", "luq_quant.cu",
+           "per_sample_clip.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 LIB_NAME = "librepro_torch_kernels.so"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -32,6 +34,7 @@ NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "repro_luq_matmul": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "repro_luq_matmul_max_rows": (_I, []),
@@ -39,6 +42,10 @@ _SIGNATURES = {
     "repro_decode_attn": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, ctypes.c_float, _I, _P]),
     "repro_decode_attn_limits": (_I, [ctypes.POINTER(_I), ctypes.POINTER(_I)]),
+    "repro_luq_quant": (_I, [_P, _P, _P, _P, _I, _L, _I, _I, _P]),
+    "repro_per_sample_clip_chunks": (_I, [_L]),
+    "repro_per_sample_clip": (_I, [_P, _P, _P, _P, _P, _I, _L, ctypes.c_float,
+                                   _P]),
     "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -26,37 +26,24 @@
 // where every slot quantizes the head with its own position-derived
 // stream).
 //
-// Numerics: the LUQ level is floor(log2f(max(y, 2^-6))) and divisions are
-// IEEE (this file must not be built with --use_fast_math), exactly the
-// float32 operations of the plain version, so Q(a) and Q(b) agree bitwise
-// with it on the card; only the summation order of the product differs.
+// Numerics: the LUQ rounding is `luq_round` of luq.cuh (shared with
+// luq_quant.cu): exactly the float32 operations of the plain version, so
+// Q(a) and Q(b) agree bitwise with it on the card; only the summation
+// order of the product differs.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "luq.cuh"
+
 namespace {
+
+using repro_luq::luq_round;
 
 constexpr int kThreads = 256;
 constexpr int kCols = 64;                    // output columns per block
 constexpr int kSplits = kThreads / kCols;    // K slices per block
 constexpr int kMaxRows = 8;                  // rows per launch
 constexpr int kChunk = 512;                  // K staged per shared-memory step
-constexpr int kLevels = 7;                   // LUQ_EXP_LEVELS
-
-__device__ __forceinline__ float luq(float x, float u, float alpha) {
-  const float safe_alpha = alpha > 0.f ? alpha : 1.f;
-  const float sign = x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
-  const float y = fabsf(x) / safe_alpha;
-  const float min_level = 0.015625f;  // 2^-(kLevels - 1)
-  const float under = (u < y / min_level) ? min_level : 0.f;
-  const float ylog = log2f(fmaxf(y, min_level));
-  const float k = fminf(fmaxf(floorf(ylog), -(float)(kLevels - 1)), 0.f);
-  const float low = exp2f(k);
-  const float high = fminf(exp2f(k + 1.f), 1.f);
-  const float p_up = (y - low) / fmaxf(high - low, 1e-30f);
-  const float rounded = (u < p_up) ? high : low;
-  const float q = (y < min_level) ? under : rounded;
-  return alpha > 0.f ? sign * q * safe_alpha : 0.f;
-}
 
 __global__ void __launch_bounds__(kThreads)
 luq_matmul_kernel(const float* __restrict__ a, const float* __restrict__ b,
@@ -85,7 +72,7 @@ luq_matmul_kernel(const float* __restrict__ a, const float* __restrict__ b,
       const int r = i / kc;
       const int kk = i - r * kc;
       const size_t idx = (size_t)r * K + k0 + kk;
-      aq[r][kk] = luq(a[idx], ua[idx], alpha_a[r]);
+      aq[r][kk] = luq_round(a[idx], ua[idx], alpha_a[r]);
     }
     __syncthreads();
     if (valid_col) {
@@ -96,12 +83,13 @@ luq_matmul_kernel(const float* __restrict__ a, const float* __restrict__ b,
 #pragma unroll
           for (int r = 0; r < kMaxRows; ++r) {
             if (r < rows) {
-              const float bq = luq(bv, __ldg(ub + r * plane + bidx), alpha_b);
+              const float bq =
+                  luq_round(bv, __ldg(ub + r * plane + bidx), alpha_b);
               acc[r] = fmaf(aq[r][kk], bq, acc[r]);
             }
           }
         } else {
-          const float bq = luq(bv, __ldg(ub + bidx), alpha_b);
+          const float bq = luq_round(bv, __ldg(ub + bidx), alpha_b);
 #pragma unroll
           for (int r = 0; r < kMaxRows; ++r) {
             if (r < rows) acc[r] = fmaf(aq[r][kk], bq, acc[r]);

@@ -23,17 +23,23 @@ from repro_torch.quant import kv_cache as kvc
 
 #: Kernel launches per wrapper since the last :func:`reset_launch_counts`.
 #: Only launches of a kernel count; CPU calls of the plain versions do not.
-LAUNCHES = {"luq_matmul": 0, "kv_quant_rows": 0, "decode_attn_fused": 0}
+LAUNCHES = {"luq_matmul": 0, "kv_quant_rows": 0, "decode_attn_fused": 0,
+            "luq_quant": 0, "clip_and_sum": 0}
 #: The ``luq_matmul`` launches of :data:`LAUNCHES` by the kernel's branch:
 #: ``shared`` uniforms ``ub`` (K, N) for all rows (prefill), or ``per_row``
 #: uniforms (R, K, N) (the decode tick's per-slot logits head).
 LUQ_MATMUL_LAUNCHES = {"shared": 0, "per_row": 0}
+#: The ``luq_quant`` launches of :data:`LAUNCHES` by the number of rows: a
+#: tensor quantized whole (``one_row``: a weight, or anything outside
+#: vmap) or one row per example (``rows``: activations and cotangents
+#: under the DP engine's vmap).
+LUQ_QUANT_LAUNCHES = {"one_row": 0, "rows": 0}
 
 _KV_FMT_CODE = {"int8": 0, "luq_fp4": 1}
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, LUQ_MATMUL_LAUNCHES):
+    for counts in (LAUNCHES, LUQ_MATMUL_LAUNCHES, LUQ_QUANT_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -200,3 +206,66 @@ def decode_attn_fused(q, k_codes, v_codes, k_scale, v_scale, pos, *,
     _raise_on_error(lib, err, "decode_attn_fused")
     LAUNCHES["decode_attn_fused"] += 1
     return out.reshape(B, hp, hd)
+
+
+# --------------------------------------------------------------------------- #
+# luq_quant  (csrc/luq_quant.cu, replaces the TPU kernel luq_quant_2d)
+# --------------------------------------------------------------------------- #
+def luq_quant(x: torch.Tensor, u: torch.Tensor,
+              alpha: torch.Tensor) -> torch.Tensor:
+    """LUQ-FP4 stochastic quantization of the rows of ``x`` (R, N).
+
+    ``u``: (N,) uniforms shared by every row, or (R, N), one draw per row;
+    ``alpha``: (R,) per-row scales (``max|x[r]|``, computed by the caller).
+    All float32.  Returns (R, N) float32.
+    """
+    if _on_cpu(x, u, alpha):
+        return ref.luq_quant_ref(x, u, alpha)
+    R, N = x.shape
+    per_row = u.dim() == 2
+    _check("x", x, torch.float32, (R, N))
+    _check("u", u, torch.float32, (R, N) if per_row else (N,))
+    _check("alpha", alpha, torch.float32, (R,))
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    vec = N % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, u, out))
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        err = lib.repro_luq_quant(_ptr(x), _ptr(u), _ptr(alpha), _ptr(out), R,
+                                  N, int(per_row), int(vec), _stream(x.device))
+    _raise_on_error(lib, err, "luq_quant")
+    LAUNCHES["luq_quant"] += 1
+    LUQ_QUANT_LAUNCHES["one_row" if R == 1 else "rows"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# clip_and_sum  (csrc/per_sample_clip.cu, replaces per_sample_clip)
+# --------------------------------------------------------------------------- #
+def clip_and_sum(grads: torch.Tensor, clip_norm: float):
+    """Fused DP per-example clip and batch sum of (B, D) float32 rows.
+
+    Returns ``(clipped_sum (D,), norms (B,))``, both float32:
+    ``clipped_sum = sum_b min(1, C / max(||g_b||, 1e-12)) * g_b``.  The
+    kernel sums in a fixed order (no atomics): the same input gives the
+    same bits on every run.
+    """
+    if _on_cpu(grads):
+        return ref.per_sample_clip_ref(grads, clip_norm)
+    B, D = grads.shape
+    _check("grads", grads, torch.float32, (B, D))
+    lib = load_library()
+    P = lib.repro_per_sample_clip_chunks(D)
+    out = torch.empty((D,), dtype=torch.float32, device=grads.device)
+    norms = torch.empty((B,), dtype=torch.float32, device=grads.device)
+    scratch = torch.empty((B * P + B,), dtype=torch.float32,
+                          device=grads.device)
+    with torch.cuda.device(grads.device):
+        err = lib.repro_per_sample_clip(
+            _ptr(grads), _ptr(out), _ptr(norms), _ptr(scratch[:B * P]),
+            _ptr(scratch[B * P:]), B, D, float(clip_norm),
+            _stream(grads.device))
+    _raise_on_error(lib, err, "clip_and_sum")
+    LAUNCHES["clip_and_sum"] += 1
+    return out, norms

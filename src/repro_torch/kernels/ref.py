@@ -14,6 +14,22 @@ from repro_torch.quant import kv_cache as kvc
 from repro_torch.quant.formats import luq_fp4
 
 
+def luq_quant_ref(x, u, alpha) -> torch.Tensor:
+    """Plain version of ``luq_quant``: LUQ-FP4 of the rows of ``x`` (R, N)
+    against uniforms ``u`` ((N,) shared by the rows, or (R, N)) and the
+    per-row scales ``alpha`` (R,)."""
+    return luq_fp4(x.float(), u, alpha.reshape(-1, 1))
+
+
+def per_sample_clip_ref(grads: torch.Tensor, clip_norm: float):
+    """Plain version of ``clip_and_sum``: (B, D) per-example rows ->
+    (sum_b min(1, C / max(||g_b||, 1e-12)) * g_b, norms (B,))."""
+    g = grads.float()
+    norms = torch.sqrt(torch.sum(g * g, dim=1))
+    scale = torch.clamp(clip_norm / torch.clamp(norms, min=1e-12), max=1.0)
+    return (g * scale[:, None]).sum(dim=0), norms
+
+
 def luq_matmul_ref(a, b, ua, ub, alpha_a, alpha_b) -> torch.Tensor:
     """Plain version of ``luq_matmul``: (R, K) x (K, N) -> (R, N) float32.
 

@@ -1,8 +1,17 @@
-"""The serving workload that ``chip_smoke.py`` drives and ``profile_serve``
-profiles: yi-6b at full size with a luq_fp4 logits head on the ``cuda``
+"""The workloads that ``chip_smoke.py`` drives and ``profile_serve`` /
+``profile_train`` profile.  One definition each, so they read the same run.
+
+Serving: yi-6b at full size with a luq_fp4 logits head on the ``cuda``
 backend, 4 slots of 1024 positions, 8 greedy requests with prompts of
-64-512 tokens and 32 new tokens each.  One definition, so the two read
-the same run.
+64-512 tokens and 32 new tokens each.
+
+Training: ResNet-18 at full width, DP-SGD under the DPQuant scheduler
+with the options of ``launch.train --arch resnet18 --mode dpquant --fmt
+luq_fp4 --backend cuda --clip-backend fused``: synthetic images (4096,
+seed 0; 512 more for eval, seed 1), global batch 256 in microbatches of
+64, sigma = C = 1, SGD at lr 0.5, quant_fraction 0.9, 2 epochs of 3
+steps; the analysis runs in epoch 0 (10 probe runs x 2 reps at a probe
+batch of 64).
 """
 from __future__ import annotations
 
@@ -21,3 +30,30 @@ def prompts(vocab: int, seed: int = SEED) -> list[np.ndarray]:
     rng = np.random.RandomState(seed)
     lengths = rng.randint(PROMPT_MIN, PROMPT_MAX + 1, REQUESTS)
     return [rng.randint(0, vocab, n).astype(np.int32) for n in lengths]
+
+
+TRAIN_ARCH = "resnet18"
+TRAIN_BATCH, TRAIN_MICROBATCH = 256, 64
+TRAIN_EPOCHS, TRAIN_STEPS = 2, 3
+TRAIN_DATASET, TRAIN_EVAL = 4096, 512
+
+
+def train_setup():
+    """``(run, dataset, eval_dataset)`` of the training workload."""
+    from repro_torch.config import (DPConfig, OptimConfig, QuantConfig,
+                                    RunConfig)
+    from repro_torch.configs import get_config
+    from repro_torch.data import ImageClassDataset
+
+    cfg = get_config(TRAIN_ARCH)
+    run = RunConfig(
+        model=cfg, quant=QuantConfig(fmt="luq_fp4", backend="cuda"),
+        dp=DPConfig(clip_norm=1.0, noise_multiplier=1.0,
+                    microbatch_size=TRAIN_MICROBATCH, quant_fraction=0.9,
+                    clip_backend="fused"),
+        optim=OptimConfig(name="sgd", lr=0.5), global_batch=TRAIN_BATCH,
+        steps_per_epoch=TRAIN_STEPS, steps=TRAIN_EPOCHS * TRAIN_STEPS,
+        seed=SEED)
+    images = dict(num_classes=cfg.num_classes, image_size=cfg.image_size)
+    return (run, ImageClassDataset(n=TRAIN_DATASET, seed=SEED, **images),
+            ImageClassDataset(n=TRAIN_EVAL, seed=SEED + 1, **images))

@@ -1,7 +1,10 @@
-"""Shared model components for serving: init, norm, RoPE, attention, logits.
+"""Shared model components: init, norms, RoPE, attention, logits, loss.
 
-The serving part of ``repro.models.common``, as plain PyTorch functions on
-tensors.  Layouts follow the JAX package: activations (B, S, H, D).
+The serving part of ``repro.models.common`` and what the ResNet family
+trains with (``groupnorm``, ``softmax_xent``), as plain PyTorch functions
+on tensors.  Layouts follow the JAX package (activations (B, S, H, D)),
+except ``groupnorm``, which takes the NCHW activations of the port's
+convolutions.
 """
 from __future__ import annotations
 
@@ -9,6 +12,7 @@ import math
 from typing import Optional, Sequence, Union
 
 import torch
+import torch.nn.functional as F
 
 # Base of the logits head's uniform streams.  A draw at fold f (prefill:
 # 2 * prompt_len; decode at position p: 2p + 1) comes from a generator
@@ -42,6 +46,26 @@ def rmsnorm(x, scale, eps=1e-6):
     var = x32.square().mean(dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps) * (1.0 + scale.float())
     return out.to(x.dtype)
+
+
+def groupnorm(x, scale, bias, groups=8, eps=1e-5):
+    """GroupNorm over the channels of NCHW ``x``, in float32, with
+    ``gcd(groups, C)`` groups (the JAX package's rule).
+
+    BatchNorm leaks cross-example statistics and is incompatible with
+    per-example DP gradients (Opacus imposes the same replacement).
+    """
+    g = math.gcd(groups, x.shape[1])
+    return F.group_norm(x.float(), g, scale, bias, eps).to(x.dtype)
+
+
+def softmax_xent(logits, labels, per_example: bool = False):
+    """Cross-entropy of integer ``labels``: mean, or (B,) per example."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - tgt
+    return nll if per_example else nll.mean()
 
 
 def rope(x, positions, theta=10_000.0):

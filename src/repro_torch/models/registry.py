@@ -2,8 +2,8 @@
 
 A ``Model`` bundles plain functions over a flat parameter dict
 (``{"embed": ..., "blocks.wq": ..., ...}``, leaf names and layouts as in
-the JAX package) and the device it runs on.  This slice carries the
-serving hooks; the training hooks come with the training slice.
+the JAX package) and the device it runs on: the serving hooks of the
+decoder families and the training hooks of the ResNet family.
 """
 from __future__ import annotations
 
@@ -25,6 +25,11 @@ class Model:
     # params -> params with the block weights cast once to the compute
     # dtype (what the serving functions expect; see transformer.prepare)
     prepare: Callable
+    # training (resnet): forward(params, image, qflags) -> logits and
+    # loss_fn(params, batch, qflags) -> mean loss; qflags is one host-side
+    # bool per DPQuant policy layer
+    forward: Optional[Callable] = None
+    loss_fn: Optional[Callable] = None
     # serving (decoder families)
     prefill: Optional[Callable] = None       # (params, batch) -> (logits, cache)
     decode_step: Optional[Callable] = None   # (params, cache, token) -> (logits, cache)
@@ -51,7 +56,8 @@ def build_model(config: ModelConfig, quant: Optional[QuantConfig] = None,
     when no GPU is available and ``device`` was not given)."""
     dev = resolve_device(device)
     quant = quant or QuantConfig()
-    importlib.import_module("repro_torch.models.transformer")
+    for module in ("transformer", "resnet"):
+        importlib.import_module(f"repro_torch.models.{module}")
     if config.family not in _BUILDERS:
         raise ValueError(f"unknown model family: {config.family}")
     return _BUILDERS[config.family](config, quant, dev)

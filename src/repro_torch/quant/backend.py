@@ -1,7 +1,13 @@
 """Quantizer-backend dispatch: (op, format, backend) -> implementation.
 
-The counterpart of ``repro.quant.backend`` for the serving ops:
+The counterpart of ``repro.quant.backend``:
 
+``"quantize"``    ``q(rows, u) -> rows_q``: fake-quantize each row of a
+                  (R, N) float32 matrix on its own scale (``max|row|``),
+                  all rows against the same uniforms ``u`` (N,) (``None``
+                  for the deterministic formats).  The primitive behind
+                  ``fake_quant.qconv2d``: a tensor quantized whole is one
+                  row, a microbatch of per-example tensors one row each.
 ``"matmul"``      ``mm(a, b, gen) -> (R, N) float32``: quantize both
                   operands, then multiply.  ``gen`` is one
                   ``torch.Generator`` (the whole matrix is quantized at once,
@@ -12,6 +18,10 @@ The counterpart of ``repro.quant.backend`` for the serving ops:
                   those for ``b``.
 ``"kv_quant"``    ``kvq(x) -> (codes, scales)`` for the KV storage formats.
 ``"decode_attn"`` ``attn(q, kc, vc, ks, vs, pos, *, n_kv, scale) -> ctx``.
+``"clip_sum"``    ``cs(grads, clip_norm) -> (clipped_sum, norms)``: the DP
+                  per-example clip and batch sum of (B, D) rows; format-
+                  agnostic (registered under fmt ``"*"``) and selected by
+                  its own knob (:func:`get_clip_sum`).
 
 Backends: ``"ref"`` (plain PyTorch, every format) and ``"cuda"`` (the
 hand-written kernels of ``repro_torch.kernels``; on CPU tensors their plain
@@ -21,7 +31,7 @@ backend does not implement falls back to ``"ref"`` explicitly, and
 op runs.  That fallback is about formats only: a CUDA tensor given to a
 kernel wrapper goes through the kernel or raises.
 
-``quantize``, ``clip_sum`` and ``ghost_norm`` wait for the training slice.
+``ghost_norm`` waits for the ghost-mode slice.
 """
 from __future__ import annotations
 
@@ -35,7 +45,10 @@ from repro_torch.quant import formats
 ENV_VAR = "REPRO_QUANT_BACKEND"
 DEFAULT_BACKEND = "ref"
 BACKENDS = ("ref", "cuda")
-OPS = ("matmul", "kv_quant", "decode_attn")
+OPS = ("quantize", "matmul", "clip_sum", "kv_quant", "decode_attn")
+
+# fmt sentinel for format-agnostic ops (clip_sum)
+ANY_FORMAT = "*"
 
 _REGISTRY: Dict[Tuple[str, str, str], Callable] = {}
 
@@ -72,6 +85,27 @@ def get_impl(op: str, fmt: str, backend: str | None = None):
         raise KeyError(f"no implementation for op={op!r} fmt={fmt!r} "
                        f"on any backend")
     return impl, be
+
+
+def get_quantizer(fmt: str, backend: str | None = None):
+    """``(q(rows, u) -> rows_q, actual_backend)``."""
+    return get_impl("quantize", fmt, backend)
+
+
+def get_clip_sum(backend: str | None = None):
+    """``(cs(grads, clip_norm) -> (clipped_sum, norms), actual_backend)``.
+
+    ``backend`` is ``DPConfig.clip_backend``: ``"ref"`` or ``"fused"``
+    (the ``per_sample_clip`` kernel; ``"cuda"`` is accepted too).  Unlike
+    the quantizer ops, ``REPRO_QUANT_BACKEND`` does NOT apply: the clip
+    has its own knob, and an explicit ``"fused"`` request must not be
+    downgraded by a variable meant to pin the quantizers.
+    """
+    be = "cuda" if backend == "fused" else (backend or DEFAULT_BACKEND)
+    if be not in BACKENDS:
+        raise ValueError(f"unknown clip backend {backend!r} "
+                         f"(expected 'ref' or 'fused')")
+    return _REGISTRY[("clip_sum", ANY_FORMAT, be)], be
 
 
 def get_matmul(fmt: str, backend: str | None = None):
@@ -121,6 +155,22 @@ def _draws(gens, a: torch.Tensor, b: torch.Tensor):
 # --------------------------------------------------------------------------- #
 # ref backend: plain PyTorch, every format
 # --------------------------------------------------------------------------- #
+def _ref_quantize(fmt: str) -> Callable:
+    q = formats.make_quantizer(fmt)
+    if fmt not in formats.STOCHASTIC_FORMATS:
+        return lambda rows, u: q(rows, None)
+
+    def quantize(rows, u):
+        return q(rows, u, rows.abs().amax(dim=1, keepdim=True))
+
+    return quantize
+
+
+def _ref_clip_sum(grads, clip_norm):
+    from repro_torch.kernels.ref import per_sample_clip_ref
+    return per_sample_clip_ref(grads, clip_norm)
+
+
 def _ref_matmul(fmt: str) -> Callable:
     q = formats.make_quantizer(fmt)
     stochastic = fmt in formats.STOCHASTIC_FORMATS
@@ -155,17 +205,31 @@ def _ref_decode_attn(fmt: str) -> Callable:
 
 
 for _fmt in formats._FORMATS:
+    register("quantize", _fmt, "ref", _ref_quantize(_fmt))
     register("matmul", _fmt, "ref", _ref_matmul(_fmt))
+register("clip_sum", ANY_FORMAT, "ref", _ref_clip_sum)
 for _fmt in ("none", "int8", "luq_fp4"):
     register("kv_quant", _fmt, "ref", _ref_kv_quant(_fmt))
     register("decode_attn", _fmt, "ref", _ref_decode_attn(_fmt))
 
 
 # --------------------------------------------------------------------------- #
-# cuda backend: the kernels of repro_torch.kernels (LUQ-FP4 matmul; the two
-# quantized KV formats).  Wrappers are imported lazily so that importing
-# this module builds and loads nothing.
+# cuda backend: the kernels of repro_torch.kernels (LUQ-FP4 quantize and
+# matmul; the clip, any format; the two quantized KV formats).  Wrappers
+# are imported lazily so that importing this module builds and loads
+# nothing.
 # --------------------------------------------------------------------------- #
+def _cuda_quantize(rows, u):
+    from repro_torch.kernels.ops import luq_quant
+    rows = rows.float().contiguous()
+    return luq_quant(rows, u, rows.abs().amax(dim=1))
+
+
+def _cuda_clip_sum(grads, clip_norm):
+    from repro_torch.kernels.ops import clip_and_sum
+    return clip_and_sum(grads, float(clip_norm))
+
+
 def _cuda_matmul(a, b, gen):
     from repro_torch.kernels.ops import luq_matmul
     a = a.float().contiguous()
@@ -195,7 +259,9 @@ def _cuda_decode_attn(fmt: str) -> Callable:
     return attn
 
 
+register("quantize", "luq_fp4", "cuda", _cuda_quantize)
 register("matmul", "luq_fp4", "cuda", _cuda_matmul)
+register("clip_sum", ANY_FORMAT, "cuda", _cuda_clip_sum)
 # kv_fmt="none" has no kernel (there is nothing to dequantize); it falls
 # back to ref explicitly through get_impl, like every missing format
 for _fmt in ("int8", "luq_fp4"):

@@ -1,0 +1,218 @@
+"""Fake-quantized convolution (paper A.12, Fig. 7).
+
+The counterpart of ``repro.quant.fake_quant`` for ``qconv2d``.  The paper's
+simulation quantizes the inputs of all three GEMMs of a layer:
+
+    forward :  y  = Q(x)  * Q(w)
+    dgrad   :  dx = Q(g)  * Q(w)^T
+    wgrad   :  dw = Q(x)^T * Q(g)
+
+``qconv2d`` is a ``torch.autograd.Function`` whose backward runs the two
+transposed convolutions (``torch.nn.grad.conv2d_input`` /
+``conv2d_weight``) on freshly quantized operands.  The six quantize points
+carry the JAX package's fold numbers: forward Q(x) 0, Q(w) 1; dgrad Q(w) 2,
+Q(g) 3; wgrad Q(x) 4, Q(g) 5.
+
+Randomness: each (seed, fold) pair has its own uniform stream, a
+``torch.Generator`` seeded from seed and fold mixed separately (a combined
+``seed + fold`` would make (s, f + 1) collide with (s + 1, f)).  The seed
+is the conv's static seed, so, as in the JAX package, the draws are the
+same at every step and for every example.
+
+Per-example quantization: the quantizer is the custom op
+``repro_torch::fake_quant`` with a vmap rule.  Under ``torch.func.vmap``
+(the DP engine's per-example gradients) an operand batched over examples
+becomes the rows of one kernel call, each row scaled by its own
+``max|x|`` and all rows against one shared draw: what the JAX package
+computes when ``vmap`` hands each lane one example and an unbatched key.
+A weight is not batched and is quantized whole, as one row.
+
+Policy flags are host-side bools (the policy is fixed for an epoch): a
+layer that is not quantized runs a plain convolution and launches no
+quantizer.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.quant import backend as qbackend
+from repro_torch.quant.formats import STOCHASTIC_FORMATS
+
+# The quantizers' streams: generator seed = base + seed * 8 + fold, which
+# is one-to-one for folds 0..7 and stays below 2**31 (PyTorch's CPU
+# generator keeps only the low 32 bits of a seed); the base keeps them
+# apart from the package's other seeded streams.
+_STREAM_BASE = 2 ** 30
+_N_FOLDS = 8
+_GENERATORS: dict = {}
+
+
+def _stream_seed(seed: int, fold: int) -> int:
+    if not (0 <= seed < 2 ** 27 and 0 <= fold < _N_FOLDS):
+        raise ValueError(f"quantizer seed {seed} / fold {fold} out of range")
+    return _STREAM_BASE + seed * _N_FOLDS + fold
+
+
+def uniforms(seed: int, fold: int, n: int, device) -> torch.Tensor:
+    """The (n,) float32 uniforms of stream (seed, fold) on ``device``."""
+    device = torch.device(device)
+    gen = _GENERATORS.get(device)
+    if gen is None:
+        gen = _GENERATORS[device] = torch.Generator(device=device)
+    gen.manual_seed(_stream_seed(seed, fold))
+    return torch.rand(n, generator=gen, device=device)
+
+
+def _quantize_rows(rows, fmt: str, backend: str, seed: int, fold: int):
+    q, _ = qbackend.get_quantizer(fmt, backend)
+    u = (uniforms(seed, fold, rows.shape[1], rows.device)
+         if fmt in STOCHASTIC_FORMATS else None)
+    return q(rows.float(), u).to(rows.dtype)
+
+
+@torch.library.custom_op("repro_torch::fake_quant", mutates_args=())
+def fake_quant(x: torch.Tensor, fmt: str, backend: str, seed: int,
+               fold: int) -> torch.Tensor:
+    """Quantize ``x`` as one tensor (one scale, one draw of its size)."""
+    return _quantize_rows(x.reshape(1, -1), fmt, backend, seed,
+                          fold).reshape(x.shape)
+
+
+@fake_quant.register_fake
+def _(x, fmt, backend, seed, fold):
+    return torch.empty_like(x)
+
+
+def _fake_quant_vmap(info, in_dims, x, fmt, backend, seed, fold):
+    """Batched over examples: one row per example, one shared draw."""
+    bdim = in_dims[0]
+    if bdim is None:
+        return fake_quant(x, fmt, backend, seed, fold), None
+    x = x.movedim(bdim, 0)
+    rows = x.reshape(x.shape[0], -1)
+    return _quantize_rows(rows, fmt, backend, seed, fold).reshape(x.shape), 0
+
+
+fake_quant.register_vmap(_fake_quant_vmap)
+
+
+# --------------------------------------------------------------------------- #
+# convolution with the JAX package's "SAME" padding
+# --------------------------------------------------------------------------- #
+def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+    """(before, after) padding of XLA's "SAME" rule: output ceil(n / s),
+    the odd pixel after.  A stride-2 3x3 conv on an even input pads
+    (0, 1), which ``F.conv2d(padding=1)`` would not."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class _Geometry(NamedTuple):
+    stride: int
+    pads: Tuple[int, int, int, int]       # top, bottom, left, right
+
+    @property
+    def symmetric(self) -> bool:
+        t, b, l, r = self.pads
+        return t == b and l == r
+
+
+def _geometry(x, w_oihw, stride: int) -> _Geometry:
+    kh, kw = w_oihw.shape[2:]
+    return _Geometry(stride, same_pads(x.shape[-2], kh, stride)
+                     + same_pads(x.shape[-1], kw, stride))
+
+
+def _pad(x, geo: _Geometry):
+    t, b, l, r = geo.pads
+    return x if geo.symmetric else F.pad(x, (l, r, t, b))
+
+
+def _sym_padding(geo: _Geometry):
+    return (geo.pads[0], geo.pads[2]) if geo.symmetric else (0, 0)
+
+
+def _conv(x, w_oihw, geo: _Geometry):
+    return F.conv2d(_pad(x, geo), w_oihw, stride=geo.stride,
+                    padding=_sym_padding(geo))
+
+
+class _QSpec(NamedTuple):
+    fmt: str
+    backend: str
+    seed: int
+    q_fwd: bool
+    q_dgrad: bool
+    q_wgrad: bool
+    geo: _Geometry
+
+
+def _q(t, spec: _QSpec, fold: int, on: bool):
+    return fake_quant(t, spec.fmt, spec.backend, spec.seed, fold) if on else t
+
+
+class _QConv2d(torch.autograd.Function):
+    """NCHW x, OIHW w; quantized fwd / dgrad / wgrad GEMM inputs."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, w, spec: _QSpec):
+        with torch.no_grad():
+            xq = _q(x, spec, 0, spec.q_fwd)
+            wq = _q(w, spec, 1, spec.q_fwd)
+            return _conv(xq, wq, spec.geo)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, spec = inputs
+        ctx.save_for_backward(x, w)
+        ctx.spec = spec
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        spec = ctx.spec
+        geo = spec.geo
+        t, b, l, r = geo.pads
+        with torch.no_grad():
+            # dgrad: dx = conv^T(Q(g), Q(w)), on the padded input, cropped
+            wq = _q(w, spec, 2, spec.q_dgrad)
+            gq = _q(g, spec, 3, spec.q_dgrad)
+            n, c, h, wd = x.shape
+            padded = ((n, c, h, wd) if geo.symmetric
+                      else (n, c, h + t + b, wd + l + r))
+            dx = torch.nn.grad.conv2d_input(padded, wq, gq, geo.stride,
+                                            _sym_padding(geo))
+            if not geo.symmetric:
+                dx = dx[..., t:t + h, l:l + wd]
+            # wgrad: dw = Q(x)^T Q(g)
+            xq = _q(x, spec, 4, spec.q_wgrad)
+            gq = _q(g, spec, 5, spec.q_wgrad)
+            dw = torch.nn.grad.conv2d_weight(_pad(xq, geo), w.shape, gq,
+                                             geo.stride, _sym_padding(geo))
+        return dx, dw, None
+
+
+def qconv2d(x: torch.Tensor, w: torch.Tensor, *, seed: int, flag: bool,
+            stride: int = 1, fmt: str = "luq_fp4", q_fwd: bool = True,
+            q_dgrad: bool = True, q_wgrad: bool = True,
+            backend: str = None) -> torch.Tensor:
+    """Quantization-aware conv2d with "SAME" padding.
+
+    ``x`` is NCHW; ``w`` is HWIO, the JAX package's weight layout (the
+    port keeps its parameter shapes), permuted to OIHW here.  ``flag`` and
+    ``seed`` are host-side: a layer whose flag is off, or ``fmt="none"``,
+    runs the plain convolution.
+    """
+    w_oihw = w.permute(3, 2, 0, 1)
+    geo = _geometry(x, w_oihw, stride)
+    if not flag or fmt == "none":
+        return _conv(x, w_oihw, geo)
+    spec = _QSpec(fmt, qbackend.resolve_backend(backend), int(seed),
+                  bool(q_fwd), bool(q_dgrad), bool(q_wgrad), geo)
+    return _QConv2d.apply(x, w_oihw, spec)

@@ -53,10 +53,13 @@ def luq_fp4(x: torch.Tensor, u: torch.Tensor,
     return torch.where(alpha > 0, out, 0.0).to(x.dtype)
 
 
-def int4_uniform(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """Uniform symmetric INT4, grid {-7..7} * max|x|/7, stochastic rounding."""
+def int4_uniform(x: torch.Tensor, u: torch.Tensor,
+                 alpha: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Uniform symmetric INT4, grid {-7..7} * alpha/7 (default alpha =
+    max|x|), stochastic rounding."""
     xf = x.float()
-    alpha = xf.abs().amax()
+    if alpha is None:
+        alpha = xf.abs().amax()
     safe_alpha = torch.where(alpha > 0, alpha, torch.ones_like(alpha))
     delta = safe_alpha / 7.0
     y = xf / delta

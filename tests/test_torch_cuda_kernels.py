@@ -8,7 +8,9 @@ machine with the card:
 
 Tolerances: codes, scales and quantized operands bitwise (the kernels
 repeat the plain versions' float32 operations); attention and matmul
-outputs to float32 summation order.  TF32 is off for the plain versions.
+outputs to float32 summation order; the clip's norms rtol 1e-5 and its
+sum within 1e-5 of sum_b |scale_b g_bd| per column (summation order),
+as in ``chip_smoke.py``.  TF32 is off for the plain versions.
 """
 import pytest
 
@@ -82,11 +84,66 @@ def test_luq_matmul_close(cuda, per_row):
     assert ((out - want).abs() <= bound).all()
 
 
+def _luq_inputs(device, rows, n, per_row, seed):
+    """x with the rounding's edges mixed in (exact powers of two times
+    alpha = 4, one ulp below them, zeros) and, with several rows, an
+    all-zero row (alpha = 0)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(rows, n, device=device, generator=gen).clamp(-3.5, 3.5)
+    x[:, 0] = 4.0
+    levels = 4.0 * 2.0 ** -torch.arange(0, 9, device=device)
+    below = torch.nextafter(levels, torch.zeros_like(levels))
+    edges = torch.cat([levels, -levels, below, -below,
+                       torch.zeros(4, device=device)])
+    x[:, 1:1 + edges.numel()] = edges
+    if rows > 1:
+        x[1] = 0.0
+    u = torch.rand(*((rows,) if per_row else ()), n, device=device,
+                   generator=gen)
+    return x, u, x.abs().amax(dim=1)
+
+
+@pytest.mark.parametrize("rows,n,per_row", [
+    (1, 3 * 3 * 512 * 512, False),      # the largest ResNet-18 weight
+    (64, 32 * 32 * 64, False),          # the largest activation under vmap
+    (3, 1001, True),                    # n % 4 != 0: the scalar kernel
+    (5, 4096, True),
+])
+def test_luq_quant_bitwise(cuda, rows, n, per_row):
+    x, u, alpha = _luq_inputs(cuda, rows, n, per_row, 3)
+    assert torch.equal(ops.luq_quant(x, u, alpha),
+                       ref.luq_quant_ref(x, u, alpha))
+
+
+@pytest.mark.parametrize("B,D", [(64, 11_190_891), (1, 1000), (5, 1537)])
+def test_clip_and_sum_close(cuda, B, D):
+    C = 1.0
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    g = torch.randn(B, D, device=cuda, generator=gen) * 1e-3
+    if B > 2:
+        g[0] = 0.0                                    # a zero row
+        g[1] *= 0.1 / g[1].norm()                     # a norm below C
+    out, norms = ops.clip_and_sum(g, C)
+    want, want_norms = ref.per_sample_clip_ref(g, C)
+    torch.testing.assert_close(norms, want_norms, rtol=1e-5, atol=0.0)
+    scale = torch.clamp(C / torch.clamp(want_norms, min=1e-12), max=1.0)
+    assert ((out - want).abs() <= 1e-5 * (scale @ g.abs()) + 1e-12).all()
+    again, _ = ops.clip_and_sum(g, C)                 # no atomics
+    assert torch.equal(out, again)
+
+
 def test_launch_counts_count_kernel_launches_only(cuda):
     ops.reset_launch_counts()
     x = torch.randn(2, 3, 128, device=cuda)
     ops.kv_quant_rows(x, "int8")
     ops.kv_quant_rows(x.cpu(), "int8")         # plain version: not counted
+    rows = torch.randn(4, 64, device=cuda)
+    u = torch.rand(64, device=cuda)
+    ops.luq_quant(rows, u, rows.abs().amax(dim=1))
+    ops.luq_quant(rows.cpu(), u.cpu(), rows.abs().amax(dim=1).cpu())
+    ops.clip_and_sum(rows, 1.0)
     assert ops.LAUNCHES == {"luq_matmul": 0, "kv_quant_rows": 1,
-                            "decode_attn_fused": 0}
+                            "decode_attn_fused": 0, "luq_quant": 1,
+                            "clip_and_sum": 1}
     assert ops.LUQ_MATMUL_LAUNCHES == {"shared": 0, "per_row": 0}
+    assert ops.LUQ_QUANT_LAUNCHES == {"one_row": 0, "rows": 1}

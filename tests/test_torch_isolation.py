@@ -85,6 +85,13 @@ def test_kernel_wrappers_never_send_device_tensors_to_plain_versions():
         ops.decode_attn_fused(torch.empty(1, 2, 8, **meta), codes, codes,
                               scales, scales, 0, fmt="int8", n_kv=1,
                               scale=1.0)
+    with pytest.raises(ValueError, match="CPU tensors or all on one CUDA"):
+        ops.luq_quant(torch.empty(2, 8, **meta), torch.empty(8),
+                      torch.empty(2))
+    with pytest.raises(ValueError, match="CPU tensors or all on one CUDA"):
+        ops.clip_and_sum(torch.empty(2, 8, **meta), 1.0)
     assert ops.LAUNCHES == {"luq_matmul": 0, "kv_quant_rows": 0,
-                            "decode_attn_fused": 0}
+                            "decode_attn_fused": 0, "luq_quant": 0,
+                            "clip_and_sum": 0}
     assert ops.LUQ_MATMUL_LAUNCHES == {"shared": 0, "per_row": 0}
+    assert ops.LUQ_QUANT_LAUNCHES == {"one_row": 0, "rows": 0}
