@@ -56,6 +56,8 @@ def _ranged_vmap(vmap):
 
 def main(argv=None):
     del argv
+    torch.backends.cudnn.allow_tf32 = False         # float32, as the CLI
+    torch.backends.cuda.matmul.allow_tf32 = False
     run, ds, _ = wl.train_setup()
     tr = Trainer(run, ds, mode="dpquant", device="cuda")
     tr.train(1)                                     # warm-up, analysis

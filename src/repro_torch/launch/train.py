@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import argparse
 
+import torch
+
 from repro_torch.config import (DPConfig, ModelConfig, OptimConfig,
                                 QuantConfig, RunConfig, resolve_device)
 from repro_torch.configs import get_config, get_smoke_config
@@ -30,6 +32,7 @@ from repro_torch.data.synthetic import ImageClassDataset
 from repro_torch.train_loop import Trainer
 
 ARCHS = ("resnet18",)
+EVAL_SIZE = 512
 
 
 def make_dataset(cfg: ModelConfig, n: int, seed: int = 0):
@@ -56,7 +59,7 @@ def build_run(args) -> RunConfig:
         steps=args.epochs * args.steps_per_epoch, seed=args.seed)
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=ARCHS)
     ap.add_argument("--smoke", action="store_true",
@@ -87,13 +90,25 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
+
+def build_datasets(args, cfg: ModelConfig):
+    """``(train, eval)`` datasets of the run: ``--dataset-size`` images
+    from ``--seed``, and 512 held-out images from the next seed."""
+    return (make_dataset(cfg, args.dataset_size, args.seed),
+            make_dataset(cfg, EVAL_SIZE, args.seed + 1))
+
+
+def main(argv=None):
+    args = parse_args(argv)
     device = resolve_device(args.device)
+    # The configuration is float32: keep cuDNN's convolutions (and
+    # cuBLAS's products) out of TF32.
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     run = build_run(args)
-    cfg = run.model
-    ds = make_dataset(cfg, args.dataset_size, args.seed)
-    ev = make_dataset(cfg, 512, args.seed + 1)
+    ds, ev = build_datasets(args, run.model)
     tr = Trainer(run, ds, eval_dataset=ev, mode=args.mode, device=device)
     tr.train(args.epochs, eps_budget=args.eps, verbose=True)
     final = tr.history[-1]

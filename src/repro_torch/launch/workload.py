@@ -11,7 +11,7 @@ luq_fp4 --backend cuda --clip-backend fused``: synthetic images (4096,
 seed 0; 512 more for eval, seed 1), global batch 256 in microbatches of
 64, sigma = C = 1, SGD at lr 0.5, quant_fraction 0.9, 2 epochs of 3
 steps; the analysis runs in epoch 0 (10 probe runs x 2 reps at a probe
-batch of 64).
+batch of 64).  The run is the one the CLI builds from ``TRAIN_ARGV``.
 """
 from __future__ import annotations
 
@@ -35,25 +35,22 @@ def prompts(vocab: int, seed: int = SEED) -> list[np.ndarray]:
 TRAIN_ARCH = "resnet18"
 TRAIN_BATCH, TRAIN_MICROBATCH = 256, 64
 TRAIN_EPOCHS, TRAIN_STEPS = 2, 3
-TRAIN_DATASET, TRAIN_EVAL = 4096, 512
+TRAIN_DATASET = 4096
+# the command line of the training workload; the rest are the CLI's
+# defaults (sigma = C = 1, SGD at lr 0.5, quant_fraction 0.9, seed 0)
+TRAIN_ARGV = (
+    "--arch", TRAIN_ARCH, "--mode", "dpquant", "--fmt", "luq_fp4",
+    "--backend", "cuda", "--clip-backend", "fused",
+    "--batch", str(TRAIN_BATCH), "--microbatch", str(TRAIN_MICROBATCH),
+    "--epochs", str(TRAIN_EPOCHS), "--steps-per-epoch", str(TRAIN_STEPS),
+    "--dataset-size", str(TRAIN_DATASET))
 
 
 def train_setup():
-    """``(run, dataset, eval_dataset)`` of the training workload."""
-    from repro_torch.config import (DPConfig, OptimConfig, QuantConfig,
-                                    RunConfig)
-    from repro_torch.configs import get_config
-    from repro_torch.data import ImageClassDataset
+    """``(run, dataset, eval_dataset)`` of the training workload, built by
+    ``launch.train`` from ``TRAIN_ARGV`` as the CLI builds them."""
+    from repro_torch.launch import train
 
-    cfg = get_config(TRAIN_ARCH)
-    run = RunConfig(
-        model=cfg, quant=QuantConfig(fmt="luq_fp4", backend="cuda"),
-        dp=DPConfig(clip_norm=1.0, noise_multiplier=1.0,
-                    microbatch_size=TRAIN_MICROBATCH, quant_fraction=0.9,
-                    clip_backend="fused"),
-        optim=OptimConfig(name="sgd", lr=0.5), global_batch=TRAIN_BATCH,
-        steps_per_epoch=TRAIN_STEPS, steps=TRAIN_EPOCHS * TRAIN_STEPS,
-        seed=SEED)
-    images = dict(num_classes=cfg.num_classes, image_size=cfg.image_size)
-    return (run, ImageClassDataset(n=TRAIN_DATASET, seed=SEED, **images),
-            ImageClassDataset(n=TRAIN_EVAL, seed=SEED + 1, **images))
+    args = train.parse_args(list(TRAIN_ARGV))
+    run = train.build_run(args)
+    return (run, *train.build_datasets(args, run.model))

@@ -61,10 +61,6 @@ class Trainer:
         self.mode = mode
         self.model: Model = build_model(run.model, run.quant, device=device)
         self.device = self.model.device
-        # The configuration is float32: keep cuDNN's convolutions (and
-        # cuBLAS's products) out of TF32.
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
         self.setup = build_train_setup(self.model, run)
         self.step_fn = self.setup.step_fn
         self.schedule = make_schedule(run.optim, run.steps)

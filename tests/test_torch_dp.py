@@ -6,7 +6,11 @@ package on the same numpy params and batches: the clip kernel's plain
 version within 1e-6 relative of the Pallas kernel (interpret mode); the
 clipped per-example gradient sum and its metrics at fmt ``none``, through
 both clip paths, within 1e-5 relative; one full DP step at sigma = 0, and
-one non-private step (new params) within 1e-5.  The Gaussian noise comes from another
+one non-private step (new params) within 1e-5.  The same clipped sum and
+steps again with every conv quantized at a format registered as the
+identity in both packages: the gradients then come from the port's
+hand-written quantized-conv backward and the reference's custom VJP, held
+to the same tolerances.  The Gaussian noise comes from another
 generator than JAX's, so it is held statistically to std sigma * C / B.
 """
 import dataclasses
@@ -28,6 +32,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.launch.mesh import make_host_mesh  # noqa: E402
 from repro.launch.steps import build_train_setup as jax_train_setup  # noqa: E402
 from repro.models.registry import build_model as jax_build_model  # noqa: E402
+from repro.quant import backend as jbackend  # noqa: E402
 from repro_torch.config import DPConfig, OptimConfig, QuantConfig, RunConfig  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
@@ -37,10 +42,18 @@ from repro_torch.dp.noise import add_gaussian_noise  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch.steps import build_train_setup  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
+from repro_torch.quant import backend as qbackend  # noqa: E402
 
 torch.set_num_threads(1)
 
 B, MB, CLIP, LR = 4, 2, 14.5, 0.5      # per-example norms here: 13-16
+# A deterministic format that rounds nothing (``identity_format``).  A
+# real one cannot be held this tight: at bf16 a float32 value within an
+# ulp of a rounding edge rounds either way, and the summation order of
+# XLA's and PyTorch's convolutions decides it.  There the port's clipped
+# sum differs from the reference's by 1.9e-3 of its largest entry, as
+# much as the port's own differs when the input moves by one ulp.
+QFMT = "identity_for_tests"
 
 
 @pytest.mark.parametrize("b,d", [(1, 700), (4, 1300), (3, 1536)])
@@ -57,13 +70,12 @@ def test_clip_kernel_plain_version_matches_pallas(b, d):
                                atol=1e-6 * float(np.abs(jsum).max()))
 
 
-@pytest.fixture(scope="module")
-def jax_ref():
-    """JAX SMOKE ResNet-18 at fmt none: params, a batch, the clipped
-    gradient sum with its metrics, and the params after one DP step at
-    sigma = 0."""
+def _jax_reference(fmt: str, quantized: bool) -> dict:
+    """JAX SMOKE ResNet-18 at ``fmt`` with every layer's flag ``quantized``:
+    params, a batch, the clipped gradient sum with its metrics, and the
+    params after one DP step at sigma = 0 and one non-private step."""
     cfg = jax_smoke_config("resnet18")
-    run = JRunConfig(model=cfg, quant=JQuantConfig(fmt="none"),
+    run = JRunConfig(model=cfg, quant=JQuantConfig(fmt=fmt),
                      dp=JDPConfig(clip_norm=CLIP, noise_multiplier=0.0,
                                   microbatch_size=MB),
                      optim=JOptimConfig(name="sgd", lr=LR), global_batch=B)
@@ -73,7 +85,7 @@ def jax_ref():
     batch = {"image": rng.standard_normal((B, 16, 16, 3)).astype(np.float32),
              "label": rng.integers(0, cfg.num_classes, B).astype(np.int32)}
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-    flags = jnp.zeros((cfg.policy_len(),), jnp.float32)
+    flags = jnp.full((cfg.policy_len(),), float(quantized), jnp.float32)
 
     def loss_one(p, ex, r):
         return model.loss_fn(p, jax.tree.map(lambda x: x[None], ex), r,
@@ -96,9 +108,36 @@ def jax_ref():
     return out
 
 
-def _port(jax_ref, dp: DPConfig):
+@pytest.fixture(scope="module")
+def jax_ref():
+    """The reference at fmt none (no layer quantized)."""
+    return _jax_reference("none", quantized=False)
+
+
+@pytest.fixture(scope="module")
+def identity_format():
+    """``QFMT`` registered in both packages' quantizer registries as the
+    identity: a layer quantized at ``QFMT`` runs the fake-quantized conv
+    (the port's hand-written backward, the reference's custom VJP) with
+    nothing rounded, so the two agree to float32 tolerance."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(jbackend._REGISTRY, ("quantize", QFMT, "ref"),
+                   lambda x, key=None: x)
+        mp.setitem(qbackend._REGISTRY, ("quantize", QFMT, "ref"),
+                   lambda rows, u: rows.clone())
+        yield QFMT
+
+
+@pytest.fixture(scope="module")
+def jax_ref_quantized(identity_format):
+    """The reference with every layer quantized at ``QFMT``: every conv's
+    gradient goes through the quantized conv, stride-2 stage included."""
+    return _jax_reference(identity_format, quantized=True)
+
+
+def _port(jax_ref, dp: DPConfig, fmt: str = "none"):
     cfg = get_smoke_config("resnet18")
-    run = RunConfig(model=cfg, quant=QuantConfig(fmt="none"), dp=dp,
+    run = RunConfig(model=cfg, quant=QuantConfig(fmt=fmt), dp=dp,
                     optim=OptimConfig(name="sgd", lr=LR), global_batch=B)
     model = build_model(cfg, run.quant, device="cpu")
     params = params_from_numpy(jax_ref["params"], device="cpu")
@@ -147,6 +186,53 @@ def test_one_step_at_sigma_zero_matches_jax(jax_ref, dp_on, clip_backend):
     for k in params:                                 # functional: no writes
         assert torch.equal(params[k], before[k])
     want_params, want_loss = jax_ref[dp_on]
+    want = params_from_numpy(want_params, device="cpu")
+    for name, w in want.items():
+        np.testing.assert_allclose(new_params[name].numpy(), w.numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=name)
+    np.testing.assert_allclose(float(metrics["loss"]), want_loss, rtol=1e-5)
+
+
+@pytest.mark.parametrize("clip_backend", ["ref", "fused"])
+def test_clipped_grad_sum_through_quantized_convs_matches_jax(jax_ref_quantized,
+                                                              clip_backend):
+    """Every conv quantized: the per-example gradients come from the
+    quantized conv's backward under vmap, and equal JAX's."""
+    run, model, params, batch = _port(jax_ref_quantized, DPConfig(clip_norm=CLIP),
+                                      QFMT)
+    flags = (True,) * run.model.policy_len()
+
+    def loss_one(p, ex):
+        return model.loss_fn(p, {k: v[None] for k, v in ex.items()}, flags)
+
+    gsum, metrics = per_example_clipped_grad_sum(
+        loss_one, params, batch, clip_norm=CLIP, microbatch_size=MB,
+        clip_backend=clip_backend)
+    want = params_from_numpy(jax_ref_quantized["gsum"], device="cpu")
+    scale = max(float(w.abs().max()) for w in want.values())
+    for name, w in want.items():
+        np.testing.assert_allclose(gsum[name].numpy(), w.numpy(), rtol=1e-5,
+                                   atol=1e-5 * scale, err_msg=name)
+    jm = jax_ref_quantized["metrics"]
+    for k in ("loss", "grad_norm_mean", "grad_norm_max"):
+        np.testing.assert_allclose(float(metrics[k]), jm[k], rtol=1e-5)
+    assert float(metrics["clip_fraction"]) == jm["clip_fraction"]
+    assert 0 < jm["clip_fraction"] < 1
+
+
+@pytest.mark.parametrize("dp_on", [True, False])
+def test_one_step_through_quantized_convs_matches_jax(jax_ref_quantized, dp_on):
+    """One DP-SGD step at sigma = 0, and one plain step (autograd over the
+    microbatch, no vmap), with every conv quantized: the new params equal
+    JAX's."""
+    dp = DPConfig(enabled=dp_on, clip_norm=CLIP, noise_multiplier=0.0,
+                  microbatch_size=MB, clip_backend="fused")
+    run, model, params, batch = _port(jax_ref_quantized, dp, QFMT)
+    setup = build_train_setup(model, run)
+    new_params, _, metrics = setup.step_fn(
+        params, setup.opt_init_fn(params), batch, 0,
+        (True,) * run.model.policy_len(), LR)
+    want_params, want_loss = jax_ref_quantized[dp_on]
     want = params_from_numpy(want_params, device="cpu")
     for name, w in want.items():
         np.testing.assert_allclose(new_params[name].numpy(), w.numpy(),
