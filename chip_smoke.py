@@ -10,10 +10,10 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. holds each kernel against its plain PyTorch version on the card at the
    shapes of its path (ResNet-18 training: ``luq_quant`` and
-   ``per_sample_clip``; yi-6b serving: the other three), and times
-   kernel, plain version, the least time the card could take
-   (``bound_ms``) and, where PyTorch computes the same function,
-   that yardstick (``library_ms``);
+   ``per_sample_clip``; stablelm-3b ghost training: ``ghost_norm_sq``;
+   yi-6b serving: the other three), and times kernel, plain version, the
+   least time the card could take (``bound_ms``) and, where PyTorch
+   computes the same function, that yardstick (``library_ms``);
 4. trains ResNet-18 at full width (random init from a seed, synthetic
    data) with DP-SGD under the DPQuant scheduler through
    ``repro_torch.train_loop.Trainer``, with the options of
@@ -23,14 +23,32 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    2 reps at a probe batch of 64); every loss finite, k = 8 quantized
    layers each epoch, epsilon > 0, 44 clip launches, and quantizer
    launches that match the policies the scheduler chose;
-5. serves yi-6b at full width and depth (random weights from a seed)
+5. trains stablelm-3b at full size (32 layers, random init from a seed,
+   synthetic tokens) with ghost-mode DP-SGD under the DPQuant scheduler,
+   with the options of ``repro_torch.launch.train --arch stablelm-3b
+   --mode dpquant --fmt luq_fp4 --backend cuda --grad-mode ghost
+   --clip-backend ref --ghost-microbatch 4 --batch 8 --seq-len 256``: 2
+   epochs x 2 steps, analysis in epoch 0 (33 probe runs x 2 reps at a
+   probe batch of 8); every loss finite, k = 29 each epoch, epsilon > 0,
+   ``ghost_norm_sq`` launches that match the policies the scheduler
+   chose, and no clip launch (ghost mode forms no (B, D) matrix);
+6. holds ghost mode against per-example gradients inside the real model:
+   stablelm-3b at full width cut to 2 layers, in bf16 and in float32,
+   every layer in LUQ-FP4 on the ``cuda`` backend, 4 sequences of 256
+   tokens: inside the ghost pass the kernel against the unfused route
+   (rtol 1e-4), and, example by example, the per-example norms of ghost
+   pass 1 (``ghost_norm_sq`` launched) within rtol 1e-4 of the norms of
+   the per-example gradients (in float32 also of the vmap engine's) and
+   the clipped gradients within rtol 2e-4, atol 2e-5 (the JAX package's
+   tolerances; ``ghost_vs_vmap`` says why example by example);
+7. serves yi-6b at full width and depth (random weights from a seed)
    through ``ContinuousEngine`` with the workload of
    ``repro_torch/launch/workload.py``: 4 slots, 8 requests, prompts of
    64-512 tokens, 32 new tokens, greedy, luq_fp4 logits head, once with an
    int8 and once with a luq_fp4 KV cache, on the ``cuda`` backend; every
    request must finish with its 32 tokens and every kernel (both branches
    of the matmul) must have run;
-6. checks the engine against the oneshot driver for one request.
+8. checks the engine against the oneshot driver for one request.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
@@ -41,8 +59,11 @@ Tolerances: KV codes and scales bitwise; LUQ codes bitwise; decode
 attention atol = rtol = 1e-5 (float32, summed in another order); the
 quantized matmul within 1e-5 of the sum of absolute products per output
 (the operands agree bitwise, only the summation order differs); the clip:
-norms rtol 1e-5, the sum within 1e-5 of sum_b |scale_b g_bd| per column.
-TF32 is off everywhere (training, plain versions, library calls).
+norms rtol 1e-5, the sum within 1e-5 of sum_b |scale_b g_bd| per column;
+the ghost norm within 1e-5 of sum_ij |XX_ij GG_ij| per example (the
+quantized operands agree bitwise, only the summation order differs), and
+bit for bit across two runs.  TF32 is off everywhere (training, plain
+versions, library calls).
 """
 from __future__ import annotations
 
@@ -274,6 +295,63 @@ def check_per_sample_clip(torch, ops, ref, B, D, reps=10):
     }
 
 
+def check_ghost_norm(torch, ops, ref, B, T, Dx, Dg, reps=20):
+    """The ghost norm of B examples' (T, Dx) / (T, Dg) operands, with the
+    rounding's edge values mixed in and an all-zero example (alpha = 0);
+    the yardstick is two ``torch.bmm`` Grams of operands quantized
+    beforehand, then ``(XX * GG).sum((1, 2))``."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6 + Dg)
+    x = torch.randn(B, T, Dx, device="cuda", generator=gen).clamp(-3.5, 3.5)
+    g = torch.randn(B, T, Dg, device="cuda", generator=gen).clamp(-3.5, 3.5)
+    g *= 1e-3
+    x[:, 0, 0] = 4.0
+    g[:, 0, 0] = 4e-3
+    levels = 4.0 * 2.0 ** -torch.arange(0, 9, device="cuda")
+    below = torch.nextafter(levels, torch.zeros_like(levels))
+    edges = torch.cat([levels, -levels, below, -below,
+                       torch.zeros(4, device="cuda")])
+    x[:, 1, :edges.numel()] = edges
+    g[:, 1, :edges.numel()] = edges * 1e-3
+    x[1] = 0.0                                        # an all-zero example
+    ux = torch.rand(T * Dx, device="cuda", generator=gen)
+    ug = torch.rand(T * Dg, device="cuda", generator=gen)
+    ax = x.abs().amax(dim=(1, 2))
+    ag = g.abs().amax(dim=(1, 2))
+    args = (x, g, ux, ug, ax, ag)
+    out = ops.ghost_norm_sq(*args)
+    again = ops.ghost_norm_sq(*args)
+    if not torch.equal(out, again):
+        raise AssertionError(f"ghost_norm_sq ({B}, {T}, {Dx}, {Dg}): two runs "
+                             "differ")
+    want = ref.ghost_norm_ref(*args)
+    xq = ref.luq_fp4(x.reshape(B, -1), ux, ax[:, None]).reshape(x.shape)
+    gq = ref.luq_fp4(g.reshape(B, -1), ug, ag[:, None]).reshape(g.shape)
+
+    def grams():
+        xx = torch.bmm(xq, xq.transpose(1, 2))
+        gg = torch.bmm(gq, gq.transpose(1, 2))
+        return (xx * gg).sum(dim=(1, 2))
+
+    tol = 1e-5 * (torch.bmm(xq, xq.transpose(1, 2)).abs()
+                  * torch.bmm(gq, gq.transpose(1, 2)).abs()).sum(dim=(1, 2))
+    err = (out - want).abs()
+    if not (err <= tol).all() or out[1].item() != 0.0:
+        raise AssertionError(f"ghost_norm_sq ({B}, {T}, {Dx}, {Dg}): "
+                             f"{out.tolist()} against {want.tolist()} "
+                             f"(tolerance {tol.tolist()})")
+    torch.testing.assert_close(grams(), want, rtol=1e-5, atol=0.0)
+    nbytes = 4 * (x.numel() + g.numel() + ux.numel() + ug.numel() + 3 * B)
+    flops = (2 * B * T * T * (Dx + Dg) + 2 * B * T * T
+             + LUQ_OPS * B * T * (Dx + Dg))
+    return {
+        "max_abs_err": err.max().item(),
+        "ms": time_ms(torch, lambda: ops.ghost_norm_sq(*args), reps),
+        "plain_ms": time_ms(torch, lambda: ref.ghost_norm_ref(*args), reps),
+        **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
+        "library_ms": time_ms(torch, grams, reps),
+    }
+
+
 def train_resnet18(torch, ops, wl):
     """DP-SGD on ResNet-18 under the DPQuant scheduler, the training
     workload of ``repro_torch/launch/workload.py`` (section 4 of the
@@ -359,6 +437,219 @@ def train_resnet18(torch, ops, wl):
     return launches
 
 
+def _free(torch):
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def ghost_vs_vmap(torch, ops, wl):
+    """stablelm-3b at full width cut to 2 layers, every layer in LUQ-FP4
+    on the cuda backend, B = 4 sequences of the LM workload's length, in
+    bf16 (the config's compute dtype) and in float32.
+
+    Checked, in both: (1) inside the ghost pass, the kernel (B = 4
+    examples a launch) against the unfused route (quantize, then Grams in
+    PyTorch), rtol 1e-4; (2) ghost pass-1 norms (chunks of one example,
+    the kernel launched) against the norms of the per-example gradients,
+    each from autograd of a one-example batch, rtol 1e-4; (3) the clipped
+    gradients, example by example, each clipped by exactly 1/8 (clip norm
+    = its ghost norm / 8), rtol 2e-4, atol 2e-5.  In float32 also (4) the
+    ghost norms against the vmap engine's (``torch.func``, one-example
+    batches), rtol 1e-4.
+
+    Why example by example, and why 1/8: LUQ's rounding is a step
+    function of its input and of the operand's max.  A product summed in
+    another order (another batch shape, or functorch's bf16 rounding)
+    moves the odd value across a step; so does pass 2's cotangent scaled
+    by a clip factor that is not a power of two, since ``Q(s g) = s Q(g)``
+    holds only as far as ``s g`` is exact.  Those differences are
+    printed, not checked: the batch-4 norms against the one-example ones,
+    the vmap engine's bf16 norms, and the sums at clip norm 1."""
+    import dataclasses
+    from repro_torch.config import QuantConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import TokenDataset
+    from repro_torch.dp.clip import per_example_clipped_grad_sum
+    from repro_torch.dp.ghost import (ghost_clipped_grad_sum,
+                                      ghost_per_example_norms)
+    from repro_torch.models.registry import build_model
+    from repro_torch.quant import backend as qbackend
+
+    B = 4
+
+    def rel(a, b):
+        return ((a - b).abs() / b.abs()).max().item()
+
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(get_config(wl.TRAIN_LM_ARCH), n_layers=2,
+                                  compute_dtype=dtype)
+        model = build_model(cfg, QuantConfig(fmt="luq_fp4", backend="cuda"))
+        params = model.init(wl.SEED)
+        tokens = TokenDataset(n=B, vocab=cfg.vocab_size,
+                              seq_len=wl.TRAIN_LM_SEQ,
+                              seed=wl.SEED).get(list(range(B)))["tokens"]
+        batch = {"tokens": tokens.cuda()}
+        one = [{"tokens": batch["tokens"][i:i + 1]} for i in range(B)]
+        flags = (True,) * cfg.n_layers
+        kw = dict(hooked_mask=model.ghost_mask(params),
+                  aux=model.ghost_aux(flags))
+
+        def pel(p, b):
+            return model.per_example_loss(p, b, flags)
+
+        def loss_one(p, ex):
+            return model.loss_fn(p, {k: v[None] for k, v in ex.items()},
+                                 flags)
+
+        ops.reset_launch_counts()
+        _, g1 = ghost_per_example_norms(pel, params, batch, microbatch=1,
+                                        **kw)
+        torch.cuda.synchronize()
+        launched = ops.LAUNCHES["ghost_norm_sq"]
+        _, g4 = ghost_per_example_norms(pel, params, batch, **kw)
+        fused = qbackend._REGISTRY.pop(("ghost_norm", "luq_fp4", "cuda"))
+        try:
+            _, g4u = ghost_per_example_norms(pel, params, batch, **kw)
+        finally:
+            qbackend._REGISTRY[("ghost_norm", "luq_fp4", "cuda")] = fused
+        vnorms = torch.stack([per_example_clipped_grad_sum(
+            loss_one, params, ex, clip_norm=1.0, microbatch_size=1)[1][
+                "grad_norm_max"] for ex in one])
+        # per example: the autograd gradient, its norm, and the largest
+        # gap to ghost's clipped gradient at clip norms g1 / 8 and 1
+        pnorms, gaps = [], {"1/8": [], "C=1": []}
+        for b, ex in enumerate(one):
+            leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+            grads = torch.autograd.grad(model.loss_fn(leaves, ex, flags),
+                                        list(leaves.values()))
+            grads = dict(zip(leaves, grads))
+            del leaves
+            n = torch.sqrt(sum(t.float().square().sum()
+                               for t in grads.values()))
+            pnorms.append(n)
+            for tag, clip in (("1/8", g1[b].item() / 8), ("C=1", 1.0)):
+                gsum, _ = ghost_clipped_grad_sum(pel, params, ex,
+                                                 clip_norm=clip, **kw)
+                scale = torch.clamp(clip / n, max=1.0)
+                for name, t in grads.items():
+                    want = scale * t.float()
+                    if tag == "1/8":
+                        torch.testing.assert_close(
+                            gsum[name], want, rtol=2e-4, atol=2e-5,
+                            msg=lambda m, name=name: f"{dtype} {name}: {m}")
+                    gaps[tag].append((gsum[name] - want).abs().max().item())
+                del gsum
+            del grads
+        pnorms = torch.stack(pnorms)
+        print(f"ghost vs per-example gradients (stablelm-3b, 2 layers at "
+              f"full width, {dtype}, luq_fp4, {B} x {wl.TRAIN_LM_SEQ} "
+              f"tokens): max rel diff of the norms: kernel vs unfused "
+              f"(B = {B}) {rel(g4, g4u)}, ghost vs autograd example by "
+              f"example {rel(g1, pnorms)}, ghost vs vmap engine "
+              f"{rel(g1, vnorms)}, vmap engine vs autograd "
+              f"{rel(vnorms, pnorms)}, ghost B = {B} vs example by example "
+              f"{rel(g4, g1)}; clipped gradients max abs diff: factor 1/8 "
+              f"{max(gaps['1/8'])}, clip norm 1 {max(gaps['C=1'])}; norms "
+              f"autograd {pnorms.tolist()} ghost {g1.tolist()} vmap "
+              f"{vnorms.tolist()}; ghost_norm_sq launches in the "
+              f"one-example pass 1: {launched}")
+        if launched != 7 * cfg.n_layers * B:
+            raise AssertionError(f"ghost pass 1 launched ghost_norm_sq "
+                                 f"{launched} times, want "
+                                 f"{7 * cfg.n_layers * B}")
+        torch.testing.assert_close(g4, g4u, rtol=1e-4, atol=0.0)
+        torch.testing.assert_close(g1, pnorms, rtol=1e-4, atol=0.0)
+        if dtype == "float32":
+            torch.testing.assert_close(g1, vnorms, rtol=1e-4, atol=0.0)
+        del params, model
+        _free(torch)
+
+
+def train_stablelm(torch, ops, wl):
+    """Ghost-mode DP-SGD on stablelm-3b under the DPQuant scheduler, the
+    LM workload of ``repro_torch/launch/workload.py``; returns the launch
+    counts of the run."""
+    from repro_torch.dp.ghost import per_example_state_bytes
+    from repro_torch.quant import backend as qbackend
+    from repro_torch.train_loop import Trainer
+
+    if (qbackend.get_quantizer("luq_fp4", "cuda")[1] != "cuda"
+            or qbackend.get_ghost_norm("luq_fp4", "cuda")[1] != "cuda"):
+        raise AssertionError("the quantizer or the ghost norm does not run "
+                             "on the cuda backend")
+    run, ds, ev = wl.train_lm_setup()
+    cfg = run.model
+    batch, chunk, seq = run.global_batch, run.dp.ghost_microbatch, run.seq_len
+    steps, epochs = run.steps_per_epoch, wl.TRAIN_LM_EPOCHS
+    t0 = time.perf_counter()
+    tr = Trainer(run, ds, eval_dataset=ev, mode="dpquant", device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tr.params.values())
+    state = per_example_state_bytes(
+        tr.params, tr.model.ghost_mask(tr.params), batch,
+        aux=tr.model.ghost_aux((True,) * cfg.n_layers))
+    print(f"stablelm-3b: {n_params} params, init {time.perf_counter() - t0} "
+          f"s; per_example_state_bytes at batch {batch}: {state}")
+    if state["ghost_bytes"] != 0:
+        raise AssertionError(f"ghost mode keeps per-example state: {state}")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    policies, analysis_s = [], []
+    t0 = time.perf_counter()
+    for _ in range(epochs):
+        (stats,) = tr.train(1)[-1:]
+        policies.append(tr.scheduler.current.layers)
+        analysis_s.append(tr.last_analysis_s)
+        print(f"epoch {stats.epoch}: loss={stats.loss:.4f} "
+              f"eps={stats.eps:.3f} k={stats.quantized_layers} "
+              f"acc={stats.accuracy} (loss {stats.loss!r}, eps "
+              f"{stats.eps!r}, wall {stats.wall_s!r} s, analysis "
+              f"{tr.last_analysis_s!r} s, layers {list(policies[-1])})")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    launches.update({f"ghost_norm_sq[{k}]": v
+                     for k, v in ops.GHOST_NORM_LAUNCHES.items()})
+    steps_ms = sorted(t * 1e3 for t in tr.step_wall_s[1:])
+    med = steps_ms[len(steps_ms) // 2]
+    print(f"train stablelm-3b (ghost): {epochs} epochs x {steps} steps of "
+          f"{batch} x {seq} tokens: median step {med!r} ms (steps after the "
+          f"first: {steps_ms}), {batch * seq / med * 1e3!r} tokens/s, "
+          f"analysis by epoch {analysis_s!r} s, wall {wall!r} s, peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30!r} GiB, "
+          f"launches {launches}")
+
+    for s in tr.history:
+        if not math.isfinite(s.loss):
+            raise AssertionError(f"epoch {s.epoch}: loss {s.loss}")
+        if s.quantized_layers != 29:
+            raise AssertionError(f"epoch {s.epoch}: k = {s.quantized_layers}")
+        if not s.eps > 0:
+            raise AssertionError(f"epoch {s.epoch}: eps = {s.eps}")
+    # a step launches the kernel once per pass-1 chunk and hooked
+    # projection (7 a layer) of every quantized layer: the probes (each
+    # singleton policy x reps; the baseline probe quantizes nothing) and
+    # the train steps
+    n_chunks = batch // chunk
+    probe_chunks = max(run.dp.microbatch_size,
+                       min(run.dp.analysis_batch_size, batch)) // chunk
+    reps = run.dp.analysis_reps
+    want = 7 * reps * probe_chunks * len(tr.scheduler.policies)
+    want += sum(7 * steps * n_chunks * len(layers) for layers in policies)
+    if launches["ghost_norm_sq"] != want:
+        raise AssertionError(f"ghost_norm_sq launched "
+                             f"{launches['ghost_norm_sq']} times, want {want} "
+                             f"(policies {policies})")
+    if launches["clip_and_sum"] != 0:
+        raise AssertionError(f"ghost training launched clip_and_sum "
+                             f"{launches['clip_and_sum']} times")
+    del tr
+    _free(torch)
+    return launches
+
+
 def serve_yi6b(torch, kv_fmt, model, params, ops, wl):
     """Serve the workload's requests through the engine; returns its
     summary and the launch counts of the run, the matmul's also by
@@ -398,7 +689,8 @@ def serve_yi6b(torch, kv_fmt, model, params, ops, wl):
         if not ((r.tokens >= 0) & (r.tokens < model.config.padded_vocab)).all():
             raise AssertionError(f"request {rid}: token ids out of range")
     zero = [k for k, n in launches.items()
-            if n == 0 and k not in ("luq_quant", "clip_and_sum")]
+            if n == 0 and k not in ("luq_quant", "clip_and_sum",
+                                    "ghost_norm_sq")]
     if zero:
         raise AssertionError(f"kernels not launched on the serving path: "
                              f"{zero}")
@@ -467,12 +759,27 @@ def main() -> int:
     checks["per_sample_clip"] = check_per_sample_clip(torch, ops, ref, 64,
                                                       11_190_891)
     print(f"per_sample_clip (64 x 11190891) {checks['per_sample_clip']}")
+    # stablelm-3b ghost pass 1: chunks of 4 sequences of 256 tokens; q/k/v/o
+    # are 2560 wide on both sides, gate/up/down 2560 and 6912
+    for dg in (2560, 6912):
+        name = f"ghost_norm_sq[2560/{dg}]"
+        checks[name] = check_ghost_norm(torch, ops, ref, wl.TRAIN_LM_CHUNK,
+                                        wl.TRAIN_LM_SEQ, 2560, dg)
+        print(f"{name} ({wl.TRAIN_LM_CHUNK} x {wl.TRAIN_LM_SEQ} x 2560 / "
+              f"{dg}) {checks[name]}")
     torch.cuda.empty_cache()
 
     # 4. train ResNet-18 at full width under the DPQuant scheduler
     train_launches = train_resnet18(torch, ops, wl)
 
-    # 5. serve yi-6b at full width and depth
+    # 5. train stablelm-3b at full size in ghost mode under DPQuant
+    lm_launches = train_stablelm(torch, ops, wl)
+
+    # 6. ghost against per-example gradients inside stablelm-3b at full
+    # width, 2 layers
+    ghost_vs_vmap(torch, ops, wl)
+
+    # 7. serve yi-6b at full width and depth
     from repro_torch.config import QuantConfig
     from repro_torch.configs import get_config
     from repro_torch.models.registry import build_model
@@ -505,7 +812,7 @@ def main() -> int:
         launches[kv_fmt] = counts
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30} GiB")
 
-    # 6. engine vs oneshot, one request, same shapes on both sides
+    # 8. engine vs oneshot, one request, same shapes on both sides
     from repro_torch.config import ServeConfig
     from repro_torch.serve import (ContinuousEngine, build_oneshot_fns,
                                    oneshot_generate)
@@ -534,10 +841,15 @@ def main() -> int:
                       "src/repro/kernels/luq_quant.py:51"),
         "per_sample_clip": ("src/repro_torch/kernels/csrc/per_sample_clip.cu",
                             "src/repro/kernels/per_sample_clip.py:64"),
+        "ghost_norm_sq": ("src/repro_torch/kernels/csrc/ghost_norm.cu",
+                          "src/repro/kernels/ghost_norm.py:61"),
     }
     train_counts = {"luq_quant[weight]": train_launches["luq_quant[one_row]"],
                     "luq_quant[activation]": train_launches["luq_quant[rows]"],
                     "per_sample_clip": train_launches["clip_and_sum"]}
+    for dg in (2560, 6912):
+        name = f"ghost_norm_sq[2560/{dg}]"
+        train_counts[name] = lm_launches.get(name, 0)
     kernels = []
     for name, numbers in checks.items():
         base, _, tag = name.rstrip("]").partition("[")

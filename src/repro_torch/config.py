@@ -1,7 +1,8 @@
 """Config dataclasses and device resolution.
 
 The counterpart of ``repro.config``, cut to what the ported paths read
-(serving, and DP-SGD training of the ResNet family).  Dtypes are strings
+(serving, DP-SGD training of the ResNet family, and ghost-mode DP-SGD
+training of the dense LMs).  Dtypes are strings
 (as in the JAX package) mapped to ``torch.dtype`` by :func:`torch_dtype`.
 """
 from __future__ import annotations
@@ -120,7 +121,7 @@ class QuantConfig:
 @dataclasses.dataclass(frozen=True)
 class DPConfig:
     """DP-SGD and DPQuant-analysis knobs (the JAX package's, cut to the
-    ported vmap engine)."""
+    ported engines: no ``partial_accum``, no ``ghost_sharded``)."""
 
     enabled: bool = True
     clip_norm: float = 1.0
@@ -131,9 +132,16 @@ class DPConfig:
     # each microbatch's per-example grads to (B, D) and run the
     # per_sample_clip kernel (repro_torch.kernels).
     clip_backend: str = "ref"
-    # "vmap" materializes per-example grads with torch.func; "ghost" is
-    # not ported yet and raises.
+    # "vmap" materializes per-example grads with torch.func (dp/clip.py);
+    # "ghost" = two-pass ghost-norm clipping (dp/ghost.py): per-example
+    # norms from layer activation / cotangent Grams, then ONE reweighted
+    # batched backward.  Needs a family with ghost hooks (dense_lm) and
+    # clip_backend="ref"; microbatch_size is ignored.
     grad_mode: str = "vmap"
+    # Ghost pass-1 chunk size (0 = the whole batch in one pass): pass-1
+    # live state is one chunk of activations; numerically identical
+    # (per-example quantization is chunk-invariant).
+    ghost_microbatch: int = 0
     # DPQuant analysis (paper Table 3 defaults)
     analysis_interval: int = 2       # epochs between COMPUTELOSSIMPACT runs
     analysis_reps: int = 2           # R
@@ -166,6 +174,7 @@ class RunConfig:
     optim: OptimConfig = OptimConfig()
     seed: int = 0
     global_batch: int = 1024
+    seq_len: int = 1024
     steps: int = 100
     steps_per_epoch: int = 10
 

@@ -1,4 +1,4 @@
 from repro_torch.data.poisson import PoissonSampler
-from repro_torch.data.synthetic import ImageClassDataset
+from repro_torch.data.synthetic import ImageClassDataset, TokenDataset
 
-__all__ = ["ImageClassDataset", "PoissonSampler"]
+__all__ = ["ImageClassDataset", "PoissonSampler", "TokenDataset"]

@@ -1,11 +1,12 @@
-"""Deterministic synthetic image data (offline: no downloads).
+"""Deterministic synthetic data (offline: no downloads).
 
-The counterpart of ``repro.data.synthetic.ImageClassDataset``:
-class-conditional Gaussian prototypes plus noise at a configurable image
-size and number of classes (GTSRB-like: 43 classes, CIFAR-like: 10).  The
-numpy generation is the JAX package's, draw for draw, so the same seed
-gives the same images and labels in both packages; ``get`` returns CPU
-tensors, which the trainer moves to its device.
+The counterpart of ``repro.data.synthetic``'s ``ImageClassDataset``
+(class-conditional Gaussian prototypes plus noise at a configurable image
+size and number of classes; GTSRB-like: 43 classes, CIFAR-like: 10) and
+``TokenDataset`` (planted-bigram language-modelling sequences).  The numpy
+generation is the JAX package's, draw for draw, so the same seed gives the
+same examples in both packages; ``get`` returns CPU tensors, which the
+trainer moves to its device.
 
 Examples are index-addressable (``get(indices)``) so the Poisson
 subsampler can draw arbitrary subsets, and memoized: the first epoch pays
@@ -55,3 +56,39 @@ class ImageClassDataset:
                         self.channels)
         return {"image": torch.from_numpy(xs),
                 "label": torch.from_numpy(np.ascontiguousarray(ys))}
+
+
+@dataclasses.dataclass
+class TokenDataset:
+    """Planted-bigram language modelling data: every token has 8 likely
+    successors (probability 0.9), otherwise a uniform token."""
+    n: int
+    vocab: int
+    seq_len: int
+    seed: int = 0
+
+    def __post_init__(self):
+        rng = np.random.RandomState(self.seed)
+        self.successors = rng.randint(0, self.vocab,
+                                      size=(self.vocab, 8)).astype(np.int32)
+        self._seeds = rng.randint(0, 2**31 - 1, size=self.n)
+        self._cache: dict = {}
+
+    def _example(self, idx: int) -> np.ndarray:
+        seq = self._cache.get(idx)
+        if seq is None:
+            r = np.random.RandomState(self._seeds[idx])
+            seq = np.empty(self.seq_len, np.int32)
+            seq[0] = r.randint(self.vocab)
+            for t in range(1, self.seq_len):
+                if r.rand() < 0.9:
+                    seq[t] = self.successors[seq[t - 1], r.randint(8)]
+                else:
+                    seq[t] = r.randint(self.vocab)
+            self._cache[idx] = seq
+        return seq
+
+    def get(self, indices: np.ndarray) -> dict:
+        """{"tokens": (n, seq_len) int32}, on the CPU."""
+        out = np.stack([self._example(int(idx)) for idx in indices])
+        return {"tokens": torch.from_numpy(out)}

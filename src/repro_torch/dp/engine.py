@@ -1,25 +1,49 @@
 """DP gradient modes: what the port's DP engine can run.
 
-The counterpart of ``repro.dp.engine``.  Only ``grad_mode="vmap"`` is
-ported: per-example gradients from ``torch.func.vmap``, clipped and summed
-by ``repro_torch.dp.clip``, noised by ``repro_torch.dp.noise``; the train
-step (``repro_torch.launch.steps``) assembles them, as the JAX package's
-``build_train_setup`` does.  Ghost clipping comes with its own slice.
+The counterpart of ``repro.dp.engine``.  ``grad_mode="vmap"``: per-example
+gradients from ``torch.func.vmap``, clipped and summed by
+``repro_torch.dp.clip``.  ``grad_mode="ghost"``: the two-pass ghost-norm
+engine of ``repro_torch.dp.ghost`` (dense LMs; the conv taps ResNet needs
+are a later slice).  Both are noised by ``repro_torch.dp.noise``; the
+train step (``repro_torch.launch.steps``) assembles them, as the JAX
+package's ``build_train_setup`` does.
 """
 from __future__ import annotations
 
 from repro_torch.config import DPConfig
 
 
-def validate_grad_mode(dp: DPConfig) -> None:
-    """Fail fast on DP knobs the port cannot honor yet."""
-    if dp.grad_mode == "ghost":
-        raise NotImplementedError(
-            "grad_mode='ghost' (ghost-norm clipping) is not ported to "
-            "repro_torch yet; use grad_mode='vmap'")
-    if dp.grad_mode != "vmap":
+def validate_grad_mode(dp: DPConfig, model=None) -> None:
+    """Fail fast on grad-mode knob combinations the engine cannot honor.
+
+    ``model`` (a ``repro_torch.models.registry.Model``) is optional; when
+    given, ghost mode also needs the family's ghost hooks.
+    """
+    if dp.grad_mode not in ("vmap", "ghost"):
         raise ValueError(f"dp.grad_mode must be 'vmap' or 'ghost', "
                          f"got {dp.grad_mode!r}")
     if dp.clip_backend not in ("ref", "fused"):
         raise ValueError(f"dp.clip_backend must be 'ref' or 'fused', "
                          f"got {dp.clip_backend!r}")
+    if dp.grad_mode != "ghost":
+        return
+    if dp.ghost_microbatch < 0:
+        raise ValueError(f"dp.ghost_microbatch must be >= 0, "
+                         f"got {dp.ghost_microbatch}")
+    if dp.clip_backend == "fused":
+        raise ValueError("clip_backend='fused' operates on materialized "
+                         "(B, D) per-example grads, which ghost mode never "
+                         "forms; use clip_backend='ref' with "
+                         "grad_mode='ghost'")
+    if model is None:
+        return
+    if model.config.family == "resnet":
+        raise NotImplementedError(
+            "grad_mode='ghost' for the resnet family needs the conv ghost "
+            "taps (the JAX package's make_ghost_qconv), a later slice of "
+            "repro_torch; use grad_mode='vmap'")
+    if model.per_example_loss is None or model.ghost_mask is None:
+        raise ValueError(
+            f"model family {model.config.family!r} has no ghost hooks "
+            f"(per_example_loss/ghost_mask); grad_mode='ghost' supports "
+            f"dense_lm - use grad_mode='vmap'")

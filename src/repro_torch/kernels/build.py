@@ -26,7 +26,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("luq_matmul.cu", "kv_quant.cu", "decode_attn.cu", "luq_quant.cu",
-           "per_sample_clip.cu")
+           "per_sample_clip.cu", "ghost_norm.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 LIB_NAME = "librepro_torch_kernels.so"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -46,6 +46,9 @@ _SIGNATURES = {
     "repro_per_sample_clip_chunks": (_I, [_L]),
     "repro_per_sample_clip": (_I, [_P, _P, _P, _P, _P, _I, _L, ctypes.c_float,
                                    _P]),
+    "repro_ghost_norm_partials": (_I, [_I]),
+    "repro_ghost_norm": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                              _I, _I, _P]),
     "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

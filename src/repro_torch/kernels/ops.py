@@ -24,7 +24,7 @@ from repro_torch.quant import kv_cache as kvc
 #: Kernel launches per wrapper since the last :func:`reset_launch_counts`.
 #: Only launches of a kernel count; CPU calls of the plain versions do not.
 LAUNCHES = {"luq_matmul": 0, "kv_quant_rows": 0, "decode_attn_fused": 0,
-            "luq_quant": 0, "clip_and_sum": 0}
+            "luq_quant": 0, "clip_and_sum": 0, "ghost_norm_sq": 0}
 #: The ``luq_matmul`` launches of :data:`LAUNCHES` by the kernel's branch:
 #: ``shared`` uniforms ``ub`` (K, N) for all rows (prefill), or ``per_row``
 #: uniforms (R, K, N) (the decode tick's per-slot logits head).
@@ -34,11 +34,16 @@ LUQ_MATMUL_LAUNCHES = {"shared": 0, "per_row": 0}
 #: vmap) or one row per example (``rows``: activations and cotangents
 #: under the DP engine's vmap).
 LUQ_QUANT_LAUNCHES = {"one_row": 0, "rows": 0}
+#: The ``ghost_norm_sq`` launches of :data:`LAUNCHES` by shape class, the
+#: operands' widths ``"{min(Dx, Dg)}/{max(Dx, Dg)}"`` (keys appear at the
+#: first launch of a class).
+GHOST_NORM_LAUNCHES: dict = {}
 
 _KV_FMT_CODE = {"int8": 0, "luq_fp4": 1}
 
 
 def reset_launch_counts() -> None:
+    GHOST_NORM_LAUNCHES.clear()
     for counts in (LAUNCHES, LUQ_MATMUL_LAUNCHES, LUQ_QUANT_LAUNCHES):
         for name in counts:
             counts[name] = 0
@@ -269,3 +274,58 @@ def clip_and_sum(grads: torch.Tensor, clip_norm: float):
     _raise_on_error(lib, err, "clip_and_sum")
     LAUNCHES["clip_and_sum"] += 1
     return out, norms
+
+
+# --------------------------------------------------------------------------- #
+# ghost_norm_sq  (csrc/ghost_norm.cu, replaces the TPU kernel ghost_norm_gram)
+# --------------------------------------------------------------------------- #
+def ghost_norm_sq(x, g, ux, ug, alpha_x, alpha_g) -> torch.Tensor:
+    """LUQ-FP4 quantize + Grams + reduce in one call, per example:
+    ``out[b] = ||Q(x_b)^T Q(g_b)||_F^2 = <Q(x_b)Q(x_b)^T, Q(g_b)Q(g_b)^T>``.
+
+    ``x``: (B, T, Dx) wgrad-GEMM input rows of B examples; ``g``: (B, T,
+    Dg) their cotangent rows; ``ux`` (T * Dx,) and ``ug`` (T * Dg,): the
+    uniforms shared by the examples (the draws fake-quant's folds 4 and 5
+    make for one example, so fused and unfused routes agree); ``alpha_x``,
+    ``alpha_g``: (B,) per-example scales (``max|x_b|``, ``max|g_b|``).
+    All float32.  Returns (B,) float32.
+
+    The kernel quantizes both operands once into scratch, then tiles the
+    (T, T) Grams, so any T is taken: the JAX wrapper's ``T <= 512`` cap
+    (``GHOST_NORM_MAX_T``) sized its two whole Grams for a TPU core's
+    VMEM, and above it that wrapper computes the same value unfused.
+    Partials are summed in a fixed order (no atomics): the same input
+    gives the same bits on every run.
+    """
+    if _on_cpu(x, g, ux, ug, alpha_x, alpha_g):
+        return ref.ghost_norm_ref(x, g, ux, ug, alpha_x, alpha_g)
+    B, T, Dx = x.shape
+    Dg = g.shape[2]
+    _check("x", x, torch.float32, (B, T, Dx))
+    _check("g", g, torch.float32, (B, T, Dg))
+    _check("ux", ux, torch.float32, (T * Dx,))
+    _check("ug", ug, torch.float32, (T * Dg,))
+    _check("alpha_x", alpha_x, torch.float32, (B,))
+    _check("alpha_g", alpha_g, torch.float32, (B,))
+    out = torch.empty((B,), dtype=torch.float32, device=x.device)
+    if out.numel() == 0 or T == 0 or Dx == 0 or Dg == 0:
+        return out.zero_()
+    lib = load_library()
+    P = lib.repro_ghost_norm_partials(T)
+    # scratch: the quantized operands and the per-tile partials
+    scratch = torch.empty((B * (T * (Dx + Dg) + P),), dtype=torch.float32,
+                          device=x.device)
+    qx = scratch[:B * T * Dx]
+    qg = scratch[B * T * Dx:B * T * (Dx + Dg)]
+    partial = scratch[B * T * (Dx + Dg):]
+    with torch.cuda.device(x.device):
+        err = lib.repro_ghost_norm(
+            _ptr(x), _ptr(ux), _ptr(alpha_x), _ptr(g), _ptr(ug),
+            _ptr(alpha_g), _ptr(qx), _ptr(qg), _ptr(partial), _ptr(out), B,
+            T, Dx, Dg, _stream(x.device))
+    _raise_on_error(lib, err, "ghost_norm_sq")
+    LAUNCHES["ghost_norm_sq"] += 1
+    shape_class = f"{min(Dx, Dg)}/{max(Dx, Dg)}"
+    GHOST_NORM_LAUNCHES[shape_class] = GHOST_NORM_LAUNCHES.get(shape_class,
+                                                               0) + 1
+    return out

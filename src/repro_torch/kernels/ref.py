@@ -30,6 +30,22 @@ def per_sample_clip_ref(grads: torch.Tensor, clip_norm: float):
     return (g * scale[:, None]).sum(dim=0), norms
 
 
+def ghost_norm_ref(x, g, ux, ug, alpha_x, alpha_g) -> torch.Tensor:
+    """Plain version of ``ghost_norm_sq``: per example b,
+    ``<Q(x_b) Q(x_b)^T, Q(g_b) Q(g_b)^T>`` with x (B, T, Dx), g (B, T, Dg),
+    the uniforms ``ux`` (T * Dx,) and ``ug`` (T * Dg,) shared by the
+    examples and per-example scales ``alpha_x``, ``alpha_g`` (B,).
+    Returns (B,) float32."""
+    B = x.shape[0]
+    xq = luq_fp4(x.float().reshape(B, -1), ux,
+                 alpha_x.reshape(-1, 1)).reshape(x.shape)
+    gq = luq_fp4(g.float().reshape(B, -1), ug,
+                 alpha_g.reshape(-1, 1)).reshape(g.shape)
+    xx = xq @ xq.transpose(1, 2)
+    gg = gq @ gq.transpose(1, 2)
+    return (xx * gg).sum(dim=(1, 2))
+
+
 def luq_matmul_ref(a, b, ua, ub, alpha_a, alpha_b) -> torch.Tensor:
     """Plain version of ``luq_matmul``: (R, K) x (K, N) -> (R, N) float32.
 

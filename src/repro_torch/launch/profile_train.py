@@ -1,12 +1,17 @@
 """Where a training step's time goes: a torch.profiler breakdown on the GPU.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_train
+    PYTHONPATH=src python -m repro_torch.launch.profile_train [--workload resnet]
+    PYTHONPATH=src python -m repro_torch.launch.profile_train --workload lm
 
-Builds the training workload of ``launch/workload.py`` (the one
-``chip_smoke.py`` drives: full-width ResNet-18, DP-SGD under DPQuant,
-256 images in microbatches of 64, LUQ-FP4 convs, the fused clip), runs
-epoch 0 (analysis and 3 steps) to warm up, times the 3 steps of epoch 1
-unprofiled under epoch 0's policy, profiles 3 more and prints:
+``resnet`` (the default) builds the training workload of
+``launch/workload.py`` (full-width ResNet-18, DP-SGD under DPQuant, 256
+images in microbatches of 64, LUQ-FP4 convs, the fused clip) and runs
+epoch 0 (analysis and 3 steps) to warm up.  ``lm`` builds the LM
+workload (full-size stablelm-3b, ghost-mode DP-SGD, 8 x 256 tokens, pass
+1 in chunks of 4, LUQ-FP4 projections) and warms up with its steps under
+the scheduler's first selection (k = 29 of 32 layers), without the
+analysis's 66 probe steps.  Then it times the epoch's steps unprofiled
+under that policy, profiles as many more and prints:
 
 * the wall time per step of the unprofiled steps;
 * from the profiled steps' trace alone: their span, the device's busy
@@ -16,16 +21,21 @@ unprofiled under epoch 0's policy, profiles 3 more and prints:
 * host time under the ranges ``train.step`` (a whole step),
   ``per_example_grads`` (the vmapped forward and backward of a
   microbatch), ``quantize`` (one quantizer call: draw, scale, kernel),
-  ``fused_clip`` (flatten, clip kernel, unflatten) and ``noise``, with
-  the device time of the PyTorch operators inside each;
+  ``fused_clip`` (flatten, clip kernel, unflatten), ``ghost.pass1`` (the
+  norm pass over every chunk), ``ghost.pass2`` (the reweighted forward
+  and backward), ``ghost.fused_norm`` (one call of the ghost_norm op:
+  cast, scales, kernel) and ``noise``, with the device time of the
+  PyTorch operators inside each;
 * the kernels with the most device time and the operators with the most
   host time.
 
-Kernels launched through ``ctypes`` (``luq_quant``, ``per_sample_clip``)
-are not tied to a host range; they appear in the kernel list only.
+Kernels launched through ``ctypes`` (``luq_quant``, ``per_sample_clip``,
+``ghost_norm``) are not tied to a host range; they appear in the kernel
+list only.
 """
 from __future__ import annotations
 
+import argparse
 import time
 
 import torch
@@ -40,7 +50,8 @@ from repro_torch.quant import fake_quant as fq
 from repro_torch.train_loop import Trainer
 
 RANGES = ("train.steps", "train.step", "per_example_grads", "quantize",
-          "fused_clip", "noise")
+          "fused_clip", "ghost.pass1", "ghost.pass2", "ghost.fused_norm",
+          "noise")
 TOP = 20
 
 
@@ -55,12 +66,18 @@ def _ranged_vmap(vmap):
 
 
 def main(argv=None):
-    del argv
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--workload", default="resnet", choices=["resnet", "lm"])
+    args = ap.parse_args(argv)
     torch.backends.cudnn.allow_tf32 = False         # float32, as the CLI
     torch.backends.cuda.matmul.allow_tf32 = False
-    run, ds, _ = wl.train_setup()
+    setup = wl.train_setup if args.workload == "resnet" else wl.train_lm_setup
+    run, ds, _ = setup()
     tr = Trainer(run, ds, mode="dpquant", device="cuda")
-    tr.train(1)                                     # warm-up, analysis
+    if args.workload == "resnet":
+        tr.train(1)                                 # warm-up, analysis
+    else:
+        tr._train_steps_loop(tr.scheduler.select(0).flags())   # warm-up
     flags = tr.scheduler.current.flags()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -79,12 +96,14 @@ def main(argv=None):
         with record_function("train.steps"):
             tr._train_steps_loop(flags)
             torch.cuda.synchronize()
-    print(f"{run.model.name}: {run.global_batch} images a step in "
-          f"microbatches of {run.dp.microbatch_size}, quantized layers "
+    print(f"{run.model.name}: {run.global_batch} examples a step "
+          f"({run.dp.grad_mode} mode, microbatch {run.dp.microbatch_size}, "
+          f"ghost microbatch {run.dp.ghost_microbatch}), quantized layers "
           f"{list(tr.scheduler.current.layers)} of "
           f"{run.model.policy_len()}, fmt {run.quant.fmt}, clip "
           f"{run.dp.clip_backend}; unprofiled {per_step * 1e3} ms per step "
-          f"({run.global_batch / per_step} images/s)")
+          f"({run.global_batch / per_step} examples/s); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30} GiB")
 
     trace = prof.events()
     span = next(e.time_range for e in trace if e.key == "train.steps"

@@ -5,19 +5,29 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch resnet18 \\
         --mode dpquant --fmt luq_fp4 --backend cuda --clip-backend fused
 
+    # stablelm-3b (full config) in ghost mode on the GPU: LUQ-FP4
+    # projections, per-example norms through the ghost_norm kernel
+    PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \\
+        --mode dpquant --fmt luq_fp4 --backend cuda --grad-mode ghost \\
+        --clip-backend ref --ghost-microbatch 4 --batch 8 --seq-len 256
+
     # at smoke size on the CPU (the kernels' plain versions)
     PYTHONPATH=src python -m repro_torch.launch.train --arch resnet18 \\
         --smoke --device cpu --epochs 2 --steps-per-epoch 3 --batch 8 \\
         --microbatch 8 --dataset-size 256
+    PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \\
+        --smoke --device cpu --grad-mode ghost --batch 4 \\
+        --ghost-microbatch 2 --seq-len 16
 
-The flags are those of ``repro.launch.train`` for this path (the ResNet
-family, vmap DP), without the executor, checkpoint, preemption and
-ghost-mode ones (the port has the per-step loop only, and the rest is not
-ported yet), plus ``--device`` (default
-``cuda``; without a GPU the run raises unless ``--device cpu`` is given)
-and ``--backend ref|cuda`` (default ``cuda``, the hand-written kernels;
-``REPRO_QUANT_BACKEND`` overrides it).  Prints one line per epoch,
-``epoch e: loss=... eps=... k=... acc=...``, as the JAX CLI does.
+The flags are those of ``repro.launch.train`` for these paths (ResNet in
+vmap mode, the dense LMs in vmap or ghost mode), without the executor,
+checkpoint, preemption and ``--ghost-sharded`` ones (the port has the
+per-step loop only, and the rest is not ported yet), plus ``--device``
+(default ``cuda``; without a GPU the run raises unless ``--device cpu`` is
+given) and ``--backend ref|cuda`` (default ``cuda``, the hand-written
+kernels; ``REPRO_QUANT_BACKEND`` overrides it).  Prints one line per
+epoch, ``epoch e: loss=... eps=... k=... acc=...``, as the JAX CLI does
+(``acc=None`` for a dense LM: it has no eval set).
 """
 from __future__ import annotations
 
@@ -28,19 +38,22 @@ import torch
 from repro_torch.config import (DPConfig, ModelConfig, OptimConfig,
                                 QuantConfig, RunConfig, resolve_device)
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.data.synthetic import ImageClassDataset
+from repro_torch.data.synthetic import ImageClassDataset, TokenDataset
 from repro_torch.train_loop import Trainer
 
-ARCHS = ("resnet18",)
+ARCHS = ("resnet18", "yi-6b", "gemma-7b", "stablelm-3b", "yi-9b")
 EVAL_SIZE = 512
 
 
-def make_dataset(cfg: ModelConfig, n: int, seed: int = 0):
-    if cfg.family != "resnet":
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family is not ported yet")
-    return ImageClassDataset(n=n, num_classes=cfg.num_classes,
-                             image_size=cfg.image_size, seed=seed)
+def make_dataset(cfg: ModelConfig, n: int, seq_len: int, seed: int = 0):
+    if cfg.family == "resnet":
+        return ImageClassDataset(n=n, num_classes=cfg.num_classes,
+                                 image_size=cfg.image_size, seed=seed)
+    if cfg.family == "dense_lm":
+        return TokenDataset(n=n, vocab=cfg.vocab_size, seq_len=seq_len,
+                            seed=seed)
+    raise NotImplementedError(
+        f"training the {cfg.family!r} family is not ported yet")
 
 
 def build_run(args) -> RunConfig:
@@ -53,9 +66,12 @@ def build_run(args) -> RunConfig:
                     noise_multiplier=args.noise_multiplier,
                     microbatch_size=args.microbatch,
                     quant_fraction=args.quant_fraction,
-                    clip_backend=args.clip_backend),
+                    clip_backend=args.clip_backend,
+                    grad_mode=args.grad_mode,
+                    ghost_microbatch=args.ghost_microbatch),
         optim=OptimConfig(name=args.optimizer, lr=args.lr),
-        global_batch=args.batch, steps_per_epoch=args.steps_per_epoch,
+        global_batch=args.batch, seq_len=args.seq_len,
+        steps_per_epoch=args.steps_per_epoch,
         steps=args.epochs * args.steps_per_epoch, seed=args.seed)
 
 
@@ -74,10 +90,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--clip-backend", default="ref", choices=["ref", "fused"],
                     help="per-example clip path: plain PyTorch or the "
                          "per_sample_clip kernel")
+    ap.add_argument("--grad-mode", default="vmap", choices=["vmap", "ghost"],
+                    help="per-example gradient engine: vmap (materialized "
+                         "per-example grads) or ghost (two-pass ghost-norm "
+                         "clipping; dense LMs)")
+    ap.add_argument("--ghost-microbatch", type=int, default=0,
+                    help="ghost pass-1 chunk size (0 = the whole batch)")
     ap.add_argument("--quant-fraction", type=float, default=0.9)
     ap.add_argument("--epochs", type=int, default=10)
     ap.add_argument("--steps-per-epoch", type=int, default=10)
     ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--seq-len", type=int, default=64)
     ap.add_argument("--dataset-size", type=int, default=4096)
     ap.add_argument("--lr", type=float, default=0.5)
     ap.add_argument("--optimizer", default="sgd",
@@ -94,10 +117,13 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def build_datasets(args, cfg: ModelConfig):
-    """``(train, eval)`` datasets of the run: ``--dataset-size`` images
-    from ``--seed``, and 512 held-out images from the next seed."""
-    return (make_dataset(cfg, args.dataset_size, args.seed),
-            make_dataset(cfg, EVAL_SIZE, args.seed + 1))
+    """``(train, eval)`` datasets of the run: ``--dataset-size`` examples
+    from ``--seed``, and, for a ResNet, 512 held-out images from the next
+    seed (a dense LM has no eval set, as in the JAX CLI)."""
+    ds = make_dataset(cfg, args.dataset_size, args.seq_len, args.seed)
+    ev = (make_dataset(cfg, EVAL_SIZE, args.seq_len, args.seed + 1)
+          if cfg.family == "resnet" else None)
+    return ds, ev
 
 
 def main(argv=None):

@@ -12,6 +12,17 @@ seed 0; 512 more for eval, seed 1), global batch 256 in microbatches of
 64, sigma = C = 1, SGD at lr 0.5, quant_fraction 0.9, 2 epochs of 3
 steps; the analysis runs in epoch 0 (10 probe runs x 2 reps at a probe
 batch of 64).  The run is the one the CLI builds from ``TRAIN_ARGV``.
+
+LM training: stablelm-3b at full size (32 layers, d_model 2560, untied
+head, bf16 compute, float32 params), ghost-mode DP-SGD under the DPQuant
+scheduler with the options of ``launch.train --arch stablelm-3b --mode
+dpquant --fmt luq_fp4 --backend cuda --grad-mode ghost --clip-backend ref
+--ghost-microbatch 4 --batch 8 --seq-len 256``: synthetic planted-bigram
+tokens (4096 sequences, seed 0; no eval set), global batch 8 of 256
+tokens, pass 1 in chunks of 4, sigma = C = 1, SGD at lr 0.5,
+quant_fraction 0.9 (k = 29 of 32 layers), 2 epochs of 2 steps; the
+analysis runs in epoch 0 (33 probe runs x 2 reps at a probe batch of 8).
+The run is the one the CLI builds from ``TRAIN_LM_ARGV``.
 """
 from __future__ import annotations
 
@@ -52,5 +63,31 @@ def train_setup():
     from repro_torch.launch import train
 
     args = train.parse_args(list(TRAIN_ARGV))
+    run = train.build_run(args)
+    return (run, *train.build_datasets(args, run.model))
+
+
+TRAIN_LM_ARCH = "stablelm-3b"
+TRAIN_LM_BATCH, TRAIN_LM_SEQ, TRAIN_LM_CHUNK = 8, 256, 4
+TRAIN_LM_EPOCHS, TRAIN_LM_STEPS = 2, 2
+# --microbatch sets the probe batch: the trainer probes with
+# max(microbatch, min(32, batch)) examples, as the JAX trainer does; ghost
+# mode itself ignores it
+TRAIN_LM_ARGV = (
+    "--arch", TRAIN_LM_ARCH, "--mode", "dpquant", "--fmt", "luq_fp4",
+    "--backend", "cuda", "--grad-mode", "ghost", "--clip-backend", "ref",
+    "--ghost-microbatch", str(TRAIN_LM_CHUNK),
+    "--batch", str(TRAIN_LM_BATCH), "--microbatch", str(TRAIN_LM_BATCH),
+    "--seq-len", str(TRAIN_LM_SEQ),
+    "--epochs", str(TRAIN_LM_EPOCHS), "--steps-per-epoch", str(TRAIN_LM_STEPS),
+    "--dataset-size", str(TRAIN_DATASET))
+
+
+def train_lm_setup():
+    """``(run, dataset, None)`` of the LM training workload, built by
+    ``launch.train`` from ``TRAIN_LM_ARGV`` as the CLI builds them."""
+    from repro_torch.launch import train
+
+    args = train.parse_args(list(TRAIN_LM_ARGV))
     run = train.build_run(args)
     return (run, *train.build_datasets(args, run.model))

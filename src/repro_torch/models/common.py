@@ -1,9 +1,11 @@
-"""Shared model components: init, norms, RoPE, attention, logits, loss.
+"""Shared model components: init, norms, RoPE, attention, projections,
+logits, losses.
 
-The serving part of ``repro.models.common`` and what the ResNet family
-trains with (``groupnorm``, ``softmax_xent``), as plain PyTorch functions
-on tensors.  Layouts follow the JAX package (activations (B, S, H, D)),
-except ``groupnorm``, which takes the NCHW activations of the port's
+The counterpart of ``repro.models.common``, as plain PyTorch functions on
+tensors: what serving, ResNet training (``groupnorm``, ``softmax_xent``)
+and dense-LM training (``qproj``, ``chunked_lm_loss``, the ghost hook of
+``rmsnorm``) use.  Layouts follow the JAX package (activations (B, S, H,
+D)), except ``groupnorm``, which takes the NCHW activations of the port's
 convolutions.
 """
 from __future__ import annotations
@@ -41,7 +43,14 @@ def embed_init(shape, *, generator, device, dtype=torch.float32):
 # norm, rope, attention
 # --------------------------------------------------------------------------- #
 def rmsnorm(x, scale, eps=1e-6):
-    """RMSNorm in the ``1 + scale`` form, computed in float32."""
+    """RMSNorm in the ``1 + scale`` form, computed in float32.  Under a
+    ghost norm pass with ``norm_scales`` the scale's per-example squared
+    gradient norms are tapped (``repro_torch.dp.ghost.tap_scale``); the
+    output is the same."""
+    from repro_torch.dp import ghost
+    ctx = ghost.current()
+    if ctx is not None and ctx.mode == "norm" and ctx.norm_scales:
+        scale = ghost.tap_scale(scale, ctx.tap, x)
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps) * (1.0 + scale.float())
@@ -125,8 +134,63 @@ def repeat_kv(x, n_rep: int):
 
 
 # --------------------------------------------------------------------------- #
-# logits head
+# losses
 # --------------------------------------------------------------------------- #
+def chunked_lm_loss(h, targets, embed, *, real_vocab: int, ce_chunk: int,
+                    per_example: bool = False, logits_tap=None):
+    """Mean next-token cross-entropy without materializing (B, S, V).
+
+    ``h``: (B, S, d) hidden states aligned with ``targets`` (B, S) ints;
+    ``embed``: (V_pad, d), logits = h @ embed.T in float32, one sequence
+    chunk of ``ce_chunk`` at a time; padded vocab entries are masked.
+    ``per_example=True`` returns the (B,) per-example mean NLLs (each the
+    loss of that example alone: the ghost engine's reweighting target).
+    ``logits_tap``: the ghost pass-1 hook, a (B, S, V_pad) zero tensor
+    added to the raw logits (its gradient is the logits cotangent the head
+    wgrad consumes); it forces ONE chunk and makes the return ``(loss,
+    hc)``, ``hc`` the float32 hidden rows that entered the logits GEMM.
+    """
+    b, s, _ = h.shape
+    cc = s if logits_tap is not None else min(ce_chunk, s)
+    reduce = (lambda t: t.sum(dim=1)) if per_example else (lambda t: t.sum())
+    total = 0.0
+    vocab_ok = torch.arange(embed.shape[0], device=h.device) < real_vocab
+    emb32 = embed.float()
+    hc_out = None
+    for s0 in range(0, s, cc):
+        s1 = min(s0 + cc, s)
+        hc = h[:, s0:s1].float()
+        logits = torch.einsum("bsd,vd->bsv", hc, emb32)
+        if logits_tap is not None:
+            logits = logits + logits_tap
+            hc_out = hc
+        logits = torch.where(vocab_ok, logits, -1e30)
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1,
+                           targets[:, s0:s1].long()[..., None])[..., 0]
+        total = total + reduce(lse - tgt)
+    loss = total / (s if per_example else b * s)
+    if logits_tap is not None:
+        return loss, hc_out
+    return loss
+
+
+# --------------------------------------------------------------------------- #
+# quantized projections and the logits head
+# --------------------------------------------------------------------------- #
+def qproj(spec, x, w, *, seed: int, flag: bool, quant_cfg):
+    """Policy-gated quantized einsum (``repro_torch.quant.fake_quant``);
+    without a quant config (serving), the plain einsum."""
+    if quant_cfg is None:
+        return torch.einsum(spec, x, w)
+    from repro_torch.quant.fake_quant import qeinsum
+    return qeinsum(spec, x, w, seed=seed, flag=flag, fmt=quant_cfg.fmt,
+                   q_fwd=quant_cfg.quantize_fwd,
+                   q_dgrad=quant_cfg.quantize_dgrad,
+                   q_wgrad=quant_cfg.quantize_wgrad,
+                   backend=quant_cfg.backend)
+
+
 def logits_generator(fold: int, device) -> torch.Generator:
     """The logits head's uniform stream for one fold (see LOGITS_SEED)."""
     gen = torch.Generator(device=device)

@@ -3,7 +3,8 @@
 A ``Model`` bundles plain functions over a flat parameter dict
 (``{"embed": ..., "blocks.wq": ..., ...}``, leaf names and layouts as in
 the JAX package) and the device it runs on: the serving hooks of the
-decoder families and the training hooks of the ResNet family.
+decoder families and the training hooks of the ResNet and dense-LM
+families.
 """
 from __future__ import annotations
 
@@ -25,11 +26,16 @@ class Model:
     # params -> params with the block weights cast once to the compute
     # dtype (what the serving functions expect; see transformer.prepare)
     prepare: Callable
-    # training (resnet): forward(params, image, qflags) -> logits and
-    # loss_fn(params, batch, qflags) -> mean loss; qflags is one host-side
-    # bool per DPQuant policy layer
+    # training: loss_fn(params, batch, qflags) -> mean loss; qflags is one
+    # host-side bool per DPQuant policy layer.  forward(params, image,
+    # qflags) -> logits (resnet)
     forward: Optional[Callable] = None
     loss_fn: Optional[Callable] = None
+    # ghost DP (dense_lm): per_example_loss(params, batch, qflags) -> (B,);
+    # ghost_mask(params) -> {name: bool}; ghost_aux(qflags) -> GhostAux
+    per_example_loss: Optional[Callable] = None
+    ghost_mask: Optional[Callable] = None
+    ghost_aux: Optional[Callable] = None
     # serving (decoder families)
     prefill: Optional[Callable] = None       # (params, batch) -> (logits, cache)
     decode_step: Optional[Callable] = None   # (params, cache, token) -> (logits, cache)

@@ -1,12 +1,20 @@
 """Dense decoder-only GQA transformer (gemma / yi / stablelm families):
-the serving path.
+training and serving.
 
-The counterpart of ``repro.models.transformer``'s serving functions.  Params
+The counterpart of ``repro.models.transformer``.  Params
 are a flat dict with the JAX package's leaf names and layouts: ``embed``
 (V, d), ``final_norm`` (d,), ``lm_head`` (d, V) when untied, and the layer
 stacks ``blocks.<leaf>`` with a leading layer axis (``blocks.wq`` is
 (L, d, H, hd), ``blocks.wo`` (L, H, hd, d), ...).  Layers run as a Python
 loop.
+
+Training (``lm_loss``) runs every block projection through
+``common.qproj`` -> ``fake_quant.qeinsum``, gated by the layer's DPQuant
+flag (a host-side bool) with the JAX package's seeds ``97 * layer + j``
+(q, k, v, o, gate, up, down: j = 0..6).  The float32 weights are cast to
+the compute dtype on every call, so gradients reach the float32 leaves.
+``ghost_mask`` and ``make_ghost_aux`` are the ghost engine's hooks
+(``repro_torch.dp.ghost``): every leaf is covered, none falls back.
 
 Serving runs every projection unquantized (the JAX package's policy flag
 is 0 there); only the logits head goes through the quantizer dispatch
@@ -116,31 +124,161 @@ def _activation(gate, up, kind: str):
     raise ValueError(kind)
 
 
-def attention_block(x, blk, positions, cfg: ModelConfig):
+def attention_block(x, blk, positions, cfg: ModelConfig, quant=None,
+                    flag: bool = False, seed: int = 0):
     """Pre-norm GQA attention with RoPE; returns the residual branch and
-    the compact (pre-repeat) K, V."""
+    the compact (pre-repeat) K, V.  With ``quant`` (training) the
+    projections are ``qproj`` under the layer's ``flag`` and ``seed``;
+    without it (serving), plain einsums."""
     cd = torch_dtype(cfg.compute_dtype)
+    qp = functools.partial(cm.qproj, quant_cfg=quant, flag=flag)
     h = cm.rmsnorm(x, blk["attn_norm"]).to(cd)
-    q = torch.einsum("bsd,dhk->bshk", h, blk["wq"].to(cd))
-    k = torch.einsum("bsd,dhk->bshk", h, blk["wk"].to(cd))
-    v = torch.einsum("bsd,dhk->bshk", h, blk["wv"].to(cd))
+    q = qp("bsd,dhk->bshk", h, blk["wq"].to(cd), seed=seed)
+    k = qp("bsd,dhk->bshk", h, blk["wk"].to(cd), seed=seed + 1)
+    v = qp("bsd,dhk->bshk", h, blk["wv"].to(cd), seed=seed + 2)
     q = cm.rope(q, positions, cfg.rope_theta)
     k = cm.rope(k, positions, cfg.rope_theta)
     n_rep = cfg.padded_heads // cfg.n_kv_heads
     out = cm.chunked_causal_attention(
         q, cm.repeat_kv(k, n_rep), cm.repeat_kv(v, n_rep),
         chunk_q=cfg.attn_chunk_q, scale=1.0 / math.sqrt(cfg.head_dim))
-    res = torch.einsum("bshk,hkd->bsd", out, blk["wo"].to(cd))
+    res = qp("bshk,hkd->bsd", out, blk["wo"].to(cd), seed=seed + 3)
     return res, (k, v)
 
 
-def mlp_block(x, blk, cfg: ModelConfig):
+def mlp_block(x, blk, cfg: ModelConfig, quant=None, flag: bool = False,
+              seed: int = 0):
     cd = torch_dtype(cfg.compute_dtype)
+    qp = functools.partial(cm.qproj, quant_cfg=quant, flag=flag)
     h = cm.rmsnorm(x, blk["mlp_norm"]).to(cd)
-    gate = torch.einsum("bsd,df->bsf", h, blk["wi_gate"].to(cd))
-    up = torch.einsum("bsd,df->bsf", h, blk["wi_up"].to(cd))
+    gate = qp("bsd,df->bsf", h, blk["wi_gate"].to(cd), seed=seed + 4)
+    up = qp("bsd,df->bsf", h, blk["wi_up"].to(cd), seed=seed + 5)
     act = _activation(gate, up, cfg.mlp_activation)
-    return torch.einsum("bsf,fd->bsd", act, blk["wo_mlp"].to(cd))
+    return qp("bsf,fd->bsd", act, blk["wo_mlp"].to(cd), seed=seed + 6)
+
+
+# --------------------------------------------------------------------------- #
+# training: loss and ghost hooks
+# --------------------------------------------------------------------------- #
+def forward_hidden(params, tokens, qflags, cfg: ModelConfig,
+                   quant: QuantConfig, embed_tap=None):
+    """Final-norm hidden states (B, S, d) of a training forward.
+    ``embed_tap``: the ghost pass-1 gather hook, a (B, S, d) zero tensor
+    added after the embedding scaling (its gradient is the cotangent the
+    embedding's scatter consumes)."""
+    x = _embed(params, tokens, cfg)
+    if embed_tap is not None:
+        x = x + embed_tap
+    positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
+    # one unbind per stacked leaf: its backward stacks the layers'
+    # gradients once, where indexing layer by layer would add a zero-filled
+    # copy of the whole stack into the leaf's gradient for every layer
+    stacks = {leaf: params[f"blocks.{leaf}"].unbind(0) for leaf in BLOCK_LEAVES}
+    for i in range(cfg.n_layers):
+        blk = {leaf: stacks[leaf][i] for leaf in BLOCK_LEAVES}
+        flag, seed = bool(qflags[i]), 97 * i
+        attn_out, _ = attention_block(x, blk, positions, cfg, quant, flag,
+                                      seed)
+        x = x + attn_out
+        x = x + mlp_block(x, blk, cfg, quant, flag, seed)
+    return cm.rmsnorm(x, params["final_norm"])
+
+
+def lm_loss(params, batch, qflags, cfg: ModelConfig, quant: QuantConfig,
+            per_example: bool = False, ghost_taps=None):
+    """Next-token cross-entropy of ``batch["tokens"]`` (B, S): the mean, or
+    (B,) per example.  ``ghost_taps`` ({"embed_out", "logits"}, the
+    ``GhostAux`` taps) makes the return ``(loss, {"hidden": hc})``.  The
+    JAX package's ``lm_loss`` also takes an rng, which it deletes; the
+    port leaves it out."""
+    tokens = batch["tokens"]
+    taps = ghost_taps or {}
+    h = forward_hidden(params, tokens, qflags, cfg, quant,
+                       embed_tap=taps.get("embed_out"))
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"].T
+    out = cm.chunked_lm_loss(h[:, :-1], tokens[:, 1:], head,
+                             real_vocab=cfg.vocab_size, ce_chunk=cfg.ce_chunk,
+                             per_example=per_example,
+                             logits_tap=taps.get("logits"))
+    if ghost_taps is not None:
+        loss, hc = out
+        return loss, {"hidden": hc}
+    return out
+
+
+# Every block projection runs through cm.qproj -> qeinsum and so carries a
+# ghost norm hook; the norm scales are tapped by the rmsnorm hook and the
+# embedding / LM head by the GhostAux below: no leaf falls back.
+_GHOST_HOOKED_LEAVES = frozenset(_MATMUL_LEAVES)
+
+
+def ghost_mask(params) -> dict:
+    return {k: k.split(".")[-1] in _GHOST_HOOKED_LEAVES for k in params}
+
+
+def make_ghost_aux(qflags, cfg: ModelConfig, quant: QuantConfig):
+    """Dense-LM ``GhostAux``: the gather and LM-head hooks.
+
+    Per example, the embedding's gradient is a gather-scatter term and
+    (tied embeddings) a head term on the SAME leaf:
+
+        d_gather = s A^T C      A = onehot(tokens) (T, V), C = gather-out
+                                cotangent (T, d), s = the embedding scale
+        d_head   = G^T H        G = logits cotangent (S-1, V_pad),
+                                H = float32 hidden rows (S-1, d)
+
+    so ``||d_gather + d_head||^2`` needs the token-equality-masked Gram of
+    the lookup cotangents, the head's mixed ghost norm and the cross term
+    ``2 <d_gather, d_head> = 2 sum_{s,t} G[s, tok_t] <sC_t, H_s>``.  Untied
+    heads drop the cross term and split the two norms over embed /
+    lm_head.
+
+    ``s`` is the scale the forward multiplies by: ``sqrt(d_model)`` in the
+    compute dtype.  The JAX package uses the unrounded ``sqrt(d_model)``
+    here, which differs from its own forward's by the bf16 rounding
+    (50.5 against 50.596 at d_model 2560) and equals it at float32.
+    """
+    from repro_torch.dp.ghost import GhostAux, _matpair_sq_norm
+
+    cd = torch_dtype(cfg.compute_dtype)
+    emb_scale = float(torch.tensor(math.sqrt(cfg.d_model), dtype=cd))
+
+    def make_taps(batch):
+        b, t = batch["tokens"].shape
+        dev = batch["tokens"].device
+        return {
+            "embed_out": torch.zeros((b, t, cfg.d_model), dtype=cd,
+                                     device=dev),
+            "logits": torch.zeros((b, t - 1, cfg.padded_vocab),
+                                  dtype=torch.float32, device=dev),
+        }
+
+    def tapped_loss(params, batch, taps):
+        return lm_loss(params, batch, qflags, cfg, quant, per_example=True,
+                       ghost_taps=taps)
+
+    def combine(cots, fwd, batch):
+        c = cots["embed_out"].float() * emb_scale            # (B, T, d)
+        g = cots["logits"].float()                           # (B, S-1, Vp)
+        h = fwd["hidden"].float()                            # (B, S-1, d)
+        tok = batch["tokens"].long()
+        eq = (tok[:, :, None] == tok[:, None, :]).float()
+        sq_gather = (eq * (c @ c.transpose(1, 2))).sum(dim=(1, 2))
+        sq_head = _matpair_sq_norm(h, g)
+        if not cfg.tie_embeddings:
+            return sq_gather + sq_head
+        g_tok = torch.gather(g, 2, tok[:, None, :].expand(-1, g.shape[1], -1))
+        cross = (g_tok * (h @ c.transpose(1, 2))).sum(dim=(1, 2))
+        return sq_gather + sq_head + 2.0 * cross
+
+    def covers(params):
+        # embed and (untied) lm_head by the taps above; the *_norm scales
+        # by the rmsnorm hook (hook_norm_scales)
+        return {k: k.split(".")[-1] in ("embed", "lm_head")
+                or k.endswith("norm") for k in params}
+
+    return GhostAux(make_taps=make_taps, tapped_loss=tapped_loss,
+                    combine=combine, covers=covers, hook_norm_scales=True)
 
 
 # --------------------------------------------------------------------------- #
@@ -335,6 +473,11 @@ def build_dense_lm(cfg: ModelConfig, quant: QuantConfig, device) -> Model:
         config=cfg, quant=quant, device=device,
         init=functools.partial(init_params, cfg=cfg, device=device),
         prepare=functools.partial(prepare, cfg=cfg),
+        loss_fn=functools.partial(lm_loss, cfg=cfg, quant=quant),
+        per_example_loss=functools.partial(lm_loss, cfg=cfg, quant=quant,
+                                           per_example=True),
+        ghost_mask=ghost_mask,
+        ghost_aux=functools.partial(make_ghost_aux, cfg=cfg, quant=quant),
         prefill=functools.partial(prefill, cfg=cfg, quant=quant),
         decode_step=functools.partial(decode_step, cfg=cfg, quant=quant),
         decode_slots=functools.partial(decode_slots, cfg=cfg, quant=quant),

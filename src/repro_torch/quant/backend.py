@@ -22,6 +22,15 @@ The counterpart of ``repro.quant.backend``:
                   per-example clip and batch sum of (B, D) rows; format-
                   agnostic (registered under fmt ``"*"``) and selected by
                   its own knob (:func:`get_clip_sum`).
+``"ghost_norm"``  ``gn(x, g, ux, ug) -> (B,) float32``: the ghost-clipping
+                  tap ``||Q(x_b)^T Q(g_b)||_F^2`` of B examples from their
+                  (B, T, Dx) / (B, T, Dg) wgrad-GEMM matrix views, each
+                  example quantized on its own scale against the uniforms
+                  ``ux`` (T * Dx,) / ``ug`` (T * Dg,) shared by the
+                  examples (``None`` for the deterministic formats).  The
+                  ref impl quantizes per example and reduces with
+                  ``dp.ghost._matpair_sq_norm``; the cuda impl is the
+                  ``ghost_norm`` kernel (Gram route only).
 
 Backends: ``"ref"`` (plain PyTorch, every format) and ``"cuda"`` (the
 hand-written kernels of ``repro_torch.kernels``; on CPU tensors their plain
@@ -30,8 +39,6 @@ backend does not implement falls back to ``"ref"`` explicitly, and
 ``get_*`` returns ``(impl, actual_backend)`` so callers can see where an
 op runs.  That fallback is about formats only: a CUDA tensor given to a
 kernel wrapper goes through the kernel or raises.
-
-``ghost_norm`` waits for the ghost-mode slice.
 """
 from __future__ import annotations
 
@@ -45,7 +52,8 @@ from repro_torch.quant import formats
 ENV_VAR = "REPRO_QUANT_BACKEND"
 DEFAULT_BACKEND = "ref"
 BACKENDS = ("ref", "cuda")
-OPS = ("quantize", "matmul", "clip_sum", "kv_quant", "decode_attn")
+OPS = ("quantize", "matmul", "clip_sum", "ghost_norm", "kv_quant",
+       "decode_attn")
 
 # fmt sentinel for format-agnostic ops (clip_sum)
 ANY_FORMAT = "*"
@@ -111,6 +119,11 @@ def get_clip_sum(backend: str | None = None):
 def get_matmul(fmt: str, backend: str | None = None):
     """``(mm(a, b, gen) -> (R, N) float32, actual_backend)``."""
     return get_impl("matmul", fmt, backend)
+
+
+def get_ghost_norm(fmt: str, backend: str | None = None):
+    """``(gn(x, g, ux, ug) -> (B,) float32, actual_backend)``."""
+    return get_impl("ghost_norm", fmt, backend)
 
 
 def get_kv_quant(fmt: str, backend: str | None = None):
@@ -187,6 +200,20 @@ def _ref_matmul(fmt: str) -> Callable:
     return mm
 
 
+def _ref_ghost_norm(fmt: str) -> Callable:
+    q = _ref_quantize(fmt)
+
+    def gn(x, g, ux, ug):
+        # lazy: dp.ghost imports this module
+        from repro_torch.dp.ghost import _matpair_sq_norm
+        B = x.shape[0]
+        xq = q(x.float().reshape(B, -1), ux).reshape(x.shape)
+        gq = q(g.float().reshape(B, -1), ug).reshape(g.shape)
+        return _matpair_sq_norm(xq, gq)
+
+    return gn
+
+
 def _ref_kv_quant(fmt: str) -> Callable:
     def kvq(x):
         from repro_torch.quant import kv_cache
@@ -207,6 +234,7 @@ def _ref_decode_attn(fmt: str) -> Callable:
 for _fmt in formats._FORMATS:
     register("quantize", _fmt, "ref", _ref_quantize(_fmt))
     register("matmul", _fmt, "ref", _ref_matmul(_fmt))
+    register("ghost_norm", _fmt, "ref", _ref_ghost_norm(_fmt))
 register("clip_sum", ANY_FORMAT, "ref", _ref_clip_sum)
 for _fmt in ("none", "int8", "luq_fp4"):
     register("kv_quant", _fmt, "ref", _ref_kv_quant(_fmt))
@@ -214,8 +242,9 @@ for _fmt in ("none", "int8", "luq_fp4"):
 
 
 # --------------------------------------------------------------------------- #
-# cuda backend: the kernels of repro_torch.kernels (LUQ-FP4 quantize and
-# matmul; the clip, any format; the two quantized KV formats).  Wrappers
+# cuda backend: the kernels of repro_torch.kernels (LUQ-FP4 quantize,
+# matmul and ghost norm; the clip, any format; the two quantized KV
+# formats).  Wrappers
 # are imported lazily so that importing this module builds and loads
 # nothing.
 # --------------------------------------------------------------------------- #
@@ -242,6 +271,14 @@ def _cuda_matmul(a, b, gen):
     return luq_matmul(a, b, ua, ub, alpha_a, b.abs().amax())
 
 
+def _cuda_ghost_norm(x, g, ux, ug):
+    from repro_torch.kernels.ops import ghost_norm_sq
+    x = x.float().contiguous()
+    g = g.float().contiguous()
+    return ghost_norm_sq(x, g, ux, ug, x.abs().amax(dim=(1, 2)),
+                         g.abs().amax(dim=(1, 2)))
+
+
 def _cuda_kv_quant(fmt: str) -> Callable:
     def kvq(x):
         from repro_torch.kernels.ops import kv_quant_rows
@@ -262,6 +299,7 @@ def _cuda_decode_attn(fmt: str) -> Callable:
 register("quantize", "luq_fp4", "cuda", _cuda_quantize)
 register("matmul", "luq_fp4", "cuda", _cuda_matmul)
 register("clip_sum", ANY_FORMAT, "cuda", _cuda_clip_sum)
+register("ghost_norm", "luq_fp4", "cuda", _cuda_ghost_norm)
 # kv_fmt="none" has no kernel (there is nothing to dequantize); it falls
 # back to ref explicitly through get_impl, like every missing format
 for _fmt in ("int8", "luq_fp4"):

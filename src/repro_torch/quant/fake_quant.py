@@ -1,17 +1,17 @@
-"""Fake-quantized convolution (paper A.12, Fig. 7).
+"""Fake-quantized GEMM and convolution (paper A.12, Fig. 7).
 
-The counterpart of ``repro.quant.fake_quant`` for ``qconv2d``.  The paper's
-simulation quantizes the inputs of all three GEMMs of a layer:
+The counterpart of ``repro.quant.fake_quant`` (``qeinsum``, ``qconv2d``).
+The paper's simulation quantizes the inputs of all three GEMMs of a layer:
 
     forward :  y  = Q(x)  * Q(w)
     dgrad   :  dx = Q(g)  * Q(w)^T
     wgrad   :  dw = Q(x)^T * Q(g)
 
-``qconv2d`` is a ``torch.autograd.Function`` whose backward runs the two
-transposed convolutions (``torch.nn.grad.conv2d_input`` /
-``conv2d_weight``) on freshly quantized operands.  The six quantize points
-carry the JAX package's fold numbers: forward Q(x) 0, Q(w) 1; dgrad Q(w) 2,
-Q(g) 3; wgrad Q(x) 4, Q(g) 5.
+``qeinsum`` and ``qconv2d`` are ``torch.autograd.Function``s whose
+backward runs the two transposed products (the einsum's transposes;
+``torch.nn.grad.conv2d_input`` / ``conv2d_weight``) on freshly quantized
+operands.  The six quantize points carry the JAX package's fold numbers:
+forward Q(x) 0, Q(w) 1; dgrad Q(w) 2, Q(g) 3; wgrad Q(x) 4, Q(g) 5.
 
 Randomness: each (seed, fold) pair has its own uniform stream, a
 ``torch.Generator`` seeded from seed and fold mixed separately (a combined
@@ -27,12 +27,20 @@ becomes the rows of one kernel call, each row scaled by its own
 computes when ``vmap`` hands each lane one example and an unbatched key.
 A weight is not batched and is quantized whole, as one row.
 
+``qeinsum`` also has an explicit per-example mode, which the ghost engine
+(``repro_torch.dp.ghost``) turns on for its batched passes: the batched
+operands (x, g) are quantized one row per example with one shared draw,
+exactly what the vmap rule computes, and the weight whole.  In its norm
+pass a ``qeinsum`` also takes the pass's (B,) tap tensor, whose gradient
+its backward defines as the per-example squared weight-gradient norm.
+
 Policy flags are host-side bools (the policy is fixed for an epoch): a
 layer that is not quantized runs a plain convolution and launches no
 quantizer.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -73,6 +81,12 @@ def _quantize_rows(rows, fmt: str, backend: str, seed: int, fold: int):
     return q(rows.float(), u).to(rows.dtype)
 
 
+def _quantize_per_example(x, fmt: str, backend: str, seed: int, fold: int):
+    """One row per example (the leading axis), one shared draw."""
+    rows = x.reshape(x.shape[0], -1)
+    return _quantize_rows(rows, fmt, backend, seed, fold).reshape(x.shape)
+
+
 @torch.library.custom_op("repro_torch::fake_quant", mutates_args=())
 def fake_quant(x: torch.Tensor, fmt: str, backend: str, seed: int,
                fold: int) -> torch.Tensor:
@@ -91,9 +105,8 @@ def _fake_quant_vmap(info, in_dims, x, fmt, backend, seed, fold):
     bdim = in_dims[0]
     if bdim is None:
         return fake_quant(x, fmt, backend, seed, fold), None
-    x = x.movedim(bdim, 0)
-    rows = x.reshape(x.shape[0], -1)
-    return _quantize_rows(rows, fmt, backend, seed, fold).reshape(x.shape), 0
+    return _quantize_per_example(x.movedim(bdim, 0), fmt, backend, seed,
+                                 fold), 0
 
 
 fake_quant.register_vmap(_fake_quant_vmap)
@@ -216,3 +229,103 @@ def qconv2d(x: torch.Tensor, w: torch.Tensor, *, seed: int, flag: bool,
     spec = _QSpec(fmt, qbackend.resolve_backend(backend), int(seed),
                   bool(q_fwd), bool(q_dgrad), bool(q_wgrad), geo)
     return _QConv2d.apply(x, w_oihw, spec)
+
+
+# --------------------------------------------------------------------------- #
+# einsum
+# --------------------------------------------------------------------------- #
+class _ESpec(NamedTuple):
+    spec: str
+    fmt: str
+    backend: str
+    seed: int
+    quantized: bool       # the layer's flag and fmt != "none"
+    q_fwd: bool
+    q_dgrad: bool
+    q_wgrad: bool
+    per_example: bool     # batched operands quantized one row per example
+
+
+@functools.lru_cache(maxsize=None)
+def _terms(spec: str):
+    """(x_term, w_term, out_term) of ``spec``; its transposes (dgrad
+    ``out,w->x``, wgrad ``x,out->w``) need every axis of an operand in
+    the other operand or in the output."""
+    lhs, out = spec.replace(" ", "").split("->")
+    x_term, w_term = lhs.split(",")
+    if (set(x_term) - set(w_term) - set(out)
+            or set(w_term) - set(x_term) - set(out)):
+        raise ValueError(f"einsum spec {spec!r}: every operand axis must be "
+                         f"contracted with the other operand or kept")
+    return x_term, w_term, out
+
+
+def _qe(t, spec: _ESpec, fold: int, on: bool, batched: bool):
+    if not (on and spec.quantized):
+        return t
+    if batched and spec.per_example:
+        return _quantize_per_example(t, spec.fmt, spec.backend, spec.seed,
+                                     fold)
+    return fake_quant(t, spec.fmt, spec.backend, spec.seed, fold)
+
+
+class _QEinsum(torch.autograd.Function):
+    """``einsum(spec, x, w)``; quantized fwd / dgrad / wgrad GEMM inputs,
+    and, with a ``tap``, the ghost norm as the tap's gradient."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, w, tap, spec: _ESpec):
+        with torch.no_grad():
+            xq = _qe(x, spec, 0, spec.q_fwd, True)
+            wq = _qe(w, spec, 1, spec.q_fwd, False)
+            return torch.einsum(spec.spec, xq, wq)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, tap, spec = inputs
+        ctx.save_for_backward(x, w)
+        ctx.spec = spec
+        ctx.tapped = tap is not None
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        spec = ctx.spec
+        x_term, w_term, out = _terms(spec.spec)
+        dx = dw = dtap = None
+        with torch.no_grad():
+            if ctx.needs_input_grad[0]:
+                wq = _qe(w, spec, 2, spec.q_dgrad, False)
+                gq = _qe(g, spec, 3, spec.q_dgrad, True)
+                dx = torch.einsum(f"{out},{w_term}->{x_term}", gq, wq)
+            if ctx.needs_input_grad[1]:
+                xq = _qe(x, spec, 4, spec.q_wgrad, True)
+                gq = _qe(g, spec, 5, spec.q_wgrad, True)
+                dw = torch.einsum(f"{x_term},{out}->{w_term}", xq, gq)
+            if ctx.tapped:
+                from repro_torch.dp import ghost
+                dtap = ghost._tap_sq_norm(spec, x, g)
+        return dx, dw, dtap, None
+
+
+def qeinsum(spec: str, x: torch.Tensor, w: torch.Tensor, *, seed: int,
+            flag: bool, fmt: str = "luq_fp4", q_fwd: bool = True,
+            q_dgrad: bool = True, q_wgrad: bool = True,
+            backend: str = None) -> torch.Tensor:
+    """Quantization-aware einsum of an activation ``x`` (leading axis: the
+    examples) and a weight ``w``.  ``flag`` and ``seed`` are host-side: a
+    layer whose flag is off, or ``fmt="none"``, runs the plain einsum,
+    except under a ghost norm pass, which taps every hooked einsum."""
+    from repro_torch.dp import ghost
+    ctx = ghost.current()
+    norm_pass = ctx is not None and ctx.mode == "norm"
+    quantized = bool(flag) and fmt != "none"
+    if not (quantized or norm_pass):
+        return torch.einsum(spec, x, w)
+    _terms(spec)
+    espec = _ESpec(spec, fmt, qbackend.resolve_backend(backend), int(seed),
+                   quantized, bool(q_fwd), bool(q_dgrad), bool(q_wgrad),
+                   per_example=ctx is not None)
+    return _QEinsum.apply(x, w, ctx.tap if norm_pass else None, espec)

@@ -7,10 +7,10 @@ only one ported.  Per epoch:
      probe batches — charges one "analysis" SGM step;
   2. SELECTTARGETS -> this epoch's quantized-layer flags (host-side bools,
      fixed for the epoch);
-  3. ``steps_per_epoch`` DP-SGD/DP-Adam steps on Poisson-sampled batches,
-     one step per Python iteration: one host sync (the step's loss) and
-     one accountant charge per step;
-  4. optional eval.
+  3. ``steps_per_epoch`` DP-SGD/DP-Adam steps on Poisson-sampled batches
+     (images or token sequences), one step per Python iteration: one host
+     sync (the step's loss) and one accountant charge per step;
+  4. optional eval (the ResNet family; a dense LM has no eval set).
 
 The sampler, probe draws, per-step seeds and learning rates come from
 ``RunConfig.seed`` exactly as in the JAX package, so a fixed seed sees the

@@ -9,8 +9,10 @@ machine with the card:
 Tolerances: codes, scales and quantized operands bitwise (the kernels
 repeat the plain versions' float32 operations); attention and matmul
 outputs to float32 summation order; the clip's norms rtol 1e-5 and its
-sum within 1e-5 of sum_b |scale_b g_bd| per column (summation order),
-as in ``chip_smoke.py``.  TF32 is off for the plain versions.
+sum within 1e-5 of sum_b |scale_b g_bd| per column (summation order);
+the ghost norm within 1e-5 of sum_ij |XX_ij GG_ij| per example
+(summation order), as in ``chip_smoke.py``.  The clip and the ghost norm
+give the same bits on every run.  TF32 is off for the plain versions.
 """
 import pytest
 
@@ -132,6 +134,46 @@ def test_clip_and_sum_close(cuda, B, D):
     assert torch.equal(out, again)
 
 
+def _ghost_inputs(device, B, T, Dx, Dg, seed):
+    """x, g with the rounding's edges mixed in and, with several examples,
+    an all-zero example; shared uniforms, per-example scales."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(B, T, Dx, device=device, generator=gen).clamp(-3.5, 3.5)
+    g = torch.randn(B, T, Dg, device=device, generator=gen) * 0.01
+    x[:, 0, 0] = 4.0
+    levels = 4.0 * 2.0 ** -torch.arange(0, 9, device=device)
+    below = torch.nextafter(levels, torch.zeros_like(levels))
+    edges = torch.cat([levels, -levels, below, -below])
+    n = min(edges.numel(), Dx)
+    x[:, -1, :n] = edges[:n]
+    if B > 1:
+        x[1] = 0.0
+    ux = torch.rand(T * Dx, device=device, generator=gen)
+    ug = torch.rand(T * Dg, device=device, generator=gen)
+    return (x, g, ux, ug, x.abs().amax(dim=(1, 2)), g.abs().amax(dim=(1, 2)))
+
+
+@pytest.mark.parametrize("B,T,Dx,Dg", [
+    (4, 256, 2560, 6912),               # stablelm-3b gate / up in pass 1
+    (1, 37, 48, 80),                    # T not a multiple of the tile
+    (4, 130, 96, 40),                   # Dx != Dg, ragged columns
+    (3, 64, 2560, 2560),
+])
+def test_ghost_norm_close_and_deterministic(cuda, B, T, Dx, Dg):
+    args = _ghost_inputs(cuda, B, T, Dx, Dg, 5)
+    out = ops.ghost_norm_sq(*args)
+    want = ref.ghost_norm_ref(*args)
+    x, g, ux, ug, ax, ag = args
+    xq = ref.luq_fp4(x.reshape(B, -1), ux, ax[:, None]).reshape(x.shape)
+    gq = ref.luq_fp4(g.reshape(B, -1), ug, ag[:, None]).reshape(g.shape)
+    bound = 1e-5 * ((xq @ xq.transpose(1, 2)).abs()
+                    * (gq @ gq.transpose(1, 2)).abs()).sum(dim=(1, 2))
+    assert ((out - want).abs() <= bound).all()
+    if B > 1:
+        assert out[1].item() == 0.0                   # the zero example
+    assert torch.equal(out, ops.ghost_norm_sq(*args))  # no atomics
+
+
 def test_launch_counts_count_kernel_launches_only(cuda):
     ops.reset_launch_counts()
     x = torch.randn(2, 3, 128, device=cuda)
@@ -142,8 +184,12 @@ def test_launch_counts_count_kernel_launches_only(cuda):
     ops.luq_quant(rows, u, rows.abs().amax(dim=1))
     ops.luq_quant(rows.cpu(), u.cpu(), rows.abs().amax(dim=1).cpu())
     ops.clip_and_sum(rows, 1.0)
+    args = _ghost_inputs(cuda, 2, 8, 16, 24, 6)
+    ops.ghost_norm_sq(*args)
+    ops.ghost_norm_sq(*(t.cpu() for t in args))
     assert ops.LAUNCHES == {"luq_matmul": 0, "kv_quant_rows": 1,
                             "decode_attn_fused": 0, "luq_quant": 1,
-                            "clip_and_sum": 1}
+                            "clip_and_sum": 1, "ghost_norm_sq": 1}
     assert ops.LUQ_MATMUL_LAUNCHES == {"shared": 0, "per_row": 0}
     assert ops.LUQ_QUANT_LAUNCHES == {"one_row": 0, "rows": 1}
+    assert ops.GHOST_NORM_LAUNCHES == {"16/24": 1}

@@ -272,8 +272,24 @@ def test_clip_sum_has_its_own_knob(monkeypatch):
 
 
 def test_ghost_mode_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ghost"):
-        engine.validate_grad_mode(dataclasses.replace(DPConfig(),
-                                                      grad_mode="ghost"))
+    """Grad-mode validation.  Ghost mode is ported for the dense LMs; on a
+    ResNet it needs the conv ghost taps, a later slice, and raises.  Ghost
+    with the fused clip, an unknown mode and an unknown clip path are
+    refused."""
+    ghost_dp = dataclasses.replace(DPConfig(), grad_mode="ghost")
+    resnet = build_model(get_smoke_config("resnet18"),
+                         QuantConfig(fmt="none"), device="cpu")
+    lm = build_model(get_smoke_config("stablelm-3b"), QuantConfig(fmt="none"),
+                     device="cpu")
+    with pytest.raises(NotImplementedError, match="conv ghost taps"):
+        engine.validate_grad_mode(ghost_dp, resnet)
+    with pytest.raises(NotImplementedError, match="conv ghost taps"):
+        build_train_setup(resnet, RunConfig(model=resnet.config, dp=ghost_dp))
+    engine.validate_grad_mode(ghost_dp, lm)
+    with pytest.raises(ValueError, match="clip_backend='fused'"):
+        engine.validate_grad_mode(dataclasses.replace(
+            ghost_dp, clip_backend="fused"), lm)
+    with pytest.raises(ValueError, match="grad_mode"):
+        engine.validate_grad_mode(DPConfig(grad_mode="sharded"))
     with pytest.raises(ValueError, match="clip_backend"):
         engine.validate_grad_mode(DPConfig(clip_backend="pallas"))

@@ -1,0 +1,108 @@
+"""The ghost norm kernel's plain version (``repro_torch.kernels.ref.
+ghost_norm_ref``, what ``ops.ghost_norm_sq`` runs on CPU tensors) and the
+backend's ``ghost_norm`` op, against the JAX package.
+
+* against the Pallas kernel ``ghost_norm_gram`` in interpret mode, fed the
+  same (padded) uniforms and scales: rtol 2e-5, the JAX package's own
+  fused-vs-composition tolerance (``tests/test_kernels.py``);
+* against the quantize-then-Gram composition with the port's own draws
+  (the ``ref`` and ``cuda`` backends' op): rtol 2e-5; against the direct
+  ``||Q(x)^T Q(g)||^2``: rtol 2e-4 (another summation of the same
+  products);
+* exactly 0 for a zero operand, exactly 1/16 for g scaled by 1/4 (LUQ's
+  per-tensor max scaling is scale-invariant), and a batched call equals
+  the per-example calls.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.ghost_norm import ghost_norm_gram  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.quant import backend as qbackend  # noqa: E402
+from repro_torch.quant import fake_quant as fq  # noqa: E402
+
+torch.set_num_threads(1)
+
+SHAPES = [(16, 32, 64), (15, 384, 48), (8, 100, 200)]      # (T, Dx, Dg)
+
+
+def _operands(t, dx, dg, seed, b=1):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, t, dx)).astype(np.float32)
+    g = (rng.standard_normal((b, t, dg)) * 0.01).astype(np.float32)
+    return torch.from_numpy(x), torch.from_numpy(g)
+
+
+def _alphas(x, g):
+    return x.abs().amax(dim=(1, 2)), g.abs().amax(dim=(1, 2))
+
+
+@pytest.mark.parametrize("tdd", SHAPES)
+def test_plain_version_matches_pallas_kernel(tdd):
+    t, dx, dg = tdd
+    x, g = _operands(t, dx, dg, t * dx)
+    rng = np.random.default_rng(dg)
+    ux = rng.random((t, dx), dtype=np.float32)
+    ug = rng.random((t, dg), dtype=np.float32)
+    ax, ag = _alphas(x, g)
+    got = ref.ghost_norm_ref(x, g, torch.from_numpy(ux).reshape(-1),
+                             torch.from_numpy(ug).reshape(-1), ax, ag)
+    # the JAX wrapper's padding: rows to a multiple of 8, both operands to
+    # one column count, a multiple of 256 (zeros change neither Gram)
+    d = -(-max(dx, dg) // 256) * 256
+    pt = (-t) % 8
+
+    def pad(a):
+        return jnp.pad(jnp.asarray(a), ((0, pt), (0, d - a.shape[1])))
+
+    want = ghost_norm_gram(pad(x[0].numpy()), pad(ux), pad(g[0].numpy()),
+                           pad(ug), jnp.asarray(ax.numpy()).reshape(1, 1),
+                           jnp.asarray(ag.numpy()).reshape(1, 1),
+                           interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want)[0], rtol=2e-5)
+
+
+@pytest.mark.parametrize("tdd", SHAPES)
+def test_plain_version_matches_quantize_then_gram(tdd):
+    """The port's draws for folds 4 and 5 feed the fused op; quantizing
+    each example with the same draws, then the Grams (both backends'
+    op) or the direct product, gives the same norm."""
+    t, dx, dg = tdd
+    x, g = _operands(t, dx, dg, 3 * t, b=2)
+    ux = fq.uniforms(7, 4, t * dx, "cpu")
+    ug = fq.uniforms(7, 5, t * dg, "cpu")
+    got = ref.ghost_norm_ref(x, g, ux, ug, *_alphas(x, g))
+    for backend in ("ref", "cuda"):
+        gn, actual = qbackend.get_ghost_norm("luq_fp4", backend)
+        assert actual == backend
+        np.testing.assert_allclose(gn(x, g, ux, ug).numpy(), got.numpy(),
+                                   rtol=2e-5)
+    xq = fq._quantize_per_example(x, "luq_fp4", "ref", 7, 4)
+    gq = fq._quantize_per_example(g, "luq_fp4", "ref", 7, 5)
+    direct = (xq.transpose(1, 2) @ gq).square().sum(dim=(1, 2))
+    np.testing.assert_allclose(direct.numpy(), got.numpy(), rtol=2e-4)
+
+
+def test_zero_operand_scale_invariance_and_batching():
+    t, dx, dg = 12, 40, 24
+    x, g = _operands(t, dx, dg, 11, b=3)
+    ux = fq.uniforms(2, 4, t * dx, "cpu")
+    ug = fq.uniforms(2, 5, t * dg, "cpu")
+    x[1] = 0.0                                        # a zero example
+    args = (x, g, ux, ug, *_alphas(x, g))
+    out = ops.ghost_norm_sq(*args)
+    assert out[1].item() == 0.0 and (out[[0, 2]] > 0).all()
+    assert ops.LAUNCHES["ghost_norm_sq"] == 0         # CPU: the plain version
+    quarter = ops.ghost_norm_sq(x, 0.25 * g, ux, ug, args[4],
+                                0.25 * args[5])
+    np.testing.assert_allclose(quarter.numpy(), 0.0625 * out.numpy(),
+                               rtol=1e-6)
+    for b in range(3):
+        one = ops.ghost_norm_sq(x[b:b + 1], g[b:b + 1], ux, ug,
+                                args[4][b:b + 1], args[5][b:b + 1])
+        np.testing.assert_allclose(one.numpy(), out[b:b + 1].numpy(),
+                                   rtol=1e-6)

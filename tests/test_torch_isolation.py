@@ -90,8 +90,13 @@ def test_kernel_wrappers_never_send_device_tensors_to_plain_versions():
                       torch.empty(2))
     with pytest.raises(ValueError, match="CPU tensors or all on one CUDA"):
         ops.clip_and_sum(torch.empty(2, 8, **meta), 1.0)
+    with pytest.raises(ValueError, match="CPU tensors or all on one CUDA"):
+        ops.ghost_norm_sq(torch.empty(2, 4, 8, **meta), torch.empty(2, 4, 6),
+                          torch.empty(32), torch.empty(24), torch.empty(2),
+                          torch.empty(2))
     assert ops.LAUNCHES == {"luq_matmul": 0, "kv_quant_rows": 0,
                             "decode_attn_fused": 0, "luq_quant": 0,
-                            "clip_and_sum": 0}
+                            "clip_and_sum": 0, "ghost_norm_sq": 0}
     assert ops.LUQ_MATMUL_LAUNCHES == {"shared": 0, "per_row": 0}
     assert ops.LUQ_QUANT_LAUNCHES == {"one_row": 0, "rows": 0}
+    assert ops.GHOST_NORM_LAUNCHES == {}
