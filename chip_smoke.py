@@ -40,7 +40,12 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    pass 1 (``ghost_norm_sq`` launched) within rtol 1e-4 of the norms of
    the per-example gradients (in float32 also of the vmap engine's) and
    the clipped gradients within rtol 2e-4, atol 2e-5 (the JAX package's
-   tolerances; ``ghost_vs_vmap`` says why example by example);
+   tolerances; ``ghost_vs_vmap`` says why example by example); and
+   witnesses why a chunk of 4 gives other LUQ norms than one example at a
+   time (``batch_shape_witness``): at fmt none and at an identity format
+   the two agree within rtol 1e-4, and at luq_fp4 it counts, for every
+   projection, the forward inputs and output cotangents that differ and
+   the LUQ codes that flip;
 7. serves yi-6b at full width and depth (random weights from a seed)
    through ``ContinuousEngine`` with the workload of
    ``repro_torch/launch/workload.py``: 4 slots, 8 requests, prompts of
@@ -78,10 +83,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# Published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): memory
-# rate, and float32 outside the tensor cores (the kernels' arithmetic).
+# Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit):
+# memory rate, float32 outside the tensor cores (most kernels'
+# arithmetic), and bf16 on the tensor cores (products of values that bf16
+# holds exactly, summed in float32).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_TC_FLOPS_PER_S = 989e12
 # float32 operations of one LUQ rounding (abs, two divisions, log2,
 # floor, two exp2, clamps, compares, selects, sign, two products)
 LUQ_OPS = 24
@@ -89,11 +97,13 @@ LUQ_OPS = 24
 SEED = 0                  # of the kernel checks' inputs
 
 
-def bound(nbytes: float, flops: float):
-    """(bound_ms, bound_by): the larger of bytes / memory rate and
-    operations / float32 rate."""
+def bound(nbytes: float, flops: float, tc_flops: float = 0.0):
+    """(bound_ms, bound_by): the larger of bytes / memory rate and the
+    operations' time: ``flops`` at the float32 rate, ``tc_flops`` (work
+    the bf16 tensor cores could do exactly) at theirs, whichever is
+    longer."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = max(flops / F32_FLOPS_PER_S, tc_flops / BF16_TC_FLOPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -327,7 +337,7 @@ def check_ghost_norm(torch, ops, ref, B, T, Dx, Dg, reps=20):
     xq = ref.luq_fp4(x.reshape(B, -1), ux, ax[:, None]).reshape(x.shape)
     gq = ref.luq_fp4(g.reshape(B, -1), ug, ag[:, None]).reshape(g.shape)
 
-    def grams():
+    def grams_bmm():
         xx = torch.bmm(xq, xq.transpose(1, 2))
         gg = torch.bmm(gq, gq.transpose(1, 2))
         return (xx * gg).sum(dim=(1, 2))
@@ -339,16 +349,24 @@ def check_ghost_norm(torch, ops, ref, B, T, Dx, Dg, reps=20):
         raise AssertionError(f"ghost_norm_sq ({B}, {T}, {Dx}, {Dg}): "
                              f"{out.tolist()} against {want.tolist()} "
                              f"(tolerance {tol.tolist()})")
-    torch.testing.assert_close(grams(), want, rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(grams_bmm(), want, rtol=1e-5, atol=0.0)
     nbytes = 4 * (x.numel() + g.numel() + ux.numel() + ug.numel() + 3 * B)
-    flops = (2 * B * T * T * (Dx + Dg) + 2 * B * T * T
-             + LUQ_OPS * B * T * (Dx + Dg))
+    # the least work: the LUQ rounding in float32, and each symmetric Gram's
+    # upper triangle with its diagonal, T (T + 1) / 2 dot products of D,
+    # on the bf16 tensor cores (Q(v) / alpha = +-2^-k is exact in bf16),
+    # then the T (T + 1) / 2 products XX o GG and their sum in float32
+    luq = LUQ_OPS * B * T * (Dx + Dg)
+    grams = B * T * (T + 1) * (Dx + Dg)
+    # the convention of the other rows: both whole Grams in float32
+    full_f32 = 2 * B * T * T * (Dx + Dg) + 2 * B * T * T + luq
     return {
         "max_abs_err": err.max().item(),
         "ms": time_ms(torch, lambda: ops.ghost_norm_sq(*args), reps),
         "plain_ms": time_ms(torch, lambda: ref.ghost_norm_ref(*args), reps),
-        **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
-        "library_ms": time_ms(torch, grams, reps),
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(nbytes, luq + B * T * (T + 1), grams))),
+        "bound_f32_full_grams_ms": bound(nbytes, full_f32)[0],
+        "library_ms": time_ms(torch, grams_bmm, reps),
     }
 
 
@@ -444,6 +462,98 @@ def _free(torch):
     torch.cuda.empty_cache()
 
 
+class _ProjectionOperands:
+    """Ghost-pass hooks (``repro_torch.dp.ghost.GhostHooks``' interface)
+    that keep every projection's forward input and the cotangent of its
+    output, and tap nothing."""
+
+    def __init__(self):
+        self.inputs, self.cotangents = [], {}
+
+    def qeinsum(self, spec, x, w, **kw):
+        from repro_torch.quant import fake_quant
+        i = len(self.inputs)
+        self.inputs.append((x.detach(), kw["seed"]))
+        y = fake_quant.qeinsum(spec, x, w, per_example=True, **kw)
+        y.register_hook(lambda g: self.cotangents.__setitem__(i, g.detach()))
+        return y
+
+    def rmsnorm_scale(self, scale, x):
+        return scale
+
+
+def _luq_codes(torch, t, seed: int, fold: int):
+    """(alpha, Q(t) / alpha) of the one-example tensor ``t``: the LUQ
+    codes (+-2^-k or 0, exact) that fake-quant's ``fold`` gives it."""
+    from repro_torch.quant import fake_quant
+    q = fake_quant._quantize_per_example(t, "luq_fp4", "cuda", seed, fold)
+    alpha = t.float().abs().amax()
+    return alpha, q.float() / torch.clamp(alpha, min=1e-30)
+
+
+def batch_shape_witness(torch, cfg, params, batch, rel):
+    """Why a chunk of B examples and one example at a time give other
+    LUQ norms: (1) the same pass-1 comparison at fmt ``none`` and at a
+    format registered as the identity (nothing rounds to a grid; every
+    fold still runs through the hooks), which must agree within the norm
+    tolerance, rtol 1e-4; (2) at luq_fp4, for example 0 in a batch of B
+    and alone, every projection's forward input (fold 0) and output
+    cotangent (fold 5, the wgrad's): how many values differ, whether the
+    operand's max (LUQ's scale) differs, and how many LUQ codes flip.
+    Returns the printed numbers."""
+    from repro_torch.config import QuantConfig
+    from repro_torch.dp import ghost
+    from repro_torch.models.registry import build_model
+    from repro_torch.quant import backend as qbackend
+
+    flags = (True,) * cfg.n_layers
+    found = {}
+    identity = {("quantize", "identity", "ref"): lambda rows, u: rows.clone(),
+                ("ghost_norm", "identity", "ref"):
+                    lambda x, g, ux, ug: ghost._matpair_sq_norm(x, g)}
+    qbackend._REGISTRY.update(identity)
+    try:
+        for fmt in ("none", "identity"):
+            model = build_model(cfg, QuantConfig(fmt=fmt, backend="cuda"))
+            kw = dict(hooked_mask=model.ghost_mask(params),
+                      aux=model.ghost_aux(flags))
+
+            def pel(p, b, hooks, model=model):
+                return model.per_example_loss(p, b, flags, hooks=hooks)
+
+            _, n_batch = ghost.ghost_per_example_norms(pel, params, batch,
+                                                       **kw)
+            _, n_one = ghost.ghost_per_example_norms(pel, params, batch,
+                                                     microbatch=1, **kw)
+            found[f"norms {fmt}"] = rel(n_batch, n_one)
+    finally:
+        for key in identity:
+            qbackend._REGISTRY.pop(key)
+    model = build_model(cfg, QuantConfig(fmt="luq_fp4", backend="cuda"))
+    runs = []
+    for b in (batch, {"tokens": batch["tokens"][:1]}):
+        rec = _ProjectionOperands()
+        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        model.per_example_loss(leaves, b, flags, hooks=rec).sum().backward()
+        del leaves
+        runs.append([(x, rec.cotangents[i], seed)
+                     for i, (x, seed) in enumerate(rec.inputs)])
+    for name, j, fold in (("input", 0, 0), ("cotangent", 1, 5)):
+        values, scales, codes = [], [], []
+        for ops_b, ops_1 in zip(*runs):
+            tb, t1, seed = ops_b[j][:1], ops_1[j], ops_1[2]
+            values.append(int((tb != t1).sum().item()))
+            (ab, cb), (a1, c1) = (_luq_codes(torch, t, seed, fold)
+                                  for t in (tb, t1))
+            scales.append(int(ab.item() != a1.item()))
+            codes.append(int((cb != c1).sum().item()))
+        found[f"{name}: values differing"] = values
+        found[f"{name}: max differs"] = scales
+        found[f"{name}: codes flipped"] = codes
+    found["elements per projection"] = [x.numel() for x, _, _ in runs[1]]
+    return found
+
+
 def ghost_vs_vmap(torch, ops, wl):
     """stablelm-3b at full width cut to 2 layers, every layer in LUQ-FP4
     on the cuda backend, B = 4 sequences of the LM workload's length, in
@@ -466,7 +576,10 @@ def ghost_vs_vmap(torch, ops, wl):
     by a clip factor that is not a power of two, since ``Q(s g) = s Q(g)``
     holds only as far as ``s g`` is exact.  Those differences are
     printed, not checked: the batch-4 norms against the one-example ones,
-    the vmap engine's bf16 norms, and the sums at clip norm 1."""
+    the vmap engine's bf16 norms, and the sums at clip norm 1.
+    :func:`batch_shape_witness` holds the batch-4 pass against one
+    example at a time where nothing rounds to a grid, and counts the code
+    flips at luq_fp4."""
     import dataclasses
     from repro_torch.config import QuantConfig
     from repro_torch.configs import get_config
@@ -496,8 +609,8 @@ def ghost_vs_vmap(torch, ops, wl):
         kw = dict(hooked_mask=model.ghost_mask(params),
                   aux=model.ghost_aux(flags))
 
-        def pel(p, b):
-            return model.per_example_loss(p, b, flags)
+        def pel(p, b, hooks):
+            return model.per_example_loss(p, b, flags, hooks=hooks)
 
         def loss_one(p, ex):
             return model.loss_fn(p, {k: v[None] for k, v in ex.items()},
@@ -563,6 +676,15 @@ def ghost_vs_vmap(torch, ops, wl):
         torch.testing.assert_close(g1, pnorms, rtol=1e-4, atol=0.0)
         if dtype == "float32":
             torch.testing.assert_close(g1, vnorms, rtol=1e-4, atol=0.0)
+        witness = batch_shape_witness(torch, cfg, params, batch, rel)
+        print(f"batch {B} against one example at a time ({dtype}): "
+              f"{json.dumps(witness)}")
+        for fmt in ("none", "identity"):
+            if not witness[f"norms {fmt}"] <= 1e-4:
+                raise AssertionError(
+                    f"{dtype} fmt {fmt}: pass-1 norms of a chunk of {B} "
+                    f"are {witness[f'norms {fmt}']} (relative) from those "
+                    f"of one-example chunks, above 1e-4")
         del params, model
         _free(torch)
 

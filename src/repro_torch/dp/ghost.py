@@ -8,10 +8,10 @@ without it:
 
 pass 1 -- norms
     One batched forward and backward per chunk of ``ghost_microbatch``
-    examples, under :func:`norm_pass`.  Every hooked layer (each
-    ``fake_quant.qeinsum`` projection) takes the pass's (B,) tap tensor;
-    its backward defines the tap's gradient as the per-example squared
-    weight-gradient norm, without forming the per-example gradient:
+    examples.  Every hooked layer (each projection, through
+    :meth:`GhostHooks.qeinsum`) is tapped by the pass's (B,) tap tensor,
+    whose gradient is defined as the per-example squared weight-gradient
+    norm, without forming the per-example gradient:
 
         || x_b^T g_b ||_F^2  =  < x_b x_b^T , g_b g_b^T >     (Gram identity)
 
@@ -26,16 +26,38 @@ pass 1 -- norms
     masked Gram of the gather cotangents, the head's mixed ghost norm and,
     for tied embeddings, their cross term.  The JAX package runs pass 1
     under ``vmap``, one example per lane; here the batch stays batched and
-    the quantizers run per example, which computes the same numbers.
-    Pass 1 needs no weight gradients: the params go in detached.
+    the quantizers run per example.  Pass 1 needs no weight gradients: the
+    params go in detached.
 
 pass 2 -- grads
-    The gradient of ``sum_b scale_b * loss_b`` over the batched model under
-    :func:`grad_pass`, where the quantizers also quantize the batched
-    operands per example: one standard backward whose weight gradients
-    are the clipped gradient SUM.  LUQ's per-tensor max scaling is exactly
-    positively scale-invariant (``Q(s g) = s Q(g)``), so this equals the
-    vmap path's sum of clipped quantized per-example gradients.
+    The gradient of ``sum_b scale_b * loss_b`` over the batched model,
+    whose quantizers also quantize the batched operands per example: one
+    standard backward whose weight gradients are the clipped gradient SUM.
+    LUQ's per-tensor max scaling is positively scale-invariant, ``Q(s g) =
+    s Q(g)``, exactly when ``s g`` is exact (``s`` a power of two, or no
+    clipping); then this is the vmap path's sum of clipped quantized
+    per-example gradients.
+
+The engine hands the model's loss a :class:`GhostHooks` for each pass
+(``per_example_loss_fn(params, batch, hooks)``); the model threads it to
+its projections (``common.qproj``) and norms (``common.rmsnorm``).  The
+quantizer layer knows nothing of the engine.
+
+Floating point.  Both passes equal the vmap path in exact arithmetic, and
+to float32 tolerance when nothing rounds to a grid (fmt ``none``, the
+tests' identity format).  Under LUQ they agree only as far as the GEMMs
+sum in the same order: the rounding is a step function of its input and
+of the operand's max, so another batch shape (a chunk of 4 examples
+against one), or an inexact ``s g``, moves the odd value across a step,
+and the flipped code changes everything downstream.  On an H100 at
+stablelm-3b's full width (2 layers, ``chip_smoke.py``, PERF.md section
+7), pass-1 norms of a chunk of 4 and of one-example chunks differ by
+8.5e-6 relative in bf16 and 2.5e-6 in float32 at fmt none, and by 2.1e-4
+and 1.2e-3 at luq_fp4.  In bf16 the forward operands are bitwise the
+same; the float32 logits head's backward differs in ulps, which flips 6
+LUQ codes of the last projection's cotangent and, layer by layer, up to a
+third of them.  In float32 the batched GEMMs' ulps survive in the forward
+too, so codes flip from the first attention output on.
 
 Leaves that no hook covers would need a vmapped norm-only fallback; the
 dense LMs have none (``per_example_state_bytes`` shows 0), and a family
@@ -43,59 +65,50 @@ with such leaves raises here.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import functools
 import math
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
 
+from repro_torch.quant import backend as qbackend
+from repro_torch.quant import fake_quant
+from repro_torch.quant.formats import STOCHASTIC_FORMATS
+
 
 # --------------------------------------------------------------------------- #
-# which ghost pass (if any) the model runs under
+# the hooks a ghost pass hands the model
 # --------------------------------------------------------------------------- #
-@dataclasses.dataclass
-class _NormCtx:
-    """Pass 1: hooked ops add per-example squared norms to ``tap``'s
-    gradient.  ``norm_scales`` opts the rmsnorm scale hook in."""
-    tap: torch.Tensor
-    mode: str = "norm"
+@dataclasses.dataclass(frozen=True)
+class GhostHooks:
+    """What the hooked ops of a model do in one ghost pass.  The engine
+    passes it to the model's loss (``hooks=``), which threads it to
+    ``common.qproj`` and ``common.rmsnorm``; without it they run as usual.
+
+    Both passes quantize the batched operands per example.  With a ``tap``
+    ((B,) float32, pass 1) every projection also adds its per-example
+    squared weight-gradient norms into the tap's gradient, and, with
+    ``norm_scales``, so does every rmsnorm scale; without one (pass 2)
+    nothing is tapped."""
+    tap: Optional[torch.Tensor] = None
     norm_scales: bool = False
 
+    def qeinsum(self, spec: str, x: torch.Tensor, w: torch.Tensor, **kw):
+        """``fake_quant.qeinsum`` in per-example mode; in pass 1 tapped by
+        :func:`_tap_sq_norm` (quantized or not: every projection's weight
+        has a norm)."""
+        return fake_quant.qeinsum(spec, x, w, per_example=True, tap=self.tap,
+                                  tap_norm=_tap_sq_norm, **kw)
 
-@dataclasses.dataclass
-class _GradCtx:
-    """Pass 2: quantizers quantize batched operands per example."""
-    mode: str = "grad"
-
-
-_STACK: List[object] = []
-
-
-def current():
-    """The active ghost context, or None (read by ``fake_quant.qeinsum``
-    and ``models.common.rmsnorm``)."""
-    return _STACK[-1] if _STACK else None
-
-
-@contextlib.contextmanager
-def norm_pass(tap: torch.Tensor, norm_scales: bool = False):
-    _STACK.append(_NormCtx(tap=tap, norm_scales=norm_scales))
-    try:
-        yield
-    finally:
-        _STACK.pop()
-
-
-@contextlib.contextmanager
-def grad_pass():
-    _STACK.append(_GradCtx())
-    try:
-        yield
-    finally:
-        _STACK.pop()
+    def rmsnorm_scale(self, scale: torch.Tensor,
+                      x: torch.Tensor) -> torch.Tensor:
+        """``scale``, or in pass 1 with ``norm_scales`` its per-example
+        copy (:func:`tap_scale`)."""
+        if self.tap is None or not self.norm_scales:
+            return scale
+        return tap_scale(scale, self.tap, x)
 
 
 # --------------------------------------------------------------------------- #
@@ -110,8 +123,9 @@ class GhostAux:
     ``make_taps(batch) -> {name: zero tensor}``
         added into the model's dataflow; their gradients are what the
         norms need.
-    ``tapped_loss(params, batch, taps) -> ((B,) losses, fwd_aux)``
-        the per-example losses with the taps added.
+    ``tapped_loss(params, batch, taps, hooks) -> ((B,) losses, fwd_aux)``
+        the per-example losses with the taps added, under the pass's
+        :class:`GhostHooks`.
     ``combine(tap_grads, fwd_aux, batch) -> (B,)``
         the aux-covered leaves' per-example squared norms.
     ``covers(params) -> {name: bool}``
@@ -219,10 +233,6 @@ def _tap_sq_norm(spec, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     quantize + Grams + reduce is one fused op, fed the draws folds 4 and 5
     make for one example; otherwise quantize, then ``_matpair_sq_norm``.
     """
-    from repro_torch.quant import backend as qbackend
-    from repro_torch.quant import fake_quant
-    from repro_torch.quant.formats import STOCHASTIC_FORMATS
-
     xmat, gmat, contiguous = _einsum_matviews(spec.spec, x, g)
     _, t, din = xmat.shape
     dout = gmat.shape[2]
@@ -314,12 +324,13 @@ def _chunk_norms(per_example_loss_fn, params, chunk: dict,
     taps = aux.make_taps(chunk) if aux is not None else {}
     for t in taps.values():
         t.requires_grad_(True)
-    with torch.enable_grad(), norm_pass(
-            tap, norm_scales=aux is not None and aux.hook_norm_scales):
+    hooks = GhostHooks(tap=tap,
+                       norm_scales=aux is not None and aux.hook_norm_scales)
+    with torch.enable_grad():
         if aux is None:
-            losses, fwd = per_example_loss_fn(params, chunk), None
+            losses, fwd = per_example_loss_fn(params, chunk, hooks), None
         else:
-            losses, fwd = aux.tapped_loss(params, chunk, taps)
+            losses, fwd = aux.tapped_loss(params, chunk, taps, hooks)
         grads = torch.autograd.grad(losses.sum(), [tap, *taps.values()],
                                     allow_unused=True)
     dtap, *dtaps = (torch.zeros_like(t) if d is None else d
@@ -337,13 +348,15 @@ def ghost_per_example_norms(per_example_loss_fn: Callable, params: dict,
                             microbatch: int = 0):
     """Pass 1 alone: ``((B,) losses, (B,) norms)``.
 
-    ``per_example_loss_fn(params, batch) -> (B,)`` is the batched
-    per-example loss (used when there is no ``aux``; with one,
-    ``aux.tapped_loss``).  The norms equal the global l2 norms of the
-    vmap path's (quantized) per-example gradients to float32 tolerance.
-    ``microbatch > 0`` runs chunks of that many examples one after
-    another, bounding pass-1 memory by one chunk of activations
-    (numerically the same: the examples are independent).
+    ``per_example_loss_fn(params, batch, hooks) -> (B,)`` is the batched
+    per-example loss under the pass's :class:`GhostHooks` (used when there
+    is no ``aux``; with one, ``aux.tapped_loss``).  The norms are the
+    global l2 norms of the vmap path's (quantized) per-example gradients,
+    to float32 tolerance as far as the module docstring's "Floating
+    point" allows.  ``microbatch > 0`` runs chunks of that many examples
+    one after another, bounding pass-1 memory by one chunk of
+    activations; the examples are independent, so only the GEMMs'
+    summation order changes with the chunk (the same note).
     """
     hooked = effective_hooked_mask(params, hooked_mask, aux)
     _check_mask(params, hooked)
@@ -383,9 +396,9 @@ def ghost_clipped_grad_sum(per_example_loss_fn: Callable, params: dict,
                            ghost_microbatch: int = 0) -> Tuple[dict, dict]:
     """Sum over the batch of per-example clipped gradients, ghost style.
 
-    ``per_example_loss_fn(params, batch) -> (B,)``: the batched
-    per-example losses (pass 2's reweighted backward; pass 1's too without
-    ``aux``).  ``hooked_mask``: {name: bool}, True for leaves a hook
+    ``per_example_loss_fn(params, batch, hooks) -> (B,)``: the batched
+    per-example losses under a :class:`GhostHooks` (pass 2's reweighted
+    backward; pass 1's too without ``aux``).  ``hooked_mask``: {name: bool}, True for leaves a hook
     covers.  ``aux``: the model's :class:`GhostAux`; ``ghost_microbatch``:
     pass-1 chunk size (0 = the whole batch).  Returns ``(grad_sum,
     metrics)`` with float32 sums and the metrics of
@@ -396,8 +409,8 @@ def ghost_clipped_grad_sum(per_example_loss_fn: Callable, params: dict,
         aux=aux, microbatch=ghost_microbatch)
     scale = torch.clamp(clip_norm / torch.clamp(norms, min=1e-12), max=1.0)
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-    with record_function("ghost.pass2"), torch.enable_grad(), grad_pass():
-        pel = per_example_loss_fn(leaves, batch)
+    with record_function("ghost.pass2"), torch.enable_grad():
+        pel = per_example_loss_fn(leaves, batch, GhostHooks())
         weighted = (scale * pel.float()).sum()
         grads = torch.autograd.grad(weighted, list(leaves.values()),
                                     allow_unused=True)

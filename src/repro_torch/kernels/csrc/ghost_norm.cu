@@ -9,15 +9,10 @@
 //            = || Q(x_b)^T Q(g_b) ||_F^2
 //
 // the per-example squared weight-gradient norm of ghost clipping (the
-// Gram route of the mixed ghost norm).  Q(v) = luq_round(v, u, alpha_b)
-// of luq.cuh, the function luq_quant.cu rounds with, so the quantized
-// operands are bitwise those of the quantize kernel; the uniforms ux
-// (T*Dx) and ug (T*Dg) are shared by the examples, alpha is per example.
-//
-// Bound on this card: operations.  The two Grams are 2 T^2 (Dx + Dg)
-// float32 operations per example against 4 T (Dx + Dg) * 2 bytes read
-// (operand and uniforms): at T = 256 that is 64 operations a byte, above
-// the card's 20 (67 TFLOP/s over 3.35 TB/s).
+// Gram route of the mixed ghost norm).  Q is the quantize kernel of
+// luq_quant.cu (`repro_luq_quant`, linked into the same library), so the
+// quantized operands are bitwise its codes; the uniforms ux (T*Dx) and
+// ug (T*Dg) are shared by the examples, alpha is per example.
 //
 // Design, simple first.  The TPU kernel quantizes each (T, 256) column
 // block in VMEM and accumulates two whole (T, T) Grams there.  Two whole
@@ -25,28 +20,31 @@
 // grid reads every operand row 2 T / 64 times: quantizing on load would
 // repeat the LUQ rounding (a log2, two exp2 and two IEEE divisions) that
 // many times, which measured slower than the plain PyTorch version.  So
-// three launches on one stream:
+// four launches on one stream:
 //
-//   1. quantize: Q(x), Q(g) once into scratch the wrapper allocates (one
-//      write and one read of the quantized operands, ~0.02 ms at T = 256);
-//   2. gram_tiles: block (tj, ti, b) owns the 64 x 64 tile (ti, tj) of both
+//   1-2. repro_luq_quant: Q(x), Q(g) once into scratch the wrapper
+//      allocates (one row per example, shared uniforms);
+//   3. gram_tiles: block (tj, ti, b) owns the 64 x 64 tile (ti, tj) of both
 //      Grams of example b.  It streams 32 columns at a time of Q(x)'s tile
 //      rows ti and tj through shared memory and accumulates the XX tile in
 //      registers (4 x 4 a thread), then the same over Q(g) for GG, and
 //      reduces the tile's sum XX o GG in a fixed order to one partial;
-//   3. sum_partials: each example's partials added in a fixed order.
+//   4. sum_partials: each example's partials added in a fixed order.
 //
-// No atomics: the same input gives the same bits on every run.  No limit
-// on T (the TPU wrapper's T <= 512 cap existed for VMEM only).  Built
-// without --use_fast_math.
+// Every tile is computed, both triangles: the Grams' symmetry would halve
+// the multiply-adds, and tensor cores could take them (Q(v) / alpha is
+// +-2^-k, exact in bf16); both are left for a later design.  No atomics:
+// the same input gives the same bits on every run.  No limit on T (the
+// TPU wrapper's T <= 512 cap existed for VMEM only).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "luq.cuh"
+extern "C" int repro_luq_quant(const void* x, const void* u,
+                               const void* alpha, void* out, int rows,
+                               long long n, int u_per_row, int vec,
+                               void* stream);
 
 namespace {
-
-using repro_luq::luq_round;
 
 constexpr int kTile = 64;                    // Gram tile edge
 constexpr int kK = 32;                       // columns per shared stage
@@ -60,24 +58,6 @@ __device__ __forceinline__ float warp_sum(float v) {
     v += __shfl_down_sync(0xffffffffu, v, off);
   }
   return v;
-}
-
-// q[b, i] = luq_round(m[b, i], u[i], alpha[b]) for the n = T * D elements
-// of each example.
-__global__ void __launch_bounds__(kThreads)
-quantize_kernel(const float* __restrict__ m, const float* __restrict__ u,
-                const float* __restrict__ alpha, float* __restrict__ q,
-                int B, long long n) {
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (int b = blockIdx.y; b < B; b += gridDim.y) {
-    const float a = alpha[b];
-    const float* mb = m + (long long)b * n;
-    float* qb = q + (long long)b * n;
-    for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n;
-         i += stride) {
-      qb[i] = luq_round(__ldg(mb + i), __ldg(u + i), a);
-    }
-  }
 }
 
 // acc[r][c] += sum_d q[i0 + 4 ty + r, d] q[j0 + 4 tx + c, d] over one
@@ -164,13 +144,13 @@ __global__ void sum_partials_kernel(const float* __restrict__ partial,
   out[b] = s;
 }
 
-cudaError_t quantize(const float* m, const float* u, const float* alpha,
-                     float* q, int B, long long n, cudaStream_t s) {
-  long long gx = (n + kThreads - 1) / kThreads;
-  if (gx > 1024) gx = 1024;                  // grid-stride beyond that
-  const dim3 grid((unsigned)gx, B < kMaxGridY ? B : kMaxGridY);
-  quantize_kernel<<<grid, kThreads, 0, s>>>(m, u, alpha, q, B, n);
-  return cudaGetLastError();
+// Q(m) into q: the quantize kernel of luq_quant.cu, one row per example,
+// its float4 path when the row length and the pointers allow it.
+int quantize(const void* m, const void* u, const void* alpha, void* q,
+             int B, long long n, cudaStream_t s) {
+  const int vec = n % 4 == 0 &&
+                  (((uintptr_t)m | (uintptr_t)u | (uintptr_t)q) & 15) == 0;
+  return repro_luq_quant(m, u, alpha, q, B, n, 0, vec, (void*)s);
 }
 
 }  // namespace
@@ -194,17 +174,14 @@ extern "C" int repro_ghost_norm(const void* x, const void* ux, const void* ax,
   const int nt = (T + kTile - 1) / kTile;
   if (nt > 65535) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = quantize((const float*)x, (const float*)ux,
-                             (const float*)ax, (float*)qx, B,
-                             (long long)T * Dx, s);
-  if (err != cudaSuccess) return (int)err;
-  err = quantize((const float*)g, (const float*)ug, (const float*)ag,
-                 (float*)qg, B, (long long)T * Dg, s);
-  if (err != cudaSuccess) return (int)err;
+  int rc = quantize(x, ux, ax, qx, B, (long long)T * Dx, s);
+  if (rc != (int)cudaSuccess) return rc;
+  rc = quantize(g, ug, ag, qg, B, (long long)T * Dg, s);
+  if (rc != (int)cudaSuccess) return rc;
   const dim3 grid(nt, nt, B < kMaxGridY ? B : kMaxGridY);
   gram_tiles_kernel<<<grid, kThreads, 0, s>>>(
       (const float*)qx, (const float*)qg, (float*)partial, B, T, Dx, Dg);
-  err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   sum_partials_kernel<<<(B + 127) / 128, 128, 0, s>>>(
       (const float*)partial, (float*)out, B, nt * nt);

@@ -59,8 +59,9 @@ def build_train_setup(model: Model, run: RunConfig) -> TrainSetup:
     def train_step(params, opt_state, batch, seed, qflags, lr):
         if ghost:
             grad_sum, metrics = ghost_clipped_grad_sum(
-                lambda p, b: model.per_example_loss(p, b, qflags), params,
-                batch, clip_norm=run.dp.clip_norm,
+                lambda p, b, hooks: model.per_example_loss(
+                    p, b, qflags, hooks=hooks),
+                params, batch, clip_norm=run.dp.clip_norm,
                 hooked_mask=model.ghost_mask(params),
                 aux=(model.ghost_aux(qflags) if model.ghost_aux is not None
                      else None),

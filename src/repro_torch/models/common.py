@@ -42,15 +42,13 @@ def embed_init(shape, *, generator, device, dtype=torch.float32):
 # --------------------------------------------------------------------------- #
 # norm, rope, attention
 # --------------------------------------------------------------------------- #
-def rmsnorm(x, scale, eps=1e-6):
-    """RMSNorm in the ``1 + scale`` form, computed in float32.  Under a
-    ghost norm pass with ``norm_scales`` the scale's per-example squared
-    gradient norms are tapped (``repro_torch.dp.ghost.tap_scale``); the
+def rmsnorm(x, scale, eps=1e-6, hooks=None):
+    """RMSNorm in the ``1 + scale`` form, computed in float32.  ``hooks``:
+    a ghost pass's ``repro_torch.dp.ghost.GhostHooks``, which may swap
+    ``scale`` for a per-example copy whose gradient norms it taps; the
     output is the same."""
-    from repro_torch.dp import ghost
-    ctx = ghost.current()
-    if ctx is not None and ctx.mode == "norm" and ctx.norm_scales:
-        scale = ghost.tap_scale(scale, ctx.tap, x)
+    if hooks is not None:
+        scale = hooks.rmsnorm_scale(scale, x)
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps) * (1.0 + scale.float())
@@ -178,17 +176,20 @@ def chunked_lm_loss(h, targets, embed, *, real_vocab: int, ce_chunk: int,
 # --------------------------------------------------------------------------- #
 # quantized projections and the logits head
 # --------------------------------------------------------------------------- #
-def qproj(spec, x, w, *, seed: int, flag: bool, quant_cfg):
+def qproj(spec, x, w, *, seed: int, flag: bool, quant_cfg, hooks=None):
     """Policy-gated quantized einsum (``repro_torch.quant.fake_quant``);
-    without a quant config (serving), the plain einsum."""
+    without a quant config (serving), the plain einsum.  ``hooks``: a
+    ghost pass's ``repro_torch.dp.ghost.GhostHooks``, whose ``qeinsum``
+    then runs in its place."""
     if quant_cfg is None:
         return torch.einsum(spec, x, w)
     from repro_torch.quant.fake_quant import qeinsum
-    return qeinsum(spec, x, w, seed=seed, flag=flag, fmt=quant_cfg.fmt,
-                   q_fwd=quant_cfg.quantize_fwd,
-                   q_dgrad=quant_cfg.quantize_dgrad,
-                   q_wgrad=quant_cfg.quantize_wgrad,
-                   backend=quant_cfg.backend)
+    einsum = qeinsum if hooks is None else hooks.qeinsum
+    return einsum(spec, x, w, seed=seed, flag=flag, fmt=quant_cfg.fmt,
+                  q_fwd=quant_cfg.quantize_fwd,
+                  q_dgrad=quant_cfg.quantize_dgrad,
+                  q_wgrad=quant_cfg.quantize_wgrad,
+                  backend=quant_cfg.backend)
 
 
 def logits_generator(fold: int, device) -> torch.Generator:

@@ -31,7 +31,8 @@ class Model:
     # qflags) -> logits (resnet)
     forward: Optional[Callable] = None
     loss_fn: Optional[Callable] = None
-    # ghost DP (dense_lm): per_example_loss(params, batch, qflags) -> (B,);
+    # ghost DP (dense_lm): per_example_loss(params, batch, qflags,
+    # hooks=None) -> (B,), hooks a ghost pass's GhostHooks;
     # ghost_mask(params) -> {name: bool}; ghost_aux(qflags) -> GhostAux
     per_example_loss: Optional[Callable] = None
     ghost_mask: Optional[Callable] = None

@@ -125,14 +125,15 @@ def _activation(gate, up, kind: str):
 
 
 def attention_block(x, blk, positions, cfg: ModelConfig, quant=None,
-                    flag: bool = False, seed: int = 0):
+                    flag: bool = False, seed: int = 0, hooks=None):
     """Pre-norm GQA attention with RoPE; returns the residual branch and
     the compact (pre-repeat) K, V.  With ``quant`` (training) the
     projections are ``qproj`` under the layer's ``flag`` and ``seed``;
-    without it (serving), plain einsums."""
+    without it (serving), plain einsums.  ``hooks``: a ghost pass's
+    ``GhostHooks``, handed to the projections and the norm."""
     cd = torch_dtype(cfg.compute_dtype)
-    qp = functools.partial(cm.qproj, quant_cfg=quant, flag=flag)
-    h = cm.rmsnorm(x, blk["attn_norm"]).to(cd)
+    qp = functools.partial(cm.qproj, quant_cfg=quant, flag=flag, hooks=hooks)
+    h = cm.rmsnorm(x, blk["attn_norm"], hooks=hooks).to(cd)
     q = qp("bsd,dhk->bshk", h, blk["wq"].to(cd), seed=seed)
     k = qp("bsd,dhk->bshk", h, blk["wk"].to(cd), seed=seed + 1)
     v = qp("bsd,dhk->bshk", h, blk["wv"].to(cd), seed=seed + 2)
@@ -147,10 +148,10 @@ def attention_block(x, blk, positions, cfg: ModelConfig, quant=None,
 
 
 def mlp_block(x, blk, cfg: ModelConfig, quant=None, flag: bool = False,
-              seed: int = 0):
+              seed: int = 0, hooks=None):
     cd = torch_dtype(cfg.compute_dtype)
-    qp = functools.partial(cm.qproj, quant_cfg=quant, flag=flag)
-    h = cm.rmsnorm(x, blk["mlp_norm"]).to(cd)
+    qp = functools.partial(cm.qproj, quant_cfg=quant, flag=flag, hooks=hooks)
+    h = cm.rmsnorm(x, blk["mlp_norm"], hooks=hooks).to(cd)
     gate = qp("bsd,df->bsf", h, blk["wi_gate"].to(cd), seed=seed + 4)
     up = qp("bsd,df->bsf", h, blk["wi_up"].to(cd), seed=seed + 5)
     act = _activation(gate, up, cfg.mlp_activation)
@@ -161,11 +162,13 @@ def mlp_block(x, blk, cfg: ModelConfig, quant=None, flag: bool = False,
 # training: loss and ghost hooks
 # --------------------------------------------------------------------------- #
 def forward_hidden(params, tokens, qflags, cfg: ModelConfig,
-                   quant: QuantConfig, embed_tap=None):
+                   quant: QuantConfig, embed_tap=None, hooks=None):
     """Final-norm hidden states (B, S, d) of a training forward.
     ``embed_tap``: the ghost pass-1 gather hook, a (B, S, d) zero tensor
     added after the embedding scaling (its gradient is the cotangent the
-    embedding's scatter consumes)."""
+    embedding's scatter consumes).  ``hooks``: a ghost pass's
+    ``repro_torch.dp.ghost.GhostHooks``, handed to every projection and
+    norm."""
     x = _embed(params, tokens, cfg)
     if embed_tap is not None:
         x = x + embed_tap
@@ -178,23 +181,24 @@ def forward_hidden(params, tokens, qflags, cfg: ModelConfig,
         blk = {leaf: stacks[leaf][i] for leaf in BLOCK_LEAVES}
         flag, seed = bool(qflags[i]), 97 * i
         attn_out, _ = attention_block(x, blk, positions, cfg, quant, flag,
-                                      seed)
+                                      seed, hooks)
         x = x + attn_out
-        x = x + mlp_block(x, blk, cfg, quant, flag, seed)
-    return cm.rmsnorm(x, params["final_norm"])
+        x = x + mlp_block(x, blk, cfg, quant, flag, seed, hooks)
+    return cm.rmsnorm(x, params["final_norm"], hooks=hooks)
 
 
 def lm_loss(params, batch, qflags, cfg: ModelConfig, quant: QuantConfig,
-            per_example: bool = False, ghost_taps=None):
+            per_example: bool = False, ghost_taps=None, hooks=None):
     """Next-token cross-entropy of ``batch["tokens"]`` (B, S): the mean, or
     (B,) per example.  ``ghost_taps`` ({"embed_out", "logits"}, the
-    ``GhostAux`` taps) makes the return ``(loss, {"hidden": hc})``.  The
-    JAX package's ``lm_loss`` also takes an rng, which it deletes; the
-    port leaves it out."""
+    ``GhostAux`` taps) makes the return ``(loss, {"hidden": hc})``;
+    ``hooks``: the ghost pass's ``GhostHooks``.  The JAX package's
+    ``lm_loss`` also takes an rng, which it deletes; the port leaves it
+    out."""
     tokens = batch["tokens"]
     taps = ghost_taps or {}
     h = forward_hidden(params, tokens, qflags, cfg, quant,
-                       embed_tap=taps.get("embed_out"))
+                       embed_tap=taps.get("embed_out"), hooks=hooks)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"].T
     out = cm.chunked_lm_loss(h[:, :-1], tokens[:, 1:], head,
                              real_vocab=cfg.vocab_size, ce_chunk=cfg.ce_chunk,
@@ -253,9 +257,9 @@ def make_ghost_aux(qflags, cfg: ModelConfig, quant: QuantConfig):
                                   dtype=torch.float32, device=dev),
         }
 
-    def tapped_loss(params, batch, taps):
+    def tapped_loss(params, batch, taps, hooks):
         return lm_loss(params, batch, qflags, cfg, quant, per_example=True,
-                       ghost_taps=taps)
+                       ghost_taps=taps, hooks=hooks)
 
     def combine(cots, fwd, batch):
         c = cots["embed_out"].float() * emb_scale            # (B, T, d)

@@ -27,10 +27,10 @@ The counterpart of ``repro.quant.backend``:
                   (B, T, Dx) / (B, T, Dg) wgrad-GEMM matrix views, each
                   example quantized on its own scale against the uniforms
                   ``ux`` (T * Dx,) / ``ug`` (T * Dg,) shared by the
-                  examples (``None`` for the deterministic formats).  The
-                  ref impl quantizes per example and reduces with
-                  ``dp.ghost._matpair_sq_norm``; the cuda impl is the
-                  ``ghost_norm`` kernel (Gram route only).
+                  examples (``None`` for the deterministic formats), by
+                  the Gram identity ``<Q(x_b)Q(x_b)^T, Q(g_b)Q(g_b)^T>``.
+                  The ref impl quantizes per example, then two ``bmm``
+                  Grams; the cuda impl is the ``ghost_norm`` kernel.
 
 Backends: ``"ref"`` (plain PyTorch, every format) and ``"cuda"`` (the
 hand-written kernels of ``repro_torch.kernels``; on CPU tensors their plain
@@ -204,12 +204,12 @@ def _ref_ghost_norm(fmt: str) -> Callable:
     q = _ref_quantize(fmt)
 
     def gn(x, g, ux, ug):
-        # lazy: dp.ghost imports this module
-        from repro_torch.dp.ghost import _matpair_sq_norm
         B = x.shape[0]
         xq = q(x.float().reshape(B, -1), ux).reshape(x.shape)
         gq = q(g.float().reshape(B, -1), ug).reshape(g.shape)
-        return _matpair_sq_norm(xq, gq)
+        xx = xq @ xq.transpose(1, 2)
+        gg = gq @ gq.transpose(1, 2)
+        return (xx * gg).sum(dim=(1, 2))
 
     return gn
 

@@ -27,12 +27,13 @@ becomes the rows of one kernel call, each row scaled by its own
 computes when ``vmap`` hands each lane one example and an unbatched key.
 A weight is not batched and is quantized whole, as one row.
 
-``qeinsum`` also has an explicit per-example mode, which the ghost engine
-(``repro_torch.dp.ghost``) turns on for its batched passes: the batched
-operands (x, g) are quantized one row per example with one shared draw,
-exactly what the vmap rule computes, and the weight whole.  In its norm
-pass a ``qeinsum`` also takes the pass's (B,) tap tensor, whose gradient
-its backward defines as the per-example squared weight-gradient norm.
+``qeinsum`` also has an explicit per-example mode (``per_example=True``),
+which the ghost engine's hooks (``repro_torch.dp.ghost.GhostHooks``) ask
+for in their batched passes: the batched operands (x, g) are quantized one
+row per example with one shared draw, exactly what the vmap rule
+computes, and the weight whole.  In the norm pass the hooks also hand it a
+tap tensor and the function whose value on (x, g) is the tap's gradient.
+Both arrive as arguments: this module imports nothing of the engine.
 
 Policy flags are host-side bools (the policy is fixed for an epoch): a
 layer that is not quantized runs a plain convolution and launches no
@@ -41,7 +42,7 @@ quantizer.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -244,6 +245,7 @@ class _ESpec(NamedTuple):
     q_dgrad: bool
     q_wgrad: bool
     per_example: bool     # batched operands quantized one row per example
+    tap_norm: Optional[Callable] = None   # (spec, x, g) -> the tap's grad
 
 
 @functools.lru_cache(maxsize=None)
@@ -271,7 +273,8 @@ def _qe(t, spec: _ESpec, fold: int, on: bool, batched: bool):
 
 class _QEinsum(torch.autograd.Function):
     """``einsum(spec, x, w)``; quantized fwd / dgrad / wgrad GEMM inputs,
-    and, with a ``tap``, the ghost norm as the tap's gradient."""
+    and, with a ``tap``, ``spec.tap_norm(spec, x, g)`` as the tap's
+    gradient."""
 
     generate_vmap_rule = True
 
@@ -305,27 +308,33 @@ class _QEinsum(torch.autograd.Function):
                 gq = _qe(g, spec, 5, spec.q_wgrad, True)
                 dw = torch.einsum(f"{x_term},{out}->{w_term}", xq, gq)
             if ctx.tapped:
-                from repro_torch.dp import ghost
-                dtap = ghost._tap_sq_norm(spec, x, g)
+                dtap = spec.tap_norm(spec, x, g)
         return dx, dw, dtap, None
 
 
 def qeinsum(spec: str, x: torch.Tensor, w: torch.Tensor, *, seed: int,
             flag: bool, fmt: str = "luq_fp4", q_fwd: bool = True,
-            q_dgrad: bool = True, q_wgrad: bool = True,
-            backend: str = None) -> torch.Tensor:
+            q_dgrad: bool = True, q_wgrad: bool = True, backend: str = None,
+            per_example: bool = False, tap: Optional[torch.Tensor] = None,
+            tap_norm: Optional[Callable] = None) -> torch.Tensor:
     """Quantization-aware einsum of an activation ``x`` (leading axis: the
     examples) and a weight ``w``.  ``flag`` and ``seed`` are host-side: a
-    layer whose flag is off, or ``fmt="none"``, runs the plain einsum,
-    except under a ghost norm pass, which taps every hooked einsum."""
-    from repro_torch.dp import ghost
-    ctx = ghost.current()
-    norm_pass = ctx is not None and ctx.mode == "norm"
-    quantized = bool(flag) and fmt != "none"
-    if not (quantized or norm_pass):
+    layer whose flag is off, or ``fmt="none"``, runs the plain einsum
+    unless it is tapped.
+
+    ``per_example`` quantizes the batched operands (x and the cotangent,
+    never the weight) one example at a time, as the vmap path does.
+    ``tap`` ((B,) float32) with ``tap_norm(spec, x, g) -> (B,)``: the
+    backward gives the tap the value of ``tap_norm`` on this einsum's
+    ``_ESpec``, input and output cotangent.  The ghost engine's hooks ask
+    for both (its per-example weight-gradient norms); this module knows
+    nothing else of that engine."""
+    if tap is None and (not flag or fmt == "none"):
         return torch.einsum(spec, x, w)
+    if tap is not None and tap_norm is None:
+        raise ValueError("qeinsum: a tap needs its tap_norm")
     _terms(spec)
     espec = _ESpec(spec, fmt, qbackend.resolve_backend(backend), int(seed),
-                   quantized, bool(q_fwd), bool(q_dgrad), bool(q_wgrad),
-                   per_example=ctx is not None)
-    return _QEinsum.apply(x, w, ctx.tap if norm_pass else None, espec)
+                   bool(flag) and fmt != "none", bool(q_fwd), bool(q_dgrad),
+                   bool(q_wgrad), bool(per_example), tap_norm)
+    return _QEinsum.apply(x, w, tap, espec)

@@ -79,7 +79,8 @@ def _port(arch, fmt, backend="ref", params=None, seed=0):
 
 
 def _ghost(model, params, batch, flags, clip, chunk=0):
-    pel = lambda p, b: model.per_example_loss(p, b, flags)  # noqa: E731
+    pel = lambda p, b, h: model.per_example_loss(p, b, flags,  # noqa: E731
+                                                 hooks=h)
     kw = dict(hooked_mask=model.ghost_mask(params),
               aux=model.ghost_aux(flags))
     losses, norms = ghost.ghost_per_example_norms(pel, params, batch,
@@ -142,8 +143,9 @@ def test_ghost_matches_jax(identity_format, arch, fmt):
     flags = (True,) * cfg.n_layers
     # a clip norm between the per-example norms, so some are clipped
     _, probe = ghost.ghost_per_example_norms(
-        lambda p, b: model.per_example_loss(p, b, flags), params, batch,
-        hooked_mask=model.ghost_mask(params), aux=model.ghost_aux(flags))
+        lambda p, b, h: model.per_example_loss(p, b, flags, hooks=h),
+        params, batch, hooked_mask=model.ghost_mask(params),
+        aux=model.ghost_aux(flags))
     clip = _between(probe)
     losses, norms, gsum, metrics = _ghost(model, params, batch, flags, clip)
     jgrads, jlosses, jnorms = _jax_two_pass(arch, fmt, params_np,
@@ -223,7 +225,8 @@ def test_dense_lm_leaves_no_fallback(arch):
     # and their vmapped fallback is not ported
     with pytest.raises(NotImplementedError, match="fallback"):
         ghost.ghost_per_example_norms(
-            lambda p, b: model.per_example_loss(p, b, flags), params,
+            lambda p, b, h: model.per_example_loss(p, b, flags, hooks=h),
+            params,
             _port(arch, "none")[3], hooked_mask=model.ghost_mask(params))
 
 

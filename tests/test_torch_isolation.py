@@ -44,6 +44,28 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     assert leaked == "[]"
 
 
+def test_quantizer_and_kernel_layers_import_nothing_of_the_dp_engine():
+    """Layering: the quantizers (``quant/``) and the kernels (``kernels/``)
+    sit below the DP engines; the ghost engine hands the model its hooks
+    explicitly.  Every import statement is checked, the ones inside
+    functions too."""
+    import ast
+    found = []
+    for sub in ("quant", "kernels"):
+        for path in sorted((SRC / "repro_torch" / sub).rglob("*.py")):
+            for node in ast.walk(ast.parse(path.read_text())):
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.module:
+                    names = [node.module] + [f"{node.module}.{a.name}"
+                                             for a in node.names]
+                else:
+                    continue
+                found += [f"{path.name}:{node.lineno} {n}" for n in names
+                          if n.startswith("repro_torch.dp")]
+    assert found == []
+
+
 def test_entry_points_raise_without_a_gpu_unless_cpu_is_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_smoke_config("yi-6b")

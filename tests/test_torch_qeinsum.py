@@ -9,9 +9,9 @@ points must feed the right operand: forward, dgrad and wgrad within 1e-5
 ``quantize_fwd/dgrad/wgrad`` options, and with the layer's flag off.
 
 Per-example mode (the ghost engine's batched passes) equals the custom
-op's vmap rule: a batched ``qeinsum`` under ``ghost.grad_pass`` and the
-same ``qeinsum`` under ``torch.func.vmap`` give the same output and
-gradients with the real LUQ-FP4 quantizer.
+op's vmap rule: a batched ``qeinsum(..., per_example=True)`` and the same
+``qeinsum`` under ``torch.func.vmap`` give the same output and gradients
+with the real LUQ-FP4 quantizer.
 """
 import numpy as np
 import pytest
@@ -22,7 +22,6 @@ import jax.numpy as jnp  # noqa: E402
 from torch.func import grad, vmap  # noqa: E402
 
 import repro.quant.fake_quant as jfq  # noqa: E402
-from repro_torch.dp import ghost  # noqa: E402
 from repro_torch.quant import fake_quant as fq  # noqa: E402
 
 torch.set_num_threads(1)
@@ -109,8 +108,7 @@ def test_per_example_mode_equals_the_vmap_rule(spec):
     vy = vmap(lambda xx: fq.qeinsum(spec, xx[None], w, **kw)[0],
               randomness="same")(x)
     tx, tw = x.clone().requires_grad_(), w.clone().requires_grad_()
-    with ghost.grad_pass():
-        y = fq.qeinsum(spec, tx, tw, **kw)
+    y = fq.qeinsum(spec, tx, tw, per_example=True, **kw)
     y.backward(gy)
     np.testing.assert_allclose(y.detach().numpy(), vy.numpy(), **TOL)
     np.testing.assert_allclose(tx.grad.numpy(), vx.numpy(), **TOL)
