@@ -13,7 +13,9 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    ``per_sample_clip``; stablelm-3b ghost training: ``ghost_norm_sq``;
    yi-6b serving: the other three), and times kernel, plain version, the
    least time the card could take (``bound_ms``) and, where PyTorch
-   computes the same function, that yardstick (``library_ms``);
+   computes the same function, that yardstick (``library_ms``); the two
+   redesigned kernels also carry their previous design's time
+   (``earlier_ms``);
 4. trains ResNet-18 at full width (random init from a seed, synthetic
    data) with DP-SGD under the DPQuant scheduler through
    ``repro_torch.train_loop.Trainer``, with the options of
@@ -63,12 +65,14 @@ it, it exits non-zero before printing a result.
 Tolerances: KV codes and scales bitwise; LUQ codes bitwise; decode
 attention atol = rtol = 1e-5 (float32, summed in another order); the
 quantized matmul within 1e-5 of the sum of absolute products per output
-(the operands agree bitwise, only the summation order differs); the clip:
-norms rtol 1e-5, the sum within 1e-5 of sum_b |scale_b g_bd| per column;
-the ghost norm within 1e-5 of sum_ij |XX_ij GG_ij| per example (the
-quantized operands agree bitwise, only the summation order differs), and
-bit for bit across two runs.  TF32 is off everywhere (training, plain
-versions, library calls).
+(its Philox draws are the plain twin's words, so the operands agree
+bitwise and only the summation order differs), bit for bit across two
+runs; the clip: norms rtol 1e-5, the sum within 1e-5 of sum_b |scale_b
+g_bd| per column; the ghost norm within 1e-5 of sum_ij |XX_ij GG_ij| per
+example (its bf16 codes times alpha are the plain version's quantized
+operands bit for bit; the Grams of the codes are summed in another order
+and scaled at the end), and bit for bit across two runs.  TF32 is off
+everywhere (training, plain versions, library calls).
 """
 from __future__ import annotations
 
@@ -93,17 +97,37 @@ BF16_TC_FLOPS_PER_S = 989e12
 # float32 operations of one LUQ rounding (abs, two divisions, log2,
 # floor, two exp2, clamps, compares, selects, sign, two products)
 LUQ_OPS = 24
+# 32-bit integer operations of one Philox4x32-10 call, at the least: 10
+# rounds of two 32 x 32 -> 64 multiplies (one IMAD.WIDE.U32 each gives
+# both words) and two three-input XORs (one LOP3 each), and one shift a
+# word for the uniforms: 10 * 4 + 4 = 44.  The key bumps are the same for
+# every call of a key and the float conversions are not int32 work; not
+# counted.  They run on the SMs' int32 lanes, 64 an SM a clock on Hopper:
+# 132 SMs x 64 x the SM clock (the card's maximum, from nvidia-smi) is
+# the int32 rate.
+PHILOX_INT_OPS = 44
+INT32_LANES = 132 * 64
+# The redesigned kernels' times before their redesign, measured by this
+# script on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, kernel table)
+EARLIER_MS = {"luq_matmul[decode]": 6.08355188369751,
+              "luq_matmul[prefill]": 1.7380479574203491,
+              "ghost_norm_sq[2560/2560]": 0.35577601194381714,
+              "ghost_norm_sq[2560/6912]": 0.7965440154075623}
 
 SEED = 0                  # of the kernel checks' inputs
 
 
-def bound(nbytes: float, flops: float, tc_flops: float = 0.0):
+def bound(nbytes: float, flops: float, tc_flops: float = 0.0,
+          int_ops: float = 0.0, sm_clock_mhz: float = 0.0):
     """(bound_ms, bound_by): the larger of bytes / memory rate and the
     operations' time: ``flops`` at the float32 rate, ``tc_flops`` (work
-    the bf16 tensor cores could do exactly) at theirs, whichever is
-    longer."""
+    the bf16 tensor cores could do exactly) at theirs, ``int_ops`` at the
+    int32 rate of ``sm_clock_mhz``, whichever is longest."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(flops / F32_FLOPS_PER_S, tc_flops / BF16_TC_FLOPS_PER_S) * 1e3
+    t_int = (int_ops / (INT32_LANES * sm_clock_mhz * 1e6)
+             if int_ops else 0.0)
+    t_ops = max(flops / F32_FLOPS_PER_S, tc_flops / BF16_TC_FLOPS_PER_S,
+                t_int) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -192,44 +216,68 @@ def check_decode_attn(torch, ops, ref, kvc, fmt, B, S, reps=50):
     }
 
 
-def check_luq_matmul(torch, ops, ref, per_row, rows, reps=10):
-    """The logits head, (R, 4096) x (4096, 64000): at decode ``rows`` slot
-    rows with one uniform draw and one scale each (``ub`` (R, K, N)); at
-    prefill one row, a shared (K, N) draw and a scalar scale."""
+def check_luq_matmul(torch, ops, ref, per_row, rows, sm_clock_mhz, reps=10):
+    """The logits head, (R, 4096) x (4096, 64000), drawing its uniforms
+    with Philox from the logits head's keys: at decode ``rows`` slot rows
+    with one key and one scale each, at prefill one row, one key and a
+    scalar scale.  The plain version draws the same stream in PyTorch, b
+    in column chunks; the kernel must agree within the tolerance and give
+    the same bits twice."""
+    from repro_torch.models.common import logits_key
+    from repro_torch.quant import philox
+    from repro_torch.quant.formats import luq_fp4
+
     R, K, N = (rows if per_row else 1), 4096, 64000
+    keys = ([logits_key(2 * p + 1) for p in (100, 300, 700, 1023)][:R]
+            if per_row else logits_key(2 * 512))
+    key_list = keys if per_row else [keys]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2 + per_row)
     a = torch.randn(R, K, device="cuda", generator=gen)
     b = torch.randn(K, N, device="cuda", generator=gen) / 64
-    ua = torch.rand(R, K, device="cuda", generator=gen)
-    ub = torch.rand(*((R,) if per_row else ()), K, N, device="cuda",
-                    generator=gen)
     alpha_a = a.abs().amax(dim=1) if per_row else a.abs().amax()
     alpha_b = b.abs().amax()
-    args = (a, b, ua, ub, alpha_a, alpha_b)
+    args = (a, b, keys, alpha_a, alpha_b)
     out = ops.luq_matmul(*args)
-    want = ref.luq_matmul_ref(*args)
-    aq = ref.luq_fp4(a, ua, alpha_a.reshape(-1, 1))
-    bq = torch.stack([ref.luq_fp4(b, ub[i] if per_row else ub, alpha_b)
-                      for i in range(R)])
+    if not torch.equal(out, ops.luq_matmul(*args)):
+        raise AssertionError(f"luq_matmul (R = {R}): two runs differ")
+    want = ref.luq_matmul_keys_ref(*args)
+    if per_row:
+        ua = torch.stack([philox.uniforms(k, 0, K, "cuda") for k in key_list])
+    else:
+        ua = philox.uniforms(keys, 0, R * K, "cuda").reshape(R, K)
+    aq = luq_fp4(a, ua, alpha_a.reshape(-1, 1))
+    # Q(b) of each key's draw, in full (one GB each): the tolerance and
+    # the yardstick's operand
+    bq = torch.stack([luq_fp4(b, philox.uniforms(k, 1, K * N, "cuda")
+                              .reshape(K, N), alpha_b) for k in key_list])
     err = (out - want).abs().max().item()
     for i in range(R):
-        tol = 1e-5 * (aq[i].abs() @ bq[i].abs()) + 1e-6
+        tol = 1e-5 * (aq[i].abs() @ bq[i if per_row else 0].abs()) + 1e-6
         if not ((out[i] - want[i]).abs() <= tol).all():
             raise AssertionError(f"luq_matmul row {i} outside tolerance "
                                  f"(max abs err {err})")
     # the yardstick: one batched product of operands quantized beforehand
     aq3 = aq[:, None, :]
-    nbytes = 4 * (2 * R * K + K * N + ub.numel() + alpha_a.numel() + 1
-                  + R * N)
-    flops = 2 * R * K * N + LUQ_OPS * (ub.numel() + R * K)
+    bq3 = bq if per_row else bq.expand(R, K, N)
+    nbytes = 4 * (2 * R * K + K * N + alpha_a.numel() + 1 + R * N)
+    # Philox calls: a's elements one a call; b's 4 a call, for each key
+    calls = R * K + len(key_list) * K * N // 4
+    flops = 2 * R * K * N + LUQ_OPS * (K * N + R * K)
     result = {
         "max_abs_err": err,
         "ms": time_ms(torch, lambda: ops.luq_matmul(*args), reps),
-        "plain_ms": time_ms(torch, lambda: ref.luq_matmul_ref(*args), 3),
-        **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
-        "library_ms": time_ms(torch, lambda: torch.bmm(aq3, bq), reps),
+        "plain_ms": time_ms(torch, lambda: ref.luq_matmul_keys_ref(*args), 3),
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(nbytes, flops, int_ops=PHILOX_INT_OPS * calls,
+                         sm_clock_mhz=sm_clock_mhz))),
+        # the previous design's convention: its uniforms read from memory
+        "bound_uniforms_from_memory_ms": bound(
+            nbytes + 4 * (R * K + len(key_list) * K * N), flops)[0],
+        "library_ms": time_ms(torch, lambda: torch.bmm(aq3, bq3), reps),
+        "earlier_ms": EARLIER_MS["luq_matmul[decode]" if per_row
+                                 else "luq_matmul[prefill]"],
     }
-    del bq, ub
+    del bq, bq3
     return result
 
 
@@ -308,8 +356,8 @@ def check_per_sample_clip(torch, ops, ref, B, D, reps=10):
 def check_ghost_norm(torch, ops, ref, B, T, Dx, Dg, reps=20):
     """The ghost norm of B examples' (T, Dx) / (T, Dg) operands, with the
     rounding's edge values mixed in and an all-zero example (alpha = 0);
-    the yardstick is two ``torch.bmm`` Grams of operands quantized
-    beforehand, then ``(XX * GG).sum((1, 2))``."""
+    the yardstick is two ``torch.bmm`` Grams of the LUQ codes computed
+    beforehand, then ``(alpha_x alpha_g)^2 (XX * GG).sum((1, 2))``."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6 + Dg)
     x = torch.randn(B, T, Dx, device="cuda", generator=gen).clamp(-3.5, 3.5)
     g = torch.randn(B, T, Dg, device="cuda", generator=gen).clamp(-3.5, 3.5)
@@ -336,14 +384,26 @@ def check_ghost_norm(torch, ops, ref, B, T, Dx, Dg, reps=20):
     want = ref.ghost_norm_ref(*args)
     xq = ref.luq_fp4(x.reshape(B, -1), ux, ax[:, None]).reshape(x.shape)
     gq = ref.luq_fp4(g.reshape(B, -1), ug, ag[:, None]).reshape(g.shape)
+    # the yardstick's operands: the codes Q(v) / alpha (float32), whose
+    # Grams cuBLAS sums exactly; the scales come in at the end
+    cx = ref.luq_quant_ref(x.reshape(B, -1), ux, ax, codes=True)
+    cg = ref.luq_quant_ref(g.reshape(B, -1), ug, ag, codes=True)
+    cx = cx.float().reshape(x.shape)
+    cg = cg.float().reshape(g.shape)
+    scale2 = (ax * ag) ** 2
 
     def grams_bmm():
-        xx = torch.bmm(xq, xq.transpose(1, 2))
-        gg = torch.bmm(gq, gq.transpose(1, 2))
-        return (xx * gg).sum(dim=(1, 2))
+        xx = torch.bmm(cx, cx.transpose(1, 2))
+        gg = torch.bmm(cg, cg.transpose(1, 2))
+        return scale2 * (xx * gg).sum(dim=(1, 2))
 
-    tol = 1e-5 * (torch.bmm(xq, xq.transpose(1, 2)).abs()
-                  * torch.bmm(gq, gq.transpose(1, 2)).abs()).sum(dim=(1, 2))
+    xx32 = torch.bmm(xq, xq.transpose(1, 2))
+    gg32 = torch.bmm(gq, gq.transpose(1, 2))
+    tol = 1e-5 * (xx32.abs() * gg32.abs()).sum(dim=(1, 2))
+    # the plain version takes its Grams in float64: float32 sums of values
+    # that all carry alpha's mantissa are biased; printed, not checked
+    f32_err = ((xx32 * gg32).sum(dim=(1, 2)) - want).abs().max().item()
+    del xx32, gg32
     err = (out - want).abs()
     if not (err <= tol).all() or out[1].item() != 0.0:
         raise AssertionError(f"ghost_norm_sq ({B}, {T}, {Dx}, {Dg}): "
@@ -361,12 +421,15 @@ def check_ghost_norm(torch, ops, ref, B, T, Dx, Dg, reps=20):
     full_f32 = 2 * B * T * T * (Dx + Dg) + 2 * B * T * T + luq
     return {
         "max_abs_err": err.max().item(),
+        "f32_values_err": f32_err,
         "ms": time_ms(torch, lambda: ops.ghost_norm_sq(*args), reps),
         "plain_ms": time_ms(torch, lambda: ref.ghost_norm_ref(*args), reps),
         **dict(zip(("bound_ms", "bound_by"),
                    bound(nbytes, luq + B * T * (T + 1), grams))),
         "bound_f32_full_grams_ms": bound(nbytes, full_f32)[0],
         "library_ms": time_ms(torch, grams_bmm, reps),
+        "earlier_ms": EARLIER_MS[
+            f"ghost_norm_sq[{min(Dx, Dg)}/{max(Dx, Dg)}]"],
     }
 
 
@@ -841,6 +904,12 @@ def main() -> int:
                          text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
     print(card)
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                            "--format=csv,noheader,nounits"],
+                           capture_output=True, text=True, timeout=60,
+                           check=True)
+    sm_clock_mhz = float(clock.stdout.strip().splitlines()[0])
+    print(f"max SM clock {sm_clock_mhz} MHz")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
@@ -870,7 +939,8 @@ def main() -> int:
         checks[f"decode_attn_fused[{fmt}]"] = attn
     for branch, per_row in (("decode", True), ("prefill", False)):
         name = f"luq_matmul[{branch}]"
-        checks[name] = check_luq_matmul(torch, ops, ref, per_row, wl.SLOTS)
+        checks[name] = check_luq_matmul(torch, ops, ref, per_row, wl.SLOTS,
+                                        sm_clock_mhz)
         print(f"{name} {checks[name]}")
     # ResNet-18 training shapes: the largest weight (3x3x512x512) whole,
     # and the largest activation under vmap (64 examples x 32x32x64)

@@ -36,13 +36,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "repro_luq_matmul": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "repro_luq_matmul": (_I, [_P, _P, _P, _P, ctypes.POINTER(ctypes.c_uint32),
+                              _I, _I, _P, _P, _P, _I, _I, _I, _P]),
     "repro_luq_matmul_max_rows": (_I, []),
+    "repro_luq_matmul_splits": (_I, [_I, _I]),
     "repro_kv_quant_rows": (_I, [_P, _P, _P, ctypes.c_long, _I, _I, _P]),
     "repro_decode_attn": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, ctypes.c_float, _I, _P]),
     "repro_decode_attn_limits": (_I, [ctypes.POINTER(_I), ctypes.POINTER(_I)]),
-    "repro_luq_quant": (_I, [_P, _P, _P, _P, _I, _L, _I, _I, _P]),
+    "repro_luq_quant": (_I, [_P, _P, _P, _P, _I, _L, _I, _I, _I, _P]),
     "repro_per_sample_clip_chunks": (_I, [_L]),
     "repro_per_sample_clip": (_I, [_P, _P, _P, _P, _P, _I, _L, ctypes.c_float,
                                    _P]),

@@ -1,5 +1,5 @@
 // Fused ghost norm for Hopper (sm_90a): LUQ-FP4 quantize + two Grams +
-// their inner product, per example.
+// their inner product, per example, the Grams on bf16 tensor cores.
 //
 // Replaces the Pallas TPU kernel `ghost_norm_gram` (src/repro/kernels/
 // ghost_norm.py, `_ghost_norm_kernel`).  For each example b, with x_b
@@ -9,47 +9,66 @@
 //            = || Q(x_b)^T Q(g_b) ||_F^2
 //
 // the per-example squared weight-gradient norm of ghost clipping (the
-// Gram route of the mixed ghost norm).  Q is the quantize kernel of
-// luq_quant.cu (`repro_luq_quant`, linked into the same library), so the
-// quantized operands are bitwise its codes; the uniforms ux (T*Dx) and
-// ug (T*Dg) are shared by the examples, alpha is per example.
+// Gram route of the mixed ghost norm).  The uniforms ux (T*Dx) and ug
+// (T*Dg) are shared by the examples, alpha is per example.
 //
-// Design, simple first.  The TPU kernel quantizes each (T, 256) column
-// block in VMEM and accumulates two whole (T, T) Grams there.  Two whole
-// Grams do not fit shared memory here, so the Grams are tiled, and a tile
-// grid reads every operand row 2 T / 64 times: quantizing on load would
-// repeat the LUQ rounding (a log2, two exp2 and two IEEE divisions) that
-// many times, which measured slower than the plain PyTorch version.  So
-// four launches on one stream:
+// What bounds it on this card: bytes.  At stablelm-3b's pass-1 shapes (4
+// examples of 256 x 2560 / 6912) the float32 operands and uniforms are
+// 26 / 49 MB (8 / 15 us at 3.35 TB/s); the Grams' upper triangles are
+// 1.35 / 2.49 GFLOP, 1.4 / 2.5 us on the bf16 tensor cores.  The previous
+// design ran both whole Grams as float32 SIMT FMAs over float32 copies of
+// the quantized operands, 64 blocks of 64 x 64 tiles on 132 SMs, and lost
+// to two cuBLAS Grams by 2-2.7x.
 //
-//   1-2. repro_luq_quant: Q(x), Q(g) once into scratch the wrapper
-//      allocates (one row per example, shared uniforms);
-//   3. gram_tiles: block (tj, ti, b) owns the 64 x 64 tile (ti, tj) of both
-//      Grams of example b.  It streams 32 columns at a time of Q(x)'s tile
-//      rows ti and tj through shared memory and accumulates the XX tile in
-//      registers (4 x 4 a thread), then the same over Q(g) for GG, and
-//      reduces the tile's sum XX o GG in a fixed order to one partial;
-//   4. sum_partials: each example's partials added in a fixed order.
+// Design.  Q(v) = alpha * c with the code c = sign * 2^-k (or 0), which
+// bf16 holds exactly, so
 //
-// Every tile is computed, both triangles: the Grams' symmetry would halve
-// the multiply-adds, and tensor cores could take them (Q(v) / alpha is
-// +-2^-k, exact in bf16); both are left for a later design.  No atomics:
-// the same input gives the same bits on every run.  No limit on T (the
-// TPU wrapper's T <= 512 cap existed for VMEM only).
+//     out[b] = (alpha_x alpha_g)^2 * sum_ij (Cx Cx^T)_ij (Cg Cg^T)_ij
+//
+// and the Grams of the codes can run on the tensor cores: each product
+// of two codes is a power of two, exact, summed in float32.  Four
+// launches on one stream:
+//
+//   1-2. repro_luq_quant (luq_quant.cu, linked into the same library) with
+//      its code output: Cx, Cg once into bf16 scratch the wrapper
+//      allocates (one row per example, shared uniforms), half the bytes
+//      of float32 values.  Same rounding as every other quantizer.
+//   3. gram_tiles: block (p, b) owns upper-triangle tile p = (ti <= tj) of
+//      32 x 32 of both Grams of example b: T = 256 gives 36 tiles, 144
+//      blocks at B = 4 (the previous 64 x 64 tiling had 10 upper tiles,
+//      40 blocks).  The block's 8 warps split D in 32-column chunks; a
+//      warp computes the whole 32 x 32 tile over its chunks with
+//      mma.sync.m16n8k16 (bf16 in, float32 sums), its fragments loaded
+//      straight from global memory as one 16-byte load per thread and
+//      row (a Gram sums over d in any order, so the fragments' k slots
+//      take the 8 consecutive columns a thread loads); on a diagonal
+//      tile the A rows serve as the B rows.  Each mma sums its 16 exact
+//      products from zero, and the warp adds the result to its float32
+//      tile with IEEE adds (see mma_bf16).  The warps' tiles are added in
+//      shared memory in a fixed order, first for Cx (into registers), then
+//      for Cg, and the tile's sum of XX o GG is reduced in a fixed order,
+//      doubled off the diagonal (exact), to one partial;
+//   4. sum_partials: each example's partials added in order, scaled by
+//      (alpha_x alpha_g)^2 in float32.
+//
+// No atomics: the same input gives the same bits on every run.  No limit
+// on T (the TPU wrapper's T <= 512 cap existed for VMEM only).  An
+// all-zero example has codes 0 and alpha 0: exactly 0.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 extern "C" int repro_luq_quant(const void* x, const void* u,
                                const void* alpha, void* out, int rows,
                                long long n, int u_per_row, int vec,
-                               void* stream);
+                               int codes, void* stream);
 
 namespace {
 
-constexpr int kTile = 64;                    // Gram tile edge
-constexpr int kK = 32;                       // columns per shared stage
-constexpr int kThreads = 256;                // 16 x 16, 4 x 4 outputs each
-constexpr int kStride = kTile + 4;           // padded row of a stage
+constexpr int kTile = 32;                    // Gram tile edge
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kChunk = 32;                   // columns a warp takes a step
 constexpr int kMaxGridY = 65535;
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -60,130 +79,237 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// acc[r][c] += sum_d q[i0 + 4 ty + r, d] q[j0 + 4 tx + c, d] over one
-// example's (T, D) quantized matrix q, stage by stage through `si` / `sj`
-// (kK rows of kStride floats: column d of the stage holds the 64 rows).
-__device__ __forceinline__ void gram_tile(const float* __restrict__ q, int T,
-                                          int D, int i0, int j0,
-                                          float (*si)[kStride],
-                                          float (*sj)[kStride],
-                                          float (&acc)[4][4]) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  // loads: thread t takes column t % kK of rows t / kK + 8 r, r = 0..7, so
-  // a warp reads 32 consecutive floats of one row
-  const int lc = threadIdx.x % kK, lr = threadIdx.x / kK;
-  for (int k0 = 0; k0 < D; k0 += kK) {
-    const int col = k0 + lc;
+// Columns d .. d + 7 of `row` of the (T, D) codes q as 4 words of two
+// bf16 (lower column in the lower half), zeros outside the matrix.
+// kVec: D % 8 == 0, so d % 8 == 0 keeps the load 16-byte aligned.
+template <bool kVec>
+__device__ __forceinline__ uint4 load8(const __nv_bfloat16* __restrict__ q,
+                                       int row, int d, int T, int D) {
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  if (row >= T || d >= D) return v;
+  const __nv_bfloat16* p = q + (size_t)row * D + d;
+  if constexpr (kVec) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  } else {
+    const unsigned short* h = reinterpret_cast<const unsigned short*>(p);
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-    for (int r = 0; r < kTile / (kThreads / kK); ++r) {
-      const int row = lr + r * (kThreads / kK);
-      const int gi = i0 + row, gj = j0 + row;
-      si[lc][row] = (col < D && gi < T) ? __ldg(q + (long long)gi * D + col)
-                                        : 0.f;
-      sj[lc][row] = (col < D && gj < T) ? __ldg(q + (long long)gj * D + col)
-                                        : 0.f;
+    for (int j = 0; j < 8; ++j) {
+      if (d + j < D) w[j / 2] |= (uint32_t)__ldg(h + j) << (16 * (j % 2));
     }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < kK; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&si[k][4 * ty]);
-      const float4 b = *reinterpret_cast<const float4*>(&sj[k][4 * tx]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
-      }
-    }
-    __syncthreads();
+    return make_uint4(w[0], w[1], w[2], w[3]);
   }
 }
 
-// partial[b, ti * nt + tj] = sum over tile (ti, tj) of XX o GG.
-__global__ void __launch_bounds__(kThreads)
-gram_tiles_kernel(const float* __restrict__ qx, const float* __restrict__ qg,
-                  float* __restrict__ partial, int B, int T, int Dx, int Dg) {
-  __shared__ __align__(16) float si[kK][kStride];
-  __shared__ __align__(16) float sj[kK][kStride];
-  __shared__ float warp_part[kThreads / 32];
-  const int nt = gridDim.x;
-  const int tj = blockIdx.x, ti = blockIdx.y;
-  for (int b = blockIdx.z; b < B; b += gridDim.z) {
-    float xx[4][4] = {}, gg[4][4] = {};
-    gram_tile(qx + (long long)b * T * Dx, T, Dx, ti * kTile, tj * kTile, si,
-              sj, xx);
-    gram_tile(qg + (long long)b * T * Dg, T, Dg, ti * kTile, tj * kTile, si,
-              sj, gg);
+__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
+  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+}
+
+// c += A B for one m16n8k16 step of bf16 codes.  The tensor core sums the
+// 16 products from zero (each a power of two in [2^-12, 1] or 0: the sum
+// is a multiple of 2^-12 below 16, exact in float32 whatever the unit's
+// internal rounding), and the step's sum is added to c with an IEEE float32
+// add, so the tile is a float32 sum of exact terms however the unit rounds
+// its own accumulator.  (On an H100 at the path's shapes, chaining the
+// steps through the unit's accumulator gave the same bits.)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  float d0, d1, d2, d3;
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %10, %10, %10};\n"
+      : "=f"(d0), "=f"(d1), "=f"(d2), "=f"(d3)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1), "f"(0.f));
+  c[0] += d0;
+  c[1] += d1;
+  c[2] += d2;
+  c[3] += d3;
+}
+
+// This warp's share of the 32 x 32 tile (i0, j0) of q q^T over the
+// 32-column chunks warp, warp + kWarps, ... of D.  Thread (g, t) = (lane /
+// 4, lane % 4) loads columns d0 + 8 t .. d0 + 8 t + 7 of rows g + 8 m, m =
+// 0..3, of both row blocks; k slots 2t, 2t + 1, 2t + 8, 2t + 9 of the
+// mma's k-half h are columns d0 + 8 t + 4 h + 0..3, the same map for A
+// and B.  acc[mt][nt] is the m16n8 fragment of rows 16 mt.., columns 8 nt..
+template <bool kVec>
+__device__ __forceinline__ void gram_tile_warp(
+    const __nv_bfloat16* __restrict__ q, int T, int D, int i0, int j0,
+    float (&acc)[2][4][4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const bool diag = i0 == j0;
+#pragma unroll 2
+  for (int d0 = warp * kChunk; d0 < D; d0 += kWarps * kChunk) {
+    const int d = d0 + 8 * t;
+    uint4 ra[4], rb[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) ra[m] = load8<kVec>(q, i0 + g + 8 * m, d, T, D);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      rb[m] = diag ? ra[m] : load8<kVec>(q, j0 + g + 8 * m, d, T, D);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          mma_bf16(acc[mt][nt], word(ra[2 * mt], 2 * h),
+                   word(ra[2 * mt + 1], 2 * h), word(ra[2 * mt], 2 * h + 1),
+                   word(ra[2 * mt + 1], 2 * h + 1), word(rb[nt], 2 * h),
+                   word(rb[nt], 2 * h + 1));
+        }
+      }
+    }
+  }
+}
+
+// The warps' tiles of q q^T added in a fixed order; element e = tid + s
+// kThreads of the row-major 32 x 32 tile lands in out[s].
+template <bool kVec>
+__device__ __forceinline__ void gram_tile(const __nv_bfloat16* __restrict__ q,
+                                          int T, int D, int i0, int j0,
+                                          float (*red)[kTile * kTile],
+                                          float (&out)[4]) {
+  float acc[2][4][4] = {};
+  gram_tile_warp<kVec>(q, T, D, i0, j0, acc);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int row = 16 * mt + g + 8 * (c / 2);
+        const int col = 8 * nt + 2 * t + (c % 2);
+        red[warp][row * kTile + col] = acc[mt][nt][c];
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < kTile * kTile / kThreads; ++s) {
+    const int e = threadIdx.x + s * kThreads;
+    float v = red[0][e];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) v += red[w][e];
+    out[s] = v;
+  }
+  __syncthreads();
+}
+
+// partial[b, p] = (1 or 2) * sum over upper tile p of (Cx Cx^T) o (Cg Cg^T).
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, 2)
+gram_tiles_kernel(const __nv_bfloat16* __restrict__ cx,
+                  const __nv_bfloat16* __restrict__ cg,
+                  float* __restrict__ partial, int B, int T, int Dx, int Dg,
+                  int nt) {
+  __shared__ float red[kWarps][kTile * kTile];
+  __shared__ float warp_part[kWarps];
+  const int P = gridDim.x;
+  // upper tile p -> (ti, tj), ti <= tj, row by row
+  int ti = 0, rest = blockIdx.x;
+  while (rest >= nt - ti) {
+    rest -= nt - ti;
+    ++ti;
+  }
+  const int tj = ti + rest;
+  const int i0 = ti * kTile, j0 = tj * kTile;
+  for (int b = blockIdx.y; b < B; b += gridDim.y) {
+    float xx[kTile * kTile / kThreads], gg[kTile * kTile / kThreads];
+    gram_tile<kVec>(cx + (size_t)b * T * Dx, T, Dx, i0, j0, red, xx);
+    gram_tile<kVec>(cg + (size_t)b * T * Dg, T, Dg, i0, j0, red, gg);
     float s = 0.f;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s = fmaf(xx[r][c], gg[r][c], s);
+    for (int i = 0; i < kTile * kTile / kThreads; ++i) {
+      s = fmaf(xx[i], gg[i], s);
     }
     s = warp_sum(s);
     if ((threadIdx.x & 31) == 0) warp_part[threadIdx.x >> 5] = s;
     __syncthreads();
     if (threadIdx.x == 0) {
-      float t = 0.f;
+      float v = 0.f;
 #pragma unroll
-      for (int w = 0; w < kThreads / 32; ++w) t += warp_part[w];
-      partial[((long long)b * nt + ti) * nt + tj] = t;
+      for (int w = 0; w < kWarps; ++w) v += warp_part[w];
+      partial[(size_t)b * P + blockIdx.x] = ti == tj ? v : 2.f * v;
     }
     __syncthreads();
   }
 }
 
-// out[b] = sum of example b's P partials, in order.
+// out[b] = (ax[b] ag[b])^2 * (sum of example b's P partials, in order).
 __global__ void sum_partials_kernel(const float* __restrict__ partial,
+                                    const float* __restrict__ ax,
+                                    const float* __restrict__ ag,
                                     float* __restrict__ out, int B, int P) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   float s = 0.f;
-  for (int p = 0; p < P; ++p) s += partial[(long long)b * P + p];
-  out[b] = s;
+  for (int p = 0; p < P; ++p) s += partial[(size_t)b * P + p];
+  const float scale = ax[b] * ag[b];
+  out[b] = scale * scale * s;
 }
 
-// Q(m) into q: the quantize kernel of luq_quant.cu, one row per example,
-// its float4 path when the row length and the pointers allow it.
-int quantize(const void* m, const void* u, const void* alpha, void* q,
+// The bf16 codes of m into c: the quantize kernel of luq_quant.cu, one row
+// per example, its 4-wide path when the row length and pointers allow it.
+int quantize(const void* m, const void* u, const void* alpha, void* c,
              int B, long long n, cudaStream_t s) {
-  const int vec = n % 4 == 0 &&
-                  (((uintptr_t)m | (uintptr_t)u | (uintptr_t)q) & 15) == 0;
-  return repro_luq_quant(m, u, alpha, q, B, n, 0, vec, (void*)s);
+  const int vec = n % 4 == 0 && (((uintptr_t)m | (uintptr_t)u) & 15) == 0 &&
+                  ((uintptr_t)c & 7) == 0;
+  return repro_luq_quant(m, u, alpha, c, B, n, 0, vec, 1, (void*)s);
 }
 
 }  // namespace
 
-// Number of partials per example: the caller allocates `partial` as
-// (B, repro_ghost_norm_partials(T)) float32.
+// Number of partials per example (upper 32 x 32 tiles of a T x T Gram):
+// the caller allocates `partial` as (B, repro_ghost_norm_partials(T))
+// float32.
 extern "C" int repro_ghost_norm_partials(int T) {
   const int nt = (T + kTile - 1) / kTile;
-  return nt * nt;
+  return nt * (nt + 1) / 2;
 }
 
-// x, qx: (B, T, Dx); g, qg: (B, T, Dg); ux: (T * Dx,); ug: (T * Dg,); ax,
-// ag, out: (B,); partial: (B, repro_ghost_norm_partials(T)).  qx, qg and
-// partial are scratch.  All float32, contiguous, on the device.  Returns
-// the cudaError_t of the launches.
+// x: (B, T, Dx); g: (B, T, Dg); ux: (T * Dx,); ug: (T * Dg,); ax, ag, out:
+// (B,); all float32.  cx: (B, T, Dx) and cg: (B, T, Dg) bf16 scratch, 16-
+// byte aligned; partial: (B, repro_ghost_norm_partials(T)) float32
+// scratch.  All contiguous, on the device.  Returns the cudaError_t of the
+// launches.
 extern "C" int repro_ghost_norm(const void* x, const void* ux, const void* ax,
                                 const void* g, const void* ug, const void* ag,
-                                void* qx, void* qg, void* partial, void* out,
+                                void* cx, void* cg, void* partial, void* out,
                                 int B, int T, int Dx, int Dg, void* stream) {
   if (B < 1 || T < 1 || Dx < 1 || Dg < 1) return (int)cudaErrorInvalidValue;
+  if ((((uintptr_t)cx | (uintptr_t)cg) & 15) != 0) {
+    return (int)cudaErrorMisalignedAddress;
+  }
   const int nt = (T + kTile - 1) / kTile;
+  const int P = repro_ghost_norm_partials(T);
   if (nt > 65535) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  int rc = quantize(x, ux, ax, qx, B, (long long)T * Dx, s);
+  int rc = quantize(x, ux, ax, cx, B, (long long)T * Dx, s);
   if (rc != (int)cudaSuccess) return rc;
-  rc = quantize(g, ug, ag, qg, B, (long long)T * Dg, s);
+  rc = quantize(g, ug, ag, cg, B, (long long)T * Dg, s);
   if (rc != (int)cudaSuccess) return rc;
-  const dim3 grid(nt, nt, B < kMaxGridY ? B : kMaxGridY);
-  gram_tiles_kernel<<<grid, kThreads, 0, s>>>(
-      (const float*)qx, (const float*)qg, (float*)partial, B, T, Dx, Dg);
+  const dim3 grid(P, B < kMaxGridY ? B : kMaxGridY);
+  const auto* qx = (const __nv_bfloat16*)cx;
+  const auto* qg = (const __nv_bfloat16*)cg;
+  if (Dx % 8 == 0 && Dg % 8 == 0) {
+    gram_tiles_kernel<true><<<grid, kThreads, 0, s>>>(
+        qx, qg, (float*)partial, B, T, Dx, Dg, nt);
+  } else {
+    gram_tiles_kernel<false><<<grid, kThreads, 0, s>>>(
+        qx, qg, (float*)partial, B, T, Dx, Dg, nt);
+  }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   sum_partials_kernel<<<(B + 127) / 128, 128, 0, s>>>(
-      (const float*)partial, (float*)out, B, nt * nt);
+      (const float*)partial, (const float*)ax, (const float*)ag, (float*)out,
+      B, P);
   return (int)cudaGetLastError();
 }

@@ -20,14 +20,15 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import load_library
 from repro_torch.quant import kv_cache as kvc
+from repro_torch.quant import philox
 
 #: Kernel launches per wrapper since the last :func:`reset_launch_counts`.
 #: Only launches of a kernel count; CPU calls of the plain versions do not.
 LAUNCHES = {"luq_matmul": 0, "kv_quant_rows": 0, "decode_attn_fused": 0,
             "luq_quant": 0, "clip_and_sum": 0, "ghost_norm_sq": 0}
 #: The ``luq_matmul`` launches of :data:`LAUNCHES` by the kernel's branch:
-#: ``shared`` uniforms ``ub`` (K, N) for all rows (prefill), or ``per_row``
-#: uniforms (R, K, N) (the decode tick's per-slot logits head).
+#: one Philox key ``shared`` by all rows (prefill), or one key ``per_row``
+#: (the decode tick's per-slot logits head).
 LUQ_MATMUL_LAUNCHES = {"shared": 0, "per_row": 0}
 #: The ``luq_quant`` launches of :data:`LAUNCHES` by the number of rows: a
 #: tensor quantized whole (``one_row``: a weight, or anything outside
@@ -89,40 +90,49 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
 # --------------------------------------------------------------------------- #
 # luq_matmul  (csrc/luq_matmul.cu, replaces the TPU kernel quant_matmul)
 # --------------------------------------------------------------------------- #
-def luq_matmul(a, b, ua, ub, alpha_a, alpha_b) -> torch.Tensor:
-    """LUQ-FP4 quantize-both-operands matmul: (R, K) x (K, N) -> float32.
+def luq_matmul(a, b, keys, alpha_a, alpha_b) -> torch.Tensor:
+    """LUQ-FP4 quantize-both-operands matmul: (R, K) x (K, N) -> float32,
+    the uniforms drawn inside the kernel with Philox4x32-10.
 
-    ``ua``: (R, K) uniforms for ``a``; ``ub``: (K, N) uniforms shared by all
-    rows, or (R, K, N) with one draw per row (the per-slot logits head);
-    ``alpha_a``: () or (R,) scales of ``a`` (per row: each row quantized
-    on its own); ``alpha_b``: () scale of ``b``.  All float32.
+    ``keys``: one ``(k0, k1)`` pair of 32-bit ints, the draw shared by all
+    rows (prefill: ``a`` quantized as one matrix), or R pairs, one draw
+    per row (the decode tick's per-slot logits head); the stream's layout
+    is ``repro_torch.quant.philox``'s.  ``alpha_a``: () or (R,) scales of
+    ``a`` (per row: each row quantized on its own); ``alpha_b``: () scale
+    of ``b``.  ``a``, ``b`` and the scales float32.  The kernel sums in a
+    fixed order: the same inputs and keys give the same bits every run.
     """
     R, K = a.shape
     N = b.shape[1]
-    if _on_cpu(a, b, ua, ub):
-        return ref.luq_matmul_ref(a, b, ua, ub, alpha_a, alpha_b)
-    per_row = ub.dim() == 3
+    key_list, per_row = philox.split_keys(keys, R)
+    if _on_cpu(a, b):
+        return ref.luq_matmul_keys_ref(a, b, keys, alpha_a, alpha_b)
     alpha_a = alpha_a.reshape(-1).expand(R).contiguous()
     alpha_b = alpha_b.reshape(())
     _check("a", a, torch.float32, (R, K))
     _check("b", b, torch.float32, (K, N))
-    _check("ua", ua, torch.float32, (R, K))
-    _check("ub", ub, torch.float32, (R, K, N) if per_row else (K, N))
     _check("alpha_a", alpha_a, torch.float32, (R,))
     _check("alpha_b", alpha_b, torch.float32, ())
     _on_cpu(a, alpha_a, alpha_b)
     lib = load_library()
     out = torch.empty((R, N), dtype=torch.float32, device=a.device)
     step = lib.repro_luq_matmul_max_rows()
+    splits = lib.repro_luq_matmul_splits(K, N)
+    # scratch: Q(a), and the K splits' partial sums
+    aq = torch.empty((R, K), dtype=torch.float32, device=a.device)
+    partial = torch.empty((splits * min(R, step) * N if splits > 1 else 1,),
+                          dtype=torch.float32, device=a.device)
     with torch.cuda.device(a.device):
         stream = _stream(a.device)
         for r0 in range(0, R, step):
             r1 = min(R, r0 + step)
+            words = [w for k in (key_list[r0:r1] if per_row else key_list)
+                     for w in k]
             err = lib.repro_luq_matmul(
-                _ptr(a[r0:r1]), _ptr(b), _ptr(ua[r0:r1]),
-                _ptr(ub[r0:r1] if per_row else ub), _ptr(alpha_a[r0:r1]),
-                _ptr(alpha_b), _ptr(out[r0:r1]), r1 - r0, K, N, int(per_row),
-                stream)
+                _ptr(a[r0:r1]), _ptr(b), _ptr(alpha_a[r0:r1]), _ptr(alpha_b),
+                (ctypes.c_uint32 * len(words))(*words), int(per_row), r0,
+                _ptr(aq[r0:r1]), _ptr(partial), _ptr(out[r0:r1]), r1 - r0, K,
+                N, stream)
             _raise_on_error(lib, err, "luq_matmul")
             LAUNCHES["luq_matmul"] += 1
             LUQ_MATMUL_LAUNCHES["per_row" if per_row else "shared"] += 1
@@ -216,29 +226,32 @@ def decode_attn_fused(q, k_codes, v_codes, k_scale, v_scale, pos, *,
 # --------------------------------------------------------------------------- #
 # luq_quant  (csrc/luq_quant.cu, replaces the TPU kernel luq_quant_2d)
 # --------------------------------------------------------------------------- #
-def luq_quant(x: torch.Tensor, u: torch.Tensor,
-              alpha: torch.Tensor) -> torch.Tensor:
+def luq_quant(x: torch.Tensor, u: torch.Tensor, alpha: torch.Tensor,
+              codes: bool = False) -> torch.Tensor:
     """LUQ-FP4 stochastic quantization of the rows of ``x`` (R, N).
 
     ``u``: (N,) uniforms shared by every row, or (R, N), one draw per row;
     ``alpha``: (R,) per-row scales (``max|x[r]|``, computed by the caller).
-    All float32.  Returns (R, N) float32.
+    All float32.  Returns (R, N) float32 values, or with ``codes`` the
+    bf16 codes ``Q(x) / alpha = sign * 2^-k`` (exact in bf16).
     """
     if _on_cpu(x, u, alpha):
-        return ref.luq_quant_ref(x, u, alpha)
+        return ref.luq_quant_ref(x, u, alpha, codes)
     R, N = x.shape
     per_row = u.dim() == 2
     _check("x", x, torch.float32, (R, N))
     _check("u", u, torch.float32, (R, N) if per_row else (N,))
     _check("alpha", alpha, torch.float32, (R,))
-    out = torch.empty_like(x)
+    out = torch.empty_like(x, dtype=torch.bfloat16 if codes else x.dtype)
     if x.numel() == 0:
         return out
-    vec = N % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, u, out))
+    vec = (N % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, u))
+           and out.data_ptr() % (8 if codes else 16) == 0)
     lib = load_library()
     with torch.cuda.device(x.device):
         err = lib.repro_luq_quant(_ptr(x), _ptr(u), _ptr(alpha), _ptr(out), R,
-                                  N, int(per_row), int(vec), _stream(x.device))
+                                  N, int(per_row), int(vec), int(codes),
+                                  _stream(x.device))
     _raise_on_error(lib, err, "luq_quant")
     LAUNCHES["luq_quant"] += 1
     LUQ_QUANT_LAUNCHES["one_row" if R == 1 else "rows"] += 1
@@ -290,12 +303,14 @@ def ghost_norm_sq(x, g, ux, ug, alpha_x, alpha_g) -> torch.Tensor:
     ``alpha_g``: (B,) per-example scales (``max|x_b|``, ``max|g_b|``).
     All float32.  Returns (B,) float32.
 
-    The kernel quantizes both operands once into scratch, then tiles the
-    (T, T) Grams, so any T is taken: the JAX wrapper's ``T <= 512`` cap
-    (``GHOST_NORM_MAX_T``) sized its two whole Grams for a TPU core's
-    VMEM, and above it that wrapper computes the same value unfused.
-    Partials are summed in a fixed order (no atomics): the same input
-    gives the same bits on every run.
+    The kernel quantizes both operands once into bf16 codes (``Q(v) /
+    alpha``, exact), runs the upper triangles of the (T, T) Grams of the
+    codes on the tensor cores in tiles, and scales each example by
+    ``(alpha_x alpha_g)^2`` at the end, so any T is taken: the JAX
+    wrapper's ``T <= 512`` cap (``GHOST_NORM_MAX_T``) sized its two whole
+    Grams for a TPU core's VMEM, and above it that wrapper computes the
+    same value unfused.  Partials are summed in a fixed order (no
+    atomics): the same input gives the same bits on every run.
     """
     if _on_cpu(x, g, ux, ug, alpha_x, alpha_g):
         return ref.ghost_norm_ref(x, g, ux, ug, alpha_x, alpha_g)
@@ -312,16 +327,14 @@ def ghost_norm_sq(x, g, ux, ug, alpha_x, alpha_g) -> torch.Tensor:
         return out.zero_()
     lib = load_library()
     P = lib.repro_ghost_norm_partials(T)
-    # scratch: the quantized operands and the per-tile partials
-    scratch = torch.empty((B * (T * (Dx + Dg) + P),), dtype=torch.float32,
-                          device=x.device)
-    qx = scratch[:B * T * Dx]
-    qg = scratch[B * T * Dx:B * T * (Dx + Dg)]
-    partial = scratch[B * T * (Dx + Dg):]
+    # scratch: the bf16 codes of both operands, the per-tile partials
+    cx = torch.empty((B * T * Dx,), dtype=torch.bfloat16, device=x.device)
+    cg = torch.empty((B * T * Dg,), dtype=torch.bfloat16, device=x.device)
+    partial = torch.empty((B * P,), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.repro_ghost_norm(
             _ptr(x), _ptr(ux), _ptr(alpha_x), _ptr(g), _ptr(ug),
-            _ptr(alpha_g), _ptr(qx), _ptr(qg), _ptr(partial), _ptr(out), B,
+            _ptr(alpha_g), _ptr(cx), _ptr(cg), _ptr(partial), _ptr(out), B,
             T, Dx, Dg, _stream(x.device))
     _raise_on_error(lib, err, "ghost_norm_sq")
     LAUNCHES["ghost_norm_sq"] += 1

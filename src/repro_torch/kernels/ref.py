@@ -11,13 +11,18 @@ from __future__ import annotations
 import torch
 
 from repro_torch.quant import kv_cache as kvc
-from repro_torch.quant.formats import luq_fp4
+from repro_torch.quant import philox
+from repro_torch.quant.formats import (luq_fp4, luq_fp4_codes, luq_fp4_prep,
+                                       luq_fp4_value)
 
 
-def luq_quant_ref(x, u, alpha) -> torch.Tensor:
+def luq_quant_ref(x, u, alpha, codes: bool = False) -> torch.Tensor:
     """Plain version of ``luq_quant``: LUQ-FP4 of the rows of ``x`` (R, N)
     against uniforms ``u`` ((N,) shared by the rows, or (R, N)) and the
-    per-row scales ``alpha`` (R,)."""
+    per-row scales ``alpha`` (R,); with ``codes``, the bf16 codes
+    ``Q(x) / alpha`` instead of the float32 values."""
+    if codes:
+        return luq_fp4_codes(x, u, alpha.reshape(-1, 1))
     return luq_fp4(x.float(), u, alpha.reshape(-1, 1))
 
 
@@ -35,19 +40,27 @@ def ghost_norm_ref(x, g, ux, ug, alpha_x, alpha_g) -> torch.Tensor:
     ``<Q(x_b) Q(x_b)^T, Q(g_b) Q(g_b)^T>`` with x (B, T, Dx), g (B, T, Dg),
     the uniforms ``ux`` (T * Dx,) and ``ug`` (T * Dg,) shared by the
     examples and per-example scales ``alpha_x``, ``alpha_g`` (B,).
-    Returns (B,) float32."""
+    Returns (B,) float32.
+
+    The Grams and their inner product are taken in float64: every value of
+    Q(v) is a power of two times alpha, so float32 sums of their products
+    all carry alpha's mantissa and round with a bias (2.7e-5 of a Gram
+    element from cuBLAS on an H100 at D = 6912, above the kernel's
+    tolerance; the kernel, summing the exact codes, is within 1e-7)."""
     B = x.shape[0]
     xq = luq_fp4(x.float().reshape(B, -1), ux,
-                 alpha_x.reshape(-1, 1)).reshape(x.shape)
+                 alpha_x.reshape(-1, 1)).reshape(x.shape).double()
     gq = luq_fp4(g.float().reshape(B, -1), ug,
-                 alpha_g.reshape(-1, 1)).reshape(g.shape)
+                 alpha_g.reshape(-1, 1)).reshape(g.shape).double()
     xx = xq @ xq.transpose(1, 2)
     gg = gq @ gq.transpose(1, 2)
-    return (xx * gg).sum(dim=(1, 2))
+    return (xx * gg).sum(dim=(1, 2)).float()
 
 
 def luq_matmul_ref(a, b, ua, ub, alpha_a, alpha_b) -> torch.Tensor:
-    """Plain version of ``luq_matmul``: (R, K) x (K, N) -> (R, N) float32.
+    """LUQ-FP4 quantize-both-operands matmul against explicit uniforms, the
+    function of the JAX package's ``quant_matmul``: (R, K) x (K, N) ->
+    (R, N) float32.
 
     ``ub`` is (K, N) (one draw shared by all rows) or (R, K, N) (one draw
     per row); ``alpha_a`` is () or (R,), ``alpha_b`` ().
@@ -58,6 +71,36 @@ def luq_matmul_ref(a, b, ua, ub, alpha_a, alpha_b) -> torch.Tensor:
         return aq @ luq_fp4(b.float(), ub, alpha_b)
     return torch.cat([aq[i:i + 1] @ luq_fp4(b.float(), ub[i], alpha_b)
                       for i in range(a.shape[0])])
+
+
+def luq_matmul_keys_ref(a, b, keys, alpha_a, alpha_b) -> torch.Tensor:
+    """Plain version of ``luq_matmul``: :func:`luq_matmul_ref` fed the
+    Philox draws of ``keys`` (``repro_torch.quant.philox``'s layout), as
+    the kernel draws them.  ``keys``: one ``(k0, k1)`` pair (``a`` one
+    matrix, its element ``r * K + k``) or R pairs (row r quantizes
+    ``a[r]`` and ``b`` with its own stream).  ``b`` goes in column chunks,
+    so the serving head fits in memory at full size, and each chunk's
+    row-independent LUQ part is prepared once for every key's draw.
+    """
+    R, K = a.shape
+    N = b.shape[1]
+    key_list, per_row = philox.split_keys(keys, R)
+    dev = a.device
+    alpha_a = torch.as_tensor(alpha_a, dtype=torch.float32,
+                              device=dev).reshape(-1).expand(R)
+    if per_row:
+        ua = torch.stack([philox.uniforms(k, 0, K, dev) for k in key_list])
+    else:
+        ua = philox.uniforms(key_list[0], 0, R * K, dev).reshape(R, K)
+    aq = luq_fp4(a.float(), ua, alpha_a.reshape(-1, 1))
+    out = torch.empty((R, N), dtype=torch.float32, device=dev)
+    for n0, n1 in philox.column_chunks(K, N):
+        prep = luq_fp4_prep(b[:, n0:n1], alpha_b)
+        for i, key in enumerate(key_list):
+            ub = philox.uniforms_2d(key, 1, K, n1 - n0, N, n0, dev)
+            rows = slice(i, i + 1) if per_row else slice(0, R)
+            out[rows, n0:n1] = aq[rows] @ luq_fp4_value(prep, ub)
+    return out
 
 
 def kv_quant_rows_ref(x: torch.Tensor, fmt: str):

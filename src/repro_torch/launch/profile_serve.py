@@ -13,8 +13,8 @@ run, then profiles one more run and prints:
   profiler slows the host, so this idle share is at least the unprofiled
   run's;
 * host time of the admissions (prefill), of the decode ticks and, within
-  both, of the logits head (``qlogits``: uniform draws, scales and the
-  quantized matmul);
+  both, of the logits head (``qlogits``: scales, the float32 head and
+  the quantized matmul, which draws its own uniforms);
 * the kernels with the most device time and the operators with the most
   host time.
 

@@ -16,12 +16,13 @@ from typing import Optional, Sequence, Union
 import torch
 import torch.nn.functional as F
 
-# Base of the logits head's uniform streams.  A draw at fold f (prefill:
-# 2 * prompt_len; decode at position p: 2p + 1) comes from a generator
-# seeded LOGITS_SEED * 2**32 + f, the counterpart of the JAX package's
-# fold_in(PRNGKey(17), f): prefill and decode never share a stream, and
-# the engine and the oneshot driver draw the same bits for the same
-# (position, row).
+# The logits head's uniform streams.  A draw at fold f (prefill:
+# 2 * prompt_len; decode at position p: 2p + 1) is the Philox4x32-10
+# stream (repro_torch.quant.philox) of key (f, LOGITS_SEED), the
+# counterpart of the JAX package's fold_in(PRNGKey(17), f): prefill and
+# decode never share a stream, the engine and the oneshot driver draw the
+# same bits for the same (position, row), and so do CPU and card (the
+# luq_matmul kernel draws them itself).
 LOGITS_SEED = 17
 
 
@@ -192,11 +193,9 @@ def qproj(spec, x, w, *, seed: int, flag: bool, quant_cfg, hooks=None):
                   backend=quant_cfg.backend)
 
 
-def logits_generator(fold: int, device) -> torch.Generator:
-    """The logits head's uniform stream for one fold (see LOGITS_SEED)."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(LOGITS_SEED * 2 ** 32 + int(fold))
-    return gen
+def logits_key(fold: int):
+    """The logits head's Philox key for one fold (see LOGITS_SEED)."""
+    return (int(fold), LOGITS_SEED)
 
 
 def qlogits(h, head_t, *, quant_cfg, folds: Union[int, Sequence[int]]):
@@ -215,7 +214,7 @@ def qlogits(h, head_t, *, quant_cfg, folds: Union[int, Sequence[int]]):
     from repro_torch.quant import backend as qbackend
     mm, _ = qbackend.get_matmul(quant_cfg.fmt, quant_cfg.backend)
     if isinstance(folds, int):
-        gens = logits_generator(folds, h.device)
+        keys = logits_key(folds)
     else:
-        gens = [logits_generator(f, h.device) for f in folds]
-    return mm(h32, head_t.float(), gens)
+        keys = [logits_key(f) for f in folds]
+    return mm(h32, head_t.float(), keys)

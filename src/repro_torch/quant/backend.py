@@ -8,14 +8,15 @@ The counterpart of ``repro.quant.backend``:
                   for the deterministic formats).  The primitive behind
                   ``fake_quant.qconv2d``: a tensor quantized whole is one
                   row, a microbatch of per-example tensors one row each.
-``"matmul"``      ``mm(a, b, gen) -> (R, N) float32``: quantize both
-                  operands, then multiply.  ``gen`` is one
-                  ``torch.Generator`` (the whole matrix is quantized at once,
-                  as the JAX op does with one key) or a list of R generators
-                  (each row of ``a`` quantizes ``b`` with its own stream, as
-                  the JAX package's per-slot vmap does).  From each
-                  generator the uniforms for ``a`` are drawn first, then
-                  those for ``b``.
+``"matmul"``      ``mm(a, b, keys) -> (R, N) float32``: quantize both
+                  operands, then multiply.  ``keys`` is one Philox key
+                  ``(k0, k1)`` (the whole matrix is quantized at once, as
+                  the JAX op does with one key) or a list of R keys (each
+                  row of ``a`` quantizes ``b`` with its own stream, as the
+                  JAX package's per-slot vmap does).  The uniforms are the
+                  ``repro_torch.quant.philox`` stream of each key (operand
+                  0 for ``a``, 1 for ``b``), the same on CPU and card, and
+                  the ``cuda`` kernel draws them itself.
 ``"kv_quant"``    ``kvq(x) -> (codes, scales)`` for the KV storage formats.
 ``"decode_attn"`` ``attn(q, kc, vc, ks, vs, pos, *, n_kv, scale) -> ctx``.
 ``"clip_sum"``    ``cs(grads, clip_norm) -> (clipped_sum, norms)``: the DP
@@ -47,7 +48,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from repro_torch.quant import formats
+from repro_torch.quant import formats, philox
 
 ENV_VAR = "REPRO_QUANT_BACKEND"
 DEFAULT_BACKEND = "ref"
@@ -117,7 +118,7 @@ def get_clip_sum(backend: str | None = None):
 
 
 def get_matmul(fmt: str, backend: str | None = None):
-    """``(mm(a, b, gen) -> (R, N) float32, actual_backend)``."""
+    """``(mm(a, b, keys) -> (R, N) float32, actual_backend)``."""
     return get_impl("matmul", fmt, backend)
 
 
@@ -147,24 +148,6 @@ def capability_table() -> Dict[str, Dict[str, Tuple[str, ...]]]:
             for op, row in table.items()}
 
 
-def _draws(gens, a: torch.Tensor, b: torch.Tensor):
-    """Uniforms for ``a`` and ``b``: per generator, ``a``'s rows first,
-    then all of ``b``.  One generator gives ``ua`` (R, K) and ``ub``
-    (K, N); a list of R gives ``ua`` (R, K) and ``ub`` (R, K, N)."""
-    R, K = a.shape
-    if isinstance(gens, torch.Generator):
-        return (torch.rand(a.shape, generator=gens, device=a.device),
-                torch.rand(b.shape, generator=gens, device=b.device))
-    if len(gens) != R:
-        raise ValueError(f"{len(gens)} generators for {R} rows")
-    ua = torch.empty((R, K), device=a.device)
-    ub = torch.empty((R,) + tuple(b.shape), device=b.device)
-    for i, gen in enumerate(gens):
-        ua[i].uniform_(generator=gen)
-        ub[i].uniform_(generator=gen)
-    return ua, ub
-
-
 # --------------------------------------------------------------------------- #
 # ref backend: plain PyTorch, every format
 # --------------------------------------------------------------------------- #
@@ -188,14 +171,24 @@ def _ref_matmul(fmt: str) -> Callable:
     q = formats.make_quantizer(fmt)
     stochastic = fmt in formats.STOCHASTIC_FORMATS
 
-    def mm(a, b, gen):
+    def mm(a, b, keys):
         if not stochastic:
             return q(a, None).float() @ q(b, None).float()
-        ua, ub = _draws(gen, a, b)
-        if ub.dim() == 2:
-            return q(a, ua).float() @ q(b, ub).float()
-        return torch.cat([q(a[i:i + 1], ua[i:i + 1]).float()
-                          @ q(b, ub[i]).float() for i in range(a.shape[0])])
+        (R, K), N = a.shape, b.shape[1]
+        key_list, per_row = philox.split_keys(keys, R)
+        alpha_b = b.float().abs().amax()
+        out = torch.empty((R, N), dtype=torch.float32, device=a.device)
+        for i, key in enumerate(key_list):
+            rows = slice(i, i + 1) if per_row else slice(0, R)
+            ar = a[rows]
+            aq = q(ar, philox.uniforms_2d(key, 0, ar.shape[0], K, K,
+                                          device=a.device)).float()
+            # b by column chunks against its whole max: no draw of b's size
+            for n0, n1 in philox.column_chunks(K, N):
+                ub = philox.uniforms_2d(key, 1, K, n1 - n0, N, n0,
+                                        device=b.device)
+                out[rows, n0:n1] = aq @ q(b[:, n0:n1], ub, alpha_b).float()
+        return out
 
     return mm
 
@@ -259,16 +252,13 @@ def _cuda_clip_sum(grads, clip_norm):
     return clip_and_sum(grads, float(clip_norm))
 
 
-def _cuda_matmul(a, b, gen):
+def _cuda_matmul(a, b, keys):
     from repro_torch.kernels.ops import luq_matmul
     a = a.float().contiguous()
     b = b.float().contiguous()
-    ua, ub = _draws(gen, a, b)
-    if ub.dim() == 3:
-        alpha_a = a.abs().amax(dim=1)
-    else:
-        alpha_a = a.abs().amax()
-    return luq_matmul(a, b, ua, ub, alpha_a, b.abs().amax())
+    _, per_row = philox.split_keys(keys, a.shape[0])
+    alpha_a = a.abs().amax(dim=1) if per_row else a.abs().amax()
+    return luq_matmul(a, b, keys, alpha_a, b.abs().amax())
 
 
 def _cuda_ghost_norm(x, g, ux, ug):

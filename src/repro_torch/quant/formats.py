@@ -3,8 +3,9 @@
 The counterpart of ``repro.quant.formats``.  Stochastic formats take their
 uniform draws ``u`` as an explicit argument, as the JAX package's
 ``kernels/ref.luq_quant_ref`` does: a caller draws them from a
-``torch.Generator`` (or a test hands in numpy draws shared with the JAX
-package), so the quantizer itself is a pure function.
+``torch.Generator`` or the Philox stream of ``quant.philox`` (or a test
+hands in numpy draws shared with the JAX package), so the quantizer
+itself is a pure function.
 
 ``luq_fp4``   LUQ-FP4: per-tensor power-of-two grid {0} U {alpha * 2^-k,
               k = 0..6} anchored at alpha = max|x|, stochastic rounding
@@ -31,26 +32,57 @@ def luq_fp4(x: torch.Tensor, u: torch.Tensor,
     Operation for operation the JAX package's ``luq_quant_ref``: the level
     is ``floor(log2(max(y, 2^-6)))`` and the comparisons are strict
     ``u < p``, so a kernel that repeats these float32 operations agrees
-    bitwise.
+    bitwise.  Written as its two halves, :func:`luq_fp4_prep` (what does
+    not depend on ``u``) and :func:`luq_fp4_value`, the split the kernels
+    make (``kernels/csrc/luq.cuh``).
     """
     xf = x.float()
     if alpha is None:
         alpha = xf.abs().amax()
+    return luq_fp4_value(luq_fp4_prep(xf, alpha), u).to(x.dtype)
+
+
+def luq_fp4_prep(x: torch.Tensor, alpha) -> dict:
+    """The part of :func:`luq_fp4` that does not depend on the uniforms,
+    as ``kernels/csrc/luq.cuh``'s ``luq_prep`` splits it: an element
+    rounded against several draws (one per row of the logits head) is
+    prepared once.  ``alpha`` broadcasts against ``x``."""
+    xf = x.float()
     alpha = torch.as_tensor(alpha, dtype=torch.float32, device=x.device)
     safe_alpha = torch.where(alpha > 0, alpha, torch.ones_like(alpha))
-    sign = torch.sign(xf)
     y = xf.abs() / safe_alpha
     min_level = 2.0 ** (-(LUQ_EXP_LEVELS - 1))
-    under = torch.where(u < y / min_level, min_level, 0.0)
     ylog = torch.log2(torch.clamp(y, min=min_level))
     k = torch.clamp(torch.floor(ylog), -(LUQ_EXP_LEVELS - 1), 0.0)
     low = torch.exp2(k)
     high = torch.clamp(torch.exp2(k + 1.0), max=1.0)
-    p_up = (y - low) / torch.clamp(high - low, min=1e-30)
-    rounded = torch.where(u < p_up, high, low)
-    q = torch.where(y < min_level, under, rounded)
-    out = sign * q * safe_alpha
-    return torch.where(alpha > 0, out, 0.0).to(x.dtype)
+    return {"thr": y / min_level,
+            "p_up": (y - low) / torch.clamp(high - low, min=1e-30),
+            "low": low, "high": high, "small": y < min_level,
+            "sign": torch.sign(xf), "alpha": alpha, "safe_alpha": safe_alpha}
+
+
+def luq_fp4_level(prep: dict, u: torch.Tensor) -> torch.Tensor:
+    """The unsigned level in {0, 2^-6, ..., 1} that ``u`` picks."""
+    under = torch.where(u < prep["thr"], 2.0 ** (-(LUQ_EXP_LEVELS - 1)), 0.0)
+    rounded = torch.where(u < prep["p_up"], prep["high"], prep["low"])
+    return torch.where(prep["small"], under, rounded)
+
+
+def luq_fp4_value(prep: dict, u: torch.Tensor) -> torch.Tensor:
+    """The float32 value ``sign * level * alpha`` (0 where alpha <= 0)."""
+    out = prep["sign"] * luq_fp4_level(prep, u) * prep["safe_alpha"]
+    return torch.where(prep["alpha"] > 0, out, 0.0)
+
+
+def luq_fp4_codes(x: torch.Tensor, u: torch.Tensor, alpha) -> torch.Tensor:
+    """The LUQ codes ``Q(x) / alpha = sign * 2^-k`` (or 0) as bf16, which
+    holds them exactly: ``codes.float() * alpha`` is :func:`luq_fp4`'s
+    value bit for bit.  All zero where ``alpha <= 0``.  The plain version
+    of the ``luq_quant`` kernel's code output."""
+    prep = luq_fp4_prep(x, alpha)
+    codes = prep["sign"] * luq_fp4_level(prep, u)
+    return torch.where(prep["alpha"] > 0, codes, 0.0).to(torch.bfloat16)
 
 
 def int4_uniform(x: torch.Tensor, u: torch.Tensor,

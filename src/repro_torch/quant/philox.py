@@ -1,0 +1,128 @@
+"""Philox4x32-10 in plain PyTorch: the twin of ``kernels/csrc/philox.cuh``.
+
+The counter-based generator (Salmon et al., SC 2011; Random123's
+``philox4x32``) that the logits head draws its LUQ uniforms from, on the
+card inside the ``luq_matmul`` kernel and here for CPU tensors and the
+kernel's plain version.  Both give the same words for the same key and
+counter.
+
+* Key: two 32-bit words ``(k0, k1)``, Python ints.  Counter: four words.
+* Element ``e`` of operand ``op`` (0 for a matmul's ``a``, 1 for its
+  ``b``) takes lane ``e % 4`` of the call with counter
+  ``(e // 4 low word, e // 4 high word, op, 0)``.
+* Its uniform is ``(word >> 8) * 2**-24``: exact in float32, in
+  ``[0, 1 - 2**-24]``.
+
+Words are held in int64 tensors.  The 32 x 32 -> 64-bit products are
+built from 16-bit limbs, so no intermediate leaves int64's range and CPU
+and CUDA tensors give the same words.
+"""
+from __future__ import annotations
+
+import numbers
+from typing import Sequence, Tuple, Union
+
+import torch
+
+M0, M1 = 0xD2511F53, 0xCD9E8D57            # multipliers
+W0, W1 = 0x9E3779B9, 0xBB67AE85            # Weyl key bumps
+MASK32 = 0xFFFFFFFF
+ROUNDS = 10
+
+Key = Tuple[int, int]
+Keys = Union[Key, Sequence[Key]]
+
+# groups (Philox calls) per chunk of the plain draws: bounds the int64
+# temporaries to a few hundred MB whatever the operand's size
+_CHUNK_GROUPS = 1 << 20
+
+
+def _mulhilo(m: int, x: torch.Tensor):
+    """(hi, lo) words of ``m * x`` for a 32-bit constant ``m`` and a
+    tensor ``x`` of 32-bit values, from 16-bit limbs (every partial sum
+    stays below 2**35)."""
+    m_hi, m_lo = m >> 16, m & 0xFFFF
+    x_hi, x_lo = x >> 16, x & 0xFFFF
+    ll = x_lo * m_lo
+    mid = x_lo * m_hi + x_hi * m_lo + (ll >> 16)
+    lo = ((mid & 0xFFFF) << 16) | (ll & 0xFFFF)
+    hi = x_hi * m_hi + (mid >> 16)
+    return hi, lo
+
+
+def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
+    """The four output words of Philox4x32-10 for counters ``c0..c3``
+    (int64 tensors of 32-bit values, broadcastable) and key ``(k0, k1)``."""
+    for i in range(ROUNDS):
+        if i:
+            k0, k1 = (k0 + W0) & MASK32, (k1 + W1) & MASK32
+        hi0, lo0 = _mulhilo(M0, c0)
+        hi1, lo1 = _mulhilo(M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def _uniform24(words: torch.Tensor) -> torch.Tensor:
+    return (words >> 8).to(torch.float32) * 2.0 ** -24
+
+
+def _group_uniforms(key: Key, op: int, groups: torch.Tensor) -> torch.Tensor:
+    """(..., 4) float32 uniforms of elements 4 g .. 4 g + 3 for the int64
+    group indices ``groups``."""
+    zero = torch.zeros_like(groups)
+    words = philox4x32_10(groups & MASK32, groups >> 32, zero + op, zero,
+                          int(key[0]) & MASK32, int(key[1]) & MASK32)
+    return _uniform24(torch.stack(words, dim=-1))
+
+
+def uniforms_2d(key: Key, op: int, rows: int, cols: int, row_stride: int,
+                col0: int = 0, device="cpu") -> torch.Tensor:
+    """(rows, cols) float32 uniforms of operand ``op``'s elements
+    ``e = r * row_stride + col0 + c``: columns ``col0 .. col0 + cols - 1`` of
+    a row-major matrix ``row_stride`` wide."""
+    out = torch.empty((rows, cols), dtype=torch.float32, device=device)
+    if rows == 0 or cols == 0:
+        return out
+    aligned = row_stride % 4 == 0 and col0 % 4 == 0
+    width = -(-cols // 4) if aligned else cols
+    step = max(1, _CHUNK_GROUPS // width)
+    for r0 in range(0, rows, step):
+        r = torch.arange(r0, min(rows, r0 + step), device=device)
+        first = r * row_stride + col0                       # (rows,)
+        if aligned:        # whole calls: element 4 j + lane of the row
+            g = first[:, None] // 4 + torch.arange(width, device=device)
+            u = _group_uniforms(key, op, g).reshape(len(r), 4 * width)
+            out[r0:r0 + len(r)] = u[:, :cols]
+        else:              # a call per element, its lane picked
+            e = first[:, None] + torch.arange(cols, device=device)
+            u = _group_uniforms(key, op, e // 4)
+            lane = (e % 4)[..., None]
+            out[r0:r0 + len(r)] = torch.gather(u, 2, lane)[..., 0]
+    return out
+
+
+def uniforms(key: Key, op: int, n: int, device="cpu") -> torch.Tensor:
+    """(n,) float32 uniforms of operand ``op``'s elements ``0 .. n - 1``."""
+    width = min(4 * _CHUNK_GROUPS, 4 * max(1, -(-n // 4)))
+    rows = -(-n // width)
+    return uniforms_2d(key, op, rows, width, width,
+                       device=device).reshape(-1)[:n]
+
+
+def split_keys(keys: Keys, rows: int):
+    """``(list of keys, per_row)``: one ``(k0, k1)`` pair shared by every
+    row, or a sequence of ``rows`` pairs, one a row."""
+    if len(keys) == 2 and all(isinstance(k, numbers.Integral) for k in keys):
+        return [(int(keys[0]) & MASK32, int(keys[1]) & MASK32)], False
+    keys = [(int(k0) & MASK32, int(k1) & MASK32) for k0, k1 in keys]
+    if len(keys) != rows:
+        raise ValueError(f"{len(keys)} keys for {rows} rows")
+    return keys, True
+
+
+def column_chunks(K: int, N: int):
+    """``(n0, n1)`` column ranges of a (K, N) operand, each a multiple of 4
+    wide (whole Philox calls when N % 4 == 0) and at most ~4 M elements:
+    the plain versions draw and quantize the logits head chunk by chunk."""
+    step = max(4, (4 * _CHUNK_GROUPS) // max(K, 1) // 4 * 4)
+    return [(n0, min(N, n0 + step)) for n0 in range(0, N, step)]

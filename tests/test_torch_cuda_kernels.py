@@ -7,8 +7,9 @@ machine with the card:
     PYTHONPATH=src python -m pytest -q -m requires_cuda tests/test_torch_cuda_kernels.py
 
 Tolerances: codes, scales and quantized operands bitwise (the kernels
-repeat the plain versions' float32 operations); attention and matmul
-outputs to float32 summation order; the clip's norms rtol 1e-5 and its
+repeat the plain versions' float32 operations, and the matmul's Philox
+draws are the plain twin's words); attention and matmul outputs to
+float32 summation order; the clip's norms rtol 1e-5 and its
 sum within 1e-5 of sum_b |scale_b g_bd| per column (summation order);
 the ghost norm within 1e-5 of sum_ij |XX_ij GG_ij| per example
 (summation order), as in ``chip_smoke.py``.  The clip and the ghost norm
@@ -20,6 +21,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.quant import kv_cache as kvc  # noqa: E402
+from repro_torch.quant import philox  # noqa: E402
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -64,26 +66,53 @@ def test_decode_attn_fused_close(cuda, fmt, g, hd):
 
 @pytest.mark.parametrize("per_row", [False, True])
 def test_luq_matmul_close(cuda, per_row):
-    R, K, N = 5, 300, 1000
+    """The kernel draws with Philox from the keys; the plain version draws
+    the same stream in PyTorch.  Random operands: within 1e-5 of |Q(a)| @
+    |Q(b)| per output, the same bits twice.  One-hot operands make the
+    product pick single quantized elements, exactly: a = e_k rows (alpha 1,
+    Q = 1) give rows of Q(b) under each row's key, b = I gives Q(a), so
+    the kernel's Q(a), Q(b) are bitwise the plain version's.  N = 1000
+    takes whole Philox calls and 16-byte loads, N = 998 the per-element
+    path."""
+    R, K = 5, 300
+    keys = [(2 * p + 1, 17) for p in (3, 8, 8, 21, 600)] if per_row \
+        else (2 * 300, 17)
     gen = torch.Generator(device=cuda).manual_seed(2)
-    a = torch.randn(R, K, device=cuda, generator=gen)
-    b = torch.randn(K, N, device=cuda, generator=gen) * 0.02
-    ua = torch.rand(R, K, device=cuda, generator=gen)
-    ub = torch.rand(*((R,) if per_row else ()), K, N, device=cuda,
-                    generator=gen)
-    alpha_a = a.abs().amax(dim=1) if per_row else a.abs().amax()
-    alpha_b = b.abs().amax()
-    ops.reset_launch_counts()
-    out = ops.luq_matmul(a, b, ua, ub, alpha_a, alpha_b)
-    assert ops.LUQ_MATMUL_LAUNCHES == {"shared": int(not per_row),
-                                       "per_row": int(per_row)}
-    want = ref.luq_matmul_ref(a, b, ua, ub, alpha_a, alpha_b)
-    aq = ref.luq_fp4(a, ua, alpha_a.reshape(-1, 1))
-    bound = torch.stack([
-        1e-5 * (aq[i].abs() @ ref.luq_fp4(b, ub[i] if per_row else ub,
-                                          alpha_b).abs()) + 1e-6
-        for i in range(R)])
-    assert ((out - want).abs() <= bound).all()
+    for N in (1000, 998):
+        a = torch.randn(R, K, device=cuda, generator=gen)
+        b = torch.randn(K, N, device=cuda, generator=gen) * 0.02
+        alpha_a = a.abs().amax(dim=1) if per_row else a.abs().amax()
+        alpha_b = b.abs().amax()
+        ops.reset_launch_counts()
+        out = ops.luq_matmul(a, b, keys, alpha_a, alpha_b)
+        assert ops.LUQ_MATMUL_LAUNCHES == {"shared": int(not per_row),
+                                           "per_row": int(per_row)}
+        assert torch.equal(out, ops.luq_matmul(a, b, keys, alpha_a, alpha_b))
+        want = ref.luq_matmul_keys_ref(a, b, keys, alpha_a, alpha_b)
+        key_list = keys if per_row else [keys] * R
+        ua = (torch.stack([philox.uniforms(k, 0, K, cuda) for k in keys])
+              if per_row else philox.uniforms(keys, 0, R * K, cuda)
+              .reshape(R, K))
+        aq = ref.luq_fp4(a, ua, alpha_a.reshape(-1, 1))
+        bound = torch.stack([
+            1e-5 * (aq[i].abs() @ ref.luq_fp4(
+                b, philox.uniforms(key_list[i], 1, K * N, cuda).reshape(K, N),
+                alpha_b).abs()) + 1e-6 for i in range(R)])
+        assert ((out - want).abs() <= bound).all()
+
+        onehot = torch.zeros(R, K, device=cuda)
+        onehot[torch.arange(R), torch.tensor([0, 7, 150, 298, 299])] = 1.0
+        one = torch.ones((R,) if per_row else (), device=cuda)
+        torch.testing.assert_close(
+            ops.luq_matmul(onehot, b, keys, one, alpha_b),
+            ref.luq_matmul_keys_ref(onehot, b, keys, one, alpha_b),
+            rtol=0, atol=0)
+        eye = torch.eye(K, N, device=cuda)
+        torch.testing.assert_close(
+            ops.luq_matmul(a, eye, keys, alpha_a, torch.ones((), device=cuda)),
+            ref.luq_matmul_keys_ref(a, eye, keys, alpha_a,
+                                    torch.ones((), device=cuda)),
+            rtol=0, atol=0)
 
 
 def _luq_inputs(device, rows, n, per_row, seed):
@@ -111,10 +140,34 @@ def _luq_inputs(device, rows, n, per_row, seed):
     (3, 1001, True),                    # n % 4 != 0: the scalar kernel
     (5, 4096, True),
 ])
-def test_luq_quant_bitwise(cuda, rows, n, per_row):
+@pytest.mark.parametrize("codes", [False, True])
+def test_luq_quant_bitwise(cuda, rows, n, per_row, codes):
     x, u, alpha = _luq_inputs(cuda, rows, n, per_row, 3)
-    assert torch.equal(ops.luq_quant(x, u, alpha),
-                       ref.luq_quant_ref(x, u, alpha))
+    got = ops.luq_quant(x, u, alpha, codes)
+    assert torch.equal(got, ref.luq_quant_ref(x, u, alpha, codes))
+    if codes:          # codes * alpha: the values, bit for bit
+        assert torch.equal(got.float() * alpha[:, None],
+                           ref.luq_quant_ref(x, u, alpha))
+
+
+@pytest.mark.parametrize("alpha", [1.0, 0.7])
+def test_luq_quant_bitwise_over_every_finite_float(cuda, alpha):
+    """Every finite float32 x (2^32 bit patterns less NaN and inf, in
+    chunks), against random uniforms, values and codes: the kernel's
+    level from the exponent bits and its exact products by powers of two
+    give the plain version's log2 / exp2 / division results bit for bit.
+    alpha = 0.7 puts y = |x| / alpha above 1 too."""
+    n = 1 << 28
+    a = torch.full((1,), alpha, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    for start in range(-(1 << 31), 1 << 31, n):
+        x = torch.arange(start, start + n, dtype=torch.int64, device=cuda)
+        x = x.to(torch.int32).view(torch.float32).reshape(1, n)
+        x = torch.where(torch.isfinite(x), x, 0.0)
+        u = torch.rand(n, device=cuda, generator=gen)
+        assert torch.equal(ops.luq_quant(x, u, a), ref.luq_quant_ref(x, u, a))
+        assert torch.equal(ops.luq_quant(x, u, a, True),
+                           ref.luq_quant_ref(x, u, a, True))
 
 
 @pytest.mark.parametrize("B,D", [(64, 11_190_891), (1, 1000), (5, 1537)])

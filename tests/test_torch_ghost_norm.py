@@ -106,3 +106,73 @@ def test_zero_operand_scale_invariance_and_batching():
                                 args[4][b:b + 1], args[5][b:b + 1])
         np.testing.assert_allclose(one.numpy(), out[b:b + 1].numpy(),
                                    rtol=1e-6)
+
+
+def _edge_rows(b, n, seed):
+    """(b, n) rows with LUQ's edge values (powers of two times alpha = 4,
+    one ulp below them, signed zeros) and an all-zero row (alpha = 0)."""
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (b, n)).astype(np.float32)).clamp(-3.5, 3.5)
+    x[:, 0] = 4.0
+    levels = 4.0 * 2.0 ** -torch.arange(0, 9)
+    below = torch.nextafter(levels, torch.zeros_like(levels))
+    edges = torch.cat([levels, -levels, below, -below, torch.zeros(2),
+                       -torch.zeros(2)])
+    x[:, 1:1 + edges.numel()] = edges
+    x[1] = 0.0
+    return x
+
+
+def test_codes_times_alpha_equal_luq_fp4_exactly():
+    """The quantizer's code output (the ghost kernel's operands): bf16
+    codes sign * 2^-k or 0, and codes * alpha is ``luq_fp4``'s value bit
+    for bit (bf16 holds every code exactly)."""
+    x = _edge_rows(3, 300, 12)
+    u = fq.uniforms(3, 4, 300, "cpu")
+    alpha = x.abs().amax(dim=1)
+    codes = ops.luq_quant(x, u, alpha, codes=True)
+    assert codes.dtype == torch.bfloat16
+    grid = torch.cat([torch.zeros(1), 2.0 ** -torch.arange(0.0, 7.0)])
+    assert torch.isin(codes.float().abs(), grid).all()
+    assert (codes[1] == 0).all()                       # alpha = 0
+    want = ops.luq_quant(x, u, alpha)
+    assert torch.equal(codes.float() * alpha[:, None], want)
+    assert ops.LAUNCHES["luq_quant"] == 0             # CPU: the plain version
+
+
+def test_code_route_matches_plain_version():
+    """The kernel's route in plain PyTorch: bf16 codes, float32 Grams of
+    the codes over the upper 32 x 32 tiles only (off-diagonal tiles
+    doubled), scaled by (alpha_x alpha_g)^2 per example at the end; within
+    1e-5 of sum_ij |XX_ij GG_ij| of ``ghost_norm_ref``, exactly 0 for a zero
+    example.  T = 70 leaves a ragged last tile."""
+    B, T, Dx, Dg, tile = 3, 70, 24, 40, 32
+    x = _edge_rows(B, T * Dx, 13).reshape(B, T, Dx)
+    g = _edge_rows(B, T * Dg, 14).reshape(B, T, Dg) * 1e-3
+    g[1] = torch.flip(g[0], (0,))                      # x[1] alone is zero
+    ux = fq.uniforms(5, 4, T * Dx, "cpu")
+    ug = fq.uniforms(5, 5, T * Dg, "cpu")
+    ax, ag = _alphas(x, g)
+    cx = ref.luq_quant_ref(x.reshape(B, -1), ux, ax, codes=True)
+    cg = ref.luq_quant_ref(g.reshape(B, -1), ug, ag, codes=True)
+    cx = cx.float().reshape(x.shape)
+    cg = cg.float().reshape(g.shape)
+    xx = cx @ cx.transpose(1, 2)
+    gg = cg @ cg.transpose(1, 2)
+    tiles = range(0, T, tile)
+    total = torch.zeros(B)
+    for i in tiles:
+        for j in tiles:
+            if j >= i:
+                part = (xx[:, i:i + tile, j:j + tile]
+                        * gg[:, i:i + tile, j:j + tile]).sum(dim=(1, 2))
+                total += part if i == j else 2.0 * part
+    got = (ax * ag) ** 2 * total
+    want = ref.ghost_norm_ref(x, g, ux, ug, ax, ag)
+    xq = ref.luq_fp4(x.reshape(B, -1), ux, ax[:, None]).reshape(x.shape)
+    gq = ref.luq_fp4(g.reshape(B, -1), ug, ag[:, None]).reshape(g.shape)
+    bound = 1e-5 * ((xq @ xq.transpose(1, 2)).abs()
+                    * (gq @ gq.transpose(1, 2)).abs()).sum(dim=(1, 2))
+    assert ((got - want).abs() <= bound).all()
+    assert got[1].item() == 0.0 and want[1].item() == 0.0
+    assert (got[[0, 2]] > 0).all()

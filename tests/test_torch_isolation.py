@@ -99,8 +99,7 @@ def test_kernel_wrappers_never_send_device_tensors_to_plain_versions():
         ops.kv_quant_rows(torch.empty(4, 8, **meta), "int8")
     with pytest.raises(ValueError, match="CPU tensors or all on one CUDA"):
         ops.luq_matmul(torch.empty(2, 8), torch.empty(8, 4, **meta),
-                       torch.empty(2, 8), torch.empty(8, 4),
-                       torch.tensor(1.0), torch.tensor(1.0))
+                       (1, 17), torch.tensor(1.0), torch.tensor(1.0))
     codes = torch.empty(1, 1, 5, 8, dtype=torch.int8, **meta)
     scales = torch.empty(1, 1, 5, dtype=torch.bfloat16, **meta)
     with pytest.raises(ValueError, match="CPU tensors or all on one CUDA"):

@@ -6,9 +6,11 @@ compute dtype).  Tolerances: logits atol = rtol = 1e-4 (float32 through a
 few layers, summed in another order); KV codes and scales bitwise; greedy
 tokens exact, on inputs whose top-2 logit margin is asserted to exceed
 the logits tolerance tenfold, so no argmax can flip within it.  The
-luq_fp4 logits head draws from torch's generators, not JAX's threefry, so
-it is compared with the port's own oneshot driver (token-identical) and,
-in test_torch_quant_matmul.py, statistically.
+luq_fp4 logits head draws from the port's Philox stream (keys (fold,
+LOGITS_SEED)), not JAX's threefry, so it is compared with the port's own
+oneshot driver (token-identical, on both backends, which draw the same
+bits) and, in test_torch_quant_matmul.py, statistically and against the
+JAX kernel fed the same draws.
 """
 import math
 
@@ -210,8 +212,9 @@ def _oneshot_tokens(model, params, prompt, gen, kv_fmt):
 @pytest.mark.parametrize("backend", ["ref", "cuda"])
 @pytest.mark.parametrize("kv_fmt", ["int8", "luq_fp4"])
 def test_engine_matches_oneshot_with_luq_logits(backend, kv_fmt):
-    """Quantized logits head: engine and oneshot draw the same uniforms for
-    the same (position, row), so one greedy request is token-identical."""
+    """Quantized logits head: engine and oneshot draw from the same Philox
+    key for the same (position, row), so one greedy request is
+    token-identical."""
     model, params = port_model("yi-6b", fmt="luq_fp4", backend=backend)
     prompt, gen = prompt_of(1, 7, model.config.vocab_size), 5
     ref = _oneshot_tokens(model, params, prompt, gen, kv_fmt)
