@@ -13,9 +13,10 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    ``per_sample_clip``; stablelm-3b ghost training: ``ghost_norm_sq``;
    yi-6b serving: the other three), and times kernel, plain version, the
    least time the card could take (``bound_ms``) and, where PyTorch
-   computes the same function, that yardstick (``library_ms``); the two
-   redesigned kernels also carry their previous design's time
-   (``earlier_ms``);
+   computes the same function, that yardstick (``library_ms``; for the
+   LUQ matmul and the ghost norm, ``torch.bmm`` of the bf16 LUQ codes
+   with float32 output, the float32 values' time beside it as
+   ``library_f32_ms``);
 4. trains ResNet-18 at full width (random init from a seed, synthetic
    data) with DP-SGD under the DPQuant scheduler through
    ``repro_torch.train_loop.Trainer``, with the options of
@@ -107,13 +108,6 @@ LUQ_OPS = 24
 # the int32 rate.
 PHILOX_INT_OPS = 44
 INT32_LANES = 132 * 64
-# The redesigned kernels' times before their redesign, measured by this
-# script on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, kernel table)
-EARLIER_MS = {"luq_matmul[decode]": 6.08355188369751,
-              "luq_matmul[prefill]": 1.7380479574203491,
-              "ghost_norm_sq[2560/2560]": 0.35577601194381714,
-              "ghost_norm_sq[2560/6912]": 0.7965440154075623}
-
 SEED = 0                  # of the kernel checks' inputs
 
 
@@ -225,7 +219,7 @@ def check_luq_matmul(torch, ops, ref, per_row, rows, sm_clock_mhz, reps=10):
     the same bits twice."""
     from repro_torch.models.common import logits_key
     from repro_torch.quant import philox
-    from repro_torch.quant.formats import luq_fp4
+    from repro_torch.quant.formats import luq_fp4, luq_fp4_codes
 
     R, K, N = (rows if per_row else 1), 4096, 64000
     keys = ([logits_key(2 * p + 1) for p in (100, 300, 700, 1023)][:R]
@@ -246,19 +240,38 @@ def check_luq_matmul(torch, ops, ref, per_row, rows, sm_clock_mhz, reps=10):
     else:
         ua = philox.uniforms(keys, 0, R * K, "cuda").reshape(R, K)
     aq = luq_fp4(a, ua, alpha_a.reshape(-1, 1))
-    # Q(b) of each key's draw, in full (one GB each): the tolerance and
-    # the yardstick's operand
-    bq = torch.stack([luq_fp4(b, philox.uniforms(k, 1, K * N, "cuda")
-                              .reshape(K, N), alpha_b) for k in key_list])
+    ca = luq_fp4_codes(a, ua, alpha_a.reshape(-1, 1))
+    # Q(b) of each key's draw, in full (one GB each), and its bf16 codes
+    # Q(b) / alpha_b: the tolerance and the yardsticks' operands
+    bq, cb = [], []
+    for k in key_list:
+        ub = philox.uniforms(k, 1, K * N, "cuda").reshape(K, N)
+        bq.append(luq_fp4(b, ub, alpha_b))
+        cb.append(luq_fp4_codes(b, ub, alpha_b))
+        del ub
+    bq, cb = torch.stack(bq), torch.stack(cb)
+    # the yardsticks, one batched product of operands quantized
+    # beforehand: the bf16 codes with float32 sums and output, scaled at
+    # the end (products of codes are exact), and the float32 values
+    aq3, ca3 = aq[:, None, :], ca[:, None, :]
+    bq3 = bq if per_row else bq.expand(R, K, N)
+    cb3 = cb if per_row else cb.expand(R, K, N)
+    scale = (alpha_a.reshape(-1).expand(R) * alpha_b)[:, None, None]
+
+    def codes_bmm():
+        return scale * torch.bmm(ca3, cb3, out_dtype=torch.float32)
+
     err = (out - want).abs().max().item()
+    lib, lib32 = codes_bmm()[:, 0], torch.bmm(aq3, bq3)[:, 0]
     for i in range(R):
         tol = 1e-5 * (aq[i].abs() @ bq[i if per_row else 0].abs()) + 1e-6
-        if not ((out[i] - want[i]).abs() <= tol).all():
-            raise AssertionError(f"luq_matmul row {i} outside tolerance "
-                                 f"(max abs err {err})")
-    # the yardstick: one batched product of operands quantized beforehand
-    aq3 = aq[:, None, :]
-    bq3 = bq if per_row else bq.expand(R, K, N)
+        for what, got in (("luq_matmul", out), ("the bf16 codes' bmm", lib),
+                          ("the float32 bmm", lib32)):
+            if not ((got[i] - want[i]).abs() <= tol).all():
+                raise AssertionError(
+                    f"{what} row {i} outside tolerance (max abs err "
+                    f"{(got[i] - want[i]).abs().max().item()})")
+    del lib, lib32
     nbytes = 4 * (2 * R * K + K * N + alpha_a.numel() + 1 + R * N)
     # Philox calls: a's elements one a call; b's 4 a call, for each key
     calls = R * K + len(key_list) * K * N // 4
@@ -273,11 +286,10 @@ def check_luq_matmul(torch, ops, ref, per_row, rows, sm_clock_mhz, reps=10):
         # the previous design's convention: its uniforms read from memory
         "bound_uniforms_from_memory_ms": bound(
             nbytes + 4 * (R * K + len(key_list) * K * N), flops)[0],
-        "library_ms": time_ms(torch, lambda: torch.bmm(aq3, bq3), reps),
-        "earlier_ms": EARLIER_MS["luq_matmul[decode]" if per_row
-                                 else "luq_matmul[prefill]"],
+        "library_ms": time_ms(torch, codes_bmm, reps),
+        "library_f32_ms": time_ms(torch, lambda: torch.bmm(aq3, bq3), reps),
     }
-    del bq, bq3
+    del bq, bq3, cb, cb3
     return result
 
 
@@ -356,8 +368,10 @@ def check_per_sample_clip(torch, ops, ref, B, D, reps=10):
 def check_ghost_norm(torch, ops, ref, B, T, Dx, Dg, reps=20):
     """The ghost norm of B examples' (T, Dx) / (T, Dg) operands, with the
     rounding's edge values mixed in and an all-zero example (alpha = 0);
-    the yardstick is two ``torch.bmm`` Grams of the LUQ codes computed
-    beforehand, then ``(alpha_x alpha_g)^2 (XX * GG).sum((1, 2))``."""
+    the yardstick is two ``torch.bmm`` Grams of the bf16 LUQ codes
+    computed beforehand, with float32 sums and output (the kernel's
+    arithmetic), then ``(alpha_x alpha_g)^2 (XX * GG).sum((1, 2))``; the
+    same two Grams over float32 codes are timed beside it."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6 + Dg)
     x = torch.randn(B, T, Dx, device="cuda", generator=gen).clamp(-3.5, 3.5)
     g = torch.randn(B, T, Dg, device="cuda", generator=gen).clamp(-3.5, 3.5)
@@ -384,17 +398,23 @@ def check_ghost_norm(torch, ops, ref, B, T, Dx, Dg, reps=20):
     want = ref.ghost_norm_ref(*args)
     xq = ref.luq_fp4(x.reshape(B, -1), ux, ax[:, None]).reshape(x.shape)
     gq = ref.luq_fp4(g.reshape(B, -1), ug, ag[:, None]).reshape(g.shape)
-    # the yardstick's operands: the codes Q(v) / alpha (float32), whose
-    # Grams cuBLAS sums exactly; the scales come in at the end
-    cx = ref.luq_quant_ref(x.reshape(B, -1), ux, ax, codes=True)
-    cg = ref.luq_quant_ref(g.reshape(B, -1), ug, ag, codes=True)
-    cx = cx.float().reshape(x.shape)
-    cg = cg.float().reshape(g.shape)
+    # the yardsticks' operands: the codes Q(v) / alpha, exact in bf16,
+    # whose Grams cuBLAS sums exactly; the scales come in at the end
+    cx = ref.luq_quant_ref(x.reshape(B, -1), ux, ax,
+                           codes=True).reshape(x.shape)
+    cg = ref.luq_quant_ref(g.reshape(B, -1), ug, ag,
+                           codes=True).reshape(g.shape)
+    cx32, cg32 = cx.float(), cg.float()
     scale2 = (ax * ag) ** 2
 
     def grams_bmm():
-        xx = torch.bmm(cx, cx.transpose(1, 2))
-        gg = torch.bmm(cg, cg.transpose(1, 2))
+        xx = torch.bmm(cx, cx.transpose(1, 2), out_dtype=torch.float32)
+        gg = torch.bmm(cg, cg.transpose(1, 2), out_dtype=torch.float32)
+        return scale2 * (xx * gg).sum(dim=(1, 2))
+
+    def grams_bmm_f32():
+        xx = torch.bmm(cx32, cx32.transpose(1, 2))
+        gg = torch.bmm(cg32, cg32.transpose(1, 2))
         return scale2 * (xx * gg).sum(dim=(1, 2))
 
     xx32 = torch.bmm(xq, xq.transpose(1, 2))
@@ -409,7 +429,8 @@ def check_ghost_norm(torch, ops, ref, B, T, Dx, Dg, reps=20):
         raise AssertionError(f"ghost_norm_sq ({B}, {T}, {Dx}, {Dg}): "
                              f"{out.tolist()} against {want.tolist()} "
                              f"(tolerance {tol.tolist()})")
-    torch.testing.assert_close(grams_bmm(), want, rtol=1e-5, atol=0.0)
+    for lib in (grams_bmm, grams_bmm_f32):
+        torch.testing.assert_close(lib(), want, rtol=1e-5, atol=0.0)
     nbytes = 4 * (x.numel() + g.numel() + ux.numel() + ug.numel() + 3 * B)
     # the least work: the LUQ rounding in float32, and each symmetric Gram's
     # upper triangle with its diagonal, T (T + 1) / 2 dot products of D,
@@ -428,8 +449,7 @@ def check_ghost_norm(torch, ops, ref, B, T, Dx, Dg, reps=20):
                    bound(nbytes, luq + B * T * (T + 1), grams))),
         "bound_f32_full_grams_ms": bound(nbytes, full_f32)[0],
         "library_ms": time_ms(torch, grams_bmm, reps),
-        "earlier_ms": EARLIER_MS[
-            f"ghost_norm_sq[{min(Dx, Dg)}/{max(Dx, Dg)}]"],
+        "library_f32_ms": time_ms(torch, grams_bmm_f32, reps),
     }
 
 

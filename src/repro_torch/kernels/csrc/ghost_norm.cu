@@ -18,7 +18,7 @@
 // 1.35 / 2.49 GFLOP, 1.4 / 2.5 us on the bf16 tensor cores.  The previous
 // design ran both whole Grams as float32 SIMT FMAs over float32 copies of
 // the quantized operands, 64 blocks of 64 x 64 tiles on 132 SMs, and lost
-// to two cuBLAS Grams by 2-2.7x.
+// to two float32 cuBLAS Grams by 2-2.7x.
 //
 // Design.  Q(v) = alpha * c with the code c = sign * 2^-k (or 0), which
 // bf16 holds exactly, so

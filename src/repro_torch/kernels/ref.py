@@ -73,14 +73,20 @@ def luq_matmul_ref(a, b, ua, ub, alpha_a, alpha_b) -> torch.Tensor:
                       for i in range(a.shape[0])])
 
 
-def luq_matmul_keys_ref(a, b, keys, alpha_a, alpha_b) -> torch.Tensor:
+def luq_matmul_keys_ref(a, b, keys, alpha_a, alpha_b, *,
+                        prep=luq_fp4_prep, value=luq_fp4_value
+                        ) -> torch.Tensor:
     """Plain version of ``luq_matmul``: :func:`luq_matmul_ref` fed the
     Philox draws of ``keys`` (``repro_torch.quant.philox``'s layout), as
     the kernel draws them.  ``keys``: one ``(k0, k1)`` pair (``a`` one
     matrix, its element ``r * K + k``) or R pairs (row r quantizes
     ``a[r]`` and ``b`` with its own stream).  ``b`` goes in column chunks,
     so the serving head fits in memory at full size, and each chunk's
-    row-independent LUQ part is prepared once for every key's draw.
+    row-independent part is prepared once for every key's draw.
+
+    ``prep(x, alpha)`` and ``value(prepared, u)`` split the quantizer as
+    :func:`luq_fp4_prep` and :func:`luq_fp4_value` (the default) split
+    LUQ-FP4; the ``ref`` backend passes another stochastic format's.
     """
     R, K = a.shape
     N = b.shape[1]
@@ -92,14 +98,14 @@ def luq_matmul_keys_ref(a, b, keys, alpha_a, alpha_b) -> torch.Tensor:
         ua = torch.stack([philox.uniforms(k, 0, K, dev) for k in key_list])
     else:
         ua = philox.uniforms(key_list[0], 0, R * K, dev).reshape(R, K)
-    aq = luq_fp4(a.float(), ua, alpha_a.reshape(-1, 1))
+    aq = value(prep(a.float(), alpha_a.reshape(-1, 1)), ua)
     out = torch.empty((R, N), dtype=torch.float32, device=dev)
     for n0, n1 in philox.column_chunks(K, N):
-        prep = luq_fp4_prep(b[:, n0:n1], alpha_b)
+        prepared = prep(b[:, n0:n1].float(), alpha_b)
         for i, key in enumerate(key_list):
             ub = philox.uniforms_2d(key, 1, K, n1 - n0, N, n0, dev)
             rows = slice(i, i + 1) if per_row else slice(0, R)
-            out[rows, n0:n1] = aq[rows] @ luq_fp4_value(prep, ub)
+            out[rows, n0:n1] = aq[rows] @ value(prepared, ub)
     return out
 
 

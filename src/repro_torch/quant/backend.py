@@ -169,26 +169,21 @@ def _ref_clip_sum(grads, clip_norm):
 
 def _ref_matmul(fmt: str) -> Callable:
     q = formats.make_quantizer(fmt)
-    stochastic = fmt in formats.STOCHASTIC_FORMATS
+    if fmt not in formats.STOCHASTIC_FORMATS:
+        return lambda a, b, keys: q(a, None).float() @ q(b, None).float()
+    # the keyed plain matmul splits LUQ-FP4 itself; another format is
+    # quantized whole against each draw
+    split = {} if fmt == "luq_fp4" else {
+        "prep": lambda x, alpha: (x, alpha),
+        "value": lambda prepared, u: q(prepared[0], u, prepared[1])}
 
     def mm(a, b, keys):
-        if not stochastic:
-            return q(a, None).float() @ q(b, None).float()
-        (R, K), N = a.shape, b.shape[1]
-        key_list, per_row = philox.split_keys(keys, R)
-        alpha_b = b.float().abs().amax()
-        out = torch.empty((R, N), dtype=torch.float32, device=a.device)
-        for i, key in enumerate(key_list):
-            rows = slice(i, i + 1) if per_row else slice(0, R)
-            ar = a[rows]
-            aq = q(ar, philox.uniforms_2d(key, 0, ar.shape[0], K, K,
-                                          device=a.device)).float()
-            # b by column chunks against its whole max: no draw of b's size
-            for n0, n1 in philox.column_chunks(K, N):
-                ub = philox.uniforms_2d(key, 1, K, n1 - n0, N, n0,
-                                        device=b.device)
-                out[rows, n0:n1] = aq @ q(b[:, n0:n1], ub, alpha_b).float()
-        return out
+        from repro_torch.kernels.ref import luq_matmul_keys_ref
+        a, b = a.float(), b.float()
+        _, per_row = philox.split_keys(keys, a.shape[0])
+        alpha_a = a.abs().amax(dim=1) if per_row else a.abs().amax()
+        return luq_matmul_keys_ref(a, b, keys, alpha_a, b.abs().amax(),
+                                   **split)
 
     return mm
 

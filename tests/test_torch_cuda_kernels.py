@@ -209,7 +209,8 @@ def _ghost_inputs(device, B, T, Dx, Dg, seed):
 @pytest.mark.parametrize("B,T,Dx,Dg", [
     (4, 256, 2560, 6912),               # stablelm-3b gate / up in pass 1
     (1, 37, 48, 80),                    # T not a multiple of the tile
-    (4, 130, 96, 40),                   # Dx != Dg, ragged columns
+    (4, 130, 96, 40),                   # Dx != Dg, T not a multiple
+    (2, 45, 50, 37),                    # D % 8 != 0: the scalar loads
     (3, 64, 2560, 2560),
 ])
 def test_ghost_norm_close_and_deterministic(cuda, B, T, Dx, Dg):
