@@ -64,16 +64,18 @@ script exits non-zero; without a GPU, or without the repository around
 it, it exits non-zero before printing a result.
 
 Tolerances: KV codes and scales bitwise; LUQ codes bitwise; decode
-attention atol = rtol = 1e-5 (float32, summed in another order); the
-quantized matmul within 1e-5 of the sum of absolute products per output
-(its Philox draws are the plain twin's words, so the operands agree
-bitwise and only the summation order differs), bit for bit across two
-runs; the clip: norms rtol 1e-5, the sum within 1e-5 of sum_b |scale_b
-g_bd| per column; the ghost norm within 1e-5 of sum_ij |XX_ij GG_ij| per
-example (its bf16 codes times alpha are the plain version's quantized
-operands bit for bit; the Grams of the codes are summed in another order
-and scaled at the end), and bit for bit across two runs.  TF32 is off
-everywhere (training, plain versions, library calls).
+attention atol = rtol = 1e-5 (float32, summed in another order), bit for
+bit across two runs and between a slot alone and its row of the batch;
+the quantized matmul within 1e-5 of the sum of absolute products per
+output (its Philox draws are the plain twin's words, so the operands
+agree bitwise and only the summation order differs), bit for bit across
+two runs; the clip: norms rtol 1e-5, the sum within 1e-5 of sum_b
+|scale_b g_bd| per column, bit for bit across two runs; the ghost norm
+within 1e-5 of sum_ij |XX_ij GG_ij| per example (its bf16 codes times
+alpha are the plain version's quantized operands bit for bit; the Grams
+of the codes are summed in another order and scaled at the end), and bit
+for bit across two runs.  TF32 is off everywhere (training, plain
+versions, library calls).
 """
 from __future__ import annotations
 
@@ -185,6 +187,16 @@ def check_decode_attn(torch, ops, ref, kvc, fmt, B, S, reps=50):
     want = ref.decode_attn_ref(*args, **kw)
     err = (out - want).abs().max().item()
     torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)
+    if not torch.equal(out, ops.decode_attn_fused(*args, **kw)):
+        raise AssertionError(f"decode_attn_fused[{fmt}]: two runs differ")
+    # batch invariance: each slot alone gives its row of the batch bit for
+    # bit (the splits depend on row indices only), as the engine's parity
+    # with the oneshot driver needs
+    for b in range(B):
+        one = [t[b:b + 1].contiguous() for t in args]
+        if not torch.equal(ops.decode_attn_fused(*one, **kw)[0], out[b]):
+            raise AssertionError(f"decode_attn_fused[{fmt}]: slot {b} alone "
+                                 "differs from its row of the batch")
     # the yardstick: SDPA over the dequantized cache, the g query rows of
     # a kv head as its query length
     kd, vd = kvc.kv_dequant(fmt, kc, ks), kvc.kv_dequant(fmt, vc, vs)
@@ -348,6 +360,10 @@ def check_per_sample_clip(torch, ops, ref, B, D, reps=10):
                              f"{err.max().item()})")
     max_err = err.max().item()
     del err, tol
+    again, again_norms = ops.clip_and_sum(g, C)
+    if not (torch.equal(out, again) and torch.equal(norms, again_norms)):
+        raise AssertionError("clip_and_sum: two runs differ")
+    del again
 
     def two_calls():
         n = torch.linalg.vector_norm(g, dim=1)
@@ -361,6 +377,11 @@ def check_per_sample_clip(torch, ops, ref, B, D, reps=10):
         "ms": time_ms(torch, lambda: ops.clip_and_sum(g, C), reps),
         "plain_ms": time_ms(torch, lambda: ref.per_sample_clip_ref(g, C), reps),
         **dict(zip(("bound_ms", "bound_by"), bound(nbytes, 4.0 * B * D))),
+        # the floor of any kernel taking a (B, D) matrix from device
+        # memory: each clip factor needs its whole row's norm before a
+        # column can be summed, and the matrix is far beyond the L2, so it
+        # is read twice
+        "bound_two_reads_ms": bound(nbytes + 4 * B * D, 4.0 * B * D)[0],
         "library_ms": time_ms(torch, two_calls, reps),
     }
 

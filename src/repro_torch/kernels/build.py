@@ -41,12 +41,13 @@ _SIGNATURES = {
     "repro_luq_matmul_max_rows": (_I, []),
     "repro_luq_matmul_splits": (_I, [_I, _I]),
     "repro_kv_quant_rows": (_I, [_P, _P, _P, ctypes.c_long, _I, _I, _P]),
-    "repro_decode_attn": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _I, ctypes.c_float, _I, _P]),
+    "repro_decode_attn": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, ctypes.c_float, _I, _P]),
+    "repro_decode_attn_scratch": (_L, [_I, _I, _I, _I, _I]),
     "repro_decode_attn_limits": (_I, [ctypes.POINTER(_I), ctypes.POINTER(_I)]),
     "repro_luq_quant": (_I, [_P, _P, _P, _P, _I, _L, _I, _I, _I, _P]),
     "repro_per_sample_clip_chunks": (_I, [_L]),
-    "repro_per_sample_clip": (_I, [_P, _P, _P, _P, _P, _I, _L, ctypes.c_float,
+    "repro_per_sample_clip": (_I, [_P, _P, _P, _P, _I, _L, ctypes.c_float,
                                    _P]),
     "repro_ghost_norm_partials": (_I, [_I]),
     "repro_ghost_norm": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

@@ -182,6 +182,10 @@ def decode_attn_fused(q, k_codes, v_codes, k_scale, v_scale, pos, *,
     scales (B, KV, S); ``pos`` (B,) int tensor of per-slot positions (on
     the device of ``q``), row ``s`` attended when ``s <= pos``.  Returns
     (B, H, hd) float32.
+
+    The kernel splits each slot's rows into fixed ranges of 64 and merges
+    the splits in order (no atomics): the same inputs give the same bits
+    on every run, and a slot's output does not depend on the other slots.
     """
     if fmt not in _KV_FMT_CODE:
         raise ValueError(f"decode_attn_fused has no kernel for fmt {fmt!r}")
@@ -209,15 +213,15 @@ def decode_attn_fused(q, k_codes, v_codes, k_scale, v_scale, pos, *,
     _check("k_scale", k_scale, kvc.SCALE_DTYPE, (B, n_kv, S))
     _check("v_scale", v_scale, kvc.SCALE_DTYPE, (B, n_kv, S))
     _on_cpu(qf, pos_b, k_codes)
-    for name, t in (("k_codes", k_codes), ("v_codes", v_codes)):
-        if t.data_ptr() % 4:
-            raise ValueError(f"{name} must be 4-byte aligned")
     out = torch.empty((B, n_kv, g, hd), dtype=torch.float32, device=q.device)
+    # scratch: each split's partial output and its softmax (max, sum)
+    scratch = torch.empty((lib.repro_decode_attn_scratch(B, n_kv, g, S, hd),),
+                          dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.repro_decode_attn(
             _ptr(qf), _ptr(k_codes), _ptr(v_codes), _ptr(k_scale),
-            _ptr(v_scale), _ptr(pos_b), _ptr(out), B, n_kv, g, S, hd,
-            float(scale), _KV_FMT_CODE[fmt], _stream(q.device))
+            _ptr(v_scale), _ptr(pos_b), _ptr(out), _ptr(scratch), B, n_kv, g,
+            S, hd, float(scale), _KV_FMT_CODE[fmt], _stream(q.device))
     _raise_on_error(lib, err, "decode_attn_fused")
     LAUNCHES["decode_attn_fused"] += 1
     return out.reshape(B, hp, hd)
@@ -273,17 +277,17 @@ def clip_and_sum(grads: torch.Tensor, clip_norm: float):
         return ref.per_sample_clip_ref(grads, clip_norm)
     B, D = grads.shape
     _check("grads", grads, torch.float32, (B, D))
+    if grads.data_ptr() % 16:
+        raise ValueError("grads must be 16-byte aligned")
     lib = load_library()
     P = lib.repro_per_sample_clip_chunks(D)
     out = torch.empty((D,), dtype=torch.float32, device=grads.device)
     norms = torch.empty((B,), dtype=torch.float32, device=grads.device)
-    scratch = torch.empty((B * P + B,), dtype=torch.float32,
-                          device=grads.device)
+    partial = torch.empty((B * P,), dtype=torch.float32, device=grads.device)
     with torch.cuda.device(grads.device):
         err = lib.repro_per_sample_clip(
-            _ptr(grads), _ptr(out), _ptr(norms), _ptr(scratch[:B * P]),
-            _ptr(scratch[B * P:]), B, D, float(clip_norm),
-            _stream(grads.device))
+            _ptr(grads), _ptr(out), _ptr(norms), _ptr(partial), B, D,
+            float(clip_norm), _stream(grads.device))
     _raise_on_error(lib, err, "clip_and_sum")
     LAUNCHES["clip_and_sum"] += 1
     return out, norms

@@ -12,8 +12,10 @@ draws are the plain twin's words); attention and matmul outputs to
 float32 summation order; the clip's norms rtol 1e-5 and its
 sum within 1e-5 of sum_b |scale_b g_bd| per column (summation order);
 the ghost norm within 1e-5 of sum_ij |XX_ij GG_ij| per example
-(summation order), as in ``chip_smoke.py``.  The clip and the ghost norm
-give the same bits on every run.  TF32 is off for the plain versions.
+(summation order), as in ``chip_smoke.py``.  Decode attention, the clip
+and the ghost norm give the same bits on every run, and decode attention
+the same bits for a slot alone as in a batch.  TF32 is off for the plain
+versions.
 """
 import pytest
 
@@ -62,6 +64,53 @@ def test_decode_attn_fused_close(cuda, fmt, g, hd):
     out = ops.decode_attn_fused(*args, **kw)
     torch.testing.assert_close(out, ref.decode_attn_ref(*args, **kw),
                                atol=1e-5, rtol=1e-5)
+
+
+def _stale_cache(device, fmt, pos_list, KV, S, hd, seed):
+    """A quantized cache whose rows past each slot's pos hold garbage: the
+    kernel gets NaN / inf scales there (it must never read them), the
+    plain version finite ones (it masks the scores and multiplies the
+    zero probabilities by the V scales)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    B = len(pos_list)
+    kc, ks = kvc.kv_quant(fmt, torch.randn(B, KV, S, hd, device=device,
+                                           generator=gen))
+    vc, vs = kvc.kv_quant(fmt, torch.randn(B, KV, S, hd, device=device,
+                                           generator=gen))
+    ks_ref, vs_ref = ks.clone(), vs.clone()
+    for b, p in enumerate(pos_list):
+        kc[b, :, p + 1:] = 7
+        ks[b, :, p + 1:] = float("nan")
+        vs[b, :, p + 1:] = float("inf")
+        ks_ref[b, :, p + 1:] = 50.0
+        vs_ref[b, :, p + 1:] = 50.0
+    return kc, vc, ks, vs, ks_ref, vs_ref
+
+
+@pytest.mark.parametrize("fmt", ["int8", "luq_fp4"])
+@pytest.mark.parametrize("g", [1, 3, 8])
+def test_decode_attn_split_s(cuda, fmt, g):
+    """S = 1024 is 16 splits of L = 64 rows: positions on both sides of
+    the split edges (0, L - 1, L, 2L, S - 1) and stale rows past pos.
+    Within 1e-5 of the plain version, the same bits twice, and each slot
+    run alone (B = 1) gives its row of the batch bit for bit: the splits
+    depend on row indices only, never on the batch."""
+    KV, S, hd, L = 4, 1024, 128, 64
+    pos_list = [0, L - 1, L, 2 * L, S - 1]
+    kc, vc, ks, vs, ks_ref, vs_ref = _stale_cache(cuda, fmt, pos_list, KV, S,
+                                                  hd, 8)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q = torch.randn(len(pos_list), KV * g, hd, device=cuda, generator=gen)
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=cuda)
+    kw = dict(fmt=fmt, n_kv=KV, scale=hd ** -0.5)
+    out = ops.decode_attn_fused(q, kc, vc, ks, vs, pos, **kw)
+    want = ref.decode_attn_ref(q, kc, vc, ks_ref, vs_ref, pos, **kw)
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)
+    assert torch.equal(out, ops.decode_attn_fused(q, kc, vc, ks, vs, pos,
+                                                  **kw))
+    for b in range(len(pos_list)):
+        one = [t[b:b + 1].contiguous() for t in (q, kc, vc, ks, vs, pos)]
+        assert torch.equal(ops.decode_attn_fused(*one, **kw)[0], out[b])
 
 
 @pytest.mark.parametrize("per_row", [False, True])
@@ -185,6 +234,32 @@ def test_clip_and_sum_close(cuda, B, D):
     assert ((out - want).abs() <= 1e-5 * (scale @ g.abs()) + 1e-12).all()
     again, _ = ops.clip_and_sum(g, C)                 # no atomics
     assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("B", [1, 7, 64])
+@pytest.mark.parametrize("D", [12288, 12289, 12290, 12291, 1001])
+def test_clip_and_sum_edges(cuda, B, D):
+    """The edges of the two-pass design: D % 4 in {0, 1, 2, 3} (rows b >= 1
+    off the 16-byte grid: scalar head and tail in pass 1, the shuffled
+    realignment in pass 2's 2048-column tiles, the scalar last tile) and
+    D = 1001 below one tile; a zero row and a norm below C.  Norms rtol
+    1e-5, the sum within 1e-5 of sum_b |scale_b g_bd|, the same bits
+    twice."""
+    C = 1.0
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    g = torch.randn(B, D, device=cuda, generator=gen) * 0.02
+    if B > 2:
+        g[0] = 0.0
+        g[1] *= 0.1 / g[1].norm()
+    out, norms = ops.clip_and_sum(g, C)
+    want, want_norms = ref.per_sample_clip_ref(g, C)
+    torch.testing.assert_close(norms, want_norms, rtol=1e-5, atol=0.0)
+    scale = torch.clamp(C / torch.clamp(want_norms, min=1e-12), max=1.0)
+    assert ((out - want).abs() <= 1e-5 * (scale @ g.abs()) + 1e-12).all()
+    if B > 2:
+        assert norms[0].item() == 0.0 and norms[1].item() < C
+    again, again_norms = ops.clip_and_sum(g, C)
+    assert torch.equal(out, again) and torch.equal(norms, again_norms)
 
 
 def _ghost_inputs(device, B, T, Dx, Dg, seed):
