@@ -16,7 +16,10 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    computes the same function, that yardstick (``library_ms``; for the
    LUQ matmul and the ghost norm, ``torch.bmm`` of the bf16 LUQ codes
    with float32 output, the float32 values' time beside it as
-   ``library_f32_ms``);
+   ``library_f32_ms``); for the two wrappers that launch two kernels
+   each (decode attention's split and merge, the clip's two passes),
+   also each kernel's own device time from a ``torch.profiler`` trace
+   (``device_us``);
 4. trains ResNet-18 at full width (random init from a seed, synthetic
    data) with DP-SGD under the DPQuant scheduler through
    ``repro_torch.train_loop.Trainer``, with the options of
@@ -147,6 +150,28 @@ def time_ms(torch, fn, reps: int) -> float:
     return times[len(times) // 2]
 
 
+def device_us(torch, fn, kernels, reps: int) -> dict:
+    """{kernel: device microseconds a call} for each name in ``kernels``
+    that ``fn`` launches, from a torch.profiler trace of ``reps`` runs,
+    each after the L2 is overwritten as in ``time_ms``; None for a name
+    the trace does not show."""
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    found = dict.fromkeys(kernels)
+    for evt in prof.key_averages():
+        for k in kernels:
+            if k in evt.key:
+                found[k] = float(evt.self_device_time_total) / reps
+    return found
+
+
 def check_kv_quant_rows(torch, ops, ref, fmt, shape, reps=50):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     x = torch.randn(shape, device="cuda", generator=gen) * 3
@@ -219,6 +244,9 @@ def check_decode_attn(torch, ops, ref, kvc, fmt, B, S, reps=50):
         **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
         "library_ms": time_ms(torch, lambda: sdpa(qd, kd, vd, attn_mask=mask,
                                                   scale=hd ** -0.5), reps),
+        "device_us": device_us(
+            torch, lambda: ops.decode_attn_fused(*args, **kw),
+            ("decode_attn_split_kernel", "decode_attn_merge_kernel"), reps),
     }
 
 
@@ -383,6 +411,9 @@ def check_per_sample_clip(torch, ops, ref, B, D, reps=10):
         # is read twice
         "bound_two_reads_ms": bound(nbytes + 4 * B * D, 4.0 * B * D)[0],
         "library_ms": time_ms(torch, two_calls, reps),
+        "device_us": device_us(torch, lambda: ops.clip_and_sum(g, C),
+                               ("row_sumsq_kernel", "column_sum_kernel"),
+                               reps),
     }
 
 

@@ -21,10 +21,12 @@
 //
 //   1. row_sumsq: block (b, p) sums the squares of column chunk p of row b
 //      into partial[b, p].  D is odd for ResNet-18, so rows b >= 1 do not
-//      start on a 16-byte boundary: each chunk is a scalar head up to the
-//      next boundary, a float4 body (4 float4 loads in flight per thread)
-//      and a scalar tail.  The grid runs p slowest, so the last blocks
-//      read the last columns of every row and leave them in L2.
+//      start on a 16-byte boundary (nor does row 0 of a view at an odd
+//      offset; both passes take the misalignment from the address): each
+//      chunk is a scalar head up to the next boundary, a float4 body (4
+//      float4 loads in flight per thread) and a scalar tail.  The grid
+//      runs p slowest, so the last blocks read the last columns of every
+//      row and leave them in L2.
 //   2. column_sum: a persistent grid (as many blocks as fit on the card)
 //      walks contiguous tiles of kTile = 2048 columns, in reverse order
 //      (the first tiles find pass 1's last columns in L2).  A block's
@@ -35,11 +37,12 @@
 //      (DRAM locality; 4 rows of loads in flight per thread), lane l of a
 //      warp owning 4 columns of a 128-column segment, and keeps its 8
 //      columns' sums in registers: acc = fma(scale[b], g[b, d], acc).  A
-//      misaligned row (b D mod 4 = k != 0) is read with aligned float4s
-//      starting k columns early; each lane takes the k columns it lacks
-//      from its right neighbour by warp shuffle, and lane 31 reads those k
-//      with scalar loads, so no load leaves the tile's row.  The last,
-//      partial tile takes scalar loads.
+//      row whose tile starts k floats past a 16-byte address is read with
+//      aligned float4s starting k columns early (the same 16-byte words,
+//      so never outside the allocation); each lane takes the k columns it
+//      lacks from its right neighbour by warp shuffle, the k read early
+//      are dropped, and lane 31 reads its k with scalar loads, so no load
+//      passes the tile's end.  The last, partial tile takes scalar loads.
 //
 // Both passes run at ~3.0 TB/s on an H100 (PERF.md).  Staging the tiles
 // through a shared-memory ring of cp.async copies, 1024-column tiles or
@@ -74,6 +77,16 @@ __device__ __forceinline__ float sumsq4(float4 v, float acc) {
   return fmaf(v.w, v.w, acc);
 }
 
+// Floats from p to the next 16-byte address (0 to 3).
+__device__ __forceinline__ int misalign_to_next(const float* p) {
+  return (int)((4 - (((uintptr_t)p >> 2) & 3)) & 3);
+}
+
+// Floats from the 16-byte address at or before p to p (0 to 3).
+__device__ __forceinline__ int misalign_from_prev(const float* p) {
+  return (int)(((uintptr_t)p >> 2) & 3);
+}
+
 __global__ void __launch_bounds__(kThreads)
 row_sumsq_kernel(const float* __restrict__ g, float* __restrict__ partial,
                  long long D, int P) {
@@ -83,10 +96,12 @@ row_sumsq_kernel(const float* __restrict__ g, float* __restrict__ partial,
   const long long chunk = (D + P - 1) / P;
   const long long start = (long long)p * chunk;
   const long long stop = start + chunk < D ? start + chunk : D;
-  // absolute element indices: [a0, h) head, [h, t) float4 body, [t, a1)
+  // element indices from g: [a0, h) head, [h, t) float4 body, [t, a1).
+  // The head runs to the next 16-byte address, so any 4-byte aligned g
+  // (a view at any offset) takes the same path.
   const long long a0 = (long long)b * D + start;
   const long long a1 = (long long)b * D + stop;
-  long long h = (a0 + 3) & ~3LL;
+  long long h = a0 + misalign_to_next(g + a0);
   if (h > a1) h = a1;
   const long long nb = (a1 - h) >> 2;
   const long long t = h + 4 * nb;
@@ -174,9 +189,9 @@ __device__ __forceinline__ void column_tile(const float* __restrict__ g,
     float ex[kRowUnroll][kSegsPerWarp][3];
 #pragma unroll
     for (int r = 0; r < kRowUnroll; ++r) {
-      const long long a = (long long)(b0 + r) * D + c0;
-      const int sh = (int)(a & 3);
-      const float* base = g + (a - sh);
+      const float* row = g + (long long)(b0 + r) * D + c0;
+      const int sh = misalign_from_prev(row);
+      const float* base = row - sh;
 #pragma unroll
       for (int k = 0; k < kSegsPerWarp; ++k) {
         own[r][k] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -196,7 +211,7 @@ __device__ __forceinline__ void column_tile(const float* __restrict__ g,
     for (int r = 0; r < kRowUnroll; ++r) {
       const int b = b0 + r;
       if (b < B) {
-        const int sh = (int)(((long long)b * D + c0) & 3);
+        const int sh = misalign_from_prev(g + (long long)b * D + c0);
         const float sc = s_scale[b];
 #pragma unroll
         for (int k = 0; k < kSegsPerWarp; ++k) {
@@ -250,13 +265,14 @@ extern "C" int repro_per_sample_clip_chunks(long long D) {
   return (int)p;
 }
 
-// g: (B, D); out: (D,), 16-byte aligned; norms: (B,); partial: (B, P)
-// scratch with P = repro_per_sample_clip_chunks(D).  All float32,
-// contiguous, on the device.  Returns the cudaError_t of the launches.
+// g: (B, D), 4-byte aligned (a view at any element offset); out: (D,),
+// 16-byte aligned; norms: (B,); partial: (B, P) scratch with P =
+// repro_per_sample_clip_chunks(D).  All float32, contiguous, on the
+// device.  Returns the cudaError_t of the launches.
 extern "C" int repro_per_sample_clip(const void* g, void* out, void* norms,
                                      void* partial, int B, long long D,
                                      float clip_norm, void* stream) {
-  if (B < 1 || B > kMaxRows || D < 1 || (uintptr_t)g % 16 ||
+  if (B < 1 || B > kMaxRows || D < 1 || (uintptr_t)g % 4 ||
       (uintptr_t)out % 16) {
     return (int)cudaErrorInvalidValue;
   }

@@ -15,8 +15,9 @@ run, then profiles one more run and prints:
 * host time of the admissions (prefill), of the decode ticks and, within
   both, of the logits head (``qlogits``: scales, the float32 head and
   the quantized matmul, which draws its own uniforms);
-* the kernels with the most device time and the operators with the most
-  host time.
+* the kernels with the most device time, the device time of each of the
+  port's own kernels (``kernels/csrc``, however little), and the
+  operators with the most host time.
 
 Kernels launched through ``ctypes`` are not tied to a host range, so the
 device time shown for a range covers PyTorch's operators only.
@@ -24,6 +25,7 @@ device time shown for a range covers PyTorch's operators only.
 from __future__ import annotations
 
 import argparse
+import re
 import time
 
 import torch
@@ -32,6 +34,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from repro_torch.config import QuantConfig, ServeConfig
 from repro_torch.configs import get_config
+from repro_torch.kernels import build
 from repro_torch.launch import workload as wl
 from repro_torch.models import common as cm
 from repro_torch.models.registry import build_model
@@ -39,6 +42,16 @@ from repro_torch.serve import ContinuousEngine
 
 RANGES = ("engine.run", "engine.admit", "engine.tick", "qlogits")
 TOP = 15
+
+
+def port_kernels() -> re.Pattern:
+    """A pattern that matches the profiler's name of any ``__global__``
+    function of ``kernels/csrc``."""
+    names = set()
+    for src in sorted(build.CSRC.glob("*.cu")):
+        text = re.sub(r"__launch_bounds__\([^)]*\)", "", src.read_text())
+        names.update(re.findall(r"__global__\s+void\s+(\w+)\s*\(", text))
+    return re.compile(r"::(%s)[(<]" % "|".join(sorted(names)))
 
 
 def _device_us(evt, self_only=True) -> float:
@@ -132,6 +145,12 @@ def main(argv=None):
     for e in sorted(kernels, key=_device_us, reverse=True)[:TOP]:
         print(f"  {_device_us(e) / 1e3:12.3f} ms  {e.count:7d} calls  "
               f"{e.key[:90]}")
+    print("the port's own kernels:")
+    ours = port_kernels()
+    for e in sorted(kernels, key=_device_us, reverse=True):
+        if ours.search(e.key):
+            print(f"  {_device_us(e) / 1e3:12.3f} ms  {e.count:7d} calls  "
+                  f"{e.key[:90]}")
     print("operators with the most host time (under the profiler):")
     print(events.table(sort_by="self_cpu_time_total", row_limit=TOP,
                        max_name_column_width=60))

@@ -262,6 +262,27 @@ def test_clip_and_sum_edges(cuda, B, D):
     assert torch.equal(out, again) and torch.equal(norms, again_norms)
 
 
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("D", [12288, 12289])
+def test_clip_and_sum_view_at_an_offset(cuda, offset, D):
+    """A (B, D) view starting ``offset`` floats into its storage, so row 0
+    is off the 16-byte grid too: both passes take the misalignment from
+    the address.  The floats before the view are NaN, so a stray load that
+    is not dropped shows.  Tolerances as above, the same bits twice."""
+    B, C = 7, 1.0
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    storage = torch.full((offset + B * D,), float("nan"), device=cuda)
+    g = storage[offset:].view(B, D)
+    g.copy_(torch.randn(B, D, device=cuda, generator=gen) * 0.02)
+    out, norms = ops.clip_and_sum(g, C)
+    want, want_norms = ref.per_sample_clip_ref(g, C)
+    torch.testing.assert_close(norms, want_norms, rtol=1e-5, atol=0.0)
+    scale = torch.clamp(C / torch.clamp(want_norms, min=1e-12), max=1.0)
+    assert ((out - want).abs() <= 1e-5 * (scale @ g.abs()) + 1e-12).all()
+    again, again_norms = ops.clip_and_sum(g, C)
+    assert torch.equal(out, again) and torch.equal(norms, again_norms)
+
+
 def _ghost_inputs(device, B, T, Dx, Dg, seed):
     """x, g with the rounding's edges mixed in and, with several examples,
     an all-zero example; shared uniforms, per-example scales."""

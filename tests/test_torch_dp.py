@@ -70,6 +70,24 @@ def test_clip_kernel_plain_version_matches_pallas(b, d):
                                atol=1e-6 * float(np.abs(jsum).max()))
 
 
+def test_clip_kernel_plain_version_takes_a_view_at_an_offset():
+    """The wrapper takes a (B, D) view that starts inside its storage (the
+    kernel handles any 4-byte aligned start) and agrees with the Pallas
+    kernel on the same values."""
+    b, d, offset = 5, 1537, 3
+    rng = np.random.default_rng(b * d + offset)
+    g = rng.standard_normal((b, d)).astype(np.float32) * 0.05
+    storage = torch.full((offset + b * d,), float("nan"))
+    view = storage[offset:].view(b, d)
+    view.copy_(torch.from_numpy(g))
+    jsum, jnorms = jops.clip_and_sum(jnp.asarray(g), 1.0, interpret=True)
+    tsum, tnorms = ops.clip_and_sum(view, 1.0)
+    np.testing.assert_allclose(tnorms.numpy(), np.asarray(jnorms),
+                               rtol=1e-6, atol=0)
+    np.testing.assert_allclose(tsum.numpy(), np.asarray(jsum), rtol=1e-6,
+                               atol=1e-6 * float(np.abs(jsum).max()))
+
+
 def _jax_reference(fmt: str, quantized: bool) -> dict:
     """JAX SMOKE ResNet-18 at ``fmt`` with every layer's flag ``quantized``:
     params, a batch, the clipped gradient sum with its metrics, and the
