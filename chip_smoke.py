@@ -10,16 +10,16 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. holds each kernel against its plain PyTorch version on the card at the
    shapes of its path (ResNet-18 training: ``luq_quant`` and
-   ``per_sample_clip``; stablelm-3b ghost training: ``ghost_norm_sq``;
-   yi-6b serving: the other three), and times kernel, plain version, the
-   least time the card could take (``bound_ms``) and, where PyTorch
-   computes the same function, that yardstick (``library_ms``; for the
-   LUQ matmul and the ghost norm, ``torch.bmm`` of the bf16 LUQ codes
-   with float32 output, the float32 values' time beside it as
-   ``library_f32_ms``); for the two wrappers that launch two kernels
-   each (decode attention's split and merge, the clip's two passes),
-   also each kernel's own device time from a ``torch.profiler`` trace
-   (``device_us``);
+   ``per_sample_clip``; stablelm-3b ghost training: ``luq_quant`` and
+   ``ghost_norm_sq``; yi-6b serving: the KV cache write, decode attention
+   and the quantized matmul), and times kernel, plain version, the least
+   time the card could take (``bound_ms``) and, where PyTorch computes
+   the same function, that yardstick (``library_ms``; for the LUQ matmul
+   and the ghost norm, ``torch.bmm`` of the bf16 LUQ codes with float32
+   output, the float32 values' time beside it as ``library_f32_ms``);
+   for the wrappers that launch more than one kernel, and for the KV
+   write, also each kernel's own device time from a ``torch.profiler``
+   trace (``device_us``);
 4. trains ResNet-18 at full width (random init from a seed, synthetic
    data) with DP-SGD under the DPQuant scheduler through
    ``repro_torch.train_loop.Trainer``, with the options of
@@ -28,7 +28,8 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    256 images in microbatches of 64, analysis in epoch 0 (10 probe runs x
    2 reps at a probe batch of 64); every loss finite, k = 8 quantized
    layers each epoch, epsilon > 0, 44 clip launches, and quantizer
-   launches that match the policies the scheduler chose;
+   launches that match the policies the scheduler chose, two kernels a
+   quantize call;
 5. trains stablelm-3b at full size (32 layers, random init from a seed,
    synthetic tokens) with ghost-mode DP-SGD under the DPQuant scheduler,
    with the options of ``repro_torch.launch.train --arch stablelm-3b
@@ -37,7 +38,8 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    epochs x 2 steps, analysis in epoch 0 (33 probe runs x 2 reps at a
    probe batch of 8); every loss finite, k = 29 each epoch, epsilon > 0,
    ``ghost_norm_sq`` launches that match the policies the scheduler
-   chose, and no clip launch (ghost mode forms no (B, D) matrix);
+   chose, at most two kernels a quantize call, and no clip launch (ghost
+   mode forms no (B, D) matrix);
 6. holds ghost mode against per-example gradients inside the real model:
    stablelm-3b at full width cut to 2 layers, in bf16 and in float32,
    every layer in LUQ-FP4 on the ``cuda`` backend, 4 sequences of 256
@@ -57,8 +59,9 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    ``repro_torch/launch/workload.py``: 4 slots, 8 requests, prompts of
    64-512 tokens, 32 new tokens, greedy, luq_fp4 logits head, once with an
    int8 and once with a luq_fp4 KV cache, on the ``cuda`` backend; every
-   request must finish with its 32 tokens and every kernel (both branches
-   of the matmul) must have run;
+   request must finish with its 32 tokens, every kernel (both branches
+   of the matmul) must have run, and the KV write must have launched once
+   a layer and decode tick and once a prefill;
 8. checks the engine against the oneshot driver for one request.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -66,7 +69,9 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 script exits non-zero; without a GPU, or without the repository around
 it, it exits non-zero before printing a result.
 
-Tolerances: KV codes and scales bitwise; LUQ codes bitwise; decode
+Tolerances: KV caches bitwise (codes and scales, the rows not written
+untouched), the same bits twice; LUQ values bitwise (the kernel's Philox
+draws are the plain twin's words), the same bits twice; decode
 attention atol = rtol = 1e-5 (float32, summed in another order), bit for
 bit across two runs and between a slot alone and its row of the batch;
 the quantized matmul within 1e-5 of the sum of absolute products per
@@ -172,23 +177,68 @@ def device_us(torch, fn, kernels, reps: int) -> dict:
     return found
 
 
-def check_kv_quant_rows(torch, ops, ref, fmt, shape, reps=50):
+def _stale_kv_cache(torch, kvc, fmt, N0, N1, S, hd, gen):
+    """K and V codes and scales (N0, N1, S, ...) full of stale values."""
+    code_dtype, code_dim = kvc.code_spec(fmt, hd)
+    codes = [torch.randint(-100, 100, (N0, N1, S, code_dim), device="cuda",
+                           generator=gen).to(code_dtype) for _ in range(2)]
+    scales = [(torch.rand(N0, N1, S, device="cuda", generator=gen) * 50)
+              .to(kvc.SCALE_DTYPE) for _ in range(2)]
+    return codes + scales
+
+
+def check_kv_write(torch, ops, ref, kvc, fmt, n0, n1, t, s, hd, wpos,
+                   reps=50):
+    """The fused K+V cache write: bf16 K and V rows (n0, n1, t, hd) into
+    whole caches (n0, n1, s, ...) of stale rows, at each slot's ``wpos``
+    (decode: t = 1) or from row 0 (``wpos`` None: prefill).  Bitwise the
+    plain version's caches (``kv_cache.kv_quant`` plus the index writes),
+    the rows it does not write untouched, the same bits twice."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    x = torch.randn(shape, device="cuda", generator=gen) * 3
-    x.reshape(-1, shape[-1])[0] = 0                       # an all-zero row
-    codes, scales = ops.kv_quant_rows(x, fmt)
-    rc, rs = ref.kv_quant_rows_ref(x, fmt)
-    if not (torch.equal(codes, rc) and torch.equal(scales, rs)):
-        raise AssertionError(f"kv_quant_rows[{fmt}] {shape}: codes or scales "
-                             "differ from the plain version")
-    rows, hd = x.numel() // shape[-1], shape[-1]
-    nbytes = x.numel() * 4 + codes.numel() + rows * 2
+    k = (torch.randn(n0, n1, t, hd, device="cuda", generator=gen) * 3)
+    v = torch.randn(n0, n1, t, hd, device="cuda", generator=gen)
+    k[0, 0, 0] = 0                                        # an all-zero row
+    k, v = k.bfloat16(), v.bfloat16()
+    if wpos is not None:
+        wpos = torch.tensor(wpos, device="cuda").clamp(max=s - 1)
+    cache = _stale_kv_cache(torch, kvc, fmt, n0, n1, s, hd, gen)
+    stale = [c.clone() for c in cache]
+    want = [c.clone() for c in cache]
+    ops.kv_quant_write(k, v, *cache, fmt, wpos)
+    ref.kv_quant_write_ref(k, v, *want, fmt, wpos)
+    written = torch.zeros(n0, s, dtype=torch.bool, device="cuda")
+    w = (torch.zeros(n0, dtype=torch.long, device="cuda") if wpos is None
+         else wpos)
+    for i in range(t):
+        written[torch.arange(n0, device="cuda"), w + i] = True
+    for got, exp, old in zip(cache, want, stale):
+        if not torch.equal(got, exp):
+            raise AssertionError(f"kv_quant_write[{fmt}] ({n0}, {n1}, {t}, "
+                                 f"{hd}): the cache differs from the plain "
+                                 "version's")
+        if not torch.equal(exp.transpose(1, 2)[~written],
+                           old.transpose(1, 2)[~written]):
+            raise AssertionError(f"kv_quant_write[{fmt}]: a row it does not "
+                                 "write changed")
+    again = [c.clone() for c in stale]
+    ops.kv_quant_write(k, v, *again, fmt, wpos)
+    if not all(torch.equal(a, b) for a, b in zip(again, cache)):
+        raise AssertionError(f"kv_quant_write[{fmt}]: two runs differ")
+    rows = 2 * n0 * n1 * t
+    code_dim = cache[0].shape[-1]
+    nbytes = 2 * rows * hd + rows * (code_dim + 2) + (0 if wpos is None
+                                                      else 8 * n0)
     return {
         "max_abs_err": 0.0,
-        "ms": time_ms(torch, lambda: ops.kv_quant_rows(x, fmt), reps),
-        "plain_ms": time_ms(torch, lambda: ref.kv_quant_rows_ref(x, fmt), reps),
+        "ms": time_ms(torch, lambda: ops.kv_quant_write(k, v, *cache, fmt,
+                                                        wpos), reps),
+        "plain_ms": time_ms(torch, lambda: ref.kv_quant_write_ref(
+            k, v, *want, fmt, wpos), reps),
         **dict(zip(("bound_ms", "bound_by"), bound(nbytes, 8.0 * rows * hd))),
         "library_ms": None,
+        "device_us": device_us(
+            torch, lambda: ops.kv_quant_write(k, v, *cache, fmt, wpos),
+            ("kv_quant_write_kernel",), reps),
     }
 
 
@@ -333,38 +383,70 @@ def check_luq_matmul(torch, ops, ref, per_row, rows, sm_clock_mhz, reps=10):
     return result
 
 
-def check_luq_quant(torch, ops, ref, rows, n, reps=50):
-    """LUQ-FP4 of (rows, n) against one shared (n,) draw and per-row
-    scales, with the rounding's edge values mixed in: exact powers of two
-    times alpha, one ulp below them, zeros, and (with several rows) a row
-    that is all zero (alpha = 0)."""
+def _luq_edges(torch, x):
+    """Mixes the rounding's edge values into every row of ``x`` in place:
+    alpha = 4 (the values lie in [-3.5, 3.5]), exact levels 4 2^-k, one ulp
+    of x's dtype below them, their negatives and zeros; with several rows,
+    row 1 all zero (alpha = 0)."""
+    levels = (4.0 * 2.0 ** -torch.arange(0, 9, device="cuda")).to(x.dtype)
+    ints = torch.int32 if x.dtype == torch.float32 else torch.int16
+    below = (levels.view(ints) - 1).view(x.dtype)         # positive: one ulp
+    edges = torch.cat([levels, -levels, below, -below,
+                       torch.zeros(4, device="cuda", dtype=x.dtype)])
+    x[:, 0] = 4.0
+    x[:, 1:1 + edges.numel()] = edges
+    if x.shape[0] > 1:
+        x[1] = 0.0
+
+
+def check_luq_quant(torch, ops, ref, rows, n, dtype, sm_clock_mhz, reps=50):
+    """The keyed LUQ-FP4 quantize op on (rows, n) in ``dtype``: the kernel
+    takes each row's max and draws the key's Philox stream itself.  Edge
+    values in every row and an all-zero row (one-row shapes: a second,
+    all-zero call); bitwise the plain version, the same bits twice."""
+    from repro_torch.quant.fake_quant import stream_key
+    key = stream_key(3 * 97 + 4, 4)         # a stablelm-3b layer-3 wgrad key
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     x = torch.randn(rows, n, device="cuda", generator=gen).clamp(-3.5, 3.5)
-    u = torch.rand(n, device="cuda", generator=gen)
-    alpha0 = 4.0
-    x[:, 0] = alpha0
-    levels = alpha0 * 2.0 ** -torch.arange(0, 9, device="cuda")
-    below = torch.nextafter(levels, torch.zeros_like(levels))
-    edges = torch.cat([levels, -levels, below, -below,
-                       torch.zeros(4, device="cuda")])
-    x[:, 1:1 + edges.numel()] = edges
-    if rows > 1:
-        x[1] = 0.0
-    alpha = x.abs().amax(dim=1)
-    out = ops.luq_quant(x, u, alpha)
-    want = ref.luq_quant_ref(x, u, alpha)
+    x = x.to(dtype)
+    _luq_edges(torch, x)
+    out = ops.luq_quant(x, key)
+    want = ref.luq_quant_ref(x, key)
     if not torch.equal(out, want):
         bad = (out != want).sum().item()
-        raise AssertionError(f"luq_quant ({rows} x {n}): {bad} codes differ "
-                             "from the plain version")
-    nbytes = 4 * (2 * x.numel() + u.numel() + rows)
+        raise AssertionError(f"luq_quant ({rows} x {n}, {dtype}): {bad} "
+                             "values differ from the plain version")
+    if not torch.equal(out, ops.luq_quant(x, key)):
+        raise AssertionError(f"luq_quant ({rows} x {n}): two runs differ")
+    zero = torch.zeros_like(x[:1])
+    if rows == 1 and ops.luq_quant(zero, key).any():
+        raise AssertionError("luq_quant of an all-zero row is not zero")
+    elem = x.element_size()
+    numel = x.numel()
+    # the least work: each element read once and written once in its own
+    # dtype, the key's draws once (ceil(n / 4) Philox calls, shared by the
+    # rows) and LUQ's rounding of every element
+    calls = (n + 3) // 4
+    ops_bound = dict(flops=LUQ_OPS * numel, int_ops=PHILOX_INT_OPS * calls,
+                     sm_clock_mhz=sm_clock_mhz)
+    bound_one, by = bound(2 * elem * numel, **ops_bound)
     return {
         "max_abs_err": 0.0,
-        "ms": time_ms(torch, lambda: ops.luq_quant(x, u, alpha), reps),
-        "plain_ms": time_ms(torch, lambda: ref.luq_quant_ref(x, u, alpha), reps),
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound(nbytes, LUQ_OPS * x.numel()))),
+        "ms": time_ms(torch, lambda: ops.luq_quant(x, key), reps),
+        "plain_ms": time_ms(torch, lambda: ref.luq_quant_ref(x, key), reps),
+        "bound_ms": bound_one,
+        "bound_by": by,
+        # the kernel's own passes: x read twice (the row max, the
+        # rounding), the result written once
+        "bound_three_passes_ms": bound(3 * elem * numel, **ops_bound)[0],
+        # the first design's convention: float32 x and uniforms read, the
+        # float32 result written
+        "bound_float32_uniforms_ms": bound(4 * (2 * numel + n + rows),
+                                           LUQ_OPS * numel)[0],
         "library_ms": None,
+        "device_us": device_us(torch, lambda: ops.luq_quant(x, key),
+                               ("luq_row_max_kernel", "luq_round_kernel"),
+                               reps),
     }
 
 
@@ -418,12 +500,15 @@ def check_per_sample_clip(torch, ops, ref, B, D, reps=10):
 
 
 def check_ghost_norm(torch, ops, ref, B, T, Dx, Dg, reps=20):
-    """The ghost norm of B examples' (T, Dx) / (T, Dg) operands, with the
-    rounding's edge values mixed in and an all-zero example (alpha = 0);
-    the yardstick is two ``torch.bmm`` Grams of the bf16 LUQ codes
-    computed beforehand, with float32 sums and output (the kernel's
-    arithmetic), then ``(alpha_x alpha_g)^2 (XX * GG).sum((1, 2))``; the
-    same two Grams over float32 codes are timed beside it."""
+    """The ghost norm of B examples' (T, Dx) / (T, Dg) bf16 operands (the
+    LM's compute dtype), with the rounding's edge values mixed in and an
+    all-zero example (alpha = 0), quantized against the keys of a
+    layer's wgrad folds 4 and 5; the yardstick is two ``torch.bmm`` Grams
+    of the bf16 LUQ codes computed beforehand, with float32 sums and
+    output (the kernel's arithmetic), then ``(alpha_x alpha_g)^2 (XX *
+    GG).sum((1, 2))``; the same two Grams over float32 codes are timed
+    beside it."""
+    from repro_torch.quant.fake_quant import stream_key
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6 + Dg)
     x = torch.randn(B, T, Dx, device="cuda", generator=gen).clamp(-3.5, 3.5)
     g = torch.randn(B, T, Dg, device="cuda", generator=gen).clamp(-3.5, 3.5)
@@ -437,26 +522,24 @@ def check_ghost_norm(torch, ops, ref, B, T, Dx, Dg, reps=20):
     x[:, 1, :edges.numel()] = edges
     g[:, 1, :edges.numel()] = edges * 1e-3
     x[1] = 0.0                                        # an all-zero example
-    ux = torch.rand(T * Dx, device="cuda", generator=gen)
-    ug = torch.rand(T * Dg, device="cuda", generator=gen)
-    ax = x.abs().amax(dim=(1, 2))
-    ag = g.abs().amax(dim=(1, 2))
-    args = (x, g, ux, ug, ax, ag)
+    x, g = x.bfloat16(), g.bfloat16()
+    kx, kg = stream_key(97 * 3 + 4, 4), stream_key(97 * 3 + 4, 5)
+    args = (x, g, kx, kg)
     out = ops.ghost_norm_sq(*args)
     again = ops.ghost_norm_sq(*args)
     if not torch.equal(out, again):
         raise AssertionError(f"ghost_norm_sq ({B}, {T}, {Dx}, {Dg}): two runs "
                              "differ")
     want = ref.ghost_norm_ref(*args)
-    xq = ref.luq_fp4(x.reshape(B, -1), ux, ax[:, None]).reshape(x.shape)
-    gq = ref.luq_fp4(g.reshape(B, -1), ug, ag[:, None]).reshape(g.shape)
+    xq = ref.luq_quant_ref(x.reshape(B, -1), kx).reshape(x.shape).float()
+    gq = ref.luq_quant_ref(g.reshape(B, -1), kg).reshape(g.shape).float()
     # the yardsticks' operands: the codes Q(v) / alpha, exact in bf16,
     # whose Grams cuBLAS sums exactly; the scales come in at the end
-    cx = ref.luq_quant_ref(x.reshape(B, -1), ux, ax,
-                           codes=True).reshape(x.shape)
-    cg = ref.luq_quant_ref(g.reshape(B, -1), ug, ag,
-                           codes=True).reshape(g.shape)
+    cx = ref.luq_quant_ref(x.reshape(B, -1), kx, codes=True).reshape(x.shape)
+    cg = ref.luq_quant_ref(g.reshape(B, -1), kg, codes=True).reshape(g.shape)
     cx32, cg32 = cx.float(), cg.float()
+    ax = x.float().abs().amax(dim=(1, 2))
+    ag = g.float().abs().amax(dim=(1, 2))
     scale2 = (ax * ag) ** 2
 
     def grams_bmm():
@@ -483,11 +566,12 @@ def check_ghost_norm(torch, ops, ref, B, T, Dx, Dg, reps=20):
                              f"(tolerance {tol.tolist()})")
     for lib in (grams_bmm, grams_bmm_f32):
         torch.testing.assert_close(lib(), want, rtol=1e-5, atol=0.0)
-    nbytes = 4 * (x.numel() + g.numel() + ux.numel() + ug.numel() + 3 * B)
-    # the least work: the LUQ rounding in float32, and each symmetric Gram's
-    # upper triangle with its diagonal, T (T + 1) / 2 dot products of D,
-    # on the bf16 tensor cores (Q(v) / alpha = +-2^-k is exact in bf16),
-    # then the T (T + 1) / 2 products XX o GG and their sum in float32
+    nbytes = 2 * (x.numel() + g.numel()) + 4 * B
+    # the least work: the LUQ rounding in float32 and the keys' draws, and
+    # each symmetric Gram's upper triangle with its diagonal, T (T + 1) / 2
+    # dot products of D, on the bf16 tensor cores (Q(v) / alpha = +-2^-k is
+    # exact in bf16), then the T (T + 1) / 2 products XX o GG and their sum
+    # in float32
     luq = LUQ_OPS * B * T * (Dx + Dg)
     grams = B * T * (T + 1) * (Dx + Dg)
     # the convention of the other rows: both whole Grams in float32
@@ -502,6 +586,10 @@ def check_ghost_norm(torch, ops, ref, B, T, Dx, Dg, reps=20):
         "bound_f32_full_grams_ms": bound(nbytes, full_f32)[0],
         "library_ms": time_ms(torch, grams_bmm, reps),
         "library_f32_ms": time_ms(torch, grams_bmm_f32, reps),
+        "device_us": device_us(
+            torch, lambda: ops.ghost_norm_sq(*args),
+            ("luq_row_max_kernel", "luq_round_kernel", "gram_tiles_kernel",
+             "sum_partials_kernel"), reps),
     }
 
 
@@ -579,12 +667,17 @@ def train_resnet18(torch, ops, wl):
     q_convs = reps * probe_micro * sum(convs)
     q_convs += sum(steps * n_micro * sum(convs[i] for i in layers)
                    for layers in policies)
+    # six quantize calls per quantized conv, two kernels a call
     want_q = {"luq_quant": 6 * q_convs, "luq_quant[one_row]": 2 * q_convs,
-              "luq_quant[rows]": 4 * q_convs}
+              "luq_quant[rows]": 4 * q_convs,
+              "luq_quant[kernels]": 12 * q_convs}
     for name, n in want_q.items():
         if launches[name] != n:
             raise AssertionError(f"{name} launched {launches[name]} times, "
                                  f"want {n} (policies {policies})")
+    print(f"resnet18 quantize calls {launches['luq_quant']}, kernel launches "
+          f"{launches['luq_quant[kernels]']}, "
+          f"{launches['luq_quant[kernels]'] / launches['luq_quant']} a call")
     del tr
     torch.cuda.empty_cache()
     return launches
@@ -643,9 +736,10 @@ def batch_shape_witness(torch, cfg, params, batch, rel):
 
     flags = (True,) * cfg.n_layers
     found = {}
-    identity = {("quantize", "identity", "ref"): lambda rows, u: rows.clone(),
+    identity = {("quantize", "identity", "ref"):
+                    lambda rows, key: rows.clone(),
                 ("ghost_norm", "identity", "ref"):
-                    lambda x, g, ux, ug: ghost._matpair_sq_norm(x, g)}
+                    lambda x, g, kx, kg: ghost._matpair_sq_norm(x, g)}
     qbackend._REGISTRY.update(identity)
     try:
         for fmt in ("none", "identity"):
@@ -869,6 +963,8 @@ def train_stablelm(torch, ops, wl):
     launches = dict(ops.LAUNCHES)
     launches.update({f"ghost_norm_sq[{k}]": v
                      for k, v in ops.GHOST_NORM_LAUNCHES.items()})
+    launches.update({f"luq_quant[{k}]": v
+                     for k, v in ops.LUQ_QUANT_LAUNCHES.items()})
     steps_ms = sorted(t * 1e3 for t in tr.step_wall_s[1:])
     med = steps_ms[len(steps_ms) // 2]
     print(f"train stablelm-3b (ghost): {epochs} epochs x {steps} steps of "
@@ -902,6 +998,12 @@ def train_stablelm(torch, ops, wl):
     if launches["clip_and_sum"] != 0:
         raise AssertionError(f"ghost training launched clip_and_sum "
                              f"{launches['clip_and_sum']} times")
+    calls, kernels = launches["luq_quant"], launches["luq_quant[kernels]"]
+    print(f"stablelm-3b quantize calls {calls}, kernel launches {kernels}, "
+          f"{kernels / calls} a call")
+    if not 0 < kernels <= 2 * calls:
+        raise AssertionError(f"{calls} quantize calls launched {kernels} "
+                             "kernels, want at most 2 a call")
     del tr
     _free(torch)
     return launches
@@ -916,7 +1018,7 @@ def serve_yi6b(torch, kv_fmt, model, params, ops, wl):
     from repro_torch.serve import ContinuousEngine
 
     for get, fmt in ((qbackend.get_matmul, "luq_fp4"),
-                     (qbackend.get_kv_quant, kv_fmt),
+                     (qbackend.get_kv_write, kv_fmt),
                      (qbackend.get_decode_attn, kv_fmt)):
         _, actual = get(fmt, "cuda")
         if actual != "cuda":
@@ -937,6 +1039,8 @@ def serve_yi6b(torch, kv_fmt, model, params, ops, wl):
     launches = dict(ops.LAUNCHES)
     launches["luq_matmul[decode]"] = ops.LUQ_MATMUL_LAUNCHES["per_row"]
     launches["luq_matmul[prefill]"] = ops.LUQ_MATMUL_LAUNCHES["shared"]
+    launches["kv_quant_write[decode]"] = ops.KV_WRITE_LAUNCHES["decode"]
+    launches["kv_quant_write[prefill]"] = ops.KV_WRITE_LAUNCHES["prefill"]
     if sorted(results) != list(range(wl.REQUESTS)):
         raise AssertionError(f"served {sorted(results)}")
     for rid, r in results.items():
@@ -953,6 +1057,14 @@ def serve_yi6b(torch, kv_fmt, model, params, ops, wl):
                              f"{zero}")
     summary = engine.metrics.summary()
     summary["prompt_lengths"] = [p.size for p in prompts]
+    # one K+V write a layer and decode tick, one a prefill
+    want_kv = {"decode": model.config.n_layers * summary["decode_ticks"],
+               "prefill": wl.REQUESTS}
+    for branch, n in want_kv.items():
+        if launches[f"kv_quant_write[{branch}]"] != n:
+            raise AssertionError(
+                f"kv_quant_write[{branch}] launched "
+                f"{launches[f'kv_quant_write[{branch}]']} times, want {n}")
     return summary, launches
 
 
@@ -1000,11 +1112,18 @@ def main() -> int:
     # 3. each kernel against its plain version at the path's shapes
     checks = {}
     for fmt in ("int8", "luq_fp4"):
-        decode = check_kv_quant_rows(torch, ops, ref, fmt, (wl.SLOTS, 4, 128))
-        prefill = check_kv_quant_rows(torch, ops, ref, fmt, (32, 1, 4, 512, 128))
-        print(f"kv_quant_rows[{fmt}] decode {decode}")
-        print(f"kv_quant_rows[{fmt}] prefill (32x1x4x512 rows) {prefill}")
-        checks[f"kv_quant_rows[{fmt}]"] = decode
+        # yi-6b: a decode tick's K and V rows of 4 slots x 4 kv heads at
+        # their clamped positions (one at S - 1, one past the end), and a
+        # 512-token prefill's stack of 32 layers from row 0
+        name = f"kv_quant_write[{fmt}/decode]"
+        checks[name] = check_kv_write(
+            torch, ops, ref, kvc, fmt, wl.SLOTS, 4, 1, wl.MAX_SEQ, 128,
+            [63, 700, wl.MAX_SEQ - 1, wl.MAX_SEQ + 5][:wl.SLOTS])
+        print(f"{name} {checks[name]}")
+        name = f"kv_quant_write[{fmt}/prefill]"
+        checks[name] = check_kv_write(torch, ops, ref, kvc, fmt, 32, 4, 512,
+                                      512, 128, None)
+        print(f"{name} (32 layers x 4 x 512 rows) {checks[name]}")
         attn = check_decode_attn(torch, ops, ref, kvc, fmt, wl.SLOTS,
                                  wl.MAX_SEQ)
         print(f"decode_attn_fused[{fmt}] {attn}")
@@ -1014,12 +1133,19 @@ def main() -> int:
         checks[name] = check_luq_matmul(torch, ops, ref, per_row, wl.SLOTS,
                                         sm_clock_mhz)
         print(f"{name} {checks[name]}")
-    # ResNet-18 training shapes: the largest weight (3x3x512x512) whole,
-    # and the largest activation under vmap (64 examples x 32x32x64)
-    for name, rows, n in (("luq_quant[weight]", 1, 3 * 3 * 512 * 512),
-                          ("luq_quant[activation]", 64, 32 * 32 * 64)):
-        checks[name] = check_luq_quant(torch, ops, ref, rows, n)
-        print(f"{name} ({rows} x {n}) {checks[name]}")
+    # the quantize op at its paths' shapes: ResNet-18's largest weight
+    # (3x3x512x512) whole and largest activation under vmap (64 examples x
+    # 32x32x64), float32; a stablelm-3b MLP weight (2560 x 6912) whole and
+    # a pass-1 chunk's per-example rows (4 x 256 tokens x 2560), bf16
+    for name, rows, n, dtype in (
+            ("luq_quant[resnet_weight]", 1, 3 * 3 * 512 * 512, torch.float32),
+            ("luq_quant[resnet_activation]", 64, 32 * 32 * 64, torch.float32),
+            ("luq_quant[lm_weight]", 1, 2560 * 6912, torch.bfloat16),
+            ("luq_quant[lm_rows]", wl.TRAIN_LM_CHUNK,
+             wl.TRAIN_LM_SEQ * 2560, torch.bfloat16)):
+        checks[name] = check_luq_quant(torch, ops, ref, rows, n, dtype,
+                                       sm_clock_mhz)
+        print(f"{name} ({rows} x {n}, {dtype}) {checks[name]}")
     checks["per_sample_clip"] = check_per_sample_clip(torch, ops, ref, 64,
                                                       11_190_891)
     print(f"per_sample_clip (64 x 11190891) {checks['per_sample_clip']}")
@@ -1095,8 +1221,8 @@ def main() -> int:
     print(f"engine == oneshot for one yi-6b request: {got}")
 
     sources = {
-        "kv_quant_rows": ("src/repro_torch/kernels/csrc/kv_quant.cu",
-                          "src/repro/kernels/decode_attn.py:52"),
+        "kv_quant_write": ("src/repro_torch/kernels/csrc/kv_quant.cu",
+                           "src/repro/kernels/decode_attn.py:52"),
         "decode_attn_fused": ("src/repro_torch/kernels/csrc/decode_attn.cu",
                               "src/repro/kernels/decode_attn.py:114"),
         "luq_matmul": ("src/repro_torch/kernels/csrc/luq_matmul.cu",
@@ -1108,24 +1234,31 @@ def main() -> int:
         "ghost_norm_sq": ("src/repro_torch/kernels/csrc/ghost_norm.cu",
                           "src/repro/kernels/ghost_norm.py:61"),
     }
-    train_counts = {"luq_quant[weight]": train_launches["luq_quant[one_row]"],
-                    "luq_quant[activation]": train_launches["luq_quant[rows]"],
-                    "per_sample_clip": train_launches["clip_and_sum"]}
+    # launches of each row's kernel in its path's run: the training runs,
+    # or the serving run of its KV format, or both serving runs
+    counts = {"luq_quant[resnet_weight]": train_launches["luq_quant[one_row]"],
+              "luq_quant[resnet_activation]":
+                  train_launches["luq_quant[rows]"],
+              "luq_quant[lm_weight]": lm_launches["luq_quant[one_row]"],
+              "luq_quant[lm_rows]": lm_launches["luq_quant[rows]"],
+              "per_sample_clip": train_launches["clip_and_sum"]}
     for dg in (2560, 6912):
         name = f"ghost_norm_sq[2560/{dg}]"
-        train_counts[name] = lm_launches.get(name, 0)
+        counts[name] = lm_launches.get(name, 0)
+    for fmt in ("int8", "luq_fp4"):
+        for branch in ("decode", "prefill"):
+            counts[f"kv_quant_write[{fmt}/{branch}]"] = \
+                launches[fmt][f"kv_quant_write[{branch}]"]
+        counts[f"decode_attn_fused[{fmt}]"] = launches[fmt]["decode_attn_fused"]
+    for branch in ("decode", "prefill"):
+        counts[f"luq_matmul[{branch}]"] = sum(
+            c[f"luq_matmul[{branch}]"] for c in launches.values())
     kernels = []
     for name, numbers in checks.items():
-        base, _, tag = name.rstrip("]").partition("[")
-        if name in train_counts:                          # the training run
-            n = train_counts[name]
-        elif tag in launches:                             # that KV format's run
-            n = launches[tag][base]
-        else:                                             # both serving runs
-            n = sum(c[name] for c in launches.values())
-        src, replaces = sources[base]
+        src, replaces = sources[name.partition("[")[0]]
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": n, **numbers})
+                        "replaces": replaces, "launches": counts[name],
+                        **numbers})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

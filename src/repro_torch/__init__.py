@@ -6,8 +6,9 @@ imports ``torch`` and numpy only; the JAX package is the numerical
 reference the tests hold it against.
 
 Ported so far: the serving path (continuous batching over a quantized
-slot-pool KV cache with the LUQ logits head) and DP-SGD training of
-ResNet-18 under the DPQuant scheduler, with hand-written CUDA kernels in
-``repro_torch.kernels`` for ``kv_quant``, ``decode_attn``, the quantized
-matmul, the LUQ-FP4 quantizer and the per-example clip.
+slot-pool KV cache with the LUQ logits head), DP-SGD training of
+ResNet-18 under the DPQuant scheduler and ghost-mode DP-SGD of the dense
+LMs, with hand-written CUDA kernels in ``repro_torch.kernels`` for the KV
+cache write, decode attention, the quantized matmul, the LUQ-FP4
+quantizer, the per-example clip and the ghost norm.
 """

@@ -230,8 +230,9 @@ def _tap_sq_norm(spec, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     the wgrad GEMM's (folds 4 and 5, per example).  When the backend
     implements the ``ghost_norm`` op natively for the format (``cuda``:
     luq_fp4), the matrix views are contiguous and the Gram route wins,
-    quantize + Grams + reduce is one fused op, fed the draws folds 4 and 5
-    make for one example; otherwise quantize, then ``_matpair_sq_norm``.
+    quantize + Grams + reduce is one fused op, given the keys of folds 4
+    and 5, whose draws over a per-example row are those the unfused
+    quantizer makes; otherwise quantize, then ``_matpair_sq_norm``.
     """
     xmat, gmat, contiguous = _einsum_matviews(spec.spec, x, g)
     _, t, din = xmat.shape
@@ -241,12 +242,10 @@ def _tap_sq_norm(spec, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     impl, actual = qbackend.get_ghost_norm(spec.fmt, spec.backend)
     if actual != "ref" and contiguous and gram_route_wins(t, din, dout):
         draws = spec.fmt in STOCHASTIC_FORMATS
-        ux = (fake_quant.uniforms(spec.seed, 4, t * din, x.device)
-              if draws else None)
-        ug = (fake_quant.uniforms(spec.seed, 5, t * dout, x.device)
-              if draws else None)
+        kx = fake_quant.stream_key(spec.seed, 4) if draws else None
+        kg = fake_quant.stream_key(spec.seed, 5) if draws else None
         with record_function("ghost.fused_norm"):
-            return impl(xmat, gmat, ux, ug)
+            return impl(xmat, gmat, kx, kg)
     xq = fake_quant._quantize_per_example(x, spec.fmt, spec.backend,
                                           spec.seed, 4)
     gq = fake_quant._quantize_per_example(g, spec.fmt, spec.backend,

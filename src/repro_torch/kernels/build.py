@@ -35,22 +35,27 @@ NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_U = ctypes.c_uint32
+_LP = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
-    "repro_luq_matmul": (_I, [_P, _P, _P, _P, ctypes.POINTER(ctypes.c_uint32),
-                              _I, _I, _P, _P, _P, _I, _I, _I, _P]),
+    "repro_luq_matmul": (_I, [_P, _P, _P, _P, ctypes.POINTER(_U), _I, _I, _P,
+                              _P, _P, _I, _I, _I, _P]),
     "repro_luq_matmul_max_rows": (_I, []),
     "repro_luq_matmul_splits": (_I, [_I, _I]),
-    "repro_kv_quant_rows": (_I, [_P, _P, _P, ctypes.c_long, _I, _I, _P]),
+    "repro_kv_quant_write": (_I, [_P, _P, _I, _LP, _LP, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _I, _P]),
     "repro_decode_attn": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, ctypes.c_float, _I, _P]),
     "repro_decode_attn_scratch": (_L, [_I, _I, _I, _I, _I]),
     "repro_decode_attn_limits": (_I, [ctypes.POINTER(_I), ctypes.POINTER(_I)]),
-    "repro_luq_quant": (_I, [_P, _P, _P, _P, _I, _L, _I, _I, _I, _P]),
+    "repro_luq_quant_scratch": (_L, [_I, _L]),
+    "repro_luq_quant": (_I, [_P, _I, _P, _I, _I, _L, _U, _U, _P, _P, _P]),
     "repro_per_sample_clip_chunks": (_I, [_L]),
     "repro_per_sample_clip": (_I, [_P, _P, _P, _P, _I, _L, ctypes.c_float,
                                    _P]),
     "repro_ghost_norm_partials": (_I, [_I]),
-    "repro_ghost_norm": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+    "repro_ghost_norm_scratch": (_L, [_I, _I, _I, _I]),
+    "repro_ghost_norm": (_I, [_P, _I, _P, _I, _U, _U, _U, _U, _P, _P, _I, _I,
                               _I, _I, _P]),
     "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
 }

@@ -9,16 +9,20 @@
 //            = || Q(x_b)^T Q(g_b) ||_F^2
 //
 // the per-example squared weight-gradient norm of ghost clipping (the
-// Gram route of the mixed ghost norm).  The uniforms ux (T*Dx) and ug
-// (T*Dg) are shared by the examples, alpha is per example.
+// Gram route of the mixed ghost norm).  Q is LUQ-FP4 with per-example
+// scales alpha = max|x_b|, max|g_b| and the Philox draws of the keys kx,
+// kg shared by the examples (luq_quant.cu's stream: the draws fake-quant's
+// wgrad folds 4 and 5 make for one example).  x and g are read in their
+// own type, float32 or bf16.
 //
 // What bounds it on this card: bytes.  At stablelm-3b's pass-1 shapes (4
-// examples of 256 x 2560 / 6912) the float32 operands and uniforms are
-// 26 / 49 MB (8 / 15 us at 3.35 TB/s); the Grams' upper triangles are
-// 1.35 / 2.49 GFLOP, 1.4 / 2.5 us on the bf16 tensor cores.  The previous
-// design ran both whole Grams as float32 SIMT FMAs over float32 copies of
-// the quantized operands, 64 blocks of 64 x 64 tiles on 132 SMs, and lost
-// to two float32 cuBLAS Grams by 2-2.7x.
+// examples of 256 x 2560 / 6912, bf16) the operands are 13 / 24.4 MB,
+// read twice by the quantizer (4 / 7 us at 3.35 TB/s each read), its
+// codes 13 / 24.4 MB written and read once; the Grams' upper triangles
+// are 1.35 / 2.49 GFLOP, 1.4 / 2.5 us on the bf16 tensor cores.  A design
+// before this one ran both whole Grams as float32 SIMT FMAs over float32
+// copies of the quantized operands, 64 blocks of 64 x 64 tiles on 132 SMs,
+// and lost to two float32 cuBLAS Grams by 2-2.7x.
 //
 // Design.  Q(v) = alpha * c with the code c = sign * 2^-k (or 0), which
 // bf16 holds exactly, so
@@ -26,14 +30,15 @@
 //     out[b] = (alpha_x alpha_g)^2 * sum_ij (Cx Cx^T)_ij (Cg Cg^T)_ij
 //
 // and the Grams of the codes can run on the tensor cores: each product
-// of two codes is a power of two, exact, summed in float32.  Four
+// of two codes is a power of two, exact, summed in float32.  Six
 // launches on one stream:
 //
-//   1-2. repro_luq_quant (luq_quant.cu, linked into the same library) with
-//      its code output: Cx, Cg once into bf16 scratch the wrapper
-//      allocates (one row per example, shared uniforms), half the bytes
-//      of float32 values.  Same rounding as every other quantizer.
-//   3. gram_tiles: block (p, b) owns upper-triangle tile p = (ti <= tj) of
+//   1-4. repro_luq_quant (luq_quant.cu, linked into the same library),
+//      its two passes for each operand with the code output: the row
+//      maxima, then Cx, Cg once into bf16 scratch (one row per example,
+//      the keys' shared draw), half the bytes of float32 values, and the
+//      alphas into scratch.  Same rounding as every other quantizer.
+//   5. gram_tiles: block (p, b) owns upper-triangle tile p = (ti <= tj) of
 //      32 x 32 of both Grams of example b: T = 256 gives 36 tiles, 144
 //      blocks at B = 4 (the previous 64 x 64 tiling had 10 upper tiles,
 //      40 blocks).  The block's 8 warps split D in 32-column chunks; a
@@ -48,8 +53,9 @@
 //      shared memory in a fixed order, first for Cx (into registers), then
 //      for Cg, and the tile's sum of XX o GG is reduced in a fixed order,
 //      doubled off the diagonal (exact), to one partial;
-//   4. sum_partials: each example's partials added in order, scaled by
-//      (alpha_x alpha_g)^2 in float32.
+//   6. sum_partials: each example's partials added in order, scaled by
+//      (alpha_x alpha_g)^2 in float32, the alphas those the quantize
+//      passes took.
 //
 // No atomics: the same input gives the same bits on every run.  No limit
 // on T (the TPU wrapper's T <= 512 cap existed for VMEM only).  An
@@ -58,10 +64,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-extern "C" int repro_luq_quant(const void* x, const void* u,
-                               const void* alpha, void* out, int rows,
-                               long long n, int u_per_row, int vec,
-                               int codes, void* stream);
+extern "C" long long repro_luq_quant_scratch(int rows, long long n);
+extern "C" int repro_luq_quant(const void* x, int x_bf16, void* out,
+                               int codes, int rows, long long n, uint32_t k0,
+                               uint32_t k1, void* scratch, void* alpha_out,
+                               void* stream);
 
 namespace {
 
@@ -256,60 +263,87 @@ __global__ void sum_partials_kernel(const float* __restrict__ partial,
   out[b] = scale * scale * s;
 }
 
-// The bf16 codes of m into c: the quantize kernel of luq_quant.cu, one row
-// per example, its 4-wide path when the row length and pointers allow it.
-int quantize(const void* m, const void* u, const void* alpha, void* c,
-             int B, long long n, cudaStream_t s) {
-  const int vec = n % 4 == 0 && (((uintptr_t)m | (uintptr_t)u) & 15) == 0 &&
-                  ((uintptr_t)c & 7) == 0;
-  return repro_luq_quant(m, u, alpha, c, B, n, 0, vec, 1, (void*)s);
+// A region's size rounded up to 16 bytes, so that every region of the
+// carved scratch starts 16-byte aligned.
+long long align16(long long bytes) { return (bytes + 15) / 16 * 16; }
+
+// The regions of the scratch, in order: the bf16 codes Cx, Cg; the
+// partials; alpha_x, alpha_g; the quantizer's partial maxima of x, of g.
+struct Scratch {
+  long long off[7];
+  long long total;
+};
+
+Scratch carve(int B, int T, int Dx, int Dg, int P) {
+  const long long nx = (long long)T * Dx, ng = (long long)T * Dg;
+  const long long sizes[7] = {
+      align16(2 * B * nx), align16(2 * B * ng), align16(4LL * B * P),
+      align16(4LL * B), align16(4LL * B),
+      align16(4 * repro_luq_quant_scratch(B, nx)),
+      align16(4 * repro_luq_quant_scratch(B, ng))};
+  Scratch sc;
+  long long at = 0;
+  for (int i = 0; i < 7; ++i) {
+    sc.off[i] = at;
+    at += sizes[i];
+  }
+  sc.total = at;
+  return sc;
 }
 
 }  // namespace
 
-// Number of partials per example (upper 32 x 32 tiles of a T x T Gram):
-// the caller allocates `partial` as (B, repro_ghost_norm_partials(T))
-// float32.
+// Number of partials per example (upper 32 x 32 tiles of a T x T Gram).
 extern "C" int repro_ghost_norm_partials(int T) {
   const int nt = (T + kTile - 1) / kTile;
   return nt * (nt + 1) / 2;
 }
 
-// x: (B, T, Dx); g: (B, T, Dg); ux: (T * Dx,); ug: (T * Dg,); ax, ag, out:
-// (B,); all float32.  cx: (B, T, Dx) and cg: (B, T, Dg) bf16 scratch, 16-
-// byte aligned; partial: (B, repro_ghost_norm_partials(T)) float32
-// scratch.  All contiguous, on the device.  Returns the cudaError_t of the
+// Bytes of scratch repro_ghost_norm needs for (B, T, Dx, Dg).
+extern "C" long long repro_ghost_norm_scratch(int B, int T, int Dx, int Dg) {
+  return carve(B, T, Dx, Dg, repro_ghost_norm_partials(T)).total;
+}
+
+// x: (B, T, Dx); g: (B, T, Dg); each float32 or bf16 (x_bf16, g_bf16),
+// contiguous; (kx0, kx1), (kg0, kg1): the Philox keys of their draws;
+// scratch: repro_ghost_norm_scratch(B, T, Dx, Dg) bytes, 16-byte aligned;
+// out: (B,) float32.  All on the device.  Returns the cudaError_t of the
 // launches.
-extern "C" int repro_ghost_norm(const void* x, const void* ux, const void* ax,
-                                const void* g, const void* ug, const void* ag,
-                                void* cx, void* cg, void* partial, void* out,
-                                int B, int T, int Dx, int Dg, void* stream) {
+extern "C" int repro_ghost_norm(const void* x, int x_bf16, const void* g,
+                                int g_bf16, uint32_t kx0, uint32_t kx1,
+                                uint32_t kg0, uint32_t kg1, void* scratch,
+                                void* out, int B, int T, int Dx, int Dg,
+                                void* stream) {
   if (B < 1 || T < 1 || Dx < 1 || Dg < 1) return (int)cudaErrorInvalidValue;
-  if ((((uintptr_t)cx | (uintptr_t)cg) & 15) != 0) {
-    return (int)cudaErrorMisalignedAddress;
-  }
+  if (((uintptr_t)scratch & 15) != 0) return (int)cudaErrorMisalignedAddress;
   const int nt = (T + kTile - 1) / kTile;
   const int P = repro_ghost_norm_partials(T);
   if (nt > 65535) return (int)cudaErrorInvalidValue;
+  const Scratch sc = carve(B, T, Dx, Dg, P);
+  char* base = (char*)scratch;
+  auto* qx = (__nv_bfloat16*)(base + sc.off[0]);
+  auto* qg = (__nv_bfloat16*)(base + sc.off[1]);
+  auto* partial = (float*)(base + sc.off[2]);
+  auto* ax = (float*)(base + sc.off[3]);
+  auto* ag = (float*)(base + sc.off[4]);
   const cudaStream_t s = (cudaStream_t)stream;
-  int rc = quantize(x, ux, ax, cx, B, (long long)T * Dx, s);
+  int rc = repro_luq_quant(x, x_bf16, qx, 1, B, (long long)T * Dx, kx0, kx1,
+                           base + sc.off[5], ax, (void*)s);
   if (rc != (int)cudaSuccess) return rc;
-  rc = quantize(g, ug, ag, cg, B, (long long)T * Dg, s);
+  rc = repro_luq_quant(g, g_bf16, qg, 1, B, (long long)T * Dg, kg0, kg1,
+                       base + sc.off[6], ag, (void*)s);
   if (rc != (int)cudaSuccess) return rc;
   const dim3 grid(P, B < kMaxGridY ? B : kMaxGridY);
-  const auto* qx = (const __nv_bfloat16*)cx;
-  const auto* qg = (const __nv_bfloat16*)cg;
   if (Dx % 8 == 0 && Dg % 8 == 0) {
-    gram_tiles_kernel<true><<<grid, kThreads, 0, s>>>(
-        qx, qg, (float*)partial, B, T, Dx, Dg, nt);
+    gram_tiles_kernel<true><<<grid, kThreads, 0, s>>>(qx, qg, partial, B, T,
+                                                      Dx, Dg, nt);
   } else {
-    gram_tiles_kernel<false><<<grid, kThreads, 0, s>>>(
-        qx, qg, (float*)partial, B, T, Dx, Dg, nt);
+    gram_tiles_kernel<false><<<grid, kThreads, 0, s>>>(qx, qg, partial, B, T,
+                                                       Dx, Dg, nt);
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  sum_partials_kernel<<<(B + 127) / 128, 128, 0, s>>>(
-      (const float*)partial, (const float*)ax, (const float*)ag, (float*)out,
-      B, P);
+  sum_partials_kernel<<<(B + 127) / 128, 128, 0, s>>>(partial, ax, ag,
+                                                      (float*)out, B, P);
   return (int)cudaGetLastError();
 }

@@ -24,28 +24,34 @@ from repro_torch.quant import philox
 
 #: Kernel launches per wrapper since the last :func:`reset_launch_counts`.
 #: Only launches of a kernel count; CPU calls of the plain versions do not.
-LAUNCHES = {"luq_matmul": 0, "kv_quant_rows": 0, "decode_attn_fused": 0,
+LAUNCHES = {"luq_matmul": 0, "kv_quant_write": 0, "decode_attn_fused": 0,
             "luq_quant": 0, "clip_and_sum": 0, "ghost_norm_sq": 0}
 #: The ``luq_matmul`` launches of :data:`LAUNCHES` by the kernel's branch:
 #: one Philox key ``shared`` by all rows (prefill), or one key ``per_row``
 #: (the decode tick's per-slot logits head).
 LUQ_MATMUL_LAUNCHES = {"shared": 0, "per_row": 0}
-#: The ``luq_quant`` launches of :data:`LAUNCHES` by the number of rows: a
+#: The ``luq_quant`` calls of :data:`LAUNCHES` by the number of rows: a
 #: tensor quantized whole (``one_row``: a weight, or anything outside
 #: vmap) or one row per example (``rows``: activations and cotangents
-#: under the DP engine's vmap).
-LUQ_QUANT_LAUNCHES = {"one_row": 0, "rows": 0}
+#: under the DP engine's vmap); and the device ``kernels`` those calls
+#: launched (the row maxima and the rounding: two a call).
+LUQ_QUANT_LAUNCHES = {"one_row": 0, "rows": 0, "kernels": 0}
 #: The ``ghost_norm_sq`` launches of :data:`LAUNCHES` by shape class, the
 #: operands' widths ``"{min(Dx, Dg)}/{max(Dx, Dg)}"`` (keys appear at the
 #: first launch of a class).
 GHOST_NORM_LAUNCHES: dict = {}
+
+#: The ``kv_quant_write`` launches of :data:`LAUNCHES` by caller: rows
+#: written at each slot's position (``decode``) or from row 0 (``prefill``).
+KV_WRITE_LAUNCHES = {"decode": 0, "prefill": 0}
 
 _KV_FMT_CODE = {"int8": 0, "luq_fp4": 1}
 
 
 def reset_launch_counts() -> None:
     GHOST_NORM_LAUNCHES.clear()
-    for counts in (LAUNCHES, LUQ_MATMUL_LAUNCHES, LUQ_QUANT_LAUNCHES):
+    for counts in (LAUNCHES, LUQ_MATMUL_LAUNCHES, LUQ_QUANT_LAUNCHES,
+                   KV_WRITE_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -85,6 +91,14 @@ def _stream(device) -> ctypes.c_void_p:
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def _one_key(key):
+    """The ``(k0, k1)`` words of one Philox key."""
+    keys, per_row = philox.split_keys(key, 0)
+    if per_row:
+        raise ValueError(f"expected one Philox key (k0, k1), got {key!r}")
+    return keys[0]
 
 
 # --------------------------------------------------------------------------- #
@@ -140,34 +154,57 @@ def luq_matmul(a, b, keys, alpha_a, alpha_b) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------- #
-# kv_quant_rows  (csrc/kv_quant.cu, replaces the TPU kernel kv_rowquant_2d)
+# kv_quant_write  (csrc/kv_quant.cu, replaces the TPU kernel kv_rowquant_2d)
 # --------------------------------------------------------------------------- #
-def kv_quant_rows(x: torch.Tensor, fmt: str):
-    """Quantize K/V rows ``(..., head_dim)`` -> ``(codes, scales)``.
+def _strides3(t: torch.Tensor):
+    return (ctypes.c_longlong * 3)(*t.stride()[:3])
 
-    Same result as ``kv_cache.kv_quant``: codes ``(..., code_dim)`` (int8,
-    or nibble-packed uint8 for luq_fp4) and per-row bf16 scales ``(...,)``.
+
+def kv_quant_write(k, v, k_codes, v_codes, k_scales, v_scales, fmt: str,
+                   wpos=None) -> None:
+    """Quantize the K and V rows of one call into the cache, in place, in
+    one launch: what ``kv_cache.kv_write`` computes.
+
+    ``k``, ``v``: (N0, N1, T, hd) float32 or bf16, any strides with the
+    last dim contiguous (the decode step's (slots, kv, 1, hd) views, or
+    prefill's (layers x batch, kv, S, hd) stack); ``k_codes`` /
+    ``v_codes``: (N0, N1, S, code_dim) int8 or packed uint8; ``k_scales``
+    / ``v_scales``: (N0, N1, S) bf16; ``wpos``: (N0,) int64 on the device
+    (each slot's clamped position) or None (from row 0).  Row t of (i, j)
+    lands at cache row ``wpos[i] + t``; no other row is touched.
     """
     if fmt not in _KV_FMT_CODE:
-        raise ValueError(f"kv_quant_rows has no kernel for fmt {fmt!r}")
-    hd = x.shape[-1]
+        raise ValueError(f"kv_quant_write has no kernel for fmt {fmt!r}")
+    tensors = (k, v, k_codes, v_codes, k_scales, v_scales)
+    if _on_cpu(*tensors, *(() if wpos is None else (wpos,))):
+        return ref.kv_quant_write_ref(*tensors, fmt, wpos)
+    N0, N1, T, hd = k.shape
+    S = k_codes.shape[2]
     code_dtype, code_dim = kvc.code_spec(fmt, hd)
-    if _on_cpu(x):
-        return ref.kv_quant_rows_ref(x, fmt)
-    rows = x.reshape(-1, hd).float().contiguous()
-    R = rows.shape[0]
-    codes = torch.empty((R, code_dim), dtype=code_dtype, device=x.device)
-    scales = torch.empty((R,), dtype=kvc.SCALE_DTYPE, device=x.device)
-    if R:
-        lib = load_library()
-        with torch.cuda.device(x.device):
-            err = lib.repro_kv_quant_rows(_ptr(rows), _ptr(codes), _ptr(scales),
-                                          R, hd, _KV_FMT_CODE[fmt],
-                                          _stream(x.device))
-        _raise_on_error(lib, err, "kv_quant_rows")
-        LAUNCHES["kv_quant_rows"] += 1
-    return (codes.reshape(*x.shape[:-1], code_dim),
-            scales.reshape(x.shape[:-1]))
+    if k.dtype not in (torch.float32, torch.bfloat16) or v.dtype != k.dtype:
+        raise TypeError(f"kv_quant_write reads float32 or bf16 rows, got "
+                        f"{k.dtype} / {v.dtype}")
+    if v.shape != k.shape or k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError("k and v must have one shape and a contiguous "
+                         "last dim")
+    for name, t in (("k_codes", k_codes), ("v_codes", v_codes)):
+        _check(name, t, code_dtype, (N0, N1, S, code_dim))
+    for name, t in (("k_scales", k_scales), ("v_scales", v_scales)):
+        _check(name, t, kvc.SCALE_DTYPE, (N0, N1, S))
+    if wpos is not None:
+        _check("wpos", wpos, torch.int64, (N0,))
+    if not 1 <= T <= S:
+        raise ValueError(f"{T} rows do not fit a cache of {S}")
+    lib = load_library()
+    with torch.cuda.device(k.device):
+        err = lib.repro_kv_quant_write(
+            _ptr(k), _ptr(v), int(k.dtype == torch.bfloat16), _strides3(k),
+            _strides3(v), _ptr(k_codes), _ptr(v_codes), _ptr(k_scales),
+            _ptr(v_scales), None if wpos is None else _ptr(wpos), N0, N1, T,
+            S, hd, _KV_FMT_CODE[fmt], _stream(k.device))
+    _raise_on_error(lib, err, "kv_quant_write")
+    LAUNCHES["kv_quant_write"] += 1
+    KV_WRITE_LAUNCHES["prefill" if wpos is None else "decode"] += 1
 
 
 # --------------------------------------------------------------------------- #
@@ -230,35 +267,42 @@ def decode_attn_fused(q, k_codes, v_codes, k_scale, v_scale, pos, *,
 # --------------------------------------------------------------------------- #
 # luq_quant  (csrc/luq_quant.cu, replaces the TPU kernel luq_quant_2d)
 # --------------------------------------------------------------------------- #
-def luq_quant(x: torch.Tensor, u: torch.Tensor, alpha: torch.Tensor,
-              codes: bool = False) -> torch.Tensor:
-    """LUQ-FP4 stochastic quantization of the rows of ``x`` (R, N).
+_LUQ_DTYPES = (torch.float32, torch.bfloat16)
 
-    ``u``: (N,) uniforms shared by every row, or (R, N), one draw per row;
-    ``alpha``: (R,) per-row scales (``max|x[r]|``, computed by the caller).
-    All float32.  Returns (R, N) float32 values, or with ``codes`` the
-    bf16 codes ``Q(x) / alpha = sign * 2^-k`` (exact in bf16).
+
+def luq_quant(x: torch.Tensor, key, codes: bool = False) -> torch.Tensor:
+    """LUQ-FP4 stochastic quantization of the rows of ``x`` (R, N), the
+    whole quantize op in two launches.
+
+    Each row is scaled by its own ``max|x[r]|``, which the kernel takes
+    itself, and every row rounds against the one draw of the Philox
+    ``key`` ``(k0, k1)``, which the kernel draws itself (element n takes
+    uniform n of ``quant.philox.row_uniforms``).  ``x``: float32 or bf16,
+    contiguous at any address.  Returns (R, N) in ``x``'s dtype, or with
+    ``codes`` the bf16 codes ``Q(x) / alpha = sign * 2^-k`` (exact in
+    bf16).  Same bits on every run.
     """
-    if _on_cpu(x, u, alpha):
-        return ref.luq_quant_ref(x, u, alpha, codes)
+    if _on_cpu(x):
+        return ref.luq_quant_ref(x, key, codes)
+    if x.dim() != 2 or x.dtype not in _LUQ_DTYPES or not x.is_contiguous():
+        raise ValueError(f"luq_quant takes a contiguous (R, N) float32 or "
+                         f"bf16 matrix, got {x.dtype} {tuple(x.shape)}")
     R, N = x.shape
-    per_row = u.dim() == 2
-    _check("x", x, torch.float32, (R, N))
-    _check("u", u, torch.float32, (R, N) if per_row else (N,))
-    _check("alpha", alpha, torch.float32, (R,))
+    k0, k1 = _one_key(key)
     out = torch.empty_like(x, dtype=torch.bfloat16 if codes else x.dtype)
     if x.numel() == 0:
         return out
-    vec = (N % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, u))
-           and out.data_ptr() % (8 if codes else 16) == 0)
     lib = load_library()
+    scratch = torch.empty((lib.repro_luq_quant_scratch(R, N),),
+                          dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
-        err = lib.repro_luq_quant(_ptr(x), _ptr(u), _ptr(alpha), _ptr(out), R,
-                                  N, int(per_row), int(vec), int(codes),
-                                  _stream(x.device))
+        err = lib.repro_luq_quant(_ptr(x), int(x.dtype == torch.bfloat16),
+                                  _ptr(out), int(codes), R, N, k0, k1,
+                                  _ptr(scratch), None, _stream(x.device))
     _raise_on_error(lib, err, "luq_quant")
     LAUNCHES["luq_quant"] += 1
     LUQ_QUANT_LAUNCHES["one_row" if R == 1 else "rows"] += 1
+    LUQ_QUANT_LAUNCHES["kernels"] += 2
     return out
 
 
@@ -294,50 +338,49 @@ def clip_and_sum(grads: torch.Tensor, clip_norm: float):
 # --------------------------------------------------------------------------- #
 # ghost_norm_sq  (csrc/ghost_norm.cu, replaces the TPU kernel ghost_norm_gram)
 # --------------------------------------------------------------------------- #
-def ghost_norm_sq(x, g, ux, ug, alpha_x, alpha_g) -> torch.Tensor:
+def ghost_norm_sq(x, g, key_x, key_g) -> torch.Tensor:
     """LUQ-FP4 quantize + Grams + reduce in one call, per example:
     ``out[b] = ||Q(x_b)^T Q(g_b)||_F^2 = <Q(x_b)Q(x_b)^T, Q(g_b)Q(g_b)^T>``.
 
     ``x``: (B, T, Dx) wgrad-GEMM input rows of B examples; ``g``: (B, T,
-    Dg) their cotangent rows; ``ux`` (T * Dx,) and ``ug`` (T * Dg,): the
-    uniforms shared by the examples (the draws fake-quant's folds 4 and 5
-    make for one example, so fused and unfused routes agree); ``alpha_x``,
-    ``alpha_g``: (B,) per-example scales (``max|x_b|``, ``max|g_b|``).
-    All float32.  Returns (B,) float32.
+    Dg) their cotangent rows; float32 or bf16, contiguous.  ``key_x``,
+    ``key_g``: the Philox keys of the draws shared by the examples (the
+    streams of fake-quant's folds 4 and 5, so fused and unfused routes
+    agree); each example is scaled by its own ``max|x_b|``, ``max|g_b|``,
+    which the kernel takes itself.  Returns (B,) float32.
 
     The kernel quantizes both operands once into bf16 codes (``Q(v) /
-    alpha``, exact), runs the upper triangles of the (T, T) Grams of the
-    codes on the tensor cores in tiles, and scales each example by
-    ``(alpha_x alpha_g)^2`` at the end, so any T is taken: the JAX
-    wrapper's ``T <= 512`` cap (``GHOST_NORM_MAX_T``) sized its two whole
-    Grams for a TPU core's VMEM, and above it that wrapper computes the
-    same value unfused.  Partials are summed in a fixed order (no
-    atomics): the same input gives the same bits on every run.
+    alpha``, exact; ``luq_quant``'s two passes each), runs the upper
+    triangles of the (T, T) Grams of the codes on the tensor cores in
+    tiles, and scales each example by ``(alpha_x alpha_g)^2`` at the end,
+    so any T is taken: the JAX wrapper's ``T <= 512`` cap
+    (``GHOST_NORM_MAX_T``) sized its two whole Grams for a TPU core's
+    VMEM, and above it that wrapper computes the same value unfused.
+    Partials are summed in a fixed order (no atomics): the same input
+    gives the same bits on every run.
     """
-    if _on_cpu(x, g, ux, ug, alpha_x, alpha_g):
-        return ref.ghost_norm_ref(x, g, ux, ug, alpha_x, alpha_g)
+    if _on_cpu(x, g):
+        return ref.ghost_norm_ref(x, g, key_x, key_g)
     B, T, Dx = x.shape
     Dg = g.shape[2]
-    _check("x", x, torch.float32, (B, T, Dx))
-    _check("g", g, torch.float32, (B, T, Dg))
-    _check("ux", ux, torch.float32, (T * Dx,))
-    _check("ug", ug, torch.float32, (T * Dg,))
-    _check("alpha_x", alpha_x, torch.float32, (B,))
-    _check("alpha_g", alpha_g, torch.float32, (B,))
+    for name, t, d in (("x", x, Dx), ("g", g, Dg)):
+        if t.dtype not in _LUQ_DTYPES:
+            raise TypeError(f"{name}: expected float32 or bf16, got {t.dtype}")
+        _check(name, t, t.dtype, (B, T, d))
+    kx0, kx1 = _one_key(key_x)
+    kg0, kg1 = _one_key(key_g)
     out = torch.empty((B,), dtype=torch.float32, device=x.device)
     if out.numel() == 0 or T == 0 or Dx == 0 or Dg == 0:
         return out.zero_()
     lib = load_library()
-    P = lib.repro_ghost_norm_partials(T)
-    # scratch: the bf16 codes of both operands, the per-tile partials
-    cx = torch.empty((B * T * Dx,), dtype=torch.bfloat16, device=x.device)
-    cg = torch.empty((B * T * Dg,), dtype=torch.bfloat16, device=x.device)
-    partial = torch.empty((B * P,), dtype=torch.float32, device=x.device)
+    # scratch: the codes of both operands, the alphas, the tile partials
+    scratch = torch.empty((lib.repro_ghost_norm_scratch(B, T, Dx, Dg),),
+                          dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.repro_ghost_norm(
-            _ptr(x), _ptr(ux), _ptr(alpha_x), _ptr(g), _ptr(ug),
-            _ptr(alpha_g), _ptr(cx), _ptr(cg), _ptr(partial), _ptr(out), B,
-            T, Dx, Dg, _stream(x.device))
+            _ptr(x), int(x.dtype == torch.bfloat16), _ptr(g),
+            int(g.dtype == torch.bfloat16), kx0, kx1, kg0, kg1, _ptr(scratch),
+            _ptr(out), B, T, Dx, Dg, _stream(x.device))
     _raise_on_error(lib, err, "ghost_norm_sq")
     LAUNCHES["ghost_norm_sq"] += 1
     shape_class = f"{min(Dx, Dg)}/{max(Dx, Dg)}"

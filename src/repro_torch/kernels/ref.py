@@ -16,14 +16,18 @@ from repro_torch.quant.formats import (luq_fp4, luq_fp4_codes, luq_fp4_prep,
                                        luq_fp4_value)
 
 
-def luq_quant_ref(x, u, alpha, codes: bool = False) -> torch.Tensor:
-    """Plain version of ``luq_quant``: LUQ-FP4 of the rows of ``x`` (R, N)
-    against uniforms ``u`` ((N,) shared by the rows, or (R, N)) and the
-    per-row scales ``alpha`` (R,); with ``codes``, the bf16 codes
-    ``Q(x) / alpha`` instead of the float32 values."""
+def luq_quant_ref(x, key, codes: bool = False) -> torch.Tensor:
+    """Plain version of ``luq_quant``: LUQ-FP4 of each row of ``x`` (R, N)
+    on its own scale ``max|x[r]|``, every row against the one draw of the
+    Philox ``key`` (``quant.philox.row_uniforms``: element n takes uniform
+    n), in float32 and returned in ``x``'s dtype; with ``codes``, the bf16
+    codes ``Q(x) / alpha`` instead of the values."""
+    xf = x.float()
+    u = philox.row_uniforms(key, x.shape[1], x.device)
+    alpha = xf.abs().amax(dim=1, keepdim=True)
     if codes:
-        return luq_fp4_codes(x, u, alpha.reshape(-1, 1))
-    return luq_fp4(x.float(), u, alpha.reshape(-1, 1))
+        return luq_fp4_codes(xf, u, alpha)
+    return luq_fp4(xf, u, alpha).to(x.dtype)
 
 
 def per_sample_clip_ref(grads: torch.Tensor, clip_norm: float):
@@ -35,11 +39,11 @@ def per_sample_clip_ref(grads: torch.Tensor, clip_norm: float):
     return (g * scale[:, None]).sum(dim=0), norms
 
 
-def ghost_norm_ref(x, g, ux, ug, alpha_x, alpha_g) -> torch.Tensor:
+def ghost_norm_ref(x, g, key_x, key_g) -> torch.Tensor:
     """Plain version of ``ghost_norm_sq``: per example b,
     ``<Q(x_b) Q(x_b)^T, Q(g_b) Q(g_b)^T>`` with x (B, T, Dx), g (B, T, Dg),
-    the uniforms ``ux`` (T * Dx,) and ``ug`` (T * Dg,) shared by the
-    examples and per-example scales ``alpha_x``, ``alpha_g`` (B,).
+    each example quantized on its own scale against the draws of the keys
+    ``key_x`` / ``key_g`` shared by the examples (:func:`luq_quant_ref`).
     Returns (B,) float32.
 
     The Grams and their inner product are taken in float64: every value of
@@ -48,10 +52,8 @@ def ghost_norm_ref(x, g, ux, ug, alpha_x, alpha_g) -> torch.Tensor:
     element from cuBLAS on an H100 at D = 6912, above the kernel's
     tolerance; the kernel, summing the exact codes, is within 1e-7)."""
     B = x.shape[0]
-    xq = luq_fp4(x.float().reshape(B, -1), ux,
-                 alpha_x.reshape(-1, 1)).reshape(x.shape).double()
-    gq = luq_fp4(g.float().reshape(B, -1), ug,
-                 alpha_g.reshape(-1, 1)).reshape(g.shape).double()
+    xq = luq_quant_ref(x.reshape(B, -1), key_x).reshape(x.shape).double()
+    gq = luq_quant_ref(g.reshape(B, -1), key_g).reshape(g.shape).double()
     xx = xq @ xq.transpose(1, 2)
     gg = gq @ gq.transpose(1, 2)
     return (xx * gg).sum(dim=(1, 2)).float()
@@ -109,9 +111,12 @@ def luq_matmul_keys_ref(a, b, keys, alpha_a, alpha_b, *,
     return out
 
 
-def kv_quant_rows_ref(x: torch.Tensor, fmt: str):
-    """Plain version of ``kv_quant_rows``: the ``kv_cache.kv_quant`` math."""
-    return kvc.kv_quant(fmt, x)
+def kv_quant_write_ref(k, v, k_codes, v_codes, k_scales, v_scales, fmt: str,
+                       wpos=None) -> None:
+    """Plain version of ``kv_quant_write``: ``kv_cache.kv_quant`` of the K
+    and V rows, written at each row's cache position
+    (``kv_cache.kv_write``)."""
+    kvc.kv_write(fmt, k, v, k_codes, v_codes, k_scales, v_scales, wpos)
 
 
 def decode_attn_ref(q, k_codes, v_codes, k_scale, v_scale, pos, *, fmt: str,

@@ -16,8 +16,9 @@ run, then profiles one more run and prints:
   both, of the logits head (``qlogits``: scales, the float32 head and
   the quantized matmul, which draws its own uniforms);
 * the kernels with the most device time, the device time of each of the
-  port's own kernels (``kernels/csrc``, however little), and the
-  operators with the most host time.
+  port's own kernels (``kernels/csrc``, however little), the host's
+  kernel launch calls (``cudaLaunchKernel``) and the operators with the
+  most host time.
 
 Kernels launched through ``ctypes`` are not tied to a host range, so the
 device time shown for a range covers PyTorch's operators only.
@@ -145,15 +146,26 @@ def main(argv=None):
     for e in sorted(kernels, key=_device_us, reverse=True)[:TOP]:
         print(f"  {_device_us(e) / 1e3:12.3f} ms  {e.count:7d} calls  "
               f"{e.key[:90]}")
+    print_port_kernels(kernels, events)
+    print("operators with the most host time (under the profiler):")
+    print(events.table(sort_by="self_cpu_time_total", row_limit=TOP,
+                       max_name_column_width=60))
+
+
+def print_port_kernels(kernels, events) -> None:
+    """Print the device time of each of the port's own kernels among the
+    trace's ``kernels``, however little, and the host's kernel launch
+    calls (``cudaLaunchKernel`` and its variants) among its ``events``."""
     print("the port's own kernels:")
     ours = port_kernels()
     for e in sorted(kernels, key=_device_us, reverse=True):
         if ours.search(e.key):
             print(f"  {_device_us(e) / 1e3:12.3f} ms  {e.count:7d} calls  "
                   f"{e.key[:90]}")
-    print("operators with the most host time (under the profiler):")
-    print(events.table(sort_by="self_cpu_time_total", row_limit=TOP,
-                       max_name_column_width=60))
+    launches = {e.key: e.count for e in events
+                if e.device_type == DeviceType.CPU
+                and e.key.startswith("cudaLaunchKernel")}
+    print(f"host launch calls: {launches}")
 
 
 if __name__ == "__main__":

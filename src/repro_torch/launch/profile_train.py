@@ -20,18 +20,19 @@ under that policy, profiles as many more and prints:
   share);
 * host time under the ranges ``train.step`` (a whole step),
   ``per_example_grads`` (the vmapped forward and backward of a
-  microbatch), ``quantize`` (one quantizer call: draw, scale, kernel),
+  microbatch), ``quantize`` (one quantizer call: the kernel's wrapper),
   ``fused_clip`` (flatten, clip kernel, unflatten), ``ghost.pass1`` (the
   norm pass over every chunk), ``ghost.pass2`` (the reweighted forward
-  and backward), ``ghost.fused_norm`` (one call of the ghost_norm op:
-  cast, scales, kernel) and ``noise``, with the device time of the
-  PyTorch operators inside each;
-* the kernels with the most device time and the operators with the most
-  host time.
+  and backward), ``ghost.fused_norm`` (one call of the ghost_norm op)
+  and ``noise``, with the device time of the PyTorch operators inside
+  each;
+* the kernels with the most device time, the device time of each of the
+  port's own kernels (``kernels/csrc``), the host's kernel launch calls
+  and the operators with the most host time.
 
 Kernels launched through ``ctypes`` (``luq_quant``, ``per_sample_clip``,
 ``ghost_norm``) are not tied to a host range; they appear in the kernel
-list only.
+lists only.
 """
 from __future__ import annotations
 
@@ -45,7 +46,8 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from repro_torch.dp import clip as dp_clip
 from repro_torch.launch import steps as train_steps
 from repro_torch.launch import workload as wl
-from repro_torch.launch.profile_serve import _device_us, _ranged, union_us
+from repro_torch.launch.profile_serve import (_device_us, _ranged,
+                                              print_port_kernels, union_us)
 from repro_torch.quant import fake_quant as fq
 from repro_torch.train_loop import Trainer
 
@@ -128,6 +130,7 @@ def main(argv=None):
     for e in sorted(kernels, key=_device_us, reverse=True)[:TOP]:
         print(f"  {_device_us(e) / 1e3:12.3f} ms  {e.count:7d} calls  "
               f"{e.key[:100]}")
+    print_port_kernels(kernels, events)
     print("operators with the most host time (under the profiler):")
     print(events.table(sort_by="self_cpu_time_total", row_limit=TOP,
                        max_name_column_width=60))

@@ -18,7 +18,7 @@ the compute dtype on every call, so gradients reach the float32 leaves.
 
 Serving runs every projection unquantized (the JAX package's policy flag
 is 0 there); only the logits head goes through the quantizer dispatch
-(``common.qlogits``), and a quantized KV cache through the ``kv_quant`` /
+(``common.qlogits``), and a quantized KV cache through the ``kv_write`` /
 ``decode_attn`` ops.
 
 Caches are dicts: ``k``/``v`` (L, B, KV, S, code_dim) on the device, plus
@@ -289,13 +289,13 @@ def make_ghost_aux(qflags, cfg: ModelConfig, quant: QuantConfig):
 # serving: prefill + decode with KV cache
 # --------------------------------------------------------------------------- #
 def _kv_impls(kv_fmt: str, quant: Optional[QuantConfig]):
-    """The dispatched (kv_quant, decode_attn) impls for a cache format."""
+    """The dispatched (kv_write, decode_attn) impls for a cache format."""
     from repro_torch.quant import backend as qbackend
 
     be = quant.backend if quant is not None else None
-    kvq, _ = qbackend.get_kv_quant(kv_fmt, be)
+    kvw, _ = qbackend.get_kv_write(kv_fmt, be)
     attn, _ = qbackend.get_decode_attn(kv_fmt, be)
-    return kvq, attn
+    return kvw, attn
 
 
 def kv_cache_spec(cfg: ModelConfig, batch: int, seq_len: int,
@@ -359,11 +359,25 @@ def prefill(params, batch, cfg: ModelConfig, quant: QuantConfig,
     ks, vs = torch.stack(ks), torch.stack(vs)  # (L, B, KV, S, hd)
     cache = {"k": ks, "v": vs, "pos": plen}
     if kv_fmt != "none":
-        kvq, _ = _kv_impls(kv_fmt, quant)
-        kc, ksc = kvq(ks)
-        vc, vsc = kvq(vs)
-        cache = {"k": kc, "v": vc, "k_scale": ksc, "v_scale": vsc,
-                 "pos": plen}
+        from repro_torch.quant import kv_cache as kvc
+
+        # every layer's K and V rows in one write, in the compute dtype
+        kvw, _ = _kv_impls(kv_fmt, quant)
+        L, KV, hd = ks.shape[0], ks.shape[2], ks.shape[4]
+        code_dtype, code_dim = kvc.code_spec(kv_fmt, hd)
+        cache = {"pos": plen}
+        for name in ("k", "v"):
+            cache[name] = torch.empty((L, B, KV, S, code_dim),
+                                      dtype=code_dtype, device=ks.device)
+            cache[f"{name}_scale"] = torch.empty((L, B, KV, S),
+                                                 dtype=kvc.SCALE_DTYPE,
+                                                 device=ks.device)
+
+        def rows(t):
+            return t.reshape(L * B, KV, S, *t.shape[4:])
+
+        kvw(rows(ks), rows(vs), rows(cache["k"]), rows(cache["v"]),
+            rows(cache["k_scale"]), rows(cache["v_scale"]), None)
     if cache_len > S:
         # zero rows past the prompt: they quantize to zero codes and zero
         # scales, so padding after quantizing equals quantizing the padding
@@ -392,10 +406,9 @@ def _decode_trunk(params, cache, token, pos, cfg: ModelConfig,
     x = _embed(params, token, cfg)
     positions = pos[:, None]
     quantized = kv_fmt != "none"
-    kvq, attend = _kv_impls(kv_fmt, quant)
+    kvw, attend = _kv_impls(kv_fmt, quant)
     attn_scale = 1.0 / math.sqrt(cfg.head_dim)
     S = cache["k"].shape[3]
-    rows = torch.arange(token.shape[0], device=token.device)
     wpos = pos.clamp(max=S - 1).long()
     for i in range(cfg.n_layers):
         blk = _layer(params, i)
@@ -409,15 +422,8 @@ def _decode_trunk(params, cache, token, pos, cfg: ModelConfig,
         ksc = vsc = None
         if quantized:
             ksc, vsc = cache["k_scale"][i], cache["v_scale"][i]
-            k_codes, k_sc = kvq(k)                      # (B, KV, Dc), (B, KV)
-            v_codes, v_sc = kvq(v)
-            kc[rows, :, wpos] = k_codes
-            vc[rows, :, wpos] = v_codes
-            ksc[rows, :, wpos] = k_sc
-            vsc[rows, :, wpos] = v_sc
-        else:
-            kc[rows, :, wpos] = k.to(kc.dtype)
-            vc[rows, :, wpos] = v.to(vc.dtype)
+        # each slot's row at its position: one launch for K and V
+        kvw(k[:, :, None], v[:, :, None], kc, vc, ksc, vsc, wpos)
         ctx = attend(q, kc, vc, ksc, vsc, pos, n_kv=cfg.n_kv_heads,
                      scale=attn_scale)
         x = x + torch.einsum("bhk,hkd->bd", ctx.to(cd), blk["wo"].to(cd))

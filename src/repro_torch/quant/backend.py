@@ -2,12 +2,16 @@
 
 The counterpart of ``repro.quant.backend``:
 
-``"quantize"``    ``q(rows, u) -> rows_q``: fake-quantize each row of a
-                  (R, N) float32 matrix on its own scale (``max|row|``),
-                  all rows against the same uniforms ``u`` (N,) (``None``
-                  for the deterministic formats).  The primitive behind
-                  ``fake_quant.qconv2d``: a tensor quantized whole is one
-                  row, a microbatch of per-example tensors one row each.
+``"quantize"``    ``q(rows, key) -> rows_q``: fake-quantize each row of a
+                  (R, N) matrix on its own scale (``max|row|``), in its
+                  own dtype, all rows against one draw: element n takes
+                  uniform n of the Philox stream of ``key`` (operand 0,
+                  ``repro_torch.quant.philox``; ``None`` for the
+                  deterministic formats).  Both backends draw that
+                  stream, the ``cuda`` kernel itself, so they give the
+                  same bits on CPU tensors.  The primitive behind
+                  ``fake_quant``: a tensor quantized whole is one row, a
+                  microbatch of per-example tensors one row each.
 ``"matmul"``      ``mm(a, b, keys) -> (R, N) float32``: quantize both
                   operands, then multiply.  ``keys`` is one Philox key
                   ``(k0, k1)`` (the whole matrix is quantized at once, as
@@ -17,19 +21,25 @@ The counterpart of ``repro.quant.backend``:
                   ``repro_torch.quant.philox`` stream of each key (operand
                   0 for ``a``, 1 for ``b``), the same on CPU and card, and
                   the ``cuda`` kernel draws them itself.
-``"kv_quant"``    ``kvq(x) -> (codes, scales)`` for the KV storage formats.
+``"kv_write"``    ``kvw(k, v, kc, vc, ks, vs, wpos)``: quantize the K and V
+                  rows (N0, N1, T, hd) of one call into the cache codes
+                  (N0, N1, S, code_dim) and bf16 scales (N0, N1, S), in
+                  place, row t of (i, j) at cache row ``wpos[i] + t``
+                  (from row 0 when ``wpos`` is None), for the KV storage
+                  formats (``"none"`` copies the rows, no scales).
 ``"decode_attn"`` ``attn(q, kc, vc, ks, vs, pos, *, n_kv, scale) -> ctx``.
 ``"clip_sum"``    ``cs(grads, clip_norm) -> (clipped_sum, norms)``: the DP
                   per-example clip and batch sum of (B, D) rows; format-
                   agnostic (registered under fmt ``"*"``) and selected by
                   its own knob (:func:`get_clip_sum`).
-``"ghost_norm"``  ``gn(x, g, ux, ug) -> (B,) float32``: the ghost-clipping
+``"ghost_norm"``  ``gn(x, g, kx, kg) -> (B,) float32``: the ghost-clipping
                   tap ``||Q(x_b)^T Q(g_b)||_F^2`` of B examples from their
                   (B, T, Dx) / (B, T, Dg) wgrad-GEMM matrix views, each
-                  example quantized on its own scale against the uniforms
-                  ``ux`` (T * Dx,) / ``ug`` (T * Dg,) shared by the
-                  examples (``None`` for the deterministic formats), by
-                  the Gram identity ``<Q(x_b)Q(x_b)^T, Q(g_b)Q(g_b)^T>``.
+                  example quantized on its own scale against the draws of
+                  the keys ``kx`` / ``kg`` shared by the examples (the
+                  ``quantize`` op's stream; ``None`` for the
+                  deterministic formats), by the Gram identity
+                  ``<Q(x_b)Q(x_b)^T, Q(g_b)Q(g_b)^T>``.
                   The ref impl quantizes per example, then two ``bmm``
                   Grams; the cuda impl is the ``ghost_norm`` kernel.
 
@@ -53,7 +63,7 @@ from repro_torch.quant import formats, philox
 ENV_VAR = "REPRO_QUANT_BACKEND"
 DEFAULT_BACKEND = "ref"
 BACKENDS = ("ref", "cuda")
-OPS = ("quantize", "matmul", "clip_sum", "ghost_norm", "kv_quant",
+OPS = ("quantize", "matmul", "clip_sum", "ghost_norm", "kv_write",
        "decode_attn")
 
 # fmt sentinel for format-agnostic ops (clip_sum)
@@ -97,7 +107,7 @@ def get_impl(op: str, fmt: str, backend: str | None = None):
 
 
 def get_quantizer(fmt: str, backend: str | None = None):
-    """``(q(rows, u) -> rows_q, actual_backend)``."""
+    """``(q(rows, key) -> rows_q, actual_backend)``."""
     return get_impl("quantize", fmt, backend)
 
 
@@ -123,14 +133,14 @@ def get_matmul(fmt: str, backend: str | None = None):
 
 
 def get_ghost_norm(fmt: str, backend: str | None = None):
-    """``(gn(x, g, ux, ug) -> (B,) float32, actual_backend)``."""
+    """``(gn(x, g, kx, kg) -> (B,) float32, actual_backend)``."""
     return get_impl("ghost_norm", fmt, backend)
 
 
-def get_kv_quant(fmt: str, backend: str | None = None):
-    """``(kvq(x) -> (codes, scales), actual_backend)``; ``fmt`` is a KV
-    storage format (``repro_torch.config.KV_CACHE_FORMATS``)."""
-    return get_impl("kv_quant", fmt, backend)
+def get_kv_write(fmt: str, backend: str | None = None):
+    """``(kvw(k, v, kc, vc, ks, vs, wpos) -> None, actual_backend)``;
+    ``fmt`` is a KV storage format (``repro_torch.config.KV_CACHE_FORMATS``)."""
+    return get_impl("kv_write", fmt, backend)
 
 
 def get_decode_attn(fmt: str, backend: str | None = None):
@@ -154,10 +164,12 @@ def capability_table() -> Dict[str, Dict[str, Tuple[str, ...]]]:
 def _ref_quantize(fmt: str) -> Callable:
     q = formats.make_quantizer(fmt)
     if fmt not in formats.STOCHASTIC_FORMATS:
-        return lambda rows, u: q(rows, None)
+        return lambda rows, key: q(rows.float(), None).to(rows.dtype)
 
-    def quantize(rows, u):
-        return q(rows, u, rows.abs().amax(dim=1, keepdim=True))
+    def quantize(rows, key):
+        xf = rows.float()
+        u = philox.row_uniforms(key, rows.shape[1], rows.device)
+        return q(xf, u, xf.abs().amax(dim=1, keepdim=True)).to(rows.dtype)
 
     return quantize
 
@@ -191,10 +203,10 @@ def _ref_matmul(fmt: str) -> Callable:
 def _ref_ghost_norm(fmt: str) -> Callable:
     q = _ref_quantize(fmt)
 
-    def gn(x, g, ux, ug):
+    def gn(x, g, kx, kg):
         B = x.shape[0]
-        xq = q(x.float().reshape(B, -1), ux).reshape(x.shape)
-        gq = q(g.float().reshape(B, -1), ug).reshape(g.shape)
+        xq = q(x.reshape(B, -1), kx).reshape(x.shape).float()
+        gq = q(g.reshape(B, -1), kg).reshape(g.shape).float()
         xx = xq @ xq.transpose(1, 2)
         gg = gq @ gq.transpose(1, 2)
         return (xx * gg).sum(dim=(1, 2))
@@ -202,12 +214,12 @@ def _ref_ghost_norm(fmt: str) -> Callable:
     return gn
 
 
-def _ref_kv_quant(fmt: str) -> Callable:
-    def kvq(x):
+def _ref_kv_write(fmt: str) -> Callable:
+    def kvw(k, v, kc, vc, ks, vs, wpos):
         from repro_torch.quant import kv_cache
-        return kv_cache.kv_quant(fmt, x)
+        kv_cache.kv_write(fmt, k, v, kc, vc, ks, vs, wpos)
 
-    return kvq
+    return kvw
 
 
 def _ref_decode_attn(fmt: str) -> Callable:
@@ -225,7 +237,7 @@ for _fmt in formats._FORMATS:
     register("ghost_norm", _fmt, "ref", _ref_ghost_norm(_fmt))
 register("clip_sum", ANY_FORMAT, "ref", _ref_clip_sum)
 for _fmt in ("none", "int8", "luq_fp4"):
-    register("kv_quant", _fmt, "ref", _ref_kv_quant(_fmt))
+    register("kv_write", _fmt, "ref", _ref_kv_write(_fmt))
     register("decode_attn", _fmt, "ref", _ref_decode_attn(_fmt))
 
 
@@ -236,10 +248,9 @@ for _fmt in ("none", "int8", "luq_fp4"):
 # are imported lazily so that importing this module builds and loads
 # nothing.
 # --------------------------------------------------------------------------- #
-def _cuda_quantize(rows, u):
+def _cuda_quantize(rows, key):
     from repro_torch.kernels.ops import luq_quant
-    rows = rows.float().contiguous()
-    return luq_quant(rows, u, rows.abs().amax(dim=1))
+    return luq_quant(rows.contiguous(), key)
 
 
 def _cuda_clip_sum(grads, clip_norm):
@@ -256,20 +267,17 @@ def _cuda_matmul(a, b, keys):
     return luq_matmul(a, b, keys, alpha_a, b.abs().amax())
 
 
-def _cuda_ghost_norm(x, g, ux, ug):
+def _cuda_ghost_norm(x, g, kx, kg):
     from repro_torch.kernels.ops import ghost_norm_sq
-    x = x.float().contiguous()
-    g = g.float().contiguous()
-    return ghost_norm_sq(x, g, ux, ug, x.abs().amax(dim=(1, 2)),
-                         g.abs().amax(dim=(1, 2)))
+    return ghost_norm_sq(x.contiguous(), g.contiguous(), kx, kg)
 
 
-def _cuda_kv_quant(fmt: str) -> Callable:
-    def kvq(x):
-        from repro_torch.kernels.ops import kv_quant_rows
-        return kv_quant_rows(x, fmt)
+def _cuda_kv_write(fmt: str) -> Callable:
+    def kvw(k, v, kc, vc, ks, vs, wpos):
+        from repro_torch.kernels.ops import kv_quant_write
+        kv_quant_write(k, v, kc, vc, ks, vs, fmt, wpos)
 
-    return kvq
+    return kvw
 
 
 def _cuda_decode_attn(fmt: str) -> Callable:
@@ -288,5 +296,5 @@ register("ghost_norm", "luq_fp4", "cuda", _cuda_ghost_norm)
 # kv_fmt="none" has no kernel (there is nothing to dequantize); it falls
 # back to ref explicitly through get_impl, like every missing format
 for _fmt in ("int8", "luq_fp4"):
-    register("kv_quant", _fmt, "cuda", _cuda_kv_quant(_fmt))
+    register("kv_write", _fmt, "cuda", _cuda_kv_write(_fmt))
     register("decode_attn", _fmt, "cuda", _cuda_decode_attn(_fmt))

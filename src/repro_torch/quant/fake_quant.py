@@ -13,11 +13,14 @@ backward runs the two transposed products (the einsum's transposes;
 operands.  The six quantize points carry the JAX package's fold numbers:
 forward Q(x) 0, Q(w) 1; dgrad Q(w) 2, Q(g) 3; wgrad Q(x) 4, Q(g) 5.
 
-Randomness: each (seed, fold) pair has its own uniform stream, a
-``torch.Generator`` seeded from seed and fold mixed separately (a combined
-``seed + fold`` would make (s, f + 1) collide with (s + 1, f)).  The seed
-is the conv's static seed, so, as in the JAX package, the draws are the
-same at every step and for every example.
+Randomness: each (seed, fold) pair has its own uniform stream, the
+Philox4x32-10 stream (``quant.philox``) of the key :func:`stream_key`
+gives it, seed and fold kept in separate words (a combined ``seed + fold``
+would make (s, f + 1) collide with (s + 1, f)).  Element n of a quantized
+row takes that stream's uniform n; the ``cuda`` backend's kernel draws it
+itself and the ``ref`` backend in PyTorch, the same bits.  The seed is the
+layer's static seed, so, as in the JAX package, the draws are the same at
+every step and for every example.
 
 Per-example quantization: the quantizer is the custom op
 ``repro_torch::fake_quant`` with a vmap rule.  Under ``torch.func.vmap``
@@ -50,36 +53,27 @@ import torch.nn.functional as F
 from repro_torch.quant import backend as qbackend
 from repro_torch.quant.formats import STOCHASTIC_FORMATS
 
-# The quantizers' streams: generator seed = base + seed * 8 + fold, which
-# is one-to-one for folds 0..7 and stays below 2**31 (PyTorch's CPU
-# generator keeps only the low 32 bits of a seed); the base keeps them
-# apart from the package's other seeded streams.
-_STREAM_BASE = 2 ** 30
+# The quantizers' Philox keys are (seed, STREAM_WORD + fold): one-to-one in
+# (seed, fold) for folds 0..7, and the second word is never the logits
+# head's (models.common.LOGITS_SEED = 17), so no quantizer stream is a
+# logits stream.
+STREAM_WORD = 0x4C550000
 _N_FOLDS = 8
-_GENERATORS: dict = {}
 
 
-def _stream_seed(seed: int, fold: int) -> int:
-    if not (0 <= seed < 2 ** 27 and 0 <= fold < _N_FOLDS):
+def stream_key(seed: int, fold: int):
+    """The Philox key ``(k0, k1)`` of quantizer stream (seed, fold)."""
+    if not (0 <= seed < 2 ** 32 and 0 <= fold < _N_FOLDS):
         raise ValueError(f"quantizer seed {seed} / fold {fold} out of range")
-    return _STREAM_BASE + seed * _N_FOLDS + fold
-
-
-def uniforms(seed: int, fold: int, n: int, device) -> torch.Tensor:
-    """The (n,) float32 uniforms of stream (seed, fold) on ``device``."""
-    device = torch.device(device)
-    gen = _GENERATORS.get(device)
-    if gen is None:
-        gen = _GENERATORS[device] = torch.Generator(device=device)
-    gen.manual_seed(_stream_seed(seed, fold))
-    return torch.rand(n, generator=gen, device=device)
+    return (int(seed), STREAM_WORD + int(fold))
 
 
 def _quantize_rows(rows, fmt: str, backend: str, seed: int, fold: int):
+    """Each row of ``rows`` (R, N) quantized on its own scale against the
+    one draw of stream (seed, fold), in ``rows``' dtype."""
     q, _ = qbackend.get_quantizer(fmt, backend)
-    u = (uniforms(seed, fold, rows.shape[1], rows.device)
-         if fmt in STOCHASTIC_FORMATS else None)
-    return q(rows.float(), u).to(rows.dtype)
+    key = stream_key(seed, fold) if fmt in STOCHASTIC_FORMATS else None
+    return q(rows, key)
 
 
 def _quantize_per_example(x, fmt: str, backend: str, seed: int, fold: int):

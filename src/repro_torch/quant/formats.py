@@ -2,10 +2,9 @@
 
 The counterpart of ``repro.quant.formats``.  Stochastic formats take their
 uniform draws ``u`` as an explicit argument, as the JAX package's
-``kernels/ref.luq_quant_ref`` does: a caller draws them from a
-``torch.Generator`` or the Philox stream of ``quant.philox`` (or a test
-hands in numpy draws shared with the JAX package), so the quantizer
-itself is a pure function.
+``kernels/ref.luq_quant_ref`` does: a caller draws them from the Philox
+stream of ``quant.philox`` (or a test hands in numpy draws shared with
+the JAX package), so the quantizer itself is a pure function.
 
 ``luq_fp4``   LUQ-FP4: per-tensor power-of-two grid {0} U {alpha * 2^-k,
               k = 0..6} anchored at alpha = max|x|, stochastic rounding

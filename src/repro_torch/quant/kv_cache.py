@@ -2,7 +2,8 @@
 
 The counterpart of ``repro.quant.kv_cache``: the storage formats of the
 serving cache (``ServeConfig.kv_fmt``) and plain PyTorch versions of the
-two dispatched ops, ``kv_quant`` (rows -> codes, scales) and
+two dispatched ops, ``kv_write`` (K and V rows quantized into the cache
+at each slot's position; the row math is :func:`kv_quant`) and
 ``decode_attn`` (one-token GQA attention over the quantized cache).
 
 ``none``      the cache keeps the compute dtype, no scales.
@@ -125,6 +126,34 @@ def kv_quant(fmt: str, x: torch.Tensor):
     else:
         raise ValueError(f"unknown kv cache format {fmt!r}")
     return codes, scale.to(SCALE_DTYPE)
+
+
+def kv_write(fmt: str, k, v, k_codes, v_codes, k_scales, v_scales,
+             wpos=None) -> None:
+    """Quantize K and V rows ``(N0, N1, T, hd)`` into the cache, in place.
+
+    Row t of (i, j) lands at row ``w_i + t`` of ``k_codes`` / ``v_codes``
+    ``(N0, N1, S, code_dim)`` and ``k_scales`` / ``v_scales`` ``(N0, N1,
+    S)``, with ``w_i = wpos[i]`` clamped into ``[0, S - T]`` (``wpos``: an
+    (N0,) int tensor, or None for 0): the decode step writes each slot's
+    row at its position (T = 1), prefill a whole stack from row 0.  Every
+    other row is left as it is.  ``fmt == "none"`` copies the rows into
+    the cache's dtype and has no scales.
+    """
+    T, S = k.shape[2], k_codes.shape[2]
+    for x, codes, scales in ((k, k_codes, k_scales), (v, v_codes, v_scales)):
+        c, sc = kv_quant(fmt, x)
+        if wpos is None:
+            codes[:, :, :T] = c.to(codes.dtype)
+            if sc is not None:
+                scales[:, :, :T] = sc
+            continue
+        rows = torch.arange(x.shape[0], device=x.device)
+        w = torch.as_tensor(wpos, device=x.device).long().clamp(0, S - T)
+        for t in range(T):
+            codes[rows, :, w + t] = c[:, :, t].to(codes.dtype)
+            if sc is not None:
+                scales[rows, :, w + t] = sc[:, :, t]
 
 
 def kv_dequant(fmt: str, codes: torch.Tensor, scales) -> torch.Tensor:

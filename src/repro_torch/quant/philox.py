@@ -1,15 +1,17 @@
 """Philox4x32-10 in plain PyTorch: the twin of ``kernels/csrc/philox.cuh``.
 
 The counter-based generator (Salmon et al., SC 2011; Random123's
-``philox4x32``) that the logits head draws its LUQ uniforms from, on the
-card inside the ``luq_matmul`` kernel and here for CPU tensors and the
-kernel's plain version.  Both give the same words for the same key and
-counter.
+``philox4x32``) that every stochastic quantizer draws its uniforms from:
+the logits head (``luq_matmul``, keys ``models.common.logits_key``) and
+fake-quant's per-(seed, fold) streams (``luq_quant`` and the ghost norm,
+keys ``quant.fake_quant.stream_key``).  On the card the kernels draw them
+themselves; here they are drawn for CPU tensors and the kernels' plain
+versions.  Both give the same words for the same key and counter.
 
 * Key: two 32-bit words ``(k0, k1)``, Python ints.  Counter: four words.
 * Element ``e`` of operand ``op`` (0 for a matmul's ``a``, 1 for its
-  ``b``) takes lane ``e % 4`` of the call with counter
-  ``(e // 4 low word, e // 4 high word, op, 0)``.
+  ``b``; 0 for the row a quantizer rounds) takes lane ``e % 4`` of the
+  call with counter ``(e // 4 low word, e // 4 high word, op, 0)``.
 * Its uniform is ``(word >> 8) * 2**-24``: exact in float32, in
   ``[0, 1 - 2**-24]``.
 
@@ -20,6 +22,7 @@ and CUDA tensors give the same words.
 from __future__ import annotations
 
 import numbers
+from collections import OrderedDict
 from typing import Sequence, Tuple, Union
 
 import torch
@@ -35,6 +38,10 @@ Keys = Union[Key, Sequence[Key]]
 # groups (Philox calls) per chunk of the plain draws: bounds the int64
 # temporaries to a few hundred MB whatever the operand's size
 _CHUNK_GROUPS = 1 << 20
+# the CPU row draws kept by row_uniforms, least recently used first, and
+# the bytes they may hold together
+_ROW_CACHE: "OrderedDict[Tuple[Key, int], torch.Tensor]" = OrderedDict()
+_ROW_CACHE_BYTES = 128 * 2 ** 20
 
 
 def _mulhilo(m: int, x: torch.Tensor):
@@ -107,6 +114,29 @@ def uniforms(key: Key, op: int, n: int, device="cpu") -> torch.Tensor:
     rows = -(-n // width)
     return uniforms_2d(key, op, rows, width, width,
                        device=device).reshape(-1)[:n]
+
+
+def row_uniforms(key: Key, n: int, device="cpu") -> torch.Tensor:
+    """(n,) float32 uniforms of a quantized row of n elements: operand 0
+    of ``key``'s stream, what the ``luq_quant`` kernel draws.  A key's
+    draws never change (fake-quant's keys are fixed per (seed, fold)), so
+    on the CPU, where the plain Philox is ~30x slower than ``torch.rand``,
+    they are kept, least recently used out first, up to 128 MB in all.
+    Callers must not write to the tensor returned."""
+    if torch.device(device).type != "cpu":
+        return uniforms(key, 0, n, device)
+    k = ((int(key[0]) & MASK32, int(key[1]) & MASK32), int(n))
+    u = _ROW_CACHE.get(k)
+    if u is None:
+        u = uniforms(key, 0, n)
+        if 4 * n <= _ROW_CACHE_BYTES:
+            _ROW_CACHE[k] = u
+            while sum(t.numel() for t in _ROW_CACHE.values()) * 4 \
+                    > _ROW_CACHE_BYTES:
+                _ROW_CACHE.popitem(last=False)
+    else:
+        _ROW_CACHE.move_to_end(k)
+    return u
 
 
 def split_keys(keys: Keys, rows: int):

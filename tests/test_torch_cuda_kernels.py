@@ -7,21 +7,21 @@ machine with the card:
     PYTHONPATH=src python -m pytest -q -m requires_cuda tests/test_torch_cuda_kernels.py
 
 Tolerances: codes, scales and quantized operands bitwise (the kernels
-repeat the plain versions' float32 operations, and the matmul's Philox
+repeat the plain versions' float32 operations, and the quantizers' Philox
 draws are the plain twin's words); attention and matmul outputs to
 float32 summation order; the clip's norms rtol 1e-5 and its
 sum within 1e-5 of sum_b |scale_b g_bd| per column (summation order);
 the ghost norm within 1e-5 of sum_ij |XX_ij GG_ij| per example
-(summation order), as in ``chip_smoke.py``.  Decode attention, the clip
-and the ghost norm give the same bits on every run, and decode attention
-the same bits for a slot alone as in a batch.  TF32 is off for the plain
-versions.
+(summation order), as in ``chip_smoke.py``.  Every kernel gives the same
+bits on every run, and decode attention the same bits for a slot alone
+as in a batch.  TF32 is off for the plain versions.
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.quant import fake_quant as fq  # noqa: E402
 from repro_torch.quant import kv_cache as kvc  # noqa: E402
 from repro_torch.quant import philox  # noqa: E402
 
@@ -37,15 +37,66 @@ def cuda():
     return torch.device("cuda")
 
 
+def _kv_cache(device, fmt, N0, N1, S, hd, seed):
+    """Codes and scales of K and V filled with stale values."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    code_dtype, code_dim = kvc.code_spec(fmt, hd)
+    codes = [torch.randint(-100, 100, (N0, N1, S, code_dim), device=device,
+                           generator=gen).to(code_dtype) for _ in range(2)]
+    scales = [(torch.rand(N0, N1, S, device=device, generator=gen) * 50)
+              .to(kvc.SCALE_DTYPE) for _ in range(2)]
+    return codes + scales
+
+
 @pytest.mark.parametrize("fmt", ["int8", "luq_fp4"])
 @pytest.mark.parametrize("shape", [(4, 4, 128), (3, 5, 24), (1, 2, 2)])
-def test_kv_quant_rows_bitwise(cuda, fmt, shape):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kv_quant_rows_bitwise(cuda, fmt, shape, dtype):
+    """Rows (a, b, hd) as one prefill-style write from row 0 of a longer
+    cache: codes and scales bitwise, the rows past them untouched."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(shape, device=cuda, generator=gen) * 3
     x[0, 0] = 0
-    codes, scales = ops.kv_quant_rows(x, fmt)
-    rc, rs = ref.kv_quant_rows_ref(x, fmt)
-    assert torch.equal(codes, rc) and torch.equal(scales, rs)
+    k = x.to(dtype).reshape(1, *shape)
+    v = (-2 * x).to(dtype).reshape(1, *shape)
+    cache = _kv_cache(cuda, fmt, 1, shape[0], shape[1] + 3, shape[2], 1)
+    want = [t.clone() for t in cache]
+    ops.kv_quant_write(k, v, *cache, fmt)
+    ref.kv_quant_write_ref(k, v, *want, fmt)
+    for got, w in zip(cache, want):
+        assert torch.equal(got, w)
+
+
+@pytest.mark.parametrize("fmt", ["int8", "luq_fp4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kv_quant_write_every_slot_and_position(cuda, fmt, dtype):
+    """The decode step's write, (slots, kv, 1, hd) views of K and V rows
+    at each slot's clamped position, into a cache of stale rows: every
+    position of every slot in turn (slot b at (p + 7 b) % S), then all
+    slots at S - 1, then positions past the end clamped to S - 1.  Each
+    call bitwise the plain version's cache (kv_quant plus index writes),
+    and the same bits on a second run."""
+    B, KV, S, hd = 4, 4, 40, 128
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    cache = _kv_cache(cuda, fmt, B, KV, S, hd, 2)
+    want = [t.clone() for t in cache]
+    steps = [[(p + 7 * b) % S for b in range(B)] for p in range(S)]
+    steps += [[S - 1] * B, [S, S + 5, S - 1, 2 * S]]
+    for pos in steps:
+        qkv = torch.randn(B, 3, KV, hd, device=cuda, generator=gen) * 2
+        qkv[0, :, 1] = 0.0                            # an all-zero row
+        qkv = qkv.to(dtype)
+        k, v = qkv[:, 0, :, None], qkv[:, 1, :, None]  # strided views
+        wpos = torch.tensor(pos, device=cuda).clamp(max=S - 1)
+        before = [t.clone() for t in cache]
+        ops.kv_quant_write(k, v, *cache, fmt, wpos)
+        ref.kv_quant_write_ref(k, v, *want, fmt, wpos)
+        for got, w in zip(cache, want):
+            assert torch.equal(got, w)
+        again = [t.clone() for t in before]
+        ops.kv_quant_write(k, v, *again, fmt, wpos)
+        for got, w in zip(again, cache):
+            assert torch.equal(got, w)
 
 
 @pytest.mark.parametrize("fmt", ["int8", "luq_fp4"])
@@ -164,59 +215,109 @@ def test_luq_matmul_close(cuda, per_row):
             rtol=0, atol=0)
 
 
-def _luq_inputs(device, rows, n, per_row, seed):
-    """x with the rounding's edges mixed in (exact powers of two times
-    alpha = 4, one ulp below them, zeros) and, with several rows, an
-    all-zero row (alpha = 0)."""
+def _luq_inputs(device, rows, n, dtype, seed):
+    """x in ``dtype`` with the rounding's edges mixed in (exact powers of
+    two times alpha = 4, one ulp of ``dtype`` below them, zeros) and, with
+    several rows, an all-zero row (alpha = 0)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     x = torch.randn(rows, n, device=device, generator=gen).clamp(-3.5, 3.5)
+    x = x.to(dtype)
     x[:, 0] = 4.0
-    levels = 4.0 * 2.0 ** -torch.arange(0, 9, device=device)
-    below = torch.nextafter(levels, torch.zeros_like(levels))
+    levels = (4.0 * 2.0 ** -torch.arange(0, 9, device=device)).to(dtype)
+    ints = torch.int32 if dtype == torch.float32 else torch.int16
+    below = (levels.view(ints) - 1).view(dtype)
     edges = torch.cat([levels, -levels, below, -below,
-                       torch.zeros(4, device=device)])
+                       torch.zeros(4, device=device, dtype=dtype)])
     x[:, 1:1 + edges.numel()] = edges
     if rows > 1:
         x[1] = 0.0
-    u = torch.rand(*((rows,) if per_row else ()), n, device=device,
-                   generator=gen)
-    return x, u, x.abs().amax(dim=1)
+    return x
 
 
-@pytest.mark.parametrize("rows,n,per_row", [
-    (1, 3 * 3 * 512 * 512, False),      # the largest ResNet-18 weight
-    (64, 32 * 32 * 64, False),          # the largest activation under vmap
-    (3, 1001, True),                    # n % 4 != 0: the scalar kernel
-    (5, 4096, True),
+@pytest.mark.parametrize("rows,n,dtype", [
+    (1, 3 * 3 * 512 * 512, torch.float32),   # the largest ResNet-18 weight
+    (64, 32 * 32 * 64, torch.float32),       # the largest ResNet activation
+    (1, 2560 * 6912, torch.bfloat16),        # a stablelm-3b MLP weight
+    (4, 256 * 2560, torch.bfloat16),         # stablelm-3b per-example rows
+    (3, 1001, torch.float32),                # n % 4 != 0: scalar loads
+    (5, 1002, torch.bfloat16),
+    (5, 4096, torch.bfloat16),
 ])
 @pytest.mark.parametrize("codes", [False, True])
-def test_luq_quant_bitwise(cuda, rows, n, per_row, codes):
-    x, u, alpha = _luq_inputs(cuda, rows, n, per_row, 3)
-    got = ops.luq_quant(x, u, alpha, codes)
-    assert torch.equal(got, ref.luq_quant_ref(x, u, alpha, codes))
+def test_luq_quant_bitwise(cuda, rows, n, dtype, codes):
+    x = _luq_inputs(cuda, rows, n, dtype, 3)
+    key = fq.stream_key(17, 4)
+    got = ops.luq_quant(x, key, codes)
+    assert got.dtype == (torch.bfloat16 if codes else dtype)
+    assert torch.equal(got, ref.luq_quant_ref(x, key, codes))
+    assert torch.equal(got, ops.luq_quant(x, key, codes))      # second run
     if codes:          # codes * alpha: the values, bit for bit
-        assert torch.equal(got.float() * alpha[:, None],
-                           ref.luq_quant_ref(x, u, alpha))
+        alpha = x.float().abs().amax(dim=1, keepdim=True)
+        assert torch.equal((got.float() * alpha).to(dtype),
+                           ref.luq_quant_ref(x, key))
 
 
-@pytest.mark.parametrize("alpha", [1.0, 0.7])
-def test_luq_quant_bitwise_over_every_finite_float(cuda, alpha):
+def _with_anchor(x, anchor):
+    """Rows of ``x`` (R, C) behind four columns of ``anchor``: each row's
+    scale is max(anchor, max|row|), and C + 4 keeps the row length a
+    multiple of 4 when C is (the vector loads)."""
+    return torch.cat([torch.full_like(x[:, :4], anchor), x], dim=1)
+
+
+@pytest.mark.parametrize("anchor", [1.0, 0.7])
+def test_luq_quant_bitwise_over_every_finite_float(cuda, anchor):
     """Every finite float32 x (2^32 bit patterns less NaN and inf, in
-    chunks), against random uniforms, values and codes: the kernel's
-    level from the exponent bits and its exact products by powers of two
-    give the plain version's log2 / exp2 / division results bit for bit.
-    alpha = 0.7 puts y = |x| / alpha above 1 too."""
+    chunks, rows of 4096 consecutive patterns behind an anchor), values
+    and codes: the kernel's row max, its level from the exponent bits and
+    its exact products by powers of two give the plain version's amax,
+    log2, exp2 and division results bit for bit.  The anchor 1 makes
+    y = |x| for every |x| <= 1; 0.7 another scale."""
     n = 1 << 28
-    a = torch.full((1,), alpha, device=cuda)
-    gen = torch.Generator(device=cuda).manual_seed(7)
+    key = fq.stream_key(5, 0)
     for start in range(-(1 << 31), 1 << 31, n):
         x = torch.arange(start, start + n, dtype=torch.int64, device=cuda)
-        x = x.to(torch.int32).view(torch.float32).reshape(1, n)
-        x = torch.where(torch.isfinite(x), x, 0.0)
-        u = torch.rand(n, device=cuda, generator=gen)
-        assert torch.equal(ops.luq_quant(x, u, a), ref.luq_quant_ref(x, u, a))
-        assert torch.equal(ops.luq_quant(x, u, a, True),
-                           ref.luq_quant_ref(x, u, a, True))
+        x = x.to(torch.int32).view(torch.float32)
+        x = torch.where(torch.isfinite(x), x, 0.0).reshape(-1, 4096)
+        x = _with_anchor(x, anchor)
+        assert torch.equal(ops.luq_quant(x, key), ref.luq_quant_ref(x, key))
+        assert torch.equal(ops.luq_quant(x, key, True),
+                           ref.luq_quant_ref(x, key, True))
+
+
+@pytest.mark.parametrize("anchor", [1.0, 0.7])
+def test_luq_quant_bitwise_over_every_bf16(cuda, anchor):
+    """Every finite bf16 value (2^16 patterns less NaN and inf), in rows
+    of 256 behind an anchor and as one row, values and codes."""
+    x = torch.arange(-(1 << 15), 1 << 15, dtype=torch.int32, device=cuda)
+    x = x.to(torch.int16).view(torch.bfloat16)
+    x = torch.where(torch.isfinite(x), x, 0.0)
+    key = fq.stream_key(6, 1)
+    for rows in (_with_anchor(x.reshape(-1, 256), anchor), x.reshape(1, -1)):
+        assert rows.dtype == torch.bfloat16
+        assert torch.equal(ops.luq_quant(rows, key),
+                           ref.luq_quant_ref(rows, key))
+        assert torch.equal(ops.luq_quant(rows, key, True),
+                           ref.luq_quant_ref(rows, key, True))
+
+
+@pytest.mark.parametrize("dtype,offset", [
+    (torch.float32, 1), (torch.float32, 2), (torch.float32, 3),
+    (torch.bfloat16, 1), (torch.bfloat16, 3)])
+@pytest.mark.parametrize("n", [4096, 4097])
+def test_luq_quant_view_at_an_odd_offset(cuda, dtype, offset, n):
+    """A (3, n) view starting ``offset`` elements into its storage, off
+    the vector loads' grid: the scalar path, whose loads stop at the row's
+    end.  The elements around the view are NaN, so a stray load shows."""
+    x = _luq_inputs(cuda, 3, n, dtype, 4)
+    storage = torch.full((offset + 3 * n + 5,), float("nan"), device=cuda,
+                         dtype=dtype)
+    view = storage[offset:offset + 3 * n].view(3, n)
+    view.copy_(x)
+    key = fq.stream_key(8, 3)
+    for codes in (False, True):
+        got = ops.luq_quant(view, key, codes)
+        assert torch.equal(got, ref.luq_quant_ref(x, key, codes))
+        assert torch.equal(got, ops.luq_quant(view, key, codes))
 
 
 @pytest.mark.parametrize("B,D", [(64, 11_190_891), (1, 1000), (5, 1537)])
@@ -283,9 +384,9 @@ def test_clip_and_sum_view_at_an_offset(cuda, offset, D):
     assert torch.equal(out, again) and torch.equal(norms, again_norms)
 
 
-def _ghost_inputs(device, B, T, Dx, Dg, seed):
+def _ghost_inputs(device, B, T, Dx, Dg, seed, dtype=torch.float32):
     """x, g with the rounding's edges mixed in and, with several examples,
-    an all-zero example; shared uniforms, per-example scales."""
+    an all-zero example; the keys of folds 4 and 5."""
     gen = torch.Generator(device=device).manual_seed(seed)
     x = torch.randn(B, T, Dx, device=device, generator=gen).clamp(-3.5, 3.5)
     g = torch.randn(B, T, Dg, device=device, generator=gen) * 0.01
@@ -297,25 +398,25 @@ def _ghost_inputs(device, B, T, Dx, Dg, seed):
     x[:, -1, :n] = edges[:n]
     if B > 1:
         x[1] = 0.0
-    ux = torch.rand(T * Dx, device=device, generator=gen)
-    ug = torch.rand(T * Dg, device=device, generator=gen)
-    return (x, g, ux, ug, x.abs().amax(dim=(1, 2)), g.abs().amax(dim=(1, 2)))
+    return (x.to(dtype), g.to(dtype), fq.stream_key(seed, 4),
+            fq.stream_key(seed, 5))
 
 
-@pytest.mark.parametrize("B,T,Dx,Dg", [
-    (4, 256, 2560, 6912),               # stablelm-3b gate / up in pass 1
-    (1, 37, 48, 80),                    # T not a multiple of the tile
-    (4, 130, 96, 40),                   # Dx != Dg, T not a multiple
-    (2, 45, 50, 37),                    # D % 8 != 0: the scalar loads
-    (3, 64, 2560, 2560),
+@pytest.mark.parametrize("B,T,Dx,Dg,dtype", [
+    (4, 256, 2560, 6912, torch.bfloat16),  # stablelm-3b gate / up in pass 1
+    (4, 256, 2560, 6912, torch.float32),
+    (1, 37, 48, 80, torch.float32),        # T not a multiple of the tile
+    (4, 130, 96, 40, torch.bfloat16),      # Dx != Dg, T not a multiple
+    (2, 45, 50, 37, torch.float32),        # D % 8 != 0: the scalar loads
+    (3, 64, 2560, 2560, torch.bfloat16),
 ])
-def test_ghost_norm_close_and_deterministic(cuda, B, T, Dx, Dg):
-    args = _ghost_inputs(cuda, B, T, Dx, Dg, 5)
+def test_ghost_norm_close_and_deterministic(cuda, B, T, Dx, Dg, dtype):
+    args = _ghost_inputs(cuda, B, T, Dx, Dg, 5, dtype)
     out = ops.ghost_norm_sq(*args)
     want = ref.ghost_norm_ref(*args)
-    x, g, ux, ug, ax, ag = args
-    xq = ref.luq_fp4(x.reshape(B, -1), ux, ax[:, None]).reshape(x.shape)
-    gq = ref.luq_fp4(g.reshape(B, -1), ug, ag[:, None]).reshape(g.shape)
+    x, g, kx, kg = args
+    xq = ref.luq_quant_ref(x.reshape(B, -1), kx).reshape(x.shape).float()
+    gq = ref.luq_quant_ref(g.reshape(B, -1), kg).reshape(g.shape).float()
     bound = 1e-5 * ((xq @ xq.transpose(1, 2)).abs()
                     * (gq @ gq.transpose(1, 2)).abs()).sum(dim=(1, 2))
     assert ((out - want).abs() <= bound).all()
@@ -326,20 +427,20 @@ def test_ghost_norm_close_and_deterministic(cuda, B, T, Dx, Dg):
 
 def test_launch_counts_count_kernel_launches_only(cuda):
     ops.reset_launch_counts()
-    x = torch.randn(2, 3, 128, device=cuda)
-    ops.kv_quant_rows(x, "int8")
-    ops.kv_quant_rows(x.cpu(), "int8")         # plain version: not counted
+    x = torch.randn(2, 3, 1, 128, device=cuda)
+    cache = _kv_cache(cuda, "int8", 2, 3, 4, 128, 0)
+    ops.kv_quant_write(x, x, *cache, "int8")
+    ops.kv_quant_write(x.cpu(), x.cpu(), *(t.cpu() for t in cache), "int8")
     rows = torch.randn(4, 64, device=cuda)
-    u = torch.rand(64, device=cuda)
-    ops.luq_quant(rows, u, rows.abs().amax(dim=1))
-    ops.luq_quant(rows.cpu(), u.cpu(), rows.abs().amax(dim=1).cpu())
+    ops.luq_quant(rows, (1, 2))
+    ops.luq_quant(rows.cpu(), (1, 2))           # plain version: not counted
     ops.clip_and_sum(rows, 1.0)
-    args = _ghost_inputs(cuda, 2, 8, 16, 24, 6)
-    ops.ghost_norm_sq(*args)
-    ops.ghost_norm_sq(*(t.cpu() for t in args))
-    assert ops.LAUNCHES == {"luq_matmul": 0, "kv_quant_rows": 1,
+    x, g, kx, kg = _ghost_inputs(cuda, 2, 8, 16, 24, 6)
+    ops.ghost_norm_sq(x, g, kx, kg)
+    ops.ghost_norm_sq(x.cpu(), g.cpu(), kx, kg)
+    assert ops.LAUNCHES == {"luq_matmul": 0, "kv_quant_write": 1,
                             "decode_attn_fused": 0, "luq_quant": 1,
                             "clip_and_sum": 1, "ghost_norm_sq": 1}
     assert ops.LUQ_MATMUL_LAUNCHES == {"shared": 0, "per_row": 0}
-    assert ops.LUQ_QUANT_LAUNCHES == {"one_row": 0, "rows": 1}
+    assert ops.LUQ_QUANT_LAUNCHES == {"one_row": 0, "rows": 1, "kernels": 2}
     assert ops.GHOST_NORM_LAUNCHES == {"16/24": 1}

@@ -142,7 +142,7 @@ def identity_format():
         mp.setitem(jbackend._REGISTRY, ("quantize", QFMT, "ref"),
                    lambda x, key=None: x)
         mp.setitem(qbackend._REGISTRY, ("quantize", QFMT, "ref"),
-                   lambda rows, u: rows.clone())
+                   lambda rows, key: rows.clone())
         yield QFMT
 
 

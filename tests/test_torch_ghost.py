@@ -60,9 +60,9 @@ def identity_format():
         mp.setitem(jbackend._REGISTRY, ("ghost_norm", QFMT, "ref"),
                    lambda xm, gm, kx, kg: jghost._matpair_sq_norm(xm, gm))
         mp.setitem(qbackend._REGISTRY, ("quantize", QFMT, "ref"),
-                   lambda rows, u: rows.clone())
+                   lambda rows, key: rows.clone())
         mp.setitem(qbackend._REGISTRY, ("ghost_norm", QFMT, "ref"),
-                   lambda x, g, ux, ug: ghost._matpair_sq_norm(x, g))
+                   lambda x, g, kx, kg: ghost._matpair_sq_norm(x, g))
         yield QFMT
 
 
@@ -257,9 +257,9 @@ def test_fused_route_taken_exactly_when_jax_takes_it(monkeypatch, spec, xs,
         calls["jax"] += 1
         return jnp.sum(xm) * 0.0
 
-    def port_op(x, g, ux, ug):
+    def port_op(x, g, kx, kg):
         calls["port"] += 1
-        assert ux.shape == (x.shape[1] * x.shape[2],)
+        assert (kx, kg) == (fq.stream_key(3, 4), fq.stream_key(3, 5))
         return torch.zeros(x.shape[0])
 
     monkeypatch.setitem(jbackend._REGISTRY, ("ghost_norm", "luq_fp4",

@@ -95,8 +95,11 @@ def test_kernel_wrappers_never_send_device_tensors_to_plain_versions():
     mix of devices, raises before anything runs (meta tensors stand in
     for device tensors here)."""
     meta = dict(device="meta")
+    rows = torch.empty(2, 1, 1, 8, **meta)
+    cache = torch.empty(2, 1, 5, 8, dtype=torch.int8)
+    scales = torch.empty(2, 1, 5, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CPU tensors or all on one CUDA"):
-        ops.kv_quant_rows(torch.empty(4, 8, **meta), "int8")
+        ops.kv_quant_write(rows, rows, cache, cache, scales, scales, "int8")
     with pytest.raises(ValueError, match="CPU tensors or all on one CUDA"):
         ops.luq_matmul(torch.empty(2, 8), torch.empty(8, 4, **meta),
                        (1, 17), torch.tensor(1.0), torch.tensor(1.0))
@@ -107,17 +110,15 @@ def test_kernel_wrappers_never_send_device_tensors_to_plain_versions():
                               scales, scales, 0, fmt="int8", n_kv=1,
                               scale=1.0)
     with pytest.raises(ValueError, match="CPU tensors or all on one CUDA"):
-        ops.luq_quant(torch.empty(2, 8, **meta), torch.empty(8),
-                      torch.empty(2))
+        ops.luq_quant(torch.empty(2, 8, **meta), (3, 5))
     with pytest.raises(ValueError, match="CPU tensors or all on one CUDA"):
         ops.clip_and_sum(torch.empty(2, 8, **meta), 1.0)
     with pytest.raises(ValueError, match="CPU tensors or all on one CUDA"):
         ops.ghost_norm_sq(torch.empty(2, 4, 8, **meta), torch.empty(2, 4, 6),
-                          torch.empty(32), torch.empty(24), torch.empty(2),
-                          torch.empty(2))
-    assert ops.LAUNCHES == {"luq_matmul": 0, "kv_quant_rows": 0,
+                          (3, 5), (3, 6))
+    assert ops.LAUNCHES == {"luq_matmul": 0, "kv_quant_write": 0,
                             "decode_attn_fused": 0, "luq_quant": 0,
                             "clip_and_sum": 0, "ghost_norm_sq": 0}
     assert ops.LUQ_MATMUL_LAUNCHES == {"shared": 0, "per_row": 0}
-    assert ops.LUQ_QUANT_LAUNCHES == {"one_row": 0, "rows": 0}
+    assert ops.LUQ_QUANT_LAUNCHES == {"one_row": 0, "rows": 0, "kernels": 0}
     assert ops.GHOST_NORM_LAUNCHES == {}
