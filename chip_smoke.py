@@ -17,6 +17,9 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    the same function, that yardstick (``library_ms``; for the LUQ matmul
    and the ghost norm, ``torch.bmm`` of the bf16 LUQ codes with float32
    output, the float32 values' time beside it as ``library_f32_ms``);
+   the decode logits head takes its per-row keys as the (R, 2) device
+   tensor the decode graph builds, and must give the bits of the same
+   keys passed from the host, in the kernel and in the plain version;
    for the wrappers that launch more than one kernel, and for the KV
    write, also each kernel's own device time from a ``torch.profiler``
    trace (``device_us``);
@@ -26,20 +29,34 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    ``repro_torch.launch.train --arch resnet18 --mode dpquant --fmt
    luq_fp4 --backend cuda --clip-backend fused``: 2 epochs x 3 steps of
    256 images in microbatches of 64, analysis in epoch 0 (10 probe runs x
-   2 reps at a probe batch of 64); every loss finite, k = 8 quantized
-   layers each epoch, epsilon > 0, 44 clip launches, and quantizer
-   launches that match the policies the scheduler chose, two kernels a
-   quantize call;
+   2 reps at a probe batch of 64), under the default ``scan`` executor
+   (each epoch's steps replay one CUDA graph of the step, captured after
+   an eager warm-up step for each policy); every loss finite, k = 8
+   quantized layers each epoch, epsilon > 0, clip launches and quantizer
+   launches that match the policies the scheduler chose (the captured
+   kernels counted once a replay, the probes and the warm-up steps
+   eagerly), two kernels a quantize call; prints the median step (each
+   chunk's wall over its steps), the capture seconds and, over one more
+   profiled epoch, the host's ``cudaLaunchKernel`` and
+   ``cudaGraphLaunch`` calls;
+   then, under deterministic cuDNN, one epoch of 3 steps (momentum, cosine
+   schedule, sigma 1) through the loop and through the scan executor:
+   params, momentum, losses and epsilon bit for bit the same; and the DP
+   noise under the graph: replays at successive seeds draw what the loop
+   draws at each seed, and differ from each other;
 5. trains stablelm-3b at full size (32 layers, random init from a seed,
    synthetic tokens) with ghost-mode DP-SGD under the DPQuant scheduler,
    with the options of ``repro_torch.launch.train --arch stablelm-3b
    --mode dpquant --fmt luq_fp4 --backend cuda --grad-mode ghost
    --clip-backend ref --ghost-microbatch 4 --batch 8 --seq-len 256``: 2
-   epochs x 2 steps, analysis in epoch 0 (33 probe runs x 2 reps at a
-   probe batch of 8); every loss finite, k = 29 each epoch, epsilon > 0,
-   ``ghost_norm_sq`` launches that match the policies the scheduler
-   chose, at most two kernels a quantize call, and no clip launch (ghost
-   mode forms no (B, D) matrix);
+   epochs x 2 steps under ``scan``, analysis in epoch 0 (33 probe runs x 2
+   reps at a probe batch of 8); every loss finite, k = 29 each epoch,
+   epsilon > 0, ``ghost_norm_sq`` launches that match the policies the
+   scheduler chose (replays and warm-ups counted as above), at most two
+   kernels a quantize call, and no clip launch (ghost mode forms no (B,
+   D) matrix); then one epoch of 2 steps (SGD, cosine schedule) through
+   both executors: bitwise the target, else the largest difference
+   printed and the losses held at rtol 1e-3, epsilon and k exactly;
 6. holds ghost mode against per-example gradients inside the real model:
    stablelm-3b at full width cut to 2 layers, in bf16 and in float32,
    every layer in LUQ-FP4 on the ``cuda`` backend, 4 sequences of 256
@@ -58,11 +75,16 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    through ``ContinuousEngine`` with the workload of
    ``repro_torch/launch/workload.py``: 4 slots, 8 requests, prompts of
    64-512 tokens, 32 new tokens, greedy, luq_fp4 logits head, once with an
-   int8 and once with a luq_fp4 KV cache, on the ``cuda`` backend; every
-   request must finish with its 32 tokens, every kernel (both branches
-   of the matmul) must have run, and the KV write must have launched once
-   a layer and decode tick and once a prefill;
-8. checks the engine against the oneshot driver for one request.
+   int8 and once with a luq_fp4 KV cache, on the ``cuda`` backend, the
+   decode step replayed from its CUDA graph every tick (captured in a
+   warm-up run); every request must finish with its 32 tokens, every
+   kernel (both branches of the matmul) must have run, the KV write must
+   have launched once a layer and decode tick (counted a replay) and once
+   a prefill, and the graph must have been replayed once a tick; prints
+   the wall per tick and, over a profiled rerun, the host's launch calls
+   per tick;
+8. checks the engine (its graphed tick) against the oneshot driver for
+   one request, token for token.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
@@ -303,18 +325,24 @@ def check_decode_attn(torch, ops, ref, kvc, fmt, B, S, reps=50):
 def check_luq_matmul(torch, ops, ref, per_row, rows, sm_clock_mhz, reps=10):
     """The logits head, (R, 4096) x (4096, 64000), drawing its uniforms
     with Philox from the logits head's keys: at decode ``rows`` slot rows
-    with one key and one scale each, at prefill one row, one key and a
-    scalar scale.  The plain version draws the same stream in PyTorch, b
-    in column chunks; the kernel must agree within the tolerance and give
-    the same bits twice."""
-    from repro_torch.models.common import logits_key
+    with one key and one scale each, the keys an (R, 2) device tensor built
+    from the slots' positions as the decode graph builds them, at prefill
+    one row, one key and a scalar scale.  The plain version draws the same
+    stream in PyTorch, b in column chunks; the kernel must agree within the
+    tolerance and give the same bits twice; at decode the device keys must
+    give the bits of the same keys as a host list, in the kernel and in the
+    plain version."""
+    from repro_torch.models.common import logits_key, logits_keys
     from repro_torch.quant import philox
     from repro_torch.quant.formats import luq_fp4, luq_fp4_codes
 
     R, K, N = (rows if per_row else 1), 4096, 64000
-    keys = ([logits_key(2 * p + 1) for p in (100, 300, 700, 1023)][:R]
-            if per_row else logits_key(2 * 512))
-    key_list = keys if per_row else [keys]
+    pos = [100, 300, 700, 1023][:R]
+    key_list = ([logits_key(2 * p + 1) for p in pos] if per_row
+                else [logits_key(2 * 512)])
+    keys = (logits_keys(2 * torch.tensor(pos, dtype=torch.int32,
+                                         device="cuda") + 1)
+            if per_row else key_list[0])
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2 + per_row)
     a = torch.randn(R, K, device="cuda", generator=gen)
     b = torch.randn(K, N, device="cuda", generator=gen) / 64
@@ -325,6 +353,15 @@ def check_luq_matmul(torch, ops, ref, per_row, rows, sm_clock_mhz, reps=10):
     if not torch.equal(out, ops.luq_matmul(*args)):
         raise AssertionError(f"luq_matmul (R = {R}): two runs differ")
     want = ref.luq_matmul_keys_ref(*args)
+    if per_row:
+        if not torch.equal(out, ops.luq_matmul(a, b, key_list, alpha_a,
+                                               alpha_b)):
+            raise AssertionError("luq_matmul: device keys and host keys "
+                                 "give other bits")
+        if not torch.equal(want, ref.luq_matmul_keys_ref(
+                a, b, key_list, alpha_a, alpha_b)):
+            raise AssertionError("luq_matmul's plain version: device keys "
+                                 "and host keys give other bits")
     if per_row:
         ua = torch.stack([philox.uniforms(k, 0, K, "cuda") for k in key_list])
     else:
@@ -593,10 +630,35 @@ def check_ghost_norm(torch, ops, ref, B, T, Dx, Dg, reps=20):
     }
 
 
+def host_calls(torch, fn) -> dict:
+    """The host's kernel launch and graph launch calls while ``fn`` runs,
+    ``{"cudaLaunchKernel": n, "cudaGraphLaunch": n}`` (every variant of
+    each name), from a torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    calls = {"cudaLaunchKernel": 0, "cudaGraphLaunch": 0}
+    for evt in prof.key_averages():
+        for name in calls:
+            if evt.key.startswith(name):
+                calls[name] += evt.count
+    return calls
+
+
+def _warmup_sum(tr, per_step):
+    """``per_step(flags)`` summed over the scan runner's captures: each
+    capture's eager warm-up step launches kernels like a step of its
+    policy (the capture itself launches none)."""
+    return sum(per_step(flags) for flags in tr.epoch_fn.captured)
+
+
 def train_resnet18(torch, ops, wl):
     """DP-SGD on ResNet-18 under the DPQuant scheduler, the training
     workload of ``repro_torch/launch/workload.py`` (section 4 of the
-    module docstring); returns the launch counts of the run."""
+    module docstring), under the scan executor; returns the launch counts
+    of the run."""
     from repro_torch.models.resnet import conv_layers
     from repro_torch.quant import backend as qbackend
     from repro_torch.train_loop import Trainer
@@ -606,6 +668,8 @@ def train_resnet18(torch, ops, wl):
         raise AssertionError("the quantizer or the fused clip does not run "
                              "on the cuda backend")
     run, ds, ev = wl.train_setup()
+    if run.epoch_executor != "scan":
+        raise AssertionError(f"the workload runs {run.epoch_executor!r}")
     cfg = run.model
     batch, micro = run.global_batch, run.dp.microbatch_size
     steps, epochs = run.steps_per_epoch, wl.TRAIN_EPOCHS
@@ -616,30 +680,40 @@ def train_resnet18(torch, ops, wl):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    policies, analysis_s = [], []
+    policies, analysis_s, capture_s = [], [], []
     t0 = time.perf_counter()
     for _ in range(epochs):
         (stats,) = tr.train(1)[-1:]
         policies.append(tr.scheduler.current.layers)
         analysis_s.append(tr.last_analysis_s)
+        capture_s.append(tr.last_capture_s)
         print(f"epoch {stats.epoch}: loss={stats.loss:.4f} "
               f"eps={stats.eps:.3f} k={stats.quantized_layers} "
               f"acc={stats.accuracy} (loss {stats.loss!r}, eps "
               f"{stats.eps!r}, wall {stats.wall_s!r} s, analysis "
-              f"{tr.last_analysis_s!r} s, layers {list(policies[-1])})")
+              f"{tr.last_analysis_s!r} s, graph warm-up and capture "
+              f"{tr.last_capture_s!r} s, layers {list(policies[-1])})")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     launches.update({f"luq_quant[{k}]": v
                      for k, v in ops.LUQ_QUANT_LAUNCHES.items()})
-    steps_ms = sorted(t * 1e3 for t in tr.step_wall_s[1:])
+    # a step's wall is its chunk's wall over its steps (capture excluded)
+    steps_ms = sorted(t * 1e3 for t in tr.step_wall_s)
     med = steps_ms[len(steps_ms) // 2]
-    print(f"train resnet18: {epochs} epochs x {steps} steps of {batch} "
-          f"images: median step {med!r} ms (steps after the first: "
-          f"{steps_ms}), {batch / med * 1e3!r} images/s, analysis by "
-          f"epoch {analysis_s!r} s, wall {wall!r} s, peak device memory "
+    replays = tr.epoch_fn._graph.replays
+    flags = tr.scheduler.current.flags()
+    calls = host_calls(torch, lambda: tr._train_steps_scan(flags))
+    print(f"train resnet18 (scan): {epochs} epochs x {steps} steps of "
+          f"{batch} images: median step {med!r} ms (chunk walls over "
+          f"their steps: {steps_ms}), {batch / med * 1e3!r} images/s, "
+          f"analysis by epoch {analysis_s!r} s, graph warm-up and capture "
+          f"by epoch {capture_s!r} s ({len(tr.epoch_fn.captured)} "
+          f"captures; {replays} replays of the last), wall {wall!r} s, "
+          f"peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30!r} GiB, launches "
-          f"{launches}")
+          f"(replays counted) {launches}; host calls over one more epoch "
+          f"of {steps} steps (profiled, after the checks' counts): {calls}")
 
     for s in tr.history:
         if not math.isfinite(s.loss):
@@ -651,11 +725,13 @@ def train_resnet18(torch, ops, wl):
     n_micro = batch // micro
     # a probe step runs one probe batch of max(micro, min(32, batch))
     # examples: here one microbatch; 10 probe runs (the baseline and one
-    # per layer) x reps
+    # per layer) x reps; each capture adds its eager warm-up step
     probe_micro = max(micro, min(run.dp.analysis_batch_size, batch)) // micro
     reps = run.dp.analysis_reps
     probe_runs = len(tr.scheduler.policies) + 1
-    want_clip = (epochs * steps * n_micro + probe_runs * reps * probe_micro)
+    warmups = len(tr.epoch_fn.captured)
+    want_clip = ((epochs * steps + warmups) * n_micro
+                 + probe_runs * reps * probe_micro)
     if launches["clip_and_sum"] != want_clip:
         raise AssertionError(f"clip_and_sum launched "
                              f"{launches['clip_and_sum']} times, want "
@@ -667,6 +743,8 @@ def train_resnet18(torch, ops, wl):
     q_convs = reps * probe_micro * sum(convs)
     q_convs += sum(steps * n_micro * sum(convs[i] for i in layers)
                    for layers in policies)
+    q_convs += n_micro * _warmup_sum(
+        tr, lambda fl: sum(c for c, f in zip(convs, fl) if f))
     # six quantize calls per quantized conv, two kernels a call
     want_q = {"luq_quant": 6 * q_convs, "luq_quant[one_row]": 2 * q_convs,
               "luq_quant[rows]": 4 * q_convs,
@@ -681,6 +759,125 @@ def train_resnet18(torch, ops, wl):
     del tr
     torch.cuda.empty_cache()
     return launches
+
+
+def _compare_runs(torch, a, b):
+    """(bitwise, largest abs difference, its leaf) of two trees of
+    tensors."""
+    from torch.utils._pytree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if len(la) != len(lb):
+        raise AssertionError(f"{len(la)} leaves against {len(lb)}")
+    worst, where, same = 0.0, None, True
+    for i, (x, y) in enumerate(zip(la, lb)):
+        if torch.equal(x, y):
+            continue
+        same = False
+        d = (x.float() - y.float()).abs().max().item()
+        if where is None or d > worst:
+            worst, where = d, i
+    return same, worst, where
+
+
+def check_noise_replays(torch, n):
+    """The DP noise under the scan executor's graph: a step that returns
+    its noise (n values) as the new params, run by ``EpochRunner`` at seeds
+    5 and 6 (one replay each), then 7 and 8 (two replays in one call).
+    Each replay's draw must be the eager draw of a generator seeded as the
+    loop seeds it, and two successive replays must differ."""
+    from repro_torch.dp.noise import add_gaussian_noise
+    from repro_torch.launch.steps import (NOISE_SEED_OFFSET, EpochRunner,
+                                          TrainSetup)
+    gen = torch.Generator(device="cuda")
+
+    def step_fn(params, opt_state, batch, seed, qflags, lr):
+        if seed is not None:
+            gen.manual_seed(NOISE_SEED_OFFSET + int(seed))
+        zero = torch.zeros_like(params["w"])      # the noise alone
+        noise = add_gaussian_noise({"w": zero}, clip_norm=1.0,
+                                   noise_multiplier=1.0, batch_size=1,
+                                   generator=gen)["w"]
+        return {"w": noise}, opt_state, {"loss": noise.sum()}
+
+    def eager(seed):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(NOISE_SEED_OFFSET + seed)
+        return torch.randn(n, generator=g, device="cuda")
+
+    runner = EpochRunner(TrainSetup(step_fn, lambda p: (), gen), "cuda")
+    params = {"w": torch.zeros(n, device="cuda")}
+    x, lrs = torch.zeros(2, 1, device="cuda"), torch.zeros(2, device="cuda")
+    draws = []
+    for seed in (5, 6):
+        params, _, _ = runner(params, (), {"x": x[:1]}, [seed], (), lrs[:1])
+        draws.append(params["w"].clone())
+        if not torch.equal(draws[-1], eager(seed)):
+            raise AssertionError(f"the replay at seed {seed} did not draw "
+                                 "the loop's noise")
+    if torch.equal(draws[0], draws[1]):
+        raise AssertionError("two successive replays drew the same noise")
+    params, _, metrics = runner(params, (), {"x": x}, [7, 8], (), lrs)
+    if not (torch.equal(params["w"], eager(8)) and metrics["loss"].tolist()
+            == [eager(7).sum().item(), eager(8).sum().item()]):
+        raise AssertionError("two replays in one call did not draw the "
+                             "loop's noise")
+    if len(runner.captured) != 1 or runner._graph.replays != 4:
+        raise AssertionError(f"{len(runner.captured)} captures, "
+                             f"{runner._graph.replays} replays")
+    print(f"noise under the graph: replays at seeds 5, 6, 7, 8 each drew "
+          f"the eager draw of their seed ({n} values), 5 and 6 differ in "
+          f"{int((draws[0] != draws[1]).sum().item())} values")
+    runner.close()
+
+
+def loop_vs_scan(torch, setup_fn, name, optim, rtol=None):
+    """One epoch of ``setup_fn``'s workload (mode static: no probes) under
+    ``optim`` with sigma 1, through the loop executor and through the scan
+    executor, under deterministic cuDNN: params, optimizer state, losses
+    and epsilon must agree bit for bit; with ``rtol``, when the params do
+    not, the losses within ``rtol`` and epsilon and k exactly (printed)."""
+    import dataclasses
+    from repro_torch.train_loop import Trainer
+    run, ds, _ = setup_fn()
+    run = dataclasses.replace(run, optim=optim, steps=run.steps_per_epoch)
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        for executor in ("loop", "scan"):
+            tr = Trainer(dataclasses.replace(run, epoch_executor=executor),
+                         ds, mode="static", device="cuda")
+            (h,) = tr.train(1)
+            torch.cuda.synchronize()
+            out[executor] = ((tr.params, tr.opt_state), tr.history,
+                             sorted(tr.step_wall_s), tr.last_capture_s)
+            del tr, h
+            _free(torch)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (state_l, hist_l, walls_l, _), (state_s, hist_s, walls_s, cap) = \
+        out["loop"], out["scan"]
+    same, worst, where = _compare_runs(torch, state_l, state_s)
+    losses_l = [h.loss for h in hist_l]
+    losses_s = [h.loss for h in hist_s]
+    print(f"{name} loop vs scan ({run.steps_per_epoch} steps, "
+          f"{optim.name} {optim.schedule}, deterministic cuDNN): params and "
+          f"optimizer state bitwise {same} (largest difference {worst!r}, "
+          f"leaf {where}), losses {losses_l} / {losses_s}, eps "
+          f"{hist_l[-1].eps!r} / {hist_s[-1].eps!r}, k "
+          f"{hist_l[-1].quantized_layers} / {hist_s[-1].quantized_layers}; "
+          f"step walls (ms) loop {[t * 1e3 for t in walls_l]} scan "
+          f"{[t * 1e3 for t in walls_s]}, capture {cap!r} s")
+    if [h.eps for h in hist_l] != [h.eps for h in hist_s] or \
+            [h.quantized_layers for h in hist_l] != \
+            [h.quantized_layers for h in hist_s]:
+        raise AssertionError(f"{name}: epsilon or k differ")
+    if same and losses_l == losses_s:
+        return
+    if rtol is None:
+        raise AssertionError(f"{name}: loop and scan differ (losses "
+                             f"{losses_l} / {losses_s}, params by {worst})")
+    import numpy as np
+    np.testing.assert_allclose(losses_s, losses_l, rtol=rtol)
 
 
 def _free(torch):
@@ -920,8 +1117,8 @@ def ghost_vs_vmap(torch, ops, wl):
 
 def train_stablelm(torch, ops, wl):
     """Ghost-mode DP-SGD on stablelm-3b under the DPQuant scheduler, the
-    LM workload of ``repro_torch/launch/workload.py``; returns the launch
-    counts of the run."""
+    LM workload of ``repro_torch/launch/workload.py``, under the scan
+    executor; returns the launch counts of the run."""
     from repro_torch.dp.ghost import per_example_state_bytes
     from repro_torch.quant import backend as qbackend
     from repro_torch.train_loop import Trainer
@@ -931,6 +1128,8 @@ def train_stablelm(torch, ops, wl):
         raise AssertionError("the quantizer or the ghost norm does not run "
                              "on the cuda backend")
     run, ds, ev = wl.train_lm_setup()
+    if run.epoch_executor != "scan":
+        raise AssertionError(f"the workload runs {run.epoch_executor!r}")
     cfg = run.model
     batch, chunk, seq = run.global_batch, run.dp.ghost_microbatch, run.seq_len
     steps, epochs = run.steps_per_epoch, wl.TRAIN_LM_EPOCHS
@@ -947,17 +1146,19 @@ def train_stablelm(torch, ops, wl):
         raise AssertionError(f"ghost mode keeps per-example state: {state}")
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    policies, analysis_s = [], []
+    policies, analysis_s, capture_s = [], [], []
     t0 = time.perf_counter()
     for _ in range(epochs):
         (stats,) = tr.train(1)[-1:]
         policies.append(tr.scheduler.current.layers)
         analysis_s.append(tr.last_analysis_s)
+        capture_s.append(tr.last_capture_s)
         print(f"epoch {stats.epoch}: loss={stats.loss:.4f} "
               f"eps={stats.eps:.3f} k={stats.quantized_layers} "
               f"acc={stats.accuracy} (loss {stats.loss!r}, eps "
               f"{stats.eps!r}, wall {stats.wall_s!r} s, analysis "
-              f"{tr.last_analysis_s!r} s, layers {list(policies[-1])})")
+              f"{tr.last_analysis_s!r} s, graph warm-up and capture "
+              f"{tr.last_capture_s!r} s, layers {list(policies[-1])})")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
@@ -965,14 +1166,21 @@ def train_stablelm(torch, ops, wl):
                      for k, v in ops.GHOST_NORM_LAUNCHES.items()})
     launches.update({f"luq_quant[{k}]": v
                      for k, v in ops.LUQ_QUANT_LAUNCHES.items()})
-    steps_ms = sorted(t * 1e3 for t in tr.step_wall_s[1:])
+    # a step's wall is its chunk's wall over its steps (capture excluded)
+    steps_ms = sorted(t * 1e3 for t in tr.step_wall_s)
     med = steps_ms[len(steps_ms) // 2]
-    print(f"train stablelm-3b (ghost): {epochs} epochs x {steps} steps of "
-          f"{batch} x {seq} tokens: median step {med!r} ms (steps after the "
-          f"first: {steps_ms}), {batch * seq / med * 1e3!r} tokens/s, "
-          f"analysis by epoch {analysis_s!r} s, wall {wall!r} s, peak device "
-          f"memory {torch.cuda.max_memory_allocated() / 2**30!r} GiB, "
-          f"launches {launches}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    flags = tr.scheduler.current.flags()
+    calls = host_calls(torch, lambda: tr._train_steps_scan(flags))
+    print(f"train stablelm-3b (ghost, scan): {epochs} epochs x {steps} "
+          f"steps of {batch} x {seq} tokens: median step {med!r} ms (chunk "
+          f"walls over their steps: {steps_ms}), "
+          f"{batch * seq / med * 1e3!r} tokens/s, analysis by epoch "
+          f"{analysis_s!r} s, graph warm-up and capture by epoch "
+          f"{capture_s!r} s ({len(tr.epoch_fn.captured)} captures), wall "
+          f"{wall!r} s, peak device memory {peak!r} GiB, launches (replays "
+          f"counted) {launches}; host calls over one more epoch of {steps} "
+          f"steps (profiled, after the checks' counts): {calls}")
 
     for s in tr.history:
         if not math.isfinite(s.loss):
@@ -991,6 +1199,7 @@ def train_stablelm(torch, ops, wl):
     reps = run.dp.analysis_reps
     want = 7 * reps * probe_chunks * len(tr.scheduler.policies)
     want += sum(7 * steps * n_chunks * len(layers) for layers in policies)
+    want += 7 * n_chunks * _warmup_sum(tr, sum)       # the warm-up steps
     if launches["ghost_norm_sq"] != want:
         raise AssertionError(f"ghost_norm_sq launched "
                              f"{launches['ghost_norm_sq']} times, want {want} "
@@ -1034,8 +1243,10 @@ def serve_yi6b(torch, kv_fmt, model, params, ops, wl):
         engine.submit(p, max_new_tokens=wl.NEW_TOKENS)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
+    replays = engine.decode_replays
     results = engine.run()
     torch.cuda.synchronize()
+    replays = engine.decode_replays - replays
     launches = dict(ops.LAUNCHES)
     launches["luq_matmul[decode]"] = ops.LUQ_MATMUL_LAUNCHES["per_row"]
     launches["luq_matmul[prefill]"] = ops.LUQ_MATMUL_LAUNCHES["shared"]
@@ -1057,6 +1268,17 @@ def serve_yi6b(torch, kv_fmt, model, params, ops, wl):
                              f"{zero}")
     summary = engine.metrics.summary()
     summary["prompt_lengths"] = [p.size for p in prompts]
+    ticks = summary["decode_ticks"]
+    summary["graph_replays_per_tick"] = replays / ticks
+    if replays != ticks:
+        raise AssertionError(f"{replays} decode graph replays in {ticks} "
+                             "ticks")
+    engine.reset()
+    for p in prompts:
+        engine.submit(p, max_new_tokens=wl.NEW_TOKENS)
+    calls = host_calls(torch, engine.run)
+    summary["host_calls_per_tick"] = {
+        k: v / engine.metrics.decode_ticks for k, v in calls.items()}
     # one K+V write a layer and decode tick, one a prefill
     want_kv = {"decode": model.config.n_layers * summary["decode_ticks"],
                "prefill": wl.REQUESTS}
@@ -1159,11 +1381,23 @@ def main() -> int:
               f"{dg}) {checks[name]}")
     torch.cuda.empty_cache()
 
-    # 4. train ResNet-18 at full width under the DPQuant scheduler
+    # 4. train ResNet-18 at full width under the DPQuant scheduler, scan
     train_launches = train_resnet18(torch, ops, wl)
 
-    # 5. train stablelm-3b at full size in ghost mode under DPQuant
+    # 4b. the scan executor against the loop on ResNet-18, and the noise
+    # of successive replays
+    from repro_torch.config import OptimConfig
+    loop_vs_scan(torch, wl.train_setup, "resnet18",
+                 OptimConfig(name="momentum", lr=0.1, schedule="cosine"))
+    check_noise_replays(torch, 11_190_891)
+
+    # 5. train stablelm-3b at full size in ghost mode under DPQuant, scan
     lm_launches = train_stablelm(torch, ops, wl)
+
+    # 5b. the scan executor against the loop on stablelm-3b
+    loop_vs_scan(torch, wl.train_lm_setup, "stablelm-3b",
+                 OptimConfig(name="sgd", lr=0.5, schedule="cosine"),
+                 rtol=1e-3)
 
     # 6. ghost against per-example gradients inside stablelm-3b at full
     # width, 2 layers
@@ -1198,7 +1432,14 @@ def main() -> int:
               f"{summary['decode_ticks']} ticks, "
               f"ttft p50 {summary['ttft_p50_s'] * 1e3} ms, "
               f"latency p50 {summary['latency_p50_s'] * 1e3} ms, "
-              f"prompts {summary['prompt_lengths']}, launches {counts}")
+              f"run wall per tick (admissions included) "
+              f"{summary['run_wall_s'] / summary['decode_ticks'] * 1e3} ms, "
+              f"decode graph replays per tick "
+              f"{summary['graph_replays_per_tick']}, host calls per tick "
+              f"{summary['host_calls_per_tick']} (a profiled rerun, prefills "
+              f"included), "
+              f"prompts {summary['prompt_lengths']}, launches (replays "
+              f"counted) {counts}")
         launches[kv_fmt] = counts
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30} GiB")
 

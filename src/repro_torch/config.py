@@ -177,6 +177,32 @@ class RunConfig:
     seq_len: int = 1024
     steps: int = 100
     steps_per_epoch: int = 10
+    # "scan": each epoch's steps run as one CUDA graph of the train step,
+    # captured once per quantization policy and replayed step after step
+    # (train_loop.Trainer._train_steps_scan; one host sync per chunk).
+    # "loop": one eager step, host sync and accountant charge per step.
+    epoch_executor: str = "scan"
+    # 0 = the whole epoch at once; k > 0 = chunks of k steps (bounds the
+    # device memory held by the staged batches).
+    epoch_chunk: int = 0
+    # Steps per loop iteration of the reference's lax.scan; 1 only.
+    epoch_unroll: int = 1
+
+
+EPOCH_EXECUTORS = ("scan", "loop")
+
+
+def validate_executor(run: RunConfig) -> None:
+    """Raise on an epoch executor the port does not have."""
+    if run.epoch_executor not in EPOCH_EXECUTORS:
+        raise ValueError(f"epoch_executor must be 'scan' or 'loop', "
+                         f"got {run.epoch_executor!r}")
+    if run.epoch_chunk < 0:
+        raise ValueError(f"epoch_chunk must be >= 0, got {run.epoch_chunk}")
+    if run.epoch_unroll != 1:
+        raise NotImplementedError(
+            f"epoch_unroll={run.epoch_unroll}: a CUDA graph has no unroll "
+            "factor yet (ROADMAP.md section 1, item 1: epoch_unroll > 1)")
 
 
 @dataclasses.dataclass(frozen=True)

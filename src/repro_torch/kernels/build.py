@@ -38,8 +38,8 @@ _L = ctypes.c_longlong
 _U = ctypes.c_uint32
 _LP = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
-    "repro_luq_matmul": (_I, [_P, _P, _P, _P, ctypes.POINTER(_U), _I, _I, _P,
-                              _P, _P, _I, _I, _I, _P]),
+    "repro_luq_matmul": (_I, [_P, _P, _P, _P, _U, _U, _P, _I, _P, _P, _P, _I,
+                              _I, _I, _P]),
     "repro_luq_matmul_max_rows": (_I, []),
     "repro_luq_matmul_splits": (_I, [_I, _I]),
     "repro_kv_quant_write": (_I, [_P, _P, _I, _LP, _LP, _P, _P, _P, _P, _P,

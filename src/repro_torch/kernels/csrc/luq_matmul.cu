@@ -6,15 +6,18 @@
 // Q the LUQ-FP4 stochastic rounding of luq.cuh with per-tensor scales
 // (`alpha_a` per row, `alpha_b` shared).  The TPU kernel reads explicit
 // uniform tensors; this one draws them itself with Philox4x32-10
-// (philox.cuh) from keys the wrapper passes by value, and reads no uniform
-// from device memory.  Element e of a (operand 0) or b (operand 1) takes
+// (philox.cuh) and reads no uniform from device memory.  Element e of a (operand 0) or b (operand 1) takes
 // lane e % 4 of the call with counter (e / 4, operand, 0), as the plain
 // twin repro_torch.quant.philox lays the stream out.
 //
-// Keys: one key for all rows (`per_row` = 0: prefill, lockstep decode; a
-// is one matrix, its element r * K + k), or one key a row (`per_row` = 1:
-// the per-slot logits head, where row r quantizes a[r] (element k) and
-// the whole of b with its own position-derived stream).
+// Keys: one key for all rows, passed by value (prefill, lockstep decode;
+// a is one matrix, its element r * K + k), or one key a row, read from
+// device memory (`row_keys`: the per-slot logits head, where row r
+// quantizes a[r] (element k) and the whole of b with its own
+// position-derived stream).  The per-row keys are built on the device
+// from the slots' positions, so a CUDA graph of the decode step replays
+// with each tick's keys; each block turns its rows' keys into round keys
+// in shared memory once, before its loop.
 //
 // What bounds it on this card: integer operations.  The serving head is
 // (R <= 8, 4096) x (4096, 64000) float32: b is 1.05 GB (0.31 ms at
@@ -43,8 +46,9 @@
 //      one threshold the row's draw is compared with, as a 24-bit integer,
 //      and the two outcomes already times sign * alpha.  Per row remain one
 //      Philox call per 4 consecutive columns (N % 4 == 0; other N take a
-//      call per element), with the round keys precomputed in the kernel's
-//      parameters, then per element a shift, an integer compare, a select
+//      call per element), with the round keys precomputed (a shared key's
+//      in the kernel's parameters, per-row keys in shared memory), then
+//      per element a shift, an integer compare, a select
 //      and the FMA: no uniform is converted to float.  Q(a)[r, k] is a
 //      broadcast load from the scratch.  The sums (4 a row a thread) take
 //      registers for 1, 4 or 8 rows, the fewest that hold the launch's, so
@@ -83,21 +87,30 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kCols = 4 * 32;                // output columns per block
 constexpr int kBlocksPerSm = 16;             // K-split target
 
-// Each row's round keys (philox.cuh), in the kernels' parameters.
-struct Keys {
-  RoundKeys r[kMaxRows];
-};
+// Row r's round keys, from its words (k0, k1) in row_keys.
+__device__ __forceinline__ RoundKeys row_round_keys(
+    const uint32_t* __restrict__ row_keys, int r) {
+  return repro_philox::philox_round_keys(__ldg(row_keys + 2 * r),
+                                         __ldg(row_keys + 2 * r + 1));
+}
 
 // aq[r, k] = Q(a)[r, k]; row r of this launch is row row0 + r of the call.
+// row_keys: the launch's rows' keys (rows x 2 words), or null for the
+// shared key.
 __global__ void quantize_a_kernel(const float* __restrict__ a,
                                   const float* __restrict__ alpha_a,
-                                  Keys keys, int rows, int row0, int K,
-                                  int per_row, float* __restrict__ aq) {
+                                  RoundKeys shared_key,
+                                  const uint32_t* __restrict__ row_keys,
+                                  int rows, int row0, int K,
+                                  float* __restrict__ aq) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= rows * K) return;
   const int r = i / K, k = i - r * K;
+  const bool per_row = row_keys != nullptr;
   const uint64_t e = per_row ? (uint64_t)k : (uint64_t)(row0 + r) * K + k;
-  const Words w = philox_group(e >> 2, 0u, keys.r[per_row ? r : 0]);
+  const Words w = per_row ? philox_group(e >> 2, 0u,
+                                         row_round_keys(row_keys, r))
+                          : philox_group(e >> 2, 0u, shared_key);
   aq[i] = luq_round(a[i], uniform24(w.w[e & 3]), alpha_a[r]);
 }
 
@@ -141,10 +154,16 @@ __device__ __forceinline__ float4 load4(const float* __restrict__ b,
 template <bool kVec, int kRows>
 __global__ void __launch_bounds__(kThreads)
 luq_matmul_kernel(const float* __restrict__ aq, const float* __restrict__ b,
-                  const float* __restrict__ alpha_b_ptr, Keys keys, int rows,
-                  int K, int N, int per_row, int k_per_split,
-                  float* __restrict__ dst) {
+                  const float* __restrict__ alpha_b_ptr, RoundKeys shared_key,
+                  const uint32_t* __restrict__ row_keys, int rows, int K,
+                  int N, int k_per_split, float* __restrict__ dst) {
   __shared__ float red[kWarps][kRows][kCols];
+  __shared__ RoundKeys row_key[kRows];
+  const bool per_row = row_keys != nullptr;
+  if (per_row && threadIdx.x < rows) {
+    row_key[threadIdx.x] = row_round_keys(row_keys, threadIdx.x);
+  }
+  __syncthreads();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n0 = blockIdx.x * kCols + 4 * lane;
   const int kb = blockIdx.y * k_per_split;
@@ -167,11 +186,11 @@ luq_matmul_kernel(const float* __restrict__ aq, const float* __restrict__ b,
 #pragma unroll
       for (int j = 0; j < 4; ++j) q[j] = luq_pick(luq_prep(x[j], alpha_b));
       uint32_t m[4];
-      if (!per_row) draws4<kVec>(e0, keys.r[0], m);
+      if (!per_row) draws4<kVec>(e0, shared_key, m);
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         if (r < rows) {
-          if (per_row) draws4<kVec>(e0, keys.r[r], m);
+          if (per_row) draws4<kVec>(e0, row_key[r], m);
           const float ar = __ldg(aq + (size_t)r * K + k);
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
@@ -243,25 +262,25 @@ extern "C" int repro_luq_matmul_splits(int K, int N) {
 // a: (rows, K); b: (K, N); alpha_a: (rows,); alpha_b: one float; aq:
 // (rows, K) scratch; partial: repro_luq_matmul_splits(K, N) * rows * N
 // scratch (unused for 1 split); out: (rows, N).  All float32, contiguous,
-// on the device.  keys: 2 * rows words on the host (per_row = 1) or 2
-// (per_row = 0); row0: the first row's index in the whole call (the
-// shared stream numbers a's elements across launches).  Returns the
-// cudaError_t of the launches.
+// on the device.  Keys: row_keys, on the device, rows x 2 words (k0, k1),
+// one key a row; or, when row_keys is null, the key (k0, k1) shared by
+// every row; row0: the first row's index in the whole call (the shared
+// stream numbers a's elements across launches).  Returns the cudaError_t
+// of the launches.
 extern "C" int repro_luq_matmul(const void* a, const void* b,
                                 const void* alpha_a, const void* alpha_b,
-                                const unsigned* keys, int per_row, int row0,
-                                void* aq, void* partial, void* out, int rows,
-                                int K, int N, void* stream) {
+                                unsigned k0, unsigned k1,
+                                const void* row_keys, int row0, void* aq,
+                                void* partial, void* out, int rows, int K,
+                                int N, void* stream) {
   if (rows < 1 || rows > kMaxRows || K < 1 || N < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  Keys kv = {};
-  for (int r = 0; r < (per_row ? rows : 1); ++r) {
-    kv.r[r] = repro_philox::philox_round_keys(keys[2 * r], keys[2 * r + 1]);
-  }
+  const RoundKeys shared_key = repro_philox::philox_round_keys(k0, k1);
+  const auto* rk = (const uint32_t*)row_keys;
   const cudaStream_t s = (cudaStream_t)stream;
   quantize_a_kernel<<<(rows * K + 255) / 256, 256, 0, s>>>(
-      (const float*)a, (const float*)alpha_a, kv, rows, row0, K, per_row,
+      (const float*)a, (const float*)alpha_a, shared_key, rk, rows, row0, K,
       (float*)aq);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -277,17 +296,17 @@ extern "C" int repro_luq_matmul(const void* a, const void* b,
   if (vec) {
     if (rows == 1) {
       luq_matmul_kernel<true, 1><<<grid, kThreads, 0, s>>>(
-          aqf, bf, ab, kv, rows, K, N, per_row, k_per_split, dst);
+          aqf, bf, ab, shared_key, rk, rows, K, N, k_per_split, dst);
     } else if (rows <= 4) {
       luq_matmul_kernel<true, 4><<<grid, kThreads, 0, s>>>(
-          aqf, bf, ab, kv, rows, K, N, per_row, k_per_split, dst);
+          aqf, bf, ab, shared_key, rk, rows, K, N, k_per_split, dst);
     } else {
       luq_matmul_kernel<true, kMaxRows><<<grid, kThreads, 0, s>>>(
-          aqf, bf, ab, kv, rows, K, N, per_row, k_per_split, dst);
+          aqf, bf, ab, shared_key, rk, rows, K, N, k_per_split, dst);
     }
   } else {
     luq_matmul_kernel<false, kMaxRows><<<grid, kThreads, 0, s>>>(
-        aqf, bf, ab, kv, rows, K, N, per_row, k_per_split, dst);
+        aqf, bf, ab, shared_key, rk, rows, K, N, k_per_split, dst);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;

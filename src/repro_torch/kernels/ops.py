@@ -48,12 +48,40 @@ KV_WRITE_LAUNCHES = {"decode": 0, "prefill": 0}
 _KV_FMT_CODE = {"int8": 0, "luq_fp4": 1}
 
 
+_COUNTS = {"launches": LAUNCHES, "luq_matmul": LUQ_MATMUL_LAUNCHES,
+           "luq_quant": LUQ_QUANT_LAUNCHES, "ghost_norm": GHOST_NORM_LAUNCHES,
+           "kv_write": KV_WRITE_LAUNCHES}
+
+
 def reset_launch_counts() -> None:
     GHOST_NORM_LAUNCHES.clear()
     for counts in (LAUNCHES, LUQ_MATMUL_LAUNCHES, LUQ_QUANT_LAUNCHES,
                    KV_WRITE_LAUNCHES):
         for name in counts:
             counts[name] = 0
+
+
+def launch_counts() -> dict:
+    """A copy of every launch count, ``{table: {name: count}}``."""
+    return {table: dict(counts) for table, counts in _COUNTS.items()}
+
+
+def launch_counts_since(before: dict) -> dict:
+    """The counts added since :func:`launch_counts` returned ``before``."""
+    return {table: {name: n - before[table].get(name, 0)
+                    for name, n in counts.items()}
+            for table, counts in _COUNTS.items()}
+
+
+def add_launch_counts(delta: dict, times: int) -> None:
+    """Add ``times`` x ``delta`` (a :func:`launch_counts_since` result) to
+    the counts: the kernels a CUDA graph replays, which run without their
+    wrappers being called (``repro_torch.graph``)."""
+    for table, counts in delta.items():
+        target = _COUNTS[table]
+        for name, n in counts.items():
+            if n:
+                target[name] = target.get(name, 0) + times * n
 
 
 def _on_cpu(*tensors) -> bool:
@@ -109,17 +137,21 @@ def luq_matmul(a, b, keys, alpha_a, alpha_b) -> torch.Tensor:
     the uniforms drawn inside the kernel with Philox4x32-10.
 
     ``keys``: one ``(k0, k1)`` pair of 32-bit ints, the draw shared by all
-    rows (prefill: ``a`` quantized as one matrix), or R pairs, one draw
-    per row (the decode tick's per-slot logits head); the stream's layout
-    is ``repro_torch.quant.philox``'s.  ``alpha_a``: () or (R,) scales of
-    ``a`` (per row: each row quantized on its own); ``alpha_b``: () scale
-    of ``b``.  ``a``, ``b`` and the scales float32.  The kernel sums in a
-    fixed order: the same inputs and keys give the same bits every run.
+    rows (prefill: ``a`` quantized as one matrix), or one key a row (the
+    decode tick's per-slot logits head): R pairs, or an (R, 2) int32 or
+    int64 tensor on ``a``'s device, which the kernel reads from device
+    memory (so a CUDA graph replays it with the keys of each tick); the
+    stream's layout is ``repro_torch.quant.philox``'s.  ``alpha_a``: () or
+    (R,) scales of ``a`` (per row: each row quantized on its own);
+    ``alpha_b``: () scale of ``b``.  ``a``, ``b`` and the scales float32.
+    The kernel sums in a fixed order: the same inputs and keys give the
+    same bits every run.
     """
     R, K = a.shape
     N = b.shape[1]
     key_list, per_row = philox.split_keys(keys, R)
-    if _on_cpu(a, b):
+    key_t = (keys,) if isinstance(keys, torch.Tensor) else ()
+    if _on_cpu(a, b, *key_t):
         return ref.luq_matmul_keys_ref(a, b, keys, alpha_a, alpha_b)
     alpha_a = alpha_a.reshape(-1).expand(R).contiguous()
     alpha_b = alpha_b.reshape(())
@@ -128,6 +160,14 @@ def luq_matmul(a, b, keys, alpha_a, alpha_b) -> torch.Tensor:
     _check("alpha_a", alpha_a, torch.float32, (R,))
     _check("alpha_b", alpha_b, torch.float32, ())
     _on_cpu(a, alpha_a, alpha_b)
+    k0 = k1 = 0
+    row_keys = None
+    if per_row:
+        row_keys = philox.key_tensor(keys, a.device)
+        _check("keys", row_keys, torch.int32, (R, 2))
+        _on_cpu(a, row_keys)
+    else:
+        k0, k1 = key_list[0]
     lib = load_library()
     out = torch.empty((R, N), dtype=torch.float32, device=a.device)
     step = lib.repro_luq_matmul_max_rows()
@@ -140,13 +180,11 @@ def luq_matmul(a, b, keys, alpha_a, alpha_b) -> torch.Tensor:
         stream = _stream(a.device)
         for r0 in range(0, R, step):
             r1 = min(R, r0 + step)
-            words = [w for k in (key_list[r0:r1] if per_row else key_list)
-                     for w in k]
             err = lib.repro_luq_matmul(
                 _ptr(a[r0:r1]), _ptr(b), _ptr(alpha_a[r0:r1]), _ptr(alpha_b),
-                (ctypes.c_uint32 * len(words))(*words), int(per_row), r0,
-                _ptr(aq[r0:r1]), _ptr(partial), _ptr(out[r0:r1]), r1 - r0, K,
-                N, stream)
+                k0, k1, None if row_keys is None else _ptr(row_keys[r0:r1]),
+                r0, _ptr(aq[r0:r1]), _ptr(partial), _ptr(out[r0:r1]), r1 - r0,
+                K, N, stream)
             _raise_on_error(lib, err, "luq_matmul")
             LAUNCHES["luq_matmul"] += 1
             LUQ_MATMUL_LAUNCHES["per_row" if per_row else "shared"] += 1

@@ -81,8 +81,9 @@ def luq_matmul_keys_ref(a, b, keys, alpha_a, alpha_b, *,
     """Plain version of ``luq_matmul``: :func:`luq_matmul_ref` fed the
     Philox draws of ``keys`` (``repro_torch.quant.philox``'s layout), as
     the kernel draws them.  ``keys``: one ``(k0, k1)`` pair (``a`` one
-    matrix, its element ``r * K + k``) or R pairs (row r quantizes
-    ``a[r]`` and ``b`` with its own stream).  ``b`` goes in column chunks,
+    matrix, its element ``r * K + k``) or one key a row (row r quantizes
+    ``a[r]`` and ``b`` with its own stream): R pairs or the kernel's (R, 2)
+    key tensor, whose words are read on its device without a host sync.  ``b`` goes in column chunks,
     so the serving head fits in memory at full size, and each chunk's
     row-independent part is prepared once for every key's draw.
 

@@ -17,11 +17,14 @@ run, then profiles one more run and prints:
   the quantized matmul, which draws its own uniforms);
 * the kernels with the most device time, the device time of each of the
   port's own kernels (``kernels/csrc``, however little), the host's
-  kernel launch calls (``cudaLaunchKernel``) and the operators with the
-  most host time.
+  kernel launch calls (``cudaLaunchKernel``) and graph launch calls
+  (``cudaGraphLaunch``, one a decode tick: the engine replays its decode
+  step's CUDA graph) and the operators with the most host time.
 
 Kernels launched through ``ctypes`` are not tied to a host range, so the
-device time shown for a range covers PyTorch's operators only.
+device time shown for a range covers PyTorch's operators only; the
+decode step's ranges were recorded at capture (in the warm-up run), so a
+tick's device time shows in the kernel lists, not under ``qlogits``.
 """
 from __future__ import annotations
 
@@ -120,7 +123,8 @@ def main(argv=None):
     print(f"{cfg.name} kv={args.kv_fmt} quant={wl.QUANT_FMT} backend=cuda: "
           f"{wl.REQUESTS} requests x {wl.NEW_TOKENS} tokens, prompts "
           f"{[p.size for p in prompts]}, {wl.SLOTS} slots, {ticks} decode "
-          f"ticks; unprofiled wall {plain_wall * 1e3} ms "
+          f"ticks ({engine.decode_replays} decode graph replays in all); "
+          f"unprofiled wall {plain_wall * 1e3} ms "
           f"({plain_wall / ticks * 1e3} ms per decode tick, admissions "
           f"included)")
 
@@ -154,8 +158,9 @@ def main(argv=None):
 
 def print_port_kernels(kernels, events) -> None:
     """Print the device time of each of the port's own kernels among the
-    trace's ``kernels``, however little, and the host's kernel launch
-    calls (``cudaLaunchKernel`` and its variants) among its ``events``."""
+    trace's ``kernels``, however little, and the host's kernel and graph
+    launch calls (``cudaLaunchKernel``, ``cudaGraphLaunch`` and their
+    variants) among its ``events``."""
     print("the port's own kernels:")
     ours = port_kernels()
     for e in sorted(kernels, key=_device_us, reverse=True):
@@ -164,7 +169,7 @@ def print_port_kernels(kernels, events) -> None:
                   f"{e.key[:90]}")
     launches = {e.key: e.count for e in events
                 if e.device_type == DeviceType.CPU
-                and e.key.startswith("cudaLaunchKernel")}
+                and e.key.startswith(("cudaLaunchKernel", "cudaGraphLaunch"))}
     print(f"host launch calls: {launches}")
 
 

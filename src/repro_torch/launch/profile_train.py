@@ -2,6 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train [--workload resnet]
     PYTHONPATH=src python -m repro_torch.launch.profile_train --workload lm
+    PYTHONPATH=src python -m repro_torch.launch.profile_train --executor loop
 
 ``resnet`` (the default) builds the training workload of
 ``launch/workload.py`` (full-width ResNet-18, DP-SGD under DPQuant, 256
@@ -10,8 +11,10 @@ epoch 0 (analysis and 3 steps) to warm up.  ``lm`` builds the LM
 workload (full-size stablelm-3b, ghost-mode DP-SGD, 8 x 256 tokens, pass
 1 in chunks of 4, LUQ-FP4 projections) and warms up with its steps under
 the scheduler's first selection (k = 29 of 32 layers), without the
-analysis's 66 probe steps.  Then it times the epoch's steps unprofiled
-under that policy, profiles as many more and prints:
+analysis's 66 probe steps.  The steps run through ``--executor`` (default
+``scan``: replays of the step's CUDA graph, captured in the warm-up;
+``loop``: one eager step after another).  Then it times the epoch's steps
+unprofiled under that policy, profiles as many more and prints:
 
 * the wall time per step of the unprofiled steps;
 * from the profiled steps' trace alone: their span, the device's busy
@@ -32,11 +35,16 @@ under that policy, profiles as many more and prints:
 
 Kernels launched through ``ctypes`` (``luq_quant``, ``per_sample_clip``,
 ``ghost_norm``) are not tied to a host range; they appear in the kernel
-lists only.
+lists only.  Under ``scan`` the ranges inside the step were recorded at
+capture, not at replay, so only ``train.steps`` is shown: the per-range
+breakdown comes from ``--executor loop``; the kernels' device time, the
+idle share and the host's launch calls (``cudaLaunchKernel``,
+``cudaGraphLaunch``) come from either, CUPTI seeing each replay's kernels.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -70,35 +78,45 @@ def _ranged_vmap(vmap):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", default="resnet", choices=["resnet", "lm"])
+    ap.add_argument("--executor", default="scan", choices=["scan", "loop"])
     args = ap.parse_args(argv)
     torch.backends.cudnn.allow_tf32 = False         # float32, as the CLI
     torch.backends.cuda.matmul.allow_tf32 = False
     setup = wl.train_setup if args.workload == "resnet" else wl.train_lm_setup
     run, ds, _ = setup()
+    run = dataclasses.replace(run, epoch_executor=args.executor)
     tr = Trainer(run, ds, mode="dpquant", device="cuda")
+    steps = (tr._train_steps_scan if args.executor == "scan"
+             else tr._train_steps_loop)
     if args.workload == "resnet":
         tr.train(1)                                 # warm-up, analysis
     else:
-        tr._train_steps_loop(tr.scheduler.select(0).flags())   # warm-up
+        steps(tr.scheduler.select(0).flags())       # warm-up
+    capture_s = tr.last_capture_s
     flags = tr.scheduler.current.flags()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    tr._train_steps_loop(flags)
+    steps(flags)
     torch.cuda.synchronize()
     per_step = (time.perf_counter() - t0) / run.steps_per_epoch
 
-    tr.step_fn = _ranged(tr.step_fn, "train.step")
-    dp_clip.vmap = _ranged_vmap(dp_clip.vmap)
-    dp_clip._fused_clip_sum = _ranged(dp_clip._fused_clip_sum, "fused_clip")
-    fq._quantize_rows = _ranged(fq._quantize_rows, "quantize")
-    train_steps.add_gaussian_noise = _ranged(train_steps.add_gaussian_noise,
-                                             "noise")
+    if args.executor == "loop":
+        tr.step_fn = _ranged(tr.step_fn, "train.step")
+        dp_clip.vmap = _ranged_vmap(dp_clip.vmap)
+        dp_clip._fused_clip_sum = _ranged(dp_clip._fused_clip_sum,
+                                          "fused_clip")
+        fq._quantize_rows = _ranged(fq._quantize_rows, "quantize")
+        train_steps.add_gaussian_noise = _ranged(
+            train_steps.add_gaussian_noise, "noise")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with record_function("train.steps"):
-            tr._train_steps_loop(flags)
+            steps(flags)
             torch.cuda.synchronize()
-    print(f"{run.model.name}: {run.global_batch} examples a step "
+    print(f"{run.model.name} ({args.executor} executor, "
+          f"{len(tr.epoch_fn.captured) if tr.epoch_fn else 0} captures, "
+          f"graph warm-up and capture {capture_s} s in the warm-up): "
+          f"{run.global_batch} examples a step "
           f"({run.dp.grad_mode} mode, microbatch {run.dp.microbatch_size}, "
           f"ghost microbatch {run.dp.ghost_microbatch}), quantized layers "
           f"{list(tr.scheduler.current.layers)} of "

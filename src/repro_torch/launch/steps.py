@@ -1,4 +1,5 @@
-"""The train step: DP-SGD / DP-Adam or plain, as one functional call.
+"""The train step: DP-SGD / DP-Adam or plain, as one functional call, and
+the ``scan`` executor's epoch program around it.
 
 The counterpart of ``repro.launch.steps.build_train_setup`` for one
 device (no mesh, no shardings, no sharded ghost driver): the clipped
@@ -8,7 +9,15 @@ batch, seed, qflags, lr) -> (params, opt_state, metrics)`` returns new
 params and optimizer state and writes neither argument in place, which
 is what lets the DPQuant probes restore the model by keeping the old
 ones.  It never synchronizes with the host: the metrics are 0-dim device
-tensors.
+tensors, and ``lr`` may be a 0-dim device tensor.
+
+The DP noise comes from one generator, ``TrainSetup.noise_gen``, that the
+step re-seeds to ``NOISE_SEED_OFFSET + seed`` when given a ``seed`` (the
+loop executor and the probes) and draws from as it stands when ``seed``
+is None (the scan executor, which seeds it before each replay).
+
+:class:`EpochRunner` is the counterpart of ``build_epoch_fn``: k steps
+over static buffers, one CUDA graph of the step a quantization policy.
 """
 from __future__ import annotations
 
@@ -17,12 +26,14 @@ from typing import Callable
 
 import torch
 from torch.func import grad_and_value
+from torch.utils._pytree import tree_flatten, tree_leaves, tree_unflatten
 
 from repro_torch.config import RunConfig
 from repro_torch.dp.clip import per_example_clipped_grad_sum
 from repro_torch.dp.engine import validate_grad_mode
 from repro_torch.dp.ghost import ghost_clipped_grad_sum
 from repro_torch.dp.noise import add_gaussian_noise
+from repro_torch.graph import StepGraph
 from repro_torch.models.registry import Model
 from repro_torch.optim import apply_updates, make_optimizer
 
@@ -38,12 +49,7 @@ NOISE_SEED_OFFSET = 2 ** 29
 class TrainSetup:
     step_fn: Callable
     opt_init_fn: Callable
-
-
-def noise_generator(seed: int, device) -> torch.Generator:
-    gen = torch.Generator(device=device)
-    gen.manual_seed(NOISE_SEED_OFFSET + int(seed))
-    return gen
+    noise_gen: torch.Generator
 
 
 def build_train_setup(model: Model, run: RunConfig) -> TrainSetup:
@@ -55,6 +61,7 @@ def build_train_setup(model: Model, run: RunConfig) -> TrainSetup:
     opt = make_optimizer(run.optim)
     mb = max(1, min(run.dp.microbatch_size, run.global_batch))
     ghost = run.dp.enabled and run.dp.grad_mode == "ghost"
+    noise_gen = torch.Generator(device=model.device)
 
     def train_step(params, opt_state, batch, seed, qflags, lr):
         if ghost:
@@ -79,16 +86,131 @@ def build_train_setup(model: Model, run: RunConfig) -> TrainSetup:
                 lambda p: model.loss_fn(p, batch, qflags))(params)
             metrics = {"loss": loss}
         if run.dp.enabled:
+            if seed is not None:
+                noise_gen.manual_seed(NOISE_SEED_OFFSET + int(seed))
             # the expected batch size, as in the JAX package (a probe
             # batch of another size is divided by it too)
             grads = add_gaussian_noise(
                 grad_sum, clip_norm=run.dp.clip_norm,
                 noise_multiplier=run.dp.noise_multiplier,
-                batch_size=run.global_batch,
-                generator=noise_generator(seed, model.device))
+                batch_size=run.global_batch, generator=noise_gen)
             del grad_sum      # one float32 copy of the params fewer live
         updates, new_opt = opt.update(grads, opt_state, params, lr)
         del grads
         return apply_updates(params, updates), new_opt, metrics
 
-    return TrainSetup(step_fn=train_step, opt_init_fn=opt.init)
+    return TrainSetup(step_fn=train_step, opt_init_fn=opt.init,
+                      noise_gen=noise_gen)
+
+
+class EpochRunner:
+    """The ``scan`` executor's program: ``k`` train steps of
+    ``setup.step_fn`` over static buffers, with a host sync only where the
+    caller reads the metrics.
+
+    ``runner(params, opt_state, batches, seeds, qflags, lrs) -> (params,
+    opt_state, metrics)``: ``batches`` holds the chunk's batches stacked on
+    a leading step axis on the device; ``seeds`` are the k step seeds
+    (host ints); ``lrs`` a (k,) float32 device tensor; ``metrics`` every
+    metric of the step as a (k,) device tensor.
+
+    Static buffers: the params and optimizer state are the runner's own
+    tensors, the first ones it is given (adopted, not copied), and the
+    params it returns; state from elsewhere (a loop epoch) is copied into
+    them.  One step reads them, the step's batch and lr from fixed
+    addresses and copies its new params and optimizer state back into
+    them, the counterpart of the reference's donated buffers.  Step i
+    copies batch i and lr i into the static inputs and re-seeds
+    ``setup.noise_gen`` to ``NOISE_SEED_OFFSET + seeds[i]``, as the loop
+    does.
+
+    On CUDA that step is a ``repro_torch.graph.StepGraph``: captured after
+    an eager warm-up for each quantization policy (the flags shape the
+    Python control flow), replayed k times; the noise generator is
+    registered with it.  One graph lives at a time: the previous policy's
+    is freed before the next capture, and every capture shares one memory
+    pool.  On the CPU the same step runs directly.
+    """
+
+    def __init__(self, setup: TrainSetup, device):
+        self.setup = setup
+        self.device = torch.device(device)
+        self._leaves = None          # static params + opt state, flattened
+        self._spec = None
+        self._graph = None
+        self._key = None             # (qflags, batch shapes) of the graph
+        self._batch = None
+        self._lr = None
+        self._pool = (torch.cuda.graph_pool_handle()
+                      if self.device.type == "cuda" else None)
+        #: The quantization flags of each capture, in order.
+        self.captured = []
+        #: Seconds spent on warm-up and capture in the last call.
+        self.last_capture_s = 0.0
+
+    def _bind(self, params, opt_state) -> None:
+        leaves, spec = tree_flatten((params, opt_state))
+        if self._leaves is None or spec != self._spec or any(
+                a.shape != b.shape or a.dtype != b.dtype
+                for a, b in zip(leaves, self._leaves)):
+            self.close()
+            self._leaves, self._spec = leaves, spec
+            return
+        for dst, src in zip(self._leaves, leaves):
+            if dst is not src:
+                dst.copy_(src)
+
+    def _step(self, qflags, write_back: bool):
+        params, opt_state = tree_unflatten(self._leaves, self._spec)
+        new_p, new_o, metrics = self.setup.step_fn(
+            params, opt_state, self._batch, None, qflags, self._lr)
+        if write_back:
+            for dst, src in zip(self._leaves, tree_leaves((new_p, new_o))):
+                dst.copy_(src)
+        return metrics
+
+    def _capture(self, qflags, batches: dict) -> None:
+        self.close()
+        self._batch = {k: v[0].clone() for k, v in batches.items()}
+        self._lr = torch.zeros((), dtype=torch.float32, device=self.device)
+        self._graph = StepGraph(
+            lambda: self._step(qflags, True), self.device,
+            warmup=lambda: self._step(qflags, False),
+            generators=(self.setup.noise_gen,), pool=self._pool)
+        self.captured.append(qflags)
+        self.last_capture_s += self._graph.capture_s
+
+    def close(self) -> None:
+        """Free the graph (the static params stay)."""
+        if self._graph is not None:
+            self._graph.close()
+            self._graph = None
+            self._key = None
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+
+    def __call__(self, params, opt_state, batches: dict, seeds, qflags,
+                 lrs: torch.Tensor):
+        self.last_capture_s = 0.0
+        self._bind(params, opt_state)
+        key = (tuple(qflags),
+               tuple((k, tuple(v.shape[1:])) for k, v in batches.items()))
+        if key != self._key:
+            self._capture(qflags, batches)
+            self._key = key
+        k = len(seeds)
+        out = None
+        for i in range(k):
+            for name, t in self._batch.items():
+                t.copy_(batches[name][i])
+            self._lr.copy_(lrs[i])
+            seed = NOISE_SEED_OFFSET + int(seeds[i])
+            self.setup.noise_gen.manual_seed(seed)
+            metrics = self._graph()
+            if out is None:
+                out = {n: torch.empty((k,), dtype=m.dtype, device=m.device)
+                       for n, m in metrics.items()}
+            for n, m in metrics.items():
+                out[n][i].copy_(m)
+        params, opt_state = tree_unflatten(self._leaves, self._spec)
+        return params, opt_state, out

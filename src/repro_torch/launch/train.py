@@ -19,13 +19,19 @@
         --smoke --device cpu --grad-mode ghost --batch 4 \\
         --ghost-microbatch 2 --seq-len 16
 
+    # the per-step executor, e.g. against the default scan executor
+    PYTHONPATH=src python -m repro_torch.launch.train --arch resnet18 \
+        --smoke --device cpu --executor loop
+
 The flags are those of ``repro.launch.train`` for these paths (ResNet in
-vmap mode, the dense LMs in vmap or ghost mode), without the executor,
-checkpoint, preemption and ``--ghost-sharded`` ones (the port has the
-per-step loop only, and the rest is not ported yet), plus ``--device``
-(default ``cuda``; without a GPU the run raises unless ``--device cpu`` is
-given) and ``--backend ref|cuda`` (default ``cuda``, the hand-written
-kernels; ``REPRO_QUANT_BACKEND`` overrides it).  Prints one line per
+vmap mode, the dense LMs in vmap or ghost mode), among them
+``--executor scan|loop`` (default ``scan``: each epoch's steps replay one
+CUDA graph of the train step a quantization policy), ``--epoch-chunk``
+and ``--epoch-unroll`` (1 only), without the checkpoint, preemption and
+``--ghost-sharded`` ones (not ported yet), plus ``--device`` (default
+``cuda``; without a GPU the run raises unless ``--device cpu`` is given)
+and ``--backend ref|cuda`` (default ``cuda``, the hand-written kernels;
+``REPRO_QUANT_BACKEND`` overrides it).  Prints one line per
 epoch, ``epoch e: loss=... eps=... k=... acc=...``, as the JAX CLI does
 (``acc=None`` for a dense LM: it has no eval set).
 """
@@ -72,7 +78,9 @@ def build_run(args) -> RunConfig:
         optim=OptimConfig(name=args.optimizer, lr=args.lr),
         global_batch=args.batch, seq_len=args.seq_len,
         steps_per_epoch=args.steps_per_epoch,
-        steps=args.epochs * args.steps_per_epoch, seed=args.seed)
+        steps=args.epochs * args.steps_per_epoch, seed=args.seed,
+        epoch_executor=args.executor, epoch_chunk=args.epoch_chunk,
+        epoch_unroll=args.epoch_unroll)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -110,6 +118,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--eps", type=float, default=None,
                     help="stop when the privacy budget is reached")
     ap.add_argument("--microbatch", type=int, default=16)
+    ap.add_argument("--executor", default="scan", choices=["scan", "loop"],
+                    help="epoch executor: each epoch's steps as replays of "
+                         "one CUDA graph of the step (default) or the "
+                         "per-step eager loop")
+    ap.add_argument("--epoch-chunk", type=int, default=0,
+                    help="scan chunk size in steps (0 = whole epoch)")
+    ap.add_argument("--epoch-unroll", type=int, default=1,
+                    help="steps per loop iteration of the scan executor "
+                         "(1 only)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")

@@ -198,22 +198,34 @@ def logits_key(fold: int):
     return (int(fold), LOGITS_SEED)
 
 
-def qlogits(h, head_t, *, quant_cfg, folds: Union[int, Sequence[int]]):
+def logits_keys(folds: torch.Tensor) -> torch.Tensor:
+    """The (R, 2) int32 key tensor of :func:`logits_key` of each of the (R,)
+    ``folds``, built on their device."""
+    folds = folds.to(torch.int32)
+    return torch.stack([folds, torch.full_like(folds, LOGITS_SEED)], dim=1)
+
+
+def qlogits(h, head_t, *, quant_cfg,
+            folds: Union[int, Sequence[int], torch.Tensor]):
     """Serving logits through the quantizer-backend dispatcher.
 
     ``h``: (B, d) final hidden states; ``head_t``: (d, V) output projection
     (``lm_head``, or ``embed.T`` when tied).  With ``fmt="none"`` this is
     the exact float32 product.  Otherwise both operands are quantized by
     the dispatched ``matmul`` op: with one ``folds`` value the whole (B, d)
-    block draws from one stream (prefill, lockstep decode); with a list,
-    row i quantizes on its own with stream ``folds[i]`` (per-slot decode).
+    block draws from one stream (prefill, lockstep decode); with a list or
+    a (B,) tensor, row i quantizes on its own with stream ``folds[i]``
+    (per-slot decode; a tensor's keys are built and read on its device, so
+    nothing of them goes through the host).
     """
     h32 = h.float()
     if quant_cfg is None or quant_cfg.fmt == "none":
         return h32 @ head_t.float()
     from repro_torch.quant import backend as qbackend
     mm, _ = qbackend.get_matmul(quant_cfg.fmt, quant_cfg.backend)
-    if isinstance(folds, int):
+    if isinstance(folds, torch.Tensor):
+        keys = logits_keys(folds)
+    elif isinstance(folds, int):
         keys = logits_key(folds)
     else:
         keys = [logits_key(f) for f in folds]

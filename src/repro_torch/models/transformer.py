@@ -102,11 +102,18 @@ def _head_t(params: dict, cfg: ModelConfig):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
+def _embed_scale(cfg: ModelConfig) -> float:
+    """The gemma-style embedding scale, ``sqrt(d_model)`` rounded to the
+    compute dtype, as a host float (a captured step copies nothing from
+    the host)."""
+    return float(torch.tensor(math.sqrt(cfg.d_model),
+                              dtype=torch_dtype(cfg.compute_dtype)))
+
+
 def _embed(params, tokens, cfg: ModelConfig):
     cd = torch_dtype(cfg.compute_dtype)
     x = params["embed"][tokens].to(cd)
-    # gemma-style scaling
-    return x * torch.tensor(math.sqrt(cfg.d_model), dtype=cd, device=x.device)
+    return x * _embed_scale(cfg)
 
 
 # --------------------------------------------------------------------------- #
@@ -245,7 +252,7 @@ def make_ghost_aux(qflags, cfg: ModelConfig, quant: QuantConfig):
     from repro_torch.dp.ghost import GhostAux, _matpair_sq_norm
 
     cd = torch_dtype(cfg.compute_dtype)
-    emb_scale = float(torch.tensor(math.sqrt(cfg.d_model), dtype=cd))
+    emb_scale = _embed_scale(cfg)
 
     def make_taps(batch):
         b, t = batch["tokens"].shape
@@ -319,7 +326,8 @@ def kv_cache_spec(cfg: ModelConfig, batch: int, seq_len: int,
 
 def slot_cache_spec(cfg: ModelConfig, n_slots: int, max_seq: int,
                     kv_fmt: str = "none"):
-    """Slot-pool cache: ``kv_cache_spec`` with a (n_slots,) ``pos``."""
+    """Slot-pool cache: ``kv_cache_spec`` with a (n_slots,) ``pos``, kept
+    on the device like the rest."""
     spec = kv_cache_spec(cfg, n_slots, max_seq, kv_fmt=kv_fmt)
     spec["pos"] = ((n_slots,), torch.int32)
     return spec
@@ -456,21 +464,24 @@ def decode_slots(params, cache, tokens, active, cfg: ModelConfig,
                  quant: QuantConfig, kv_fmt: str = "none"):
     """One decode tick across all slots at per-slot positions.
 
-    ``tokens``: (K,) device ints, the last token of each slot; ``active``:
-    (K,) host bools, the slots that advance.  Inactive rows still flow
-    through the batched GEMMs; their cache writes land at a stale position
-    that is masked or overwritten by the next admission.  A slot at
-    position p computes what ``decode_step`` computes for a row at
-    ``pos == p``, and its quantized logits draw from stream ``2p + 1``, so
-    its tokens match the oneshot driver's.
+    ``tokens``: (K,) ints on the device, the last token of each slot;
+    ``cache["pos"]``: (K,) int32 on the device, each slot's position;
+    ``active``: (K,) bools (a device tensor, or host bools), the slots that
+    advance.  Inactive rows still flow through the batched GEMMs; their
+    cache writes land at a stale position that is masked or overwritten by
+    the next admission.  A slot at position p computes what
+    ``decode_step`` computes for a row at ``pos == p``, and its quantized
+    logits draw from stream ``2p + 1``, so its tokens match the oneshot
+    driver's.  The cache, positions included (advanced by ``active``), is
+    written in place, and nothing is read to the host, so the tick can be
+    captured as a CUDA graph.
     """
-    pos = cache["pos"]                                  # (K,) host int32
-    pos_dev = pos.to(tokens.device, non_blocking=True)
-    h_last = _decode_trunk(params, cache, tokens, pos_dev, cfg, quant=quant,
+    pos = cache["pos"]
+    h_last = _decode_trunk(params, cache, tokens, pos, cfg, quant=quant,
                            kv_fmt=kv_fmt)
     logits = cm.qlogits(h_last, _head_t(params, cfg), quant_cfg=quant,
-                        folds=[2 * p + 1 for p in pos.tolist()])
-    cache["pos"] = pos + torch.as_tensor(active, dtype=torch.int32)
+                        folds=2 * pos + 1)
+    pos.add_(torch.as_tensor(active, device=pos.device).to(pos.dtype))
     return logits, cache
 
 

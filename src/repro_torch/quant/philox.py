@@ -33,7 +33,7 @@ MASK32 = 0xFFFFFFFF
 ROUNDS = 10
 
 Key = Tuple[int, int]
-Keys = Union[Key, Sequence[Key]]
+Keys = Union[Key, Sequence[Key], torch.Tensor]
 
 # groups (Philox calls) per chunk of the plain draws: bounds the int64
 # temporaries to a few hundred MB whatever the operand's size
@@ -73,12 +73,22 @@ def _uniform24(words: torch.Tensor) -> torch.Tensor:
     return (words >> 8).to(torch.float32) * 2.0 ** -24
 
 
+def _key_word(w, device):
+    """A key word as a 32-bit value: an int, or, for a word held in a
+    tensor (a key row of a device key tensor), an int64 0-dim tensor on
+    ``device``, read without a host sync."""
+    if isinstance(w, torch.Tensor):
+        return w.to(device=device, dtype=torch.int64) & MASK32
+    return int(w) & MASK32
+
+
 def _group_uniforms(key: Key, op: int, groups: torch.Tensor) -> torch.Tensor:
     """(..., 4) float32 uniforms of elements 4 g .. 4 g + 3 for the int64
     group indices ``groups``."""
     zero = torch.zeros_like(groups)
     words = philox4x32_10(groups & MASK32, groups >> 32, zero + op, zero,
-                          int(key[0]) & MASK32, int(key[1]) & MASK32)
+                          _key_word(key[0], groups.device),
+                          _key_word(key[1], groups.device))
     return _uniform24(torch.stack(words, dim=-1))
 
 
@@ -141,13 +151,32 @@ def row_uniforms(key: Key, n: int, device="cpu") -> torch.Tensor:
 
 def split_keys(keys: Keys, rows: int):
     """``(list of keys, per_row)``: one ``(k0, k1)`` pair shared by every
-    row, or a sequence of ``rows`` pairs, one a row."""
+    row, or one key a row: a sequence of ``rows`` pairs, or a (rows, 2)
+    int32 / int64 tensor (then the list holds its rows, (2,) views, and
+    nothing is read to the host)."""
+    if isinstance(keys, torch.Tensor):
+        if keys.dtype not in (torch.int32, torch.int64) or \
+                tuple(keys.shape) != (rows, 2):
+            raise ValueError(f"a key tensor must be ({rows}, 2) int32 or "
+                             f"int64, got {keys.dtype} {tuple(keys.shape)}")
+        return list(keys.unbind(0)), True
     if len(keys) == 2 and all(isinstance(k, numbers.Integral) for k in keys):
         return [(int(keys[0]) & MASK32, int(keys[1]) & MASK32)], False
     keys = [(int(k0) & MASK32, int(k1) & MASK32) for k0, k1 in keys]
     if len(keys) != rows:
         raise ValueError(f"{len(keys)} keys for {rows} rows")
     return keys, True
+
+
+def key_tensor(keys, device) -> torch.Tensor:
+    """Per-row keys as the (R, 2) int32 tensor on ``device`` that the
+    kernels read (each word's 32 bits as an int32): a key tensor is cast
+    on its device, a sequence of pairs is copied from the host."""
+    if isinstance(keys, torch.Tensor):
+        return keys.to(device=device, dtype=torch.int32).contiguous()
+    words = [[(int(w) & MASK32) - ((int(w) & MASK32) >> 31 << 32)
+              for w in key] for key in keys]
+    return torch.tensor(words, dtype=torch.int32).to(device)
 
 
 def column_chunks(K: int, N: int):

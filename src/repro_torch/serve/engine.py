@@ -12,7 +12,18 @@ port's runtime layer).  One ``ContinuousEngine`` owns a fixed
 
 A tick is one ``decode_slots`` call plus sampling on the device and one
 (K,) device->host copy of the sampled tokens; the (K, V) logits never
-leave the device.
+leave the device.  The decode step (trunk, KV write and logits head, the
+counterpart of the reference's jitted ``self._step``) reads its tokens,
+positions and active mask from static device buffers that the tick fills
+in place; on CUDA it is captured as a CUDA graph at the first tick, for
+the engine's fixed ``(max_slots, max_seq, kv_fmt)``, and replayed every
+tick after (``repro_torch.graph.StepGraph``; a capture or replay that
+fails raises).  The cache is only ever written in place, so the graph
+holds its addresses for the engine's life, across ``reset()``.  The
+engine keeps a host mirror of the slots' positions for its bookkeeping
+and copies it into the device buffer before each tick.  Prefill stays
+eager, one program a bucket.  Sampling, with its (request_id, position)
+seeds, stays outside the graph.
 
 Prefill bucketing: admission pads each prompt to the next power of two
 (clamped to ``max_seq``) and passes the true length, so the prefill sees
@@ -39,6 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import ServeConfig, resolve_device
+from repro_torch.graph import StepGraph
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.slots import SlotPool, init_slot_cache
 
@@ -133,6 +145,9 @@ class ContinuousEngine:
         self.model = model
         self.serve = serve
         self.params = model.prepare(params)
+        self.cache = None
+        # the decode step, a CUDA graph on CUDA, made at the first tick
+        self._decode: Optional[StepGraph] = None
         self.reset()
 
     @property
@@ -146,11 +161,22 @@ class ContinuousEngine:
     # ------------------------------------------------------------------ #
     def reset(self):
         """Clear queue, slot, cache and metric state.  Request ids restart
-        from 0, so a reset engine reproduces a fresh one exactly."""
+        from 0, so a reset engine reproduces a fresh one exactly.  The
+        device buffers are zeroed in place: the decode graph keeps them."""
         K = self.serve.max_slots
         self._next_id = 0
-        self.cache = init_slot_cache(self.model, K, self.serve.max_seq,
-                                     kv_fmt=self.serve.kv_fmt)
+        if self.cache is None:
+            self.cache = init_slot_cache(self.model, K, self.serve.max_seq,
+                                         kv_fmt=self.serve.kv_fmt)
+            # the decode step's token and active-mask inputs
+            self._tokens_dev = torch.zeros((K,), dtype=torch.int32,
+                                           device=self.device)
+            self._active_dev = torch.zeros((K,), dtype=torch.bool,
+                                           device=self.device)
+        else:
+            for t in (*self.cache.values(), self._tokens_dev,
+                      self._active_dev):
+                t.zero_()
         self.pool = SlotPool(K)
         self.metrics = ServeMetrics()
         self.queue: collections.deque = collections.deque()
@@ -161,10 +187,11 @@ class ContinuousEngine:
         self._cur_tokens = np.zeros((K,), np.int32)
         self._active = np.zeros((K,), bool)
         self._rids = np.zeros((K,), np.int64)
-        # device copy of the slot tokens, re-uploaded only after an
+        # host mirror of cache["pos"]
+        self._pos = np.zeros((K,), np.int32)
+        # the device tokens and mask are re-uploaded only after an
         # admission or retirement; otherwise the sampled tokens feed back
         self._dirty = True
-        self._tokens_dev = None
 
     def submit(self, prompt, max_new_tokens: Optional[int] = None,
                arrival_time: float = 0.0,
@@ -272,7 +299,7 @@ class ContinuousEngine:
         [0, bucket) of every code and scale array, and its position."""
         for name, arr in self.cache.items():
             if name == "pos":
-                arr[slot] = pcache["pos"]
+                self._pos[slot] = int(pcache["pos"])
                 continue
             upd = pcache[name]
             arr[:, slot:slot + 1, :, :upd.shape[3]] = upd
@@ -299,18 +326,41 @@ class ContinuousEngine:
             self._cur_tokens[slot] = tok
             self._rids[slot] = req.request_id
 
+    def _stage(self):
+        """Fill the decode step's inputs in place: the positions from the
+        host mirror, and after an admission or retirement the tokens and
+        the active mask."""
+        self.cache["pos"].copy_(torch.from_numpy(self._pos))
+        if self._dirty:
+            self._tokens_dev.copy_(torch.from_numpy(self._cur_tokens))
+            self._active_dev.copy_(torch.from_numpy(self._active))
+            self._dirty = False
+
+    def _decode_step(self):
+        logits, _ = self.model.decode_slots(
+            self.params, self.cache, self._tokens_dev, self._active_dev,
+            kv_fmt=self.serve.kv_fmt)
+        return logits
+
+    @property
+    def decode_replays(self) -> int:
+        """Replays of the decode graph so far (0 on the CPU)."""
+        return 0 if self._decode is None else self._decode.replays
+
     def _tick(self, now_fn):
         """One decode + sample step over every slot."""
-        if self._dirty:
-            self._tokens_dev = torch.from_numpy(self._cur_tokens).to(self.device)
-            self._dirty = False
-        logits, self.cache = self.model.decode_slots(
-            self.params, self.cache, self._tokens_dev, self._active,
-            kv_fmt=self.serve.kv_fmt)
+        self._stage()
+        if self._decode is None:
+            # the warm-up writes what the first replay writes (the same
+            # tokens at the same positions) and advances the positions
+            self._decode = StepGraph(self._decode_step, self.device)
+            self._stage()
+        logits = self._decode()
+        self._pos += self._active                # as the step advanced pos
         seeds = None
         if self.serve.temperature > 0:
             seeds = [sampling_seed(self.serve.seed, int(r), int(p))
-                     for r, p in zip(self._rids, self.cache["pos"].tolist())]
+                     for r, p in zip(self._rids, self._pos)]
         toks_dev = sample_tokens(logits, self.serve.temperature,
                                  seeds).to(torch.int32)
         toks = toks_dev.cpu().numpy()       # the tick's one device->host copy
@@ -321,7 +371,7 @@ class ContinuousEngine:
             rid = self.pool.state(slot).request_id
             self._record_token(slot, self._live[rid], int(toks[slot]), now)
         if not self._dirty:
-            self._tokens_dev = toks_dev
+            self._tokens_dev.copy_(toks_dev)
 
     def _retire(self, slot: int, req: Request, now: float):
         """Release a finished slot, zero its scale rows, record the result."""

@@ -77,8 +77,8 @@ class SlotPool:
 def init_slot_cache(model, n_slots: int, max_seq: int, kv_fmt: str = "none"):
     """The zero-filled slot cache dict for ``model``.
 
-    Code and scale arrays go on the model's device; ``pos`` stays on the
-    host.  Zeros matter: masked attention over a zero-padded cache equals
+    Every array goes on the model's device, the (n_slots,) positions
+    ``pos`` too.  Zeros matter: masked attention over a zero-padded cache equals
     attention over a shorter one, and a zero scale dequantizes any code to
     exactly 0, the invariant the engine restores when a slot retires.
     """
@@ -91,6 +91,5 @@ def init_slot_cache(model, n_slots: int, max_seq: int, kv_fmt: str = "none"):
             f"model family {model.config.family!r} does not support "
             f"kv_fmt={kv_fmt!r} (supported: {model.kv_formats})")
     spec = model.slot_cache_spec(n_slots, max_seq, kv_fmt=kv_fmt)
-    return {name: torch.zeros(shape, dtype=dtype,
-                              device="cpu" if name == "pos" else model.device)
+    return {name: torch.zeros(shape, dtype=dtype, device=model.device)
             for name, (shape, dtype) in spec.items()}

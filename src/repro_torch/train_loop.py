@@ -1,22 +1,37 @@
 """Trainer: the DPQuant training loop (paper Fig. 2 pipeline).
 
-The counterpart of ``repro.train_loop`` with its ``loop`` executor, the
-only one ported.  Per epoch:
+The counterpart of ``repro.train_loop``.  Per epoch:
 
   1. (every ``analysis_interval`` epochs) COMPUTELOSSIMPACT on sampled
-     probe batches — charges one "analysis" SGM step;
+     probe batches — charges one "analysis" SGM step; the probes are
+     eager train steps, as the reference's per-step jit;
   2. SELECTTARGETS -> this epoch's quantized-layer flags (host-side bools,
      fixed for the epoch);
   3. ``steps_per_epoch`` DP-SGD/DP-Adam steps on Poisson-sampled batches
-     (images or token sequences), one step per Python iteration: one host
-     sync (the step's loss) and one accountant charge per step;
+     (images or token sequences);
   4. optional eval (the ResNet family; a dense LM has no eval set).
 
-The sampler, probe draws, per-step seeds and learning rates come from
-``RunConfig.seed`` exactly as in the JAX package, so a fixed seed sees the
-same batches in both.  Not ported yet: the ``scan`` executor (one compiled
-epoch; here it would be one CUDA-graph-captured epoch), checkpointing and
-preemption.
+Two epoch executors (``RunConfig.epoch_executor``), as in the reference:
+
+  * ``"scan"`` (default) — the epoch's batches are drawn with
+    ``PoissonSampler.sample_epoch``, stacked and copied to the device in
+    one copy, and the steps run as replays of one CUDA graph of the train
+    step (``launch.steps.EpochRunner``; on the CPU the same staging and
+    static buffers with the step called directly).  The host reads the
+    chunk's metrics once per chunk (``epoch_chunk`` steps, 0 = the whole
+    epoch) and charges the accountant once per chunk with ``steps=k``.
+  * ``"loop"`` — one eager step, one host sync (the step's loss) and one
+    accountant charge per step.
+
+Both draw the same sample indices, per-step seeds (the DP noise
+generator is re-seeded to ``NOISE_SEED_OFFSET + step + seed`` before each
+step) and learning rates (a 0-dim device tensor each step), and the
+accountant merges consecutive identical SGM events, so they give the
+same params, optimizer state and epsilon on a fixed seed.  The sampler,
+probe draws, per-step seeds and learning rates come from
+``RunConfig.seed`` exactly as in the JAX package, so a fixed seed sees
+the same batches in both.  Not ported yet: ``epoch_unroll > 1``,
+checkpointing and preemption.
 
 Also supports mode="pls" / mode="static" (ablations / baselines) and
 dp.enabled=False (the non-private comparison in paper Fig. 1a).
@@ -30,11 +45,11 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.config import RunConfig
+from repro_torch.config import RunConfig, validate_executor
 from repro_torch.core.scheduler import DPQuantScheduler
 from repro_torch.data.poisson import PoissonSampler
 from repro_torch.dp.accountant import RDPAccountant
-from repro_torch.launch.steps import build_train_setup
+from repro_torch.launch.steps import EpochRunner, build_train_setup
 from repro_torch.models.registry import Model, build_model
 from repro_torch.optim.schedule import make_schedule
 from repro_torch.quant.backend import resolve_backend
@@ -55,6 +70,7 @@ class Trainer:
     def __init__(self, run: RunConfig, dataset, *, mode: str = "dpquant",
                  eval_dataset=None, device=None):
         resolve_backend(run.quant.backend)       # fail fast on a typo
+        validate_executor(run)
         self.run = run
         self.dataset = dataset
         self.eval_dataset = eval_dataset
@@ -63,6 +79,8 @@ class Trainer:
         self.device = self.model.device
         self.setup = build_train_setup(self.model, run)
         self.step_fn = self.setup.step_fn
+        self.epoch_fn = (EpochRunner(self.setup, self.device)
+                         if run.epoch_executor == "scan" else None)
         self.schedule = make_schedule(run.optim, run.steps)
         self.sampler = PoissonSampler(dataset.n, run.global_batch,
                                       seed=run.seed)
@@ -75,19 +93,28 @@ class Trainer:
         self.opt_state = self.setup.opt_init_fn(self.params)
         self.step = 0
         self.history: List[EpochStats] = []
-        # wall seconds of the last analysis (Algorithm 1), 0 if none ran,
-        # and of every train step (batch draw, step, the loss read that
-        # synchronizes with the device)
+        # wall seconds of the last analysis (Algorithm 1), 0 if none ran;
+        # of every train step (loop: batch draw, step, the loss read that
+        # synchronizes with the device; scan: its chunk's wall over its
+        # steps, capture excluded); of the last epoch's CUDA graph warm-up
+        # and capture (scan on CUDA, 0 if none)
         self.last_analysis_s = 0.0
         self.step_wall_s: List[float] = []
+        self.last_capture_s = 0.0
 
     # ------------------------------------------------------------------ #
     def _to_device(self, batch: dict) -> dict:
         return {k: v.to(self.device) for k, v in batch.items()}
 
+    def _lr(self, step: int) -> torch.Tensor:
+        """The schedule's learning rate at ``step``, a 0-dim float32 tensor
+        on the device (a fill, no host copy)."""
+        return torch.full((), self.schedule(step), dtype=torch.float32,
+                          device=self.device)
+
     def _probe_step(self, params, opt_state, batch, seed, flags):
         return self.step_fn(params, opt_state, batch, seed, flags,
-                            self.schedule(self.step))
+                            self._lr(self.step))
 
     def _sample_batch(self) -> dict:
         return self._to_device(self.dataset.get(self.sampler.sample()))
@@ -119,7 +146,10 @@ class Trainer:
         flags = policy.flags()
 
         # ---- DP-SGD steps ----
-        losses = self._train_steps_loop(flags)
+        if self.epoch_fn is not None:
+            losses = self._train_steps_scan(flags)
+        else:
+            losses = self._train_steps_loop(flags)
 
         eps, _ = (self.accountant.get_epsilon(run.dp.delta)
                   if run.dp.enabled else (0.0, 0))
@@ -143,7 +173,7 @@ class Trainer:
             batch = self._sample_batch()
             self.params, self.opt_state, metrics = self.step_fn(
                 self.params, self.opt_state, batch, self.step + run.seed,
-                flags, self.schedule(self.step))
+                flags, self._lr(self.step))
             losses.append(float(metrics["loss"]))
             self.step_wall_s.append(time.perf_counter() - t0)
             if run.dp.enabled:
@@ -151,6 +181,41 @@ class Trainer:
                     noise_multiplier=run.dp.noise_multiplier,
                     sample_rate=self.sampler.q, steps=1, label="train")
             self.step += 1
+        return losses
+
+    def _train_steps_scan(self, flags) -> List[float]:
+        """The epoch in chunks of ``epoch_chunk`` steps (0: one chunk), each
+        staged in one copy and run by ``self.epoch_fn``; one host read and
+        one accountant charge per chunk."""
+        run = self.run
+        steps = run.steps_per_epoch
+        chunk = run.epoch_chunk if run.epoch_chunk > 0 else steps
+        losses: List[float] = []
+        self.last_capture_s = 0.0
+        done = 0
+        while done < steps:
+            k = min(chunk, steps - done)
+            t0 = time.perf_counter()
+            flat = self.dataset.get(self.sampler.sample_epoch(k).reshape(-1))
+            batches = {name: t.reshape((k, -1) + tuple(t.shape[1:]))
+                       .to(self.device) for name, t in flat.items()}
+            seeds = np.arange(self.step, self.step + k) + run.seed
+            lrs = torch.tensor([self.schedule(self.step + i)
+                                for i in range(k)],
+                               dtype=torch.float32).to(self.device)
+            self.params, self.opt_state, metrics = self.epoch_fn(
+                self.params, self.opt_state, batches, seeds, flags, lrs)
+            losses.extend(metrics["loss"].tolist())   # the chunk's host read
+            capture = self.epoch_fn.last_capture_s
+            self.last_capture_s += capture
+            wall = time.perf_counter() - t0 - capture
+            self.step_wall_s.extend([wall / k] * k)
+            if run.dp.enabled:
+                self.accountant.step(
+                    noise_multiplier=run.dp.noise_multiplier,
+                    sample_rate=self.sampler.q, steps=k, label="train")
+            self.step += k
+            done += k
         return losses
 
     def train(self, epochs: int, *, eps_budget: Optional[float] = None,

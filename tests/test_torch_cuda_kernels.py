@@ -444,3 +444,167 @@ def test_launch_counts_count_kernel_launches_only(cuda):
     assert ops.LUQ_MATMUL_LAUNCHES == {"shared": 0, "per_row": 0}
     assert ops.LUQ_QUANT_LAUNCHES == {"one_row": 0, "rows": 1, "kernels": 2}
     assert ops.GHOST_NORM_LAUNCHES == {"16/24": 1}
+
+
+def test_luq_matmul_device_keys_bitwise(cuda):
+    """Per-row keys read from device memory (the decode graph's (R, 2)
+    tensor) give the bits of the same keys passed as a list; one-hot
+    operands pick single quantized elements, so the kernel's Q(a), Q(b)
+    under device keys are bitwise the plain version's, which takes the
+    same tensor."""
+    R, K, N = 4, 300, 1000
+    keys = [(2 * p + 1, 17) for p in (3, 8, 600, 1023)]
+    keys[1] = (0xDEADBEEF, 0x9E3779B9)
+    key_t = philox.key_tensor(keys, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    a = torch.randn(R, K, device=cuda, generator=gen)
+    b = torch.randn(K, N, device=cuda, generator=gen) * 0.02
+    alpha_a, alpha_b = a.abs().amax(dim=1), b.abs().amax()
+    out = ops.luq_matmul(a, b, key_t, alpha_a, alpha_b)
+    assert torch.equal(out, ops.luq_matmul(a, b, keys, alpha_a, alpha_b))
+    assert torch.equal(ref.luq_matmul_keys_ref(a, b, key_t, alpha_a, alpha_b),
+                       ref.luq_matmul_keys_ref(a, b, keys, alpha_a, alpha_b))
+    onehot = torch.zeros(R, K, device=cuda)
+    onehot[torch.arange(R), torch.tensor([0, 7, 150, 299])] = 1.0
+    one = torch.ones((R,), device=cuda)
+    assert torch.equal(ops.luq_matmul(onehot, b, key_t, one, alpha_b),
+                       ref.luq_matmul_keys_ref(onehot, b, key_t, one, alpha_b))
+    eye, unit = torch.eye(K, N, device=cuda), torch.ones((), device=cuda)
+    assert torch.equal(ops.luq_matmul(a, eye, key_t, alpha_a, unit),
+                       ref.luq_matmul_keys_ref(a, eye, key_t, alpha_a, unit))
+
+
+def _small_run(executor, grad_mode="vmap"):
+    from repro_torch.config import (DPConfig, ModelConfig, OptimConfig,
+                                    QuantConfig, RunConfig)
+    from repro_torch.configs import get_smoke_config
+    if grad_mode == "ghost":
+        model = get_smoke_config("stablelm-3b")
+        dp = DPConfig(microbatch_size=4, grad_mode="ghost",
+                      ghost_microbatch=2, quant_fraction=0.5)
+    else:
+        model = ModelConfig(name="cnn", family="resnet",
+                            resnet_blocks=(1, 1), num_classes=8,
+                            image_size=16, compute_dtype="float32")
+        dp = DPConfig(microbatch_size=4, clip_backend="fused",
+                      quant_fraction=0.5)
+    return RunConfig(model=model, quant=QuantConfig(fmt="luq_fp4",
+                                                    backend="cuda"),
+                     dp=dp, optim=OptimConfig(name="momentum", lr=0.1,
+                                              schedule="cosine"),
+                     global_batch=8, seq_len=16, steps=3, steps_per_epoch=3,
+                     epoch_executor=executor)
+
+
+@pytest.mark.parametrize("grad_mode", ["vmap", "ghost"])
+def test_graphed_epoch_equals_the_eager_loop_bitwise(cuda, grad_mode):
+    """One epoch of 3 steps under a cosine schedule, sigma 1: the scan
+    executor's replays of the captured step give the loop's params,
+    momentum, losses and epsilon bit for bit (deterministic cuDNN), and
+    the launch counts are the loop's plus the warm-up step."""
+    from repro_torch.data.synthetic import ImageClassDataset, TokenDataset
+    from repro_torch.train_loop import Trainer
+    ds = (ImageClassDataset(n=64, num_classes=8, image_size=16)
+          if grad_mode == "vmap" else TokenDataset(n=64, vocab=199,
+                                                   seq_len=16))
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = {}
+        for executor in ("loop", "scan"):
+            tr = Trainer(_small_run(executor, grad_mode), ds,
+                         mode="static", device=cuda)
+            ops.reset_launch_counts()
+            hist = tr.train(1)
+            torch.cuda.synchronize()
+            out[executor] = (tr, hist, ops.launch_counts())
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (loop, hl, cl), (scan, hs, cs) = out["loop"], out["scan"]
+    assert len(scan.epoch_fn.captured) == 1
+    assert scan.epoch_fn._graph.replays == 3
+    assert [h.loss for h in hl] == [h.loss for h in hs]
+    assert [h.eps for h in hl] == [h.eps for h in hs]
+    for a, b in zip(torch.utils._pytree.tree_leaves((loop.params,
+                                                     loop.opt_state)),
+                    torch.utils._pytree.tree_leaves((scan.params,
+                                                     scan.opt_state))):
+        assert torch.equal(a, b)
+    for name, n in cl["launches"].items():       # 3 steps, then 3 + warm-up
+        assert cs["launches"][name] * 3 == n * 4, name
+
+
+def test_graph_replays_draw_the_loops_noise_at_each_seed(cuda):
+    """The noise generator is registered with the captured step and
+    re-seeded before each replay: two successive replays draw different
+    noise, each the eager draw at its seed."""
+    from repro_torch.dp.noise import add_gaussian_noise
+    from repro_torch.launch.steps import (NOISE_SEED_OFFSET, EpochRunner,
+                                          TrainSetup)
+    gen = torch.Generator(device=cuda)
+
+    def step_fn(params, opt_state, batch, seed, qflags, lr):
+        if seed is not None:
+            gen.manual_seed(NOISE_SEED_OFFSET + int(seed))
+        zero = torch.zeros_like(params["w"])      # the noise alone
+        noise = add_gaussian_noise({"w": zero}, clip_norm=1.0,
+                                   noise_multiplier=1.0, batch_size=1,
+                                   generator=gen)["w"]
+        return {"w": noise}, opt_state, {"loss": noise.sum()}
+
+    def eager(seed):
+        g = torch.Generator(device=cuda)
+        g.manual_seed(NOISE_SEED_OFFSET + seed)
+        return torch.randn(4099, generator=g, device=cuda)
+
+    runner = EpochRunner(TrainSetup(step_fn, lambda p: (), gen), cuda)
+    params = {"w": torch.zeros(4099, device=cuda)}
+    batches = {"x": torch.zeros(2, 1, device=cuda)}
+    lrs = torch.zeros(2, device=cuda)
+    draws = []
+    for seed in (5, 6):
+        params, _, metrics = runner(params, (), {"x": batches["x"][:1]},
+                                    [seed], (), lrs[:1])
+        draws.append(params["w"].clone())
+        assert torch.equal(draws[-1], eager(seed))
+    assert not torch.equal(draws[0], draws[1])
+    params, _, metrics = runner(params, (), batches, [7, 8], (), lrs)
+    assert torch.equal(params["w"], eager(8))
+    assert metrics["loss"].tolist() == [eager(7).sum().item(),
+                                        eager(8).sum().item()]
+    assert len(runner.captured) == 1 and runner._graph.replays == 4
+
+
+@pytest.mark.parametrize("kv_fmt", ["int8", "luq_fp4"])
+def test_graphed_tick_equals_the_eager_tick(cuda, kv_fmt):
+    """The engine's decode step replayed from its graph gives the tokens
+    of the same step run eagerly every tick, with the KV write counted
+    once a layer and step (the ticks, and the capture's eager warm-up)."""
+    from repro_torch.config import QuantConfig, ServeConfig
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import ContinuousEngine
+    model = build_model(get_smoke_config("yi-6b"),
+                        QuantConfig(fmt="luq_fp4", backend="cuda"),
+                        device=cuda)
+    params = model.init(0)
+    rng = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(0, 223, (n,), generator=rng).numpy()
+               for n in (5, 11, 3, 8, 14)]
+    tokens = {}
+    for graphed in (True, False):
+        engine = ContinuousEngine(model, params, ServeConfig(
+            max_slots=3, max_seq=32, kv_fmt=kv_fmt), device=cuda)
+        if not graphed:
+            engine._decode = engine._decode_step     # an eager tick
+        for p in prompts:
+            engine.submit(p, max_new_tokens=6)
+        ops.reset_launch_counts()
+        out = engine.run()
+        ticks = engine.metrics.decode_ticks
+        steps = ticks + graphed                  # the capture's warm-up
+        assert ops.KV_WRITE_LAUNCHES["decode"] == 2 * steps
+        assert ops.LUQ_MATMUL_LAUNCHES["per_row"] == steps
+        tokens[graphed] = [out[r].tokens.tolist() for r in sorted(out)]
+        if graphed:
+            assert engine.decode_replays == ticks
+    assert tokens[True] == tokens[False]

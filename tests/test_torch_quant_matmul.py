@@ -120,6 +120,37 @@ def test_per_row_uniforms_equal_rowwise_products():
         np.testing.assert_array_equal(ours[i:i + 1].numpy(), row.numpy())
 
 
+def test_key_tensor_draws_the_bits_of_the_key_list():
+    """Per-row keys as the (R, 2) int32 tensor the kernel reads from device
+    memory (``philox.key_tensor``; a word above 2**31 is held in int32 by
+    its bits) give the plain version the draws of the key list, bit for
+    bit, and each row equals the JAX kernel fed that row's draws."""
+    m, k, n = 3, 200, 128
+    a, b, _, _ = _operands(9, m, k, n)
+    keys = [(2 * p + 1, 17) for p in (4, 250, 9)]
+    keys[2] = (0xDEADBEEF, 0x9E3779B9)
+    kt = philox.key_tensor(keys, "cpu")
+    assert kt.dtype == torch.int32 and tuple(kt.shape) == (m, 2)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    alpha_a = ta.abs().amax(dim=1)
+    alpha_b = tb.abs().amax()
+    want = tops.luq_matmul(ta, tb, keys, alpha_a, alpha_b)
+    for key_t in (kt, kt.long()):
+        assert torch.equal(tops.luq_matmul(ta, tb, key_t, alpha_a, alpha_b),
+                           want)
+        assert torch.equal(tref.luq_matmul_keys_ref(ta, tb, key_t, alpha_a,
+                                                    alpha_b), want)
+    for i, key in enumerate(keys):
+        ua = philox.uniforms(key, 0, k).reshape(1, k).numpy()
+        ub = philox.uniforms(key, 1, k * n).reshape(k, n).numpy()
+        jk, jr, jaq, jbq = _jax_both(a[i:i + 1], b, ua, ub,
+                                     np.float32(alpha_a[i]),
+                                     np.float32(alpha_b))
+        bound = 1e-5 * (np.abs(jaq) @ np.abs(jbq)) + 1e-6
+        for theirs in (jk, jr):
+            assert (np.abs(want[i:i + 1].numpy() - theirs) <= bound).all()
+
+
 @pytest.mark.parametrize("per_row", [False, True])
 def test_ref_and_cuda_backends_agree_bitwise_on_cpu(per_row, monkeypatch):
     """Both backends' ``matmul`` op draw the same Philox stream: on CPU

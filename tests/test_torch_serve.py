@@ -163,6 +163,67 @@ def test_teacher_forced_decode_slots_match_jax(arch, kv_fmt):
                                       np.asarray(jcache["pos"]))
 
 
+@pytest.mark.parametrize("backend", ["ref", "cuda"])
+@pytest.mark.parametrize("kv_fmt", ["int8", "luq_fp4"])
+def test_decode_slots_with_device_positions_keeps_its_logits(backend,
+                                                             kv_fmt):
+    """The tick's positions and the head's keys stay on the device: the
+    logits equal the trunk's under the head's keys built on the host from
+    the positions (one key a slot, as before), bit for bit, and the
+    positions of the active slots advance in place."""
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tf
+
+    model, params = port_model("yi-6b", fmt="luq_fp4", backend=backend)
+    params = model.prepare(params)
+    vocab = model.config.vocab_size
+    prompts = [prompt_of(20 + i, n, vocab) for i, n in enumerate((5, 9, 3))]
+    K, S = len(prompts), 16
+    spec = model.slot_cache_spec(K, S, kv_fmt=kv_fmt)
+    cache = {n: torch.zeros(shape, dtype=dt) for n, (shape, dt) in spec.items()}
+    _fill_slots(lambda p: model.prefill(
+        params, {"tokens": torch.from_numpy(p[None])}, kv_fmt=kv_fmt),
+        prompts, cache)
+    before = {n: t.clone() for n, t in cache.items()}
+    tokens = torch.tensor([7, 8, 9], dtype=torch.int32)
+    active = torch.tensor([True, False, True])
+    logits, out = model.decode_slots(params, cache, tokens, active,
+                                     kv_fmt=kv_fmt)
+    assert out is cache
+    assert cache["pos"].tolist() == [6, 9, 4]
+    h = tf._decode_trunk(params, before, tokens, before["pos"],
+                         model.config, quant=model.quant, kv_fmt=kv_fmt)
+    want = cm.qlogits(h, tf._head_t(params, model.config),
+                      quant_cfg=model.quant,
+                      folds=[2 * p + 1 for p in before["pos"].tolist()])
+    assert torch.equal(logits, want)
+
+
+def test_reset_keeps_the_device_buffers():
+    """The decode step's inputs and the cache are zeroed in place by
+    ``reset()`` (a captured decode graph holds their addresses), and the
+    reset engine reproduces its tokens."""
+    model, params = port_model("yi-6b", fmt="luq_fp4")
+    engine = ContinuousEngine(model, params,
+                              ServeConfig(max_slots=2, max_seq=16,
+                                          kv_fmt="int8"), device="cpu")
+    vocab = model.config.vocab_size
+    rids = [engine.submit(prompt_of(90 + i, 4 + i, vocab), max_new_tokens=3)
+            for i in range(3)]
+    first = engine.run()
+    buffers = {n: t for n, t in engine.cache.items()}
+    inputs = (engine._tokens_dev, engine._active_dev)
+    engine.reset()
+    assert all(engine.cache[n] is t for n, t in buffers.items())
+    assert (engine._tokens_dev, engine._active_dev) == inputs
+    assert all(not t.any() for t in (*engine.cache.values(), *inputs))
+    rids2 = [engine.submit(prompt_of(90 + i, 4 + i, vocab), max_new_tokens=3)
+             for i in range(3)]
+    again = engine.run()
+    assert [again[r].tokens.tolist() for r in rids2] == \
+        [first[r].tokens.tolist() for r in rids]
+
+
 def _greedy_margin(model, params, prompt, gen, kv_fmt):
     """Greedy tokens of one request through the port's prefill/decode_step
     and the smallest top-2 logit margin along the way."""

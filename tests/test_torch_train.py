@@ -8,8 +8,9 @@ the same scores and seed.  The trainer is held end to end at SMOKE size:
 at fmt none and sigma = 0, from the JAX package's initial params, the
 per-epoch losses follow JAX's within 1e-4 relative; at sigma = 1 the
 noise differs (another generator) but epsilon and the number of quantized
-layers are the same each epoch.  The probes restore the model: params and
-optimizer state are unchanged after ``maybe_analyze``.
+layers are the same each epoch, for both epoch executors (scan, the default, and
+loop).  The probes restore the model: params and optimizer state are
+unchanged after ``maybe_analyze``.
 """
 import numpy as np
 import pytest
@@ -88,12 +89,13 @@ def test_scheduler_picks_the_same_layers_as_jax(mode):
                                          jrng, 9).layers)
 
 
-def _run(sigma, fmt="none", optimizer="sgd", jax_cfg=False):
+def _run(sigma, fmt="none", optimizer="sgd", jax_cfg=False, executor="scan"):
     cfg = (jax_smoke_config if jax_cfg else get_smoke_config)("resnet18")
     mk = ((JRunConfig, JQuantConfig, JDPConfig, JOptimConfig) if jax_cfg
           else (RunConfig, QuantConfig, DPConfig, OptimConfig))
     run_cls, quant_cls, dp_cls, optim_cls = mk
-    kw = {"epoch_executor": "loop"} if jax_cfg else {}
+    # the JAX trainer's loop is bit-equal to its scan (its own tests)
+    kw = {"epoch_executor": "loop" if jax_cfg else executor}
     return run_cls(model=cfg, quant=quant_cls(fmt=fmt),
                    dp=dp_cls(clip_norm=14.5, noise_multiplier=sigma,
                              microbatch_size=BATCH),
@@ -142,6 +144,20 @@ def test_trainer_at_sigma_one_has_jax_epsilon_and_k(jax_runs):
     assert [(h.eps, h.quantized_layers) for h in hist] == \
         [(eps, k) for _, eps, k in want]
     assert all(np.isfinite(h.loss) for h in hist)
+
+
+def test_loop_executor_follows_jax_too(jax_runs):
+    """The tests above run the port's default executor, scan; its per-step
+    loop meets the same JAX runs: sigma 0 losses, and sigma 1 epsilon and
+    k each epoch."""
+    init, want = jax_runs[0.0]
+    hist = _port_trainer(_run(0.0, executor="loop"), init).train(EPOCHS)
+    np.testing.assert_allclose([h.loss for h in hist],
+                               [loss for loss, _, _ in want], rtol=1e-4)
+    init, want = jax_runs[1.0]
+    hist = _port_trainer(_run(1.0, executor="loop"), init).train(EPOCHS)
+    assert [(h.eps, h.quantized_layers) for h in hist] == \
+        [(eps, k) for _, eps, k in want]
 
 
 def test_analysis_leaves_params_and_optimizer_state_unchanged():
