@@ -9,8 +9,9 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
 1. prints the card (``nvidia-smi`` name and power limit) and versions;
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. holds each kernel against its plain PyTorch version on the card at the
-   shapes of its path (ResNet-18 training: ``luq_quant`` and
-   ``per_sample_clip``; stablelm-3b ghost training: ``luq_quant`` and
+   shapes of its path (ResNet-18, ResNet-50 and DenseNet-121 training:
+   ``luq_quant`` and ``per_sample_clip``; stablelm-3b ghost training:
+   ``luq_quant`` and
    ``ghost_norm_sq``; yi-6b serving: the KV cache write, decode attention
    and the quantized matmul), and times kernel, plain version, the least
    time the card could take (``bound_ms``) and, where PyTorch computes
@@ -44,6 +45,22 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    params, momentum, losses and epsilon bit for bit the same; and the DP
    noise under the graph: replays at successive seeds draw what the loop
    draws at each seed, and differ from each other;
+   then the paper's other two CNNs at full width and depth the same way,
+   2 epochs x 2 steps each (``TRAIN_RESNET50_ARGV``,
+   ``TRAIN_DENSENET121_ARGV``): ResNet-50 (bottleneck blocks, 23,588,459
+   parameters, k = 15 of 17) and DenseNet-121 (6,990,251 parameters, k =
+   56 of 62; the reference's last policy layer quantizes no conv, and the
+   quantizer's count follows it); the same checks, the parameter counts
+   too, and each phase's wall;
+   then preemption on the card: ResNet-50 under deterministic cuDNN, scan
+   in chunks of 2, one epoch of 4 steps with its analysis, run
+   uninterrupted, preempted at global step 2 by a ``FaultPlan`` (which
+   must raise ``Preempted(2)`` after a mid-epoch checkpoint), and resumed
+   from that checkpoint by a fresh ``Trainer`` and by the preempted one:
+   params, optimizer state, per-step and epoch losses, epsilon, the
+   accountant, the scheduler, the history and the sampler's and probe
+   RNG's next draws bit for bit those of the uninterrupted run, and no
+   probe launched in a resumed run;
 5. trains stablelm-3b at full size (32 layers, random init from a seed,
    synthetic tokens) with ghost-mode DP-SGD under the DPQuant scheduler,
    with the options of ``repro_torch.launch.train --arch stablelm-3b
@@ -86,7 +103,8 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
 8. checks the engine (its graphed tick) against the oneshot driver for
    one request, token for token.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+Each phase prints its wall, and a ``phase walls`` line sums them up.  The
+line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
 script exits non-zero; without a GPU, or without the repository around
 it, it exits non-zero before printing a result.
@@ -654,12 +672,11 @@ def _warmup_sum(tr, per_step):
     return sum(per_step(flags) for flags in tr.epoch_fn.captured)
 
 
-def train_resnet18(torch, ops, wl):
-    """DP-SGD on ResNet-18 under the DPQuant scheduler, the training
-    workload of ``repro_torch/launch/workload.py`` (section 4 of the
-    module docstring), under the scan executor; returns the launch counts
-    of the run."""
-    from repro_torch.models.resnet import conv_layers
+def train_cnn(torch, ops, wl, argv, want_k, want_params):
+    """DP-SGD on a CNN under the DPQuant scheduler, the training workload
+    of ``argv`` (``repro_torch/launch/workload.py``), under the scan
+    executor; returns the launch counts of the run."""
+    from repro_torch.models import densenet, resnet
     from repro_torch.quant import backend as qbackend
     from repro_torch.train_loop import Trainer
 
@@ -667,16 +684,22 @@ def train_resnet18(torch, ops, wl):
             or qbackend.get_clip_sum("fused")[1] != "cuda"):
         raise AssertionError("the quantizer or the fused clip does not run "
                              "on the cuda backend")
-    run, ds, ev = wl.train_setup()
+    t_phase = time.perf_counter()
+    run, ds, ev = wl.setup(argv)
     if run.epoch_executor != "scan":
         raise AssertionError(f"the workload runs {run.epoch_executor!r}")
     cfg = run.model
+    name = cfg.name
     batch, micro = run.global_batch, run.dp.microbatch_size
-    steps, epochs = run.steps_per_epoch, wl.TRAIN_EPOCHS
+    steps = run.steps_per_epoch
+    epochs = run.steps // steps
     tr = Trainer(run, ds, eval_dataset=ev, mode="dpquant", device="cuda")
-    print(f"resnet18: {sum(t.numel() for t in tr.params.values())} params; "
+    n_params = sum(t.numel() for t in tr.params.values())
+    print(f"{name}: {n_params} params, {cfg.policy_len()} policy layers; "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    if n_params != want_params:
+        raise AssertionError(f"{name}: {n_params} params, want {want_params}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -695,6 +718,7 @@ def train_resnet18(torch, ops, wl):
               f"{tr.last_capture_s!r} s, layers {list(policies[-1])})")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
     launches = dict(ops.LAUNCHES)
     launches.update({f"luq_quant[{k}]": v
                      for k, v in ops.LUQ_QUANT_LAUNCHES.items()})
@@ -704,28 +728,27 @@ def train_resnet18(torch, ops, wl):
     replays = tr.epoch_fn._graph.replays
     flags = tr.scheduler.current.flags()
     calls = host_calls(torch, lambda: tr._train_steps_scan(flags))
-    print(f"train resnet18 (scan): {epochs} epochs x {steps} steps of "
+    print(f"train {name} (scan): {epochs} epochs x {steps} steps of "
           f"{batch} images: median step {med!r} ms (chunk walls over "
           f"their steps: {steps_ms}), {batch / med * 1e3!r} images/s, "
           f"analysis by epoch {analysis_s!r} s, graph warm-up and capture "
           f"by epoch {capture_s!r} s ({len(tr.epoch_fn.captured)} "
           f"captures; {replays} replays of the last), wall {wall!r} s, "
-          f"peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30!r} GiB, launches "
-          f"(replays counted) {launches}; host calls over one more epoch "
-          f"of {steps} steps (profiled, after the checks' counts): {calls}")
+          f"peak device memory {peak!r} GiB, launches (replays counted) "
+          f"{launches}; host calls over one more epoch of {steps} steps "
+          f"(profiled, after the checks' counts): {calls}")
 
     for s in tr.history:
         if not math.isfinite(s.loss):
             raise AssertionError(f"epoch {s.epoch}: loss {s.loss}")
-        if s.quantized_layers != 8:
+        if s.quantized_layers != want_k:
             raise AssertionError(f"epoch {s.epoch}: k = {s.quantized_layers}")
         if not s.eps > 0:
             raise AssertionError(f"epoch {s.epoch}: eps = {s.eps}")
     n_micro = batch // micro
     # a probe step runs one probe batch of max(micro, min(32, batch))
-    # examples: here one microbatch; 10 probe runs (the baseline and one
-    # per layer) x reps; each capture adds its eager warm-up step
+    # examples: here one microbatch; one probe run for the baseline and
+    # one per layer, x reps; each capture adds its eager warm-up step
     probe_micro = max(micro, min(run.dp.analysis_batch_size, batch)) // micro
     reps = run.dp.analysis_reps
     probe_runs = len(tr.scheduler.policies) + 1
@@ -736,7 +759,10 @@ def train_resnet18(torch, ops, wl):
         raise AssertionError(f"clip_and_sum launched "
                              f"{launches['clip_and_sum']} times, want "
                              f"{want_clip}")
-    convs = conv_layers(cfg)
+    # the quantized convs of each policy layer (DenseNet: none in its last
+    # layer, which no conv reads)
+    convs = {"resnet": resnet, "densenet": densenet}[cfg.family] \
+        .conv_layers(cfg)
     # quantized convs summed over every microbatch: the probes (each
     # singleton policy x reps; the baseline probe and evaluate quantize
     # nothing) and the train steps
@@ -749,15 +775,16 @@ def train_resnet18(torch, ops, wl):
     want_q = {"luq_quant": 6 * q_convs, "luq_quant[one_row]": 2 * q_convs,
               "luq_quant[rows]": 4 * q_convs,
               "luq_quant[kernels]": 12 * q_convs}
-    for name, n in want_q.items():
-        if launches[name] != n:
-            raise AssertionError(f"{name} launched {launches[name]} times, "
+    for key, n in want_q.items():
+        if launches[key] != n:
+            raise AssertionError(f"{key} launched {launches[key]} times, "
                                  f"want {n} (policies {policies})")
-    print(f"resnet18 quantize calls {launches['luq_quant']}, kernel launches "
+    print(f"{name} quantize calls {launches['luq_quant']}, kernel launches "
           f"{launches['luq_quant[kernels]']}, "
-          f"{launches['luq_quant[kernels]'] / launches['luq_quant']} a call")
+          f"{launches['luq_quant[kernels]'] / launches['luq_quant']} a call; "
+          f"phase wall {time.perf_counter() - t_phase!r} s")
     del tr
-    torch.cuda.empty_cache()
+    _free(torch)
     return launches
 
 
@@ -878,6 +905,138 @@ def loop_vs_scan(torch, setup_fn, name, optim, rtol=None):
                              f"{losses_l} / {losses_s}, params by {worst})")
     import numpy as np
     np.testing.assert_allclose(losses_s, losses_l, rtol=rtol)
+
+
+def _recording_losses(tr) -> list:
+    """Wraps ``tr._train_steps_scan`` to keep each epoch's per-step
+    losses (a resumed epoch's include those before the preemption)."""
+    inner, out = tr._train_steps_scan, []
+
+    def wrapped(*args, **kwargs):
+        losses = inner(*args, **kwargs)
+        out.append(list(losses))
+        return losses
+
+    tr._train_steps_scan = wrapped
+    return out
+
+
+def _state_bytes(tr) -> dict:
+    """What must come back bit for bit after a resume, as bytes: the
+    epsilon, the accountant's and the scheduler's state, the history, and
+    the sampler's and the probe RNG's next draws (drawn from copies)."""
+    import copy
+    import pickle
+    sampler, probe = copy.deepcopy(tr.sampler), copy.deepcopy(tr._probe_rng)
+    return {"eps": pickle.dumps(tr.accountant.get_epsilon(tr.run.dp.delta)),
+            "accountant": pickle.dumps(tr.accountant.state_dict()),
+            "scheduler": pickle.dumps(tr.scheduler.state_dict()),
+            "history": pickle.dumps([(h.epoch, h.loss, h.eps,
+                                      h.quantized_layers, h.accuracy)
+                                     for h in tr.history]),
+            "sampler_next": pickle.dumps(sampler.sample()),
+            "probe_next": pickle.dumps(probe.randint(0, 1 << 30, 8)),
+            "step": pickle.dumps(tr.step)}
+
+
+def preempt_resume(torch, ops, wl, ckpt_root):
+    """Preemption and a bit-identical resume on the card: the ResNet-50
+    workload at full width under deterministic cuDNN, scan in chunks of 2,
+    one epoch of 4 steps with its analysis.  Run 1 uninterrupted; run 2
+    with a checkpoint directory and a FaultPlan preempt at global step 2
+    (after the first chunk), which must raise Preempted(2); run 3 a fresh
+    Trainer on that directory that restores the mid-epoch checkpoint and
+    finishes the epoch without a probe (its clip launches are the two
+    steps' and one capture warm-up's); run 4 the trainer of run 2 itself,
+    restored and finished (its graph, captured before the preemption, is
+    replayed over the restored params and optimizer state); each resumed
+    run reads its own copy of run 2's directory.  Runs 3 and 4
+    must equal run 1 bit for bit: params, optimizer state, per-step and
+    epoch losses, epsilon, the accountant, the scheduler, the history and
+    the sampler's and probe RNG's next draws."""
+    import dataclasses
+    import shutil
+    from repro_torch.runtime.faults import FaultEvent, FaultPlan
+    from repro_torch.runtime.preemption import Preempted, PreemptionHandler
+    from repro_torch.train_loop import Trainer
+
+    t_phase = time.perf_counter()
+    run, ds, ev = wl.setup(wl.TRAIN_RESNET50_ARGV)
+    run = dataclasses.replace(run, steps_per_epoch=4, steps=4, epoch_chunk=2)
+    n_micro = run.global_batch // run.dp.microbatch_size
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref = Trainer(run, ds, eval_dataset=ev, mode="dpquant",
+                      device="cuda")
+        ref_losses = _recording_losses(ref)
+        ref.train(1)
+        want_state = _state_bytes(ref)
+        want = (ref.params, ref.opt_state)
+        del ref
+        _free(torch)          # its graph and pool (the wrapper is a cycle)
+        handler = PreemptionHandler(
+            faults=FaultPlan([FaultEvent(kind="preempt", at=2)]))
+        tr2 = Trainer(run, ds, eval_dataset=ev, mode="dpquant",
+                      device="cuda", checkpoint_dir=ckpt_root / "run2",
+                      preemption=handler)
+        try:
+            tr2.train(1)
+            raise AssertionError("run 2 was not preempted")
+        except Preempted as p:
+            if p.step != 2:
+                raise AssertionError(f"preempted at step {p.step}, want 2")
+        shutil.copytree(ckpt_root / "run2", ckpt_root / "run3")
+        results = {}
+        # one trainer's graph pool at a time: the preempted trainer first
+        for tag in ("preempted trainer", "fresh trainer"):
+            if tag == "fresh trainer":
+                del tr2
+                _free(torch)
+                tr = Trainer(run, ds, eval_dataset=ev, mode="dpquant",
+                             device="cuda", checkpoint_dir=ckpt_root / "run3")
+            else:
+                tr = tr2
+            print(f"resnet50 resume ({tag}): device memory allocated "
+                  f"{torch.cuda.memory_allocated() / 2**30!r} GiB, reserved "
+                  f"{torch.cuda.memory_reserved() / 2**30!r} GiB", flush=True)
+            tr.preemption = None
+            if tr.restore_latest() != 0 or tr._mid_epoch is None \
+                    or tr.step != 2:
+                raise AssertionError(f"{tag}: no mid-epoch checkpoint at "
+                                     f"step 2 (step {tr.step})")
+            losses = _recording_losses(tr)
+            ops.reset_launch_counts()
+            tr.train(1 - tr._next_epoch)
+            tr.ckpt.wait()                   # the epoch's checkpoint
+            torch.cuda.synchronize()
+            clips = ops.LAUNCHES["clip_and_sum"]
+            captures = 1 if tag == "fresh trainer" else 0
+            if tr.last_analysis_s != 0.0 or clips != (2 + captures) * n_micro:
+                raise AssertionError(f"{tag}: analysis {tr.last_analysis_s} "
+                                     f"s, {clips} clip launches, want "
+                                     f"{(2 + captures) * n_micro}")
+            same, worst, where = _compare_runs(torch, want,
+                                               (tr.params, tr.opt_state))
+            state = _state_bytes(tr)
+            differ = [k for k in want_state if state[k] != want_state[k]]
+            results[tag] = (same, worst, where, losses, differ)
+            print(f"resnet50 resume ({tag}): params and optimizer state "
+                  f"bitwise {same} (largest difference {worst!r}, leaf "
+                  f"{where}); per-step losses {losses} against "
+                  f"{ref_losses}; differing: {differ or 'nothing'}; "
+                  f"clip launches {clips}", flush=True)
+            del tr
+    finally:
+        torch.backends.cudnn.deterministic = False
+    for tag, (same, worst, where, losses, differ) in results.items():
+        if not same or losses != ref_losses or differ:
+            raise AssertionError(f"{tag}: the resumed run differs from the "
+                                 f"uninterrupted one ({differ}, params by "
+                                 f"{worst})")
+    del want
+    _free(torch)
+    print(f"resnet50 preemption and resume: phase wall "
+          f"{time.perf_counter() - t_phase!r} s")
 
 
 def _free(torch):
@@ -1290,6 +1449,15 @@ def serve_yi6b(torch, kv_fmt, model, params, ops, wl):
     return summary, launches
 
 
+def _phase_done(walls: dict, name: str) -> None:
+    """Records and prints the wall of the phase ``name`` that just ended
+    and starts the next one's clock (``walls["start"]``)."""
+    now = time.perf_counter()
+    walls[name] = now - walls["start"]
+    walls["start"] = now
+    print(f"phase {name}: wall {walls[name]!r} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1301,6 +1469,7 @@ def main() -> int:
               "root of a checkout", file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
+    walls = {"start": time.perf_counter()}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1319,6 +1488,8 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
+    _phase_done(walls, "1 card")
+
     # 2. build
     from repro_torch.kernels import build, ops, ref
     from repro_torch.launch import workload as wl
@@ -1330,6 +1501,8 @@ def main() -> int:
     for line in build.BUILD_INFO.get("log", "").splitlines():
         if "Used" in line or "spill" in line:
             print("  ptxas:", line.strip())
+
+    _phase_done(walls, "2 build")
 
     # 3. each kernel against its plain version at the path's shapes
     checks = {}
@@ -1357,20 +1530,35 @@ def main() -> int:
         print(f"{name} {checks[name]}")
     # the quantize op at its paths' shapes: ResNet-18's largest weight
     # (3x3x512x512) whole and largest activation under vmap (64 examples x
-    # 32x32x64), float32; a stablelm-3b MLP weight (2560 x 6912) whole and
-    # a pass-1 chunk's per-example rows (4 x 256 tokens x 2560), bf16
+    # 32x32x64), float32; ResNet-50's (3x3x512x512; 64 x 32x32x256, a
+    # stage-0 block's output) and DenseNet-121's (the third transition,
+    # 1x1x1024x512; 64 x 32x32x256, the first transition's input), float32;
+    # a stablelm-3b MLP weight (2560 x 6912) whole and a pass-1 chunk's
+    # per-example rows (4 x 256 tokens x 2560), bf16
     for name, rows, n, dtype in (
             ("luq_quant[resnet_weight]", 1, 3 * 3 * 512 * 512, torch.float32),
             ("luq_quant[resnet_activation]", 64, 32 * 32 * 64, torch.float32),
+            ("luq_quant[resnet50_weight]", 1, 3 * 3 * 512 * 512,
+             torch.float32),
+            ("luq_quant[resnet50_activation]", 64, 32 * 32 * 256,
+             torch.float32),
+            ("luq_quant[densenet121_weight]", 1, 1024 * 512, torch.float32),
+            ("luq_quant[densenet121_activation]", 64, 32 * 32 * 256,
+             torch.float32),
             ("luq_quant[lm_weight]", 1, 2560 * 6912, torch.bfloat16),
             ("luq_quant[lm_rows]", wl.TRAIN_LM_CHUNK,
              wl.TRAIN_LM_SEQ * 2560, torch.bfloat16)):
         checks[name] = check_luq_quant(torch, ops, ref, rows, n, dtype,
                                        sm_clock_mhz)
         print(f"{name} ({rows} x {n}, {dtype}) {checks[name]}")
-    checks["per_sample_clip"] = check_per_sample_clip(torch, ops, ref, 64,
-                                                      11_190_891)
-    print(f"per_sample_clip (64 x 11190891) {checks['per_sample_clip']}")
+    # the clip of a microbatch's per-example gradients: ResNet-18's,
+    # ResNet-50's and DenseNet-121's parameter counts
+    for name, d in (("per_sample_clip", 11_190_891),
+                    ("per_sample_clip[resnet50]", 23_588_459),
+                    ("per_sample_clip[densenet121]", 6_990_251)):
+        checks[name] = check_per_sample_clip(torch, ops, ref, 64, d)
+        print(f"{name} (64 x {d}) {checks[name]}")
+        torch.cuda.empty_cache()
     # stablelm-3b ghost pass 1: chunks of 4 sequences of 256 tokens; q/k/v/o
     # are 2560 wide on both sides, gate/up/down 2560 and 6912
     for dg in (2560, 6912):
@@ -1381,8 +1569,12 @@ def main() -> int:
               f"{dg}) {checks[name]}")
     torch.cuda.empty_cache()
 
+    _phase_done(walls, "3 kernel checks")
+
     # 4. train ResNet-18 at full width under the DPQuant scheduler, scan
-    train_launches = train_resnet18(torch, ops, wl)
+    train_launches = train_cnn(torch, ops, wl, wl.TRAIN_ARGV, 8, 11_190_891)
+
+    _phase_done(walls, "4 train resnet18")
 
     # 4b. the scan executor against the loop on ResNet-18, and the noise
     # of successive replays
@@ -1391,17 +1583,45 @@ def main() -> int:
                  OptimConfig(name="momentum", lr=0.1, schedule="cosine"))
     check_noise_replays(torch, 11_190_891)
 
+    _phase_done(walls, "4b resnet18 loop vs scan, noise")
+
+    # 4c. the paper's other two CNNs at full width and depth, scan
+    cnn_launches = {
+        "resnet50": train_cnn(torch, ops, wl, wl.TRAIN_RESNET50_ARGV, 15,
+                              23_588_459),
+        "densenet121": train_cnn(torch, ops, wl, wl.TRAIN_DENSENET121_ARGV,
+                                 56, 6_990_251)}
+
+    _phase_done(walls, "4c train resnet50, densenet121")
+
+    # 4d. preemption and a bit-identical resume of ResNet-50 on the card
+    import shutil
+    ckpt_root = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    try:
+        preempt_resume(torch, ops, wl, ckpt_root)
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+
+    _phase_done(walls, "4d resnet50 preemption and resume")
+
     # 5. train stablelm-3b at full size in ghost mode under DPQuant, scan
     lm_launches = train_stablelm(torch, ops, wl)
+
+    _phase_done(walls, "5 train stablelm-3b")
 
     # 5b. the scan executor against the loop on stablelm-3b
     loop_vs_scan(torch, wl.train_lm_setup, "stablelm-3b",
                  OptimConfig(name="sgd", lr=0.5, schedule="cosine"),
                  rtol=1e-3)
 
+    _phase_done(walls, "5b stablelm-3b loop vs scan")
+
     # 6. ghost against per-example gradients inside stablelm-3b at full
     # width, 2 layers
     ghost_vs_vmap(torch, ops, wl)
+
+    _phase_done(walls, "6 ghost vs per-example")
 
     # 7. serve yi-6b at full width and depth
     from repro_torch.config import QuantConfig
@@ -1443,6 +1663,8 @@ def main() -> int:
         launches[kv_fmt] = counts
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30} GiB")
 
+    _phase_done(walls, "7 serve yi-6b")
+
     # 8. engine vs oneshot, one request, same shapes on both sides
     from repro_torch.config import ServeConfig
     from repro_torch.serve import (ContinuousEngine, build_oneshot_fns,
@@ -1460,6 +1682,10 @@ def main() -> int:
     if got != want[0].tolist():
         raise AssertionError(f"engine {got} != oneshot {want[0].tolist()}")
     print(f"engine == oneshot for one yi-6b request: {got}")
+
+    _phase_done(walls, "8 engine vs oneshot")
+    del walls["start"]
+    print(f"phase walls (s): {json.dumps(walls)}")
 
     sources = {
         "kv_quant_write": ("src/repro_torch/kernels/csrc/kv_quant.cu",
@@ -1483,6 +1709,10 @@ def main() -> int:
               "luq_quant[lm_weight]": lm_launches["luq_quant[one_row]"],
               "luq_quant[lm_rows]": lm_launches["luq_quant[rows]"],
               "per_sample_clip": train_launches["clip_and_sum"]}
+    for arch, c in cnn_launches.items():
+        counts[f"luq_quant[{arch}_weight]"] = c["luq_quant[one_row]"]
+        counts[f"luq_quant[{arch}_activation]"] = c["luq_quant[rows]"]
+        counts[f"per_sample_clip[{arch}]"] = c["clip_and_sum"]
     for dg in (2560, 6912):
         name = f"ghost_norm_sq[2560/{dg}]"
         counts[name] = lm_launches.get(name, 0)

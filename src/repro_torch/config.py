@@ -1,8 +1,8 @@
 """Config dataclasses and device resolution.
 
 The counterpart of ``repro.config``, cut to what the ported paths read
-(serving, DP-SGD training of the ResNet family, and ghost-mode DP-SGD
-training of the dense LMs).  Dtypes are strings
+(serving, DP-SGD training of the ResNet and DenseNet families, and
+ghost-mode DP-SGD training of the dense LMs).  Dtypes are strings
 (as in the JAX package) mapped to ``torch.dtype`` by :func:`torch_dtype`.
 """
 from __future__ import annotations
@@ -54,7 +54,8 @@ def _round_up(x: int, m: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture description (dense decoder-only LMs and ResNets)."""
+    """Architecture description (dense decoder-only LMs, ResNets and
+    DenseNets)."""
 
     name: str
     family: str
@@ -70,6 +71,8 @@ class ModelConfig:
     image_size: int = 32
     in_channels: int = 3
     resnet_blocks: Tuple[int, ...] = ()
+    densenet_blocks: Tuple[int, ...] = ()
+    growth_rate: int = 32
     mlp_activation: str = "geglu"        # geglu | swiglu | gelu | relu
     tie_embeddings: bool = True
     rope_theta: float = 10_000.0
@@ -96,6 +99,8 @@ class ModelConfig:
         """Number of schedulable layers for DPQuant."""
         if self.family == "resnet":
             return sum(self.resnet_blocks) + 1
+        if self.family == "densenet":
+            return sum(self.densenet_blocks) + len(self.densenet_blocks)
         return self.n_layers
 
 

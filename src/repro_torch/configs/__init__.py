@@ -1,4 +1,5 @@
-"""Architecture registry: the dense-LM presets and ResNet-18.
+"""Architecture registry: the dense-LM presets, ResNet-18, ResNet-50 and
+DenseNet-121.
 
 ``get_config(arch_id)`` returns the full-scale ModelConfig;
 ``get_smoke_config(arch_id)`` a reduced same-family config for CPU tests.
@@ -11,7 +12,8 @@ from typing import Dict, List
 
 from repro_torch.config import ModelConfig
 
-_MODULES = ["gemma_7b", "yi_9b", "yi_6b", "stablelm_3b", "resnet18"]
+_MODULES = ["gemma_7b", "yi_9b", "yi_6b", "stablelm_3b", "resnet18",
+            "resnet50", "densenet121"]
 
 _REGISTRY: Dict[str, dict] = {}
 

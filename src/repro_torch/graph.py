@@ -34,6 +34,7 @@ On the CPU nothing is captured: each call runs ``fn()`` as it is.
 """
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Optional, Sequence
 
@@ -75,10 +76,19 @@ class StepGraph:
         for gen in generators:
             graph.register_generator_state(gen)
         before = ops.launch_counts()
-        # torch.cuda.graph synchronizes and empties the cache first
-        with torch.cuda.device(self.device), torch.cuda.graph(graph,
-                                                              pool=pool):
-            self.outputs = fn()
+        # torch.cuda.graph synchronizes and empties the cache first.  The
+        # cyclic garbage collector stays off while capturing: an object it
+        # collects may free device memory (another graph and its pool), a
+        # call that invalidates the capture.
+        gc_was_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.device(self.device), torch.cuda.graph(graph,
+                                                                  pool=pool):
+                self.outputs = fn()
+        finally:
+            if gc_was_on:
+                gc.enable()
         self.recorded = ops.launch_counts_since(before)
         ops.add_launch_counts(self.recorded, -1)    # nothing ran yet
         self.graph = graph

@@ -2,16 +2,20 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train [--workload resnet]
     PYTHONPATH=src python -m repro_torch.launch.profile_train --workload lm
+    PYTHONPATH=src python -m repro_torch.launch.profile_train \
+        --workload resnet50|densenet121
     PYTHONPATH=src python -m repro_torch.launch.profile_train --executor loop
 
 ``resnet`` (the default) builds the training workload of
 ``launch/workload.py`` (full-width ResNet-18, DP-SGD under DPQuant, 256
 images in microbatches of 64, LUQ-FP4 convs, the fused clip) and runs
-epoch 0 (analysis and 3 steps) to warm up.  ``lm`` builds the LM
-workload (full-size stablelm-3b, ghost-mode DP-SGD, 8 x 256 tokens, pass
-1 in chunks of 4, LUQ-FP4 projections) and warms up with its steps under
-the scheduler's first selection (k = 29 of 32 layers), without the
-analysis's 66 probe steps.  The steps run through ``--executor`` (default
+epoch 0 (analysis and 3 steps) to warm up.  ``resnet50`` and
+``densenet121`` build the workloads of the paper's other two CNNs (the
+same options, full width and depth), ``lm`` the LM workload (full-size
+stablelm-3b, ghost-mode DP-SGD, 8 x 256 tokens, pass 1 in chunks of 4,
+LUQ-FP4 projections); these three warm up with an epoch's steps under
+the scheduler's first selection (k = 15 of 17, 56 of 62, 29 of 32
+layers), without the analysis's probe steps.  The steps run through ``--executor`` (default
 ``scan``: replays of the step's CUDA graph, captured in the warm-up;
 ``loop``: one eager step after another).  Then it times the epoch's steps
 unprofiled under that policy, profiles as many more and prints:
@@ -77,13 +81,13 @@ def _ranged_vmap(vmap):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--workload", default="resnet", choices=["resnet", "lm"])
+    ap.add_argument("--workload", default="resnet",
+                    choices=sorted(wl.TRAIN_WORKLOADS))
     ap.add_argument("--executor", default="scan", choices=["scan", "loop"])
     args = ap.parse_args(argv)
     torch.backends.cudnn.allow_tf32 = False         # float32, as the CLI
     torch.backends.cuda.matmul.allow_tf32 = False
-    setup = wl.train_setup if args.workload == "resnet" else wl.train_lm_setup
-    run, ds, _ = setup()
+    run, ds, _ = wl.setup(wl.TRAIN_WORKLOADS[args.workload])
     run = dataclasses.replace(run, epoch_executor=args.executor)
     tr = Trainer(run, ds, mode="dpquant", device="cuda")
     steps = (tr._train_steps_scan if args.executor == "scan"

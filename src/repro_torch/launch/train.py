@@ -23,12 +23,24 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch resnet18 \
         --smoke --device cpu --executor loop
 
-The flags are those of ``repro.launch.train`` for these paths (ResNet in
-vmap mode, the dense LMs in vmap or ghost mode), among them
+    # ResNet-50 and DenseNet-121 (full configs) the same way
+    PYTHONPATH=src python -m repro_torch.launch.train --arch resnet50 \
+        --mode dpquant --fmt luq_fp4 --backend cuda --clip-backend fused \
+        --batch 256 --microbatch 64
+
+    # preempted at global step 2 (a mid-epoch checkpoint, exit 0), then
+    # resumed bit for bit by the same command without --preempt-at
+    PYTHONPATH=src python -m repro_torch.launch.train --arch resnet18 \
+        --smoke --device cpu --checkpoint-dir /tmp/ck --preempt-at 2
+
+The flags are those of ``repro.launch.train`` for these paths (the CNNs
+in vmap mode, the dense LMs in vmap or ghost mode), among them
 ``--executor scan|loop`` (default ``scan``: each epoch's steps replay one
-CUDA graph of the train step a quantization policy), ``--epoch-chunk``
-and ``--epoch-unroll`` (1 only), without the checkpoint, preemption and
-``--ghost-sharded`` ones (not ported yet), plus ``--device`` (default
+CUDA graph of the train step a quantization policy), ``--epoch-chunk``,
+``--epoch-unroll`` (1 only), ``--checkpoint-dir`` (a rerun restores the
+latest checkpoint there and trains what is left of ``--epochs``, the
+run's total), ``--preempt-at`` and ``--handle-signals``, without
+``--ghost-sharded`` (not ported yet), plus ``--device`` (default
 ``cuda``; without a GPU the run raises unless ``--device cpu`` is given)
 and ``--backend ref|cuda`` (default ``cuda``, the hand-written kernels;
 ``REPRO_QUANT_BACKEND`` overrides it).  Prints one line per
@@ -45,14 +57,18 @@ from repro_torch.config import (DPConfig, ModelConfig, OptimConfig,
                                 QuantConfig, RunConfig, resolve_device)
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.synthetic import ImageClassDataset, TokenDataset
+from repro_torch.runtime.faults import FaultEvent, FaultPlan
+from repro_torch.runtime.preemption import Preempted, PreemptionHandler
 from repro_torch.train_loop import Trainer
 
-ARCHS = ("resnet18", "yi-6b", "gemma-7b", "stablelm-3b", "yi-9b")
+ARCHS = ("resnet18", "resnet50", "densenet121", "yi-6b", "gemma-7b",
+         "stablelm-3b", "yi-9b")
+CNN_FAMILIES = ("resnet", "densenet")
 EVAL_SIZE = 512
 
 
 def make_dataset(cfg: ModelConfig, n: int, seq_len: int, seed: int = 0):
-    if cfg.family == "resnet":
+    if cfg.family in CNN_FAMILIES:
         return ImageClassDataset(n=n, num_classes=cfg.num_classes,
                                  image_size=cfg.image_size, seed=seed)
     if cfg.family == "dense_lm":
@@ -127,7 +143,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--epoch-unroll", type=int, default=1,
                     help="steps per loop iteration of the scan executor "
                          "(1 only)")
+    ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--preempt-at", type=int, default=None,
+                    help="inject a preemption at this global step: the "
+                         "trainer writes a mid-epoch checkpoint and exits; "
+                         "a rerun resumes bit-identically")
+    ap.add_argument("--handle-signals", action="store_true",
+                    help="checkpoint-and-exit on SIGTERM (scheduler "
+                         "eviction notice) instead of dying mid-step")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     return ap.parse_args(argv)
@@ -135,11 +159,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def build_datasets(args, cfg: ModelConfig):
     """``(train, eval)`` datasets of the run: ``--dataset-size`` examples
-    from ``--seed``, and, for a ResNet, 512 held-out images from the next
+    from ``--seed``, and, for a CNN, 512 held-out images from the next
     seed (a dense LM has no eval set, as in the JAX CLI)."""
     ds = make_dataset(cfg, args.dataset_size, args.seq_len, args.seed)
     ev = (make_dataset(cfg, EVAL_SIZE, args.seq_len, args.seed + 1)
-          if cfg.family == "resnet" else None)
+          if cfg.family in CNN_FAMILIES else None)
     return ds, ev
 
 
@@ -152,8 +176,31 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     run = build_run(args)
     ds, ev = build_datasets(args, run.model)
-    tr = Trainer(run, ds, eval_dataset=ev, mode=args.mode, device=device)
-    tr.train(args.epochs, eps_budget=args.eps, verbose=True)
+    handler = None
+    if args.preempt_at is not None or args.handle_signals:
+        plan = (FaultPlan([FaultEvent(kind="preempt", at=args.preempt_at)],
+                          seed=args.seed)
+                if args.preempt_at is not None else None)
+        handler = PreemptionHandler(faults=plan,
+                                    handle_signals=args.handle_signals)
+    tr = Trainer(run, ds, eval_dataset=ev, mode=args.mode, device=device,
+                 checkpoint_dir=args.checkpoint_dir, preemption=handler)
+    resumed = tr.restore_latest()
+    if resumed is not None:
+        print(f"resumed from checkpoint at epoch {resumed}"
+              + (" (mid-epoch)" if tr._mid_epoch is not None else ""))
+    # --epochs is the run's *total* epoch count: train whatever is left
+    # past the epoch cursor (a finished run is a clean no-op restart)
+    remaining = max(0, args.epochs - tr._next_epoch)
+    try:
+        tr.train(remaining, eps_budget=args.eps, verbose=True)
+    except Preempted as p:
+        print(f"preempted at step {p.step}; checkpoint written — rerun to "
+              "resume")
+        return
+    finally:
+        if tr.ckpt:
+            tr.ckpt.wait()
     final = tr.history[-1]
     print(f"final: loss={final.loss:.4f} eps={final.eps:.3f} "
           f"acc={final.accuracy}")

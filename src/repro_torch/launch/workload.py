@@ -23,6 +23,17 @@ tokens, pass 1 in chunks of 4, sigma = C = 1, SGD at lr 0.5,
 quant_fraction 0.9 (k = 29 of 32 layers), 2 epochs of 2 steps; the
 analysis runs in epoch 0 (33 probe runs x 2 reps at a probe batch of 8).
 The run is the one the CLI builds from ``TRAIN_LM_ARGV``.
+
+The paper's other two CNNs, each at full width and depth under the
+options of the ResNet-18 workload (``launch.train --arch <arch> --mode
+dpquant --fmt luq_fp4 --backend cuda --clip-backend fused --batch 256
+--microbatch 64``), 2 epochs of 2 steps, the analysis in epoch 0:
+ResNet-50 (bottleneck blocks (3, 4, 6, 3), 23,588,459 parameters,
+quant_fraction 0.9: k = 15 of 17 layers; 18 probe runs x 2 reps at a
+probe batch of 64) from ``TRAIN_RESNET50_ARGV`` and DenseNet-121 (blocks
+(6, 12, 24, 16), growth 32, 6,990,251 parameters, k = 56 of 62 layers,
+the last of which quantizes no conv; 63 probe runs x 2 reps) from
+``TRAIN_DENSENET121_ARGV``.
 """
 from __future__ import annotations
 
@@ -47,25 +58,22 @@ TRAIN_ARCH = "resnet18"
 TRAIN_BATCH, TRAIN_MICROBATCH = 256, 64
 TRAIN_EPOCHS, TRAIN_STEPS = 2, 3
 TRAIN_DATASET = 4096
-# the command line of the training workload; the rest are the CLI's
-# defaults (sigma = C = 1, SGD at lr 0.5, quant_fraction 0.9, seed 0)
-TRAIN_ARGV = (
-    "--arch", TRAIN_ARCH, "--mode", "dpquant", "--fmt", "luq_fp4",
-    "--backend", "cuda", "--clip-backend", "fused",
-    "--batch", str(TRAIN_BATCH), "--microbatch", str(TRAIN_MICROBATCH),
-    "--epochs", str(TRAIN_EPOCHS), "--steps-per-epoch", str(TRAIN_STEPS),
-    "--dataset-size", str(TRAIN_DATASET))
 
 
-def train_setup():
-    """``(run, dataset, eval_dataset)`` of the training workload, built by
-    ``launch.train`` from ``TRAIN_ARGV`` as the CLI builds them."""
-    from repro_torch.launch import train
+def _cnn_argv(arch: str, epochs: int, steps: int) -> tuple:
+    """The command line of a CNN training workload; the rest are the
+    CLI's defaults (sigma = C = 1, SGD at lr 0.5, quant_fraction 0.9,
+    seed 0)."""
+    return ("--arch", arch, "--mode", "dpquant", "--fmt", "luq_fp4",
+            "--backend", "cuda", "--clip-backend", "fused",
+            "--batch", str(TRAIN_BATCH), "--microbatch", str(TRAIN_MICROBATCH),
+            "--epochs", str(epochs), "--steps-per-epoch", str(steps),
+            "--dataset-size", str(TRAIN_DATASET))
 
-    args = train.parse_args(list(TRAIN_ARGV))
-    run = train.build_run(args)
-    return (run, *train.build_datasets(args, run.model))
 
+TRAIN_ARGV = _cnn_argv(TRAIN_ARCH, TRAIN_EPOCHS, TRAIN_STEPS)
+TRAIN_RESNET50_ARGV = _cnn_argv("resnet50", 2, 2)
+TRAIN_DENSENET121_ARGV = _cnn_argv("densenet121", 2, 2)
 
 TRAIN_LM_ARCH = "stablelm-3b"
 TRAIN_LM_BATCH, TRAIN_LM_SEQ, TRAIN_LM_CHUNK = 8, 256, 4
@@ -82,12 +90,28 @@ TRAIN_LM_ARGV = (
     "--epochs", str(TRAIN_LM_EPOCHS), "--steps-per-epoch", str(TRAIN_LM_STEPS),
     "--dataset-size", str(TRAIN_DATASET))
 
+#: The training workloads by name (``profile_train --workload``).
+TRAIN_WORKLOADS = {"resnet": TRAIN_ARGV, "resnet50": TRAIN_RESNET50_ARGV,
+                   "densenet121": TRAIN_DENSENET121_ARGV,
+                   "lm": TRAIN_LM_ARGV}
 
-def train_lm_setup():
-    """``(run, dataset, None)`` of the LM training workload, built by
-    ``launch.train`` from ``TRAIN_LM_ARGV`` as the CLI builds them."""
+
+def setup(argv) -> tuple:
+    """``(run, dataset, eval_dataset)`` of the training workload of
+    ``argv``, built by ``launch.train`` as the CLI builds them (the eval
+    set is None for an LM)."""
     from repro_torch.launch import train
 
-    args = train.parse_args(list(TRAIN_LM_ARGV))
+    args = train.parse_args(list(argv))
     run = train.build_run(args)
     return (run, *train.build_datasets(args, run.model))
+
+
+def train_setup():
+    """The ResNet-18 training workload (``TRAIN_ARGV``)."""
+    return setup(TRAIN_ARGV)
+
+
+def train_lm_setup():
+    """The LM training workload (``TRAIN_LM_ARGV``)."""
+    return setup(TRAIN_LM_ARGV)

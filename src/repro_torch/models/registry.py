@@ -3,8 +3,8 @@
 A ``Model`` bundles plain functions over a flat parameter dict
 (``{"embed": ..., "blocks.wq": ..., ...}``, leaf names and layouts as in
 the JAX package) and the device it runs on: the serving hooks of the
-decoder families and the training hooks of the ResNet and dense-LM
-families.
+decoder families and the training hooks of the ResNet, DenseNet and
+dense-LM families.
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ class Model:
     prepare: Callable
     # training: loss_fn(params, batch, qflags) -> mean loss; qflags is one
     # host-side bool per DPQuant policy layer.  forward(params, image,
-    # qflags) -> logits (resnet)
+    # qflags) -> logits (resnet, densenet)
     forward: Optional[Callable] = None
     loss_fn: Optional[Callable] = None
     # ghost DP (dense_lm): per_example_loss(params, batch, qflags,
@@ -63,7 +63,7 @@ def build_model(config: ModelConfig, quant: Optional[QuantConfig] = None,
     when no GPU is available and ``device`` was not given)."""
     dev = resolve_device(device)
     quant = quant or QuantConfig()
-    for module in ("transformer", "resnet"):
+    for module in ("transformer", "resnet", "densenet"):
         importlib.import_module(f"repro_torch.models.{module}")
     if config.family not in _BUILDERS:
         raise ValueError(f"unknown model family: {config.family}")

@@ -1,20 +1,22 @@
-"""ResNet-18 (the paper's primary CNN), DP-compatible (GroupNorm).
+"""ResNet-18 and ResNet-50 (the paper's CNNs), DP-compatible (GroupNorm).
 
-The counterpart of ``repro.models.resnet`` for the basic-block ResNets:
-CIFAR/GTSRB-style stem (3x3, stride 1) for 32x32 inputs, GroupNorm in
-place of BatchNorm (per-example DP gradients forbid cross-example
-statistics).
+The counterpart of ``repro.models.resnet``: CIFAR/GTSRB-style stem (3x3,
+stride 1) for 32x32 inputs, GroupNorm in place of BatchNorm (per-example
+DP gradients forbid cross-example statistics).  A config with more than
+8 blocks (ResNet-50, (3, 4, 6, 3)) builds bottleneck blocks, 1x1 -> 3x3
+(the block's stride) -> 1x1 to 4 w; fewer, basic blocks (3x3 -> 3x3).
 
 Params are a flat dict with the JAX package's leaf names and shapes, the
 nesting joined with dots: ``stem.conv`` (3, 3, C_in, 64) HWIO,
-``stem.gn.scale``, ``stages.<s>.<b>.conv1`` / ``conv2`` / ``proj``,
-``stages.<s>.<b>.gn1.scale`` ..., ``head.w`` (512, classes), ``head.b``.
-The public ``forward`` takes NHWC images as the JAX package does and
-computes in NCHW, the layout of PyTorch's convolutions.
+``stem.gn.scale``, ``stages.<s>.<b>.conv1`` / ``conv2`` (/ ``conv3``) /
+``proj``, ``stages.<s>.<b>.gn1.scale`` ..., ``head.w`` (C, classes),
+``head.b``.  The public ``forward`` takes NHWC images as the JAX package
+does and computes in NCHW, the layout of PyTorch's convolutions.
 
 DPQuant policy granularity: the stem and every residual block are one
 schedulable layer; ``qconv2d`` gates every conv GEMM of the layer under
-its flag.  The conv seeds are the JAX package's ``11 * layer + j``.
+its flag.  The conv seeds are the JAX package's ``11 * layer + j``: j = 0,
+1 (, 2) for the block's convs in order, 3 for the projection.
 """
 from __future__ import annotations
 
@@ -32,20 +34,27 @@ from repro_torch.quant.fake_quant import qconv2d
 WIDTHS = (64, 128, 256, 512)
 
 
-def _check_basic(cfg: ModelConfig) -> None:
-    if sum(cfg.resnet_blocks) > 8:
-        raise NotImplementedError(
-            f"{cfg.name}: bottleneck ResNets (ResNet-50) are not ported yet")
+def _is_bottleneck(cfg: ModelConfig) -> bool:
+    return sum(cfg.resnet_blocks) > 8          # resnet50 (3, 4, 6, 3)
 
 
 def _stride(si: int, bi: int) -> int:
     return 2 if (si > 0 and bi == 0) else 1
 
 
+def _blocks(cfg: ModelConfig):
+    """(prefix, stride, in_c, w, out_c) of every block, in order."""
+    expansion = 4 if _is_bottleneck(cfg) else 1
+    in_c = 64
+    for si, (n, w) in enumerate(zip(cfg.resnet_blocks, WIDTHS)):
+        for bi in range(n):
+            yield f"stages.{si}.{bi}.", _stride(si, bi), in_c, w, w * expansion
+            in_c = w * expansion
+
+
 def init_params(seed: int, cfg: ModelConfig, device) -> dict:
     """Random parameters from ``seed`` (the JAX package's shapes and init
     scales, torch's own stream)."""
-    _check_basic(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
 
@@ -60,43 +69,40 @@ def init_params(seed: int, cfg: ModelConfig, device) -> dict:
 
     params = {"stem.conv": conv((3, 3, cfg.in_channels, 64)),
               **gn("stem.gn", 64)}
-    in_c = 64
-    for si, (n, w) in enumerate(zip(cfg.resnet_blocks, WIDTHS)):
-        for bi in range(n):
-            pre = f"stages.{si}.{bi}."
-            params[pre + "conv1"] = conv((3, 3, in_c, w))
-            params.update(gn(pre + "gn1", w))
-            params[pre + "conv2"] = conv((3, 3, w, w))
-            params.update(gn(pre + "gn2", w))
-            if _stride(si, bi) != 1 or in_c != w:
-                params[pre + "proj"] = conv((1, 1, in_c, w))
-                params.update(gn(pre + "proj_gn", w))
-            in_c = w
-    head = torch.empty((in_c, cfg.num_classes), device=device)
-    params["head.w"] = head.normal_(0.0, 1.0 / math.sqrt(in_c), generator=gen)
+    for pre, stride, in_c, w, out_c in _blocks(cfg):
+        if _is_bottleneck(cfg):
+            shapes = ((1, 1, in_c, w), (3, 3, w, w), (1, 1, w, out_c))
+        else:
+            shapes = ((3, 3, in_c, w), (3, 3, w, out_c))
+        for j, shape in enumerate(shapes, 1):
+            params[f"{pre}conv{j}"] = conv(shape)
+            params.update(gn(f"{pre}gn{j}", shape[3]))
+        if stride != 1 or in_c != out_c:
+            params[pre + "proj"] = conv((1, 1, in_c, out_c))
+            params.update(gn(pre + "proj_gn", out_c))
+    head = torch.empty((out_c, cfg.num_classes), device=device)
+    params["head.w"] = head.normal_(0.0, 1.0 / math.sqrt(out_c),
+                                    generator=gen)
     params["head.b"] = torch.zeros(cfg.num_classes, device=device)
     return params
 
 
 def conv_layers(cfg: ModelConfig) -> list:
-    """Number of convolutions of each policy layer (stem 1, a block 2, a
-    block with a projection 3)."""
-    counts, in_c = [1], 64
-    for si, (n, w) in enumerate(zip(cfg.resnet_blocks, WIDTHS)):
-        for bi in range(n):
-            counts.append(3 if (_stride(si, bi) != 1 or in_c != w) else 2)
-            in_c = w
-    return counts
+    """Number of convolutions of each policy layer: the stem 1, a block 2
+    (basic) or 3 (bottleneck), one more with a projection."""
+    per_block = 3 if _is_bottleneck(cfg) else 2
+    return [1] + [per_block + (stride != 1 or in_c != out_c)
+                  for _, stride, in_c, _, out_c in _blocks(cfg)]
 
 
 def forward(params: dict, image: torch.Tensor, qflags: Sequence[bool],
             cfg: ModelConfig, quant: QuantConfig) -> torch.Tensor:
     """Logits (B, classes) of NHWC ``image``; ``qflags`` one host-side
     bool per policy layer."""
-    _check_basic(cfg)
     if len(qflags) != cfg.policy_len():
         raise ValueError(f"{len(qflags)} flags for {cfg.policy_len()} layers")
     p = params
+    bottleneck = _is_bottleneck(cfg)
 
     def qc(x, w, flag, seed, stride=1):
         return qconv2d(x, w, seed=seed, flag=bool(flag), stride=stride,
@@ -109,20 +115,23 @@ def forward(params: dict, image: torch.Tensor, qflags: Sequence[bool],
 
     x = image.permute(0, 3, 1, 2)
     x = torch.relu(gn(qc(x, p["stem.conv"], qflags[0], 0), "stem.gn"))
-    li = 1
-    for si, n in enumerate(cfg.resnet_blocks):
-        for bi in range(n):
-            pre = f"stages.{si}.{bi}."
-            stride, flag, sd = _stride(si, bi), qflags[li], 11 * li
+    for li, (pre, stride, _, _, _) in enumerate(_blocks(cfg), 1):
+        flag, sd = qflags[li], 11 * li
+        if bottleneck:
+            h = torch.relu(gn(qc(x, p[pre + "conv1"], flag, sd),
+                              pre + "gn1"))
+            h = torch.relu(gn(qc(h, p[pre + "conv2"], flag, sd + 1, stride),
+                              pre + "gn2"))
+            h = gn(qc(h, p[pre + "conv3"], flag, sd + 2), pre + "gn3")
+        else:
             h = torch.relu(gn(qc(x, p[pre + "conv1"], flag, sd, stride),
                               pre + "gn1"))
             h = gn(qc(h, p[pre + "conv2"], flag, sd + 1), pre + "gn2")
-            shortcut = x
-            if pre + "proj" in p:
-                shortcut = gn(qc(x, p[pre + "proj"], flag, sd + 3, stride),
-                              pre + "proj_gn")
-            x = torch.relu(h + shortcut)
-            li += 1
+        shortcut = x
+        if pre + "proj" in p:
+            shortcut = gn(qc(x, p[pre + "proj"], flag, sd + 3, stride),
+                          pre + "proj_gn")
+        x = torch.relu(h + shortcut)
     x = x.mean(dim=(2, 3))
     return x @ p["head.w"] + p["head.b"]
 
@@ -138,7 +147,6 @@ def loss_fn(params, batch, qflags, cfg: ModelConfig, quant: QuantConfig,
 
 @register_family("resnet")
 def build_resnet(cfg: ModelConfig, quant: QuantConfig, device) -> Model:
-    _check_basic(cfg)
     return Model(
         config=cfg, quant=quant, device=device,
         init=functools.partial(init_params, cfg=cfg, device=device),

@@ -9,7 +9,9 @@ The counterpart of ``repro.train_loop``.  Per epoch:
      fixed for the epoch);
   3. ``steps_per_epoch`` DP-SGD/DP-Adam steps on Poisson-sampled batches
      (images or token sequences);
-  4. optional eval (the ResNet family; a dense LM has no eval set).
+  4. optional eval (the ResNet and DenseNet families; a dense LM has no
+     eval set), and a checkpoint when a directory is given (params,
+     optimizer state, accountant, scheduler, sampler and probe RNG).
 
 Two epoch executors (``RunConfig.epoch_executor``), as in the reference:
 
@@ -30,8 +32,16 @@ accountant merges consecutive identical SGM events, so they give the
 same params, optimizer state and epsilon on a fixed seed.  The sampler,
 probe draws, per-step seeds and learning rates come from
 ``RunConfig.seed`` exactly as in the JAX package, so a fixed seed sees
-the same batches in both.  Not ported yet: ``epoch_unroll > 1``,
-checkpointing and preemption.
+the same batches in both.  Not ported yet: ``epoch_unroll > 1``.
+
+Preemption (``preemption``, a ``runtime.preemption.PreemptionHandler``)
+is polled after every loop step and every scan chunk, after the host read
+and the accountant charge; when it fires, a mid-epoch checkpoint is
+written and :class:`~repro_torch.runtime.preemption.Preempted` raised.
+``restore_latest`` then resumes bit for bit: nothing else needs saving,
+since the DP noise generator is re-seeded from the step seed before every
+step or replay and the quantizer's Philox keys ``(seed, 0x4C550000 +
+fold)`` do not change from step to step.
 
 Also supports mode="pls" / mode="static" (ablations / baselines) and
 dp.enabled=False (the non-private comparison in paper Fig. 1a).
@@ -45,6 +55,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.config import RunConfig, validate_executor
 from repro_torch.core.scheduler import DPQuantScheduler
 from repro_torch.data.poisson import PoissonSampler
@@ -53,6 +64,7 @@ from repro_torch.launch.steps import EpochRunner, build_train_setup
 from repro_torch.models.registry import Model, build_model
 from repro_torch.optim.schedule import make_schedule
 from repro_torch.quant.backend import resolve_backend
+from repro_torch.runtime.preemption import Preempted, PreemptionHandler
 
 
 @dataclasses.dataclass
@@ -68,7 +80,8 @@ class EpochStats:
 
 class Trainer:
     def __init__(self, run: RunConfig, dataset, *, mode: str = "dpquant",
-                 eval_dataset=None, device=None):
+                 eval_dataset=None, device=None, checkpoint_dir=None,
+                 preemption: Optional[PreemptionHandler] = None):
         resolve_backend(run.quant.backend)       # fail fast on a typo
         validate_executor(run)
         self.run = run
@@ -101,6 +114,15 @@ class Trainer:
         self.last_analysis_s = 0.0
         self.step_wall_s: List[float] = []
         self.last_capture_s = 0.0
+        self.ckpt = (CheckpointManager(checkpoint_dir)
+                     if checkpoint_dir else None)
+        self.preemption = preemption
+        # epoch cursor: train(n) runs n epochs starting here; restore sets
+        # it past the checkpointed epoch (or *at* it for mid-epoch resume)
+        self._next_epoch = 0
+        # mid-epoch resume record ({"epoch", "epoch_step", "epoch_losses"})
+        # set by restore_latest when the checkpoint was a preemption save
+        self._mid_epoch: Optional[dict] = None
 
     # ------------------------------------------------------------------ #
     def _to_device(self, batch: dict) -> dict:
@@ -123,33 +145,49 @@ class Trainer:
     def train_epoch(self, epoch: int) -> EpochStats:
         t0 = time.time()
         run = self.run
-        # ---- Algorithm 1 (analysis) ----
+        resume = None
+        if self._mid_epoch is not None:
+            if self._mid_epoch["epoch"] != epoch:
+                raise RuntimeError(
+                    f"mid-epoch checkpoint is for epoch "
+                    f"{self._mid_epoch['epoch']}, cannot run epoch {epoch}")
+            resume, self._mid_epoch = self._mid_epoch, None
         self.last_analysis_s = 0.0
-        if self.mode == "dpquant":
-            nb = min(run.dp.analysis_batch_size, run.global_batch)
-            nb = max(run.dp.microbatch_size, nb)
-            probe_batches = [self._to_device(self.dataset.get(
-                self._probe_rng.randint(0, self.dataset.n, nb)))
-                for _ in range(run.dp.analysis_reps)]
-            ta = time.perf_counter()
-            ran = self.scheduler.maybe_analyze(
-                probe_step=self._probe_step, params=self.params,
-                opt_state=self.opt_state, batches=probe_batches,
-                sample_rate=min(1.0, nb / self.dataset.n),
-                accountant=self.accountant,
-                epoch=epoch, seed=run.seed * 1000 + epoch,
-                device=self.device)
-            if ran:
-                self.last_analysis_s = time.perf_counter() - ta
-        # ---- Algorithm 2 (selection) ----
-        policy = self.scheduler.select(epoch)
+        if resume is None:
+            # ---- Algorithm 1 (analysis) ----
+            if self.mode == "dpquant":
+                nb = min(run.dp.analysis_batch_size, run.global_batch)
+                nb = max(run.dp.microbatch_size, nb)
+                probe_batches = [self._to_device(self.dataset.get(
+                    self._probe_rng.randint(0, self.dataset.n, nb)))
+                    for _ in range(run.dp.analysis_reps)]
+                ta = time.perf_counter()
+                ran = self.scheduler.maybe_analyze(
+                    probe_step=self._probe_step, params=self.params,
+                    opt_state=self.opt_state, batches=probe_batches,
+                    sample_rate=min(1.0, nb / self.dataset.n),
+                    accountant=self.accountant,
+                    epoch=epoch, seed=run.seed * 1000 + epoch,
+                    device=self.device)
+                if ran:
+                    self.last_analysis_s = time.perf_counter() - ta
+            # ---- Algorithm 2 (selection) ----
+            policy = self.scheduler.select(epoch)
+        else:
+            # mid-epoch resume: analysis and selection ran before the
+            # preemption, and their draws and accountant charges are in
+            # the restored state; the restored scheduler holds this
+            # epoch's policy
+            policy = self.scheduler.current
         flags = policy.flags()
 
         # ---- DP-SGD steps ----
+        start = resume["epoch_step"] if resume else 0
+        prior = resume["epoch_losses"] if resume else []
         if self.epoch_fn is not None:
-            losses = self._train_steps_scan(flags)
+            losses = self._train_steps_scan(flags, epoch, start, prior)
         else:
-            losses = self._train_steps_loop(flags)
+            losses = self._train_steps_loop(flags, epoch, start, prior)
 
         eps, _ = (self.accountant.get_epsilon(run.dp.delta)
                   if run.dp.enabled else (0.0, 0))
@@ -161,14 +199,37 @@ class Trainer:
                            quantized_layers=len(policy), accuracy=acc,
                            wall_s=time.time() - t0)
         self.history.append(stats)
+        if self.ckpt is not None:
+            self.save(epoch)
         return stats
 
-    def _train_steps_loop(self, flags) -> List[float]:
-        """One step, one host sync and one accountant charge per
-        iteration."""
+    def _maybe_preempt(self, epoch: Optional[int], epoch_step: int,
+                       losses: List[float]) -> None:
+        """Step-boundary preemption poll (both executors call it; steps run
+        outside an epoch, ``epoch`` None, are not polled).
+
+        When the handler fires, a *mid-epoch* checkpoint is written and
+        :class:`Preempted` raised.  The accountant is exact at every step
+        boundary (the loop charges per step, the scan executor per chunk,
+        and consecutive identical SGM events merge), so the saved epsilon
+        equals the uninterrupted run's at the same global step.
+        """
+        if (epoch is None or self.preemption is None
+                or not self.preemption.should_preempt(self.step)):
+            return
+        if self.ckpt is not None:
+            self.save(epoch, epoch_step=epoch_step, epoch_losses=losses,
+                      mid_epoch=True)
+            self.ckpt.wait()
+        raise Preempted(self.step)
+
+    def _train_steps_loop(self, flags, epoch: Optional[int] = None,
+                          start: int = 0, prior=()) -> List[float]:
+        """Steps ``start`` to the epoch's end, one host sync and one
+        accountant charge each; returns ``prior`` and their losses."""
         run = self.run
-        losses = []
-        for _ in range(run.steps_per_epoch):
+        losses = list(prior)
+        for es in range(start, run.steps_per_epoch):
             t0 = time.perf_counter()
             batch = self._sample_batch()
             self.params, self.opt_state, metrics = self.step_fn(
@@ -181,18 +242,21 @@ class Trainer:
                     noise_multiplier=run.dp.noise_multiplier,
                     sample_rate=self.sampler.q, steps=1, label="train")
             self.step += 1
+            self._maybe_preempt(epoch, es + 1, losses)
         return losses
 
-    def _train_steps_scan(self, flags) -> List[float]:
-        """The epoch in chunks of ``epoch_chunk`` steps (0: one chunk), each
-        staged in one copy and run by ``self.epoch_fn``; one host read and
-        one accountant charge per chunk."""
+    def _train_steps_scan(self, flags, epoch: Optional[int] = None,
+                          start: int = 0, prior=()) -> List[float]:
+        """Steps ``start`` to the epoch's end in chunks of ``epoch_chunk``
+        steps (0: one chunk), each staged in one copy and run by
+        ``self.epoch_fn``; one host read, one accountant charge and one
+        preemption poll a chunk."""
         run = self.run
         steps = run.steps_per_epoch
         chunk = run.epoch_chunk if run.epoch_chunk > 0 else steps
-        losses: List[float] = []
+        losses: List[float] = list(prior)
         self.last_capture_s = 0.0
-        done = 0
+        done = start
         while done < steps:
             k = min(chunk, steps - done)
             t0 = time.perf_counter()
@@ -216,13 +280,19 @@ class Trainer:
                     sample_rate=self.sampler.q, steps=k, label="train")
             self.step += k
             done += k
+            self._maybe_preempt(epoch, done, losses)
         return losses
 
     def train(self, epochs: int, *, eps_budget: Optional[float] = None,
               verbose: bool = False) -> List[EpochStats]:
-        start = len(self.history)
+        """Train ``epochs`` more epochs from the epoch cursor: 0 for a
+        fresh trainer; after ``restore_latest``, past the last completed
+        epoch, or *at* the preempted epoch for a mid-epoch checkpoint,
+        which is finished first."""
+        start = self._next_epoch
         for e in range(start, start + epochs):
             stats = self.train_epoch(e)
+            self._next_epoch = e + 1
             if verbose:
                 print(f"epoch {e}: loss={stats.loss:.4f} eps={stats.eps:.3f} "
                       f"k={stats.quantized_layers} acc={stats.accuracy}",
@@ -240,8 +310,63 @@ class Trainer:
         return float((preds == batch["label"].cpu().numpy()).mean())
 
     def _predict(self, batch, flags) -> np.ndarray:
-        if self.run.model.family != "resnet":
+        if self.run.model.family not in ("resnet", "densenet"):
             raise ValueError(f"no predict for family {self.run.model.family}")
         with torch.no_grad():
             logits = self.model.forward(self.params, batch["image"], flags)
         return logits.argmax(-1).cpu().numpy()
+
+    # ------------------------------------------------------------------ #
+    def save(self, epoch: int, *, epoch_step: int = 0,
+             epoch_losses=(), mid_epoch: bool = False) -> None:
+        """Checkpoint what a bit-identical resume needs: params and
+        optimizer state (host copies, taken before this returns), and in
+        the aux payload the accountant, the scheduler's EMA and policy,
+        the sampler's and the probe RNG's stream positions, the history
+        and, for a preemption save (``mid_epoch``), the epoch's step index
+        and its losses so far."""
+        aux = {
+            "accountant": self.accountant.state_dict(),
+            "scheduler": self.scheduler.state_dict(),
+            "sampler": self.sampler.state_dict(),
+            "probe_rng": self._probe_rng.get_state(),
+            "history": [dataclasses.asdict(s) for s in self.history],
+            "step": self.step,
+            "epoch": epoch,
+            "mid_epoch": bool(mid_epoch),
+            "epoch_step": int(epoch_step),
+            "epoch_losses": [float(x) for x in epoch_losses],
+        }
+        self.ckpt.save(self.step, {"params": self.params,
+                                   "opt": self.opt_state}, aux)
+
+    def restore_latest(self) -> Optional[int]:
+        """Restore the latest valid checkpoint; returns its epoch (None:
+        no directory or no checkpoint).  The scan executor copies the
+        restored tensors into its static buffers at its next call."""
+        if self.ckpt is None:
+            return None
+        res = self.ckpt.restore_latest({"params": self.params,
+                                        "opt": self.opt_state})
+        if res is None:
+            return None
+        _, tree, aux = res
+        self.params = tree["params"]
+        self.opt_state = tree["opt"]
+        self.accountant = RDPAccountant.from_state_dict(aux["accountant"])
+        self.scheduler.load_state_dict(aux["scheduler"])
+        self.sampler.load_state_dict(aux["sampler"])
+        self._probe_rng.set_state(aux["probe_rng"])
+        self.history = [EpochStats(**d) for d in aux["history"]]
+        self.step = aux["step"]
+        if aux["mid_epoch"]:
+            # preemption save: re-enter the interrupted epoch, skipping
+            # analysis, selection and the steps already run (train_epoch)
+            self._mid_epoch = {"epoch": aux["epoch"],
+                               "epoch_step": aux["epoch_step"],
+                               "epoch_losses": list(aux["epoch_losses"])}
+            self._next_epoch = aux["epoch"]
+        else:
+            self._mid_epoch = None
+            self._next_epoch = aux["epoch"] + 1
+        return aux["epoch"]

@@ -23,6 +23,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.config import DPConfig as JDPConfig  # noqa: E402
+from repro.config import ModelConfig as JModelConfig  # noqa: E402
 from repro.config import OptimConfig as JOptimConfig  # noqa: E402
 from repro.config import QuantConfig as JQuantConfig  # noqa: E402
 from repro.config import RunConfig as JRunConfig  # noqa: E402
@@ -33,7 +34,8 @@ from repro.launch.mesh import make_host_mesh  # noqa: E402
 from repro.launch.steps import build_train_setup as jax_train_setup  # noqa: E402
 from repro.models.registry import build_model as jax_build_model  # noqa: E402
 from repro.quant import backend as jbackend  # noqa: E402
-from repro_torch.config import DPConfig, OptimConfig, QuantConfig, RunConfig  # noqa: E402
+from repro_torch.config import (DPConfig, ModelConfig, OptimConfig,  # noqa: E402
+                                QuantConfig, RunConfig)
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.dp import engine  # noqa: E402
@@ -88,19 +90,45 @@ def test_clip_kernel_plain_version_takes_a_view_at_an_offset():
                                atol=1e-6 * float(np.abs(jsum).max()))
 
 
-def _jax_reference(fmt: str, quantized: bool) -> dict:
-    """JAX SMOKE ResNet-18 at ``fmt`` with every layer's flag ``quantized``:
-    params, a batch, the clipped gradient sum with its metrics, and the
-    params after one DP step at sigma = 0 and one non-private step."""
-    cfg = jax_smoke_config("resnet18")
+# The other CNNs' cases: a bottleneck ResNet (blocks (8, 1): ResNet-50's
+# blocks, both kinds of projection; the reference's resnet50 SMOKE config
+# builds basic blocks) and the DenseNet SMOKE config, each at a clip norm
+# between its per-example norms (bottleneck 21.9-29.1, DenseNet 3.7-5.4).
+# Each case: (JAX config, port config, clip norm, atol of the clipped sum
+# over its largest entry, atol of a DP step's params).  The bottleneck's
+# are 10x and 50x the others': there the reference's float32 one-example
+# gradients (XLA on the CPU) are 2.3e-4 from a float64 evaluation of the
+# same net (max abs, sum scale 3.45; e.g. 0.4 % of stages.0.3.conv3's
+# largest entry), where the port's float32 ones are within 1.7e-6; a step
+# moves that by LR / B: 2.9e-5.
+BOTTLENECK = dict(name="rn-bottleneck", family="resnet", resnet_blocks=(8, 1),
+                  num_classes=10, image_size=8, compute_dtype="float32")
+CNN_CASES = {
+    "resnet18": (lambda: jax_smoke_config("resnet18"),
+                 lambda: get_smoke_config("resnet18"), CLIP, 1e-5, 1e-6),
+    "bottleneck": (lambda: JModelConfig(**BOTTLENECK),
+                   lambda: ModelConfig(**BOTTLENECK), 25.0, 1e-4, 5e-5),
+    "densenet": (lambda: jax_smoke_config("densenet121"),
+                 lambda: get_smoke_config("densenet121"), 4.2, 1e-5, 1e-6),
+}
+
+
+def _jax_reference(fmt: str, quantized: bool, case: str = "resnet18") -> dict:
+    """The JAX SMOKE model of ``case`` (ResNet-18 unless given) at ``fmt``
+    with every layer's flag ``quantized``: params, a batch, the clipped
+    gradient sum with its metrics, and the params after one DP step at
+    sigma = 0 and one non-private step."""
+    jcfg, tcfg, clip, sum_atol, step_atol = CNN_CASES[case]
+    cfg = jcfg()
     run = JRunConfig(model=cfg, quant=JQuantConfig(fmt=fmt),
-                     dp=JDPConfig(clip_norm=CLIP, noise_multiplier=0.0,
+                     dp=JDPConfig(clip_norm=clip, noise_multiplier=0.0,
                                   microbatch_size=MB),
                      optim=JOptimConfig(name="sgd", lr=LR), global_batch=B)
     model = jax_build_model(cfg, run.quant)
     params = model.init(jax.random.PRNGKey(1))
     rng = np.random.default_rng(5)
-    batch = {"image": rng.standard_normal((B, 16, 16, 3)).astype(np.float32),
+    s = cfg.image_size
+    batch = {"image": rng.standard_normal((B, s, s, 3)).astype(np.float32),
              "label": rng.integers(0, cfg.num_classes, B).astype(np.int32)}
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     flags = jnp.full((cfg.policy_len(),), float(quantized), jnp.float32)
@@ -110,11 +138,13 @@ def _jax_reference(fmt: str, quantized: bool) -> dict:
                              flags)
 
     gsum, metrics = jax.jit(lambda p, b: jax_clip_sum(
-        loss_one, p, b, clip_norm=CLIP, microbatch_size=MB,
+        loss_one, p, b, clip_norm=clip, microbatch_size=MB,
         rng=jax.random.PRNGKey(0)))(params, jbatch)
     tree = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
     out = {"params": tree(params), "batch": batch, "gsum": tree(gsum),
-           "metrics": {k: float(v) for k, v in metrics.items()}}
+           "metrics": {k: float(v) for k, v in metrics.items()},
+           "cfg": tcfg(), "clip": clip, "sum_atol": sum_atol,
+           "step_atol": step_atol}
     for dp_on in (True, False):
         setup = jax_train_setup(model, dataclasses.replace(
             run, dp=dataclasses.replace(run.dp, enabled=dp_on)),
@@ -130,6 +160,12 @@ def _jax_reference(fmt: str, quantized: bool) -> dict:
 def jax_ref():
     """The reference at fmt none (no layer quantized)."""
     return _jax_reference("none", quantized=False)
+
+
+@pytest.fixture(scope="module", params=["bottleneck", "densenet"])
+def cnn_ref(request):
+    """The reference of another CNN at fmt none (no layer quantized)."""
+    return _jax_reference("none", quantized=False, case=request.param)
 
 
 @pytest.fixture(scope="module")
@@ -154,7 +190,7 @@ def jax_ref_quantized(identity_format):
 
 
 def _port(jax_ref, dp: DPConfig, fmt: str = "none"):
-    cfg = get_smoke_config("resnet18")
+    cfg = jax_ref["cfg"]
     run = RunConfig(model=cfg, quant=QuantConfig(fmt=fmt), dp=dp,
                     optim=OptimConfig(name="sgd", lr=LR), global_batch=B)
     model = build_model(cfg, run.quant, device="cpu")
@@ -163,24 +199,26 @@ def _port(jax_ref, dp: DPConfig, fmt: str = "none"):
     return run, model, params, batch
 
 
-@pytest.mark.parametrize("clip_backend", ["ref", "fused"])
-def test_clipped_grad_sum_and_metrics_match_jax(jax_ref, clip_backend):
-    run, model, params, batch = _port(jax_ref, DPConfig(clip_norm=CLIP))
-    flags = (False,) * run.model.policy_len()
+def _check_clipped_sum(ref, clip_backend, fmt="none", quantized=False):
+    """The port's clipped per-example gradient sum and its metrics, every
+    layer's flag ``quantized``, against the reference's ``ref``."""
+    clip = ref["clip"]
+    run, model, params, batch = _port(ref, DPConfig(clip_norm=clip), fmt)
+    flags = (quantized,) * run.model.policy_len()
 
     def loss_one(p, ex):
         return model.loss_fn(p, {k: v[None] for k, v in ex.items()}, flags)
 
     gsum, metrics = per_example_clipped_grad_sum(
-        loss_one, params, batch, clip_norm=CLIP, microbatch_size=MB,
+        loss_one, params, batch, clip_norm=clip, microbatch_size=MB,
         clip_backend=clip_backend)
-    want = params_from_numpy(jax_ref["gsum"], device="cpu")
+    want = params_from_numpy(ref["gsum"], device="cpu")
     assert set(gsum) == set(want)
     scale = max(float(w.abs().max()) for w in want.values())
     for name, w in want.items():
         np.testing.assert_allclose(gsum[name].numpy(), w.numpy(), rtol=1e-5,
-                                   atol=1e-5 * scale, err_msg=name)
-    jm = jax_ref["metrics"]
+                                   atol=ref["sum_atol"] * scale, err_msg=name)
+    jm = ref["metrics"]
     assert set(metrics) == set(jm)
     for k in ("loss", "grad_norm_mean", "grad_norm_max"):
         np.testing.assert_allclose(float(metrics[k]), jm[k], rtol=1e-5)
@@ -188,27 +226,40 @@ def test_clipped_grad_sum_and_metrics_match_jax(jax_ref, clip_backend):
     assert 0 < jm["clip_fraction"] < 1              # some rows were clipped
 
 
+def _check_one_step(ref, dp_on, clip_backend, fmt="none", quantized=False):
+    """One DP-SGD step at sigma = 0, or one plain step, every layer's flag
+    ``quantized``: the new params and the loss equal the reference's, and
+    the step writes none of its arguments."""
+    dp = DPConfig(enabled=dp_on, clip_norm=ref["clip"], noise_multiplier=0.0,
+                  microbatch_size=MB, clip_backend=clip_backend)
+    run, model, params, batch = _port(ref, dp, fmt)
+    setup = build_train_setup(model, run)
+    before = {k: v.clone() for k, v in params.items()}
+    new_params, _, metrics = setup.step_fn(
+        params, setup.opt_init_fn(params), batch, 0,
+        (quantized,) * run.model.policy_len(), LR)
+    for k in params:                                 # functional: no writes
+        assert torch.equal(params[k], before[k])
+    want_params, want_loss = ref[dp_on]
+    want = params_from_numpy(want_params, device="cpu")
+    for name, w in want.items():
+        np.testing.assert_allclose(new_params[name].numpy(), w.numpy(),
+                                   rtol=1e-5, atol=ref["step_atol"],
+                                   err_msg=name)
+    np.testing.assert_allclose(float(metrics["loss"]), want_loss, rtol=1e-5)
+
+
+@pytest.mark.parametrize("clip_backend", ["ref", "fused"])
+def test_clipped_grad_sum_and_metrics_match_jax(jax_ref, clip_backend):
+    _check_clipped_sum(jax_ref, clip_backend)
+
+
 @pytest.mark.parametrize("dp_on,clip_backend", [
     (True, "ref"), (True, "fused"), (False, "ref")])
 def test_one_step_at_sigma_zero_matches_jax(jax_ref, dp_on, clip_backend):
     """One DP-SGD step at sigma = 0 (both clip paths), and one plain
     (non-private) step: the new params equal JAX's."""
-    dp = DPConfig(enabled=dp_on, clip_norm=CLIP, noise_multiplier=0.0,
-                  microbatch_size=MB, clip_backend=clip_backend)
-    run, model, params, batch = _port(jax_ref, dp)
-    setup = build_train_setup(model, run)
-    before = {k: v.clone() for k, v in params.items()}
-    new_params, _, metrics = setup.step_fn(
-        params, setup.opt_init_fn(params), batch, 0,
-        (False,) * run.model.policy_len(), LR)
-    for k in params:                                 # functional: no writes
-        assert torch.equal(params[k], before[k])
-    want_params, want_loss = jax_ref[dp_on]
-    want = params_from_numpy(want_params, device="cpu")
-    for name, w in want.items():
-        np.testing.assert_allclose(new_params[name].numpy(), w.numpy(),
-                                   rtol=1e-5, atol=1e-6, err_msg=name)
-    np.testing.assert_allclose(float(metrics["loss"]), want_loss, rtol=1e-5)
+    _check_one_step(jax_ref, dp_on, clip_backend)
 
 
 @pytest.mark.parametrize("clip_backend", ["ref", "fused"])
@@ -216,26 +267,7 @@ def test_clipped_grad_sum_through_quantized_convs_matches_jax(jax_ref_quantized,
                                                               clip_backend):
     """Every conv quantized: the per-example gradients come from the
     quantized conv's backward under vmap, and equal JAX's."""
-    run, model, params, batch = _port(jax_ref_quantized, DPConfig(clip_norm=CLIP),
-                                      QFMT)
-    flags = (True,) * run.model.policy_len()
-
-    def loss_one(p, ex):
-        return model.loss_fn(p, {k: v[None] for k, v in ex.items()}, flags)
-
-    gsum, metrics = per_example_clipped_grad_sum(
-        loss_one, params, batch, clip_norm=CLIP, microbatch_size=MB,
-        clip_backend=clip_backend)
-    want = params_from_numpy(jax_ref_quantized["gsum"], device="cpu")
-    scale = max(float(w.abs().max()) for w in want.values())
-    for name, w in want.items():
-        np.testing.assert_allclose(gsum[name].numpy(), w.numpy(), rtol=1e-5,
-                                   atol=1e-5 * scale, err_msg=name)
-    jm = jax_ref_quantized["metrics"]
-    for k in ("loss", "grad_norm_mean", "grad_norm_max"):
-        np.testing.assert_allclose(float(metrics[k]), jm[k], rtol=1e-5)
-    assert float(metrics["clip_fraction"]) == jm["clip_fraction"]
-    assert 0 < jm["clip_fraction"] < 1
+    _check_clipped_sum(jax_ref_quantized, clip_backend, QFMT, True)
 
 
 @pytest.mark.parametrize("dp_on", [True, False])
@@ -243,19 +275,22 @@ def test_one_step_through_quantized_convs_matches_jax(jax_ref_quantized, dp_on):
     """One DP-SGD step at sigma = 0, and one plain step (autograd over the
     microbatch, no vmap), with every conv quantized: the new params equal
     JAX's."""
-    dp = DPConfig(enabled=dp_on, clip_norm=CLIP, noise_multiplier=0.0,
-                  microbatch_size=MB, clip_backend="fused")
-    run, model, params, batch = _port(jax_ref_quantized, dp, QFMT)
-    setup = build_train_setup(model, run)
-    new_params, _, metrics = setup.step_fn(
-        params, setup.opt_init_fn(params), batch, 0,
-        (True,) * run.model.policy_len(), LR)
-    want_params, want_loss = jax_ref_quantized[dp_on]
-    want = params_from_numpy(want_params, device="cpu")
-    for name, w in want.items():
-        np.testing.assert_allclose(new_params[name].numpy(), w.numpy(),
-                                   rtol=1e-5, atol=1e-6, err_msg=name)
-    np.testing.assert_allclose(float(metrics["loss"]), want_loss, rtol=1e-5)
+    _check_one_step(jax_ref_quantized, dp_on, "fused", QFMT, True)
+
+
+@pytest.mark.parametrize("clip_backend", ["ref", "fused"])
+def test_cnn_clipped_grad_sum_matches_jax(cnn_ref, clip_backend):
+    """The bottleneck ResNet's and DenseNet's clipped per-example gradient
+    sums (vmap engine) and metrics at fmt none equal JAX's."""
+    _check_clipped_sum(cnn_ref, clip_backend)
+
+
+@pytest.mark.parametrize("dp_on,clip_backend", [
+    (True, "ref"), (True, "fused"), (False, "ref")])
+def test_cnn_one_step_at_sigma_zero_matches_jax(cnn_ref, dp_on, clip_backend):
+    """One DP-SGD step at sigma = 0 and one plain step of the bottleneck
+    ResNet and of DenseNet: the new params equal JAX's."""
+    _check_one_step(cnn_ref, dp_on, clip_backend)
 
 
 def test_noise_std_is_sigma_c_over_b():
