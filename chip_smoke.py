@@ -10,7 +10,9 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. holds each kernel against its plain PyTorch version on the card at the
    shapes of its path (ResNet-18, ResNet-50 and DenseNet-121 training:
-   ``luq_quant`` and ``per_sample_clip``; stablelm-3b ghost training:
+   ``luq_quant`` and ``per_sample_clip``; ResNet-18 and ResNet-50 ghost
+   training: ``luq_quant``, pass 2's rows the whole batch of 256;
+   stablelm-3b ghost training:
    ``luq_quant`` and
    ``ghost_norm_sq``; yi-6b serving: the KV cache write, decode attention
    and the quantized matmul), and times kernel, plain version, the least
@@ -61,6 +63,21 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    accountant, the scheduler, the history and the sampler's and probe
    RNG's next draws bit for bit those of the uninterrupted run, and no
    probe launched in a resumed run;
+   then ghost mode in the three CNNs (``cnn_ghost_vs_vmap``): ResNet-18,
+   ResNet-50 and DenseNet-121 at full width and depth, 8 images, float32,
+   every layer quantized; at fmt none and at an identity format the ghost
+   pass-1 norms within rtol 1e-4 of the vmap engine's and the clipped
+   sums within rtol 2e-4, atol 2e-5; at luq_fp4 the differences printed;
+   no clip and no ``ghost_norm_sq`` launch; and pass 1 over a chunk of 64
+   images timed with and without the norm-only fallback's per-example
+   copies; then ResNet-18 and ResNet-50 trained in ghost mode
+   (``TRAIN_RESNET_GHOST_ARGV``, ``TRAIN_RESNET50_GHOST_ARGV``: the vmap
+   workloads with ``--grad-mode ghost --clip-backend ref
+   --ghost-microbatch 64``), the same checks with the ghost passes'
+   quantizer counts, no clip launch, epsilon equal to the vmap run's of
+   this call, and their numbers printed beside the vmap runs'; and the
+   ResNet-18 ghost step through loop and scan under deterministic cuDNN,
+   bit for bit;
 5. trains stablelm-3b at full size (32 layers, random init from a seed,
    synthetic tokens) with ghost-mode DP-SGD under the DPQuant scheduler,
    with the options of ``repro_torch.launch.train --arch stablelm-3b
@@ -674,22 +691,25 @@ def _warmup_sum(tr, per_step):
 
 def train_cnn(torch, ops, wl, argv, want_k, want_params):
     """DP-SGD on a CNN under the DPQuant scheduler, the training workload
-    of ``argv`` (``repro_torch/launch/workload.py``), under the scan
-    executor; returns the launch counts of the run."""
+    of ``argv`` (``repro_torch/launch/workload.py``), vmap or ghost mode,
+    under the scan executor; returns the launch counts of the run and
+    its summary (epsilon by epoch, median step, images/s, analysis and
+    capture seconds, peak memory)."""
     from repro_torch.models import densenet, resnet
     from repro_torch.quant import backend as qbackend
     from repro_torch.train_loop import Trainer
 
-    if (qbackend.get_quantizer("luq_fp4", "cuda")[1] != "cuda"
-            or qbackend.get_clip_sum("fused")[1] != "cuda"):
-        raise AssertionError("the quantizer or the fused clip does not run "
-                             "on the cuda backend")
     t_phase = time.perf_counter()
     run, ds, ev = wl.setup(argv)
+    ghost = run.dp.grad_mode == "ghost"
+    if (qbackend.get_quantizer("luq_fp4", "cuda")[1] != "cuda"
+            or (not ghost and qbackend.get_clip_sum("fused")[1] != "cuda")):
+        raise AssertionError("the quantizer or the fused clip does not run "
+                             "on the cuda backend")
     if run.epoch_executor != "scan":
         raise AssertionError(f"the workload runs {run.epoch_executor!r}")
     cfg = run.model
-    name = cfg.name
+    name = cfg.name + (" ghost" if ghost else "")
     batch, micro = run.global_batch, run.dp.microbatch_size
     steps = run.steps_per_epoch
     epochs = run.steps // steps
@@ -745,36 +765,60 @@ def train_cnn(torch, ops, wl, argv, want_k, want_params):
             raise AssertionError(f"epoch {s.epoch}: k = {s.quantized_layers}")
         if not s.eps > 0:
             raise AssertionError(f"epoch {s.epoch}: eps = {s.eps}")
-    n_micro = batch // micro
     # a probe step runs one probe batch of max(micro, min(32, batch))
     # examples: here one microbatch; one probe run for the baseline and
     # one per layer, x reps; each capture adds its eager warm-up step
-    probe_micro = max(micro, min(run.dp.analysis_batch_size, batch)) // micro
+    probe_batch = max(micro, min(run.dp.analysis_batch_size, batch))
     reps = run.dp.analysis_reps
     probe_runs = len(tr.scheduler.policies) + 1
     warmups = len(tr.epoch_fn.captured)
-    want_clip = ((epochs * steps + warmups) * n_micro
-                 + probe_runs * reps * probe_micro)
+
+    def units(n):
+        """The conv passes a step over ``n`` examples makes: one per
+        microbatch in vmap mode; in ghost mode one per pass-1 chunk and
+        pass 2."""
+        if not ghost:
+            return n // micro
+        chunk = run.dp.ghost_microbatch
+        return (n // chunk if 0 < chunk < n else 1) + 1
+
+    n_units, probe_units = units(batch), units(probe_batch)
+    want_clip = 0 if ghost else ((epochs * steps + warmups) * n_units
+                                 + probe_runs * reps * probe_units)
     if launches["clip_and_sum"] != want_clip:
         raise AssertionError(f"clip_and_sum launched "
                              f"{launches['clip_and_sum']} times, want "
                              f"{want_clip}")
+    if ghost and launches.get("ghost_norm_sq", 0):
+        raise AssertionError(f"ghost_norm_sq launched "
+                             f"{launches['ghost_norm_sq']} times in a CNN")
     # the quantized convs of each policy layer (DenseNet: none in its last
-    # layer, which no conv reads)
+    # layer, which no conv reads), and the stem's (layer 0): its input,
+    # the images, needs no gradient, so it runs no dgrad
     convs = {"resnet": resnet, "densenet": densenet}[cfg.family] \
         .conv_layers(cfg)
-    # quantized convs summed over every microbatch: the probes (each
-    # singleton policy x reps; the baseline probe and evaluate quantize
-    # nothing) and the train steps
-    q_convs = reps * probe_micro * sum(convs)
-    q_convs += sum(steps * n_micro * sum(convs[i] for i in layers)
-                   for layers in policies)
-    q_convs += n_micro * _warmup_sum(
-        tr, lambda fl: sum(c for c, f in zip(convs, fl) if f))
-    # six quantize calls per quantized conv, two kernels a call
-    want_q = {"luq_quant": 6 * q_convs, "luq_quant[one_row]": 2 * q_convs,
-              "luq_quant[rows]": 4 * q_convs,
-              "luq_quant[kernels]": 12 * q_convs}
+    stems = [1] + [0] * (len(convs) - 1)
+
+    def quantized(per_layer):
+        """``per_layer`` summed over every conv pass: the probes (each
+        singleton policy x reps; the baseline probe and evaluate quantize
+        nothing) and the train steps and warm-up steps."""
+        q = reps * probe_units * sum(per_layer)
+        q += sum(steps * n_units * sum(per_layer[i] for i in layers)
+                 for layers in policies)
+        return q + n_units * _warmup_sum(
+            tr, lambda fl: sum(c for c, f in zip(per_layer, fl) if f))
+
+    q_convs, q_stems = quantized(convs), quantized(stems)
+    # a quantized conv pass quantizes the weight for the forward and the
+    # dgrad (one row each) and x and the cotangent per example for the
+    # forward, dgrad and wgrad (ghost pass 1: the tap's wgrad operands)
+    # (four calls of rows); the stem skips the dgrad's two; two kernels a
+    # call
+    calls = 6 * q_convs - 2 * q_stems
+    want_q = {"luq_quant": calls, "luq_quant[one_row]": 2 * q_convs - q_stems,
+              "luq_quant[rows]": 4 * q_convs - q_stems,
+              "luq_quant[kernels]": 2 * calls}
     for key, n in want_q.items():
         if launches[key] != n:
             raise AssertionError(f"{key} launched {launches[key]} times, "
@@ -783,9 +827,12 @@ def train_cnn(torch, ops, wl, argv, want_k, want_params):
           f"{launches['luq_quant[kernels]']}, "
           f"{launches['luq_quant[kernels]'] / launches['luq_quant']} a call; "
           f"phase wall {time.perf_counter() - t_phase!r} s")
+    summary = {"eps": [s.eps for s in tr.history], "median_step_ms": med,
+               "images_per_s": batch / med * 1e3, "analysis_s": analysis_s,
+               "capture_s": capture_s, "peak_gib": peak}
     del tr
     _free(torch)
-    return launches
+    return launches, summary
 
 
 def _compare_runs(torch, a, b):
@@ -1274,6 +1321,145 @@ def ghost_vs_vmap(torch, ops, wl):
         _free(torch)
 
 
+def cnn_ghost_vs_vmap(torch, ops, wl):
+    """Ghost mode against the vmap engine inside the paper's three CNNs
+    at full width and depth (random init, float32), on 8 synthetic 32x32
+    images, every layer quantized, at fmt none, at a format registered as
+    the identity (every fold runs through the conv taps and the quantized
+    conv's backward, nothing rounds) and at luq_fp4, on the cuda backend.
+
+    At none and identity: ghost pass-1 norms within rtol 1e-4 of the vmap
+    engine's per-example norms, fallback leaves (GroupNorm, head)
+    included; the clipped sums (clip norm between the middle two norms)
+    within rtol 2e-4, atol 2e-5, the LM phase's limits.  At luq_fp4 the
+    largest differences are printed, not held: LUQ's rounding is a step
+    function, and cuDNN sums a batch of 8 in another order than vmap's
+    one-example lanes, which moves odd values across a step.  Ghost mode
+    must launch no clip and no ``ghost_norm_sq`` (the conv taps are plain
+    matmuls).  Then the cost of the norm-only fallback: pass 1 over a
+    chunk of 64 images at luq_fp4 with the per-example copies of the
+    GroupNorm parameters and head, against the same pass with every
+    leaf marked hooked (no copies; its norms leave those leaves out, so
+    it is timed only).  Returns the printed numbers."""
+    import numpy as np
+    from torch.func import grad, vmap
+    from repro_torch.config import QuantConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import ImageClassDataset
+    from repro_torch.dp import ghost
+    from repro_torch.dp.clip import per_example_clipped_grad_sum
+    from repro_torch.models.registry import build_model
+    from repro_torch.quant import backend as qbackend
+
+    B, CHUNK = 8, 64
+
+    def rel(a, b):
+        return ((a - b).abs() / b.abs()).max().item()
+
+    identity = {("quantize", "identity", "ref"):
+                lambda rows, key: rows.clone()}
+    qbackend._REGISTRY.update(identity)
+    found = {}
+    try:
+        for arch in ("resnet18", "resnet50", "densenet121"):
+            cfg = get_config(arch)
+            ds = ImageClassDataset(n=CHUNK, num_classes=cfg.num_classes,
+                                   image_size=cfg.image_size, seed=wl.SEED)
+            chunk = {k: v.cuda() for k, v in ds.get(np.arange(CHUNK)).items()}
+            batch = {k: v[:B] for k, v in chunk.items()}
+            flags = (True,) * cfg.policy_len()
+            params = None
+            for fmt in ("none", "identity", "luq_fp4"):
+                model = build_model(cfg, QuantConfig(fmt=fmt, backend="cuda"))
+                if params is None:
+                    params = model.init(wl.SEED)
+                mask = model.ghost_mask(params)
+
+                def pel(p, b, hooks, model=model):
+                    return model.per_example_loss(p, b, flags, hooks=hooks)
+
+                def loss_one(p, ex, model=model):
+                    return model.loss_fn(p, {k: v[None] for k, v in
+                                             ex.items()}, flags)
+
+                grads = vmap(grad(loss_one), in_dims=(None, 0),
+                             randomness="same")(params, batch)
+                vnorms = torch.sqrt(sum(
+                    g.float().square().sum(dim=tuple(range(1, g.dim())))
+                    for g in grads.values()))
+                del grads
+                mid = vnorms.sort().values
+                clip = float(mid[B // 2 - 1] + mid[B // 2]) / 2
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                _, gnorms = ghost.ghost_per_example_norms(
+                    pel, params, batch, hooked_mask=mask)
+                gsum, _ = ghost.ghost_clipped_grad_sum(
+                    pel, params, batch, clip_norm=clip, hooked_mask=mask)
+                torch.cuda.synchronize()
+                launched = {k: ops.LAUNCHES[k]
+                            for k in ("clip_and_sum", "ghost_norm_sq",
+                                      "luq_quant")}
+                vsum, _ = per_example_clipped_grad_sum(
+                    loss_one, params, batch, clip_norm=clip,
+                    microbatch_size=B)
+                # per leaf, the largest |ghost - vmap| over the limit
+                # atol + rtol |vmap| (at most 1 passes), and over the
+                # leaf's largest |vmap|
+                limit = max(((gsum[k] - v).abs() / (2e-5 + 2e-4 * v.abs()))
+                            .max().item() for k, v in vsum.items())
+                sum_rel = max(((gsum[k] - v).abs().max()
+                               / v.abs().max().clamp(min=1e-30)).item()
+                              for k, v in vsum.items())
+                found[f"{arch} {fmt}"] = {
+                    "norms rel": rel(gnorms, vnorms),
+                    "sum over its limit": limit,
+                    "sum rel to the leaf max": sum_rel,
+                    "launches": launched}
+                print(f"cnn ghost vs vmap ({arch}, {B} images, float32, "
+                      f"fmt {fmt}, clip norm {clip!r}): norms max rel diff "
+                      f"{rel(gnorms, vnorms)!r}, clipped sums' largest diff "
+                      f"over its limit {limit!r} (over the leaf's largest "
+                      f"entry {sum_rel!r}); launches {launched}; norms "
+                      f"vmap {vnorms.tolist()} ghost {gnorms.tolist()}")
+                if launched["clip_and_sum"] or launched["ghost_norm_sq"]:
+                    raise AssertionError(f"{arch} {fmt}: ghost mode "
+                                         f"launched {launched}")
+                if fmt == "luq_fp4" and not launched["luq_quant"]:
+                    raise AssertionError(f"{arch}: no luq_quant launch")
+                if fmt != "luq_fp4":
+                    torch.testing.assert_close(gnorms, vnorms, rtol=1e-4,
+                                               atol=0.0)
+                    for k, v in vsum.items():
+                        torch.testing.assert_close(
+                            gsum[k], v, rtol=2e-4, atol=2e-5,
+                            msg=lambda m, k=k: f"{arch} {fmt} {k}: {m}")
+                del gsum, vsum
+            # the norm-only fallback's cost: pass 1 over a chunk, with
+            # and without the fallback leaves' per-example copies
+            walls = {}
+            for tag, m in (("fallback", mask),
+                           ("no fallback", dict.fromkeys(mask, True))):
+                def pass1(m=m):
+                    return ghost.ghost_per_example_norms(
+                        pel, params, chunk, hooked_mask=m)
+                pass1()
+                walls[tag] = time_ms(torch, pass1, 10)
+            fallback = sum(t.numel() for k, t in params.items()
+                           if not mask[k])
+            found[f"{arch} pass1 ms"] = walls
+            print(f"{arch} ghost pass 1 ({CHUNK} images, luq_fp4, eager): "
+                  f"{walls['fallback']!r} ms with the per-example copies of "
+                  f"the {fallback} fallback parameters, "
+                  f"{walls['no fallback']!r} ms without (timing only)")
+            del params, model, chunk, batch
+            _free(torch)
+    finally:
+        for key in identity:
+            qbackend._REGISTRY.pop(key)
+    return found
+
+
 def train_stablelm(torch, ops, wl):
     """Ghost-mode DP-SGD on stablelm-3b under the DPQuant scheduler, the
     LM workload of ``repro_torch/launch/workload.py``, under the scan
@@ -1533,6 +1719,9 @@ def main() -> int:
     # 32x32x64), float32; ResNet-50's (3x3x512x512; 64 x 32x32x256, a
     # stage-0 block's output) and DenseNet-121's (the third transition,
     # 1x1x1024x512; 64 x 32x32x256, the first transition's input), float32;
+    # in ghost mode ResNet-18's and ResNet-50's largest weights and pass 2's
+    # per-example rows of the whole batch (256 x 32x32x64, 256 x
+    # 32x32x256; pass 1's chunks are the vmap microbatch's 64 rows);
     # a stablelm-3b MLP weight (2560 x 6912) whole and a pass-1 chunk's
     # per-example rows (4 x 256 tokens x 2560), bf16
     for name, rows, n, dtype in (
@@ -1544,6 +1733,14 @@ def main() -> int:
              torch.float32),
             ("luq_quant[densenet121_weight]", 1, 1024 * 512, torch.float32),
             ("luq_quant[densenet121_activation]", 64, 32 * 32 * 256,
+             torch.float32),
+            ("luq_quant[resnet_ghost_weight]", 1, 3 * 3 * 512 * 512,
+             torch.float32),
+            ("luq_quant[resnet_ghost_rows]", 256, 32 * 32 * 64,
+             torch.float32),
+            ("luq_quant[resnet50_ghost_weight]", 1, 3 * 3 * 512 * 512,
+             torch.float32),
+            ("luq_quant[resnet50_ghost_rows]", 256, 32 * 32 * 256,
              torch.float32),
             ("luq_quant[lm_weight]", 1, 2560 * 6912, torch.bfloat16),
             ("luq_quant[lm_rows]", wl.TRAIN_LM_CHUNK,
@@ -1572,7 +1769,8 @@ def main() -> int:
     _phase_done(walls, "3 kernel checks")
 
     # 4. train ResNet-18 at full width under the DPQuant scheduler, scan
-    train_launches = train_cnn(torch, ops, wl, wl.TRAIN_ARGV, 8, 11_190_891)
+    train_launches, train_summary = train_cnn(torch, ops, wl, wl.TRAIN_ARGV,
+                                              8, 11_190_891)
 
     _phase_done(walls, "4 train resnet18")
 
@@ -1586,11 +1784,12 @@ def main() -> int:
     _phase_done(walls, "4b resnet18 loop vs scan, noise")
 
     # 4c. the paper's other two CNNs at full width and depth, scan
-    cnn_launches = {
+    cnn_runs = {
         "resnet50": train_cnn(torch, ops, wl, wl.TRAIN_RESNET50_ARGV, 15,
                               23_588_459),
         "densenet121": train_cnn(torch, ops, wl, wl.TRAIN_DENSENET121_ARGV,
                                  56, 6_990_251)}
+    cnn_launches = {arch: run[0] for arch, run in cnn_runs.items()}
 
     _phase_done(walls, "4c train resnet50, densenet121")
 
@@ -1604,6 +1803,37 @@ def main() -> int:
         shutil.rmtree(ckpt_root, ignore_errors=True)
 
     _phase_done(walls, "4d resnet50 preemption and resume")
+
+    # 4e. ghost mode against the vmap engine inside the three CNNs
+    cnn_ghost_vs_vmap(torch, ops, wl)
+
+    _phase_done(walls, "4e cnn ghost vs vmap")
+
+    # 4f. ResNet-18 and ResNet-50 in ghost mode under DPQuant, scan,
+    # beside their vmap runs of this call
+    ghost_runs = {
+        "resnet": train_cnn(torch, ops, wl, wl.TRAIN_RESNET_GHOST_ARGV, 8,
+                            11_190_891),
+        "resnet50": train_cnn(torch, ops, wl, wl.TRAIN_RESNET50_GHOST_ARGV,
+                              15, 23_588_459)}
+    for arch, vmap_summary in (("resnet", train_summary),
+                               ("resnet50", cnn_runs["resnet50"][1])):
+        ghost_summary = ghost_runs[arch][1]
+        print(f"{arch} ghost / vmap: {json.dumps(ghost_summary)} / "
+              f"{json.dumps(vmap_summary)}")
+        if ghost_summary["eps"] != vmap_summary["eps"]:
+            raise AssertionError(f"{arch}: ghost epsilon "
+                                 f"{ghost_summary['eps']} != vmap "
+                                 f"{vmap_summary['eps']}")
+
+    _phase_done(walls, "4f train resnet18, resnet50 ghost")
+
+    # 4g. the scan executor against the loop on the ResNet-18 ghost step
+    loop_vs_scan(torch, lambda: wl.setup(wl.TRAIN_RESNET_GHOST_ARGV),
+                 "resnet18 ghost",
+                 OptimConfig(name="momentum", lr=0.1, schedule="cosine"))
+
+    _phase_done(walls, "4g resnet18 ghost loop vs scan")
 
     # 5. train stablelm-3b at full size in ghost mode under DPQuant, scan
     lm_launches = train_stablelm(torch, ops, wl)
@@ -1713,6 +1943,9 @@ def main() -> int:
         counts[f"luq_quant[{arch}_weight]"] = c["luq_quant[one_row]"]
         counts[f"luq_quant[{arch}_activation]"] = c["luq_quant[rows]"]
         counts[f"per_sample_clip[{arch}]"] = c["clip_and_sum"]
+    for arch, (c, _) in ghost_runs.items():
+        counts[f"luq_quant[{arch}_ghost_weight]"] = c["luq_quant[one_row]"]
+        counts[f"luq_quant[{arch}_ghost_rows]"] = c["luq_quant[rows]"]
     for dg in (2560, 6912):
         name = f"ghost_norm_sq[2560/{dg}]"
         counts[name] = lm_launches.get(name, 0)

@@ -3,10 +3,10 @@
 The counterpart of ``repro.dp.engine``.  ``grad_mode="vmap"``: per-example
 gradients from ``torch.func.vmap``, clipped and summed by
 ``repro_torch.dp.clip``.  ``grad_mode="ghost"``: the two-pass ghost-norm
-engine of ``repro_torch.dp.ghost`` (dense LMs; the conv taps ResNet and
-DenseNet need are a later slice).  Both are noised by ``repro_torch.dp.noise``; the
-train step (``repro_torch.launch.steps``) assembles them, as the JAX
-package's ``build_train_setup`` does.
+engine of ``repro_torch.dp.ghost`` (the dense LMs, ResNet and DenseNet).
+Both are noised by ``repro_torch.dp.noise``; the train step
+(``repro_torch.launch.steps``) assembles them, as the JAX package's
+``build_train_setup`` does.
 """
 from __future__ import annotations
 
@@ -37,13 +37,8 @@ def validate_grad_mode(dp: DPConfig, model=None) -> None:
                          "grad_mode='ghost'")
     if model is None:
         return
-    if model.config.family in ("resnet", "densenet"):
-        raise NotImplementedError(
-            f"grad_mode='ghost' for the {model.config.family} family needs "
-            "the conv ghost taps (the JAX package's make_ghost_qconv), a "
-            "later slice of repro_torch; use grad_mode='vmap'")
     if model.per_example_loss is None or model.ghost_mask is None:
         raise ValueError(
             f"model family {model.config.family!r} has no ghost hooks "
             f"(per_example_loss/ghost_mask); grad_mode='ghost' supports "
-            f"dense_lm - use grad_mode='vmap'")
+            f"dense_lm, resnet and densenet - use grad_mode='vmap'")

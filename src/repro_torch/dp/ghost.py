@@ -1,15 +1,15 @@
 """Ghost-norm two-pass DP-SGD gradient engine (``DPConfig.grad_mode="ghost"``).
 
-The counterpart of ``repro.dp.ghost`` for the dense LMs, without the
-sharded driver and without the conv hook (both later slices).  The vmap
-path (``repro_torch.dp.clip``) materializes every per-example gradient:
-O(B x params) live memory.  Ghost clipping computes the same clipped sum
-without it:
+The counterpart of ``repro.dp.ghost``, without the sharded driver (a
+later slice).  The vmap path (``repro_torch.dp.clip``) materializes every
+per-example gradient: O(B x params) live memory.  Ghost clipping computes
+the same clipped sum without it:
 
 pass 1 -- norms
     One batched forward and backward per chunk of ``ghost_microbatch``
     examples.  Every hooked layer (each projection, through
-    :meth:`GhostHooks.qeinsum`) is tapped by the pass's (B,) tap tensor,
+    :meth:`GhostHooks.qeinsum`, and each convolution, through
+    :meth:`GhostHooks.qconv2d`) is tapped by the pass's (B,) tap tensor,
     whose gradient is defined as the per-example squared weight-gradient
     norm, without forming the per-example gradient:
 
@@ -20,7 +20,13 @@ pass 1 -- norms
     wgrad on a backend that implements the ``ghost_norm`` op natively
     (``cuda``: luq_fp4) the Gram route is ONE call of the ``ghost_norm``
     kernel per layer and chunk: quantize, Grams and reduce for all B
-    examples.
+    examples.  A convolution's wgrad is the same product over its
+    patches: ``F.unfold``'s columns of the padded input give one (Cin kh
+    kw) row per output position, aligned with the (Ho Wo, Cout) cotangent
+    rows (:func:`_conv_tap_sq_norm`; its Grams and products are plain
+    ``torch`` matmuls, as the JAX package's are plain XLA).  A dilated or
+    grouped convolution is outside that identity and takes, for that
+    layer only, the squared norm of each example's own wgrad.
     The rmsnorm scales are tapped by :func:`tap_scale` and the embedding
     and LM head by the model's :class:`GhostAux`: the token-equality
     masked Gram of the gather cotangents, the head's mixed ghost norm and,
@@ -28,6 +34,16 @@ pass 1 -- norms
     under ``vmap``, one example per lane; here the batch stays batched and
     the quantizers run per example.  Pass 1 needs no weight gradients: the
     params go in detached.
+
+    Leaves that no hook covers (the CNNs' GroupNorm scales and biases and
+    their dense head) take the norm-only fallback: in pass 1 the model
+    asks :meth:`GhostHooks.leaf` for each of them and gets a per-example
+    copy, (B, *shape), whose gradient is that example's own and whose
+    squared norm goes to the tap (:func:`tap_leaf`).  The JAX package
+    vmaps pass 1 over the examples and differentiates these leaves in
+    each lane; here the pass stays batched, so the per-example state is
+    B copies of the fallback leaves, what ``per_example_state_bytes``
+    counts, and the step stays one CUDA graph.
 
 pass 2 -- grads
     The gradient of ``sum_b scale_b * loss_b`` over the batched model,
@@ -40,8 +56,9 @@ pass 2 -- grads
 
 The engine hands the model's loss a :class:`GhostHooks` for each pass
 (``per_example_loss_fn(params, batch, hooks)``); the model threads it to
-its projections (``common.qproj``) and norms (``common.rmsnorm``).  The
-quantizer layer knows nothing of the engine.
+its projections (``common.qproj``), convolutions, norms
+(``common.rmsnorm``) and fallback leaves.  The quantizer layer knows
+nothing of the engine.
 
 Floating point.  Both passes equal the vmap path in exact arithmetic, and
 to float32 tolerance when nothing rounds to a grid (fmt ``none``, the
@@ -59,9 +76,9 @@ LUQ codes of the last projection's cotangent and, layer by layer, up to a
 third of them.  In float32 the batched GEMMs' ulps survive in the forward
 too, so codes flip from the first attention output on.
 
-Leaves that no hook covers would need a vmapped norm-only fallback; the
-dense LMs have none (``per_example_state_bytes`` shows 0), and a family
-with such leaves raises here.
+The dense LMs have no fallback leaves (``per_example_state_bytes`` shows
+0); a leaf that no hook covers and the model's loss does not pass to
+:meth:`GhostHooks.leaf` raises.
 """
 from __future__ import annotations
 
@@ -71,6 +88,7 @@ import math
 from typing import Callable, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.profiler import record_function
 
 from repro_torch.quant import backend as qbackend
@@ -85,15 +103,20 @@ from repro_torch.quant.formats import STOCHASTIC_FORMATS
 class GhostHooks:
     """What the hooked ops of a model do in one ghost pass.  The engine
     passes it to the model's loss (``hooks=``), which threads it to
-    ``common.qproj`` and ``common.rmsnorm``; without it they run as usual.
+    ``common.qproj``, its convolutions, ``common.rmsnorm`` and the leaves
+    no hook covers; without it they run as usual.
 
     Both passes quantize the batched operands per example.  With a ``tap``
-    ((B,) float32, pass 1) every projection also adds its per-example
-    squared weight-gradient norms into the tap's gradient, and, with
-    ``norm_scales``, so does every rmsnorm scale; without one (pass 2)
-    nothing is tapped."""
+    ((B,) float32, pass 1) every projection and convolution also adds its
+    per-example squared weight-gradient norms into the tap's gradient,
+    and so do, with ``norm_scales``, every rmsnorm scale and every leaf
+    named in ``fallback``; without one (pass 2) nothing is tapped.
+    ``tapped`` collects the fallback leaves the model passed to
+    :meth:`leaf` (the engine checks that none was left out)."""
     tap: Optional[torch.Tensor] = None
     norm_scales: bool = False
+    fallback: frozenset = frozenset()
+    tapped: set = dataclasses.field(default_factory=set, compare=False)
 
     def qeinsum(self, spec: str, x: torch.Tensor, w: torch.Tensor, **kw):
         """``fake_quant.qeinsum`` in per-example mode; in pass 1 tapped by
@@ -102,6 +125,12 @@ class GhostHooks:
         return fake_quant.qeinsum(spec, x, w, per_example=True, tap=self.tap,
                                   tap_norm=_tap_sq_norm, **kw)
 
+    def qconv2d(self, x: torch.Tensor, w: torch.Tensor, **kw):
+        """``fake_quant.qconv2d`` in per-example mode; in pass 1 tapped by
+        :func:`_conv_tap_sq_norm`."""
+        return fake_quant.qconv2d(x, w, per_example=True, tap=self.tap,
+                                  tap_norm=_conv_tap_sq_norm, **kw)
+
     def rmsnorm_scale(self, scale: torch.Tensor,
                       x: torch.Tensor) -> torch.Tensor:
         """``scale``, or in pass 1 with ``norm_scales`` its per-example
@@ -109,6 +138,19 @@ class GhostHooks:
         if self.tap is None or not self.norm_scales:
             return scale
         return tap_scale(scale, self.tap, x)
+
+    def leaf(self, name: str, value: torch.Tensor, n: int) -> torch.Tensor:
+        """The param ``name``: ``value`` itself, or in pass 1, when no hook
+        covers it, its per-example copy for the ``n`` examples, (n,
+        *value.shape) (:func:`tap_leaf`).  A model calls it once per leaf
+        and pass."""
+        if self.tap is None or name not in self.fallback:
+            return value
+        if name in self.tapped:
+            raise ValueError(f"ghost fallback leaf {name!r} taken twice in "
+                             f"one pass: its copies' norms would not add up")
+        self.tapped.add(name)
+        return tap_leaf(value, self.tap, n)
 
 
 # --------------------------------------------------------------------------- #
@@ -253,30 +295,83 @@ def _tap_sq_norm(spec, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return _einsum_sq_norm(spec.spec, xq, gq)
 
 
+def _conv_patches(x: torch.Tensor, geo) -> torch.Tensor:
+    """(B, T, Cin kh kw): one row per output position of the (undilated)
+    conv of geometry ``geo``, the input pixels its kernel reads, from the
+    "SAME"-padded input: ``F.unfold``'s columns, taken as strided views
+    of the whole batch and copied once (``F.unfold`` on CUDA launches one
+    kernel per example).  The column order (channel-major) is not the JAX
+    package's patches', and neither route of ``_matpair_sq_norm`` depends
+    on it."""
+    t, b, l, r = geo.pads
+    kh, kw = geo.kernel
+    xp = F.pad(x, (l, r, t, b))
+    cols = xp.unfold(2, kh, geo.stride).unfold(3, kw, geo.stride)
+    n, c, ho, wo = cols.shape[:4]
+    return cols.permute(0, 2, 3, 1, 4, 5).reshape(n, ho * wo, c * kh * kw)
+
+
+def _per_example_conv_weight(x: torch.Tensor, g: torch.Tensor,
+                             geo) -> torch.Tensor:
+    """(B, Cout, Cin / groups, kh, kw): each example's own wgrad of the
+    conv of geometry ``geo``, as one wgrad with the batch folded into the
+    groups."""
+    b, cin = x.shape[:2]
+    cout = g.shape[1]
+    folded = geo._replace(groups=b * geo.groups)
+    dw = fake_quant._conv_weight(
+        x.reshape(1, b * cin, *x.shape[2:]),
+        (b * cout, cin // geo.groups, *geo.kernel),
+        g.reshape(1, b * cout, *g.shape[2:]), folded)
+    return dw.reshape(b, cout, cin // geo.groups, *geo.kernel)
+
+
+def _conv_tap_sq_norm(spec, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The (B,) per-example squared wgrad norms a ghost conv emits.
+
+    ``spec`` is the conv's ``fake_quant._QSpec``.  The quantization is the
+    wgrad GEMM's (folds 4 and 5, per example).  A dense, undilated conv
+    takes ``_matpair_sq_norm`` of its patches and the (T, Cout) cotangent
+    rows (Grams or the direct product, by ``gram_route_wins(T, kh kw Cin,
+    Cout)``); a dilated or grouped one, the squared norm of each
+    example's own wgrad (the JAX package's per-layer fallback)."""
+    geo = spec.geo
+    if spec.quantized and spec.q_wgrad:
+        x = fake_quant._quantize_per_example(x, spec.fmt, spec.backend,
+                                             spec.seed, 4)
+        g = fake_quant._quantize_per_example(g, spec.fmt, spec.backend,
+                                             spec.seed, 5)
+    if geo.dilation == 1 and geo.groups == 1:
+        gmat = g.reshape(g.shape[0], g.shape[1], -1).transpose(1, 2)
+        return _matpair_sq_norm(_conv_patches(x, geo), gmat)
+    dw = _per_example_conv_weight(x, g, geo)
+    return dw.float().square().sum(dim=(1, 2, 3, 4))
+
+
 # --------------------------------------------------------------------------- #
-# the norm-scale hook: a per-example copy of the scale
+# per-example copies: the norm-scale hook and the norm-only fallback
 # --------------------------------------------------------------------------- #
-class _TapScale(torch.autograd.Function):
-    """Forward: ``scale`` repeated for each of B examples, (B, 1.., d).
-    Backward: the per-example scale gradients sum to the scale's, and
+class _TapCopy(torch.autograd.Function):
+    """Forward: ``value`` repeated for each of B examples, ``shape`` (B
+    first).  Backward: the per-example gradients sum to the value's, and
     their squared norms are the tap's gradient."""
 
     @staticmethod
-    def forward(scale, tap, shape):
-        return scale.expand(shape).clone()
+    def forward(value, tap, shape):
+        return value.expand(shape).clone()
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.scale_shape = inputs[0].shape
+        ctx.value_shape = inputs[0].shape
 
     @staticmethod
     def backward(ctx, d_per_example):
         d = d_per_example.float()
         dtap = d.square().reshape(d.shape[0], -1).sum(dim=1)
-        dscale = None
+        dvalue = None
         if ctx.needs_input_grad[0]:
-            dscale = d_per_example.sum(dim=0).reshape(ctx.scale_shape)
-        return dscale, dtap, None
+            dvalue = d_per_example.sum(dim=0).reshape(ctx.value_shape)
+        return dvalue, dtap, None
 
 
 def tap_scale(scale: torch.Tensor, tap: torch.Tensor,
@@ -286,7 +381,13 @@ def tap_scale(scale: torch.Tensor, tap: torch.Tensor,
     gradient norms reach ``tap``."""
     shape = (x.shape[0],) + (1,) * (x.dim() - 1 - scale.dim()) + tuple(
         scale.shape)
-    return _TapScale.apply(scale, tap, shape)
+    return _TapCopy.apply(scale, tap, shape)
+
+
+def tap_leaf(value: torch.Tensor, tap: torch.Tensor, n: int) -> torch.Tensor:
+    """``value`` as ``n`` per-example copies, (n, *value.shape); under a
+    norm pass their squared gradient norms reach ``tap``."""
+    return _TapCopy.apply(value, tap, (n, *value.shape))
 
 
 # --------------------------------------------------------------------------- #
@@ -297,7 +398,9 @@ def per_example_state_bytes(params: dict, hooked_mask: dict, batch_size: int,
                             aux: Optional[GhostAux] = None) -> dict:
     """Per-example gradient state (the memory term that grows with the
     batch) of the two grad modes: vmap materializes every parameter per
-    example; ghost only the leaves no hook covers (none for dense LMs)."""
+    example; ghost only the leaves no hook covers, as pass 1's
+    per-example copies (none for dense LMs; the CNNs' GroupNorm
+    parameters and head)."""
     hooked = effective_hooked_mask(params, hooked_mask, aux)
     _check_mask(params, hooked)
     total = sum(t.numel() for t in params.values())
@@ -314,7 +417,7 @@ def per_example_state_bytes(params: dict, hooked_mask: dict, batch_size: int,
 # the two-pass driver
 # --------------------------------------------------------------------------- #
 def _chunk_norms(per_example_loss_fn, params, chunk: dict,
-                 aux: Optional[GhostAux]):
+                 aux: Optional[GhostAux], fallback: frozenset):
     """Pass 1 on one chunk: ((B,) losses, (B,) squared norms)."""
     n = next(iter(chunk.values())).shape[0]
     device = next(iter(params.values())).device
@@ -324,12 +427,18 @@ def _chunk_norms(per_example_loss_fn, params, chunk: dict,
     for t in taps.values():
         t.requires_grad_(True)
     hooks = GhostHooks(tap=tap,
-                       norm_scales=aux is not None and aux.hook_norm_scales)
+                       norm_scales=aux is not None and aux.hook_norm_scales,
+                       fallback=fallback)
     with torch.enable_grad():
         if aux is None:
             losses, fwd = per_example_loss_fn(params, chunk, hooks), None
         else:
             losses, fwd = aux.tapped_loss(params, chunk, taps, hooks)
+        if hooks.tapped != fallback:
+            raise NotImplementedError(
+                f"ghost mode: leaves {sorted(fallback - hooks.tapped)} are "
+                f"covered by no hook, and the model's loss does not take "
+                f"their norm-only fallback (GhostHooks.leaf)")
         grads = torch.autograd.grad(losses.sum(), [tap, *taps.values()],
                                     allow_unused=True)
     dtap, *dtaps = (torch.zeros_like(t) if d is None else d
@@ -359,11 +468,7 @@ def ghost_per_example_norms(per_example_loss_fn: Callable, params: dict,
     """
     hooked = effective_hooked_mask(params, hooked_mask, aux)
     _check_mask(params, hooked)
-    fallback = sorted(k for k, m in hooked.items() if not m)
-    if fallback:
-        raise NotImplementedError(
-            f"ghost mode: leaves {fallback} are covered by no hook; their "
-            f"vmapped norm-only fallback is not ported")
+    fallback = frozenset(k for k, m in hooked.items() if not m)
     detached = {k: v.detach() for k, v in params.items()}
     n = next(iter(batch.values())).shape[0]
     mb = microbatch if microbatch and 0 < microbatch < n else n
@@ -373,7 +478,8 @@ def ghost_per_example_norms(per_example_loss_fn: Callable, params: dict,
     with record_function("ghost.pass1"):
         for i in range(0, n, mb):
             chunk = {k: v[i:i + mb] for k, v in batch.items()}
-            loss, sq = _chunk_norms(per_example_loss_fn, detached, chunk, aux)
+            loss, sq = _chunk_norms(per_example_loss_fn, detached, chunk,
+                                    aux, fallback)
             losses.append(loss)
             sqs.append(sq)
     return torch.cat(losses), torch.sqrt(torch.cat(sqs))

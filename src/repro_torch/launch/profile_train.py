@@ -4,6 +4,8 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_train --workload lm
     PYTHONPATH=src python -m repro_torch.launch.profile_train \
         --workload resnet50|densenet121
+    PYTHONPATH=src python -m repro_torch.launch.profile_train \
+        --workload resnet-ghost|resnet50-ghost
     PYTHONPATH=src python -m repro_torch.launch.profile_train --executor loop
 
 ``resnet`` (the default) builds the training workload of
@@ -11,11 +13,14 @@
 images in microbatches of 64, LUQ-FP4 convs, the fused clip) and runs
 epoch 0 (analysis and 3 steps) to warm up.  ``resnet50`` and
 ``densenet121`` build the workloads of the paper's other two CNNs (the
-same options, full width and depth), ``lm`` the LM workload (full-size
-stablelm-3b, ghost-mode DP-SGD, 8 x 256 tokens, pass 1 in chunks of 4,
-LUQ-FP4 projections); these three warm up with an epoch's steps under
-the scheduler's first selection (k = 15 of 17, 56 of 62, 29 of 32
-layers), without the analysis's probe steps.  The steps run through ``--executor`` (default
+same options, full width and depth), ``resnet-ghost`` and
+``resnet50-ghost`` ResNet-18 and ResNet-50 in ghost mode (the same
+options with the conv taps in place of per-example gradients, pass 1 in
+chunks of 64 images), ``lm`` the LM workload (full-size stablelm-3b,
+ghost-mode DP-SGD, 8 x 256 tokens, pass 1 in chunks of 4, LUQ-FP4
+projections); all but ``resnet`` warm up with an epoch's steps under
+the scheduler's first selection (k = 8 of 9, 15 of 17, 56 of 62, 29 of
+32 layers), without the analysis's probe steps.  The steps run through ``--executor`` (default
 ``scan``: replays of the step's CUDA graph, captured in the warm-up;
 ``loop``: one eager step after another).  Then it times the epoch's steps
 unprofiled under that policy, profiles as many more and prints:

@@ -28,13 +28,23 @@
         --mode dpquant --fmt luq_fp4 --backend cuda --clip-backend fused \
         --batch 256 --microbatch 64
 
+    # a CNN in ghost mode: the conv taps' per-example norms, no
+    # per-example gradient of a conv (pass 1 in chunks of 64 images)
+    PYTHONPATH=src python -m repro_torch.launch.train --arch resnet18 \
+        --mode dpquant --fmt luq_fp4 --backend cuda --grad-mode ghost \
+        --clip-backend ref --ghost-microbatch 64 --batch 256 --microbatch 64
+    PYTHONPATH=src python -m repro_torch.launch.train --arch densenet121 \
+        --smoke --device cpu --grad-mode ghost --batch 8 --microbatch 8 \
+        --ghost-microbatch 4 --epochs 2 --steps-per-epoch 3 \
+        --dataset-size 256
+
     # preempted at global step 2 (a mid-epoch checkpoint, exit 0), then
     # resumed bit for bit by the same command without --preempt-at
     PYTHONPATH=src python -m repro_torch.launch.train --arch resnet18 \
         --smoke --device cpu --checkpoint-dir /tmp/ck --preempt-at 2
 
 The flags are those of ``repro.launch.train`` for these paths (the CNNs
-in vmap mode, the dense LMs in vmap or ghost mode), among them
+and the dense LMs, in vmap or ghost mode), among them
 ``--executor scan|loop`` (default ``scan``: each epoch's steps replay one
 CUDA graph of the train step a quantization policy), ``--epoch-chunk``,
 ``--epoch-unroll`` (1 only), ``--checkpoint-dir`` (a rerun restores the
@@ -117,7 +127,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--grad-mode", default="vmap", choices=["vmap", "ghost"],
                     help="per-example gradient engine: vmap (materialized "
                          "per-example grads) or ghost (two-pass ghost-norm "
-                         "clipping; dense LMs)")
+                         "clipping; dense LMs and CNNs)")
     ap.add_argument("--ghost-microbatch", type=int, default=0,
                     help="ghost pass-1 chunk size (0 = the whole batch)")
     ap.add_argument("--quant-fraction", type=float, default=0.9)

@@ -34,6 +34,13 @@ probe batch of 64) from ``TRAIN_RESNET50_ARGV`` and DenseNet-121 (blocks
 (6, 12, 24, 16), growth 32, 6,990,251 parameters, k = 56 of 62 layers,
 the last of which quantizes no conv; 63 probe runs x 2 reps) from
 ``TRAIN_DENSENET121_ARGV``.
+
+The ResNet-18 and ResNet-50 workloads again in ghost mode
+(``TRAIN_RESNET_GHOST_ARGV``, ``TRAIN_RESNET50_GHOST_ARGV``): the same
+command lines with ``--grad-mode ghost --clip-backend ref
+--ghost-microbatch 64`` in place of the fused clip, so pass 1 runs in
+chunks of 64 images and pass 2 over the whole batch of 256; the probe
+batch stays 64 (``--microbatch``).
 """
 from __future__ import annotations
 
@@ -71,9 +78,20 @@ def _cnn_argv(arch: str, epochs: int, steps: int) -> tuple:
             "--dataset-size", str(TRAIN_DATASET))
 
 
+def _ghost(argv: tuple) -> tuple:
+    """``argv`` in ghost mode: the plain clip (ghost mode forms no (B, D)
+    matrix for the fused one), pass 1 in chunks of one microbatch."""
+    i = argv.index("--clip-backend")
+    return (argv[:i] + ("--clip-backend", "ref", "--grad-mode", "ghost",
+                        "--ghost-microbatch", str(TRAIN_MICROBATCH))
+            + argv[i + 2:])
+
+
 TRAIN_ARGV = _cnn_argv(TRAIN_ARCH, TRAIN_EPOCHS, TRAIN_STEPS)
 TRAIN_RESNET50_ARGV = _cnn_argv("resnet50", 2, 2)
 TRAIN_DENSENET121_ARGV = _cnn_argv("densenet121", 2, 2)
+TRAIN_RESNET_GHOST_ARGV = _ghost(TRAIN_ARGV)
+TRAIN_RESNET50_GHOST_ARGV = _ghost(TRAIN_RESNET50_ARGV)
 
 TRAIN_LM_ARCH = "stablelm-3b"
 TRAIN_LM_BATCH, TRAIN_LM_SEQ, TRAIN_LM_CHUNK = 8, 256, 4
@@ -93,6 +111,8 @@ TRAIN_LM_ARGV = (
 #: The training workloads by name (``profile_train --workload``).
 TRAIN_WORKLOADS = {"resnet": TRAIN_ARGV, "resnet50": TRAIN_RESNET50_ARGV,
                    "densenet121": TRAIN_DENSENET121_ARGV,
+                   "resnet-ghost": TRAIN_RESNET_GHOST_ARGV,
+                   "resnet50-ghost": TRAIN_RESNET50_GHOST_ARGV,
                    "lm": TRAIN_LM_ARGV}
 
 

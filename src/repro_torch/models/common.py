@@ -2,11 +2,12 @@
 logits, losses.
 
 The counterpart of ``repro.models.common``, as plain PyTorch functions on
-tensors: what serving, ResNet training (``groupnorm``, ``softmax_xent``)
-and dense-LM training (``qproj``, ``chunked_lm_loss``, the ghost hook of
-``rmsnorm``) use.  Layouts follow the JAX package (activations (B, S, H,
-D)), except ``groupnorm``, which takes the NCHW activations of the port's
-convolutions.
+tensors: what serving, CNN training (``groupnorm``, ``dense_head``,
+``softmax_xent``; the first two also take a ghost pass's per-example
+copies) and dense-LM training (``qproj``, ``chunked_lm_loss``, the ghost
+hook of ``rmsnorm``) use.  Layouts follow the JAX package (activations
+(B, S, H, D)), except ``groupnorm``, which takes the NCHW activations of
+the port's convolutions.
 """
 from __future__ import annotations
 
@@ -58,13 +59,29 @@ def rmsnorm(x, scale, eps=1e-6, hooks=None):
 
 def groupnorm(x, scale, bias, groups=8, eps=1e-5):
     """GroupNorm over the channels of NCHW ``x``, in float32, with
-    ``gcd(groups, C)`` groups (the JAX package's rule).
+    ``gcd(groups, C)`` groups (the JAX package's rule).  ``scale`` and
+    ``bias`` are (C,), or (B, C) per example (a ghost pass's copies,
+    ``GhostHooks.leaf``).
+
+    The affine is applied after the normalization, a product and then a
+    sum, as functorch's batching rule applies it under ``vmap``: the
+    batched ghost passes and the vmap engine then compute the same bits,
+    and no ReLU input near 0 takes another side in one of them (a
+    fused affine rounds otherwise).
 
     BatchNorm leaks cross-example statistics and is incompatible with
     per-example DP gradients (Opacus imposes the same replacement).
     """
     g = math.gcd(groups, x.shape[1])
-    return F.group_norm(x.float(), g, scale, bias, eps).to(x.dtype)
+    y = F.group_norm(x.float(), g, None, None, eps)
+    return (y * scale[..., None, None] + bias[..., None, None]).to(x.dtype)
+
+
+def dense_head(x, w, b):
+    """``x @ w + b`` of (B, C) features; ``w`` (C, K), or (B, C, K) and
+    ``b`` (B, K) per example (a ghost pass's copies)."""
+    y = x @ w if w.dim() == 2 else torch.bmm(x[:, None], w)[:, 0]
+    return y + b
 
 
 def softmax_xent(logits, labels, per_example: bool = False):

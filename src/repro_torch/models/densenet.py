@@ -17,6 +17,9 @@ under flag 0 with seed 0 and the layer index is not advanced after it,
 so the stem shares policy layer 0 (and conv seed 0) with the first dense
 layer's ``conv1``; the dense layers and transitions then take indices 0
 to ``policy_len() - 2``, and the last index quantizes no conv.
+
+Ghost DP: ``per_example_loss`` and ``resnet.conv_ghost_mask``, as in the
+JAX package.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig, QuantConfig
 from repro_torch.models import common as cm
+from repro_torch.models import resnet
 from repro_torch.models.registry import Model, register_family
 from repro_torch.quant.fake_quant import qconv2d
 
@@ -88,28 +92,33 @@ def conv_layers(cfg: ModelConfig) -> list:
 
 
 def forward(params: dict, image: torch.Tensor, qflags: Sequence[bool],
-            cfg: ModelConfig, quant: QuantConfig) -> torch.Tensor:
+            cfg: ModelConfig, quant: QuantConfig, hooks=None) -> torch.Tensor:
     """Logits (B, classes) of NHWC ``image``; ``qflags`` one host-side
-    bool per policy layer."""
+    bool per policy layer.  ``hooks``: a ghost pass's
+    ``repro_torch.dp.ghost.GhostHooks`` (as in ``resnet.forward``)."""
     if len(qflags) != cfg.policy_len():
         raise ValueError(f"{len(qflags)} flags for {cfg.policy_len()} layers")
     p = params
+    conv = qconv2d if hooks is None else hooks.qconv2d
+    n = image.shape[0]
+
+    def leaf(name):
+        return p[name] if hooks is None else hooks.leaf(name, p[name], n)
 
     def qc(x, w, flag, seed):
-        return qconv2d(x, w, seed=seed, flag=bool(flag), fmt=quant.fmt,
-                       q_fwd=quant.quantize_fwd,
-                       q_dgrad=quant.quantize_dgrad,
-                       q_wgrad=quant.quantize_wgrad, backend=quant.backend)
+        return conv(x, w, seed=seed, flag=bool(flag), fmt=quant.fmt,
+                    q_fwd=quant.quantize_fwd, q_dgrad=quant.quantize_dgrad,
+                    q_wgrad=quant.quantize_wgrad, backend=quant.backend)
 
     def gn_relu(x, prefix):
-        return torch.relu(cm.groupnorm(x, p[prefix + ".scale"],
-                                       p[prefix + ".bias"]))
+        return torch.relu(cm.groupnorm(x, leaf(prefix + ".scale"),
+                                       leaf(prefix + ".bias")))
 
     li = 0
     x = image.permute(0, 3, 1, 2)
     x = gn_relu(qc(x, p["stem.conv"], qflags[li], 11 * li), "stem.gn")
-    for bi, n in enumerate(cfg.densenet_blocks):
-        for j in range(n):
+    for bi, n_layers in enumerate(cfg.densenet_blocks):
+        for j in range(n_layers):
             pre = f"blocks.{bi}.layers.{j}."
             flag, sd = qflags[li], 11 * li
             h = qc(gn_relu(x, pre + "gn1"), p[pre + "conv1"], flag, sd)
@@ -123,14 +132,14 @@ def forward(params: dict, image: torch.Tensor, qflags: Sequence[bool],
             x = F.avg_pool2d(t, 2)
             li += 1
     x = gn_relu(x, "final_gn").mean(dim=(2, 3))
-    return x @ p["head.w"] + p["head.b"]
+    return cm.dense_head(x, leaf("head.w"), leaf("head.b"))
 
 
 def loss_fn(params, batch, qflags, cfg: ModelConfig, quant: QuantConfig,
-            per_example: bool = False):
+            per_example: bool = False, hooks=None):
     """Mean (or per-example) cross-entropy of ``batch`` = {"image" NHWC,
-    "label"}."""
-    logits = forward(params, batch["image"], qflags, cfg, quant)
+    "label"}.  ``hooks``: as in ``forward``."""
+    logits = forward(params, batch["image"], qflags, cfg, quant, hooks)
     return cm.softmax_xent(logits, batch["label"], per_example=per_example)
 
 
@@ -142,4 +151,7 @@ def build_densenet(cfg: ModelConfig, quant: QuantConfig, device) -> Model:
         prepare=lambda params: params,
         forward=functools.partial(forward, cfg=cfg, quant=quant),
         loss_fn=functools.partial(loss_fn, cfg=cfg, quant=quant),
+        per_example_loss=functools.partial(loss_fn, cfg=cfg, quant=quant,
+                                           per_example=True),
+        ghost_mask=resnet.conv_ghost_mask,
     )

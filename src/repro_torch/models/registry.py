@@ -31,9 +31,10 @@ class Model:
     # qflags) -> logits (resnet, densenet)
     forward: Optional[Callable] = None
     loss_fn: Optional[Callable] = None
-    # ghost DP (dense_lm): per_example_loss(params, batch, qflags,
-    # hooks=None) -> (B,), hooks a ghost pass's GhostHooks;
+    # ghost DP (dense_lm, resnet, densenet): per_example_loss(params,
+    # batch, qflags, hooks=None) -> (B,), hooks a ghost pass's GhostHooks;
     # ghost_mask(params) -> {name: bool}; ghost_aux(qflags) -> GhostAux
+    # (dense_lm only)
     per_example_loss: Optional[Callable] = None
     ghost_mask: Optional[Callable] = None
     ghost_aux: Optional[Callable] = None

@@ -13,6 +13,10 @@ nesting joined with dots: ``stem.conv`` (3, 3, C_in, 64) HWIO,
 ``head.b``.  The public ``forward`` takes NHWC images as the JAX package
 does and computes in NCHW, the layout of PyTorch's convolutions.
 
+Ghost DP: ``per_example_loss(params, batch, qflags, hooks=None)`` and
+``conv_ghost_mask`` (every conv hooked; the GroupNorm parameters and the
+head take the engine's norm-only fallback).
+
 DPQuant policy granularity: the stem and every residual block are one
 schedulable layer; ``qconv2d`` gates every conv GEMM of the layer under
 its flag.  The conv seeds are the JAX package's ``11 * layer + j``: j = 0,
@@ -96,22 +100,29 @@ def conv_layers(cfg: ModelConfig) -> list:
 
 
 def forward(params: dict, image: torch.Tensor, qflags: Sequence[bool],
-            cfg: ModelConfig, quant: QuantConfig) -> torch.Tensor:
+            cfg: ModelConfig, quant: QuantConfig, hooks=None) -> torch.Tensor:
     """Logits (B, classes) of NHWC ``image``; ``qflags`` one host-side
-    bool per policy layer."""
+    bool per policy layer.  ``hooks``: a ghost pass's
+    ``repro_torch.dp.ghost.GhostHooks``, whose ``qconv2d`` then runs every
+    conv and whose ``leaf`` hands out the GroupNorm and head params."""
     if len(qflags) != cfg.policy_len():
         raise ValueError(f"{len(qflags)} flags for {cfg.policy_len()} layers")
     p = params
     bottleneck = _is_bottleneck(cfg)
+    conv = qconv2d if hooks is None else hooks.qconv2d
+    n = image.shape[0]
+
+    def leaf(name):
+        return p[name] if hooks is None else hooks.leaf(name, p[name], n)
 
     def qc(x, w, flag, seed, stride=1):
-        return qconv2d(x, w, seed=seed, flag=bool(flag), stride=stride,
-                       fmt=quant.fmt, q_fwd=quant.quantize_fwd,
-                       q_dgrad=quant.quantize_dgrad,
-                       q_wgrad=quant.quantize_wgrad, backend=quant.backend)
+        return conv(x, w, seed=seed, flag=bool(flag), stride=stride,
+                    fmt=quant.fmt, q_fwd=quant.quantize_fwd,
+                    q_dgrad=quant.quantize_dgrad,
+                    q_wgrad=quant.quantize_wgrad, backend=quant.backend)
 
     def gn(x, prefix):
-        return cm.groupnorm(x, p[prefix + ".scale"], p[prefix + ".bias"])
+        return cm.groupnorm(x, leaf(prefix + ".scale"), leaf(prefix + ".bias"))
 
     x = image.permute(0, 3, 1, 2)
     x = torch.relu(gn(qc(x, p["stem.conv"], qflags[0], 0), "stem.gn"))
@@ -133,16 +144,28 @@ def forward(params: dict, image: torch.Tensor, qflags: Sequence[bool],
                           pre + "proj_gn")
         x = torch.relu(h + shortcut)
     x = x.mean(dim=(2, 3))
-    return x @ p["head.w"] + p["head.b"]
+    return cm.dense_head(x, leaf("head.w"), leaf("head.b"))
 
 
 def loss_fn(params, batch, qflags, cfg: ModelConfig, quant: QuantConfig,
-            per_example: bool = False):
+            per_example: bool = False, hooks=None):
     """Mean (or per-example) cross-entropy of ``batch`` = {"image" NHWC,
     "label"}.  The JAX package's ``loss_fn`` also takes an rng, which it
-    deletes; the port leaves it out."""
-    logits = forward(params, batch["image"], qflags, cfg, quant)
+    deletes; the port leaves it out.  ``hooks``: as in ``forward``."""
+    logits = forward(params, batch["image"], qflags, cfg, quant, hooks)
     return cm.softmax_xent(logits, batch["label"], per_example=per_example)
+
+
+def conv_ghost_mask(params: dict) -> dict:
+    """Ghost hooks cover every conv kernel (stem, blocks, projections): a
+    leaf whose last name component starts with ``conv`` or is ``proj``.
+    The GroupNorm scales and biases and the dense head take the norm-only
+    fallback.  Shared by the resnet and densenet families, as in the JAX
+    package."""
+    def hooked(name: str) -> bool:
+        last = name.rsplit(".", 1)[-1]
+        return last.startswith("conv") or last == "proj"
+    return {k: hooked(k) for k in params}
 
 
 @register_family("resnet")
@@ -153,4 +176,7 @@ def build_resnet(cfg: ModelConfig, quant: QuantConfig, device) -> Model:
         prepare=lambda params: params,
         forward=functools.partial(forward, cfg=cfg, quant=quant),
         loss_fn=functools.partial(loss_fn, cfg=cfg, quant=quant),
+        per_example_loss=functools.partial(loss_fn, cfg=cfg, quant=quant,
+                                           per_example=True),
+        ghost_mask=conv_ghost_mask,
     )

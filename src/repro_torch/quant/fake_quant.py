@@ -30,17 +30,20 @@ becomes the rows of one kernel call, each row scaled by its own
 computes when ``vmap`` hands each lane one example and an unbatched key.
 A weight is not batched and is quantized whole, as one row.
 
-``qeinsum`` also has an explicit per-example mode (``per_example=True``),
-which the ghost engine's hooks (``repro_torch.dp.ghost.GhostHooks``) ask
-for in their batched passes: the batched operands (x, g) are quantized one
-row per example with one shared draw, exactly what the vmap rule
-computes, and the weight whole.  In the norm pass the hooks also hand it a
-tap tensor and the function whose value on (x, g) is the tap's gradient.
-Both arrive as arguments: this module imports nothing of the engine.
+``qeinsum`` and ``qconv2d`` also have an explicit per-example mode
+(``per_example=True``), which the ghost engine's hooks
+(``repro_torch.dp.ghost.GhostHooks``) ask for in their batched passes:
+the batched operands (x, g) are quantized one row per example with one
+shared draw, exactly what the vmap rule computes, and the weight whole.
+In the norm pass the hooks also hand them a tap tensor and the function
+whose value on (x, g) is the tap's gradient.  Both arrive as arguments:
+this module imports nothing of the engine.
 
 Policy flags are host-side bools (the policy is fixed for an epoch): a
-layer that is not quantized runs a plain convolution and launches no
-quantizer.
+layer that is not quantized, and not tapped, runs the plain op and
+launches no quantizer.  The backward forms only the gradients its
+inputs need: no dgrad for the stem's images, no wgrad for the detached
+weights of the ghost norm pass.
 """
 from __future__ import annotations
 
@@ -113,7 +116,8 @@ fake_quant.register_vmap(_fake_quant_vmap)
 def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
     """(before, after) padding of XLA's "SAME" rule: output ceil(n / s),
     the odd pixel after.  A stride-2 3x3 conv on an even input pads
-    (0, 1), which ``F.conv2d(padding=1)`` would not."""
+    (0, 1), which ``F.conv2d(padding=1)`` would not.  ``kernel`` is the
+    effective size, ``(k - 1) * dilation + 1`` for a dilated kernel."""
     out = -(-size // stride)
     total = max((out - 1) * stride + kernel - size, 0)
     return total // 2, total - total // 2
@@ -122,6 +126,9 @@ def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
 class _Geometry(NamedTuple):
     stride: int
     pads: Tuple[int, int, int, int]       # top, bottom, left, right
+    kernel: Tuple[int, int]               # kh, kw (undilated)
+    dilation: int = 1
+    groups: int = 1
 
     @property
     def symmetric(self) -> bool:
@@ -129,10 +136,13 @@ class _Geometry(NamedTuple):
         return t == b and l == r
 
 
-def _geometry(x, w_oihw, stride: int) -> _Geometry:
+def _geometry(x, w_oihw, stride: int, dilation: int = 1,
+              groups: int = 1) -> _Geometry:
     kh, kw = w_oihw.shape[2:]
-    return _Geometry(stride, same_pads(x.shape[-2], kh, stride)
-                     + same_pads(x.shape[-1], kw, stride))
+    eff_h, eff_w = (kh - 1) * dilation + 1, (kw - 1) * dilation + 1
+    return _Geometry(stride, same_pads(x.shape[-2], eff_h, stride)
+                     + same_pads(x.shape[-1], eff_w, stride), (kh, kw),
+                     dilation, groups)
 
 
 def _pad(x, geo: _Geometry):
@@ -146,84 +156,125 @@ def _sym_padding(geo: _Geometry):
 
 def _conv(x, w_oihw, geo: _Geometry):
     return F.conv2d(_pad(x, geo), w_oihw, stride=geo.stride,
-                    padding=_sym_padding(geo))
+                    padding=_sym_padding(geo), dilation=geo.dilation,
+                    groups=geo.groups)
+
+
+def _conv_weight(x, w_shape, g, geo: _Geometry):
+    """The wgrad ``dw`` (OIHW) of ``_conv`` for input ``x`` and output
+    cotangent ``g``."""
+    return torch.nn.grad.conv2d_weight(_pad(x, geo), w_shape, g, geo.stride,
+                                       _sym_padding(geo), geo.dilation,
+                                       geo.groups)
 
 
 class _QSpec(NamedTuple):
     fmt: str
     backend: str
     seed: int
+    quantized: bool       # the layer's flag and fmt != "none"
     q_fwd: bool
     q_dgrad: bool
     q_wgrad: bool
+    per_example: bool     # batched operands quantized one row per example
     geo: _Geometry
+    tap_norm: Optional[Callable] = None   # (spec, x, g) -> the tap's grad
 
 
-def _q(t, spec: _QSpec, fold: int, on: bool):
-    return fake_quant(t, spec.fmt, spec.backend, spec.seed, fold) if on else t
+def _q(t, spec, fold: int, on: bool, batched: bool):
+    """Fold ``fold`` of a ``_QSpec`` or ``_ESpec`` layer applied to ``t``
+    when ``on`` and the layer is quantized: one row per example for a
+    batched operand in per-example mode, else the whole tensor."""
+    if not (on and spec.quantized):
+        return t
+    if batched and spec.per_example:
+        return _quantize_per_example(t, spec.fmt, spec.backend, spec.seed,
+                                     fold)
+    return fake_quant(t, spec.fmt, spec.backend, spec.seed, fold)
 
 
 class _QConv2d(torch.autograd.Function):
-    """NCHW x, OIHW w; quantized fwd / dgrad / wgrad GEMM inputs."""
+    """NCHW x, OIHW w; quantized fwd / dgrad / wgrad GEMM inputs, and,
+    with a ``tap``, ``spec.tap_norm(spec, x, g)`` as the tap's gradient."""
 
     generate_vmap_rule = True
 
     @staticmethod
-    def forward(x, w, spec: _QSpec):
+    def forward(x, w, tap, spec: _QSpec):
         with torch.no_grad():
-            xq = _q(x, spec, 0, spec.q_fwd)
-            wq = _q(w, spec, 1, spec.q_fwd)
+            xq = _q(x, spec, 0, spec.q_fwd, True)
+            wq = _q(w, spec, 1, spec.q_fwd, False)
             return _conv(xq, wq, spec.geo)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        x, w, spec = inputs
+        x, w, tap, spec = inputs
         ctx.save_for_backward(x, w)
         ctx.spec = spec
+        ctx.tapped = tap is not None
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         spec = ctx.spec
         geo = spec.geo
-        t, b, l, r = geo.pads
+        dx = dw = dtap = None
         with torch.no_grad():
-            # dgrad: dx = conv^T(Q(g), Q(w)), on the padded input, cropped
-            wq = _q(w, spec, 2, spec.q_dgrad)
-            gq = _q(g, spec, 3, spec.q_dgrad)
-            n, c, h, wd = x.shape
-            padded = ((n, c, h, wd) if geo.symmetric
-                      else (n, c, h + t + b, wd + l + r))
-            dx = torch.nn.grad.conv2d_input(padded, wq, gq, geo.stride,
-                                            _sym_padding(geo))
-            if not geo.symmetric:
-                dx = dx[..., t:t + h, l:l + wd]
-            # wgrad: dw = Q(x)^T Q(g)
-            xq = _q(x, spec, 4, spec.q_wgrad)
-            gq = _q(g, spec, 5, spec.q_wgrad)
-            dw = torch.nn.grad.conv2d_weight(_pad(xq, geo), w.shape, gq,
-                                             geo.stride, _sym_padding(geo))
-        return dx, dw, None
+            if ctx.needs_input_grad[0]:
+                # dgrad: dx = conv^T(Q(g), Q(w)), on the padded input,
+                # cropped
+                t, b, l, r = geo.pads
+                wq = _q(w, spec, 2, spec.q_dgrad, False)
+                gq = _q(g, spec, 3, spec.q_dgrad, True)
+                n, c, h, wd = x.shape
+                padded = ((n, c, h, wd) if geo.symmetric
+                          else (n, c, h + t + b, wd + l + r))
+                dx = torch.nn.grad.conv2d_input(
+                    padded, wq, gq, geo.stride, _sym_padding(geo),
+                    geo.dilation, geo.groups)
+                if not geo.symmetric:
+                    dx = dx[..., t:t + h, l:l + wd]
+            if ctx.needs_input_grad[1]:
+                # wgrad: dw = Q(x)^T Q(g)
+                xq = _q(x, spec, 4, spec.q_wgrad, True)
+                gq = _q(g, spec, 5, spec.q_wgrad, True)
+                dw = _conv_weight(xq, w.shape, gq, geo)
+            if ctx.tapped:
+                dtap = spec.tap_norm(spec, x, g)
+        return dx, dw, dtap, None
 
 
 def qconv2d(x: torch.Tensor, w: torch.Tensor, *, seed: int, flag: bool,
-            stride: int = 1, fmt: str = "luq_fp4", q_fwd: bool = True,
-            q_dgrad: bool = True, q_wgrad: bool = True,
-            backend: str = None) -> torch.Tensor:
+            stride: int = 1, dilation: int = 1, groups: int = 1,
+            fmt: str = "luq_fp4", q_fwd: bool = True, q_dgrad: bool = True,
+            q_wgrad: bool = True, backend: str = None,
+            per_example: bool = False, tap: Optional[torch.Tensor] = None,
+            tap_norm: Optional[Callable] = None) -> torch.Tensor:
     """Quantization-aware conv2d with "SAME" padding.
 
     ``x`` is NCHW; ``w`` is HWIO, the JAX package's weight layout (the
-    port keeps its parameter shapes), permuted to OIHW here.  ``flag`` and
-    ``seed`` are host-side: a layer whose flag is off, or ``fmt="none"``,
-    runs the plain convolution.
+    port keeps its parameter shapes), permuted to OIHW here; a grouped
+    conv's I is ``C_in / groups``.  ``dilation`` and ``groups`` are the
+    JAX package's ``rhs_dilation`` (the same in both axes) and
+    ``feature_groups``.  ``flag`` and ``seed`` are host-side: a layer
+    whose flag is off, or ``fmt="none"``, runs the plain convolution
+    unless it is tapped.
+
+    ``per_example`` and ``tap`` / ``tap_norm`` are ``qeinsum``'s: the
+    batched operands (x and the cotangent) quantized one example at a
+    time, and the tap's gradient the value of ``tap_norm(spec, x, g)`` on
+    this conv's ``_QSpec``, input and output cotangent.
     """
     w_oihw = w.permute(3, 2, 0, 1)
-    geo = _geometry(x, w_oihw, stride)
-    if not flag or fmt == "none":
+    geo = _geometry(x, w_oihw, stride, dilation, groups)
+    if tap is None and (not flag or fmt == "none"):
         return _conv(x, w_oihw, geo)
+    if tap is not None and tap_norm is None:
+        raise ValueError("qconv2d: a tap needs its tap_norm")
     spec = _QSpec(fmt, qbackend.resolve_backend(backend), int(seed),
-                  bool(q_fwd), bool(q_dgrad), bool(q_wgrad), geo)
-    return _QConv2d.apply(x, w_oihw, spec)
+                  bool(flag) and fmt != "none", bool(q_fwd), bool(q_dgrad),
+                  bool(q_wgrad), bool(per_example), geo, tap_norm)
+    return _QConv2d.apply(x, w_oihw, tap, spec)
 
 
 # --------------------------------------------------------------------------- #
@@ -256,15 +307,6 @@ def _terms(spec: str):
     return x_term, w_term, out
 
 
-def _qe(t, spec: _ESpec, fold: int, on: bool, batched: bool):
-    if not (on and spec.quantized):
-        return t
-    if batched and spec.per_example:
-        return _quantize_per_example(t, spec.fmt, spec.backend, spec.seed,
-                                     fold)
-    return fake_quant(t, spec.fmt, spec.backend, spec.seed, fold)
-
-
 class _QEinsum(torch.autograd.Function):
     """``einsum(spec, x, w)``; quantized fwd / dgrad / wgrad GEMM inputs,
     and, with a ``tap``, ``spec.tap_norm(spec, x, g)`` as the tap's
@@ -275,8 +317,8 @@ class _QEinsum(torch.autograd.Function):
     @staticmethod
     def forward(x, w, tap, spec: _ESpec):
         with torch.no_grad():
-            xq = _qe(x, spec, 0, spec.q_fwd, True)
-            wq = _qe(w, spec, 1, spec.q_fwd, False)
+            xq = _q(x, spec, 0, spec.q_fwd, True)
+            wq = _q(w, spec, 1, spec.q_fwd, False)
             return torch.einsum(spec.spec, xq, wq)
 
     @staticmethod
@@ -294,12 +336,12 @@ class _QEinsum(torch.autograd.Function):
         dx = dw = dtap = None
         with torch.no_grad():
             if ctx.needs_input_grad[0]:
-                wq = _qe(w, spec, 2, spec.q_dgrad, False)
-                gq = _qe(g, spec, 3, spec.q_dgrad, True)
+                wq = _q(w, spec, 2, spec.q_dgrad, False)
+                gq = _q(g, spec, 3, spec.q_dgrad, True)
                 dx = torch.einsum(f"{out},{w_term}->{x_term}", gq, wq)
             if ctx.needs_input_grad[1]:
-                xq = _qe(x, spec, 4, spec.q_wgrad, True)
-                gq = _qe(g, spec, 5, spec.q_wgrad, True)
+                xq = _q(x, spec, 4, spec.q_wgrad, True)
+                gq = _q(g, spec, 5, spec.q_wgrad, True)
                 dw = torch.einsum(f"{x_term},{out}->{w_term}", xq, gq)
             if ctx.tapped:
                 dtap = spec.tap_norm(spec, x, g)

@@ -478,14 +478,18 @@ def _small_run(executor, grad_mode="vmap"):
     from repro_torch.config import (DPConfig, ModelConfig, OptimConfig,
                                     QuantConfig, RunConfig)
     from repro_torch.configs import get_smoke_config
+    cnn = ModelConfig(name="cnn", family="resnet", resnet_blocks=(1, 1),
+                      num_classes=8, image_size=16, compute_dtype="float32")
     if grad_mode == "ghost":
         model = get_smoke_config("stablelm-3b")
         dp = DPConfig(microbatch_size=4, grad_mode="ghost",
                       ghost_microbatch=2, quant_fraction=0.5)
+    elif grad_mode == "cnn_ghost":
+        model = cnn
+        dp = DPConfig(microbatch_size=4, grad_mode="ghost",
+                      ghost_microbatch=4, quant_fraction=0.5)
     else:
-        model = ModelConfig(name="cnn", family="resnet",
-                            resnet_blocks=(1, 1), num_classes=8,
-                            image_size=16, compute_dtype="float32")
+        model = cnn
         dp = DPConfig(microbatch_size=4, clip_backend="fused",
                       quant_fraction=0.5)
     return RunConfig(model=model, quant=QuantConfig(fmt="luq_fp4",
@@ -496,7 +500,7 @@ def _small_run(executor, grad_mode="vmap"):
                      epoch_executor=executor)
 
 
-@pytest.mark.parametrize("grad_mode", ["vmap", "ghost"])
+@pytest.mark.parametrize("grad_mode", ["vmap", "ghost", "cnn_ghost"])
 def test_graphed_epoch_equals_the_eager_loop_bitwise(cuda, grad_mode):
     """One epoch of 3 steps under a cosine schedule, sigma 1: the scan
     executor's replays of the captured step give the loop's params,
@@ -504,9 +508,8 @@ def test_graphed_epoch_equals_the_eager_loop_bitwise(cuda, grad_mode):
     the launch counts are the loop's plus the warm-up step."""
     from repro_torch.data.synthetic import ImageClassDataset, TokenDataset
     from repro_torch.train_loop import Trainer
-    ds = (ImageClassDataset(n=64, num_classes=8, image_size=16)
-          if grad_mode == "vmap" else TokenDataset(n=64, vocab=199,
-                                                   seq_len=16))
+    ds = (TokenDataset(n=64, vocab=199, seq_len=16) if grad_mode == "ghost"
+          else ImageClassDataset(n=64, num_classes=8, image_size=16))
     torch.backends.cudnn.deterministic = True
     try:
         out = {}
@@ -531,6 +534,66 @@ def test_graphed_epoch_equals_the_eager_loop_bitwise(cuda, grad_mode):
         assert torch.equal(a, b)
     for name, n in cl["launches"].items():       # 3 steps, then 3 + warm-up
         assert cs["launches"][name] * 3 == n * 4, name
+
+
+@pytest.mark.parametrize("arch", ["resnet18", "resnet50", "densenet121"])
+def test_cnn_ghost_step_at_full_width(cuda, arch):
+    """The full config's ghost step on 8 images: at fmt none the pass-1
+    norms within rtol 1e-4 of the vmap engine's per-example norms
+    (GroupNorm and head leaves included); at luq_fp4 one train step
+    (pass 1 in chunks of 4) with a finite loss, no clip or ghost_norm
+    launch, and the quantize calls its convs imply: per quantized conv
+    and pass, two of the weight and four per example, the stem (whose
+    input needs no gradient) one and three."""
+    from torch.func import grad, vmap
+    from repro_torch.config import (DPConfig, OptimConfig, QuantConfig,
+                                    RunConfig)
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import ImageClassDataset
+    from repro_torch.dp import ghost
+    from repro_torch.launch.steps import build_train_setup
+    from repro_torch.models import densenet, resnet
+    from repro_torch.models.registry import build_model
+    cfg = get_config(arch)
+    batch = {k: v.to(cuda) for k, v in ImageClassDataset(
+        n=8, num_classes=cfg.num_classes).get(list(range(8))).items()}
+    flags = (True,) * cfg.policy_len()
+    model = build_model(cfg, QuantConfig(fmt="none"), device=cuda)
+    params = model.init(0)
+
+    def loss_one(p, ex):
+        return model.loss_fn(p, {k: v[None] for k, v in ex.items()}, flags)
+
+    grads = vmap(grad(loss_one), in_dims=(None, 0))(params, batch)
+    want = torch.sqrt(sum(g.square().sum(dim=tuple(range(1, g.dim())))
+                          for g in grads.values()))
+    del grads
+    _, got = ghost.ghost_per_example_norms(
+        lambda p, b, h: model.per_example_loss(p, b, flags, hooks=h),
+        params, batch, hooked_mask=model.ghost_mask(params))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=0.0)
+
+    model = build_model(cfg, QuantConfig(fmt="luq_fp4", backend="cuda"),
+                        device=cuda)
+    run = RunConfig(model=cfg, quant=model.quant,
+                    dp=DPConfig(grad_mode="ghost", ghost_microbatch=4),
+                    optim=OptimConfig(name="sgd", lr=0.1), global_batch=8)
+    setup = build_train_setup(model, run)
+    ops.reset_launch_counts()
+    _, _, metrics = setup.step_fn(params, setup.opt_init_fn(params), batch,
+                                  0, flags, 0.1)
+    torch.cuda.synchronize()
+    assert torch.isfinite(metrics["loss"])
+    counts = ops.launch_counts()
+    assert counts["launches"]["clip_and_sum"] == 0
+    assert counts["launches"]["ghost_norm_sq"] == 0
+    convs = {"resnet": resnet, "densenet": densenet}[cfg.family] \
+        .conv_layers(cfg)
+    passes = 8 // 4 + 1                         # two chunks, then pass 2
+    q_convs, q_stems = passes * sum(convs), passes
+    assert counts["luq_quant"] == {"one_row": 2 * q_convs - q_stems,
+                                   "rows": 4 * q_convs - q_stems,
+                                   "kernels": 2 * (6 * q_convs - 2 * q_stems)}
 
 
 def test_graph_replays_draw_the_loops_noise_at_each_seed(cuda):

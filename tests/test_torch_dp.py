@@ -324,24 +324,20 @@ def test_clip_sum_has_its_own_knob(monkeypatch):
         qbackend.get_clip_sum("pallas")
 
 
-def test_ghost_mode_is_not_ported_yet():
-    """Grad-mode validation.  Ghost mode is ported for the dense LMs; on a
-    ResNet it needs the conv ghost taps, a later slice, and raises.  Ghost
-    with the fused clip, an unknown mode and an unknown clip path are
-    refused."""
+@pytest.mark.parametrize("arch", ["resnet18", "resnet50", "densenet121",
+                                  "stablelm-3b"])
+def test_ghost_mode_accepts_every_training_family(arch):
+    """Grad-mode validation.  Ghost mode is ported for the dense LMs and
+    both CNN families (the conv ghost taps); ghost with the fused clip,
+    an unknown mode and an unknown clip path are refused."""
     ghost_dp = dataclasses.replace(DPConfig(), grad_mode="ghost")
-    resnet = build_model(get_smoke_config("resnet18"),
-                         QuantConfig(fmt="none"), device="cpu")
-    lm = build_model(get_smoke_config("stablelm-3b"), QuantConfig(fmt="none"),
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="conv ghost taps"):
-        engine.validate_grad_mode(ghost_dp, resnet)
-    with pytest.raises(NotImplementedError, match="conv ghost taps"):
-        build_train_setup(resnet, RunConfig(model=resnet.config, dp=ghost_dp))
-    engine.validate_grad_mode(ghost_dp, lm)
+    model = build_model(get_smoke_config(arch), QuantConfig(fmt="none"),
+                        device="cpu")
+    engine.validate_grad_mode(ghost_dp, model)
+    build_train_setup(model, RunConfig(model=model.config, dp=ghost_dp))
     with pytest.raises(ValueError, match="clip_backend='fused'"):
         engine.validate_grad_mode(dataclasses.replace(
-            ghost_dp, clip_backend="fused"), lm)
+            ghost_dp, clip_backend="fused"), model)
     with pytest.raises(ValueError, match="grad_mode"):
         engine.validate_grad_mode(DPConfig(grad_mode="sharded"))
     with pytest.raises(ValueError, match="clip_backend"):

@@ -263,7 +263,9 @@ def test_qconv2d_backward_quantizes_six_operands_per_conv(monkeypatch):
     """Under the DP engine's vmap one quantized conv calls the quantizer
     six times: four over the examples' rows (x fold 0, g folds 3 and 5,
     x fold 4) and two on the weight whole (folds 1 and 2); a conv whose
-    flag is off calls it not at all."""
+    flag is off calls it not at all.  A conv whose input needs no
+    gradient (the stem, on the images) runs no dgrad: folds 2 and 3 are
+    not called."""
     calls = []
     orig = fq._quantize_rows
 
@@ -281,7 +283,11 @@ def test_qconv2d_backward_quantizes_six_operands_per_conv(monkeypatch):
 
     for flag in (False, True):
         calls.clear()
-        g = vmap(torch.func.grad(loss), in_dims=(None, 0, None),
-                 randomness="same")(w, x, flag)
-        assert g.shape == (5, 3, 3, 2, 4)
+        g, gx = vmap(torch.func.grad(loss, argnums=(0, 1)),
+                     in_dims=(None, 0, None), randomness="same")(w, x, flag)
+        assert g.shape == (5, 3, 3, 2, 4) and gx.shape == x.shape
     assert sorted(calls) == [(0, 5), (1, 1), (2, 1), (3, 5), (4, 5), (5, 5)]
+    calls.clear()
+    vmap(torch.func.grad(loss), in_dims=(None, 0, None),
+         randomness="same")(w, x, True)
+    assert sorted(calls) == [(0, 5), (1, 1), (4, 5), (5, 5)]
