@@ -110,13 +110,31 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    ``repro_torch/launch/workload.py``: 4 slots, 8 requests, prompts of
    64-512 tokens, 32 new tokens, greedy, luq_fp4 logits head, once with an
    int8 and once with a luq_fp4 KV cache, on the ``cuda`` backend, the
-   decode step replayed from its CUDA graph every tick (captured in a
-   warm-up run); every request must finish with its 32 tokens, every
-   kernel (both branches of the matmul) must have run, the KV write must
-   have launched once a layer and decode tick (counted a replay) and once
-   a prefill, and the graph must have been replayed once a tick; prints
-   the wall per tick and, over a profiled rerun, the host's launch calls
-   per tick;
+   decode step replayed from its CUDA graph every tick and each bucket's
+   prefill from its own (captured in a warm-up run); every request must
+   finish with its 32 tokens, every kernel (the matmul at decode and at
+   prefill) must have run, the KV write must have launched once a layer
+   and decode tick (counted a replay) and once a prefill, the decode
+   graph must have been replayed once a tick and the prefill graphs once
+   an admission; prints the wall per tick and, over a profiled rerun,
+   the host's launch calls per tick;
+7b. serves the same requests at temperature 1.0 (seed 3, ``max_retries``
+   5), int8 and luq_fp4 KV: fault-free; then under the supervisor with
+   all five fault kinds (a prefill and a decode failure, slot poison, a
+   frozen clock, a replica death seen through heartbeat files), every
+   request ``ok`` and token-identical to the fault-free run, the counters
+   the plan implies, decode graph replays equal to the ticks and the
+   replayed prefix steps, prefill graph replays, prefill KV writes and
+   prefill logits heads equal to the admissions; then pushed past the
+   supervisor's slot-fault threshold into the oneshot drain,
+   token-identical too; each bucket's prefill replay bitwise the eager
+   prefill of the same padded prompt (the length as an int and as a
+   device scalar); prints the three runs' walls, each bucket's capture
+   seconds, one admission's host wall and launch calls eager against
+   replay, and two witnesses over 16 positions of one request: the
+   reference's replay (``prompt + prefix`` prefilled at once) against
+   the fault-free tokens, and the B=1 lockstep decode's logits against
+   the slot row's, bit for bit;
 8. checks the engine (its graphed tick) against the oneshot driver for
    one request, token for token.
 
@@ -357,50 +375,47 @@ def check_decode_attn(torch, ops, ref, kvc, fmt, B, S, reps=50):
     }
 
 
-def check_luq_matmul(torch, ops, ref, per_row, rows, sm_clock_mhz, reps=10):
+def check_luq_matmul(torch, ops, ref, folds, sm_clock_mhz, reps=10):
     """The logits head, (R, 4096) x (4096, 64000), drawing its uniforms
-    with Philox from the logits head's keys: at decode ``rows`` slot rows
-    with one key and one scale each, the keys an (R, 2) device tensor built
-    from the slots' positions as the decode graph builds them, at prefill
-    one row, one key and a scalar scale.  The plain version draws the same
-    stream in PyTorch, b in column chunks; the kernel must agree within the
-    tolerance and give the same bits twice; at decode the device keys must
-    give the bits of the same keys as a host list, in the kernel and in the
-    plain version."""
+    with Philox from the logits head's keys, one key and one scale a row,
+    the keys an (R, 2) device tensor built from the rows' folds as the
+    graphs build them: at decode the slots' folds 2 pos + 1, at prefill
+    one row with the fold 2 prompt_len.  The plain version draws the same
+    stream in PyTorch, b in column chunks; the kernel must agree within
+    the tolerance and give the same bits twice; the device keys must give
+    the bits of the same keys as a host list, in the kernel and in the
+    plain version, and one row's device key the bits of its fold's shared
+    key (the lockstep prefill's branch)."""
     from repro_torch.models.common import logits_key, logits_keys
     from repro_torch.quant import philox
     from repro_torch.quant.formats import luq_fp4, luq_fp4_codes
 
-    R, K, N = (rows if per_row else 1), 4096, 64000
-    pos = [100, 300, 700, 1023][:R]
-    key_list = ([logits_key(2 * p + 1) for p in pos] if per_row
-                else [logits_key(2 * 512)])
-    keys = (logits_keys(2 * torch.tensor(pos, dtype=torch.int32,
-                                         device="cuda") + 1)
-            if per_row else key_list[0])
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 2 + per_row)
+    R, K, N = len(folds), 4096, 64000
+    key_list = [logits_key(f) for f in folds]
+    keys = logits_keys(torch.tensor(folds, dtype=torch.int32, device="cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2 + (R > 1))
     a = torch.randn(R, K, device="cuda", generator=gen)
     b = torch.randn(K, N, device="cuda", generator=gen) / 64
-    alpha_a = a.abs().amax(dim=1) if per_row else a.abs().amax()
+    alpha_a = a.abs().amax(dim=1)
     alpha_b = b.abs().amax()
     args = (a, b, keys, alpha_a, alpha_b)
     out = ops.luq_matmul(*args)
     if not torch.equal(out, ops.luq_matmul(*args)):
         raise AssertionError(f"luq_matmul (R = {R}): two runs differ")
     want = ref.luq_matmul_keys_ref(*args)
-    if per_row:
-        if not torch.equal(out, ops.luq_matmul(a, b, key_list, alpha_a,
-                                               alpha_b)):
-            raise AssertionError("luq_matmul: device keys and host keys "
-                                 "give other bits")
-        if not torch.equal(want, ref.luq_matmul_keys_ref(
-                a, b, key_list, alpha_a, alpha_b)):
-            raise AssertionError("luq_matmul's plain version: device keys "
-                                 "and host keys give other bits")
-    if per_row:
-        ua = torch.stack([philox.uniforms(k, 0, K, "cuda") for k in key_list])
-    else:
-        ua = philox.uniforms(keys, 0, R * K, "cuda").reshape(R, K)
+    if not torch.equal(out, ops.luq_matmul(a, b, key_list, alpha_a,
+                                           alpha_b)):
+        raise AssertionError("luq_matmul: device keys and host keys give "
+                             "other bits")
+    if not torch.equal(want, ref.luq_matmul_keys_ref(a, b, key_list, alpha_a,
+                                                     alpha_b)):
+        raise AssertionError("luq_matmul's plain version: device keys and "
+                             "host keys give other bits")
+    if R == 1 and not torch.equal(out, ops.luq_matmul(
+            a, b, key_list[0], alpha_a.reshape(()), alpha_b)):
+        raise AssertionError("luq_matmul: one row's device key and its "
+                             "shared key give other bits")
+    ua = torch.stack([philox.uniforms(k, 0, K, "cuda") for k in key_list])
     aq = luq_fp4(a, ua, alpha_a.reshape(-1, 1))
     ca = luq_fp4_codes(a, ua, alpha_a.reshape(-1, 1))
     # Q(b) of each key's draw, in full (one GB each), and its bf16 codes
@@ -416,17 +431,15 @@ def check_luq_matmul(torch, ops, ref, per_row, rows, sm_clock_mhz, reps=10):
     # beforehand: the bf16 codes with float32 sums and output, scaled at
     # the end (products of codes are exact), and the float32 values
     aq3, ca3 = aq[:, None, :], ca[:, None, :]
-    bq3 = bq if per_row else bq.expand(R, K, N)
-    cb3 = cb if per_row else cb.expand(R, K, N)
-    scale = (alpha_a.reshape(-1).expand(R) * alpha_b)[:, None, None]
+    scale = (alpha_a * alpha_b)[:, None, None]
 
     def codes_bmm():
-        return scale * torch.bmm(ca3, cb3, out_dtype=torch.float32)
+        return scale * torch.bmm(ca3, cb, out_dtype=torch.float32)
 
     err = (out - want).abs().max().item()
-    lib, lib32 = codes_bmm()[:, 0], torch.bmm(aq3, bq3)[:, 0]
+    lib, lib32 = codes_bmm()[:, 0], torch.bmm(aq3, bq)[:, 0]
     for i in range(R):
-        tol = 1e-5 * (aq[i].abs() @ bq[i if per_row else 0].abs()) + 1e-6
+        tol = 1e-5 * (aq[i].abs() @ bq[i].abs()) + 1e-6
         for what, got in (("luq_matmul", out), ("the bf16 codes' bmm", lib),
                           ("the float32 bmm", lib32)):
             if not ((got[i] - want[i]).abs() <= tol).all():
@@ -434,7 +447,8 @@ def check_luq_matmul(torch, ops, ref, per_row, rows, sm_clock_mhz, reps=10):
                     f"{what} row {i} outside tolerance (max abs err "
                     f"{(got[i] - want[i]).abs().max().item()})")
     del lib, lib32
-    nbytes = 4 * (2 * R * K + K * N + alpha_a.numel() + 1 + R * N)
+    # a, Q(a)'s scratch, b, the scales, the keys and the output
+    nbytes = 4 * (2 * R * K + K * N + R + 1 + 2 * R + R * N)
     # Philox calls: a's elements one a call; b's 4 a call, for each key
     calls = R * K + len(key_list) * K * N // 4
     flops = 2 * R * K * N + LUQ_OPS * (K * N + R * K)
@@ -449,9 +463,9 @@ def check_luq_matmul(torch, ops, ref, per_row, rows, sm_clock_mhz, reps=10):
         "bound_uniforms_from_memory_ms": bound(
             nbytes + 4 * (R * K + len(key_list) * K * N), flops)[0],
         "library_ms": time_ms(torch, codes_bmm, reps),
-        "library_f32_ms": time_ms(torch, lambda: torch.bmm(aq3, bq3), reps),
+        "library_f32_ms": time_ms(torch, lambda: torch.bmm(aq3, bq), reps),
     }
-    del bq, bq3, cb, cb3
+    del bq, cb
     return result
 
 
@@ -1581,7 +1595,9 @@ def serve_yi6b(torch, kv_fmt, model, params, ops, wl):
                         max_new_tokens=wl.NEW_TOKENS, kv_fmt=kv_fmt)
     engine = ContinuousEngine(model, params, serve)
     prompts = wl.prompts(model.config.vocab_size)
-    engine.submit(prompts[0][:wl.PROMPT_MIN], max_new_tokens=2)   # warm-up
+    # warm-up: captures the decode graph and every bucket's prefill graph
+    for p in prompts:
+        engine.submit(p, max_new_tokens=2)
     engine.run()
     engine.reset()
     for p in prompts:
@@ -1589,14 +1605,12 @@ def serve_yi6b(torch, kv_fmt, model, params, ops, wl):
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     replays = engine.decode_replays
+    prefill_replays = engine.prefill_replays
     results = engine.run()
     torch.cuda.synchronize()
     replays = engine.decode_replays - replays
-    launches = dict(ops.LAUNCHES)
-    launches["luq_matmul[decode]"] = ops.LUQ_MATMUL_LAUNCHES["per_row"]
-    launches["luq_matmul[prefill]"] = ops.LUQ_MATMUL_LAUNCHES["shared"]
-    launches["kv_quant_write[decode]"] = ops.KV_WRITE_LAUNCHES["decode"]
-    launches["kv_quant_write[prefill]"] = ops.KV_WRITE_LAUNCHES["prefill"]
+    prefill_replays = engine.prefill_replays - prefill_replays
+    launches = serve_launches(ops)
     if sorted(results) != list(range(wl.REQUESTS)):
         raise AssertionError(f"served {sorted(results)}")
     for rid, r in results.items():
@@ -1615,9 +1629,18 @@ def serve_yi6b(torch, kv_fmt, model, params, ops, wl):
     summary["prompt_lengths"] = [p.size for p in prompts]
     ticks = summary["decode_ticks"]
     summary["graph_replays_per_tick"] = replays / ticks
+    summary["prefill_programs"] = engine.prefill_programs
     if replays != ticks:
         raise AssertionError(f"{replays} decode graph replays in {ticks} "
                              "ticks")
+    if not (prefill_replays == launches["luq_matmul[prefill]"]
+            == wl.REQUESTS):
+        raise AssertionError(
+            f"{prefill_replays} prefill graph replays and "
+            f"{launches['luq_matmul[prefill]']} prefill logits heads for "
+            f"{wl.REQUESTS} admissions")
+    if engine.prefill_programs > math.ceil(math.log2(wl.MAX_SEQ)):
+        raise AssertionError(f"{engine.prefill_programs} prefill programs")
     engine.reset()
     for p in prompts:
         engine.submit(p, max_new_tokens=wl.NEW_TOKENS)
@@ -1633,6 +1656,240 @@ def serve_yi6b(torch, kv_fmt, model, params, ops, wl):
                 f"kv_quant_write[{branch}] launched "
                 f"{launches[f'kv_quant_write[{branch}]']} times, want {n}")
     return summary, launches
+
+
+# phase 7b's fault plans: the five kinds, and a run pushed past the
+# supervisor's slot-fault threshold (2) into the oneshot fallback
+CHAOS_EVENTS = (("prefill_fail", 1), ("decode_fail", 3),
+                ("replica_death", 4, 1), ("clock_freeze", 5, -1, 6),
+                ("slot_corrupt", 8, 2))
+DRAIN_EVENTS = (("slot_corrupt", 2, 0), ("decode_fail", 4))
+
+
+def _ticking_clock(dt=0.05):
+    """An injected clock that advances ``dt`` a read: heartbeat ages, and
+    so the detection of a dead replica, in reads, not in wall time."""
+    t = [0.0]
+
+    def clock():
+        t[0] += dt
+        return t[0]
+
+    return clock
+
+
+def _host_ms(torch, fn, reps=5):
+    """Median host wall of ``fn`` ending in a synchronize, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[reps // 2]
+
+
+def serve_faults_yi6b(torch, kv_fmt, model, params, ops, wl):
+    """Phase 7b: the workload of phase 7 at temperature 1.0 (seed 3,
+    ``max_retries`` 5) through the engine's failure model and the
+    supervisor.  Returns the printed summary and the launch counts of the
+    supervised run."""
+    import tempfile
+
+    from repro_torch.config import ServeConfig
+    from repro_torch.runtime import (FaultEvent, FaultPlan, ServeSupervisor,
+                                     run_supervised)
+    from repro_torch.serve import ContinuousEngine, build_oneshot_fns
+    from repro_torch.serve.engine import (prefill_bucket, sample_tokens,
+                                          sampling_seed)
+    from repro_torch.serve.slots import init_slot_cache
+
+    serve = ServeConfig(max_slots=wl.SLOTS, max_seq=wl.MAX_SEQ,
+                        max_new_tokens=wl.NEW_TOKENS, temperature=1.0,
+                        seed=3, kv_fmt=kv_fmt, max_retries=5)
+    engine = ContinuousEngine(model, params, serve)
+    prompts = wl.prompts(model.config.vocab_size)
+    for p in prompts:                   # captures every graph of the run
+        engine.submit(p, max_new_tokens=2)
+    engine.run()
+
+    def run(events=(), seed=0, **supervision):
+        engine.reset()
+        plan = FaultPlan([FaultEvent(*e) for e in events], seed=seed)
+        engine.faults, engine.on_tick = (plan if events else None), None
+        sup = (ServeSupervisor(engine, faults=plan, **supervision)
+               if events else None)
+        for p in prompts:
+            engine.submit(p, max_new_tokens=wl.NEW_TOKENS)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        before = engine.decode_replays, engine.prefill_replays
+        t0 = time.perf_counter()
+        results = (run_supervised(engine, clock=_ticking_clock())
+                   if events else engine.run())
+        torch.cuda.synchronize()
+        rec = {"wall_s": time.perf_counter() - t0,
+               "tokens": {r: v.tokens.tolist() for r, v in results.items()},
+               "statuses": {v.status for v in results.values()},
+               "summary": engine.metrics.summary(),
+               "decode_replays": engine.decode_replays - before[0],
+               "prefill_replays": engine.prefill_replays - before[1],
+               "admissions": sum(engine.pool.admissions),
+               "replayed_steps": engine.replayed_steps,
+               "launches": serve_launches(ops)}
+        if events and plan.pending:
+            raise AssertionError(f"faults not fired: {plan.pending}")
+        return rec, sup
+
+    # 1. fault-free
+    free, _ = run()
+    if free["statuses"] != {"ok"} or any(
+            len(t) != wl.NEW_TOKENS for t in free["tokens"].values()):
+        raise AssertionError(f"fault-free run: {free['statuses']}")
+    # 2. all five kinds under the supervisor, a dead replica's heartbeats
+    # in files
+    with tempfile.TemporaryDirectory() as hb_dir:
+        chaos, sup = run(CHAOS_EVENTS, seed=11, n_replicas=3, hb_dir=hb_dir,
+                         slot_fault_threshold=10)
+    s = chaos["summary"]
+    # the plan's counters: the prefill failure's victim, the decode
+    # failure's (every slot busy at tick 3) and the poisoned slot 2's
+    # occupant (busy at tick 8) retried; one re-plan for the dead replica,
+    # whose slot cap is 4 x 2 // 3
+    want = {"faults_injected": 5, "slot_faults": 2, "retried": 6,
+            "degraded_events": 1, "shed": 0, "deadline_missed": 0}
+    got = {k: s[k] for k in want}
+    if got != want or sup.dead != {1} or engine.slot_cap != 2:
+        raise AssertionError(f"chaos run: counters {got}, want {want}; "
+                             f"dead {sup.dead}, slot cap {engine.slot_cap}")
+    if chaos["statuses"] != {"ok"} or chaos["tokens"] != free["tokens"]:
+        raise AssertionError("chaos run: tokens differ from the fault-free "
+                             "run's")
+    for name, rec in (("fault-free", free), ("chaos", chaos)):
+        ticks = rec["summary"]["decode_ticks"]
+        n = rec["admissions"]
+        if rec["decode_replays"] != ticks + rec["replayed_steps"]:
+            raise AssertionError(
+                f"{name}: {rec['decode_replays']} decode graph replays for "
+                f"{ticks} ticks and {rec['replayed_steps']} replayed steps")
+        if not (rec["prefill_replays"] == n
+                == rec["launches"]["kv_quant_write[prefill]"]
+                == rec["launches"]["luq_matmul[prefill]"]):
+            raise AssertionError(
+                f"{name}: {rec['prefill_replays']} prefill graph replays, "
+                f"{rec['launches']['kv_quant_write[prefill]']} prefill KV "
+                f"writes for {n} admissions")
+    # 3. past the slot-fault threshold: the oneshot drain
+    drain, dsup = run(DRAIN_EVENTS, seed=5, slot_fault_threshold=2)
+    if dsup.events[-1]["kind"] != "oneshot_fallback" or \
+            drain["statuses"] != {"ok"} or drain["tokens"] != free["tokens"]:
+        raise AssertionError("oneshot drain: tokens differ from the "
+                             "fault-free run's")
+    # 4. each bucket's prefill replay against the eager prefill of the
+    # same padded prompt, bit for bit
+    capture_s, admission = {}, {}
+    for bucket, step in sorted(engine._prefills.items()):
+        n = max(p.size for p in prompts if prefill_bucket(p.size,
+                                                          wl.MAX_SEQ)
+                == bucket)
+        prompt = next(p for p in prompts if p.size == n)
+        buf = engine._prefill_in[bucket]
+        host = torch.zeros((bucket + 1,), dtype=torch.int32)
+        host[:n] = torch.from_numpy(prompt)
+        host[bucket] = n
+        buf.copy_(host)
+        logits, pcache = (t.clone() if torch.is_tensor(t) else
+                          {k: v.clone() for k, v in t.items()}
+                          for t in step())
+        tokens = buf[:bucket].view(1, bucket)
+        for plen in (n, buf[bucket]):
+            want_l, want_c = model.prefill(engine.params, {"tokens": tokens},
+                                           prompt_len=plen, kv_fmt=kv_fmt)
+            same = torch.equal(logits, want_l) and all(
+                torch.equal(pcache[k], want_c[k]) for k in want_c
+                if k != "pos")
+            if not same:
+                raise AssertionError(f"bucket {bucket}: the prefill replay "
+                                     "differs from the eager prefill")
+        capture_s[bucket] = step.capture_s
+        if bucket == max(engine._prefills):
+            def eager():
+                return model.prefill(engine.params, {"tokens": tokens},
+                                     prompt_len=buf[bucket], kv_fmt=kv_fmt)
+            admission = {
+                "bucket": bucket,
+                "eager_ms": _host_ms(torch, eager),
+                "replay_ms": _host_ms(torch, step),
+                "eager_calls": host_calls(torch, eager),
+                "replay_calls": host_calls(torch, step)}
+    # the replay witnesses: request 0's fault-free tokens against the
+    # reference's replay (prompt + prefix prefilled at once, the token
+    # drawn from the prefill's logits), and the slot row's logits against
+    # the B=1 lockstep decode's
+    p, toks, J = prompts[0], free["tokens"][0], 16
+    n = p.size
+    reprefill = 0
+    for j in range(1, J + 1):
+        seq = torch.from_numpy(p).new_zeros(
+            (1, prefill_bucket(n + j, wl.MAX_SEQ)))
+        seq[0, :n] = torch.from_numpy(p)
+        seq[0, n:n + j] = torch.tensor(toks[:j])
+        lg, _ = model.prefill(engine.params, {"tokens": seq.cuda()},
+                              prompt_len=n + j, kv_fmt=kv_fmt)
+        reprefill += int(sample_tokens(lg, 1.0, [sampling_seed(
+            3, 0, n + j)])[0]) == toks[j]
+    prefill, decode = build_oneshot_fns(model, wl.MAX_SEQ, kv_fmt)
+    _, lock = prefill(engine.params, {"tokens": torch.from_numpy(p)[None]
+                                      .cuda()})
+    slots = init_slot_cache(model, wl.SLOTS, wl.MAX_SEQ, kv_fmt=kv_fmt)
+    b = prefill_bucket(n, wl.MAX_SEQ)
+    seq = torch.zeros((1, b), dtype=torch.int32)
+    seq[0, :n] = torch.from_numpy(p)
+    _, pc = model.prefill(engine.params, {"tokens": seq.cuda()},
+                          prompt_len=n, kv_fmt=kv_fmt)
+    for k, arr in slots.items():
+        if k != "pos":
+            arr[:, :1, :, :b] = pc[k]
+    slots["pos"][0] = n
+    row = torch.zeros((wl.SLOTS,), dtype=torch.int32, device="cuda")
+    active = torch.zeros((wl.SLOTS,), dtype=torch.bool, device="cuda")
+    active[0] = True
+    lockstep_equal = 0
+    for j in range(J):
+        row[0] = toks[j]
+        want, _ = model.decode_slots(engine.params, slots, row, active,
+                                     kv_fmt=kv_fmt)
+        got, lock = decode(engine.params, lock, row[:1])
+        lockstep_equal += torch.equal(got[0], want[0])
+    del slots, lock
+    summary = {
+        "fault_free_wall_s": free["wall_s"], "chaos_wall_s": chaos["wall_s"],
+        "drain_wall_s": drain["wall_s"],
+        "chaos": {k: s[k] for k in ("faults_injected", "retried",
+                                    "recovered", "slot_faults",
+                                    "degraded_events", "decode_ticks")},
+        "chaos_replayed_steps": chaos["replayed_steps"],
+        "chaos_decode_replays": chaos["decode_replays"],
+        "chaos_prefill_replays": chaos["prefill_replays"],
+        "fault_free_ticks": free["summary"]["decode_ticks"],
+        "drain_events": [e["kind"] for e in dsup.events],
+        "prefill_capture_s": capture_s, "admission": admission,
+        "witness": {"positions": J,
+                    "reference_replay_tokens_equal": reprefill,
+                    "lockstep_b1_logits_bitwise": lockstep_equal}}
+    return summary, chaos["launches"]
+
+
+def serve_launches(ops) -> dict:
+    """The launch counts of a serving run, the matmul's and the KV
+    write's also by the step that made them."""
+    launches = dict(ops.LAUNCHES)
+    for step in ("decode", "prefill"):
+        launches[f"luq_matmul[{step}]"] = ops.LUQ_MATMUL_LAUNCHES[step]
+        launches[f"kv_quant_write[{step}]"] = ops.KV_WRITE_LAUNCHES[step]
+    return launches
 
 
 def _phase_done(walls: dict, name: str) -> None:
@@ -1709,10 +1966,13 @@ def main() -> int:
                                  wl.MAX_SEQ)
         print(f"decode_attn_fused[{fmt}] {attn}")
         checks[f"decode_attn_fused[{fmt}]"] = attn
-    for branch, per_row in (("decode", True), ("prefill", False)):
+    # the decode tick's slots at their folds 2 pos + 1, and a 512-token
+    # prompt's prefill row at 2 x 512
+    for branch, folds in (("decode", [2 * p + 1 for p in
+                                      (100, 300, 700, 1023)][:wl.SLOTS]),
+                          ("prefill", [2 * 512])):
         name = f"luq_matmul[{branch}]"
-        checks[name] = check_luq_matmul(torch, ops, ref, per_row, wl.SLOTS,
-                                        sm_clock_mhz)
+        checks[name] = check_luq_matmul(torch, ops, ref, folds, sm_clock_mhz)
         print(f"{name} {checks[name]}")
     # the quantize op at its paths' shapes: ResNet-18's largest weight
     # (3x3x512x512) whole and largest activation under vmap (64 examples x
@@ -1894,6 +2154,26 @@ def main() -> int:
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30} GiB")
 
     _phase_done(walls, "7 serve yi-6b")
+
+    # 7b. serve yi-6b under faults: the chaos run and the oneshot drain
+    # token-identical to the fault-free run, each bucket's prefill graph
+    # bitwise the eager prefill
+    for kv_fmt in ("int8", "luq_fp4"):
+        summary, counts = serve_faults_yi6b(torch, kv_fmt, model, params,
+                                            ops, wl)
+        zero = [k for k in ("luq_matmul[decode]", "luq_matmul[prefill]",
+                            "kv_quant_write[decode]",
+                            "kv_quant_write[prefill]", "decode_attn_fused")
+                if counts[k] == 0]
+        if zero:
+            raise AssertionError(f"kernels not launched in the chaos run: "
+                                 f"{zero}")
+        print(f"serve yi-6b under faults kv={kv_fmt} ({card}): "
+              f"{json.dumps(summary)}; chaos run launches (replays "
+              f"counted) {counts}")
+        torch.cuda.empty_cache()
+
+    _phase_done(walls, "7b serve yi-6b under faults")
 
     # 8. engine vs oneshot, one request, same shapes on both sides
     from repro_torch.config import ServeConfig

@@ -8,7 +8,7 @@ ghost-mode DP-SGD training of the dense LMs).  Dtypes are strings
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -224,6 +224,26 @@ class ServeConfig:
     temperature: float = 0.0         # 0 = greedy; >0 = per-slot sampling
     seed: int = 0                    # base of the sampling seed schedule
     kv_fmt: str = "none"             # KV_CACHE_FORMATS
+    # ---- admission control and fault tolerance ----
+    # Per-request deadline in seconds from arrival (None = no deadline).
+    # An expired queued request is retired without admission ("rejected"
+    # bucket); an expired in-flight request retires with its partial
+    # tokens and status "timed_out".  Overridable per request at submit().
+    deadline_s: Optional[float] = None
+    # Queue bound: submissions beyond this many waiting requests are shed
+    # at once (status "shed").  0 = unbounded.
+    max_queue: int = 0
+    # Retry policy for injected or detected faults (prefill or decode
+    # dispatch failure, detected slot-cache poison): a victim is re-queued
+    # up to max_retries times and replayed (its prompt prefilled, its
+    # generated prefix decoded again), token-identical because the
+    # computation of every position is the fault-free run's.  Exhausted
+    # retries finalize the request with status "failed" and its partial
+    # tokens.
+    max_retries: int = 2
+    # Linear backoff: re-admission of attempt k is gated to
+    # ``now + k * retry_backoff_s``.  0 = immediate re-queue.
+    retry_backoff_s: float = 0.0
 
     def __post_init__(self):
         if self.max_slots < 1:
@@ -234,3 +254,11 @@ class ServeConfig:
             raise ValueError(
                 f"ServeConfig.kv_fmt must be one of {KV_CACHE_FORMATS}, "
                 f"got {self.kv_fmt!r}")
+        if self.deadline_s is not None and self.deadline_s <= 0:
+            raise ValueError("ServeConfig.deadline_s must be > 0 (or None)")
+        if self.max_queue < 0:
+            raise ValueError("ServeConfig.max_queue must be >= 0")
+        if self.max_retries < 0:
+            raise ValueError("ServeConfig.max_retries must be >= 0")
+        if self.retry_backoff_s < 0:
+            raise ValueError("ServeConfig.retry_backoff_s must be >= 0")

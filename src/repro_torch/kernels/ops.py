@@ -13,6 +13,7 @@ The kernels (``csrc/*.cu``) are built at first use by ``kernels.build``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -26,10 +27,11 @@ from repro_torch.quant import philox
 #: Only launches of a kernel count; CPU calls of the plain versions do not.
 LAUNCHES = {"luq_matmul": 0, "kv_quant_write": 0, "decode_attn_fused": 0,
             "luq_quant": 0, "clip_and_sum": 0, "ghost_norm_sq": 0}
-#: The ``luq_matmul`` launches of :data:`LAUNCHES` by the kernel's branch:
-#: one Philox key ``shared`` by all rows (prefill), or one key ``per_row``
-#: (the decode tick's per-slot logits head).
-LUQ_MATMUL_LAUNCHES = {"shared": 0, "per_row": 0}
+#: The ``luq_matmul`` launches of :data:`LAUNCHES` by the serving step
+#: that made them: a ``prefill``'s logits head (inside
+#: :func:`prefill_launches`) or a ``decode`` step's (anywhere else).
+LUQ_MATMUL_LAUNCHES = {"prefill": 0, "decode": 0}
+_LUQ_MATMUL_STEP = ["decode"]
 #: The ``luq_quant`` calls of :data:`LAUNCHES` by the number of rows: a
 #: tensor quantized whole (``one_row``: a weight, or anything outside
 #: vmap) or one row per example (``rows``: activations and cotangents
@@ -59,6 +61,17 @@ def reset_launch_counts() -> None:
                    KV_WRITE_LAUNCHES):
         for name in counts:
             counts[name] = 0
+
+
+@contextlib.contextmanager
+def prefill_launches():
+    """Count the ``luq_matmul`` launches inside as a prefill's
+    (:data:`LUQ_MATMUL_LAUNCHES`)."""
+    _LUQ_MATMUL_STEP.append("prefill")
+    try:
+        yield
+    finally:
+        _LUQ_MATMUL_STEP.pop()
 
 
 def launch_counts() -> dict:
@@ -187,7 +200,7 @@ def luq_matmul(a, b, keys, alpha_a, alpha_b) -> torch.Tensor:
                 K, N, stream)
             _raise_on_error(lib, err, "luq_matmul")
             LAUNCHES["luq_matmul"] += 1
-            LUQ_MATMUL_LAUNCHES["per_row" if per_row else "shared"] += 1
+            LUQ_MATMUL_LAUNCHES[_LUQ_MATMUL_STEP[-1]] += 1
     return out
 
 

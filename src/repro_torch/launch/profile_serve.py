@@ -18,13 +18,15 @@ run, then profiles one more run and prints:
 * the kernels with the most device time, the device time of each of the
   port's own kernels (``kernels/csrc``, however little), the host's
   kernel launch calls (``cudaLaunchKernel``) and graph launch calls
-  (``cudaGraphLaunch``, one a decode tick: the engine replays its decode
-  step's CUDA graph) and the operators with the most host time.
+  (``cudaGraphLaunch``, one a decode tick and one an admission: the
+  engine replays its decode step's CUDA graph and each bucket's prefill
+  graph) and the operators with the most host time.
 
 Kernels launched through ``ctypes`` are not tied to a host range, so the
 device time shown for a range covers PyTorch's operators only; the
-decode step's ranges were recorded at capture (in the warm-up run), so a
-tick's device time shows in the kernel lists, not under ``qlogits``.
+decode and prefill steps' ranges were recorded at capture (in the
+warm-up run), so their device time shows in the kernel lists, not under
+``qlogits``.
 """
 from __future__ import annotations
 

@@ -8,11 +8,17 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \
         --device cpu --quant-fmt luq_fp4 --kv-fmt luq_fp4
 
-The flags are those of ``repro.launch.serve`` without the fault-injection
-and admission-control ones (the port's runtime layer is not ported yet),
-plus ``--device`` (default ``cuda``; without a GPU the run raises unless
-``--device cpu`` is given) and ``--backend ref|cuda`` (default ``cuda``,
-the hand-written kernels; ``REPRO_QUANT_BACKEND`` overrides it).
+    # chaos mode: a seeded FaultPlan through the supervisor, the fired
+    # events written to a JSON log
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \
+        --device cpu --fault-seed 0 --fault-log /tmp/f.json
+
+The flags are those of ``repro.launch.serve``, admission control
+(``--deadline``, ``--max-queue``) and chaos mode (``--fault-seed``,
+``--fault-log``) included, plus ``--device`` (default ``cuda``; without a
+GPU the run raises unless ``--device cpu`` is given) and ``--backend
+ref|cuda`` (default ``cuda``, the hand-written kernels;
+``REPRO_QUANT_BACKEND`` overrides it).
 """
 from __future__ import annotations
 
@@ -24,6 +30,8 @@ import torch
 from repro_torch.config import QuantConfig, ServeConfig
 from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.models.registry import build_model
+from repro_torch.runtime.faults import FaultPlan
+from repro_torch.runtime.supervisor import ServeSupervisor, run_supervised
 from repro_torch.serve import (ContinuousEngine, build_oneshot_fns,
                                oneshot_generate)
 
@@ -55,19 +63,36 @@ def run_oneshot(model, params, args) -> None:
 
 
 def run_continuous(model, params, args) -> None:
-    """Slot-pool engine with FCFS admission."""
+    """Slot-pool engine with FCFS admission.
+
+    With ``--fault-seed`` the run goes through the supervisor under a
+    seeded ``FaultPlan`` (chaos mode): faults are injected at their
+    scheduled counters, the recovery counters are printed, and the
+    fired-event log is written to ``--fault-log``.
+    """
     serve = ServeConfig(max_slots=args.slots,
                         max_seq=args.prompt_len + args.gen,
                         max_new_tokens=args.gen,
                         temperature=args.temperature, seed=args.seed,
-                        kv_fmt=args.kv_fmt)
-    engine = ContinuousEngine(model, params, serve, device=model.device)
+                        kv_fmt=args.kv_fmt, deadline_s=args.deadline,
+                        max_queue=args.max_queue)
+    faults = None
+    if args.fault_seed is not None:
+        faults = FaultPlan.generate(
+            args.fault_seed,
+            kinds=("prefill_fail", "decode_fail", "slot_corrupt",
+                   "clock_freeze"),
+            horizon=max(2, args.gen), n_slots=args.slots)
+    engine = ContinuousEngine(model, params, serve, device=model.device,
+                              faults=faults)
+    if faults is not None:
+        ServeSupervisor(engine, faults=faults)
     rng = np.random.RandomState(args.seed)
     for _ in range(args.requests or args.slots):
         engine.submit(_random_prompt(rng, args.prompt_len,
                                      model.config.vocab_size),
                       max_new_tokens=args.gen)
-    results = engine.run()
+    results = run_supervised(engine) if faults is not None else engine.run()
     summary = engine.metrics.summary()
     print(f"served {summary['n_requests']} requests / "
           f"{summary['total_new_tokens']} new tokens in "
@@ -77,6 +102,16 @@ def run_continuous(model, params, args) -> None:
     print(f"latency p50/p99: {summary['latency_p50_s']*1e3:.1f}/"
           f"{summary['latency_p99_s']*1e3:.1f} ms; "
           f"ttft p50: {summary['ttft_p50_s']*1e3:.1f} ms")
+    if faults is not None or summary["shed"] or summary["deadline_missed"]:
+        print(f"recovery: {summary['faults_injected']} faults injected, "
+              f"{summary['retried']} retries, {summary['recovered']} "
+              f"recovered, {summary['shed']} shed, "
+              f"{summary['deadline_missed']} deadline-missed, "
+              f"{summary['degraded_events']} degraded events")
+    if faults is not None and args.fault_log:
+        with open(args.fault_log, "w") as f:
+            f.write(faults.log_json(extra={"summary": summary}))
+        print(f"fault log written to {args.fault_log}")
     for rid in sorted(results):
         r = results[rid]
         tag = "" if r.status == "ok" else f" [{r.status}]"
@@ -110,6 +145,18 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="continuous: per-request deadline in seconds from "
+                         "arrival (expired requests retire with partial "
+                         "results, status timed_out)")
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="continuous: bound on waiting requests; overflow "
+                         "is shed at submit (0 = unbounded)")
+    ap.add_argument("--fault-seed", type=int, default=None,
+                    help="continuous: run under a seeded FaultPlan through "
+                         "the supervisor (chaos mode)")
+    ap.add_argument("--fault-log", default=None,
+                    help="chaos mode: write the fired-fault JSON log here")
     args = ap.parse_args(argv)
 
     cfg = (get_smoke_config(args.arch) if args.smoke

@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig, QuantConfig, torch_dtype
+from repro_torch.kernels import ops
 from repro_torch.models import common as cm
 from repro_torch.models.registry import Model, register_family
 
@@ -336,7 +337,7 @@ def slot_cache_spec(cfg: ModelConfig, n_slots: int, max_seq: int,
 @torch.no_grad()
 def prefill(params, batch, cfg: ModelConfig, quant: QuantConfig,
             cache_len: Optional[int] = None, kv_fmt: str = "none",
-            prompt_len: Optional[int] = None):
+            prompt_len=None):
     """Run the full prompt; return (last-token logits, filled KV cache).
 
     ``prompt_len`` supports bucketed prefill: the token batch may be padded
@@ -344,6 +345,13 @@ def prefill(params, batch, cfg: ModelConfig, quant: QuantConfig,
     and the logits stream are taken at ``prompt_len``.  Padding changes
     nothing for the real rows (attention is causal) and rows at index
     >= pos are masked until a decode tick overwrites them.
+
+    ``prompt_len`` is an int or, for a batch of one, a 0-d integer tensor
+    on the device: then nothing is read to the host (the engine captures
+    one prefill a bucket as a CUDA graph and replays it for every length
+    in the bucket).  The last real row is gathered on the device, the
+    logits head's key is built there (one key for the one row: the bits
+    of the int's shared key), and the cache's ``"pos"`` is that tensor.
     """
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -358,12 +366,24 @@ def prefill(params, batch, cfg: ModelConfig, quant: QuantConfig,
         x = x + mlp_block(x, blk, cfg)
         ks.append(k.transpose(1, 2))           # (B, KV, S, hd)
         vs.append(v.transpose(1, 2))
-    plen = S if prompt_len is None else int(prompt_len)
-    h_last = cm.rmsnorm(x[:, plen - 1], params["final_norm"]).float()
+    if isinstance(prompt_len, torch.Tensor):
+        if B != 1:
+            raise ValueError(f"a device prompt_len takes a batch of one, "
+                             f"got {B} rows")
+        plen = prompt_len.reshape(())
+        last = (plen.long() - 1).reshape(1)
+        x_last = x.index_select(1, last)[:, 0]
+        folds = 2 * plen.reshape(1)
+    else:
+        plen = S if prompt_len is None else int(prompt_len)
+        x_last = x[:, plen - 1]
+        folds = 2 * plen
+    h_last = cm.rmsnorm(x_last, params["final_norm"]).float()
     # even folds = prefill, odd folds = decode (pos == S after prefill, so a
     # bare fold of the position would reuse the first decode step's stream)
-    logits = cm.qlogits(h_last, _head_t(params, cfg), quant_cfg=quant,
-                        folds=2 * plen)
+    with ops.prefill_launches():
+        logits = cm.qlogits(h_last, _head_t(params, cfg), quant_cfg=quant,
+                            folds=folds)
     ks, vs = torch.stack(ks), torch.stack(vs)  # (L, B, KV, S, hd)
     cache = {"k": ks, "v": vs, "pos": plen}
     if kv_fmt != "none":

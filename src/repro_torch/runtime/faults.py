@@ -7,7 +7,9 @@ A ``FaultPlan`` is an explicit, seed-derived schedule of fault events —
 (``take``), so every failure-recovery path is reproducible: the same seed
 produces the same faults at the same counters on every run.  In the port
 the trainer polls ``"preempt"`` (through
-``repro_torch.runtime.preemption``); the serving kinds have no hook yet.
+``repro_torch.runtime.preemption``), the serving engine
+(``repro_torch.serve.engine``) the four engine kinds and the serving
+supervisor (``repro_torch.runtime.supervisor``) the two replica kinds.
 
 Fault kinds and the counter domain each is polled against:
 

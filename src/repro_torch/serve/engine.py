@@ -1,11 +1,10 @@
 """Continuous-batching serving engine over a slot-pool KV cache.
 
-The counterpart of ``repro.serve.engine`` (its normal path; fault
-injection, replay, deadlines, shedding and the supervisor come with the
-port's runtime layer).  One ``ContinuousEngine`` owns a fixed
-``max_slots x max_seq`` KV cache and runs the scheduler loop::
+The counterpart of ``repro.serve.engine``.  One ``ContinuousEngine`` owns
+a fixed ``max_slots x max_seq`` KV cache and runs the scheduler loop::
 
     while queue or active slots:
+        retire expired requests                 (deadlines)
         admit queued requests into free slots   (B=1 prefill each, FCFS)
         one decode tick over every slot         (decode_slots + sampling)
         retire finished slots                   (budget / EOS / cache full)
@@ -15,42 +14,69 @@ A tick is one ``decode_slots`` call plus sampling on the device and one
 leave the device.  The decode step (trunk, KV write and logits head, the
 counterpart of the reference's jitted ``self._step``) reads its tokens,
 positions and active mask from static device buffers that the tick fills
-in place; on CUDA it is captured as a CUDA graph at the first tick, for
+in place; on CUDA it is captured as a CUDA graph at its first call, for
 the engine's fixed ``(max_slots, max_seq, kv_fmt)``, and replayed every
-tick after (``repro_torch.graph.StepGraph``; a capture or replay that
-fails raises).  The cache is only ever written in place, so the graph
-holds its addresses for the engine's life, across ``reset()``.  The
-engine keeps a host mirror of the slots' positions for its bookkeeping
-and copies it into the device buffer before each tick.  Prefill stays
-eager, one program a bucket.  Sampling, with its (request_id, position)
+call after (``repro_torch.graph.StepGraph``; a capture or replay that
+fails raises).  The cache is only ever written in place (admissions,
+retirements, injected poison), so the graph holds its addresses for the
+engine's life, across ``reset()``.  The engine keeps a host mirror of the
+slots' positions for its bookkeeping and copies it into the device
+buffer before each step.  Sampling, with its (request_id, position)
 seeds, stays outside the graph.
 
 Prefill bucketing: admission pads each prompt to the next power of two
-(clamped to ``max_seq``) and passes the true length, so the prefill sees
-at most ``ceil(log2(max_seq))`` distinct shapes (``prefill_programs``).
+(clamped to ``max_seq``) and passes the true length as a device scalar,
+so the prefill sees at most ``ceil(log2(max_seq))`` distinct shapes
+(``prefill_programs``).  On CUDA each bucket's prefill is a CUDA graph,
+captured at the bucket's first admission and replayed for every later
+one: it reads the padded tokens and the length from one static device
+buffer of the bucket, so an admission is one host->device copy and one
+replay.  The prefill graphs share one memory pool, kept apart from the
+decode graph's; a prefill's outputs are copied into its slot before any
+other prefill graph replays.
 
 Quantized KV cache (``ServeConfig.kv_fmt``): codes plus per-(slot, token,
-kv-head) bf16 scales.  On retirement the engine zeroes the slot's scale
-rows: a zero scale dequantizes every code to exactly 0, so a refilled
-slot never reads a predecessor's rows against stale scales.
+kv-head) bf16 scales.  When a slot is released the engine zeroes its
+scale rows: a zero scale dequantizes every code to exactly 0, so a
+refilled slot never reads a predecessor's rows against stale scales.
 
 Sampling: greedy (``temperature == 0``) is the argmax; otherwise
 Gumbel-max with the noise drawn from a generator seeded by
 :func:`sampling_seed` of ``(seed, request_id, position)``, so concurrent
 slots never share a stream and reruns are token-identical.
+
+Failure model: per-request deadlines (timeout retirement with partial
+results), queue overload (bounded queue, load shedding at submit) and
+injected faults (``runtime.faults.FaultPlan``: prefill and decode
+dispatch failures, detected slot-cache poison, frozen clocks), polled at
+the reference's hook points.  A fault victim is re-queued with linear
+backoff and *replayed*: its prompt is prefilled in its own bucket, as at
+its first admission, and the tokens it had generated are decoded again
+through the decode step, its slot alone active, before its next token is
+drawn at position ``prompt_len + len(prefix)``.  Every position of the
+replay is computed as the fault-free run computed it (a slot's row of the
+decode step does not depend on the other rows), so the recovered tokens
+are bit-identical to a fault-free run, at any temperature and on any KV
+format.  (The reference prefills ``prompt + prefix`` at once; that
+computes the prefix's K/V without the quantized cache, in GEMMs of
+another shape, and the next token's logits with the prefill's stream,
+and on the card it does not reproduce the fault-free tokens:
+``chip_smoke.py``'s replay witness.)  Every request retires with a typed
+status on its ``RequestResult``.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.config import ServeConfig, resolve_device
 from repro_torch.graph import StepGraph
+from repro_torch.runtime.faults import DEFAULT_FREEZE_READS, FaultPlan
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.slots import SlotPool, init_slot_cache
 
@@ -102,11 +128,26 @@ class Request:
     max_new_tokens: int
     arrival_time: float = 0.0       # seconds relative to run() start
     eos_id: Optional[int] = None
+    deadline_s: Optional[float] = None   # from arrival; None = no deadline
+    attempts: int = 0               # fault-triggered re-queues so far
+    not_before: float = 0.0         # retry backoff gate (seconds)
+
+    def expiry(self) -> Optional[float]:
+        """Absolute deadline instant, or None when unbounded."""
+        if self.deadline_s is None:
+            return None
+        return self.arrival_time + self.deadline_s
 
 
 @dataclasses.dataclass
 class RequestResult:
-    """Retired request: generated ids, timing record, terminal status."""
+    """Retired request: generated ids, timing record, terminal status.
+
+    ``status`` is one of ``metrics.REQUEST_STATUSES``: "ok" (possibly
+    after fault recovery), "timed_out" (deadline expired; ``tokens`` holds
+    the partial result), "shed" (queue full at submit), or "failed" (fault
+    retries exhausted; partial tokens).
+    """
 
     request_id: int
     prompt: np.ndarray
@@ -120,12 +161,19 @@ class ContinuousEngine:
 
     ``model``: a ``repro_torch.models.registry.Model`` with the slot hooks;
     ``params``: its parameter dict on the model's device (cast once by
-    ``model.prepare``); ``serve``: slot count, cache length, sampling;
-    ``device``: where the engine runs, CUDA unless the caller asks for the
-    CPU (raises without a GPU).
+    ``model.prepare``); ``serve``: slot count, cache length, sampling,
+    admission control; ``device``: where the engine runs, CUDA unless the
+    caller asks for the CPU (raises without a GPU); ``faults``: an
+    optional ``runtime.faults.FaultPlan`` polled at the engine's hook
+    points (prefill dispatch, decode tick, slot cache, clock reads);
+    ``on_tick``: an optional callback ``(tick_index, tick_wall_s, now_s)``
+    run after every decode-tick attempt, the supervisor's hook
+    (``runtime.supervisor``).
     """
 
-    def __init__(self, model, params, serve: ServeConfig, device=None):
+    def __init__(self, model, params, serve: ServeConfig, device=None,
+                 faults: Optional[FaultPlan] = None,
+                 on_tick: Optional[Callable[[int, float, float], None]] = None):
         """Check the model and device, prepare params, allocate the cache."""
         if model.decode_slots is None or model.slot_cache_spec is None:
             raise ValueError(
@@ -144,25 +192,43 @@ class ContinuousEngine:
             raise ValueError(f"params not on {self.device}: {misplaced}")
         self.model = model
         self.serve = serve
+        self.faults = faults
+        self.on_tick = on_tick
         self.params = model.prepare(params)
         self.cache = None
-        # the decode step, a CUDA graph on CUDA, made at the first tick
+        # the decode step, a CUDA graph on CUDA, made at its first call
         self._decode: Optional[StepGraph] = None
+        # one prefill step a bucket, and its static input: the padded
+        # tokens, then the prompt length
+        self._prefills: Dict[int, StepGraph] = {}
+        self._prefill_in: Dict[int, torch.Tensor] = {}
+        self._prefill_pool = None
         self.reset()
 
     @property
     def prefill_programs(self) -> int:
-        """Distinct prefill shapes run so far; at most
-        ``ceil(log2(max_seq))`` for any mix of prompt lengths."""
-        return len(self._buckets)
+        """Prefill steps (CUDA graphs on CUDA) made so far, one a bucket;
+        at most ``ceil(log2(max_seq))`` for any mix of prompt lengths."""
+        return len(self._prefills)
+
+    @property
+    def prefill_replays(self) -> int:
+        """Replays of the prefill graphs so far (0 on the CPU)."""
+        return sum(g.replays for g in self._prefills.values())
+
+    @property
+    def decode_replays(self) -> int:
+        """Replays of the decode graph so far (0 on the CPU)."""
+        return 0 if self._decode is None else self._decode.replays
 
     # ------------------------------------------------------------------ #
     # public API
     # ------------------------------------------------------------------ #
     def reset(self):
-        """Clear queue, slot, cache and metric state.  Request ids restart
-        from 0, so a reset engine reproduces a fresh one exactly.  The
-        device buffers are zeroed in place: the decode graph keeps them."""
+        """Clear queue, slot, cache, fault and metric state.  Request ids
+        restart from 0, so a reset engine reproduces a fresh one exactly.
+        The device buffers are zeroed in place (the graphs keep them), and
+        the graphs are kept."""
         K = self.serve.max_slots
         self._next_id = 0
         if self.cache is None:
@@ -182,22 +248,40 @@ class ContinuousEngine:
         self.queue: collections.deque = collections.deque()
         self.results: Dict[int, RequestResult] = {}
         self._tokens_by_req: Dict[int, List[int]] = {}
-        self._live: Dict[int, Request] = {}
-        self._buckets: set = set()
+        self._live: Dict[int, Request] = {}     # admitted, not yet retired
         self._cur_tokens = np.zeros((K,), np.int32)
         self._active = np.zeros((K,), bool)
         self._rids = np.zeros((K,), np.int64)
         # host mirror of cache["pos"]
         self._pos = np.zeros((K,), np.int32)
         # the device tokens and mask are re-uploaded only after an
-        # admission or retirement; otherwise the sampled tokens feed back
+        # admission or release; otherwise the sampled tokens feed back
         self._dirty = True
+        # fault-tolerance state: the per-domain counters the FaultPlan is
+        # polled against, the clock-freeze window, and the degraded-mode
+        # admission cap (shrunk by the supervisor on replica loss)
+        self._tick_index = 0
+        self._prefill_count = 0
+        self._freeze_reads = 0
+        self._freeze_val = 0.0
+        self.slot_cap = K
+        #: Decode steps that replayed a fault victim's generated prefix.
+        self.replayed_steps = 0
 
     def submit(self, prompt, max_new_tokens: Optional[int] = None,
-               arrival_time: float = 0.0,
-               eos_id: Optional[int] = None) -> int:
-        """Queue a request; returns its request id.  The scheduler admits
-        it no earlier than ``arrival_time`` seconds after ``run()`` starts."""
+               arrival_time: float = 0.0, eos_id: Optional[int] = None,
+               deadline_s: Optional[float] = None) -> int:
+        """Queue a request; returns its request id.
+
+        The scheduler admits it no earlier than ``arrival_time`` seconds
+        after ``run()`` starts.  ``deadline_s`` (default
+        ``ServeConfig.deadline_s``) bounds its life from arrival: expiry in
+        the queue rejects it un-admitted, expiry in flight retires it with
+        its partial tokens (status "timed_out").  When
+        ``ServeConfig.max_queue`` > 0 and that many requests already wait,
+        the request is shed: never queued, its result (status "shed", no
+        tokens) recorded at once.
+        """
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("empty prompt")
@@ -205,17 +289,28 @@ class ContinuousEngine:
             raise ValueError(
                 f"prompt of {prompt.size} tokens exceeds max_seq="
                 f"{self.serve.max_seq}")
+        rid = self._next_id
+        self._next_id += 1
         budget = (self.serve.max_new_tokens if max_new_tokens is None
                   else max_new_tokens)
         if budget < 1:
             raise ValueError("max_new_tokens must be >= 1")
-        rid = self._next_id
-        self._next_id += 1
+        if deadline_s is None:
+            deadline_s = self.serve.deadline_s
         self.metrics.on_submit(rid, prompt.size, arrival_time)
         self._tokens_by_req[rid] = []
-        self.queue.append(Request(request_id=rid, prompt=prompt,
-                                  max_new_tokens=budget,
-                                  arrival_time=arrival_time, eos_id=eos_id))
+        req = Request(request_id=rid, prompt=prompt, max_new_tokens=budget,
+                      arrival_time=arrival_time, eos_id=eos_id,
+                      deadline_s=deadline_s)
+        if (self.serve.max_queue > 0
+                and len(self.queue) >= self.serve.max_queue):
+            self.metrics.on_shed(rid, arrival_time)
+            self.results[rid] = RequestResult(
+                request_id=rid, prompt=prompt,
+                tokens=np.zeros((0,), np.int32),
+                timing=self.metrics.timings[rid], status="shed")
+            return rid
+        self.queue.append(req)
         return rid
 
     def run(self, clock: Optional[Callable[[], float]] = None
@@ -223,23 +318,36 @@ class ContinuousEngine:
         """Drive the scheduler until every submitted request completes.
 
         ``clock`` (for tests) replaces the wall clock (seconds since
-        ``run()`` began); it only gates admission, never the tokens.
+        ``run()`` began); it only gates admission and deadlines, never
+        the tokens.
         """
         self.queue = collections.deque(
             sorted(self.queue, key=lambda r: r.arrival_time))
         t0 = time.perf_counter()
-        now_fn = clock or (lambda: time.perf_counter() - t0)
+        raw_now = clock or (lambda: time.perf_counter() - t0)
+
+        def now_fn():
+            # clock_freeze: hold time still for a bounded number of reads
+            if self._freeze_reads > 0:
+                self._freeze_reads -= 1
+                return self._freeze_val
+            return raw_now()
+
         last_idle_now, stalled = None, 0
         try:
             while self.queue or self.pool.n_active:
+                self._expire_deadlines(now_fn)
                 self._admit(now_fn)
                 if self.pool.n_active:
                     self._tick(now_fn)
+                    stalled = 0
                     continue
                 if not self.queue:
                     break
+                # idle until the next request arrives or its backoff ends
                 now = now_fn()
-                next_ready = min(r.arrival_time for r in self.queue)
+                next_ready = min(max(r.arrival_time, r.not_before)
+                                 for r in self.queue)
                 if next_ready > now:
                     if clock is None:
                         t_sleep = time.perf_counter()
@@ -251,42 +359,57 @@ class ContinuousEngine:
                         if stalled > 1000:
                             raise RuntimeError(
                                 "injected clock is not advancing past the "
-                                f"next arrival ({next_ready})")
+                                f"next eligible time ({next_ready}); engine "
+                                "cannot make progress")
                     last_idle_now = now
         finally:
-            self.metrics.run_wall += now_fn()
+            # accumulated over runs; the raw clock, so that a freeze window
+            # still open cannot shorten the wall
+            self.metrics.run_wall += raw_now()
         return dict(self.results)
 
     # ------------------------------------------------------------------ #
     # scheduler internals
     # ------------------------------------------------------------------ #
     def _next_eligible(self, now: float) -> Optional[Request]:
-        """Pop the first queued request that has arrived (FCFS)."""
+        """Pop the first queued request that has arrived and is past its
+        retry backoff (FCFS)."""
         for i, req in enumerate(self.queue):
-            if req.arrival_time <= now:
+            if req.arrival_time <= now and req.not_before <= now:
                 del self.queue[i]
                 return req
         return None
 
     def _admit(self, now_fn):
-        """Fill free slots with arrived requests: bucketed B=1 prefill,
-        cache rows copied into the slot, first token sampled at position
-        ``prompt_len``."""
-        while self.pool.n_free:
+        """Fill free slots, up to ``slot_cap`` busy, with eligible requests:
+        the prompt's bucketed prefill copied into the slot, a replayed
+        request's generated prefix decoded again, then the next token
+        sampled at position ``prompt_len + len(prefix)``.
+        ``SlotState.prompt_len`` keeps the prompt's length, so the
+        retirement arithmetic of ``_record_token`` holds across replays."""
+        while self.pool.n_free and self.pool.n_active < self.slot_cap:
             req = self._next_eligible(now_fn())
             if req is None:
                 return
+            prefix = self._tokens_by_req[req.request_id]
+            if self.faults is not None:
+                attempt = self._prefill_count
+                self._prefill_count += 1
+                due = self.faults.take("prefill_fail", attempt)
+                if due:
+                    # injected prefill dispatch failure: the request never
+                    # touches a slot; re-queue it behind its backoff gate
+                    self.metrics.faults_injected += len(due)
+                    self._requeue(req, now_fn())
+                    continue
             n = req.prompt.size
-            slot = self.pool.acquire(req.request_id, n, req.max_new_tokens)
-            bucket = prefill_bucket(n, self.serve.max_seq)
-            self._buckets.add(bucket)
-            padded = np.zeros((1, bucket), np.int32)
-            padded[0, :n] = req.prompt
-            logits, pcache = self.model.prefill(
-                self.params, {"tokens": torch.from_numpy(padded).to(self.device)},
-                prompt_len=n, kv_fmt=self.serve.kv_fmt)
-            self._write(pcache, slot)
-            seeds = [sampling_seed(self.serve.seed, req.request_id, n)]
+            slot = self.pool.acquire(req.request_id, n,
+                                     req.max_new_tokens - len(prefix))
+            logits = self._prefill(req.prompt, slot)
+            if prefix:
+                logits = self._replay(slot, n, prefix)
+            total = n + len(prefix)
+            seeds = [sampling_seed(self.serve.seed, req.request_id, total)]
             tok = int(sample_tokens(logits, self.serve.temperature, seeds)[0])
             now = now_fn()
             self._live[req.request_id] = req
@@ -294,15 +417,71 @@ class ContinuousEngine:
             self.metrics.on_first_token(req.request_id, now)
             self._record_token(slot, req, tok, now)
 
-    def _write(self, pcache, slot: int):
+    def _prefill(self, prompt: np.ndarray, slot: int) -> torch.Tensor:
+        """The prompt's prefill in its bucket (the bucket's graph, captured
+        at its first call), copied into ``slot``; returns the (1, V)
+        logits of its last row."""
+        n = prompt.size
+        bucket = prefill_bucket(n, self.serve.max_seq)
+        host = np.zeros((bucket + 1,), np.int32)
+        host[:n] = prompt
+        host[bucket] = n
+        buf = self._prefill_in.get(bucket)
+        if buf is None:
+            buf = self._prefill_in[bucket] = torch.empty(
+                (bucket + 1,), dtype=torch.int32, device=self.device)
+        buf.copy_(torch.from_numpy(host))
+        step = self._prefills.get(bucket)
+        if step is None:
+            if self.device.type == "cuda" and self._prefill_pool is None:
+                self._prefill_pool = torch.cuda.graph_pool_handle()
+            step = self._prefills[bucket] = StepGraph(
+                lambda: self._prefill_step(buf, bucket), self.device,
+                pool=self._prefill_pool)
+        logits, pcache = step()
+        self._write(pcache, slot, n)
+        return logits
+
+    def _prefill_step(self, buf: torch.Tensor, bucket: int):
+        return self.model.prefill(
+            self.params, {"tokens": buf[:bucket].view(1, bucket)},
+            prompt_len=buf[bucket], kv_fmt=self.serve.kv_fmt)
+
+    def _write(self, pcache, slot: int, prompt_len: int):
         """Copy a B=1 prefill cache into ``slot`` (in place): its rows
-        [0, bucket) of every code and scale array, and its position."""
+        [0, bucket) of every code and scale array; the slot's position is
+        ``prompt_len``."""
         for name, arr in self.cache.items():
             if name == "pos":
-                self._pos[slot] = int(pcache["pos"])
+                self._pos[slot] = prompt_len
                 continue
             upd = pcache[name]
             arr[:, slot:slot + 1, :, :upd.shape[3]] = upd
+
+    def _replay(self, slot: int, prompt_len: int,
+                prefix: Sequence[int]) -> torch.Tensor:
+        """Decode a fault victim's generated ``prefix`` again in ``slot``
+        (its prompt just prefilled there), its slot alone active: token i
+        at position ``prompt_len + i``, as the fault-free run decoded it.
+        The other slots' rows run through the step inactive, as a free
+        slot's do every tick: their write lands at their own position,
+        which their next tick writes again before reading it.  Returns
+        the (1, V) logits of the last step."""
+        K = self.serve.max_slots
+        active = np.zeros((K,), bool)
+        active[slot] = True
+        self._active_dev.copy_(torch.from_numpy(active))
+        tokens = np.zeros((K,), np.int32)
+        for i, tok in enumerate(prefix):
+            tokens[slot] = tok
+            self._pos[slot] = prompt_len + i
+            self._tokens_dev.copy_(torch.from_numpy(tokens))
+            self.cache["pos"].copy_(torch.from_numpy(self._pos))
+            logits = self._step()
+            self.replayed_steps += 1
+        self._pos[slot] = prompt_len + len(prefix)
+        self._dirty = True
+        return logits[slot:slot + 1]
 
     def _record_token(self, slot: int, req: Request, tok: int, now: float):
         """Append one generated token; retire the slot if finished."""
@@ -328,8 +507,8 @@ class ContinuousEngine:
 
     def _stage(self):
         """Fill the decode step's inputs in place: the positions from the
-        host mirror, and after an admission or retirement the tokens and
-        the active mask."""
+        host mirror, and after an admission or release the tokens and the
+        active mask."""
         self.cache["pos"].copy_(torch.from_numpy(self._pos))
         if self._dirty:
             self._tokens_dev.copy_(torch.from_numpy(self._cur_tokens))
@@ -342,50 +521,212 @@ class ContinuousEngine:
             kv_fmt=self.serve.kv_fmt)
         return logits
 
-    @property
-    def decode_replays(self) -> int:
-        """Replays of the decode graph so far (0 on the CPU)."""
-        return 0 if self._decode is None else self._decode.replays
+    def _step(self) -> torch.Tensor:
+        """The decode step over the staged inputs; returns the (K, V)
+        logits.  The graph is captured at the first call: its warm-up
+        writes what the first replay writes (the same tokens at the same
+        positions) and advances the positions, which are staged again."""
+        if self._decode is None:
+            self._decode = StepGraph(self._decode_step, self.device)
+            self.cache["pos"].copy_(torch.from_numpy(self._pos))
+        return self._decode()
 
     def _tick(self, now_fn):
-        """One decode + sample step over every slot."""
-        self._stage()
-        if self._decode is None:
-            # the warm-up writes what the first replay writes (the same
-            # tokens at the same positions) and advances the positions
-            self._decode = StepGraph(self._decode_step, self.device)
+        """One decode + sample step over every slot.
+
+        Fault hook point: ``clock_freeze``, ``slot_corrupt`` and
+        ``decode_fail`` are polled against the tick counter before the
+        step runs; a decode failure makes every active slot a victim.
+        ``on_tick`` runs after every attempt, failed ones included, with
+        the tick's wall (the device->host copy of its tokens included).
+        """
+        tick = self._tick_index
+        self._tick_index += 1
+        t_start = time.perf_counter()
+        try:
+            if self.faults is not None:
+                for ev in self.faults.take("clock_freeze", tick):
+                    self.metrics.faults_injected += 1
+                    # the frozen value is the instant the window opens
+                    self._freeze_val = now_fn()
+                    self._freeze_reads = ev.duration or DEFAULT_FREEZE_READS
+                for ev in self.faults.take("slot_corrupt", tick):
+                    self.metrics.faults_injected += 1
+                    self.metrics.slot_faults += 1
+                    self._corrupt_slot(ev, now_fn)
+                due = self.faults.take("decode_fail", tick)
+                if due:
+                    self.metrics.faults_injected += len(due)
+                    self.metrics.slot_faults += len(due)
+                    self._fail_tick(now_fn)
+                    return
+                if not self.pool.n_active:
+                    # every occupant was a poison victim
+                    return
             self._stage()
-        logits = self._decode()
-        self._pos += self._active                # as the step advanced pos
-        seeds = None
-        if self.serve.temperature > 0:
-            seeds = [sampling_seed(self.serve.seed, int(r), int(p))
-                     for r, p in zip(self._rids, self._pos)]
-        toks_dev = sample_tokens(logits, self.serve.temperature,
-                                 seeds).to(torch.int32)
-        toks = toks_dev.cpu().numpy()       # the tick's one device->host copy
-        self.metrics.decode_ticks += 1
+            logits = self._step()
+            self._pos += self._active                # as the step advanced pos
+            seeds = None
+            if self.serve.temperature > 0:
+                seeds = [sampling_seed(self.serve.seed, int(r), int(p))
+                         for r, p in zip(self._rids, self._pos)]
+            toks_dev = sample_tokens(logits, self.serve.temperature,
+                                     seeds).to(torch.int32)
+            toks = toks_dev.cpu().numpy()    # the tick's one device->host copy
+            self.metrics.decode_ticks += 1
+            now = now_fn()
+            for slot in np.nonzero(self._active)[0]:
+                slot = int(slot)
+                rid = self.pool.state(slot).request_id
+                self._record_token(slot, self._live[rid], int(toks[slot]),
+                                   now)
+            if not self._dirty:
+                self._tokens_dev.copy_(toks_dev)
+        finally:
+            if self.on_tick is not None:
+                self.on_tick(tick, time.perf_counter() - t_start, now_fn())
+
+    # ------------------------------------------------------------------ #
+    # fault recovery
+    # ------------------------------------------------------------------ #
+    def _zero_scales(self, slot: int):
+        """Zero ``slot``'s scale rows (a quantized cache), in place."""
+        for name in ("k_scale", "v_scale"):
+            if name in self.cache:
+                self.cache[name][:, slot] = 0
+
+    def _evict(self, slot: int) -> Request:
+        """Tear a live request out of ``slot`` without finalizing it."""
+        rid = self.pool.state(slot).request_id
+        req = self._live.pop(rid)
+        self._active[slot] = False
+        self._dirty = True
+        self.pool.release(slot)
+        self._zero_scales(slot)
+        return req
+
+    def _requeue(self, req: Request, now: float):
+        """Re-queue a fault victim with linear backoff, or retire it with
+        status "failed" and its partial tokens once its retries are
+        spent.  The generated prefix stays in ``_tokens_by_req``; the
+        re-admission replays it (``_admit``)."""
+        req.attempts += 1
+        if req.attempts > self.serve.max_retries:
+            self._finalize(req, now, status="failed")
+            return
+        req.not_before = now + req.attempts * self.serve.retry_backoff_s
+        self.metrics.on_retry(req.request_id)
+        self.queue.append(req)
+
+    def _fail_tick(self, now_fn):
+        """Injected decode dispatch failure: all active slots are victims."""
         now = now_fn()
         for slot in np.nonzero(self._active)[0]:
-            slot = int(slot)
-            rid = self.pool.state(slot).request_id
-            self._record_token(slot, self._live[rid], int(toks[slot]), now)
-        if not self._dirty:
-            self._tokens_dev.copy_(toks_dev)
+            self._requeue(self._evict(int(slot)), now)
 
-    def _retire(self, slot: int, req: Request, now: float):
+    def _corrupt_slot(self, ev, now_fn):
+        """Overwrite one slot's cache rows with the reference's
+        deterministic junk, in place (the decode graph holds the cache's
+        addresses).
+
+        Modelled as *detected* poison: the occupant, if any, is evicted
+        for replay and the slot's scale rows are zeroed before reuse.
+        Under ``kv_fmt=none`` (no scales) the junk is masked by the
+        positions until the next occupant overwrites it.  The junk is
+        ``integers(-100, 100)`` of ``default_rng((plan seed, ev.at,
+        slot))`` a cache array in the cache's order, cast to its dtype (a
+        negative value wraps in an unsigned code array).
+        """
+        K = self.serve.max_slots
+        slot = ev.target % K if ev.target >= 0 else 0
+        rng = np.random.default_rng((self.faults.seed, ev.at, slot))
+        for name, arr in self.cache.items():
+            if name == "pos":
+                continue
+            junk = rng.integers(-100, 100,
+                                size=(arr.shape[0], 1) + tuple(arr.shape[2:]))
+            arr[:, slot:slot + 1] = torch.from_numpy(junk).to(arr.dtype).to(
+                arr.device)
+        if self._active[slot]:
+            self._requeue(self._evict(slot), now_fn())
+        else:
+            self._zero_scales(slot)
+
+    def _expire_deadlines(self, now_fn):
+        """Retire every request whose deadline has passed: a queued one
+        never admitted lands in the rejected bucket; a victim awaiting
+        replay, and an in-flight one, retire "timed_out" with the tokens
+        they generated."""
+        if not self.queue and not self._live:
+            return
+        now = now_fn()
+        keep: collections.deque = collections.deque()
+        for req in self.queue:
+            exp = req.expiry()
+            if exp is None or exp > now:
+                keep.append(req)
+                continue
+            self._finalize(req, now, status="timed_out")
+        self.queue = keep
+        for slot in np.nonzero(self._active)[0]:
+            slot = int(slot)
+            req = self._live[self.pool.state(slot).request_id]
+            exp = req.expiry()
+            if exp is not None and exp <= now:
+                self._retire(slot, req, now, status="timed_out")
+
+    def _finalize(self, req: Request, now: float, status: str):
+        """Record the terminal result of a request that holds no slot."""
+        rid = req.request_id
+        toks = np.asarray(self._tokens_by_req.get(rid, []), np.int32)
+        if status == "timed_out" and self.metrics.timings[rid].admitted is None:
+            self.metrics.on_queue_timeout(rid, now)
+        else:
+            self.metrics.on_complete(rid, now, n_generated=int(toks.size),
+                                     status=status)
+        self.results[rid] = RequestResult(
+            request_id=rid, prompt=req.prompt, tokens=toks,
+            timing=self.metrics.timings[rid], status=status)
+
+    # ------------------------------------------------------------------ #
+    # degraded-mode hooks (runtime.supervisor)
+    # ------------------------------------------------------------------ #
+    def set_slot_cap(self, cap: int):
+        """Cap concurrent admissions (degraded mode); clamped to [1, K]."""
+        self.slot_cap = max(1, min(int(cap), self.serve.max_slots))
+
+    def takeover_unfinished(self) -> List[Tuple[Request, List[int]]]:
+        """Hand every unfinished request to the supervisor's oneshot
+        fallback: evict every live slot and empty the queue; returns
+        ``(request, generated_prefix)`` pairs in request-id order
+        (``finalize_external`` records the fallback's results)."""
+        out = []
+        for slot in np.nonzero(self._active)[0]:
+            req = self._evict(int(slot))
+            out.append((req, list(self._tokens_by_req[req.request_id])))
+        while self.queue:
+            req = self.queue.popleft()
+            out.append((req, list(self._tokens_by_req[req.request_id])))
+        return sorted(out, key=lambda p: p[0].request_id)
+
+    def finalize_external(self, req: Request, tokens, now: float,
+                          status: str = "ok"):
+        """Record a result completed outside the engine (oneshot fallback)."""
+        self._tokens_by_req[req.request_id] = [int(t) for t in tokens]
+        self._finalize(req, now, status=status)
+
+    def _retire(self, slot: int, req: Request, now: float,
+                status: str = "ok"):
         """Release a finished slot, zero its scale rows, record the result."""
         if self._active[slot]:
             self._dirty = True
         self._active[slot] = False
         self.pool.release(slot)
-        for name in ("k_scale", "v_scale"):
-            if name in self.cache:
-                self.cache[name][:, slot] = 0
+        self._zero_scales(slot)
         self._live.pop(req.request_id, None)
         toks = np.asarray(self._tokens_by_req[req.request_id], np.int32)
         self.metrics.on_complete(req.request_id, now,
-                                 n_generated=int(toks.size))
+                                 n_generated=int(toks.size), status=status)
         self.results[req.request_id] = RequestResult(
             request_id=req.request_id, prompt=req.prompt, tokens=toks,
-            timing=self.metrics.timings[req.request_id])
+            timing=self.metrics.timings[req.request_id], status=status)

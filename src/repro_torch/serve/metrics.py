@@ -11,8 +11,7 @@ All times are seconds on whatever clock the engine uses (wall clock by
 default; tests may inject a fake clock).
 
 Fault tolerance adds a ``status`` to every request and a set of recovery
-counters (the port's engine sets only ``ok`` until its runtime layer is
-ported):
+counters:
 
 * ``ok`` — completed normally (possibly after retries: ``recovered``);
 * ``timed_out`` — deadline expired, either in the queue (never admitted)
@@ -228,7 +227,9 @@ class ServeMetrics:
                     **counters}
         lat = np.array([t.latency for t in ok])
         ttft = np.array([t.ttft for t in ok if t.ttft is not None])
-        wait = np.array([t.queue_wait for t in ok])
+        # a request the oneshot fallback drained from the queue was never
+        # admitted: it has no queue wait (the reference's summary raises)
+        wait = np.array([t.queue_wait for t in ok if t.queue_wait is not None])
         # all retired tokens count as produced work (a timed-out request's
         # partial tokens were still generated and returned)
         total_new = int(sum(t.n_generated for t in done))
@@ -247,7 +248,9 @@ class ServeMetrics:
                            else 0.0),
             "ttft_p99_s": (float(np.percentile(ttft, 99)) if ttft.size
                            else 0.0),
-            "queue_wait_p50_s": float(np.percentile(wait, 50)),
-            "queue_wait_p99_s": float(np.percentile(wait, 99)),
+            "queue_wait_p50_s": (float(np.percentile(wait, 50)) if wait.size
+                                 else 0.0),
+            "queue_wait_p99_s": (float(np.percentile(wait, 99)) if wait.size
+                                 else 0.0),
             **counters,
         }

@@ -185,8 +185,7 @@ def test_luq_matmul_close(cuda, per_row):
         alpha_b = b.abs().amax()
         ops.reset_launch_counts()
         out = ops.luq_matmul(a, b, keys, alpha_a, alpha_b)
-        assert ops.LUQ_MATMUL_LAUNCHES == {"shared": int(not per_row),
-                                           "per_row": int(per_row)}
+        assert ops.LUQ_MATMUL_LAUNCHES == {"prefill": 0, "decode": 1}
         assert torch.equal(out, ops.luq_matmul(a, b, keys, alpha_a, alpha_b))
         want = ref.luq_matmul_keys_ref(a, b, keys, alpha_a, alpha_b)
         key_list = keys if per_row else [keys] * R
@@ -441,7 +440,7 @@ def test_launch_counts_count_kernel_launches_only(cuda):
     assert ops.LAUNCHES == {"luq_matmul": 0, "kv_quant_write": 1,
                             "decode_attn_fused": 0, "luq_quant": 1,
                             "clip_and_sum": 1, "ghost_norm_sq": 1}
-    assert ops.LUQ_MATMUL_LAUNCHES == {"shared": 0, "per_row": 0}
+    assert ops.LUQ_MATMUL_LAUNCHES == {"prefill": 0, "decode": 0}
     assert ops.LUQ_QUANT_LAUNCHES == {"one_row": 0, "rows": 1, "kernels": 2}
     assert ops.GHOST_NORM_LAUNCHES == {"16/24": 1}
 
@@ -666,8 +665,98 @@ def test_graphed_tick_equals_the_eager_tick(cuda, kv_fmt):
         ticks = engine.metrics.decode_ticks
         steps = ticks + graphed                  # the capture's warm-up
         assert ops.KV_WRITE_LAUNCHES["decode"] == 2 * steps
-        assert ops.LUQ_MATMUL_LAUNCHES["per_row"] == steps
+        assert ops.LUQ_MATMUL_LAUNCHES["decode"] == steps
         tokens[graphed] = [out[r].tokens.tolist() for r in sorted(out)]
         if graphed:
             assert engine.decode_replays == ticks
     assert tokens[True] == tokens[False]
+
+
+@pytest.mark.parametrize("kv_fmt", ["int8", "luq_fp4"])
+def test_graphed_prefill_and_recovery_keep_the_tokens(cuda, kv_fmt):
+    """Each bucket's prefill graph replays the eager prefill's logits and
+    cache bit for bit (its luq_matmul launch counted as a prefill's, and
+    the one row's device key giving the int key's bits); a chaos run at
+    temperature 1.0 (a decode failure and poison: replayed prefixes)
+    gives the fault-free tokens, every prefill a replay."""
+    import numpy as np
+    from repro_torch.config import QuantConfig, ServeConfig
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime import FaultEvent, FaultPlan
+    from repro_torch.serve import ContinuousEngine
+    model = build_model(get_smoke_config("yi-6b"),
+                        QuantConfig(fmt="luq_fp4", backend="cuda"),
+                        device=cuda)
+    params = model.init(0)
+    rng = torch.Generator().manual_seed(4)
+    prompts = [torch.randint(0, 223, (n,), generator=rng).numpy()
+               for n in (5, 11, 3, 8, 14)]
+    serve = ServeConfig(max_slots=3, max_seq=32, kv_fmt=kv_fmt,
+                        temperature=1.0, seed=3, max_retries=5)
+    tokens = []
+    for plan in (None, FaultPlan([FaultEvent("decode_fail", 2),
+                                  FaultEvent("slot_corrupt", 4, 1)], seed=1)):
+        engine = ContinuousEngine(model, params, serve, device=cuda)
+        engine.submit(prompts[0], max_new_tokens=2)      # capture buckets
+        engine.submit(prompts[1], max_new_tokens=2)
+        engine.run()
+        engine.reset()
+        engine.faults = plan
+        for p in prompts:
+            engine.submit(p, max_new_tokens=6)
+        replays = engine.prefill_replays
+        out = engine.run()
+        tokens.append([out[r].tokens.tolist() for r in sorted(out)])
+        admissions = sum(engine.pool.admissions)
+        assert engine.prefill_replays - replays == admissions
+        assert engine.prefill_programs == 3
+    assert tokens[0] == tokens[1]
+    assert engine.replayed_steps > 0
+    for bucket, step in engine._prefills.items():
+        n = bucket // 2 + 1                  # the bucket's shortest prompt
+        host = np.zeros((bucket + 1,), np.int32)
+        host[:n] = np.arange(n) * 7 % 223
+        host[bucket] = n
+        engine._prefill_in[bucket].copy_(torch.from_numpy(host))
+        ops.reset_launch_counts()
+        logits, pcache = step()
+        assert ops.LUQ_MATMUL_LAUNCHES == {"prefill": 1, "decode": 0}
+        want, wcache = model.prefill(
+            engine.params, {"tokens": engine._prefill_in[bucket][:bucket]
+                            .view(1, bucket)}, prompt_len=n, kv_fmt=kv_fmt)
+        assert torch.equal(logits, want)
+        for name in wcache:
+            if name != "pos":
+                assert torch.equal(pcache[name], wcache[name])
+
+
+def test_straggler_is_the_slowed_replica_on_the_card(cuda):
+    """``on_tick``'s wall on the card includes the tick's device->host
+    copy (the first tick the decode graph's capture), and every live
+    replica records the same wall, so only the replica a ``replica_slow``
+    fault slows is evicted."""
+    from repro_torch.config import QuantConfig, ServeConfig
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime import FaultEvent, FaultPlan, ServeSupervisor
+    from repro_torch.serve import ContinuousEngine
+    model = build_model(get_smoke_config("yi-6b"),
+                        QuantConfig(fmt="luq_fp4", backend="cuda"),
+                        device=cuda)
+    plan = FaultPlan([FaultEvent("replica_slow", 1, 5, factor=4.0)])
+    engine = ContinuousEngine(model, model.init(0), ServeConfig(
+        max_slots=2, max_seq=16), device=cuda, faults=plan)
+    walls = []
+    sup = ServeSupervisor(engine, n_replicas=16, faults=plan,
+                          straggler_patience=2)
+    on_tick = engine.on_tick
+    engine.on_tick = lambda t, dt, now: (walls.append(dt), on_tick(t, dt,
+                                                                   now))
+    for i, (n, g) in enumerate([(5, 8), (3, 6)]):
+        engine.submit([(7 * i + j) % 223 for j in range(n)],
+                      max_new_tokens=g)
+    out = engine.run()
+    assert all(r.status == "ok" for r in out.values())
+    assert sup.dead == {5} and sup.events[0]["lost"] == [5]
+    assert min(walls) > 0

@@ -119,6 +119,6 @@ def test_kernel_wrappers_never_send_device_tensors_to_plain_versions():
     assert ops.LAUNCHES == {"luq_matmul": 0, "kv_quant_write": 0,
                             "decode_attn_fused": 0, "luq_quant": 0,
                             "clip_and_sum": 0, "ghost_norm_sq": 0}
-    assert ops.LUQ_MATMUL_LAUNCHES == {"shared": 0, "per_row": 0}
+    assert ops.LUQ_MATMUL_LAUNCHES == {"prefill": 0, "decode": 0}
     assert ops.LUQ_QUANT_LAUNCHES == {"one_row": 0, "rows": 0, "kernels": 0}
     assert ops.GHOST_NORM_LAUNCHES == {}
