@@ -25,30 +25,43 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    keys passed from the host, in the kernel and in the plain version;
    for the wrappers that launch more than one kernel, and for the KV
    write, also each kernel's own device time from a ``torch.profiler``
-   trace (``device_us``);
+   trace (``device_us``); the quantize op and the ghost norm also under
+   a policy flag read from device memory: at 1 the same bits, at 0 the
+   operand copied through (the ghost norm: the Grams of the operands
+   themselves, within 1e-5 of float64), that pass-through timed against
+   its bound (``pass_ms``, ``pass_bound_ms``);
 4. trains ResNet-18 at full width (random init from a seed, synthetic
    data) with DP-SGD under the DPQuant scheduler through
    ``repro_torch.train_loop.Trainer``, with the options of
    ``repro_torch.launch.train --arch resnet18 --mode dpquant --fmt
-   luq_fp4 --backend cuda --clip-backend fused``: 2 epochs x 3 steps of
-   256 images in microbatches of 64, analysis in epoch 0 (10 probe runs x
-   2 reps at a probe batch of 64), under the default ``scan`` executor
-   (each epoch's steps replay one CUDA graph of the step, captured after
-   an eager warm-up step for each policy); every loss finite, k = 8
-   quantized layers each epoch, epsilon > 0, clip launches and quantizer
-   launches that match the policies the scheduler chose (the captured
-   kernels counted once a replay, the probes and the warm-up steps
-   eagerly), two kernels a quantize call; prints the median step (each
-   chunk's wall over its steps), the capture seconds and, over one more
-   profiled epoch, the host's ``cudaLaunchKernel`` and
-   ``cudaGraphLaunch`` calls;
-   then, under deterministic cuDNN, one epoch of 3 steps (momentum, cosine
-   schedule, sigma 1) through the loop and through the scan executor:
-   params, momentum, losses and epsilon bit for bit the same; and the DP
+   luq_fp4 --backend cuda --clip-backend fused``: 3 epochs x 3 steps of
+   256 images in microbatches of 64, analysis in epochs 0 and 2 (10 probe
+   runs x 2 reps at a probe batch of 64), under the default ``scan``
+   executor: every epoch's steps replay one CUDA graph of the step and
+   every probe step one graph of the probe step, each captured once
+   after an eager warm-up step, the policy a device tensor the kernels
+   read; every loss finite, k = 8 quantized layers each epoch, epsilon >
+   0 and in the first two epochs that of commit 27090d7 (the policy as
+   host bools), one capture of each graph, clip launches and quantizer
+   launches of every layer in every step (a layer whose flag is 0
+   copies its operands through), two
+   kernels a quantize call; prints each epoch's median step (each
+   chunk's wall over its steps), the capture seconds, the analysis wall,
+   the peak memory and, over one more profiled epoch, the host's
+   ``cudaLaunchKernel`` and ``cudaGraphLaunch`` calls;
+   then, under deterministic cuDNN, DPQuant (quant fraction 0.5,
+   softmax temperature 0, so the policy rotates) through the loop
+   executor (eager steps and probes) and through the scan executor, as
+   many epochs of 3 steps as the loop needs to draw a second policy
+   (momentum, cosine schedule, sigma 1): params, momentum, losses,
+   epsilon, the EMA scores and the policies bit for bit the same; the DP
    noise under the graph: replays at successive seeds draw what the loop
-   draws at each seed, and differ from each other;
+   draws at each seed, and differ from each other; and a step captured
+   under one policy and replayed under another (every layer's flag
+   changed) against an eager step under the second, bit for bit, in
+   ResNet-18 and in stablelm-3b cut to 2 layers (ghost, bf16, remat);
    then the paper's other two CNNs at full width and depth the same way,
-   2 epochs x 2 steps each (``TRAIN_RESNET50_ARGV``,
+   3 epochs x 2 steps each (``TRAIN_RESNET50_ARGV``,
    ``TRAIN_DENSENET121_ARGV``): ResNet-50 (bottleneck blocks, 23,588,459
    parameters, k = 15 of 17) and DenseNet-121 (6,990,251 parameters, k =
    56 of 62; the reference's last policy layer quantizes no conv, and the
@@ -82,15 +95,22 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    synthetic tokens) with ghost-mode DP-SGD under the DPQuant scheduler,
    with the options of ``repro_torch.launch.train --arch stablelm-3b
    --mode dpquant --fmt luq_fp4 --backend cuda --grad-mode ghost
-   --clip-backend ref --ghost-microbatch 4 --batch 8 --seq-len 256``: 2
-   epochs x 2 steps under ``scan``, analysis in epoch 0 (33 probe runs x 2
-   reps at a probe batch of 8); every loss finite, k = 29 each epoch,
-   epsilon > 0, ``ghost_norm_sq`` launches that match the policies the
-   scheduler chose (replays and warm-ups counted as above), at most two
-   kernels a quantize call, and no clip launch (ghost mode forms no (B,
-   D) matrix); then one epoch of 2 steps (SGD, cosine schedule) through
-   both executors: bitwise the target, else the largest difference
-   printed and the losses held at rtol 1e-3, epsilon and k exactly;
+   --clip-backend ref --ghost-microbatch 4 --batch 8 --seq-len 256``, each
+   block under remat: 3 epochs x 2 steps under ``scan``, analysis in
+   epochs 0 and 2 (33 probe runs x 2 reps at a probe batch of 8), one
+   graph of the step and one of the probe step; every loss finite, k =
+   29 each epoch, epsilon and the first two policies those of commit
+   27090d7, ``ghost_norm_sq`` launched for every layer in every step (at flag 0
+   it takes the Grams of the operands themselves; replays and warm-ups
+   counted as above), at most two kernels a quantize call, and no clip
+   launch (ghost mode forms no (B, D) matrix); prints the same numbers
+   as the CNNs'; then one epoch of 2 steps (SGD, cosine schedule)
+   through both executors: bitwise the target, else the largest
+   difference printed and the losses held at rtol 1e-3, epsilon and k
+   exactly; then its memory and step with remat on and off at pass-1
+   chunks of 4 (the losses within rtol 1e-3, bitwise printed), and with
+   remat on a batch of 32 in one chunk under the graph and of 64 in
+   eager steps, until one does not fit;
 6. holds ghost mode against per-example gradients inside the real model:
    stablelm-3b at full width cut to 2 layers, in bf16 and in float32,
    every layer in LUQ-FP4 on the ``cuda`` backend, 4 sequences of 256
@@ -489,7 +509,10 @@ def check_luq_quant(torch, ops, ref, rows, n, dtype, sm_clock_mhz, reps=50):
     """The keyed LUQ-FP4 quantize op on (rows, n) in ``dtype``: the kernel
     takes each row's max and draws the key's Philox stream itself.  Edge
     values in every row and an all-zero row (one-row shapes: a second,
-    all-zero call); bitwise the plain version, the same bits twice."""
+    all-zero call); bitwise the plain version, the same bits twice.  Under
+    a policy flag read from device memory: at 1 the same bits, at 0 ``x``
+    itself (and the codes ``x`` in bf16), bitwise the plain version; the
+    pass-through timed against its bound, one read and one write."""
     from repro_torch.quant.fake_quant import stream_key
     key = stream_key(3 * 97 + 4, 4)         # a stablelm-3b layer-3 wgrad key
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
@@ -507,6 +530,16 @@ def check_luq_quant(torch, ops, ref, rows, n, dtype, sm_clock_mhz, reps=50):
     zero = torch.zeros_like(x[:1])
     if rows == 1 and ops.luq_quant(zero, key).any():
         raise AssertionError("luq_quant of an all-zero row is not zero")
+    on = torch.ones((), device="cuda")
+    off = torch.zeros((), device="cuda")
+    if not (torch.equal(ops.luq_quant(x, key, flag=on), out)
+            and torch.equal(ops.luq_quant(x, key, flag=off), x)
+            and torch.equal(ops.luq_quant(x, key, codes=True, flag=off),
+                            ref.luq_quant_ref(x, key, True, off))
+            and torch.equal(ops.luq_quant(x, key, codes=True, flag=on),
+                            ops.luq_quant(x, key, codes=True))):
+        raise AssertionError(f"luq_quant ({rows} x {n}, {dtype}): the flag "
+                             "is not read as the plain version reads it")
     elem = x.element_size()
     numel = x.numel()
     # the least work: each element read once and written once in its own
@@ -533,6 +566,13 @@ def check_luq_quant(torch, ops, ref, rows, n, dtype, sm_clock_mhz, reps=50):
         "device_us": device_us(torch, lambda: ops.luq_quant(x, key),
                                ("luq_row_max_kernel", "luq_round_kernel"),
                                reps),
+        # the layer's flag at 0: x copied through, read once, written once
+        "pass_ms": time_ms(torch, lambda: ops.luq_quant(x, key, flag=off),
+                           reps),
+        "pass_bound_ms": bound(2 * elem * numel, 0.0)[0],
+        "pass_device_us": device_us(
+            torch, lambda: ops.luq_quant(x, key, flag=off),
+            ("luq_row_max_kernel", "luq_round_kernel"), reps),
     }
 
 
@@ -593,7 +633,11 @@ def check_ghost_norm(torch, ops, ref, B, T, Dx, Dg, reps=20):
     of the bf16 LUQ codes computed beforehand, with float32 sums and
     output (the kernel's arithmetic), then ``(alpha_x alpha_g)^2 (XX *
     GG).sum((1, 2))``; the same two Grams over float32 codes are timed
-    beside it."""
+    beside it.  Under a policy flag read from device memory: at 1 the same
+    bits; at 0 the norm of the unquantized bf16 operands, within 1e-5 of
+    sum_ij |XX_ij GG_ij| of float64 Grams per example, timed against its
+    bound (the operands read once, the Grams' products on the bf16 tensor
+    cores)."""
     from repro_torch.quant.fake_quant import stream_key
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6 + Dg)
     x = torch.randn(B, T, Dx, device="cuda", generator=gen).clamp(-3.5, 3.5)
@@ -652,6 +696,21 @@ def check_ghost_norm(torch, ops, ref, B, T, Dx, Dg, reps=20):
                              f"(tolerance {tol.tolist()})")
     for lib in (grams_bmm, grams_bmm_f32):
         torch.testing.assert_close(lib(), want, rtol=1e-5, atol=0.0)
+    on = torch.ones((), device="cuda")
+    off = torch.zeros((), device="cuda")
+    if not torch.equal(ops.ghost_norm_sq(*args, on), out):
+        raise AssertionError("ghost_norm_sq at flag 1 differs from no flag")
+    passed = ops.ghost_norm_sq(*args, off)
+    x64, g64 = x.double(), g.double()
+    xx64 = x64 @ x64.transpose(1, 2)
+    gg64 = g64 @ g64.transpose(1, 2)
+    plain = (xx64 * gg64).sum(dim=(1, 2))
+    pass_tol = 1e-5 * (xx64.abs() * gg64.abs()).sum(dim=(1, 2))
+    pass_err = (passed.double() - plain).abs()
+    del xx64, gg64, x64, g64
+    if not (pass_err <= pass_tol).all() or passed[1].item() != 0.0:
+        raise AssertionError(f"ghost_norm_sq at flag 0: {passed.tolist()} "
+                             f"against {plain.tolist()}")
     nbytes = 2 * (x.numel() + g.numel()) + 4 * B
     # the least work: the LUQ rounding in float32 and the keys' draws, and
     # each symmetric Gram's upper triangle with its diagonal, T (T + 1) / 2
@@ -676,6 +735,15 @@ def check_ghost_norm(torch, ops, ref, B, T, Dx, Dg, reps=20):
             torch, lambda: ops.ghost_norm_sq(*args),
             ("luq_row_max_kernel", "luq_round_kernel", "gram_tiles_kernel",
              "sum_partials_kernel"), reps),
+        # the layer's flag at 0: the Grams of the operands themselves
+        "pass_max_abs_err": pass_err.max().item(),
+        "pass_ms": time_ms(torch, lambda: ops.ghost_norm_sq(*args, off),
+                           reps),
+        "pass_bound_ms": bound(nbytes, B * T * (T + 1), grams)[0],
+        "pass_device_us": device_us(
+            torch, lambda: ops.ghost_norm_sq(*args, off),
+            ("luq_row_max_kernel", "luq_round_kernel", "gram_tiles_kernel",
+             "sum_partials_kernel"), reps),
     }
 
 
@@ -696,19 +764,88 @@ def host_calls(torch, fn) -> dict:
     return calls
 
 
-def _warmup_sum(tr, per_step):
-    """``per_step(flags)`` summed over the scan runner's captures: each
-    capture's eager warm-up step launches kernels like a step of its
-    policy (the capture itself launches none)."""
-    return sum(per_step(flags) for flags in tr.epoch_fn.captured)
+# Epsilon by epoch of each workload's run under commit 27090d7 (its
+# chip_smoke.py, the policy host bools, the first two epochs): the
+# accountant's events do not depend on the numerics, so they must not
+# move
+EARLIER_EPS = {"resnet18": [5.014532294663283, 5.059241537126444],
+              "resnet50": [4.99962921384223, 5.029435375484336],
+              "densenet121": [4.99962921384223, 5.029435375484336],
+              "stablelm-3b": [3.19802284444497, 3.198049342859754]}
+# stablelm-3b's policies under commit 27090d7, epochs 0 and 1: the LM's
+# run is deterministic (the CNNs' are not: cuDNN's default algorithms),
+# and a layer whose flag is 0 keeps its bits (the ghost tap's plain
+# norm), so the probe losses, scores and policies do not move
+EARLIER_LM_POLICIES = [
+    [0, 1, 2, 3, 4, 5, 6, 7, 9, 10, 12, 13, 14, 15, 16, 18, 19, 20, 21, 22,
+     23, 24, 25, 26, 27, 28, 29, 30, 31],
+    [0, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20,
+     23, 24, 25, 26, 27, 28, 29, 30, 31]]
+
+
+def _epochs_of(torch, tr, epochs: int, name: str, want_k: int) -> dict:
+    """Trains ``epochs`` epochs of ``tr``, printing each; checks every
+    loss finite, k = ``want_k``, epsilon > 0 and the first epochs'
+    epsilon those of commit 27090d7; returns the run's numbers: policies,
+    epsilon,
+    analysis and capture seconds by epoch, each epoch's median step (its
+    chunk walls over their steps), the captures."""
+    import statistics
+    policies, analysis_s, probe_capture_s, capture_s = [], [], [], []
+    for _ in range(epochs):
+        (stats,) = tr.train(1)[-1:]
+        policies.append(list(tr.scheduler.current.layers))
+        analysis_s.append(tr.last_analysis_s)
+        probe_capture_s.append(tr.last_probe_capture_s)
+        capture_s.append(tr.last_capture_s)
+        print(f"epoch {stats.epoch}: loss={stats.loss:.4f} "
+              f"eps={stats.eps:.3f} k={stats.quantized_layers} "
+              f"acc={stats.accuracy} (loss {stats.loss!r}, eps "
+              f"{stats.eps!r}, wall {stats.wall_s!r} s, analysis "
+              f"{tr.last_analysis_s!r} s (probe graph warm-up and capture "
+              f"{tr.last_probe_capture_s!r} s), epoch graph warm-up and "
+              f"capture {tr.last_capture_s!r} s, layers {policies[-1]})",
+              flush=True)
+    torch.cuda.synchronize()
+    steps = tr.run.steps_per_epoch
+    walls = [t * 1e3 for t in tr.step_wall_s]
+    medians = [statistics.median(walls[e * steps:(e + 1) * steps])
+               for e in range(epochs)]
+    eps = [s.eps for s in tr.history]
+    for s in tr.history:
+        if not math.isfinite(s.loss):
+            raise AssertionError(f"{name} epoch {s.epoch}: loss {s.loss}")
+        if s.quantized_layers != want_k:
+            raise AssertionError(f"{name} epoch {s.epoch}: k = "
+                                 f"{s.quantized_layers}, want {want_k}")
+        if not s.eps > 0:
+            raise AssertionError(f"{name} epoch {s.epoch}: eps = {s.eps}")
+    earlier = EARLIER_EPS[tr.run.model.name]
+    if eps[:len(earlier)] != earlier:
+        raise AssertionError(f"{name}: epsilon {eps} moved from the "
+                             f"{earlier} of commit 27090d7")
+    captures = {"epoch": len(tr.epoch_fn.captured),
+                "probe": len(tr.probe_fn.captured)}
+    if captures != {"epoch": 1, "probe": 1}:
+        raise AssertionError(f"{name}: captures {captures} over policies "
+                             f"{policies}, want one of each")
+    warmups = {"epoch": tr.epoch_fn.warmups, "probe": tr.probe_fn.warmups}
+    return {"policies": policies, "eps": eps, "analysis_s": analysis_s,
+            "probe_capture_s": probe_capture_s, "capture_s": capture_s,
+            "median_step_ms_by_epoch": medians, "captures": captures,
+            "warmups": warmups,
+            "analyses": tr.scheduler.n_analyses,
+            "distinct_policies": len({tuple(p) for p in policies})}
 
 
 def train_cnn(torch, ops, wl, argv, want_k, want_params):
     """DP-SGD on a CNN under the DPQuant scheduler, the training workload
     of ``argv`` (``repro_torch/launch/workload.py``), vmap or ghost mode,
-    under the scan executor; returns the launch counts of the run and
-    its summary (epsilon by epoch, median step, images/s, analysis and
-    capture seconds, peak memory)."""
+    under the scan executor: 3 epochs, the analysis in epochs 0 and 2, a
+    new policy drawn every epoch, one CUDA graph of the train step and one
+    of the probe step for all of them; returns the launch counts of the
+    run and its summary (epsilon by epoch, each epoch's median step,
+    images/s, analysis and capture seconds, captures, peak memory)."""
     from repro_torch.models import densenet, resnet
     from repro_torch.quant import backend as qbackend
     from repro_torch.train_loop import Trainer
@@ -737,55 +874,40 @@ def train_cnn(torch, ops, wl, argv, want_k, want_params):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    policies, analysis_s, capture_s = [], [], []
     t0 = time.perf_counter()
-    for _ in range(epochs):
-        (stats,) = tr.train(1)[-1:]
-        policies.append(tr.scheduler.current.layers)
-        analysis_s.append(tr.last_analysis_s)
-        capture_s.append(tr.last_capture_s)
-        print(f"epoch {stats.epoch}: loss={stats.loss:.4f} "
-              f"eps={stats.eps:.3f} k={stats.quantized_layers} "
-              f"acc={stats.accuracy} (loss {stats.loss!r}, eps "
-              f"{stats.eps!r}, wall {stats.wall_s!r} s, analysis "
-              f"{tr.last_analysis_s!r} s, graph warm-up and capture "
-              f"{tr.last_capture_s!r} s, layers {list(policies[-1])})")
-    torch.cuda.synchronize()
+    out = _epochs_of(torch, tr, epochs, name, want_k)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     launches = dict(ops.LAUNCHES)
     launches.update({f"luq_quant[{k}]": v
                      for k, v in ops.LUQ_QUANT_LAUNCHES.items()})
-    # a step's wall is its chunk's wall over its steps (capture excluded)
-    steps_ms = sorted(t * 1e3 for t in tr.step_wall_s)
-    med = steps_ms[len(steps_ms) // 2]
+    med = out["median_step_ms_by_epoch"]
     replays = tr.epoch_fn._graph.replays
+    probe_replays = tr.probe_fn._graph.replays
     flags = tr.scheduler.current.flags()
-    calls = host_calls(torch, lambda: tr._train_steps_scan(flags))
+    calls = host_calls(torch,
+                       lambda: tr._train_steps_scan(tr._set_flags(flags)))
     print(f"train {name} (scan): {epochs} epochs x {steps} steps of "
-          f"{batch} images: median step {med!r} ms (chunk walls over "
-          f"their steps: {steps_ms}), {batch / med * 1e3!r} images/s, "
-          f"analysis by epoch {analysis_s!r} s, graph warm-up and capture "
-          f"by epoch {capture_s!r} s ({len(tr.epoch_fn.captured)} "
-          f"captures; {replays} replays of the last), wall {wall!r} s, "
-          f"peak device memory {peak!r} GiB, launches (replays counted) "
-          f"{launches}; host calls over one more epoch of {steps} steps "
-          f"(profiled, after the checks' counts): {calls}")
+          f"{batch} images: median step by epoch {med!r} ms (chunk walls "
+          f"over their steps: {[t * 1e3 for t in tr.step_wall_s]}), "
+          f"{batch / med[-1] * 1e3!r} images/s in the last epoch, analysis "
+          f"by epoch {out['analysis_s']!r} s (probe graph warm-up and "
+          f"capture {out['probe_capture_s']!r} s), epoch graph warm-up and "
+          f"capture by epoch {out['capture_s']!r} s; captures "
+          f"{out['captures']} for {out['distinct_policies']} policies "
+          f"({replays} epoch and {probe_replays} probe replays), wall "
+          f"{wall!r} s, peak device memory {peak!r} GiB, launches (replays "
+          f"counted) {launches}; host calls over one more epoch of {steps} "
+          f"steps (profiled, after the checks' counts): {calls}")
 
-    for s in tr.history:
-        if not math.isfinite(s.loss):
-            raise AssertionError(f"epoch {s.epoch}: loss {s.loss}")
-        if s.quantized_layers != want_k:
-            raise AssertionError(f"epoch {s.epoch}: k = {s.quantized_layers}")
-        if not s.eps > 0:
-            raise AssertionError(f"epoch {s.epoch}: eps = {s.eps}")
-    # a probe step runs one probe batch of max(micro, min(32, batch))
-    # examples: here one microbatch; one probe run for the baseline and
-    # one per layer, x reps; each capture adds its eager warm-up step
+    # every step runs every conv's quantize points whatever the policy
+    # (a layer whose flag is 0 copies its operands through): the train
+    # steps, the probe steps (one probe batch of max(micro, min(32,
+    # batch)) examples; one run for the baseline and one per layer, x
+    # reps, each analysis) and the captures' eager warm-up steps
     probe_batch = max(micro, min(run.dp.analysis_batch_size, batch))
-    reps = run.dp.analysis_reps
-    probe_runs = len(tr.scheduler.policies) + 1
-    warmups = len(tr.epoch_fn.captured)
+    probe_steps = (out["analyses"] * (len(tr.scheduler.policies) + 1)
+                   * run.dp.analysis_reps)
 
     def units(n):
         """The conv passes a step over ``n`` examples makes: one per
@@ -796,9 +918,9 @@ def train_cnn(torch, ops, wl, argv, want_k, want_params):
         chunk = run.dp.ghost_microbatch
         return (n // chunk if 0 < chunk < n else 1) + 1
 
-    n_units, probe_units = units(batch), units(probe_batch)
-    want_clip = 0 if ghost else ((epochs * steps + warmups) * n_units
-                                 + probe_runs * reps * probe_units)
+    passes = ((epochs * steps + out["warmups"]["epoch"]) * units(batch)
+              + (probe_steps + out["warmups"]["probe"]) * units(probe_batch))
+    want_clip = 0 if ghost else passes
     if launches["clip_and_sum"] != want_clip:
         raise AssertionError(f"clip_and_sum launched "
                              f"{launches['clip_and_sum']} times, want "
@@ -806,29 +928,15 @@ def train_cnn(torch, ops, wl, argv, want_k, want_params):
     if ghost and launches.get("ghost_norm_sq", 0):
         raise AssertionError(f"ghost_norm_sq launched "
                              f"{launches['ghost_norm_sq']} times in a CNN")
-    # the quantized convs of each policy layer (DenseNet: none in its last
-    # layer, which no conv reads), and the stem's (layer 0): its input,
-    # the images, needs no gradient, so it runs no dgrad
-    convs = {"resnet": resnet, "densenet": densenet}[cfg.family] \
-        .conv_layers(cfg)
-    stems = [1] + [0] * (len(convs) - 1)
-
-    def quantized(per_layer):
-        """``per_layer`` summed over every conv pass: the probes (each
-        singleton policy x reps; the baseline probe and evaluate quantize
-        nothing) and the train steps and warm-up steps."""
-        q = reps * probe_units * sum(per_layer)
-        q += sum(steps * n_units * sum(per_layer[i] for i in layers)
-                 for layers in policies)
-        return q + n_units * _warmup_sum(
-            tr, lambda fl: sum(c for c, f in zip(per_layer, fl) if f))
-
-    q_convs, q_stems = quantized(convs), quantized(stems)
-    # a quantized conv pass quantizes the weight for the forward and the
-    # dgrad (one row each) and x and the cotangent per example for the
-    # forward, dgrad and wgrad (ghost pass 1: the tap's wgrad operands)
-    # (four calls of rows); the stem skips the dgrad's two; two kernels a
-    # call
+    # a conv pass quantizes the weight for the forward and the dgrad (one
+    # row each) and x and the cotangent per example for the forward, dgrad
+    # and wgrad (ghost pass 1: the tap's wgrad operands) (four calls of
+    # rows); the stem's input, the images, needs no gradient, so it skips
+    # the dgrad's two; DenseNet's last policy layer has no conv; two
+    # kernels a call
+    convs = sum({"resnet": resnet, "densenet": densenet}[cfg.family]
+                .conv_layers(cfg))
+    q_convs, q_stems = passes * convs, passes
     calls = 6 * q_convs - 2 * q_stems
     want_q = {"luq_quant": calls, "luq_quant[one_row]": 2 * q_convs - q_stems,
               "luq_quant[rows]": 4 * q_convs - q_stems,
@@ -836,14 +944,13 @@ def train_cnn(torch, ops, wl, argv, want_k, want_params):
     for key, n in want_q.items():
         if launches[key] != n:
             raise AssertionError(f"{key} launched {launches[key]} times, "
-                                 f"want {n} (policies {policies})")
+                                 f"want {n} (policies {out['policies']})")
     print(f"{name} quantize calls {launches['luq_quant']}, kernel launches "
           f"{launches['luq_quant[kernels]']}, "
           f"{launches['luq_quant[kernels]'] / launches['luq_quant']} a call; "
           f"phase wall {time.perf_counter() - t_phase!r} s")
-    summary = {"eps": [s.eps for s in tr.history], "median_step_ms": med,
-               "images_per_s": batch / med * 1e3, "analysis_s": analysis_s,
-               "capture_s": capture_s, "peak_gib": peak}
+    summary = {**out, "images_per_s": batch / med[-1] * 1e3,
+               "peak_gib": peak}
     del tr
     _free(torch)
     return launches, summary
@@ -918,47 +1025,81 @@ def check_noise_replays(torch, n):
     runner.close()
 
 
-def loop_vs_scan(torch, setup_fn, name, optim, rtol=None):
+def loop_vs_scan(torch, setup_fn, name, optim, rtol=None, dpquant=None):
     """One epoch of ``setup_fn``'s workload (mode static: no probes) under
     ``optim`` with sigma 1, through the loop executor and through the scan
     executor, under deterministic cuDNN: params, optimizer state, losses
     and epsilon must agree bit for bit; with ``rtol``, when the params do
-    not, the losses within ``rtol`` and epsilon and k exactly (printed)."""
+    not, the losses within ``rtol`` and epsilon and k exactly (printed).
+    With ``dpquant`` (``DPConfig`` fields, e.g. a lower quant fraction and
+    softmax temperature, so that the policies rotate): DPQuant, the
+    analysis every second epoch from epoch 0 (the loop's eager probe
+    steps, the scan's probe graph), a policy drawn each epoch, as many
+    epochs as the loop trainer needs to draw a second policy (at most 4);
+    then also the EMA scores and the policies bit for bit, and the scan
+    trainer's one epoch graph and one probe graph for all of them."""
     import dataclasses
     from repro_torch.train_loop import Trainer
     run, ds, _ = setup_fn()
-    run = dataclasses.replace(run, optim=optim, steps=run.steps_per_epoch)
+    epochs, mode = 1, "static"
+    if dpquant is not None:
+        epochs, mode = 4, "dpquant"
+        run = dataclasses.replace(run, dp=dataclasses.replace(run.dp,
+                                                              **dpquant))
+    run = dataclasses.replace(run, optim=optim,
+                              steps=epochs * run.steps_per_epoch)
     torch.backends.cudnn.deterministic = True
     out = {}
     try:
         for executor in ("loop", "scan"):
             tr = Trainer(dataclasses.replace(run, epoch_executor=executor),
-                         ds, mode="static", device="cuda")
-            (h,) = tr.train(1)
+                         ds, mode=mode, device="cuda")
+            policies = []
+            while len(policies) < epochs:
+                tr.train(1)
+                policies.append(list(tr.scheduler.current.layers))
+                if executor == "loop" and len({tuple(p) for p in
+                                               policies}) > 1:
+                    epochs = len(policies)      # the scan runs as many
             torch.cuda.synchronize()
+            captures = (None if tr.epoch_fn is None else
+                        (len(tr.epoch_fn.captured),
+                         len(tr.probe_fn.captured)))
             out[executor] = ((tr.params, tr.opt_state), tr.history,
-                             sorted(tr.step_wall_s), tr.last_capture_s)
-            del tr, h
+                             sorted(tr.step_wall_s), tr.last_capture_s,
+                             tr.scheduler.scores.tolist(), policies, captures)
+            del tr
             _free(torch)
     finally:
         torch.backends.cudnn.deterministic = False
-    (state_l, hist_l, walls_l, _), (state_s, hist_s, walls_s, cap) = \
+    (state_l, hist_l, walls_l, _, scores_l, pol_l, _), \
+        (state_s, hist_s, walls_s, cap, scores_s, pol_s, captures) = \
         out["loop"], out["scan"]
     same, worst, where = _compare_runs(torch, state_l, state_s)
     losses_l = [h.loss for h in hist_l]
     losses_s = [h.loss for h in hist_s]
-    print(f"{name} loop vs scan ({run.steps_per_epoch} steps, "
-          f"{optim.name} {optim.schedule}, deterministic cuDNN): params and "
-          f"optimizer state bitwise {same} (largest difference {worst!r}, "
-          f"leaf {where}), losses {losses_l} / {losses_s}, eps "
-          f"{hist_l[-1].eps!r} / {hist_s[-1].eps!r}, k "
-          f"{hist_l[-1].quantized_layers} / {hist_s[-1].quantized_layers}; "
-          f"step walls (ms) loop {[t * 1e3 for t in walls_l]} scan "
+    print(f"{name} loop vs scan ({epochs} x {run.steps_per_epoch} steps, "
+          f"mode {mode}, {optim.name} {optim.schedule}, deterministic "
+          f"cuDNN): params and optimizer state bitwise {same} (largest "
+          f"difference {worst!r}, leaf {where}), losses {losses_l} / "
+          f"{losses_s}, eps {hist_l[-1].eps!r} / {hist_s[-1].eps!r}, k "
+          f"{hist_l[-1].quantized_layers} / {hist_s[-1].quantized_layers}, "
+          f"EMA scores equal {scores_l == scores_s}, policies {pol_l} / "
+          f"{pol_s}, scan captures (epoch, probe) {captures}; step walls "
+          f"(ms) loop {[t * 1e3 for t in walls_l]} scan "
           f"{[t * 1e3 for t in walls_s]}, capture {cap!r} s")
     if [h.eps for h in hist_l] != [h.eps for h in hist_s] or \
             [h.quantized_layers for h in hist_l] != \
             [h.quantized_layers for h in hist_s]:
         raise AssertionError(f"{name}: epsilon or k differ")
+    if mode == "dpquant":
+        if scores_l != scores_s or pol_l != pol_s:
+            raise AssertionError(f"{name}: the probe graph's scores "
+                                 f"{scores_s} or policies {pol_s} are not "
+                                 f"the eager probes' {scores_l} / {pol_l}")
+        if len({tuple(p) for p in pol_s}) < 2 or captures != (1, 1):
+            raise AssertionError(f"{name}: policies {pol_s}, captures "
+                                 f"{captures}")
     if same and losses_l == losses_s:
         return
     if rtol is None:
@@ -966,6 +1107,139 @@ def loop_vs_scan(torch, setup_fn, name, optim, rtol=None):
                              f"{losses_l} / {losses_s}, params by {worst})")
     import numpy as np
     np.testing.assert_allclose(losses_s, losses_l, rtol=rtol)
+
+
+def check_policy_switch(torch, wl):
+    """One graph for every policy, on the card: a step captured under
+    policy A, then replayed under policy B from the same snapshot, against
+    an eager step under B, bit for bit (deterministic cuDNN): ResNet-18 at
+    full width (the vmap engine, the fused clip, ``luq_quant`` reading
+    its flag) and stablelm-3b at full width cut to 2 layers (ghost mode,
+    bf16, remat, ``ghost_norm_sq`` reading its flag).  A and B split the
+    layers between them, so every layer changes its flag."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.launch.steps import EpochRunner, build_train_setup
+    from repro_torch.models.registry import build_model
+
+    found = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, setup_fn in (("resnet18", wl.train_setup),
+                               ("stablelm-3b 2 layers", wl.train_lm_setup)):
+            run, ds, _ = setup_fn()
+            if name.startswith("stablelm"):
+                run = dataclasses.replace(run, model=dataclasses.replace(
+                    run.model, n_layers=2))
+            model = build_model(run.model, run.quant, device="cuda")
+            setup = build_train_setup(model, run)
+            params = model.init(wl.SEED)
+            opt = setup.opt_init_fn(params)
+            n = run.model.policy_len()
+            a = torch.tensor([float(i % 2 == 0) for i in range(n)],
+                             device="cuda")
+            b = 1.0 - a
+            flat = ds.get(np.arange(run.global_batch))
+            batches = {k: v[None].cuda() for k, v in flat.items()}
+            lrs = torch.full((1,), 0.5, device="cuda")
+            runner = EpochRunner(setup, "cuda", adopt=False)
+            runner(params, opt, batches, [7], a, lrs)          # capture: A
+            got_p, got_o, got_m = runner(params, opt, batches, [7], b, lrs)
+            torch.cuda.synchronize()
+            want_p, want_o, want_m = setup.step_fn(
+                params, opt, {k: v[0] for k, v in batches.items()}, 7, b,
+                lrs[0])
+            same, worst, where = _compare_runs(torch, (got_p, got_o),
+                                               (want_p, want_o))
+            same_loss = got_m["loss"][0].item() == want_m["loss"].item()
+            found[name] = {"bitwise": same and same_loss,
+                           "captures": len(runner.captured),
+                           "replays": runner._graph.replays}
+            print(f"policy switch ({name}): captured under {a.tolist()}, "
+                  f"replayed under {b.tolist()}: params and optimizer state "
+                  f"bitwise the eager step's {same} (largest difference "
+                  f"{worst!r}, leaf {where}), loss {got_m['loss'].tolist()} "
+                  f"/ {want_m['loss'].item()!r}; {found[name]}", flush=True)
+            if not (same and same_loss) or len(runner.captured) != 1:
+                raise AssertionError(f"{name}: the replay under B is not "
+                                     f"the eager step under B")
+            runner.close()
+            del runner, params, opt, got_p, got_o, want_p, want_o, model
+            _free(torch)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return found
+
+
+def lm_remat(torch, ops, wl):
+    """stablelm-3b's training memory and step with remat on and off: the
+    LM workload under the scan executor, one epoch of its 2 steps (mode
+    static: no probes), pass-1 chunks of 4 both ways, the losses within
+    rtol 1e-3 (bitwise printed); then, each way, one eager step of a
+    batch of 64, 128 and 256 sequences in one chunk, until one does not
+    fit (an out-of-memory error in an eager step is caught safely).
+    Prints each run's peak device memory and step walls; returns them."""
+    import dataclasses
+    from repro_torch.train_loop import Trainer
+    run, ds, _ = wl.train_lm_setup()
+    found = {}
+    # (remat, batch, pass-1 chunk, executor): the workload's chunk both
+    # ways under the graph; then one chunk of a whole batch in one eager
+    # step, doubling, each way, until one does not fit
+    cases = [(False, 8, 4, "scan"), (True, 8, 4, "scan")]
+    cases += [(remat, n, n, "loop") for remat in (True, False)
+              for n in (64, 128, 256)]
+    too_big = set()
+    for remat, batch, chunk, executor in cases:
+        if remat in too_big:
+            continue
+        steps = run.steps_per_epoch if executor == "scan" else 1
+        r = dataclasses.replace(
+            run, model=dataclasses.replace(run.model, remat=remat),
+            dp=dataclasses.replace(run.dp, ghost_microbatch=chunk,
+                                   microbatch_size=batch),
+            global_batch=batch, steps=steps, steps_per_epoch=steps,
+            epoch_executor=executor)
+        tag = (f"remat {'on' if remat else 'off'}, batch {batch}, chunk "
+               f"{chunk}, {executor}")
+        _free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        tr, oom = None, None
+        try:
+            tr = Trainer(r, ds, mode="static", device="cuda")
+            tr.train(1)
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError as e:
+            oom = str(e).splitlines()[0][:160]
+        if oom is not None:        # the error's frames are gone here
+            found[tag] = {"fits": False,
+                          "peak_gib": torch.cuda.max_memory_allocated()
+                          / 2**30}
+            print(f"stablelm-3b {tag}: out of memory ({oom})", flush=True)
+            del tr
+            _free(torch)
+            too_big.add(remat)
+            continue
+        walls = sorted(t * 1e3 for t in tr.step_wall_s)
+        found[tag] = {"fits": True, "peak_gib":
+                      torch.cuda.max_memory_allocated() / 2**30,
+                      "step_ms": walls, "tokens_per_s":
+                      batch * r.seq_len / walls[0] * 1e3,
+                      "capture_s": tr.last_capture_s,
+                      "loss": tr.history[-1].loss}
+        print(f"stablelm-3b {tag}: {json.dumps(found[tag])}", flush=True)
+        del tr
+        _free(torch)
+    on = found["remat on, batch 8, chunk 4, scan"]
+    off = found["remat off, batch 8, chunk 4, scan"]
+    print(f"stablelm-3b remat on / off at chunk 4: loss {on['loss']!r} / "
+          f"{off['loss']!r} (bitwise {on['loss'] == off['loss']}), peak "
+          f"{on['peak_gib']!r} / {off['peak_gib']!r} GiB, step "
+          f"{on['step_ms']} / {off['step_ms']} ms")
+    if not math.isclose(on["loss"], off["loss"], rel_tol=1e-3):
+        raise AssertionError(f"stablelm-3b: remat moved the loss "
+                             f"({on['loss']!r} / {off['loss']!r})")
+    return found
 
 
 def _recording_losses(tr) -> list:
@@ -1242,8 +1516,11 @@ def ghost_vs_vmap(torch, ops, wl):
         return ((a - b).abs() / b.abs()).max().item()
 
     for dtype in ("bfloat16", "float32"):
+        # remat off: the witness's hooks record each projection's operands
+        # in the forward, and a block recomputed in the backward would
+        # record them again
         cfg = dataclasses.replace(get_config(wl.TRAIN_LM_ARCH), n_layers=2,
-                                  compute_dtype=dtype)
+                                  compute_dtype=dtype, remat=False)
         model = build_model(cfg, QuantConfig(fmt="luq_fp4", backend="cuda"))
         params = model.init(wl.SEED)
         tokens = TokenDataset(n=B, vocab=cfg.vocab_size,
@@ -1476,8 +1753,10 @@ def cnn_ghost_vs_vmap(torch, ops, wl):
 
 def train_stablelm(torch, ops, wl):
     """Ghost-mode DP-SGD on stablelm-3b under the DPQuant scheduler, the
-    LM workload of ``repro_torch/launch/workload.py``, under the scan
-    executor; returns the launch counts of the run."""
+    LM workload of ``repro_torch/launch/workload.py`` (each block under
+    remat), under the scan executor: 3 epochs, the analysis in epochs 0
+    and 2, one graph of the train step and one of the probe step; returns
+    the launch counts of the run and its summary."""
     from repro_torch.dp.ghost import per_example_state_bytes
     from repro_torch.quant import backend as qbackend
     from repro_torch.train_loop import Trainer
@@ -1487,8 +1766,9 @@ def train_stablelm(torch, ops, wl):
         raise AssertionError("the quantizer or the ghost norm does not run "
                              "on the cuda backend")
     run, ds, ev = wl.train_lm_setup()
-    if run.epoch_executor != "scan":
-        raise AssertionError(f"the workload runs {run.epoch_executor!r}")
+    if run.epoch_executor != "scan" or not run.model.remat:
+        raise AssertionError(f"the workload runs {run.epoch_executor!r}, "
+                             f"remat {run.model.remat}")
     cfg = run.model
     batch, chunk, seq = run.global_batch, run.dp.ghost_microbatch, run.seq_len
     steps, epochs = run.steps_per_epoch, wl.TRAIN_LM_EPOCHS
@@ -1498,71 +1778,61 @@ def train_stablelm(torch, ops, wl):
     n_params = sum(t.numel() for t in tr.params.values())
     state = per_example_state_bytes(
         tr.params, tr.model.ghost_mask(tr.params), batch,
-        aux=tr.model.ghost_aux((True,) * cfg.n_layers))
+        aux=tr.model.ghost_aux(tr.qflags))
     print(f"stablelm-3b: {n_params} params, init {time.perf_counter() - t0} "
           f"s; per_example_state_bytes at batch {batch}: {state}")
     if state["ghost_bytes"] != 0:
         raise AssertionError(f"ghost mode keeps per-example state: {state}")
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    policies, analysis_s, capture_s = [], [], []
     t0 = time.perf_counter()
-    for _ in range(epochs):
-        (stats,) = tr.train(1)[-1:]
-        policies.append(tr.scheduler.current.layers)
-        analysis_s.append(tr.last_analysis_s)
-        capture_s.append(tr.last_capture_s)
-        print(f"epoch {stats.epoch}: loss={stats.loss:.4f} "
-              f"eps={stats.eps:.3f} k={stats.quantized_layers} "
-              f"acc={stats.accuracy} (loss {stats.loss!r}, eps "
-              f"{stats.eps!r}, wall {stats.wall_s!r} s, analysis "
-              f"{tr.last_analysis_s!r} s, graph warm-up and capture "
-              f"{tr.last_capture_s!r} s, layers {list(policies[-1])})")
-    torch.cuda.synchronize()
+    out = _epochs_of(torch, tr, epochs, "stablelm-3b", 29)
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     launches.update({f"ghost_norm_sq[{k}]": v
                      for k, v in ops.GHOST_NORM_LAUNCHES.items()})
     launches.update({f"luq_quant[{k}]": v
                      for k, v in ops.LUQ_QUANT_LAUNCHES.items()})
-    # a step's wall is its chunk's wall over its steps (capture excluded)
-    steps_ms = sorted(t * 1e3 for t in tr.step_wall_s)
-    med = steps_ms[len(steps_ms) // 2]
+    med = out["median_step_ms_by_epoch"]
     peak = torch.cuda.max_memory_allocated() / 2**30
     flags = tr.scheduler.current.flags()
-    calls = host_calls(torch, lambda: tr._train_steps_scan(flags))
-    print(f"train stablelm-3b (ghost, scan): {epochs} epochs x {steps} "
-          f"steps of {batch} x {seq} tokens: median step {med!r} ms (chunk "
-          f"walls over their steps: {steps_ms}), "
-          f"{batch * seq / med * 1e3!r} tokens/s, analysis by epoch "
-          f"{analysis_s!r} s, graph warm-up and capture by epoch "
-          f"{capture_s!r} s ({len(tr.epoch_fn.captured)} captures), wall "
+    calls = host_calls(torch,
+                       lambda: tr._train_steps_scan(tr._set_flags(flags)))
+    print(f"train stablelm-3b (ghost, scan, remat): {epochs} epochs x "
+          f"{steps} steps of {batch} x {seq} tokens: median step by epoch "
+          f"{med!r} ms (chunk walls over their steps: "
+          f"{[t * 1e3 for t in tr.step_wall_s]}), "
+          f"{batch * seq / med[-1] * 1e3!r} tokens/s in the last epoch, "
+          f"analysis by epoch {out['analysis_s']!r} s (probe graph warm-up "
+          f"and capture {out['probe_capture_s']!r} s), epoch graph warm-up "
+          f"and capture by epoch {out['capture_s']!r} s; captures "
+          f"{out['captures']} for {out['distinct_policies']} policies, wall "
           f"{wall!r} s, peak device memory {peak!r} GiB, launches (replays "
           f"counted) {launches}; host calls over one more epoch of {steps} "
           f"steps (profiled, after the checks' counts): {calls}")
-
-    for s in tr.history:
-        if not math.isfinite(s.loss):
-            raise AssertionError(f"epoch {s.epoch}: loss {s.loss}")
-        if s.quantized_layers != 29:
-            raise AssertionError(f"epoch {s.epoch}: k = {s.quantized_layers}")
-        if not s.eps > 0:
-            raise AssertionError(f"epoch {s.epoch}: eps = {s.eps}")
-    # a step launches the kernel once per pass-1 chunk and hooked
-    # projection (7 a layer) of every quantized layer: the probes (each
-    # singleton policy x reps; the baseline probe quantizes nothing) and
-    # the train steps
+    if out["policies"][:2] != EARLIER_LM_POLICIES:
+        raise AssertionError(f"stablelm-3b: policies {out['policies']} are "
+                             f"not those of commit 27090d7 "
+                             f"{EARLIER_LM_POLICIES}")
+    # every step launches the kernel once per pass-1 chunk and hooked
+    # projection (7 a layer) of every layer, whatever its flag (at 0 the
+    # kernel takes the Grams of the operands themselves): the train
+    # steps, the probe steps (each analysis: the baseline and one run per
+    # layer, x reps) and the captures' eager warm-up steps (one: the
+    # probe batch has the train batch's shape, and the second capture
+    # skips it)
     n_chunks = batch // chunk
     probe_chunks = max(run.dp.microbatch_size,
                        min(run.dp.analysis_batch_size, batch)) // chunk
-    reps = run.dp.analysis_reps
-    want = 7 * reps * probe_chunks * len(tr.scheduler.policies)
-    want += sum(7 * steps * n_chunks * len(layers) for layers in policies)
-    want += 7 * n_chunks * _warmup_sum(tr, sum)       # the warm-up steps
+    probe_steps = (out["analyses"] * (len(tr.scheduler.policies) + 1)
+                   * run.dp.analysis_reps)
+    want = 7 * cfg.n_layers * (
+        (epochs * steps + out["warmups"]["epoch"]) * n_chunks
+        + (probe_steps + out["warmups"]["probe"]) * probe_chunks)
     if launches["ghost_norm_sq"] != want:
         raise AssertionError(f"ghost_norm_sq launched "
                              f"{launches['ghost_norm_sq']} times, want {want} "
-                             f"(policies {policies})")
+                             f"(policies {out['policies']})")
     if launches["clip_and_sum"] != 0:
         raise AssertionError(f"ghost training launched clip_and_sum "
                              f"{launches['clip_and_sum']} times")
@@ -1572,9 +1842,11 @@ def train_stablelm(torch, ops, wl):
     if not 0 < kernels <= 2 * calls:
         raise AssertionError(f"{calls} quantize calls launched {kernels} "
                              "kernels, want at most 2 a call")
+    summary = {**out, "tokens_per_s": batch * seq / med[-1] * 1e3,
+               "peak_gib": peak}
     del tr
     _free(torch)
-    return launches
+    return launches, summary
 
 
 def serve_yi6b(torch, kv_fmt, model, params, ops, wl):
@@ -2028,20 +2300,26 @@ def main() -> int:
 
     _phase_done(walls, "3 kernel checks")
 
-    # 4. train ResNet-18 at full width under the DPQuant scheduler, scan
+    # 4. train ResNet-18 at full width under the DPQuant scheduler, scan:
+    # 3 epochs, one graph of the step and one of the probe step
     train_launches, train_summary = train_cnn(torch, ops, wl, wl.TRAIN_ARGV,
                                               8, 11_190_891)
+    policy_graphs = {"resnet18": train_summary}
 
     _phase_done(walls, "4 train resnet18")
 
-    # 4b. the scan executor against the loop on ResNet-18, and the noise
-    # of successive replays
+    # 4b. the scan executor against the loop on ResNet-18 under DPQuant
+    # (the probe graph against the eager probes, two policies), the noise
+    # of successive replays, and a graph captured under one policy
+    # replayed under another
     from repro_torch.config import OptimConfig
     loop_vs_scan(torch, wl.train_setup, "resnet18",
-                 OptimConfig(name="momentum", lr=0.1, schedule="cosine"))
+                 OptimConfig(name="momentum", lr=0.1, schedule="cosine"),
+                 dpquant=dict(quant_fraction=0.5, beta=0.0))
     check_noise_replays(torch, 11_190_891)
+    switch = check_policy_switch(torch, wl)
 
-    _phase_done(walls, "4b resnet18 loop vs scan, noise")
+    _phase_done(walls, "4b resnet18 loop vs scan, noise, policy switch")
 
     # 4c. the paper's other two CNNs at full width and depth, scan
     cnn_runs = {
@@ -2050,6 +2328,7 @@ def main() -> int:
         "densenet121": train_cnn(torch, ops, wl, wl.TRAIN_DENSENET121_ARGV,
                                  56, 6_990_251)}
     cnn_launches = {arch: run[0] for arch, run in cnn_runs.items()}
+    policy_graphs.update({arch: run[1] for arch, run in cnn_runs.items()})
 
     _phase_done(walls, "4c train resnet50, densenet121")
 
@@ -2096,7 +2375,15 @@ def main() -> int:
     _phase_done(walls, "4g resnet18 ghost loop vs scan")
 
     # 5. train stablelm-3b at full size in ghost mode under DPQuant, scan
-    lm_launches = train_stablelm(torch, ops, wl)
+    lm_launches, policy_graphs["stablelm-3b"] = train_stablelm(torch, ops,
+                                                               wl)
+    keys = ("captures", "warmups", "distinct_policies", "capture_s",
+            "probe_capture_s",
+            "analysis_s", "median_step_ms_by_epoch", "peak_gib", "eps",
+            "policies")
+    print(f"policy graphs ({card}): " + json.dumps(
+        {arch: {k: v[k] for k in keys} for arch, v in policy_graphs.items()}))
+    print(f"policy switch ({card}): {json.dumps(switch)}")
 
     _phase_done(walls, "5 train stablelm-3b")
 
@@ -2106,6 +2393,12 @@ def main() -> int:
                  rtol=1e-3)
 
     _phase_done(walls, "5b stablelm-3b loop vs scan")
+
+    # 5c. stablelm-3b's memory and step with remat on and off
+    remat = lm_remat(torch, ops, wl)
+    print(f"remat ({card}): {json.dumps(remat)}")
+
+    _phase_done(walls, "5c stablelm-3b remat")
 
     # 6. ghost against per-example gradients inside stablelm-3b at full
     # width, 2 layers

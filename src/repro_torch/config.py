@@ -80,6 +80,11 @@ class ModelConfig:
     param_dtype: str = "float32"
     attn_chunk_q: int = 512
     ce_chunk: int = 512                  # chunked-loss sequence chunk (training)
+    # Dense LMs: recompute each block in the backward instead of keeping its
+    # activations (torch.utils.checkpoint), the reference's jax.checkpoint
+    # of every block, on by default as there.  Training only; serving and
+    # the vmap engine's per-example grads run without it.
+    remat: bool = True
     pad_heads_to: int = 1                # pad n_heads up to a multiple of this
     pad_vocab_to: int = 128
 
@@ -182,10 +187,12 @@ class RunConfig:
     seq_len: int = 1024
     steps: int = 100
     steps_per_epoch: int = 10
-    # "scan": each epoch's steps run as one CUDA graph of the train step,
-    # captured once per quantization policy and replayed step after step
-    # (train_loop.Trainer._train_steps_scan; one host sync per chunk).
-    # "loop": one eager step, host sync and accountant charge per step.
+    # "scan": the steps run as replays of one CUDA graph of the train step,
+    # captured once for every quantization policy (the policy is a device
+    # tensor the graph reads), and the DPQuant probes as replays of a
+    # second one (train_loop.Trainer._train_steps_scan; one host sync per
+    # chunk).  "loop": one eager step, host sync and accountant charge per
+    # step, and eager probe steps.
     epoch_executor: str = "scan"
     # 0 = the whole epoch at once; k > 0 = chunks of k steps (bounds the
     # device memory held by the staged batches).

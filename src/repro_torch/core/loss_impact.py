@@ -13,10 +13,16 @@ Privacy accounting (Prop. 2): one SGM step at rate q = |B| / |D| and
 noise scale sigma_measure per invocation, charged to the same RDP
 accountant as training, labelled "analysis".
 
-RESTOREMODEL: the probe step is functional (it returns new params and
-optimizer state and writes neither in place), so every policy starts from
-the same ``params`` / ``opt_state`` and the probes never touch the live
-model.
+RESTOREMODEL: a policy's probe run starts from ``params`` /
+``opt_state`` and writes neither (the trainer's probe graph copies them
+into static buffers of its own first), so every policy starts from the
+same snapshot and the probes never touch the live model.
+
+The policies' flags go to the device in one copy (a (P + 1, L) float32
+table, one row a run); each run's R losses stay on the device, and all of
+them are read back once per analysis.  The averages, the privatization,
+the accountant charge and the EMA are taken on the host in float64, in
+the order the reference takes them.
 """
 from __future__ import annotations
 
@@ -35,8 +41,8 @@ PROBE_NOISE_OFFSET = 10_007
 
 def compute_loss_impact(
     *,
-    probe_step: Callable,       # (params, opt_state, batch, seed, flags) ->
-                                #   (params, opt_state, metrics{loss})
+    probe_step: Callable,       # (params, opt_state, batches, seeds, flags)
+                                #   -> (R,) losses on the device
     params,
     opt_state,
     policies: Sequence[QuantPolicy],
@@ -53,23 +59,31 @@ def compute_loss_impact(
     device="cpu",
 ) -> np.ndarray:
     """Returns updated EMA scores (one per policy).  Host-side
-    orchestration; each probe step is the train step.  The privatizing
-    noise comes from a generator on ``device`` seeded ``seed + 10_007``."""
+    orchestration; ``probe_step`` runs a policy's R train steps from the
+    snapshot, step r on ``batches[r]`` at seed ``seed + r``, under the
+    policy's row of the device flags table.  The privatizing noise comes
+    from a generator on ``device`` seeded ``seed + 10_007``."""
     n_layers = policies[0].n_layers
     p0_flags = (baseline_flags if baseline_flags is not None
                 else (False,) * n_layers)
+    n = min(reps, len(batches))
+    stacked = {k: torch.stack([b[k] for b in batches[:n]])
+               for k in batches[0]}
+    seeds = [seed + r for r in range(n)]
+    table = torch.tensor([p0_flags] + [pol.flags() for pol in policies],
+                         dtype=torch.float32).to(device)
+    losses = torch.stack([probe_step(params, opt_state, stacked, seeds,
+                                     table[i]) for i in range(len(table))])
+    runs = losses.tolist()               # the analysis's one host read
 
-    def avg_loss_under(flags) -> float:
-        p, o = params, opt_state           # RESTOREMODEL: the snapshot
+    def avg_loss(row) -> float:
         total = 0.0
-        for r in range(min(reps, len(batches))):
-            p, o, metrics = probe_step(p, o, batches[r], seed + r, flags)
-            total += float(metrics["loss"])
-        return total / max(min(reps, len(batches)), 1)
+        for loss in row:
+            total += loss
+        return total / max(n, 1)
 
-    base = avg_loss_under(p0_flags)
-    diffs = np.array([avg_loss_under(pol.flags()) - base for pol in policies],
-                     np.float64)
+    base = avg_loss(runs[0])
+    diffs = np.array([avg_loss(row) - base for row in runs[1:]], np.float64)
 
     # ---- step 3: privatize (clip to C, add N(0, sigma^2 C^2)) ----
     norm = float(np.linalg.norm(diffs))

@@ -6,10 +6,11 @@ Algorithm 2 samples ``m`` of them and quantizes the union of their layers.
 The default candidate set is one singleton policy per layer (so the score
 of policy i estimates layer i's loss sensitivity R(l_i)).
 
-Policies materialize as a host-side tuple of bools, one per layer: the
-model branches on them in Python, so a layer that is not quantized runs
-no quantizer at all (the JAX package selects with ``lax.cond`` on traced
-flags to avoid recompiling; eager PyTorch has nothing to recompile).
+Policies materialize as a host-side tuple of bools, one per layer
+(``flags()``: logging, checkpoints).  The trainer copies them into its
+(policy_len,) float32 flags tensor on the device, which the quantizers
+read there, as the JAX package's traced flags under ``lax.cond``: one
+CUDA graph of the train step serves every policy.
 """
 from __future__ import annotations
 

@@ -265,7 +265,8 @@ def _einsum_sq_norm(spec: str, xq, gq) -> torch.Tensor:
     return _matpair_sq_norm(xmat, gmat)
 
 
-def _tap_sq_norm(spec, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def _tap_sq_norm(spec, x: torch.Tensor, g: torch.Tensor,
+                 flag: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The (B,) per-example squared wgrad norms a ghost einsum emits.
 
     ``spec`` is the einsum's ``fake_quant._ESpec``.  The quantization is
@@ -275,6 +276,18 @@ def _tap_sq_norm(spec, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     quantize + Grams + reduce is one fused op, given the keys of folds 4
     and 5, whose draws over a per-example row are those the unfused
     quantizer makes; otherwise quantize, then ``_matpair_sq_norm``.
+
+    ``flag``: the layer's device policy flag (``fake_quant``), at 0 the
+    norms of the unquantized operands.  Both norms are taken and
+    ``torch.where`` picks one: the fused op's for a layer that is on, and
+    for one that is off :func:`_matpair_sq_norm`'s, the very operations
+    a host-bool policy runs, so a policy's norms keep their bits.  (The
+    ``cuda`` kernel can give the off layer's norm itself, from the bf16
+    operands' Grams on the tensor cores; on an H100 that changed
+    stablelm-3b's norms in their last bits, and LUQ's rounding of pass
+    2's clipped cotangents turned that into other probe losses and
+    another epoch-0 policy.)  The kernel still reads the flag: a layer
+    that is off skips its LUQ rounding.
     """
     xmat, gmat, contiguous = _einsum_matviews(spec.spec, x, g)
     _, t, din = xmat.shape
@@ -287,11 +300,16 @@ def _tap_sq_norm(spec, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         kx = fake_quant.stream_key(spec.seed, 4) if draws else None
         kg = fake_quant.stream_key(spec.seed, 5) if draws else None
         with record_function("ghost.fused_norm"):
-            return impl(xmat, gmat, kx, kg)
+            if flag is None:
+                return impl(xmat, gmat, kx, kg)
+            fused = impl(xmat, gmat, kx, kg,
+                         *((flag,) if qbackend.reads_flag(impl) else ()))
+            return torch.where(flag > 0.5, fused,
+                               _matpair_sq_norm(xmat, gmat))
     xq = fake_quant._quantize_per_example(x, spec.fmt, spec.backend,
-                                          spec.seed, 4)
+                                          spec.seed, 4, flag)
     gq = fake_quant._quantize_per_example(g, spec.fmt, spec.backend,
-                                          spec.seed, 5)
+                                          spec.seed, 5, flag)
     return _einsum_sq_norm(spec.spec, xq, gq)
 
 
@@ -326,11 +344,13 @@ def _per_example_conv_weight(x: torch.Tensor, g: torch.Tensor,
     return dw.reshape(b, cout, cin // geo.groups, *geo.kernel)
 
 
-def _conv_tap_sq_norm(spec, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def _conv_tap_sq_norm(spec, x: torch.Tensor, g: torch.Tensor,
+                      flag: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The (B,) per-example squared wgrad norms a ghost conv emits.
 
     ``spec`` is the conv's ``fake_quant._QSpec``.  The quantization is the
-    wgrad GEMM's (folds 4 and 5, per example).  A dense, undilated conv
+    wgrad GEMM's (folds 4 and 5, per example; passed through where the
+    device ``flag`` is 0).  A dense, undilated conv
     takes ``_matpair_sq_norm`` of its patches and the (T, Cout) cotangent
     rows (Grams or the direct product, by ``gram_route_wins(T, kh kw Cin,
     Cout)``); a dilated or grouped one, the squared norm of each
@@ -338,9 +358,9 @@ def _conv_tap_sq_norm(spec, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     geo = spec.geo
     if spec.quantized and spec.q_wgrad:
         x = fake_quant._quantize_per_example(x, spec.fmt, spec.backend,
-                                             spec.seed, 4)
+                                             spec.seed, 4, flag)
         g = fake_quant._quantize_per_example(g, spec.fmt, spec.backend,
-                                             spec.seed, 5)
+                                             spec.seed, 5, flag)
     if geo.dilation == 1 and geo.groups == 1:
         gmat = g.reshape(g.shape[0], g.shape[1], -1).transpose(1, 2)
         return _matpair_sq_norm(_conv_patches(x, geo), gmat)

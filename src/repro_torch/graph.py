@@ -11,6 +11,9 @@ On a CUDA device the first call of the constructor runs ``warmup()`` (or
 ``fn()``) once eagerly on a side stream and drops what it returns, so
 that lazily created library state (cuBLAS handles, cuDNN plans) exists
 before capture, then captures ``fn`` into a ``torch.cuda.CUDAGraph``.
+With ``warm=False`` it captures at once: for a step another graph of
+the same shapes was warmed up for, whose eager temporaries would
+otherwise need device memory beside that graph's pool.
 Each call replays the graph: every kernel ``fn`` launched, with the
 addresses it launched them on, and nothing of the Python around them.
 The outputs are the same tensors on every replay, overwritten in place.
@@ -49,7 +52,7 @@ class StepGraph:
     other captures (the graph's intermediates live in it)."""
 
     def __init__(self, fn: Callable, device, *,
-                 warmup: Optional[Callable] = None,
+                 warmup: Optional[Callable] = None, warm: bool = True,
                  generators: Sequence[torch.Generator] = (), pool=None):
         self.fn = fn
         self.device = torch.device(device)
@@ -63,15 +66,16 @@ class StepGraph:
         if self.device.type != "cuda":
             return
         t0 = time.perf_counter()
-        states = [g.get_state() for g in generators]
-        current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            (warmup or fn)()
-        current.wait_stream(side)
-        for gen, state in zip(generators, states):
-            gen.set_state(state)
+        if warm:
+            states = [g.get_state() for g in generators]
+            current = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                (warmup or fn)()
+            current.wait_stream(side)
+            for gen, state in zip(generators, states):
+                gen.set_state(state)
         graph = torch.cuda.CUDAGraph()
         for gen in generators:
             graph.register_generator_state(gen)

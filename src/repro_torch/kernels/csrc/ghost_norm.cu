@@ -60,6 +60,18 @@
 // No atomics: the same input gives the same bits on every run.  No limit
 // on T (the TPU wrapper's T <= 512 cap existed for VMEM only).  An
 // all-zero example has codes 0 and alpha 0: exactly 0.
+//
+// The DPQuant policy flag.  An optional `flag` (one float32 in device
+// memory, the layer's entry of the trainer's flags tensor) goes to both
+// quantize calls.  With the flag at 0 they skip the LUQ rounding and
+// write the operands themselves as the "codes", cast to bf16, with alpha
+// 1, and the same launches give the squared norm of the unquantized
+// x_b^T g_b: exact products of bf16 operands, summed in float32 (a
+// float32 operand is rounded to bf16).  One CUDA graph of a ghost step
+// launches this kernel for every layer whatever the flag; dp/ghost.py
+// keeps the norm of a layer that is off from the float32 Grams a
+// host-bool policy takes (torch.where), whose bits this sum does not
+// give.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,7 +80,7 @@ extern "C" long long repro_luq_quant_scratch(int rows, long long n);
 extern "C" int repro_luq_quant(const void* x, int x_bf16, void* out,
                                int codes, int rows, long long n, uint32_t k0,
                                uint32_t k1, void* scratch, void* alpha_out,
-                               void* stream);
+                               const void* flag, void* stream);
 
 namespace {
 
@@ -307,13 +319,14 @@ extern "C" long long repro_ghost_norm_scratch(int B, int T, int Dx, int Dg) {
 // x: (B, T, Dx); g: (B, T, Dg); each float32 or bf16 (x_bf16, g_bf16),
 // contiguous; (kx0, kx1), (kg0, kg1): the Philox keys of their draws;
 // scratch: repro_ghost_norm_scratch(B, T, Dx, Dg) bytes, 16-byte aligned;
-// out: (B,) float32.  All on the device.  Returns the cudaError_t of the
-// launches.
+// out: (B,) float32; flag: one float32 (0: the operands unquantized) or
+// null (always quantize).  All on the device.  Returns the cudaError_t of
+// the launches.
 extern "C" int repro_ghost_norm(const void* x, int x_bf16, const void* g,
                                 int g_bf16, uint32_t kx0, uint32_t kx1,
                                 uint32_t kg0, uint32_t kg1, void* scratch,
                                 void* out, int B, int T, int Dx, int Dg,
-                                void* stream) {
+                                const void* flag, void* stream) {
   if (B < 1 || T < 1 || Dx < 1 || Dg < 1) return (int)cudaErrorInvalidValue;
   if (((uintptr_t)scratch & 15) != 0) return (int)cudaErrorMisalignedAddress;
   const int nt = (T + kTile - 1) / kTile;
@@ -328,10 +341,10 @@ extern "C" int repro_ghost_norm(const void* x, int x_bf16, const void* g,
   auto* ag = (float*)(base + sc.off[4]);
   const cudaStream_t s = (cudaStream_t)stream;
   int rc = repro_luq_quant(x, x_bf16, qx, 1, B, (long long)T * Dx, kx0, kx1,
-                           base + sc.off[5], ax, (void*)s);
+                           base + sc.off[5], ax, flag, (void*)s);
   if (rc != (int)cudaSuccess) return rc;
   rc = repro_luq_quant(g, g_bf16, qg, 1, B, (long long)T * Dg, kg0, kg1,
-                       base + sc.off[6], ag, (void*)s);
+                       base + sc.off[6], ag, flag, (void*)s);
   if (rc != (int)cudaSuccess) return rc;
   const dim3 grid(P, B < kMaxGridY ? B : kMaxGridY);
   if (Dx % 8 == 0 && Dg % 8 == 0) {

@@ -22,6 +22,14 @@
 // With `codes`, the kernel writes the bf16 code Q(x) / alpha = sign 2^-k
 // (luq_code), which bf16 holds exactly: the fused ghost norm's operands.
 //
+// The DPQuant policy flag.  An optional `flag` (one float32 in device
+// memory, the layer's entry of the trainer's flags tensor) is read by both
+// launches, so one CUDA graph serves every policy: the reference's
+// lax.cond(flag > 0.5, quantize, identity).  With the flag at 0 the row-max
+// pass returns at once and the rounding pass copies x to the output bit for
+// bit (codes: x cast to bf16, exact for a bf16 x, and alpha 1), one read
+// and one write an element.
+//
 // What bounds it on this card.  By bytes: x read once and the result
 // written once, 4 bytes an element for bf16 (8 for float32).  By the
 // arithmetic: one Philox call per 4 elements and LUQ's rounding come to
@@ -60,6 +68,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "luq.cuh"
 #include "philox.cuh"
@@ -145,6 +155,39 @@ __device__ __forceinline__ void store4(O* __restrict__ row, long long e0,
   }
 }
 
+// The policy flag: on when absent or above 0.5 (NaN is off, as in the
+// plain version's torch.where(flag > 0.5, ...)).
+__device__ __forceinline__ bool flag_on(const float* flag) {
+  return flag == nullptr || __ldg(flag) > 0.5f;
+}
+
+// Elements e0 .. e0 + 3 of a row copied to the output unrounded: the bits
+// themselves when O is T, else x's float32 value cast to O (bf16 codes of
+// a float32 x, round-to-nearest-even).
+template <typename T, typename O, bool kVec>
+__device__ __forceinline__ void pass4(const T* __restrict__ row,
+                                      O* __restrict__ out, long long e0,
+                                      long long n) {
+  if constexpr (std::is_same<T, O>::value) {
+    if constexpr (kVec && sizeof(T) == 4) {
+      *reinterpret_cast<float4*>(out + e0) =
+          __ldg(reinterpret_cast<const float4*>(row + e0));
+    } else if constexpr (kVec) {
+      *reinterpret_cast<uint2*>(out + e0) =
+          __ldg(reinterpret_cast<const uint2*>(row + e0));
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (e0 + j < n) out[e0 + j] = row[e0 + j];
+      }
+    }
+  } else {
+    float v[4];
+    load4<T, kVec>(row, e0, n, v);
+    store4<O, kVec>(out, e0, n, v);
+  }
+}
+
 // ---- pass 1: partial row maxima ----------------------------------------- //
 // The largest |x| bits of the 16 bytes at p: four float32 or eight bf16
 // (a bf16's bits are the upper half of its float32's).
@@ -171,8 +214,10 @@ __device__ __forceinline__ uint32_t abs_max16(const T* p) {
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 luq_row_max_kernel(const T* __restrict__ x, uint32_t* __restrict__ part,
-                   int rows, long long n, long long per) {
+                   const float* __restrict__ flag, int rows, long long n,
+                   long long per) {
   constexpr int kLane = 16 / sizeof(T);      // elements a 16-byte load
+  if (!flag_on(flag)) return;                // the rounding pass copies x
   __shared__ uint32_t warp_max[kThreads / 32];
   const long long e0 = (long long)blockIdx.x * per;
   const long long e1 = min(n, e0 + per);
@@ -220,11 +265,26 @@ template <typename T, typename O, bool kCodes, bool kVec>
 __global__ void __launch_bounds__(kThreads, kRoundBlocksPerSm)
 luq_round_kernel(const T* __restrict__ x, O* __restrict__ out,
                  const uint32_t* __restrict__ part, float* __restrict__ alpha_out,
-                 int rows, long long n, int parts, RoundKeys rk) {
+                 const float* __restrict__ flag, int rows, long long n,
+                 int parts, RoundKeys rk) {
   __shared__ uint32_t warp_max[kThreads / 32];
   const long long groups = (n + 3) / 4;
   const long long stride = (long long)gridDim.x * kThreads;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (!flag_on(flag)) {
+    // the layer's flag is off: x passes through (alpha 1 for the codes)
+    for (int r = blockIdx.y; r < rows; r += gridDim.y) {
+      if (alpha_out != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+        alpha_out[r] = 1.f;
+      }
+      for (long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
+           g < groups; g += stride) {
+        pass4<T, O, kVec>(x + (long long)r * n, out + (long long)r * n,
+                          4 * g, n);
+      }
+    }
+    return;
+  }
   for (int r = blockIdx.y; r < rows; r += gridDim.y) {
     const T* xr = x + (long long)r * n;
     O* outr = out + (long long)r * n;
@@ -281,7 +341,8 @@ int wave_blocks() {
 
 template <typename T, typename O, bool kCodes, bool kVec, bool kVec16>
 int launch(const void* x, void* out, uint32_t* part, float* alpha_out,
-           int rows, long long n, const RoundKeys& rk, cudaStream_t s) {
+           const float* flag, int rows, long long n, const RoundKeys& rk,
+           cudaStream_t s) {
   // the max pass's parts: whole 16-byte vectors when it loads them
   const long long quantum = kVec16 ? 16 / sizeof(T) : 1;
   long long per = (n + parts_of(n) - 1) / parts_of(n);
@@ -289,7 +350,7 @@ int launch(const void* x, void* out, uint32_t* part, float* alpha_out,
   const int parts = (int)((n + per - 1) / per);
   const int gy = rows < kMaxGridY ? rows : kMaxGridY;
   luq_row_max_kernel<T, kVec16><<<dim3(parts, gy), kThreads, 0, s>>>(
-      (const T*)x, part, rows, n, per);
+      (const T*)x, part, flag, rows, n, per);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // one wave: a row's share of it, never more blocks than groups need
@@ -299,14 +360,14 @@ int launch(const void* x, void* out, uint32_t* part, float* alpha_out,
   gx = gx < 1 ? 1 : (gx > need ? need : gx);
   luq_round_kernel<T, O, kCodes, kVec><<<dim3((unsigned)gx, gy), kThreads, 0,
                                          s>>>(
-      (const T*)x, (O*)out, part, alpha_out, rows, n, parts, rk);
+      (const T*)x, (O*)out, part, alpha_out, flag, rows, n, parts, rk);
   return (int)cudaGetLastError();
 }
 
 template <typename T, typename O, bool kCodes>
 int launch_aligned(const void* x, void* out, uint32_t* part, float* alpha_out,
-                   int rows, long long n, const RoundKeys& rk,
-                   cudaStream_t s) {
+                   const float* flag, int rows, long long n,
+                   const RoundKeys& rk, cudaStream_t s) {
   // the round pass: groups of 4 as one load and one store; the max pass:
   // 16-byte loads, every row starting on the 16-byte grid
   const bool vec = n % 4 == 0 &&
@@ -315,14 +376,14 @@ int launch_aligned(const void* x, void* out, uint32_t* part, float* alpha_out,
   const bool vec16 = (n * sizeof(T)) % 16 == 0 && (uintptr_t)x % 16 == 0;
   if (vec) {
     return vec16 ? launch<T, O, kCodes, true, true>(x, out, part, alpha_out,
-                                                    rows, n, rk, s)
+                                                    flag, rows, n, rk, s)
                  : launch<T, O, kCodes, true, false>(x, out, part, alpha_out,
-                                                     rows, n, rk, s);
+                                                     flag, rows, n, rk, s);
   }
   return vec16 ? launch<T, O, kCodes, false, true>(x, out, part, alpha_out,
-                                                   rows, n, rk, s)
+                                                   flag, rows, n, rk, s)
                : launch<T, O, kCodes, false, false>(x, out, part, alpha_out,
-                                                    rows, n, rk, s);
+                                                    flag, rows, n, rk, s);
 }
 
 }  // namespace
@@ -336,26 +397,29 @@ extern "C" long long repro_luq_quant_scratch(int rows, long long n) {
 // x: (rows, n), float32 (x_bf16 = 0) or bf16 (x_bf16 = 1), contiguous at
 // any address; out: (rows, n) in x's type (codes = 0) or bf16 codes
 // (codes = 1); scratch: repro_luq_quant_scratch(rows, n) words; alpha_out:
-// (rows,) float32 or null.  (k0, k1): the Philox key of the draw.  Two
-// launches on `stream`; returns the cudaError_t of the launches.
+// (rows,) float32 or null.  (k0, k1): the Philox key of the draw.  flag:
+// one float32 on the device, read by both launches (0: x passes through),
+// or null (always quantize).  Two launches on `stream`; returns the
+// cudaError_t of the launches.
 extern "C" int repro_luq_quant(const void* x, int x_bf16, void* out,
                                int codes, int rows, long long n, uint32_t k0,
                                uint32_t k1, void* scratch, void* alpha_out,
-                               void* stream) {
+                               const void* flag, void* stream) {
   if (rows < 1 || n < 1) return (int)cudaErrorInvalidValue;
   const RoundKeys rk = philox_round_keys(k0, k1);
   auto* part = (uint32_t*)scratch;
   auto* alpha = (float*)alpha_out;
+  const auto* fl = (const float*)flag;
   const cudaStream_t s = (cudaStream_t)stream;
   using bf16 = __nv_bfloat16;
   if (x_bf16) {
-    return codes ? launch_aligned<bf16, bf16, true>(x, out, part, alpha, rows,
-                                                    n, rk, s)
-                 : launch_aligned<bf16, bf16, false>(x, out, part, alpha,
+    return codes ? launch_aligned<bf16, bf16, true>(x, out, part, alpha, fl,
+                                                    rows, n, rk, s)
+                 : launch_aligned<bf16, bf16, false>(x, out, part, alpha, fl,
                                                      rows, n, rk, s);
   }
-  return codes ? launch_aligned<float, bf16, true>(x, out, part, alpha, rows,
-                                                   n, rk, s)
-               : launch_aligned<float, float, false>(x, out, part, alpha, rows,
-                                                     n, rk, s);
+  return codes ? launch_aligned<float, bf16, true>(x, out, part, alpha, fl,
+                                                   rows, n, rk, s)
+               : launch_aligned<float, float, false>(x, out, part, alpha, fl,
+                                                     rows, n, rk, s);
 }

@@ -134,6 +134,20 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def _flag_ptr(flag, device):
+    """The device address of a DPQuant policy flag for a kernel that reads
+    it (None: no flag, always quantize): a one-element float32 tensor on
+    ``device``, e.g. a 0-dim view into the trainer's flags tensor."""
+    if flag is None:
+        return None
+    if (flag.dtype != torch.float32 or flag.numel() != 1
+            or flag.device != device):
+        raise ValueError(f"flag: expected one float32 on {device}, got "
+                         f"{flag.dtype} {tuple(flag.shape)} on "
+                         f"{flag.device}")
+    return _ptr(flag)
+
+
 def _one_key(key):
     """The ``(k0, k1)`` words of one Philox key."""
     keys, per_row = philox.split_keys(key, 0)
@@ -321,7 +335,8 @@ def decode_attn_fused(q, k_codes, v_codes, k_scale, v_scale, pos, *,
 _LUQ_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def luq_quant(x: torch.Tensor, key, codes: bool = False) -> torch.Tensor:
+def luq_quant(x: torch.Tensor, key, codes: bool = False,
+              flag=None) -> torch.Tensor:
     """LUQ-FP4 stochastic quantization of the rows of ``x`` (R, N), the
     whole quantize op in two launches.
 
@@ -332,14 +347,20 @@ def luq_quant(x: torch.Tensor, key, codes: bool = False) -> torch.Tensor:
     contiguous at any address.  Returns (R, N) in ``x``'s dtype, or with
     ``codes`` the bf16 codes ``Q(x) / alpha = sign * 2^-k`` (exact in
     bf16).  Same bits on every run.
+
+    ``flag``: the layer's DPQuant policy flag, one float32 on ``x``'s
+    device that both launches read (so a CUDA graph replays it with the
+    policy of each replay): at 0 ``x`` passes through bit for bit (codes:
+    ``x`` in bf16), as the reference's ``lax.cond(flag > 0.5, q, id)``.
     """
-    if _on_cpu(x):
-        return ref.luq_quant_ref(x, key, codes)
+    if _on_cpu(x, *(() if flag is None else (flag,))):
+        return ref.luq_quant_ref(x, key, codes, flag)
     if x.dim() != 2 or x.dtype not in _LUQ_DTYPES or not x.is_contiguous():
         raise ValueError(f"luq_quant takes a contiguous (R, N) float32 or "
                          f"bf16 matrix, got {x.dtype} {tuple(x.shape)}")
     R, N = x.shape
     k0, k1 = _one_key(key)
+    flag_p = _flag_ptr(flag, x.device)
     out = torch.empty_like(x, dtype=torch.bfloat16 if codes else x.dtype)
     if x.numel() == 0:
         return out
@@ -349,7 +370,8 @@ def luq_quant(x: torch.Tensor, key, codes: bool = False) -> torch.Tensor:
     with torch.cuda.device(x.device):
         err = lib.repro_luq_quant(_ptr(x), int(x.dtype == torch.bfloat16),
                                   _ptr(out), int(codes), R, N, k0, k1,
-                                  _ptr(scratch), None, _stream(x.device))
+                                  _ptr(scratch), None, flag_p,
+                                  _stream(x.device))
     _raise_on_error(lib, err, "luq_quant")
     LAUNCHES["luq_quant"] += 1
     LUQ_QUANT_LAUNCHES["one_row" if R == 1 else "rows"] += 1
@@ -389,7 +411,7 @@ def clip_and_sum(grads: torch.Tensor, clip_norm: float):
 # --------------------------------------------------------------------------- #
 # ghost_norm_sq  (csrc/ghost_norm.cu, replaces the TPU kernel ghost_norm_gram)
 # --------------------------------------------------------------------------- #
-def ghost_norm_sq(x, g, key_x, key_g) -> torch.Tensor:
+def ghost_norm_sq(x, g, key_x, key_g, flag=None) -> torch.Tensor:
     """LUQ-FP4 quantize + Grams + reduce in one call, per example:
     ``out[b] = ||Q(x_b)^T Q(g_b)||_F^2 = <Q(x_b)Q(x_b)^T, Q(g_b)Q(g_b)^T>``.
 
@@ -409,9 +431,15 @@ def ghost_norm_sq(x, g, key_x, key_g) -> torch.Tensor:
     VMEM, and above it that wrapper computes the same value unfused.
     Partials are summed in a fixed order (no atomics): the same input
     gives the same bits on every run.
+
+    ``flag``: the layer's DPQuant policy flag (as in :func:`luq_quant`),
+    read by the two quantize passes; at 0 they write the operands
+    themselves, in bf16, with alpha 1, and the result is
+    ``||x_b^T g_b||_F^2`` of the unquantized operands (exact products for
+    bf16 operands, summed in float32).
     """
-    if _on_cpu(x, g):
-        return ref.ghost_norm_ref(x, g, key_x, key_g)
+    if _on_cpu(x, g, *(() if flag is None else (flag,))):
+        return ref.ghost_norm_ref(x, g, key_x, key_g, flag)
     B, T, Dx = x.shape
     Dg = g.shape[2]
     for name, t, d in (("x", x, Dx), ("g", g, Dg)):
@@ -420,6 +448,7 @@ def ghost_norm_sq(x, g, key_x, key_g) -> torch.Tensor:
         _check(name, t, t.dtype, (B, T, d))
     kx0, kx1 = _one_key(key_x)
     kg0, kg1 = _one_key(key_g)
+    flag_p = _flag_ptr(flag, x.device)
     out = torch.empty((B,), dtype=torch.float32, device=x.device)
     if out.numel() == 0 or T == 0 or Dx == 0 or Dg == 0:
         return out.zero_()
@@ -431,7 +460,7 @@ def ghost_norm_sq(x, g, key_x, key_g) -> torch.Tensor:
         err = lib.repro_ghost_norm(
             _ptr(x), int(x.dtype == torch.bfloat16), _ptr(g),
             int(g.dtype == torch.bfloat16), kx0, kx1, kg0, kg1, _ptr(scratch),
-            _ptr(out), B, T, Dx, Dg, _stream(x.device))
+            _ptr(out), B, T, Dx, Dg, flag_p, _stream(x.device))
     _raise_on_error(lib, err, "ghost_norm_sq")
     LAUNCHES["ghost_norm_sq"] += 1
     shape_class = f"{min(Dx, Dg)}/{max(Dx, Dg)}"

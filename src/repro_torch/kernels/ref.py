@@ -16,18 +16,23 @@ from repro_torch.quant.formats import (luq_fp4, luq_fp4_codes, luq_fp4_prep,
                                        luq_fp4_value)
 
 
-def luq_quant_ref(x, key, codes: bool = False) -> torch.Tensor:
+def luq_quant_ref(x, key, codes: bool = False, flag=None) -> torch.Tensor:
     """Plain version of ``luq_quant``: LUQ-FP4 of each row of ``x`` (R, N)
     on its own scale ``max|x[r]|``, every row against the one draw of the
     Philox ``key`` (``quant.philox.row_uniforms``: element n takes uniform
     n), in float32 and returned in ``x``'s dtype; with ``codes``, the bf16
-    codes ``Q(x) / alpha`` instead of the values."""
+    codes ``Q(x) / alpha`` instead of the values.  ``flag`` (a one-element
+    tensor, or None for on): at 0, ``x`` itself (codes: ``x`` in bf16)."""
     xf = x.float()
     u = philox.row_uniforms(key, x.shape[1], x.device)
     alpha = xf.abs().amax(dim=1, keepdim=True)
     if codes:
-        return luq_fp4_codes(xf, u, alpha)
-    return luq_fp4(xf, u, alpha).to(x.dtype)
+        out, plain = luq_fp4_codes(xf, u, alpha), x.bfloat16()
+    else:
+        out, plain = luq_fp4(xf, u, alpha).to(x.dtype), x
+    if flag is None:
+        return out
+    return torch.where(flag.reshape(()) > 0.5, out, plain)
 
 
 def per_sample_clip_ref(grads: torch.Tensor, clip_norm: float):
@@ -39,12 +44,13 @@ def per_sample_clip_ref(grads: torch.Tensor, clip_norm: float):
     return (g * scale[:, None]).sum(dim=0), norms
 
 
-def ghost_norm_ref(x, g, key_x, key_g) -> torch.Tensor:
+def ghost_norm_ref(x, g, key_x, key_g, flag=None) -> torch.Tensor:
     """Plain version of ``ghost_norm_sq``: per example b,
     ``<Q(x_b) Q(x_b)^T, Q(g_b) Q(g_b)^T>`` with x (B, T, Dx), g (B, T, Dg),
     each example quantized on its own scale against the draws of the keys
     ``key_x`` / ``key_g`` shared by the examples (:func:`luq_quant_ref`).
-    Returns (B,) float32.
+    Returns (B,) float32.  ``flag`` (a one-element tensor, or None for
+    on): at 0, the kernel's pass-through, the operands in bf16 unquantized.
 
     The Grams and their inner product are taken in float64: every value of
     Q(v) is a power of two times alpha, so float32 sums of their products
@@ -52,8 +58,16 @@ def ghost_norm_ref(x, g, key_x, key_g) -> torch.Tensor:
     element from cuBLAS on an H100 at D = 6912, above the kernel's
     tolerance; the kernel, summing the exact codes, is within 1e-7)."""
     B = x.shape[0]
-    xq = luq_quant_ref(x.reshape(B, -1), key_x).reshape(x.shape).double()
-    gq = luq_quant_ref(g.reshape(B, -1), key_g).reshape(g.shape).double()
+
+    def q(v, key):
+        rows = v.reshape(B, -1)
+        out = luq_quant_ref(rows, key)
+        if flag is not None:
+            out = torch.where(flag.reshape(()) > 0.5, out.float(),
+                              rows.bfloat16().float())
+        return out.reshape(v.shape).double()
+
+    xq, gq = q(x, key_x), q(g, key_g)
     xx = xq @ xq.transpose(1, 2)
     gg = gq @ gq.transpose(1, 2)
     return (xx * gg).sum(dim=(1, 2)).float()

@@ -100,9 +100,9 @@ def main(argv=None):
     if args.workload == "resnet":
         tr.train(1)                                 # warm-up, analysis
     else:
-        steps(tr.scheduler.select(0).flags())       # warm-up
+        steps(tr._set_flags(tr.scheduler.select(0).flags()))   # warm-up
     capture_s = tr.last_capture_s
-    flags = tr.scheduler.current.flags()
+    flags = tr._set_flags(tr.scheduler.current.flags())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     steps(flags)

@@ -17,12 +17,13 @@ loop executor and the probes) and draws from as it stands when ``seed``
 is None (the scan executor, which seeds it before each replay).
 
 :class:`EpochRunner` is the counterpart of ``build_epoch_fn``: k steps
-over static buffers, one CUDA graph of the step a quantization policy.
+over static buffers, one CUDA graph of the step for every quantization
+policy (the policy flags are one of its static inputs).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 from torch.func import grad_and_value
@@ -111,40 +112,57 @@ class EpochRunner:
     ``runner(params, opt_state, batches, seeds, qflags, lrs) -> (params,
     opt_state, metrics)``: ``batches`` holds the chunk's batches stacked on
     a leading step axis on the device; ``seeds`` are the k step seeds
-    (host ints); ``lrs`` a (k,) float32 device tensor; ``metrics`` every
-    metric of the step as a (k,) device tensor.
+    (host ints); ``qflags`` the DPQuant policy, a (policy_len,) float32
+    tensor (or host bools); ``lrs`` a (k,) float32 device tensor;
+    ``metrics`` every metric of the step as a (k,) device tensor.
 
     Static buffers: the params and optimizer state are the runner's own
-    tensors, the first ones it is given (adopted, not copied), and the
-    params it returns; state from elsewhere (a loop epoch) is copied into
-    them.  One step reads them, the step's batch and lr from fixed
+    tensors, and so is the flags tensor.  With ``adopt`` (the epoch) they
+    are the first ones it is given (adopted, not copied), and the params
+    it returns; with ``adopt=False`` (the DPQuant probes, which must leave
+    the model as it was) copies of them.  State from elsewhere (a loop
+    epoch, the snapshot a probe restores) is copied into them, one copy a
+    call.  One step reads them, the step's batch and lr from fixed
     addresses and copies its new params and optimizer state back into
     them, the counterpart of the reference's donated buffers.  Step i
     copies batch i and lr i into the static inputs and re-seeds
     ``setup.noise_gen`` to ``NOISE_SEED_OFFSET + seeds[i]``, as the loop
     does.
 
-    On CUDA that step is a ``repro_torch.graph.StepGraph``: captured after
-    an eager warm-up for each quantization policy (the flags shape the
-    Python control flow), replayed k times; the noise generator is
-    registered with it.  One graph lives at a time: the previous policy's
-    is freed before the next capture, and every capture shares one memory
-    pool.  On the CPU the same step runs directly.
+    On CUDA that step is a ``repro_torch.graph.StepGraph``, captured once
+    for each set of batch shapes (after an eager warm-up step) and
+    replayed k times; the noise generator is registered with it.  The
+    policy is not part of the graph: the quantizers read the static flags
+    tensor on the device, so a new policy is one copy into it, as the
+    reference's traced flags never recompile.  The graph's intermediates
+    live in ``pool`` (its own ``torch.cuda.graph_pool_handle()`` when
+    None).  ``warmed``: a set shared by the runners of one pool, of the
+    graph keys an eager warm-up step has run for; a key found there is
+    captured without one (``StepGraph(warm=False)``), so that the eager
+    step's temporaries never need memory beside the pool's.  On the CPU
+    the same step runs directly.
     """
 
-    def __init__(self, setup: TrainSetup, device):
+    def __init__(self, setup: TrainSetup, device, *, adopt: bool = True,
+                 pool=None, warmed: Optional[set] = None):
         self.setup = setup
         self.device = torch.device(device)
+        self.adopt = adopt
         self._leaves = None          # static params + opt state, flattened
         self._spec = None
+        self._flags = None           # static policy flags
         self._graph = None
-        self._key = None             # (qflags, batch shapes) of the graph
+        self._key = None             # (batch shapes, flags shape) of the graph
         self._batch = None
         self._lr = None
-        self._pool = (torch.cuda.graph_pool_handle()
-                      if self.device.type == "cuda" else None)
-        #: The quantization flags of each capture, in order.
+        self._pool = pool
+        if pool is None and self.device.type == "cuda":
+            self._pool = torch.cuda.graph_pool_handle()
+        self._warmed = set() if warmed is None else warmed
+        #: One entry per capture, in order: its (batch shapes, flags shape).
         self.captured = []
+        #: Captures that ran an eager warm-up step first.
+        self.warmups = 0
         #: Seconds spent on warm-up and capture in the last call.
         self.last_capture_s = 0.0
 
@@ -154,30 +172,46 @@ class EpochRunner:
                 a.shape != b.shape or a.dtype != b.dtype
                 for a, b in zip(leaves, self._leaves)):
             self.close()
-            self._leaves, self._spec = leaves, spec
+            self._leaves = (leaves if self.adopt
+                            else [t.detach().clone() for t in leaves])
+            self._spec = spec
             return
-        for dst, src in zip(self._leaves, leaves):
-            if dst is not src:
-                dst.copy_(src)
+        pairs = [(dst, src) for dst, src in zip(self._leaves, leaves)
+                 if dst is not src]
+        if pairs:
+            torch._foreach_copy_([d for d, _ in pairs], [s for _, s in pairs])
 
-    def _step(self, qflags, write_back: bool):
+    def _bind_flags(self, qflags) -> None:
+        flags = (qflags if isinstance(qflags, torch.Tensor)
+                 else torch.tensor(qflags, dtype=torch.float32))
+        if self._flags is None or self._flags.shape != flags.shape:
+            flags = flags.to(self.device, torch.float32)
+            self._flags = (flags if self.adopt and flags is qflags
+                           else flags.clone())
+        elif flags is not self._flags:
+            self._flags.copy_(flags)
+
+    def _step(self, write_back: bool):
         params, opt_state = tree_unflatten(self._leaves, self._spec)
         new_p, new_o, metrics = self.setup.step_fn(
-            params, opt_state, self._batch, None, qflags, self._lr)
+            params, opt_state, self._batch, None, self._flags, self._lr)
         if write_back:
-            for dst, src in zip(self._leaves, tree_leaves((new_p, new_o))):
-                dst.copy_(src)
+            torch._foreach_copy_(self._leaves, tree_leaves((new_p, new_o)))
         return metrics
 
-    def _capture(self, qflags, batches: dict) -> None:
+    def _capture(self, key, batches: dict) -> None:
         self.close()
         self._batch = {k: v[0].clone() for k, v in batches.items()}
         self._lr = torch.zeros((), dtype=torch.float32, device=self.device)
+        warm = key not in self._warmed
         self._graph = StepGraph(
-            lambda: self._step(qflags, True), self.device,
-            warmup=lambda: self._step(qflags, False),
+            lambda: self._step(True), self.device,
+            warmup=lambda: self._step(False), warm=warm,
             generators=(self.setup.noise_gen,), pool=self._pool)
-        self.captured.append(qflags)
+        if warm and self.device.type == "cuda":
+            self._warmed.add(key)
+            self.warmups += 1
+        self.captured.append(key)
         self.last_capture_s += self._graph.capture_s
 
     def close(self) -> None:
@@ -193,10 +227,11 @@ class EpochRunner:
                  lrs: torch.Tensor):
         self.last_capture_s = 0.0
         self._bind(params, opt_state)
-        key = (tuple(qflags),
-               tuple((k, tuple(v.shape[1:])) for k, v in batches.items()))
+        self._bind_flags(qflags)
+        key = (tuple((k, tuple(v.shape[1:])) for k, v in batches.items()),
+               tuple(self._flags.shape))
         if key != self._key:
-            self._capture(qflags, batches)
+            self._capture(key, batches)
             self._key = key
         k = len(seeds)
         out = None

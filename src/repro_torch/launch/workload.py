@@ -9,9 +9,10 @@ Training: ResNet-18 at full width, DP-SGD under the DPQuant scheduler
 with the options of ``launch.train --arch resnet18 --mode dpquant --fmt
 luq_fp4 --backend cuda --clip-backend fused``: synthetic images (4096,
 seed 0; 512 more for eval, seed 1), global batch 256 in microbatches of
-64, sigma = C = 1, SGD at lr 0.5, quant_fraction 0.9, 2 epochs of 3
-steps; the analysis runs in epoch 0 (10 probe runs x 2 reps at a probe
-batch of 64).  The run is the one the CLI builds from ``TRAIN_ARGV``.
+64, sigma = C = 1, SGD at lr 0.5, quant_fraction 0.9, 3 epochs of 3
+steps; the analysis runs in epochs 0 and 2 (interval 2; 10 probe runs x 2
+reps at a probe batch of 64), and the policy is drawn anew every epoch.
+The run is the one the CLI builds from ``TRAIN_ARGV``.
 
 LM training: stablelm-3b at full size (32 layers, d_model 2560, untied
 head, bf16 compute, float32 params), ghost-mode DP-SGD under the DPQuant
@@ -20,14 +21,15 @@ dpquant --fmt luq_fp4 --backend cuda --grad-mode ghost --clip-backend ref
 --ghost-microbatch 4 --batch 8 --seq-len 256``: synthetic planted-bigram
 tokens (4096 sequences, seed 0; no eval set), global batch 8 of 256
 tokens, pass 1 in chunks of 4, sigma = C = 1, SGD at lr 0.5,
-quant_fraction 0.9 (k = 29 of 32 layers), 2 epochs of 2 steps; the
-analysis runs in epoch 0 (33 probe runs x 2 reps at a probe batch of 8).
-The run is the one the CLI builds from ``TRAIN_LM_ARGV``.
+quant_fraction 0.9 (k = 29 of 32 layers), each block under remat (the
+config's default), 3 epochs of 2 steps; the analysis runs in epochs 0
+and 2 (33 probe runs x 2 reps at a probe batch of 8).  The run is the
+one the CLI builds from ``TRAIN_LM_ARGV``.
 
 The paper's other two CNNs, each at full width and depth under the
 options of the ResNet-18 workload (``launch.train --arch <arch> --mode
 dpquant --fmt luq_fp4 --backend cuda --clip-backend fused --batch 256
---microbatch 64``), 2 epochs of 2 steps, the analysis in epoch 0:
+--microbatch 64``), 3 epochs of 2 steps, the analysis in epochs 0 and 2:
 ResNet-50 (bottleneck blocks (3, 4, 6, 3), 23,588,459 parameters,
 quant_fraction 0.9: k = 15 of 17 layers; 18 probe runs x 2 reps at a
 probe batch of 64) from ``TRAIN_RESNET50_ARGV`` and DenseNet-121 (blocks
@@ -63,7 +65,7 @@ def prompts(vocab: int, seed: int = SEED) -> list[np.ndarray]:
 
 TRAIN_ARCH = "resnet18"
 TRAIN_BATCH, TRAIN_MICROBATCH = 256, 64
-TRAIN_EPOCHS, TRAIN_STEPS = 2, 3
+TRAIN_EPOCHS, TRAIN_STEPS = 3, 3
 TRAIN_DATASET = 4096
 
 
@@ -88,14 +90,14 @@ def _ghost(argv: tuple) -> tuple:
 
 
 TRAIN_ARGV = _cnn_argv(TRAIN_ARCH, TRAIN_EPOCHS, TRAIN_STEPS)
-TRAIN_RESNET50_ARGV = _cnn_argv("resnet50", 2, 2)
-TRAIN_DENSENET121_ARGV = _cnn_argv("densenet121", 2, 2)
+TRAIN_RESNET50_ARGV = _cnn_argv("resnet50", TRAIN_EPOCHS, 2)
+TRAIN_DENSENET121_ARGV = _cnn_argv("densenet121", TRAIN_EPOCHS, 2)
 TRAIN_RESNET_GHOST_ARGV = _ghost(TRAIN_ARGV)
 TRAIN_RESNET50_GHOST_ARGV = _ghost(TRAIN_RESNET50_ARGV)
 
 TRAIN_LM_ARCH = "stablelm-3b"
 TRAIN_LM_BATCH, TRAIN_LM_SEQ, TRAIN_LM_CHUNK = 8, 256, 4
-TRAIN_LM_EPOCHS, TRAIN_LM_STEPS = 2, 2
+TRAIN_LM_EPOCHS, TRAIN_LM_STEPS = 3, 2
 # --microbatch sets the probe batch: the trainer probes with
 # max(microbatch, min(32, batch)) examples, as the JAX trainer does; ghost
 # mode itself ignores it

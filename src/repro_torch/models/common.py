@@ -194,7 +194,7 @@ def chunked_lm_loss(h, targets, embed, *, real_vocab: int, ce_chunk: int,
 # --------------------------------------------------------------------------- #
 # quantized projections and the logits head
 # --------------------------------------------------------------------------- #
-def qproj(spec, x, w, *, seed: int, flag: bool, quant_cfg, hooks=None):
+def qproj(spec, x, w, *, seed: int, flag, quant_cfg, hooks=None):
     """Policy-gated quantized einsum (``repro_torch.quant.fake_quant``);
     without a quant config (serving), the plain einsum.  ``hooks``: a
     ghost pass's ``repro_torch.dp.ghost.GhostHooks``, whose ``qeinsum``

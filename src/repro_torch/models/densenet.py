@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Sequence
 
 import torch
 import torch.nn.functional as F
@@ -91,10 +90,11 @@ def conv_layers(cfg: ModelConfig) -> list:
     return counts + [0]
 
 
-def forward(params: dict, image: torch.Tensor, qflags: Sequence[bool],
+def forward(params: dict, image: torch.Tensor, qflags,
             cfg: ModelConfig, quant: QuantConfig, hooks=None) -> torch.Tensor:
-    """Logits (B, classes) of NHWC ``image``; ``qflags`` one host-side
-    bool per policy layer.  ``hooks``: a ghost pass's
+    """Logits (B, classes) of NHWC ``image``; ``qflags`` one flag per
+    policy layer (a float32 device tensor or host bools, as in
+    ``resnet.forward``).  ``hooks``: a ghost pass's
     ``repro_torch.dp.ghost.GhostHooks`` (as in ``resnet.forward``)."""
     if len(qflags) != cfg.policy_len():
         raise ValueError(f"{len(qflags)} flags for {cfg.policy_len()} layers")
@@ -106,7 +106,7 @@ def forward(params: dict, image: torch.Tensor, qflags: Sequence[bool],
         return p[name] if hooks is None else hooks.leaf(name, p[name], n)
 
     def qc(x, w, flag, seed):
-        return conv(x, w, seed=seed, flag=bool(flag), fmt=quant.fmt,
+        return conv(x, w, seed=seed, flag=flag, fmt=quant.fmt,
                     q_fwd=quant.quantize_fwd, q_dgrad=quant.quantize_dgrad,
                     q_wgrad=quant.quantize_wgrad, backend=quant.backend)
 

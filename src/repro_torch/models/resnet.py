@@ -19,14 +19,13 @@ head take the engine's norm-only fallback).
 
 DPQuant policy granularity: the stem and every residual block are one
 schedulable layer; ``qconv2d`` gates every conv GEMM of the layer under
-its flag.  The conv seeds are the JAX package's ``11 * layer + j``: j = 0,
+its flag (an entry of the flags tensor, never read on the host).  The conv seeds are the JAX package's ``11 * layer + j``: j = 0,
 1 (, 2) for the block's convs in order, 3 for the projection.
 """
 from __future__ import annotations
 
 import functools
 import math
-from typing import Sequence
 
 import torch
 
@@ -99,10 +98,12 @@ def conv_layers(cfg: ModelConfig) -> list:
                   for _, stride, in_c, _, out_c in _blocks(cfg)]
 
 
-def forward(params: dict, image: torch.Tensor, qflags: Sequence[bool],
+def forward(params: dict, image: torch.Tensor, qflags,
             cfg: ModelConfig, quant: QuantConfig, hooks=None) -> torch.Tensor:
-    """Logits (B, classes) of NHWC ``image``; ``qflags`` one host-side
-    bool per policy layer.  ``hooks``: a ghost pass's
+    """Logits (B, classes) of NHWC ``image``; ``qflags`` one flag per
+    policy layer: the trainer's (policy_len,) float32 device tensor, read
+    on the device by the quantizers (``fake_quant``), or host bools.
+    ``hooks``: a ghost pass's
     ``repro_torch.dp.ghost.GhostHooks``, whose ``qconv2d`` then runs every
     conv and whose ``leaf`` hands out the GroupNorm and head params."""
     if len(qflags) != cfg.policy_len():
@@ -116,7 +117,7 @@ def forward(params: dict, image: torch.Tensor, qflags: Sequence[bool],
         return p[name] if hooks is None else hooks.leaf(name, p[name], n)
 
     def qc(x, w, flag, seed, stride=1):
-        return conv(x, w, seed=seed, flag=bool(flag), stride=stride,
+        return conv(x, w, seed=seed, flag=flag, stride=stride,
                     fmt=quant.fmt, q_fwd=quant.quantize_fwd,
                     q_dgrad=quant.quantize_dgrad,
                     q_wgrad=quant.quantize_wgrad, backend=quant.backend)

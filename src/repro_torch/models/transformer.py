@@ -10,8 +10,11 @@ loop.
 
 Training (``lm_loss``) runs every block projection through
 ``common.qproj`` -> ``fake_quant.qeinsum``, gated by the layer's DPQuant
-flag (a host-side bool) with the JAX package's seeds ``97 * layer + j``
-(q, k, v, o, gate, up, down: j = 0..6).  The float32 weights are cast to
+flag (an entry of the trainer's flags tensor, read on the device; or a
+host bool) with the JAX package's seeds ``97 * layer + j`` (q, k, v, o,
+gate, up, down: j = 0..6).  With ``ModelConfig.remat`` (the default, as
+in the reference) each block is recomputed in the backward
+(``torch.utils.checkpoint``) instead of keeping its activations.  The float32 weights are cast to
 the compute dtype on every call, so gradients reach the float32 leaves.
 ``ghost_mask`` and ``make_ghost_aux`` are the ghost engine's hooks
 (``repro_torch.dp.ghost``): every leaf is covered, none falls back.
@@ -36,6 +39,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.config import ModelConfig, QuantConfig, torch_dtype
 from repro_torch.kernels import ops
@@ -133,7 +137,7 @@ def _activation(gate, up, kind: str):
 
 
 def attention_block(x, blk, positions, cfg: ModelConfig, quant=None,
-                    flag: bool = False, seed: int = 0, hooks=None):
+                    flag=False, seed: int = 0, hooks=None):
     """Pre-norm GQA attention with RoPE; returns the residual branch and
     the compact (pre-repeat) K, V.  With ``quant`` (training) the
     projections are ``qproj`` under the layer's ``flag`` and ``seed``;
@@ -155,7 +159,7 @@ def attention_block(x, blk, positions, cfg: ModelConfig, quant=None,
     return res, (k, v)
 
 
-def mlp_block(x, blk, cfg: ModelConfig, quant=None, flag: bool = False,
+def mlp_block(x, blk, cfg: ModelConfig, quant=None, flag=False,
               seed: int = 0, hooks=None):
     cd = torch_dtype(cfg.compute_dtype)
     qp = functools.partial(cm.qproj, quant_cfg=quant, flag=flag, hooks=hooks)
@@ -185,14 +189,40 @@ def forward_hidden(params, tokens, qflags, cfg: ModelConfig,
     # gradients once, where indexing layer by layer would add a zero-filled
     # copy of the whole stack into the leaf's gradient for every layer
     stacks = {leaf: params[f"blocks.{leaf}"].unbind(0) for leaf in BLOCK_LEAVES}
+    remat = _remat(cfg)
     for i in range(cfg.n_layers):
         blk = {leaf: stacks[leaf][i] for leaf in BLOCK_LEAVES}
-        flag, seed = bool(qflags[i]), 97 * i
-        attn_out, _ = attention_block(x, blk, positions, cfg, quant, flag,
-                                      seed, hooks)
-        x = x + attn_out
-        x = x + mlp_block(x, blk, cfg, quant, flag, seed, hooks)
+        block = functools.partial(_block, positions=positions, cfg=cfg,
+                                  quant=quant, flag=qflags[i], seed=97 * i,
+                                  hooks=hooks)
+        if remat:
+            # Recomputation is exact: a projection's quantizer draws are
+            # keyed by its static (seed, fold), not by a generator, and the
+            # model has no dropout, so the CUDA RNG state need not be
+            # saved and restored (which would read it under capture).
+            x = torch.utils.checkpoint.checkpoint(
+                block, x, blk, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = block(x, blk)
     return cm.rmsnorm(x, params["final_norm"], hooks=hooks)
+
+
+def _block(x, blk, *, positions, cfg: ModelConfig, quant: QuantConfig, flag,
+           seed: int, hooks):
+    """One pre-norm block: ``x`` plus attention, plus the MLP."""
+    attn_out, _ = attention_block(x, blk, positions, cfg, quant, flag, seed,
+                                  hooks)
+    x = x + attn_out
+    return x + mlp_block(x, blk, cfg, quant, flag, seed, hooks)
+
+
+def _remat(cfg: ModelConfig) -> bool:
+    """Whether ``forward_hidden`` checkpoints its blocks: ``cfg.remat`` in
+    a training forward (gradients on), outside ``torch.func`` transforms
+    (the vmap engine's per-example grads), which do not take the saved
+    tensor hooks the checkpoint is built on."""
+    return (cfg.remat and torch.is_grad_enabled()
+            and torch._C._functorch.peek_interpreter_stack() is None)
 
 
 def lm_loss(params, batch, qflags, cfg: ModelConfig, quant: QuantConfig,

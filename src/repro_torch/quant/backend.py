@@ -43,6 +43,14 @@ The counterpart of ``repro.quant.backend``:
                   The ref impl quantizes per example, then two ``bmm``
                   Grams; the cuda impl is the ``ghost_norm`` kernel.
 
+The DPQuant policy flag (a one-element float32 device tensor, the
+layer's entry of the trainer's flags tensor) is applied around the
+``quantize`` and ``ghost_norm`` ops by their callers
+(``quant.fake_quant``, ``dp.ghost``): ``torch.where(flag > 0.5, op(...),
+unquantized)``, except for an impl marked :func:`reads_flag`, which takes
+it as a last argument and passes the operand through itself when it is 0
+(the ``cuda`` luq_fp4 kernels: no extra pass over the operand).
+
 Backends: ``"ref"`` (plain PyTorch, every format) and ``"cuda"`` (the
 hand-written kernels of ``repro_torch.kernels``; on CPU tensors their plain
 versions).  ``REPRO_QUANT_BACKEND`` overrides the request.  A format a
@@ -148,6 +156,11 @@ def get_decode_attn(fmt: str, backend: str | None = None):
     return get_impl("decode_attn", fmt, backend)
 
 
+def reads_flag(impl: Callable) -> bool:
+    """True when ``impl`` takes the policy flag as its last argument."""
+    return getattr(impl, "reads_flag", False)
+
+
 def capability_table() -> Dict[str, Dict[str, Tuple[str, ...]]]:
     """{op: {backend: (natively supported formats...)}}."""
     table: Dict[str, Dict[str, list]] = {op: {b: [] for b in BACKENDS}
@@ -248,9 +261,9 @@ for _fmt in ("none", "int8", "luq_fp4"):
 # are imported lazily so that importing this module builds and loads
 # nothing.
 # --------------------------------------------------------------------------- #
-def _cuda_quantize(rows, key):
+def _cuda_quantize(rows, key, flag=None):
     from repro_torch.kernels.ops import luq_quant
-    return luq_quant(rows.contiguous(), key)
+    return luq_quant(rows.contiguous(), key, flag=flag)
 
 
 def _cuda_clip_sum(grads, clip_norm):
@@ -267,9 +280,13 @@ def _cuda_matmul(a, b, keys):
     return luq_matmul(a, b, keys, alpha_a, b.abs().amax())
 
 
-def _cuda_ghost_norm(x, g, kx, kg):
+def _cuda_ghost_norm(x, g, kx, kg, flag=None):
     from repro_torch.kernels.ops import ghost_norm_sq
-    return ghost_norm_sq(x.contiguous(), g.contiguous(), kx, kg)
+    return ghost_norm_sq(x.contiguous(), g.contiguous(), kx, kg, flag)
+
+
+_cuda_quantize.reads_flag = True
+_cuda_ghost_norm.reads_flag = True
 
 
 def _cuda_kv_write(fmt: str) -> Callable:

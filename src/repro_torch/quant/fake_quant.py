@@ -39,11 +39,21 @@ In the norm pass the hooks also hand them a tap tensor and the function
 whose value on (x, g) is the tap's gradient.  Both arrive as arguments:
 this module imports nothing of the engine.
 
-Policy flags are host-side bools (the policy is fixed for an epoch): a
-layer that is not quantized, and not tapped, runs the plain op and
-launches no quantizer.  The backward forms only the gradients its
-inputs need: no dgrad for the stem's images, no wgrad for the detached
-weights of the ghost norm pass.
+Policy flags.  On the training path a layer's ``flag`` is a one-element
+float32 device tensor, a view into the trainer's (policy_len,) flags
+tensor, as the reference's flags are traced scalars: the layer always
+takes the quantized autograd function, and each of its six quantize
+points returns its operand unchanged when the flag is 0, the reference's
+``lax.cond(flag > 0.5, quantize, identity)``.  The ``cuda`` luq_fp4
+kernels read the flag from device memory and copy the operand through
+themselves; every other quantizer is wrapped in ``torch.where(flag > 0.5,
+q(x), x)``.  Nothing reads the flag on the host, so one CUDA graph of a
+step serves every policy: the trainer fills the flags tensor between
+replays.  A host-side bool ``flag`` (callers whose flags never vary
+within a graph: evaluation, serving, tests of one policy) keeps the plain
+op for a layer that is off and launches no quantizer for it.  The
+backward forms only the gradients its inputs need: no dgrad for the
+stem's images, no wgrad for the detached weights of the ghost norm pass.
 """
 from __future__ import annotations
 
@@ -71,40 +81,53 @@ def stream_key(seed: int, fold: int):
     return (int(seed), STREAM_WORD + int(fold))
 
 
-def _quantize_rows(rows, fmt: str, backend: str, seed: int, fold: int):
+def _quantize_rows(rows, fmt: str, backend: str, seed: int, fold: int,
+                   flag: Optional[torch.Tensor] = None):
     """Each row of ``rows`` (R, N) quantized on its own scale against the
-    one draw of stream (seed, fold), in ``rows``' dtype."""
+    one draw of stream (seed, fold), in ``rows``' dtype; with a device
+    ``flag`` at 0, ``rows`` unchanged."""
     q, _ = qbackend.get_quantizer(fmt, backend)
     key = stream_key(seed, fold) if fmt in STOCHASTIC_FORMATS else None
-    return q(rows, key)
+    if flag is None:
+        return q(rows, key)
+    if qbackend.reads_flag(q):
+        return q(rows, key, flag)
+    return torch.where(flag > 0.5, q(rows, key), rows)
 
 
-def _quantize_per_example(x, fmt: str, backend: str, seed: int, fold: int):
+def _quantize_per_example(x, fmt: str, backend: str, seed: int, fold: int,
+                          flag: Optional[torch.Tensor] = None):
     """One row per example (the leading axis), one shared draw."""
     rows = x.reshape(x.shape[0], -1)
-    return _quantize_rows(rows, fmt, backend, seed, fold).reshape(x.shape)
+    return _quantize_rows(rows, fmt, backend, seed, fold,
+                          flag).reshape(x.shape)
 
 
 @torch.library.custom_op("repro_torch::fake_quant", mutates_args=())
 def fake_quant(x: torch.Tensor, fmt: str, backend: str, seed: int,
-               fold: int) -> torch.Tensor:
-    """Quantize ``x`` as one tensor (one scale, one draw of its size)."""
-    return _quantize_rows(x.reshape(1, -1), fmt, backend, seed,
-                          fold).reshape(x.shape)
+               fold: int, flag: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+    """Quantize ``x`` as one tensor (one scale, one draw of its size);
+    with a device ``flag`` at 0, a copy of ``x``."""
+    return _quantize_rows(x.reshape(1, -1), fmt, backend, seed, fold,
+                          flag).reshape(x.shape)
 
 
 @fake_quant.register_fake
-def _(x, fmt, backend, seed, fold):
+def _(x, fmt, backend, seed, fold, flag=None):
     return torch.empty_like(x)
 
 
-def _fake_quant_vmap(info, in_dims, x, fmt, backend, seed, fold):
-    """Batched over examples: one row per example, one shared draw."""
+def _fake_quant_vmap(info, in_dims, x, fmt, backend, seed, fold, flag=None):
+    """Batched over examples: one row per example, one shared draw.  The
+    flag is the layer's, never batched."""
+    if len(in_dims) > 5 and in_dims[5] is not None:
+        raise ValueError("fake_quant: the policy flag cannot be batched")
     bdim = in_dims[0]
     if bdim is None:
-        return fake_quant(x, fmt, backend, seed, fold), None
+        return fake_quant(x, fmt, backend, seed, fold, flag), None
     return _quantize_per_example(x.movedim(bdim, 0), fmt, backend, seed,
-                                 fold), 0
+                                 fold, flag), 0
 
 
 fake_quant.register_vmap(_fake_quant_vmap)
@@ -172,50 +195,61 @@ class _QSpec(NamedTuple):
     fmt: str
     backend: str
     seed: int
-    quantized: bool       # the layer's flag and fmt != "none"
+    quantized: bool       # fmt != "none" (and a host flag, if one, on)
     q_fwd: bool
     q_dgrad: bool
     q_wgrad: bool
     per_example: bool     # batched operands quantized one row per example
     geo: _Geometry
-    tap_norm: Optional[Callable] = None   # (spec, x, g) -> the tap's grad
+    tap_norm: Optional[Callable] = None   # (spec, x, g, flag) -> tap's grad
 
 
-def _q(t, spec, fold: int, on: bool, batched: bool):
+def _q(t, spec, fold: int, on: bool, batched: bool, flag=None):
     """Fold ``fold`` of a ``_QSpec`` or ``_ESpec`` layer applied to ``t``
     when ``on`` and the layer is quantized: one row per example for a
-    batched operand in per-example mode, else the whole tensor."""
+    batched operand in per-example mode, else the whole tensor; ``t``
+    itself where the device ``flag`` is 0."""
     if not (on and spec.quantized):
         return t
     if batched and spec.per_example:
         return _quantize_per_example(t, spec.fmt, spec.backend, spec.seed,
-                                     fold)
-    return fake_quant(t, spec.fmt, spec.backend, spec.seed, fold)
+                                     fold, flag)
+    return fake_quant(t, spec.fmt, spec.backend, spec.seed, fold, flag)
+
+
+def _device_flag(flag, fmt: str):
+    """``(device flag or None, the layer may quantize)`` of a layer's
+    ``flag``: a tensor is read on the device (the layer always takes the
+    quantized function); a host bool decides here."""
+    if isinstance(flag, torch.Tensor):
+        return flag, fmt != "none"
+    return None, bool(flag) and fmt != "none"
 
 
 class _QConv2d(torch.autograd.Function):
     """NCHW x, OIHW w; quantized fwd / dgrad / wgrad GEMM inputs, and,
-    with a ``tap``, ``spec.tap_norm(spec, x, g)`` as the tap's gradient."""
+    with a ``tap``, ``spec.tap_norm(spec, x, g, flag)`` as the tap's
+    gradient."""
 
     generate_vmap_rule = True
 
     @staticmethod
-    def forward(x, w, tap, spec: _QSpec):
+    def forward(x, w, tap, flag, spec: _QSpec):
         with torch.no_grad():
-            xq = _q(x, spec, 0, spec.q_fwd, True)
-            wq = _q(w, spec, 1, spec.q_fwd, False)
+            xq = _q(x, spec, 0, spec.q_fwd, True, flag)
+            wq = _q(w, spec, 1, spec.q_fwd, False, flag)
             return _conv(xq, wq, spec.geo)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        x, w, tap, spec = inputs
-        ctx.save_for_backward(x, w)
+        x, w, tap, flag, spec = inputs
+        ctx.save_for_backward(x, w, flag)
         ctx.spec = spec
         ctx.tapped = tap is not None
 
     @staticmethod
     def backward(ctx, g):
-        x, w = ctx.saved_tensors
+        x, w, flag = ctx.saved_tensors
         spec = ctx.spec
         geo = spec.geo
         dx = dw = dtap = None
@@ -224,8 +258,8 @@ class _QConv2d(torch.autograd.Function):
                 # dgrad: dx = conv^T(Q(g), Q(w)), on the padded input,
                 # cropped
                 t, b, l, r = geo.pads
-                wq = _q(w, spec, 2, spec.q_dgrad, False)
-                gq = _q(g, spec, 3, spec.q_dgrad, True)
+                wq = _q(w, spec, 2, spec.q_dgrad, False, flag)
+                gq = _q(g, spec, 3, spec.q_dgrad, True, flag)
                 n, c, h, wd = x.shape
                 padded = ((n, c, h, wd) if geo.symmetric
                           else (n, c, h + t + b, wd + l + r))
@@ -236,15 +270,15 @@ class _QConv2d(torch.autograd.Function):
                     dx = dx[..., t:t + h, l:l + wd]
             if ctx.needs_input_grad[1]:
                 # wgrad: dw = Q(x)^T Q(g)
-                xq = _q(x, spec, 4, spec.q_wgrad, True)
-                gq = _q(g, spec, 5, spec.q_wgrad, True)
+                xq = _q(x, spec, 4, spec.q_wgrad, True, flag)
+                gq = _q(g, spec, 5, spec.q_wgrad, True, flag)
                 dw = _conv_weight(xq, w.shape, gq, geo)
             if ctx.tapped:
-                dtap = spec.tap_norm(spec, x, g)
-        return dx, dw, dtap, None
+                dtap = spec.tap_norm(spec, x, g, flag)
+        return dx, dw, dtap, None, None
 
 
-def qconv2d(x: torch.Tensor, w: torch.Tensor, *, seed: int, flag: bool,
+def qconv2d(x: torch.Tensor, w: torch.Tensor, *, seed: int, flag,
             stride: int = 1, dilation: int = 1, groups: int = 1,
             fmt: str = "luq_fp4", q_fwd: bool = True, q_dgrad: bool = True,
             q_wgrad: bool = True, backend: str = None,
@@ -256,25 +290,29 @@ def qconv2d(x: torch.Tensor, w: torch.Tensor, *, seed: int, flag: bool,
     port keeps its parameter shapes), permuted to OIHW here; a grouped
     conv's I is ``C_in / groups``.  ``dilation`` and ``groups`` are the
     JAX package's ``rhs_dilation`` (the same in both axes) and
-    ``feature_groups``.  ``flag`` and ``seed`` are host-side: a layer
-    whose flag is off, or ``fmt="none"``, runs the plain convolution
-    unless it is tapped.
+    ``feature_groups``.  ``seed`` is host-side.  ``flag``: the layer's
+    policy flag, a one-element float32 device tensor read on the device
+    (the quantize points pass their operands through when it is 0), or a
+    host bool, with which a layer that is off runs the plain convolution
+    unless it is tapped; ``fmt="none"`` runs the plain convolution.
 
     ``per_example`` and ``tap`` / ``tap_norm`` are ``qeinsum``'s: the
     batched operands (x and the cotangent) quantized one example at a
-    time, and the tap's gradient the value of ``tap_norm(spec, x, g)`` on
+    time, and the tap's gradient the value of ``tap_norm(spec, x, g,
+    flag)`` (``flag`` the device flag, or None) on
     this conv's ``_QSpec``, input and output cotangent.
     """
     w_oihw = w.permute(3, 2, 0, 1)
     geo = _geometry(x, w_oihw, stride, dilation, groups)
-    if tap is None and (not flag or fmt == "none"):
+    dflag, quantized = _device_flag(flag, fmt)
+    if tap is None and not quantized:
         return _conv(x, w_oihw, geo)
     if tap is not None and tap_norm is None:
         raise ValueError("qconv2d: a tap needs its tap_norm")
     spec = _QSpec(fmt, qbackend.resolve_backend(backend), int(seed),
-                  bool(flag) and fmt != "none", bool(q_fwd), bool(q_dgrad),
-                  bool(q_wgrad), bool(per_example), geo, tap_norm)
-    return _QConv2d.apply(x, w_oihw, tap, spec)
+                  quantized, bool(q_fwd), bool(q_dgrad), bool(q_wgrad),
+                  bool(per_example), geo, tap_norm)
+    return _QConv2d.apply(x, w_oihw, tap, dflag, spec)
 
 
 # --------------------------------------------------------------------------- #
@@ -285,12 +323,12 @@ class _ESpec(NamedTuple):
     fmt: str
     backend: str
     seed: int
-    quantized: bool       # the layer's flag and fmt != "none"
+    quantized: bool       # fmt != "none" (and a host flag, if one, on)
     q_fwd: bool
     q_dgrad: bool
     q_wgrad: bool
     per_example: bool     # batched operands quantized one row per example
-    tap_norm: Optional[Callable] = None   # (spec, x, g) -> the tap's grad
+    tap_norm: Optional[Callable] = None   # (spec, x, g, flag) -> tap's grad
 
 
 @functools.lru_cache(maxsize=None)
@@ -309,68 +347,70 @@ def _terms(spec: str):
 
 class _QEinsum(torch.autograd.Function):
     """``einsum(spec, x, w)``; quantized fwd / dgrad / wgrad GEMM inputs,
-    and, with a ``tap``, ``spec.tap_norm(spec, x, g)`` as the tap's
+    and, with a ``tap``, ``spec.tap_norm(spec, x, g, flag)`` as the tap's
     gradient."""
 
     generate_vmap_rule = True
 
     @staticmethod
-    def forward(x, w, tap, spec: _ESpec):
+    def forward(x, w, tap, flag, spec: _ESpec):
         with torch.no_grad():
-            xq = _q(x, spec, 0, spec.q_fwd, True)
-            wq = _q(w, spec, 1, spec.q_fwd, False)
+            xq = _q(x, spec, 0, spec.q_fwd, True, flag)
+            wq = _q(w, spec, 1, spec.q_fwd, False, flag)
             return torch.einsum(spec.spec, xq, wq)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        x, w, tap, spec = inputs
-        ctx.save_for_backward(x, w)
+        x, w, tap, flag, spec = inputs
+        ctx.save_for_backward(x, w, flag)
         ctx.spec = spec
         ctx.tapped = tap is not None
 
     @staticmethod
     def backward(ctx, g):
-        x, w = ctx.saved_tensors
+        x, w, flag = ctx.saved_tensors
         spec = ctx.spec
         x_term, w_term, out = _terms(spec.spec)
         dx = dw = dtap = None
         with torch.no_grad():
             if ctx.needs_input_grad[0]:
-                wq = _q(w, spec, 2, spec.q_dgrad, False)
-                gq = _q(g, spec, 3, spec.q_dgrad, True)
+                wq = _q(w, spec, 2, spec.q_dgrad, False, flag)
+                gq = _q(g, spec, 3, spec.q_dgrad, True, flag)
                 dx = torch.einsum(f"{out},{w_term}->{x_term}", gq, wq)
             if ctx.needs_input_grad[1]:
-                xq = _q(x, spec, 4, spec.q_wgrad, True)
-                gq = _q(g, spec, 5, spec.q_wgrad, True)
+                xq = _q(x, spec, 4, spec.q_wgrad, True, flag)
+                gq = _q(g, spec, 5, spec.q_wgrad, True, flag)
                 dw = torch.einsum(f"{x_term},{out}->{w_term}", xq, gq)
             if ctx.tapped:
-                dtap = spec.tap_norm(spec, x, g)
-        return dx, dw, dtap, None
+                dtap = spec.tap_norm(spec, x, g, flag)
+        return dx, dw, dtap, None, None
 
 
 def qeinsum(spec: str, x: torch.Tensor, w: torch.Tensor, *, seed: int,
-            flag: bool, fmt: str = "luq_fp4", q_fwd: bool = True,
+            flag, fmt: str = "luq_fp4", q_fwd: bool = True,
             q_dgrad: bool = True, q_wgrad: bool = True, backend: str = None,
             per_example: bool = False, tap: Optional[torch.Tensor] = None,
             tap_norm: Optional[Callable] = None) -> torch.Tensor:
     """Quantization-aware einsum of an activation ``x`` (leading axis: the
-    examples) and a weight ``w``.  ``flag`` and ``seed`` are host-side: a
-    layer whose flag is off, or ``fmt="none"``, runs the plain einsum
-    unless it is tapped.
+    examples) and a weight ``w``.  ``seed`` is host-side; ``flag`` is the
+    layer's policy flag, a device tensor or a host bool, as in
+    :func:`qconv2d` (a host flag that is off, or ``fmt="none"``, runs the
+    plain einsum unless it is tapped).
 
     ``per_example`` quantizes the batched operands (x and the cotangent,
     never the weight) one example at a time, as the vmap path does.
-    ``tap`` ((B,) float32) with ``tap_norm(spec, x, g) -> (B,)``: the
+    ``tap`` ((B,) float32) with ``tap_norm(spec, x, g, flag) -> (B,)``: the
     backward gives the tap the value of ``tap_norm`` on this einsum's
     ``_ESpec``, input and output cotangent.  The ghost engine's hooks ask
     for both (its per-example weight-gradient norms); this module knows
     nothing else of that engine."""
-    if tap is None and (not flag or fmt == "none"):
+    dflag, quantized = _device_flag(flag, fmt)
+    if tap is None and not quantized:
         return torch.einsum(spec, x, w)
     if tap is not None and tap_norm is None:
         raise ValueError("qeinsum: a tap needs its tap_norm")
     _terms(spec)
     espec = _ESpec(spec, fmt, qbackend.resolve_backend(backend), int(seed),
-                   bool(flag) and fmt != "none", bool(q_fwd), bool(q_dgrad),
-                   bool(q_wgrad), bool(per_example), tap_norm)
-    return _QEinsum.apply(x, w, tap, espec)
+                   quantized, bool(q_fwd), bool(q_dgrad), bool(q_wgrad),
+                   bool(per_example), tap_norm)
+    return _QEinsum.apply(x, w, tap, dflag, espec)

@@ -3,10 +3,14 @@
 The counterpart of ``repro.train_loop``.  Per epoch:
 
   1. (every ``analysis_interval`` epochs) COMPUTELOSSIMPACT on sampled
-     probe batches — charges one "analysis" SGM step; the probes are
-     eager train steps, as the reference's per-step jit;
-  2. SELECTTARGETS -> this epoch's quantized-layer flags (host-side bools,
-     fixed for the epoch);
+     probe batches — charges one "analysis" SGM step; each probe step is
+     the train step at the probe batch, as the reference's jitted step:
+     under ``scan`` replays of one CUDA graph (``probe_fn``, an
+     ``EpochRunner`` with static params of its own, into which each
+     policy's run first copies the snapshot), under ``loop`` eager steps;
+  2. SELECTTARGETS -> this epoch's quantized-layer flags, copied into the
+     trainer's (policy_len,) float32 flags tensor ``qflags`` on the device
+     (one copy an epoch), which the quantizers read on the device;
   3. ``steps_per_epoch`` DP-SGD/DP-Adam steps on Poisson-sampled batches
      (images or token sequences);
   4. optional eval (the ResNet and DenseNet families; a dense LM has no
@@ -19,7 +23,13 @@ Two epoch executors (``RunConfig.epoch_executor``), as in the reference:
     ``PoissonSampler.sample_epoch``, stacked and copied to the device in
     one copy, and the steps run as replays of one CUDA graph of the train
     step (``launch.steps.EpochRunner``; on the CPU the same staging and
-    static buffers with the step called directly).  The host reads the
+    static buffers with the step called directly), captured once for
+    every policy of the run; the probe graph shares its memory pool (the
+    two never run at once, and neither reads what the other's capture
+    allocated: each reads its own static buffers and keeps its outputs),
+    and where the probe batch has the train batch's shape (the LMs) the
+    second capture skips its eager warm-up step, whose temporaries would
+    need memory beside the pool.  The host reads the
     chunk's metrics once per chunk (``epoch_chunk`` steps, 0 = the whole
     epoch) and charges the accountant once per chunk with ``steps=k``.
   * ``"loop"`` — one eager step, one host sync (the step's loss) and one
@@ -92,8 +102,19 @@ class Trainer:
         self.device = self.model.device
         self.setup = build_train_setup(self.model, run)
         self.step_fn = self.setup.step_fn
-        self.epoch_fn = (EpochRunner(self.setup, self.device)
-                         if run.epoch_executor == "scan" else None)
+        # the policy flags the quantizers read on the device, one copy an
+        # epoch (QuantPolicy.flags() stays the host tuple)
+        self.qflags = torch.zeros((run.model.policy_len(),),
+                                  dtype=torch.float32, device=self.device)
+        self.epoch_fn = self.probe_fn = None
+        if run.epoch_executor == "scan":
+            pool = (torch.cuda.graph_pool_handle()
+                    if self.device.type == "cuda" else None)
+            warmed = set()
+            self.epoch_fn = EpochRunner(self.setup, self.device, pool=pool,
+                                        warmed=warmed)
+            self.probe_fn = EpochRunner(self.setup, self.device, adopt=False,
+                                        pool=pool, warmed=warmed)
         self.schedule = make_schedule(run.optim, run.steps)
         self.sampler = PoissonSampler(dataset.n, run.global_batch,
                                       seed=run.seed)
@@ -106,12 +127,14 @@ class Trainer:
         self.opt_state = self.setup.opt_init_fn(self.params)
         self.step = 0
         self.history: List[EpochStats] = []
-        # wall seconds of the last analysis (Algorithm 1), 0 if none ran;
-        # of every train step (loop: batch draw, step, the loss read that
+        # wall seconds of the last analysis (Algorithm 1), 0 if none ran,
+        # the probe graph's capture included (last_probe_capture_s); of
+        # every train step (loop: batch draw, step, the loss read that
         # synchronizes with the device; scan: its chunk's wall over its
         # steps, capture excluded); of the last epoch's CUDA graph warm-up
         # and capture (scan on CUDA, 0 if none)
         self.last_analysis_s = 0.0
+        self.last_probe_capture_s = 0.0
         self.step_wall_s: List[float] = []
         self.last_capture_s = 0.0
         self.ckpt = (CheckpointManager(checkpoint_dir)
@@ -134,9 +157,31 @@ class Trainer:
         return torch.full((), self.schedule(step), dtype=torch.float32,
                           device=self.device)
 
-    def _probe_step(self, params, opt_state, batch, seed, flags):
-        return self.step_fn(params, opt_state, batch, seed, flags,
-                            self._lr(self.step))
+    def _set_flags(self, flags) -> torch.Tensor:
+        """``qflags`` filled with the policy ``flags`` (host bools), one
+        copy outside any graph; returns it."""
+        self.qflags.copy_(torch.tensor(flags, dtype=torch.float32))
+        return self.qflags
+
+    def _probe_step(self, params, opt_state, batches: dict, seeds, flags):
+        """The losses ((R,), on the device) of R train steps from
+        ``params`` / ``opt_state`` under the device ``flags``, one per
+        probe batch (``batches`` stacked on a leading axis) at its seed:
+        replays of the probe graph, or eager steps under ``loop``.  Writes
+        neither argument (RESTOREMODEL)."""
+        lr = self._lr(self.step)
+        if self.probe_fn is not None:
+            _, _, metrics = self.probe_fn(params, opt_state, batches, seeds,
+                                          flags, lr.expand(len(seeds)))
+            self.last_probe_capture_s += self.probe_fn.last_capture_s
+            return metrics["loss"]
+        losses = []
+        for r, seed in enumerate(seeds):
+            params, opt_state, metrics = self.step_fn(
+                params, opt_state, {k: v[r] for k, v in batches.items()},
+                seed, flags, lr)
+            losses.append(metrics["loss"])
+        return torch.stack(losses)
 
     def _sample_batch(self) -> dict:
         return self._to_device(self.dataset.get(self.sampler.sample()))
@@ -152,7 +197,7 @@ class Trainer:
                     f"mid-epoch checkpoint is for epoch "
                     f"{self._mid_epoch['epoch']}, cannot run epoch {epoch}")
             resume, self._mid_epoch = self._mid_epoch, None
-        self.last_analysis_s = 0.0
+        self.last_analysis_s = self.last_probe_capture_s = 0.0
         if resume is None:
             # ---- Algorithm 1 (analysis) ----
             if self.mode == "dpquant":
@@ -179,15 +224,15 @@ class Trainer:
             # the restored state; the restored scheduler holds this
             # epoch's policy
             policy = self.scheduler.current
-        flags = policy.flags()
+        qflags = self._set_flags(policy.flags())
 
         # ---- DP-SGD steps ----
         start = resume["epoch_step"] if resume else 0
         prior = resume["epoch_losses"] if resume else []
         if self.epoch_fn is not None:
-            losses = self._train_steps_scan(flags, epoch, start, prior)
+            losses = self._train_steps_scan(qflags, epoch, start, prior)
         else:
-            losses = self._train_steps_loop(flags, epoch, start, prior)
+            losses = self._train_steps_loop(qflags, epoch, start, prior)
 
         eps, _ = (self.accountant.get_epsilon(run.dp.delta)
                   if run.dp.enabled else (0.0, 0))
@@ -223,10 +268,11 @@ class Trainer:
             self.ckpt.wait()
         raise Preempted(self.step)
 
-    def _train_steps_loop(self, flags, epoch: Optional[int] = None,
+    def _train_steps_loop(self, qflags, epoch: Optional[int] = None,
                           start: int = 0, prior=()) -> List[float]:
-        """Steps ``start`` to the epoch's end, one host sync and one
-        accountant charge each; returns ``prior`` and their losses."""
+        """Steps ``start`` to the epoch's end under the policy ``qflags``
+        (the flags tensor), one host sync and one accountant charge each;
+        returns ``prior`` and their losses."""
         run = self.run
         losses = list(prior)
         for es in range(start, run.steps_per_epoch):
@@ -234,7 +280,7 @@ class Trainer:
             batch = self._sample_batch()
             self.params, self.opt_state, metrics = self.step_fn(
                 self.params, self.opt_state, batch, self.step + run.seed,
-                flags, self._lr(self.step))
+                qflags, self._lr(self.step))
             losses.append(float(metrics["loss"]))
             self.step_wall_s.append(time.perf_counter() - t0)
             if run.dp.enabled:
@@ -245,12 +291,13 @@ class Trainer:
             self._maybe_preempt(epoch, es + 1, losses)
         return losses
 
-    def _train_steps_scan(self, flags, epoch: Optional[int] = None,
+    def _train_steps_scan(self, qflags, epoch: Optional[int] = None,
                           start: int = 0, prior=()) -> List[float]:
-        """Steps ``start`` to the epoch's end in chunks of ``epoch_chunk``
-        steps (0: one chunk), each staged in one copy and run by
-        ``self.epoch_fn``; one host read, one accountant charge and one
-        preemption poll a chunk."""
+        """Steps ``start`` to the epoch's end under the policy ``qflags``
+        (the flags tensor) in chunks of ``epoch_chunk`` steps (0: one
+        chunk), each staged in one copy and run by ``self.epoch_fn``; one
+        host read, one accountant charge and one preemption poll a
+        chunk."""
         run = self.run
         steps = run.steps_per_epoch
         chunk = run.epoch_chunk if run.epoch_chunk > 0 else steps
@@ -268,7 +315,7 @@ class Trainer:
                                 for i in range(k)],
                                dtype=torch.float32).to(self.device)
             self.params, self.opt_state, metrics = self.epoch_fn(
-                self.params, self.opt_state, batches, seeds, flags, lrs)
+                self.params, self.opt_state, batches, seeds, qflags, lrs)
             losses.extend(metrics["loss"].tolist())   # the chunk's host read
             capture = self.epoch_fn.last_capture_s
             self.last_capture_s += capture

@@ -256,6 +256,29 @@ def test_luq_quant_bitwise(cuda, rows, n, dtype, codes):
                            ref.luq_quant_ref(x, key))
 
 
+@pytest.mark.parametrize("rows,n,dtype", [
+    (64, 32 * 32 * 256, torch.float32),      # a ResNet-50 activation
+    (4, 256 * 2560, torch.bfloat16),         # stablelm-3b per-example rows
+    (3, 1001, torch.float32),                # scalar loads
+    (5, 1002, torch.bfloat16),
+])
+@pytest.mark.parametrize("codes", [False, True])
+def test_luq_quant_reads_its_flag(cuda, rows, n, dtype, codes):
+    """The policy flag from device memory: at 1 the unflagged bits, at 0
+    the operand itself (codes: in bf16), both the plain version's."""
+    x = _luq_inputs(cuda, rows, n, dtype, 4)
+    key = fq.stream_key(17, 4)
+    for value in (0.0, 1.0):
+        flag = torch.full((), value, device=cuda)
+        got = ops.luq_quant(x, key, codes, flag=flag)
+        assert torch.equal(got, ref.luq_quant_ref(x, key, codes, flag))
+        assert torch.equal(got, ops.luq_quant(x, key, codes) if value
+                           else (x.bfloat16() if codes else x))
+    view = torch.zeros(3, device=cuda)[1]           # a view, as qflags[i]
+    assert torch.equal(ops.luq_quant(x, key, codes, flag=view),
+                       x.bfloat16() if codes else x)
+
+
 def _with_anchor(x, anchor):
     """Rows of ``x`` (R, C) behind four columns of ``anchor``: each row's
     scale is max(anchor, max|row|), and C + 4 keeps the row length a
@@ -424,6 +447,25 @@ def test_ghost_norm_close_and_deterministic(cuda, B, T, Dx, Dg, dtype):
     assert torch.equal(out, ops.ghost_norm_sq(*args))  # no atomics
 
 
+@pytest.mark.parametrize("B,T,Dx,Dg", [(4, 256, 2560, 6912),
+                                       (4, 130, 96, 40)])
+def test_ghost_norm_reads_its_flag(cuda, B, T, Dx, Dg):
+    """At flag 1 the unflagged bits; at flag 0 the norm of the unquantized
+    bf16 operands, within 1e-5 of sum_ij |XX_ij GG_ij| of float64 Grams,
+    and the plain version's within that too."""
+    x, g, kx, kg = _ghost_inputs(cuda, B, T, Dx, Dg, 6, torch.bfloat16)
+    on, off = torch.ones((), device=cuda), torch.zeros((), device=cuda)
+    assert torch.equal(ops.ghost_norm_sq(x, g, kx, kg, on),
+                       ops.ghost_norm_sq(x, g, kx, kg))
+    got = ops.ghost_norm_sq(x, g, kx, kg, off).double()
+    x64, g64 = x.double(), g.double()
+    xx, gg = x64 @ x64.transpose(1, 2), g64 @ g64.transpose(1, 2)
+    bound = 1e-5 * (xx.abs() * gg.abs()).sum(dim=(1, 2))
+    for want in ((xx * gg).sum(dim=(1, 2)),
+                 ref.ghost_norm_ref(x, g, kx, kg, off).double()):
+        assert ((got - want).abs() <= bound).all()
+
+
 def test_launch_counts_count_kernel_launches_only(cuda):
     ops.reset_launch_counts()
     x = torch.randn(2, 3, 1, 128, device=cuda)
@@ -533,6 +575,43 @@ def test_graphed_epoch_equals_the_eager_loop_bitwise(cuda, grad_mode):
         assert torch.equal(a, b)
     for name, n in cl["launches"].items():       # 3 steps, then 3 + warm-up
         assert cs["launches"][name] * 3 == n * 4, name
+
+
+@pytest.mark.parametrize("grad_mode", ["vmap", "ghost", "cnn_ghost"])
+def test_one_graph_for_every_policy_under_dpquant(cuda, grad_mode):
+    """DPQuant with an analysis every epoch, two epochs: the scan trainer
+    captures one graph of the step and one of the probe step for every
+    policy, and its params, EMA scores, policies and epsilon are the
+    loop trainer's (eager steps and probes) bit for bit."""
+    import dataclasses
+    from repro_torch.data.synthetic import ImageClassDataset, TokenDataset
+    from repro_torch.train_loop import Trainer
+    ds = (TokenDataset(n=64, vocab=199, seq_len=16) if grad_mode == "ghost"
+          else ImageClassDataset(n=64, num_classes=8, image_size=16))
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = {}
+        for executor in ("loop", "scan"):
+            run = _small_run(executor, grad_mode)
+            run = dataclasses.replace(run, steps=6, dp=dataclasses.replace(
+                run.dp, analysis_interval=1, analysis_reps=1,
+                analysis_batch_size=4))
+            tr = Trainer(run, ds, mode="dpquant", device=cuda)
+            hist = tr.train(2)
+            torch.cuda.synchronize()
+            out[executor] = (tr, hist)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (loop, hl), (scan, hs) = out["loop"], out["scan"]
+    assert len(scan.epoch_fn.captured) == len(scan.probe_fn.captured) == 1
+    assert scan.scheduler.scores.tolist() == loop.scheduler.scores.tolist()
+    assert [(h.loss, h.eps, h.quantized_layers) for h in hl] == \
+        [(h.loss, h.eps, h.quantized_layers) for h in hs]
+    for a, b in zip(torch.utils._pytree.tree_leaves((loop.params,
+                                                     loop.opt_state)),
+                    torch.utils._pytree.tree_leaves((scan.params,
+                                                     scan.opt_state))):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("arch", ["resnet18", "resnet50", "densenet121"])

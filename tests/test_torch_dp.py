@@ -113,11 +113,18 @@ CNN_CASES = {
 }
 
 
+def mixed_policy(n: int) -> tuple:
+    """A policy of every other layer, from layer 0."""
+    return tuple(i % 2 == 0 for i in range(n))
+
+
 def _jax_reference(fmt: str, quantized: bool, case: str = "resnet18") -> dict:
     """The JAX SMOKE model of ``case`` (ResNet-18 unless given) at ``fmt``
     with every layer's flag ``quantized``: params, a batch, the clipped
     gradient sum with its metrics, and the params after one DP step at
-    sigma = 0 and one non-private step."""
+    sigma = 0 and one non-private step; under ``"mixed"`` the same from
+    the same compiled programs under the traced flags of
+    :func:`mixed_policy`."""
     jcfg, tcfg, clip, sum_atol, step_atol = CNN_CASES[case]
     cfg = jcfg()
     run = JRunConfig(model=cfg, quant=JQuantConfig(fmt=fmt),
@@ -132,27 +139,35 @@ def _jax_reference(fmt: str, quantized: bool, case: str = "resnet18") -> dict:
              "label": rng.integers(0, cfg.num_classes, B).astype(np.int32)}
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     flags = jnp.full((cfg.policy_len(),), float(quantized), jnp.float32)
+    mixed = jnp.asarray(mixed_policy(cfg.policy_len()), jnp.float32)
 
-    def loss_one(p, ex, r):
-        return model.loss_fn(p, jax.tree.map(lambda x: x[None], ex), r,
-                             flags)
+    def clip_sum(p, b, f):
+        def loss_one(p, ex, r):
+            return model.loss_fn(p, jax.tree.map(lambda x: x[None], ex), r,
+                                 f)
 
-    gsum, metrics = jax.jit(lambda p, b: jax_clip_sum(
-        loss_one, p, b, clip_norm=clip, microbatch_size=MB,
-        rng=jax.random.PRNGKey(0)))(params, jbatch)
+        return jax_clip_sum(loss_one, p, b, clip_norm=clip,
+                            microbatch_size=MB, rng=jax.random.PRNGKey(0))
+
+    clip_sum = jax.jit(clip_sum)
     tree = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
-    out = {"params": tree(params), "batch": batch, "gsum": tree(gsum),
-           "metrics": {k: float(v) for k, v in metrics.items()},
-           "cfg": tcfg(), "clip": clip, "sum_atol": sum_atol,
-           "step_atol": step_atol}
+    out = {"params": tree(params), "batch": batch, "cfg": tcfg(),
+           "clip": clip, "sum_atol": sum_atol, "step_atol": step_atol,
+           "mixed": {}}
+    for f, target in ((flags, out), (mixed, out["mixed"])):
+        gsum, metrics = clip_sum(params, jbatch, f)
+        target.update(gsum=tree(gsum),
+                      metrics={k: float(v) for k, v in metrics.items()})
     for dp_on in (True, False):
         setup = jax_train_setup(model, dataclasses.replace(
             run, dp=dataclasses.replace(run.dp, enabled=dp_on)),
             make_host_mesh())
-        new_params, _, step_metrics = jax.jit(setup.step_fn)(
-            params, setup.opt_init_fn(params), jbatch, jnp.uint32(0), flags,
-            jnp.float32(LR))
-        out[dp_on] = (tree(new_params), float(step_metrics["loss"]))
+        step = jax.jit(setup.step_fn)
+        for f, target in ((flags, out), (mixed, out["mixed"])):
+            new_params, _, step_metrics = step(
+                params, setup.opt_init_fn(params), jbatch, jnp.uint32(0), f,
+                jnp.float32(LR))
+            target[dp_on] = (tree(new_params), float(step_metrics["loss"]))
     return out
 
 
@@ -199,12 +214,17 @@ def _port(jax_ref, dp: DPConfig, fmt: str = "none"):
     return run, model, params, batch
 
 
-def _check_clipped_sum(ref, clip_backend, fmt="none", quantized=False):
+def _check_clipped_sum(ref, clip_backend, fmt="none", quantized=False,
+                       flags=None):
     """The port's clipped per-example gradient sum and its metrics, every
-    layer's flag ``quantized``, against the reference's ``ref``."""
+    layer's flag ``quantized`` (or ``flags``, with ``ref["mixed"]``),
+    against the reference's ``ref``."""
     clip = ref["clip"]
     run, model, params, batch = _port(ref, DPConfig(clip_norm=clip), fmt)
-    flags = (quantized,) * run.model.policy_len()
+    if flags is None:
+        flags = (quantized,) * run.model.policy_len()
+    else:
+        ref = {**ref, **ref["mixed"]}
 
     def loss_one(p, ex):
         return model.loss_fn(p, {k: v[None] for k, v in ex.items()}, flags)
@@ -226,18 +246,23 @@ def _check_clipped_sum(ref, clip_backend, fmt="none", quantized=False):
     assert 0 < jm["clip_fraction"] < 1              # some rows were clipped
 
 
-def _check_one_step(ref, dp_on, clip_backend, fmt="none", quantized=False):
+def _check_one_step(ref, dp_on, clip_backend, fmt="none", quantized=False,
+                    flags=None):
     """One DP-SGD step at sigma = 0, or one plain step, every layer's flag
-    ``quantized``: the new params and the loss equal the reference's, and
-    the step writes none of its arguments."""
+    ``quantized`` (or ``flags``, with ``ref["mixed"]``): the new params and
+    the loss equal the reference's, and the step writes none of its
+    arguments."""
     dp = DPConfig(enabled=dp_on, clip_norm=ref["clip"], noise_multiplier=0.0,
                   microbatch_size=MB, clip_backend=clip_backend)
     run, model, params, batch = _port(ref, dp, fmt)
+    if flags is None:
+        flags = (quantized,) * run.model.policy_len()
+    else:
+        ref = {**ref, **ref["mixed"]}
     setup = build_train_setup(model, run)
     before = {k: v.clone() for k, v in params.items()}
     new_params, _, metrics = setup.step_fn(
-        params, setup.opt_init_fn(params), batch, 0,
-        (quantized,) * run.model.policy_len(), LR)
+        params, setup.opt_init_fn(params), batch, 0, flags, LR)
     for k in params:                                 # functional: no writes
         assert torch.equal(params[k], before[k])
     want_params, want_loss = ref[dp_on]
@@ -291,6 +316,40 @@ def test_cnn_one_step_at_sigma_zero_matches_jax(cnn_ref, dp_on, clip_backend):
     """One DP-SGD step at sigma = 0 and one plain step of the bottleneck
     ResNet and of DenseNet: the new params equal JAX's."""
     _check_one_step(cnn_ref, dp_on, clip_backend)
+
+
+def _device_flags(ref):
+    """:func:`mixed_policy` as the trainer's float32 flags tensor."""
+    return torch.tensor(mixed_policy(ref["cfg"].policy_len()),
+                        dtype=torch.float32)
+
+
+@pytest.mark.parametrize("clip_backend", ["ref", "fused"])
+def test_device_flags_match_jax_under_traced_flags(jax_ref_quantized,
+                                                   clip_backend):
+    """Every other layer quantized at ``QFMT``, the policy a float32 tensor
+    read on the device: the clipped sum and one DP-SGD step equal the
+    reference's under the same traced flags (its programs compiled once
+    for both policies)."""
+    flags = _device_flags(jax_ref_quantized)
+    _check_clipped_sum(jax_ref_quantized, clip_backend, QFMT, flags=flags)
+    _check_one_step(jax_ref_quantized, True, clip_backend, QFMT, flags=flags)
+
+
+def test_device_flags_at_fmt_none_match_jax(jax_ref):
+    """At fmt ``none`` a device policy runs the plain ops: the clipped sum
+    and a DP step equal the reference's under its traced flags."""
+    flags = _device_flags(jax_ref)
+    _check_clipped_sum(jax_ref, "fused", flags=flags)
+    _check_one_step(jax_ref, True, "ref", flags=flags)
+
+
+def test_cnn_device_flags_at_fmt_none_match_jax(cnn_ref):
+    """The bottleneck ResNet and DenseNet under a device policy at fmt
+    ``none``: as above."""
+    flags = _device_flags(cnn_ref)
+    _check_clipped_sum(cnn_ref, "fused", flags=flags)
+    _check_one_step(cnn_ref, True, "ref", flags=flags)
 
 
 def test_noise_std_is_sigma_c_over_b():

@@ -63,10 +63,18 @@ def assert_trees_equal(a, b):
 def test_scan_matches_loop_bitwise():
     """Same seed -> identical params, Adam state, losses, epsilon,
     accountant history and sampler stream, over an analysis epoch (interval
-    2: epochs 0 and 2) and a cosine schedule."""
+    2: epochs 0 and 2) and a cosine schedule.  The scan trainer's probe
+    runner (the probe graph's program) gives the loop's eager probes' EMA
+    scores, and one epoch program and one probe program serve every
+    policy of the run."""
     (tr_loop, hist_loop), (tr_scan, hist_scan) = train_both(
         small_run("loop"), small_run("scan"))
     assert tr_scan.epoch_fn is not None and tr_loop.epoch_fn is None
+    assert (tr_scan.scheduler.scores.tolist()
+            == tr_loop.scheduler.scores.tolist())
+    assert tr_scan.scheduler.n_analyses == 2
+    assert len(tr_scan.epoch_fn.captured) == 1
+    assert len(tr_scan.probe_fn.captured) == 1
     assert tr_loop.step == tr_scan.step == 9
     assert_trees_equal(tr_loop.params, tr_scan.params)
     assert_trees_equal(tr_loop.opt_state, tr_scan.opt_state)

@@ -11,10 +11,17 @@ identity, which drives every fold of every projection through the hooks
 tolerances (``tests/test_dp_ghost.py``): per-example norms rtol 1e-4;
 clipped sums rtol 2e-4, atol 2e-5; losses rtol 1e-5.
 
+Under a policy given as a float32 device tensor (every layer's entry read
+on the device, the reference's traced flags), against the reference's two
+passes under the same flags, compiled once for every policy.  The
+reference runs with its default remat (each block under
+``jax.checkpoint``) and so does the port (``torch.utils.checkpoint``);
+remat on and off give the port the same bits.
+
 Within the port at luq_fp4 on the ``cuda`` backend with CPU tensors (the
 fused op runs the kernel's plain version): ghost against vmap at the same
-tolerances, with every layer quantized and with part of them; the pass-1
-chunking changes nothing.
+tolerances, with every layer quantized and with part of them, by host
+bools and by a device policy; the pass-1 chunking changes nothing.
 """
 import dataclasses
 
@@ -90,22 +97,39 @@ def _ghost(model, params, batch, flags, clip, chunk=0):
     return losses, norms, gsum, metrics
 
 
-def _jax_two_pass(arch, fmt, params_np, tokens, clip):
-    cfg = dataclasses.replace(jax_smoke_config(arch), remat=False)
-    model = jax_build_model(cfg, JQuantConfig(fmt=fmt))
-    flags = jnp.ones((cfg.policy_len(),), jnp.float32)
+_JAX_TWO_PASS = {}
 
-    def loss_one(p, ex, r):
-        return model.loss_fn(p, jax.tree.map(lambda x: x[None], ex), r,
-                             flags)
 
-    def pel(p, b, r):
-        return model.per_example_loss(p, b, r, flags)
+def _jax_two_pass(arch, fmt, params_np, tokens, clip, flags=None):
+    """The reference's two ghost passes under its traced ``flags`` (every
+    layer's 1 when None), with its default remat (each block under
+    ``jax.checkpoint``); compiled once per (arch, fmt) for every policy
+    and clip norm."""
+    if (arch, fmt) not in _JAX_TWO_PASS:
+        cfg = jax_smoke_config(arch)
+        assert cfg.remat
+        model = jax_build_model(cfg, JQuantConfig(fmt=fmt))
 
-    grads, losses, norms = jax.jit(lambda p, b: jghost._two_pass(
-        loss_one, pel, p, b, clip_norm=clip, rng=jax.random.PRNGKey(0),
-        hooked_mask=model.ghost_mask(p), aux=model.ghost_aux(flags),
-        ghost_microbatch=0))(params_np, {"tokens": jnp.asarray(tokens)})
+        def two_pass(p, b, clip, f):
+            def loss_one(p, ex, r):
+                return model.loss_fn(p, jax.tree.map(lambda x: x[None], ex),
+                                     r, f)
+
+            def pel(p, b, r):
+                return model.per_example_loss(p, b, r, f)
+
+            return jghost._two_pass(
+                loss_one, pel, p, b, clip_norm=clip,
+                rng=jax.random.PRNGKey(0), hooked_mask=model.ghost_mask(p),
+                aux=model.ghost_aux(f), ghost_microbatch=0)
+
+        _JAX_TWO_PASS[arch, fmt] = (cfg, jax.jit(two_pass))
+    cfg, two_pass = _JAX_TWO_PASS[arch, fmt]
+    if flags is None:
+        flags = (True,) * cfg.policy_len()
+    grads, losses, norms = two_pass(params_np, {"tokens": jnp.asarray(tokens)},
+                                    jnp.float32(clip),
+                                    jnp.asarray(flags, jnp.float32))
     return (jax.tree.map(np.asarray, grads), np.asarray(losses),
             np.asarray(norms))
 
@@ -156,6 +180,53 @@ def test_ghost_matches_jax(identity_format, arch, fmt):
     assert 0 < float(metrics["clip_fraction"]) < 1
 
 
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("fmt", ["none", QFMT])
+def test_device_flags_match_jax_under_traced_flags(identity_format, arch,
+                                                   fmt):
+    """The first layer quantized, the policy the trainer's float32 tensor
+    read on the device: pass-1 norms, losses and clipped sums equal the
+    reference's two passes under the same traced flags (one compile for
+    both policies)."""
+    params_np = _numpy_params(arch, 3)
+    cfg, model, params, batch = _port(
+        arch, fmt, params=params_from_numpy(params_np, device="cpu"))
+    policy = (True,) + (False,) * (cfg.n_layers - 1)
+    flags = torch.tensor(policy, dtype=torch.float32)
+    _, probe = ghost.ghost_per_example_norms(
+        lambda p, b, h: model.per_example_loss(p, b, flags, hooks=h),
+        params, batch, hooked_mask=model.ghost_mask(params),
+        aux=model.ghost_aux(flags))
+    clip = _between(probe)
+    losses, norms, gsum, metrics = _ghost(model, params, batch, flags, clip)
+    jgrads, jlosses, jnorms = _jax_two_pass(
+        arch, fmt, params_np, batch["tokens"].numpy(), clip, policy)
+    np.testing.assert_allclose(norms.numpy(), jnorms, **NORM_TOL)
+    np.testing.assert_allclose(losses.numpy(), jlosses, rtol=1e-5)
+    _assert_sums_close(gsum, params_from_numpy(jgrads, device="cpu"))
+    assert 0 < float(metrics["clip_fraction"]) < 1
+
+
+@pytest.mark.parametrize("fmt,backend", [("none", "ref"),
+                                         ("luq_fp4", "cuda")])
+def test_remat_matches_no_remat(fmt, backend):
+    """Each block checkpointed (the default) against no remat, in both
+    ghost passes: the recomputed forward is the same float32 operations
+    (the quantizers' draws are keyed by their static (seed, fold)), so
+    losses, pass-1 norms and the clipped sum are bit for bit the same."""
+    cfg, model, params, batch = _port("stablelm-3b", fmt, backend=backend)
+    assert cfg.remat
+    plain = build_model(dataclasses.replace(cfg, remat=False),
+                        QuantConfig(fmt=fmt, backend=backend), device="cpu")
+    flags = torch.tensor([1.0, 0.0])
+    got = _ghost(model, params, batch, flags, clip=1.0, chunk=2)
+    want = _ghost(plain, params, batch, flags, clip=1.0, chunk=2)
+    for a, b in zip(got[:2], want[:2]):
+        assert torch.equal(a, b)
+    for k, v in want[2].items():
+        assert torch.equal(got[2][k], v), k
+
+
 def _loss_one(model, flags):
     def loss_one(p, ex):
         return model.loss_fn(p, {k: v[None] for k, v in ex.items()}, flags)
@@ -192,6 +263,25 @@ def test_ghost_matches_vmap_at_luq_fp4(arch, flags):
         np.testing.assert_allclose(float(metrics[k]), float(vmetrics[k]),
                                    rtol=1e-4)
     assert float(metrics["clip_fraction"]) == float(vmetrics["clip_fraction"])
+    assert 0 < float(metrics["clip_fraction"]) < 1
+
+
+def test_ghost_matches_vmap_under_device_flags():
+    """luq_fp4 on the cuda backend, the second layer quantized by a device
+    flag: the fused ghost norm under ``torch.where`` (float32 operands)
+    and the vmap engine's per-example gradients agree as above."""
+    cfg, model, params, batch = _port("stablelm-3b", "luq_fp4",
+                                      backend="cuda")
+    flags = torch.tensor([0.0, 1.0])
+    vnorms = _vmap_norms(model, params, batch, flags)
+    clip = _between(vnorms)
+    vsum, _ = per_example_clipped_grad_sum(
+        _loss_one(model, flags), params, batch, clip_norm=clip,
+        microbatch_size=B)
+    losses, norms, gsum, metrics = _ghost(model, params, batch, flags, clip,
+                                          chunk=2)
+    np.testing.assert_allclose(norms.numpy(), vnorms.numpy(), **NORM_TOL)
+    _assert_sums_close(gsum, vsum)
     assert 0 < float(metrics["clip_fraction"]) < 1
 
 

@@ -341,8 +341,9 @@ def _images(cfg, n, seed):
             "label": rng.integers(0, cfg.num_classes, n).astype(np.int32)}
 
 
-def _port_ghost(model, params, batch, clip, chunk=0):
-    flags = (True,) * model.config.policy_len()
+def _port_ghost(model, params, batch, clip, chunk=0, flags=None):
+    if flags is None:
+        flags = (True,) * model.config.policy_len()
     pel = lambda p, b, h: model.per_example_loss(p, b, flags,  # noqa: E731
                                                  hooks=h)
     mask = model.ghost_mask(params)
@@ -355,15 +356,21 @@ def _port_ghost(model, params, batch, clip, chunk=0):
     return losses, norms, gsum, metrics
 
 
+# the policy of the device-flag cases: the stem and the last block
+MIXED = (True, False, True)
+
+
 @pytest.fixture(scope="module")
 def basic_reference(formats):
     """The reference's pass-1 norms and clipped sums of the basic ResNet
-    at fmt none and luq_fp4, every layer quantized, computed once."""
+    at fmt none and luq_fp4, every layer quantized, and (under ``(QFMT,
+    "mixed")``) at the identity format, the layers of ``MIXED``
+    quantized; computed once."""
     jcfg = JModelConfig(**BASIC)
     jmodel = jax_build_model(jcfg, JQuantConfig(fmt="none"))
     params_np = _numpy_params(jmodel, 3)
     batch_np = _images(jcfg, B_NET, 4)
-    flags = jnp.ones((jcfg.policy_len(),), jnp.float32)
+    assert len(MIXED) == jcfg.policy_len()
     # a clip norm between the middle two per-example norms (the port's
     # pass 1 at fmt none), so some examples are clipped
     port = build_model(ModelConfig(**BASIC), QuantConfig(fmt="none"),
@@ -373,14 +380,19 @@ def basic_reference(formats):
         {k: torch.from_numpy(v) for k, v in batch_np.items()}, 1.0)
     clip = float(probe.sort().values[1:3].mean())
     out = {}
-    for fmt in ("none", "luq_fp4"):
+    # every layer at fmt none and luq_fp4; the layers of MIXED at QFMT
+    for tag, fmt, policy in (("none", "none", None),
+                             ("luq_fp4", "luq_fp4", None),
+                             ((QFMT, "mixed"), QFMT, MIXED)):
         model = jax_build_model(jcfg, JQuantConfig(fmt=fmt))
+        flags = jnp.asarray(policy or (True,) * jcfg.policy_len(),
+                            jnp.float32)
 
-        def loss_one(p, ex, r, model=model):
+        def loss_one(p, ex, r, model=model, flags=flags):
             return model.loss_fn(p, jax.tree.map(lambda v: v[None], ex), r,
                                  flags)
 
-        def pel(p, b, r, model=model):
+        def pel(p, b, r, model=model, flags=flags):
             return model.per_example_loss(p, b, r, flags)
 
         grads, losses, norms = jax.jit(lambda p, b: jghost._two_pass(
@@ -389,26 +401,37 @@ def basic_reference(formats):
             ghost_microbatch=0))(params_np,
                                  {k: jnp.asarray(v)
                                   for k, v in batch_np.items()})
-        out[fmt] = (clip, params_from_numpy(jax.tree.map(np.asarray, grads),
+        out[tag] = (clip, params_from_numpy(jax.tree.map(np.asarray, grads),
                                             device="cpu"),
                     np.asarray(losses), np.asarray(norms))
     return params_np, batch_np, out
 
 
-@pytest.mark.parametrize("fmt", ["none", "luq_fp4"])
-def test_basic_resnet_ghost_matches_jax(basic_reference, fmt):
+@pytest.mark.parametrize("fmt,device_flags", [
+    ("none", False), ("luq_fp4", False), (QFMT, True)])
+def test_basic_resnet_ghost_matches_jax(basic_reference, fmt, device_flags):
+    """Every layer quantized by host flags; or, at the identity format,
+    the layers of ``MIXED`` by the trainer's float32 flags tensor, read
+    on the device (every conv through the quantized function, the flags
+    deciding which fold quantizes), against the reference's program
+    under the same flags."""
     params_np, batch_np, ref = basic_reference
-    clip, jgrads, jlosses, jnorms = ref[fmt]
+    flags = None
+    if device_flags:
+        flags = torch.tensor(MIXED, dtype=torch.float32)
+    clip, jgrads, jlosses, jnorms = ref[(fmt, "mixed") if device_flags
+                                        else fmt]
     model = build_model(ModelConfig(**BASIC),
                         QuantConfig(fmt=fmt, backend="ref"), device="cpu")
     params = params_from_numpy(params_np, device="cpu")
     batch = {"image": torch.from_numpy(batch_np["image"]),
              "label": torch.from_numpy(batch_np["label"])}
-    losses, norms, gsum, metrics = _port_ghost(model, params, batch, clip)
+    losses, norms, gsum, metrics = _port_ghost(model, params, batch, clip,
+                                               flags=flags)
     assert 0 < float(metrics["clip_fraction"]) < 1
     np.testing.assert_allclose(norms.numpy(), jnorms, **NORM_TOL)
     np.testing.assert_allclose(losses.numpy(), jlosses, rtol=1e-5)
-    if fmt == "none":
+    if fmt != "luq_fp4":
         _assert_sums_close(gsum, jgrads)
         return
     for name, want in jgrads.items():
@@ -436,8 +459,9 @@ def _port_numpy_params(model, seed):
     return out
 
 
-def _vmap_engine(model, params, batch, clip):
-    flags = (True,) * model.config.policy_len()
+def _vmap_engine(model, params, batch, clip, flags=None):
+    if flags is None:
+        flags = (True,) * model.config.policy_len()
 
     def loss_one(p, ex):
         return model.loss_fn(p, {k: v[None] for k, v in ex.items()}, flags)
@@ -477,6 +501,27 @@ def test_ghost_matches_the_vmap_engine(case, fmt):
     _, vsum = _vmap_engine(model, params, batch, clip)
     _, norms, gsum, metrics = _port_ghost(model, params, batch, clip)
     assert (0 < float(metrics["clip_fraction"]) < 1) == (fmt == "none")
+    np.testing.assert_allclose(norms.numpy(), vnorms.numpy(), **NORM_TOL)
+    _assert_sums_close(gsum, vsum)
+
+
+def test_ghost_matches_the_vmap_engine_under_device_flags():
+    """As above for DenseNet at luq_fp4 on the ``cuda`` backend (the
+    kernels' plain versions), every other layer quantized by the
+    trainer's float32 flags tensor, read on the device by both
+    engines."""
+    cfg = CNNS["densenet"]()
+    model = build_model(cfg, QuantConfig(fmt="luq_fp4", backend="cuda"),
+                        device="cpu")
+    params = _port_numpy_params(model, 7)
+    batch = {k: torch.from_numpy(v) for k, v in _images(cfg, B_NET,
+                                                          8).items()}
+    flags = torch.tensor([float(i % 2 == 0)
+                          for i in range(cfg.policy_len())])
+    vnorms, _ = _vmap_engine(model, params, batch, 1.0, flags)
+    clip = 2 * float(vnorms.max())
+    _, vsum = _vmap_engine(model, params, batch, clip, flags)
+    _, norms, gsum, _ = _port_ghost(model, params, batch, clip, flags=flags)
     np.testing.assert_allclose(norms.numpy(), vnorms.numpy(), **NORM_TOL)
     _assert_sums_close(gsum, vsum)
 

@@ -269,9 +269,9 @@ def test_qconv2d_backward_quantizes_six_operands_per_conv(monkeypatch):
     calls = []
     orig = fq._quantize_rows
 
-    def spy(rows, fmt, backend, seed, fold):
+    def spy(rows, fmt, backend, seed, fold, flag=None):
         calls.append((fold, rows.shape[0]))
-        return orig(rows, fmt, backend, seed, fold)
+        return orig(rows, fmt, backend, seed, fold, flag)
 
     monkeypatch.setattr(fq, "_quantize_rows", spy)
     w = torch.randn(3, 3, 2, 4)

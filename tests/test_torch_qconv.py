@@ -42,7 +42,7 @@ def _patch_quantizer(monkeypatch, per_fold: bool):
     ``per_fold`` is false); returns the list of (fold, rows) calls."""
     calls = []
 
-    def stand_in(rows, fmt, backend, seed, fold):
+    def stand_in(rows, fmt, backend, seed, fold, flag=None):
         calls.append((fold, rows.shape[0]))
         return rows * (_scale(fold) if per_fold else 1.0)
 

@@ -44,7 +44,7 @@ def _scale(fold: int) -> float:
 @pytest.fixture
 def stand_in(monkeypatch):
     """Both packages' quantizers become ``t * scale(fold)``."""
-    def port(rows, fmt, backend, seed, fold):
+    def port(rows, fmt, backend, seed, fold, flag=None):
         return rows * _scale(fold)
 
     def reference(x, seed, fold, fmt, flag, backend="ref", per_example=False):
