@@ -14,7 +14,10 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    training: ``luq_quant``, pass 2's rows the whole batch of 256;
    stablelm-3b ghost training:
    ``luq_quant`` and
-   ``ghost_norm_sq``; yi-6b serving: the KV cache write, decode attention
+   ``ghost_norm_sq``; BERT-SNLI and Mamba-2-130m training: ``luq_quant``
+   at a weight and at per-example rows (Mamba-2's the SSD's gate
+   operand) and ``per_sample_clip`` at their parameter counts; yi-6b
+   serving: the KV cache write, decode attention
    and the quantized matmul), and times kernel, plain version, the least
    time the card could take (``bound_ms``) and, where PyTorch computes
    the same function, that yardstick (``library_ms``; for the LUQ matmul
@@ -156,7 +159,37 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    the fault-free tokens, and the B=1 lockstep decode's logits against
    the slot row's, bit for bit;
 8. checks the engine (its graphed tick) against the oneshot driver for
-   one request, token for token.
+   one request, token for token;
+9. trains BERT-SNLI whole (12 layers, d_model 768, 136,806,915
+   parameters, float32, random init from a seed, synthetic NLI data)
+   with DP-AdamW under the DPQuant scheduler, the options of
+   ``repro_torch.launch.train --arch bert-snli --mode dpquant --fmt
+   luq_fp4 --backend cuda --clip-backend fused --optimizer adamw --lr
+   1e-3 --batch 256 --microbatch 16 --seq-len 128`` (vmap engine): 3
+   epochs x 2 steps under ``scan``, analysis in epochs 0 and 2; every
+   loss finite, k = 11 of 12 each epoch, epsilon > 0 and equal to a host
+   accountant charged with the run's steps and analyses as the trainer
+   charges them, one capture of the epoch graph and one of the probe
+   graph, the clip launched once a microbatch pass and the quantizer at
+   every projection's six points in every pass (replays and warm-ups
+   counted); prints each epoch's median step, the capture seconds, the
+   analysis wall, the peak memory and the eval accuracy;
+10. trains Mamba-2-130m whole (24 layers, d_model 768, 128,971,200
+   parameters, bf16 compute, float32 params) the same way with DP-SGD,
+   ``--arch mamba2-130m --batch 32 --microbatch 8 --seq-len 512``: k =
+   22 of 24, the same checks (the SSD's two contractions quantize both
+   operands per example);
+11. serves Mamba-2-130m whole through the oneshot engine (``launch.serve
+   --arch mamba2-130m --engine oneshot``: 8 random prompts of 512
+   tokens, 64 new tokens, greedy, bf16, eager decode steps): the tokens'
+   shape and range, no kernel of the port launched (the path has none);
+   decode's logits against a prefill of the prompt extended by the
+   decoded tokens over 3 steps, within 1e-2 of the largest logit in
+   float32 at full depth and within 3e-2 in bf16 at full width cut to 2
+   layers (decode runs the conv on bf16 weights, prefill on float32
+   ones, as the reference does; at random init each layer amplifies
+   that rounding difference, and the bf16 full-depth difference is
+   printed); prints prefill ms and decode tokens/s.
 
 Each phase prints its wall, and a ``phase walls`` line sums them up.  The
 line before the last is ``{"kernels": [...]}``; the last line is
@@ -764,6 +797,18 @@ def host_calls(torch, fn) -> dict:
     return calls
 
 
+# The parameter counts of BERT-SNLI and Mamba-2-130m whole (those of the
+# JAX package's configs)
+BERT_PARAMS = 136_806_915
+MAMBA2_PARAMS = 128_971_200
+# quantize calls of one row (the weights) and of rows (per example) that
+# one microbatch's forward and backward make: BERT, 6 projections a layer
+# x 12 layers, each 2 one-row and 4 row calls; Mamba-2, 24 layers of the
+# in and out projections (2 and 4 each) and the SSD's two contractions,
+# both operands per example (6 row calls each)
+BERT_PER_PASS = (12 * 6 * 2, 12 * 6 * 4)
+MAMBA2_PER_PASS = (24 * 2 * 2, 24 * (2 * 4 + 2 * 6))
+
 # Epsilon by epoch of each workload's run under commit 27090d7 (its
 # chip_smoke.py, the policy host bools, the first two epochs): the
 # accountant's events do not depend on the numerics, so they must not
@@ -786,7 +831,8 @@ EARLIER_LM_POLICIES = [
 def _epochs_of(torch, tr, epochs: int, name: str, want_k: int) -> dict:
     """Trains ``epochs`` epochs of ``tr``, printing each; checks every
     loss finite, k = ``want_k``, epsilon > 0 and the first epochs'
-    epsilon those of commit 27090d7; returns the run's numbers: policies,
+    epsilon those of commit 27090d7 (where that commit ran the workload);
+    returns the run's numbers: policies,
     epsilon,
     analysis and capture seconds by epoch, each epoch's median step (its
     chunk walls over their steps), the captures."""
@@ -820,7 +866,7 @@ def _epochs_of(torch, tr, epochs: int, name: str, want_k: int) -> dict:
                                  f"{s.quantized_layers}, want {want_k}")
         if not s.eps > 0:
             raise AssertionError(f"{name} epoch {s.epoch}: eps = {s.eps}")
-    earlier = EARLIER_EPS[tr.run.model.name]
+    earlier = EARLIER_EPS.get(tr.run.model.name, [])
     if eps[:len(earlier)] != earlier:
         raise AssertionError(f"{name}: epsilon {eps} moved from the "
                              f"{earlier} of commit 27090d7")
@@ -2154,6 +2200,230 @@ def serve_faults_yi6b(torch, kv_fmt, model, params, ops, wl):
     return summary, chaos["launches"]
 
 
+def host_epsilon(run, n_data: int, epochs: int) -> list:
+    """Epsilon by epoch of a host ``RDPAccountant`` charged as the trainer
+    charges it under DPQuant: in an analysis epoch one "analysis" SGM step
+    (sigma_measure at the probe batch's rate), then the epoch's training
+    steps at the sampler's rate."""
+    from repro_torch.dp.accountant import RDPAccountant
+    dp = run.dp
+    acc = RDPAccountant()
+    nb = max(dp.microbatch_size, min(dp.analysis_batch_size,
+                                     run.global_batch))
+    out = []
+    for e in range(epochs):
+        if e % max(dp.analysis_interval, 1) == 0:
+            acc.step(noise_multiplier=dp.analysis_noise,
+                     sample_rate=min(1.0, nb / n_data), steps=1,
+                     label="analysis")
+        acc.step(noise_multiplier=dp.noise_multiplier,
+                 sample_rate=run.global_batch / n_data,
+                 steps=run.steps_per_epoch, label="train")
+        out.append(acc.get_epsilon(dp.delta)[0])
+    return out
+
+
+def train_vmap_lm(torch, ops, wl, argv, want_k, want_params, per_pass):
+    """DP training of a token model whole (BERT-SNLI, Mamba-2-130m) in
+    vmap mode with the fused clip under the DPQuant scheduler, the
+    workload of ``argv`` (``repro_torch/launch/workload.py``), under the
+    scan executor: 3 epochs, the analysis in epochs 0 and 2, one graph of
+    the step and one of the probe step.  ``per_pass``: the quantize calls
+    of one row and of rows that one microbatch's forward and backward
+    make.  Checks every loss finite, k, epsilon equal to a host
+    accountant's, one capture of each graph, the parameter count and the
+    clip's and quantizer's launches; returns the launch counts and the
+    run's summary."""
+    from repro_torch.quant import backend as qbackend
+    from repro_torch.train_loop import Trainer
+
+    if (qbackend.get_quantizer("luq_fp4", "cuda")[1] != "cuda"
+            or qbackend.get_clip_sum("fused")[1] != "cuda"):
+        raise AssertionError("the quantizer or the fused clip does not run "
+                             "on the cuda backend")
+    run, ds, ev = wl.setup(argv)
+    if run.epoch_executor != "scan" or run.dp.grad_mode != "vmap":
+        raise AssertionError(f"the workload runs {run.epoch_executor!r}, "
+                             f"{run.dp.grad_mode!r}")
+    cfg = run.model
+    name = cfg.name
+    batch, micro, seq = run.global_batch, run.dp.microbatch_size, run.seq_len
+    steps = run.steps_per_epoch
+    epochs = run.steps // steps
+    t0 = time.perf_counter()
+    tr = Trainer(run, ds, eval_dataset=ev, mode="dpquant", device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tr.params.values())
+    print(f"{name}: {n_params} params, {cfg.policy_len()} policy layers, "
+          f"{cfg.compute_dtype} compute, optimizer {run.optim.name} at lr "
+          f"{run.optim.lr}; init {time.perf_counter() - t0} s")
+    if n_params != want_params:
+        raise AssertionError(f"{name}: {n_params} params, want {want_params}")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = _epochs_of(torch, tr, epochs, name, want_k)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = dict(ops.LAUNCHES)
+    launches.update({f"luq_quant[{k}]": v
+                     for k, v in ops.LUQ_QUANT_LAUNCHES.items()})
+    want_eps = host_epsilon(run, ds.n, epochs)
+    if out["eps"] != want_eps:
+        raise AssertionError(f"{name}: epsilon {out['eps']}, a host "
+                             f"accountant charged as the trainer charges "
+                             f"gives {want_eps}")
+    med = out["median_step_ms_by_epoch"]
+    accuracy = [s.accuracy for s in tr.history]
+    print(f"train {name} (vmap, fused clip, scan): {epochs} epochs x "
+          f"{steps} steps of {batch} x {seq} tokens in microbatches of "
+          f"{micro}: median step by epoch {med!r} ms (chunk walls over "
+          f"their steps: {[t * 1e3 for t in tr.step_wall_s]}), "
+          f"{batch * seq / med[-1] * 1e3!r} tokens/s in the last epoch, "
+          f"analysis by epoch {out['analysis_s']!r} s (probe graph warm-up "
+          f"and capture {out['probe_capture_s']!r} s), epoch graph warm-up "
+          f"and capture by epoch {out['capture_s']!r} s; captures "
+          f"{out['captures']} for {out['distinct_policies']} policies, "
+          f"epsilon {out['eps']!r} (host accountant {want_eps!r}), eval "
+          f"accuracy by epoch {accuracy}, wall {wall!r} s, peak device "
+          f"memory {peak!r} GiB, launches (replays counted) {launches}",
+          flush=True)
+    # every microbatch pass quantizes at every layer's quantize points
+    # whatever the policy (a layer whose flag is 0 copies its operands
+    # through): the train steps (batch / micro passes), the probe steps
+    # (probe batch / micro passes; the baseline and one run per layer, x
+    # reps, each analysis) and the captures' eager warm-up steps
+    probe_batch = max(micro, min(run.dp.analysis_batch_size, batch))
+    probe_steps = (out["analyses"] * (len(tr.scheduler.policies) + 1)
+                   * run.dp.analysis_reps)
+    passes = ((epochs * steps + out["warmups"]["epoch"]) * (batch // micro)
+              + (probe_steps + out["warmups"]["probe"])
+              * (probe_batch // micro))
+    one_row, rows = (passes * n for n in per_pass)
+    want = {"clip_and_sum": passes, "luq_quant": one_row + rows,
+            "luq_quant[one_row]": one_row, "luq_quant[rows]": rows,
+            "luq_quant[kernels]": 2 * (one_row + rows)}
+    for key, n in want.items():
+        if launches[key] != n:
+            raise AssertionError(f"{name}: {key} launched {launches[key]} "
+                                 f"times, want {n}")
+    summary = {**out, "tokens_per_s": batch * seq / med[-1] * 1e3,
+               "peak_gib": peak, "accuracy": accuracy,
+               "host_eps": want_eps}
+    del tr
+    _free(torch)
+    return launches, summary
+
+
+def _logits_rel(torch, got, want) -> float:
+    """The largest difference over the largest magnitude of ``want``."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def _decode_vs_prefill(torch, model, params, batch, steps: int):
+    """The largest ``_logits_rel`` over ``steps`` greedy decode steps of
+    decode's logits against a prefill of the prompt extended by the
+    tokens so far, and the share of rows whose greedy tokens agree."""
+    from repro_torch.serve import build_oneshot_fns
+    prefill, decode = build_oneshot_fns(model, batch.shape[1] + steps)
+    logits, cache = prefill(params, {"tokens": batch})
+    seq, worst, agree = batch, 0.0, []
+    for _ in range(steps):
+        tok = logits.argmax(-1)
+        seq = torch.cat([seq, tok[:, None].to(seq.dtype)], dim=1)
+        logits, cache = decode(params, cache, tok)
+        want, _ = prefill(params, {"tokens": seq})
+        worst = max(worst, _logits_rel(torch, logits, want))
+        agree.append((logits.argmax(-1) == want.argmax(-1)).float().mean()
+                     .item())
+    return worst, sum(agree) / len(agree)
+
+
+# decode's logits against a prefill of the extended prompt (3 steps):
+# float32 compute at full depth (1.7e-3 on the card, 8e-5 at 2 x 300
+# tokens on a CPU: the random-init model amplifies the GEMMs' rounding
+# too; a wrong state gives differences of order 1); bf16 compute at full
+# width cut to 2 layers (decode runs the conv on bf16 weights, prefill on float32 ones,
+# as the reference does: at random init each layer amplifies that
+# rounding difference, and at full depth in bf16 decode and prefill are
+# printed, not held)
+DECODE_F32_REL = 1e-2
+DECODE_BF16_REL = 3e-2
+DECODE_BF16_LAYERS = 2
+
+
+def serve_mamba2(torch, ops, wl):
+    """Mamba-2-130m whole through the oneshot engine (``SERVE_MAMBA2_ARGV``:
+    8 prompts of 512 tokens, 64 new tokens, greedy, bf16, eager decode
+    steps): the tokens' shape and range, no kernel of the port launched
+    (the path has none), prefill ms and decode tokens/s; decode against
+    prefill of the extended prompt held in float32 at full depth and in
+    bf16 at full width cut to 2 layers, printed in bf16 at full depth."""
+    import dataclasses
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import build_oneshot_fns, oneshot_generate
+
+    model, params, batch, args = wl.serve_setup(wl.SERVE_MAMBA2_ARGV)
+    cfg = model.config
+    tokens = batch["tokens"]
+    B, plen = tokens.shape
+    prefill, decode = build_oneshot_fns(model, plen + args.gen)
+    oneshot_generate(prefill, decode, params, batch, 4)       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    gen, timings = oneshot_generate(prefill, decode, params, batch, args.gen)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if gen.shape != (B, args.gen) or not (
+            (gen >= 0) & (gen < cfg.padded_vocab)).all():
+        raise AssertionError(f"{cfg.name}: generated {gen.shape} tokens, "
+                             f"range {gen.min()}..{gen.max()}")
+    if any(launches.values()):
+        raise AssertionError(f"{cfg.name} serving launched {launches}; its "
+                             "path has no kernel of the port")
+    prefill_ms = time_ms(torch, lambda: prefill(params, batch), 5)
+    decode_tps = (args.gen - 1) * B / timings["decode_s"]
+    full_rel, full_agree = _decode_vs_prefill(torch, model, params, tokens, 3)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    m32 = build_model(cfg32, model.quant)
+    p32 = m32.prepare(m32.init(args.seed))
+    f32_rel, f32_agree = _decode_vs_prefill(torch, m32, p32, tokens, 3)
+    del p32
+    cut = dataclasses.replace(cfg, n_layers=DECODE_BF16_LAYERS)
+    p_cut = {k: (v[:DECODE_BF16_LAYERS] if k.startswith("blocks.") else v)
+             for k, v in params.items()}
+    cut_rel, cut_agree = _decode_vs_prefill(
+        torch, build_model(cut, model.quant), p_cut, tokens, 3)
+    summary = {
+        "batch": B, "prompt": plen, "new_tokens": args.gen,
+        "prefill_ms": prefill_ms,
+        "prefill_wall_ms": timings["prefill_s"] * 1e3,
+        "decode_wall_ms": timings["decode_s"] * 1e3,
+        "decode_tokens_per_s": decode_tps, "peak_gib": peak,
+        "decode_vs_prefill": {
+            "bf16_full_depth": {"rel": full_rel, "argmax_agree": full_agree},
+            "float32_full_depth": {"rel": f32_rel, "argmax_agree": f32_agree,
+                                   "held_at": DECODE_F32_REL},
+            f"bf16_{DECODE_BF16_LAYERS}_layers": {
+                "rel": cut_rel, "argmax_agree": cut_agree,
+                "held_at": DECODE_BF16_REL}},
+        "launches": launches}
+    print(f"serve {cfg.name} oneshot: {json.dumps(summary)}; first row "
+          f"{gen[0, :16].tolist()}", flush=True)
+    if not f32_rel <= DECODE_F32_REL:
+        raise AssertionError(f"float32 decode vs prefill: {f32_rel} of the "
+                             f"largest logit, want <= {DECODE_F32_REL}")
+    if not cut_rel <= DECODE_BF16_REL:
+        raise AssertionError(f"bf16 decode vs prefill at "
+                             f"{DECODE_BF16_LAYERS} layers: {cut_rel} of "
+                             f"the largest logit, want <= {DECODE_BF16_REL}")
+    del model, params
+    _free(torch)
+    return summary
+
+
 def serve_launches(ops) -> dict:
     """The launch counts of a serving run, the matmul's and the KV
     write's also by the step that made them."""
@@ -2255,7 +2525,12 @@ def main() -> int:
     # per-example rows of the whole batch (256 x 32x32x64, 256 x
     # 32x32x256; pass 1's chunks are the vmap microbatch's 64 rows);
     # a stablelm-3b MLP weight (2560 x 6912) whole and a pass-1 chunk's
-    # per-example rows (4 x 256 tokens x 2560), bf16
+    # per-example rows (4 x 256 tokens x 2560), bf16; BERT-SNLI's MLP
+    # weight (768 x 3072) whole and a microbatch's per-example
+    # activations (16 x 128 tokens x 768), float32; Mamba-2-130m's
+    # in_proj weight (768 x 3352) whole, bf16, and the SSD's gate operand
+    # of a microbatch (8 examples x 2 chunks x 24 heads x 256 x 256),
+    # float32
     for name, rows, n, dtype in (
             ("luq_quant[resnet_weight]", 1, 3 * 3 * 512 * 512, torch.float32),
             ("luq_quant[resnet_activation]", 64, 32 * 32 * 64, torch.float32),
@@ -2276,17 +2551,27 @@ def main() -> int:
              torch.float32),
             ("luq_quant[lm_weight]", 1, 2560 * 6912, torch.bfloat16),
             ("luq_quant[lm_rows]", wl.TRAIN_LM_CHUNK,
-             wl.TRAIN_LM_SEQ * 2560, torch.bfloat16)):
+             wl.TRAIN_LM_SEQ * 2560, torch.bfloat16),
+            ("luq_quant[bert_weight]", 1, 768 * 3072, torch.float32),
+            ("luq_quant[bert_activation]", wl.TRAIN_BERT_MICROBATCH,
+             wl.TRAIN_BERT_SEQ * 768, torch.float32),
+            ("luq_quant[mamba2_weight]", 1, 768 * 3352, torch.bfloat16),
+            ("luq_quant[mamba2_gate]", wl.TRAIN_MAMBA2_MICROBATCH,
+             2 * 24 * 256 * 256, torch.float32)):
         checks[name] = check_luq_quant(torch, ops, ref, rows, n, dtype,
                                        sm_clock_mhz)
         print(f"{name} ({rows} x {n}, {dtype}) {checks[name]}")
     # the clip of a microbatch's per-example gradients: ResNet-18's,
     # ResNet-50's and DenseNet-121's parameter counts
-    for name, d in (("per_sample_clip", 11_190_891),
-                    ("per_sample_clip[resnet50]", 23_588_459),
-                    ("per_sample_clip[densenet121]", 6_990_251)):
-        checks[name] = check_per_sample_clip(torch, ops, ref, 64, d)
-        print(f"{name} (64 x {d}) {checks[name]}")
+    for name, b, d in (("per_sample_clip", 64, 11_190_891),
+                       ("per_sample_clip[resnet50]", 64, 23_588_459),
+                       ("per_sample_clip[densenet121]", 64, 6_990_251),
+                       ("per_sample_clip[bert]", wl.TRAIN_BERT_MICROBATCH,
+                        BERT_PARAMS),
+                       ("per_sample_clip[mamba2]",
+                        wl.TRAIN_MAMBA2_MICROBATCH, MAMBA2_PARAMS)):
+        checks[name] = check_per_sample_clip(torch, ops, ref, b, d)
+        print(f"{name} ({b} x {d}) {checks[name]}")
         torch.cuda.empty_cache()
     # stablelm-3b ghost pass 1: chunks of 4 sequences of 256 tokens; q/k/v/o
     # are 2560 wide on both sides, gate/up/down 2560 and 6912
@@ -2487,6 +2772,32 @@ def main() -> int:
     print(f"engine == oneshot for one yi-6b request: {got}")
 
     _phase_done(walls, "8 engine vs oneshot")
+    del model, params, engine
+    _free(torch)
+
+    # 9. BERT-SNLI whole under DPQuant, DP-AdamW, scan
+    bert_launches, bert_summary = train_vmap_lm(
+        torch, ops, wl, wl.TRAIN_BERT_ARGV, 11, BERT_PARAMS, BERT_PER_PASS)
+
+    _phase_done(walls, "9 train bert-snli")
+
+    # 10. Mamba-2-130m whole under DPQuant, scan
+    mamba_launches, mamba_summary = train_vmap_lm(
+        torch, ops, wl, wl.TRAIN_MAMBA2_ARGV, 22, MAMBA2_PARAMS,
+        MAMBA2_PER_PASS)
+    keys = ("captures", "warmups", "capture_s", "probe_capture_s",
+            "analysis_s", "median_step_ms_by_epoch", "tokens_per_s",
+            "peak_gib", "eps", "accuracy")
+    print(f"token models ({card}): " + json.dumps(
+        {arch: {k: v[k] for k in keys} for arch, v in
+         (("bert-snli", bert_summary), ("mamba2-130m", mamba_summary))}))
+
+    _phase_done(walls, "10 train mamba2-130m")
+
+    # 11. Mamba-2-130m oneshot serving
+    serve_mamba2(torch, ops, wl)
+
+    _phase_done(walls, "11 serve mamba2-130m")
     del walls["start"]
     print(f"phase walls (s): {json.dumps(walls)}")
 
@@ -2522,6 +2833,11 @@ def main() -> int:
     for dg in (2560, 6912):
         name = f"ghost_norm_sq[2560/{dg}]"
         counts[name] = lm_launches.get(name, 0)
+    for arch, c, rows in (("bert", bert_launches, "activation"),
+                          ("mamba2", mamba_launches, "gate")):
+        counts[f"luq_quant[{arch}_weight]"] = c["luq_quant[one_row]"]
+        counts[f"luq_quant[{arch}_{rows}]"] = c["luq_quant[rows]"]
+        counts[f"per_sample_clip[{arch}]"] = c["clip_and_sum"]
     for fmt in ("int8", "luq_fp4"):
         for branch in ("decode", "prefill"):
             counts[f"kv_quant_write[{fmt}/{branch}]"] = \

@@ -1,8 +1,8 @@
 """Config dataclasses and device resolution.
 
 The counterpart of ``repro.config``, cut to what the ported paths read
-(serving, DP-SGD training of the ResNet and DenseNet families, and
-ghost-mode DP-SGD training of the dense LMs).  Dtypes are strings
+(serving, DP-SGD training of the ResNet, DenseNet, BERT and Mamba-2
+families, ghost-mode DP-SGD training of the dense LMs and CNNs).  Dtypes are strings
 (as in the JAX package) mapped to ``torch.dtype`` by :func:`torch_dtype`.
 """
 from __future__ import annotations
@@ -54,8 +54,8 @@ def _round_up(x: int, m: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture description (dense decoder-only LMs, ResNets and
-    DenseNets)."""
+    """Architecture description (dense decoder-only LMs, ResNets,
+    DenseNets, the BERT encoder and Mamba-2)."""
 
     name: str
     family: str
@@ -66,13 +66,21 @@ class ModelConfig:
     head_dim: int = 0
     d_ff: int = 0
     vocab_size: int = 0
-    # --- cnn ---
+    # --- SSM (mamba2 / SSD) ---
+    ssm_state: int = 0
+    ssm_chunk: int = 256
+    d_inner: int = 0
+    ssm_heads: int = 0
+    ssm_head_dim: int = 64
+    conv_width: int = 4
+    # --- cnn / bert ---
     num_classes: int = 0
     image_size: int = 32
     in_channels: int = 3
     resnet_blocks: Tuple[int, ...] = ()
     densenet_blocks: Tuple[int, ...] = ()
     growth_rate: int = 32
+    max_position: int = 512
     mlp_activation: str = "geglu"        # geglu | swiglu | gelu | relu
     tie_embeddings: bool = True
     rope_theta: float = 10_000.0
@@ -99,6 +107,11 @@ class ModelConfig:
         if self.vocab_size == 0:
             return 0
         return _round_up(self.vocab_size, self.pad_vocab_to)
+
+    @property
+    def has_decoder(self) -> bool:
+        return self.family in ("dense_lm", "moe_lm", "ssm", "hybrid",
+                               "encdec", "vlm")
 
     def policy_len(self) -> int:
         """Number of schedulable layers for DPQuant."""

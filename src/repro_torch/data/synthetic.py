@@ -3,7 +3,9 @@
 The counterpart of ``repro.data.synthetic``'s ``ImageClassDataset``
 (class-conditional Gaussian prototypes plus noise at a configurable image
 size and number of classes; GTSRB-like: 43 classes, CIFAR-like: 10) and
-``TokenDataset`` (planted-bigram language-modelling sequences).  The numpy
+``TokenDataset`` (planted-bigram language-modelling sequences) and
+``NLIDataset`` (uniform token sequences with 8 class-indicative tokens
+planted at random positions, SNLI-like: 3 classes).  The numpy
 generation is the JAX package's, draw for draw, so the same seed gives the
 same examples in both packages; ``get`` returns CPU tensors, which the
 trainer moves to its device.
@@ -92,3 +94,44 @@ class TokenDataset:
         """{"tokens": (n, seq_len) int32}, on the CPU."""
         out = np.stack([self._example(int(idx)) for idx in indices])
         return {"tokens": torch.from_numpy(out)}
+
+
+@dataclasses.dataclass
+class NLIDataset:
+    """Sequence classification data: uniform tokens, with 8 tokens drawn
+    from the label's 16 class-indicative tokens planted at random
+    positions."""
+    n: int
+    vocab: int
+    seq_len: int = 64
+    num_classes: int = 3
+    seed: int = 0
+
+    def __post_init__(self):
+        rng = np.random.RandomState(self.seed)
+        self.labels = rng.randint(0, self.num_classes,
+                                  self.n).astype(np.int32)
+        self.class_tokens = rng.randint(
+            0, self.vocab, size=(self.num_classes, 16)).astype(np.int32)
+        self._seeds = rng.randint(0, 2**31 - 1, size=self.n)
+        self._cache: dict = {}
+
+    def _example(self, idx: int) -> np.ndarray:
+        seq = self._cache.get(idx)
+        if seq is None:
+            r = np.random.RandomState(self._seeds[idx])
+            seq = r.randint(0, self.vocab, self.seq_len)
+            pos = r.choice(self.seq_len, 8, replace=False)
+            seq[pos] = self.class_tokens[self.labels[idx],
+                                         r.randint(0, 16, 8)]
+            seq = seq.astype(np.int32)
+            self._cache[idx] = seq
+        return seq
+
+    def get(self, indices: np.ndarray) -> dict:
+        """{"tokens": (n, seq_len) int32, "label": (n,) int32}, on the
+        CPU."""
+        ys = self.labels[indices]
+        xs = np.stack([self._example(int(idx)) for idx in indices])
+        return {"tokens": torch.from_numpy(xs),
+                "label": torch.from_numpy(np.ascontiguousarray(ys))}

@@ -6,6 +6,8 @@
         --workload resnet50|densenet121
     PYTHONPATH=src python -m repro_torch.launch.profile_train \
         --workload resnet-ghost|resnet50-ghost
+    PYTHONPATH=src python -m repro_torch.launch.profile_train \
+        --workload bert|mamba2
     PYTHONPATH=src python -m repro_torch.launch.profile_train --executor loop
 
 ``resnet`` (the default) builds the training workload of
@@ -18,9 +20,12 @@ same options, full width and depth), ``resnet-ghost`` and
 options with the conv taps in place of per-example gradients, pass 1 in
 chunks of 64 images), ``lm`` the LM workload (full-size stablelm-3b,
 ghost-mode DP-SGD, 8 x 256 tokens, pass 1 in chunks of 4, LUQ-FP4
-projections); all but ``resnet`` warm up with an epoch's steps under
-the scheduler's first selection (k = 8 of 9, 15 of 17, 56 of 62, 29 of
-32 layers), without the analysis's probe steps.  The steps run through ``--executor`` (default
+projections), ``bert`` BERT-SNLI whole (DP-AdamW, 256 x 128 tokens in
+microbatches of 16, the fused clip) and ``mamba2`` Mamba-2-130m whole
+(DP-SGD, 32 x 512 tokens in microbatches of 8, the fused clip); all but
+``resnet`` warm up with an epoch's steps under the scheduler's first
+selection (k = 8 of 9, 15 of 17, 56 of 62, 29 of 32, 11 of 12, 22 of 24
+layers), without the analysis's probe steps.  The steps run through ``--executor`` (default
 ``scan``: replays of the step's CUDA graph, captured in the warm-up;
 ``loop``: one eager step after another).  Then it times the epoch's steps
 unprofiled under that policy, profiles as many more and prints:
@@ -38,9 +43,11 @@ unprofiled under that policy, profiles as many more and prints:
   and backward), ``ghost.fused_norm`` (one call of the ghost_norm op)
   and ``noise``, with the device time of the PyTorch operators inside
   each;
-* the kernels with the most device time, the device time of each of the
-  port's own kernels (``kernels/csrc``), the host's kernel launch calls
-  and the operators with the most host time.
+* the kernels with the most device time, the shares of the summed
+  device time that the LUQ quantizer's kernels and the clip's kernels
+  take, the device time of each of the port's own kernels
+  (``kernels/csrc``), the host's kernel launch calls and the operators
+  with the most host time.
 
 Kernels launched through ``ctypes`` (``luq_quant``, ``per_sample_clip``,
 ``ghost_norm``) are not tied to a host range; they appear in the kernel
@@ -72,6 +79,10 @@ RANGES = ("train.steps", "train.step", "per_example_grads", "quantize",
           "fused_clip", "ghost.pass1", "ghost.pass2", "ghost.fused_norm",
           "noise")
 TOP = 20
+# kernels of the port by the op they serve: the LUQ quantize op's two
+# passes and the fused clip's two
+SHARES = {"luq_quant": ("luq_row_max_kernel", "luq_round_kernel"),
+          "per_sample_clip": ("row_sumsq_kernel", "column_sum_kernel")}
 
 
 def _is_kernel(evt) -> bool:
@@ -152,11 +163,17 @@ def main(argv=None):
                   f"ms (under the profiler), device time of the PyTorch "
                   f"operators inside {_device_us(e, self_only=False) / 1e3} ms")
     kernels = [e for e in events if _is_kernel(e)]
+    total_us = sum(_device_us(e) for e in kernels)
     print(f"summed device time of the kernels and copies "
-          f"{sum(_device_us(e) for e in kernels) / 1e3} ms; the most:")
+          f"{total_us / 1e3} ms; the most:")
     for e in sorted(kernels, key=_device_us, reverse=True)[:TOP]:
         print(f"  {_device_us(e) / 1e3:12.3f} ms  {e.count:7d} calls  "
               f"{e.key[:100]}")
+    for name, marks in SHARES.items():
+        us = sum(_device_us(e) for e in kernels
+                 if any(m in e.key for m in marks))
+        print(f"{name} share of the summed device time: {us / total_us} "
+              f"({us / 1e3} ms)")
     print_port_kernels(kernels, events)
     print("operators with the most host time (under the profiler):")
     print(events.table(sort_by="self_cpu_time_total", row_limit=TOP,

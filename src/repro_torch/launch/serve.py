@@ -8,12 +8,21 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \
         --device cpu --quant-fmt luq_fp4 --kv-fmt luq_fp4
 
+    # Mamba-2-130m through the oneshot engine (no KV cache: an O(1)
+    # recurrent state a row; no continuous batching yet)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
+        --engine oneshot --batch 8 --prompt-len 512 --gen 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
+        --smoke --device cpu --engine oneshot
+
     # chaos mode: a seeded FaultPlan through the supervisor, the fired
     # events written to a JSON log
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \
         --device cpu --fault-seed 0 --fault-log /tmp/f.json
 
-The flags are those of ``repro.launch.serve``, admission control
+The flags are those of ``repro.launch.serve`` (as there, a family
+without per-slot decode, Mamba-2, runs ``--engine continuous`` through
+the oneshot engine, with a note), admission control
 (``--deadline``, ``--max-queue``) and chaos mode (``--fault-seed``,
 ``--fault-log``) included, plus ``--device`` (default ``cuda``; without a
 GPU the run raises unless ``--device cpu`` is given) and ``--backend
@@ -41,15 +50,20 @@ def _random_prompt(rng: np.random.RandomState, length: int,
     return rng.randint(0, vocab, size=(length,)).astype(np.int32)
 
 
+def oneshot_batch(args, vocab: int, device) -> dict:
+    """The oneshot engine's ``--batch`` random prompts of ``--prompt-len``
+    tokens from ``--seed``, on ``device``."""
+    rng = np.random.RandomState(args.seed)
+    tokens = np.stack([_random_prompt(rng, args.prompt_len, vocab)
+                       for _ in range(args.batch)])
+    return {"tokens": torch.from_numpy(tokens).to(device)}
+
+
 def run_oneshot(model, params, args) -> None:
     """One fixed batch, prefill, lockstep decode."""
     prefill, decode = build_oneshot_fns(model, args.prompt_len + args.gen,
                                         kv_fmt=args.kv_fmt)
-    rng = np.random.RandomState(args.seed)
-    tokens = np.stack([_random_prompt(rng, args.prompt_len,
-                                      model.config.vocab_size)
-                       for _ in range(args.batch)])
-    batch = {"tokens": torch.from_numpy(tokens).to(model.device)}
+    batch = oneshot_batch(args, model.config.vocab_size, model.device)
     gen, timings = oneshot_generate(prefill, decode, model.prepare(params),
                                     batch, args.gen,
                                     temperature=args.temperature,
@@ -118,8 +132,7 @@ def run_continuous(model, params, args) -> None:
         print(f"request {rid}{tag}: {r.tokens.tolist()}")
 
 
-def main(argv=None):
-    """Parse flags, build the model on its device, run the chosen engine."""
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=list_archs())
     ap.add_argument("--smoke", action="store_true")
@@ -157,14 +170,35 @@ def main(argv=None):
                          "the supervisor (chaos mode)")
     ap.add_argument("--fault-log", default=None,
                     help="chaos mode: write the fired-fault JSON log here")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
+
+def build(args) -> tuple:
+    """``(model, params)`` of the flags: the model on ``--device``, its
+    params from ``--seed``; raises SystemExit for a family without a
+    decoder."""
     cfg = (get_smoke_config(args.arch) if args.smoke
            else get_config(args.arch))
+    if not cfg.has_decoder:
+        raise SystemExit(f"{args.arch} has no decoder; nothing to serve")
     quant = QuantConfig(fmt=args.quant_fmt, backend=args.backend)
     model = build_model(cfg, quant, device=args.device)
-    params = model.init(args.seed)
-    if args.engine == "oneshot":
+    return model, model.init(args.seed)
+
+
+def main(argv=None):
+    """Parse flags, build the model on its device, run the chosen engine."""
+    args = parse_args(argv)
+    model, params = build(args)
+    cfg = model.config
+    engine = args.engine
+    if engine == "continuous" and model.decode_slots is None:
+        # only the dense transformer decodes per slot so far; the other
+        # decoder families run through the oneshot engine
+        print(f"note: {cfg.family!r} has no continuous-batching support "
+              "yet; falling back to --engine oneshot")
+        engine = "oneshot"
+    if engine == "oneshot":
         run_oneshot(model, params, args)
     else:
         run_continuous(model, params, args)

@@ -38,13 +38,30 @@
         --ghost-microbatch 4 --epochs 2 --steps-per-epoch 3 \
         --dataset-size 256
 
+    # BERT-SNLI (the paper's NLP experiment, DP-AdamW) and Mamba-2-130m,
+    # whole, on the GPU; at smoke size on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.train --arch bert-snli \
+        --mode dpquant --fmt luq_fp4 --backend cuda --clip-backend fused \
+        --optimizer adamw --lr 1e-3 --batch 256 --microbatch 16 \
+        --seq-len 128
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
+        --mode dpquant --fmt luq_fp4 --backend cuda --clip-backend fused \
+        --batch 32 --microbatch 8 --seq-len 512
+    PYTHONPATH=src python -m repro_torch.launch.train --arch bert-snli \
+        --smoke --device cpu --optimizer adamw --lr 1e-3 --batch 8 \
+        --microbatch 4 --seq-len 32 --epochs 2 --steps-per-epoch 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
+        --smoke --device cpu --batch 4 --microbatch 2 --seq-len 24 \
+        --epochs 2 --steps-per-epoch 2
+
     # preempted at global step 2 (a mid-epoch checkpoint, exit 0), then
     # resumed bit for bit by the same command without --preempt-at
     PYTHONPATH=src python -m repro_torch.launch.train --arch resnet18 \
         --smoke --device cpu --checkpoint-dir /tmp/ck --preempt-at 2
 
 The flags are those of ``repro.launch.train`` for these paths (the CNNs
-and the dense LMs, in vmap or ghost mode), among them
+and the dense LMs, in vmap or ghost mode; BERT and Mamba-2 in vmap
+mode), among them
 ``--executor scan|loop`` (default ``scan``: each epoch's steps replay one
 CUDA graph of the train step a quantization policy), ``--epoch-chunk``,
 ``--epoch-unroll`` (1 only), ``--checkpoint-dir`` (a rerun restores the
@@ -55,7 +72,7 @@ run's total), ``--preempt-at`` and ``--handle-signals``, without
 and ``--backend ref|cuda`` (default ``cuda``, the hand-written kernels;
 ``REPRO_QUANT_BACKEND`` overrides it).  Prints one line per
 epoch, ``epoch e: loss=... eps=... k=... acc=...``, as the JAX CLI does
-(``acc=None`` for a dense LM: it has no eval set).
+(``acc=None`` for an LM: it has no eval set).
 """
 from __future__ import annotations
 
@@ -66,14 +83,17 @@ import torch
 from repro_torch.config import (DPConfig, ModelConfig, OptimConfig,
                                 QuantConfig, RunConfig, resolve_device)
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.data.synthetic import ImageClassDataset, TokenDataset
+from repro_torch.data.synthetic import (ImageClassDataset, NLIDataset,
+                                        TokenDataset)
 from repro_torch.runtime.faults import FaultEvent, FaultPlan
 from repro_torch.runtime.preemption import Preempted, PreemptionHandler
 from repro_torch.train_loop import Trainer
 
 ARCHS = ("resnet18", "resnet50", "densenet121", "yi-6b", "gemma-7b",
-         "stablelm-3b", "yi-9b")
+         "stablelm-3b", "yi-9b", "bert-snli", "mamba2-130m")
 CNN_FAMILIES = ("resnet", "densenet")
+# the families with an eval set (class labels): the CNNs and BERT
+CLASSIFIER_FAMILIES = CNN_FAMILIES + ("bert",)
 EVAL_SIZE = 512
 
 
@@ -81,7 +101,10 @@ def make_dataset(cfg: ModelConfig, n: int, seq_len: int, seed: int = 0):
     if cfg.family in CNN_FAMILIES:
         return ImageClassDataset(n=n, num_classes=cfg.num_classes,
                                  image_size=cfg.image_size, seed=seed)
-    if cfg.family == "dense_lm":
+    if cfg.family == "bert":
+        return NLIDataset(n=n, vocab=cfg.vocab_size, seq_len=seq_len,
+                          num_classes=cfg.num_classes, seed=seed)
+    if cfg.family in ("dense_lm", "ssm"):
         return TokenDataset(n=n, vocab=cfg.vocab_size, seq_len=seq_len,
                             seed=seed)
     raise NotImplementedError(
@@ -169,11 +192,12 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def build_datasets(args, cfg: ModelConfig):
     """``(train, eval)`` datasets of the run: ``--dataset-size`` examples
-    from ``--seed``, and, for a CNN, 512 held-out images from the next
-    seed (a dense LM has no eval set, as in the JAX CLI)."""
+    from ``--seed``, and, for a classification family (the CNNs, BERT),
+    512 held-out examples from the next seed (an LM has no eval set, as
+    in the JAX CLI)."""
     ds = make_dataset(cfg, args.dataset_size, args.seq_len, args.seed)
     ev = (make_dataset(cfg, EVAL_SIZE, args.seq_len, args.seed + 1)
-          if cfg.family in CNN_FAMILIES else None)
+          if cfg.family in CLASSIFIER_FAMILIES else None)
     return ds, ev
 
 

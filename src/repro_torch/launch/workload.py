@@ -37,6 +37,38 @@ probe batch of 64) from ``TRAIN_RESNET50_ARGV`` and DenseNet-121 (blocks
 the last of which quantizes no conv; 63 probe runs x 2 reps) from
 ``TRAIN_DENSENET121_ARGV``.
 
+BERT-SNLI, the paper's NLP experiment, whole (12 layers, d_model 768, 12
+heads, d_ff 3072, vocab 30,522, 128 positions, float32 compute;
+136,825,347 parameters): DP-AdamW under the DPQuant scheduler with the
+options of ``launch.train --arch bert-snli --mode dpquant --fmt luq_fp4
+--backend cuda --clip-backend fused --optimizer adamw --lr 1e-3 --batch
+256 --microbatch 16 --seq-len 128`` (``TRAIN_BERT_ARGV``): synthetic NLI
+sequences (4096, seed 0; 512 more for eval, seed 1), sigma = C = 1,
+quant_fraction 0.9 (k = 11 of 12 layers), 3 epochs of 2 steps, the
+analysis in epochs 0 and 2 (13 probe runs x 2 reps at a probe batch of
+32, two microbatches).  The CLI's default lr of 0.5 is an SGD rate;
+every layer trains (neither CLI sets ``trainable_last_only``).  The
+microbatch is 16, not 32: at 32 the probe graph's pool holds 45.9 GiB
+(the per-example gradients, 16.3 GiB, stacked from the layers' pieces,
+and the fused clip's ``torch.cat`` copy), and the epoch graph's eager
+warm-up step (train batch 256 is another shape) needs as much again
+beside it, beyond the card's 80 GB.
+
+Mamba-2-130m, whole (24 layers, d_model 768, d_inner 1536, 24 SSD heads
+of 64, state 128, chunk 256, bf16 compute, float32 params; 128,971,200
+parameters): DP-SGD under the DPQuant scheduler with the options of
+``launch.train --arch mamba2-130m --mode dpquant --fmt luq_fp4 --backend
+cuda --clip-backend fused --batch 32 --microbatch 8 --seq-len 512``
+(``TRAIN_MAMBA2_ARGV``): planted-bigram tokens (4096 sequences, seed 0;
+no eval set), SGD at lr 0.5, sigma = C = 1, quant_fraction 0.9 (k = 22 of
+24), 3 epochs of 2 steps, the analysis in epochs 0 and 2 (25 probe runs x
+2 reps at a probe batch of 32).
+
+Mamba-2-130m serving (``SERVE_MAMBA2_ARGV``, ``launch.serve --arch
+mamba2-130m --engine oneshot``): a batch of 8 random prompts of 512
+tokens from seed 0, 64 new tokens, greedy, bf16 compute, eager decode
+steps (its logits are float32 einsums: no kernel of the port runs).
+
 The ResNet-18 and ResNet-50 workloads again in ghost mode
 (``TRAIN_RESNET_GHOST_ARGV``, ``TRAIN_RESNET50_GHOST_ARGV``): the same
 command lines with ``--grad-mode ghost --clip-backend ref
@@ -110,12 +142,40 @@ TRAIN_LM_ARGV = (
     "--epochs", str(TRAIN_LM_EPOCHS), "--steps-per-epoch", str(TRAIN_LM_STEPS),
     "--dataset-size", str(TRAIN_DATASET))
 
+TRAIN_BERT_EPOCHS, TRAIN_BERT_STEPS = 3, 2
+TRAIN_BERT_MICROBATCH, TRAIN_BERT_SEQ = 16, 128
+TRAIN_BERT_ARGV = (
+    "--arch", "bert-snli", "--mode", "dpquant", "--fmt", "luq_fp4",
+    "--backend", "cuda", "--clip-backend", "fused",
+    "--optimizer", "adamw", "--lr", "1e-3",
+    "--batch", "256", "--microbatch", str(TRAIN_BERT_MICROBATCH),
+    "--seq-len", str(TRAIN_BERT_SEQ),
+    "--epochs", str(TRAIN_BERT_EPOCHS),
+    "--steps-per-epoch", str(TRAIN_BERT_STEPS),
+    "--dataset-size", str(TRAIN_DATASET))
+
+TRAIN_MAMBA2_EPOCHS, TRAIN_MAMBA2_STEPS = 3, 2
+TRAIN_MAMBA2_MICROBATCH = 8
+TRAIN_MAMBA2_ARGV = (
+    "--arch", "mamba2-130m", "--mode", "dpquant", "--fmt", "luq_fp4",
+    "--backend", "cuda", "--clip-backend", "fused",
+    "--batch", "32", "--microbatch", str(TRAIN_MAMBA2_MICROBATCH),
+    "--seq-len", "512",
+    "--epochs", str(TRAIN_MAMBA2_EPOCHS),
+    "--steps-per-epoch", str(TRAIN_MAMBA2_STEPS),
+    "--dataset-size", str(TRAIN_DATASET))
+
+SERVE_MAMBA2_ARGV = ("--arch", "mamba2-130m", "--engine", "oneshot",
+                     "--batch", "8", "--prompt-len", "512", "--gen", "64",
+                     "--seed", str(SEED))
+
 #: The training workloads by name (``profile_train --workload``).
 TRAIN_WORKLOADS = {"resnet": TRAIN_ARGV, "resnet50": TRAIN_RESNET50_ARGV,
                    "densenet121": TRAIN_DENSENET121_ARGV,
                    "resnet-ghost": TRAIN_RESNET_GHOST_ARGV,
                    "resnet50-ghost": TRAIN_RESNET50_GHOST_ARGV,
-                   "lm": TRAIN_LM_ARGV}
+                   "lm": TRAIN_LM_ARGV, "bert": TRAIN_BERT_ARGV,
+                   "mamba2": TRAIN_MAMBA2_ARGV}
 
 
 def setup(argv) -> tuple:
@@ -137,3 +197,18 @@ def train_setup():
 def train_lm_setup():
     """The LM training workload (``TRAIN_LM_ARGV``)."""
     return setup(TRAIN_LM_ARGV)
+
+
+def serve_setup(argv, device=None) -> tuple:
+    """``(model, params, batch, args)`` of the oneshot serving workload of
+    ``argv``, built as ``launch.serve`` builds them: the model on
+    ``device`` (default CUDA), its params from ``--seed`` prepared for
+    serving, the prompt batch on the device."""
+    from repro_torch.launch import serve
+
+    args = serve.parse_args(list(argv) + (["--device", device]
+                                          if device else []))
+    model, params = serve.build(args)
+    return (model, model.prepare(params),
+            serve.oneshot_batch(args, model.config.vocab_size,
+                                model.device), args)

@@ -4,8 +4,9 @@ logits, losses.
 The counterpart of ``repro.models.common``, as plain PyTorch functions on
 tensors: what serving, CNN training (``groupnorm``, ``dense_head``,
 ``softmax_xent``; the first two also take a ghost pass's per-example
-copies) and dense-LM training (``qproj``, ``chunked_lm_loss``, the ghost
-hook of ``rmsnorm``) use.  Layouts follow the JAX package (activations
+copies), dense-LM, BERT and Mamba-2 training (``qproj``,
+``chunked_lm_loss``, ``softmax_xent``, the ghost hook of ``rmsnorm``)
+use.  Layouts follow the JAX package (activations
 (B, S, H, D)), except ``groupnorm``, which takes the NCHW activations of
 the port's convolutions.
 """
@@ -109,34 +110,42 @@ def rope(x, positions, theta=10_000.0):
 
 
 def _softmax_attend(q, k, v, mask, scale):
-    """q: (B,Tq,H,D); k,v: (B,Tk,H,D); mask broadcastable (B,H,Tq,Tk)."""
+    """q: (B,Tq,H,D); k,v: (B,Tk,H,D); mask broadcastable (B,H,Tq,Tk), or
+    None: every key."""
     # float32 scores: the product of two bf16 values is exact in float32,
     # which is what the JAX package's preferred_element_type=f32 computes
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    scores = torch.where(mask, scores, -1e30)
+    if mask is not None:
+        scores = torch.where(mask, scores, -1e30)
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
 
 
-def chunked_causal_attention(q, k, v, *, chunk_q: int,
+def chunked_causal_attention(q, k, v, *, chunk_q: int, causal: bool = True,
                              scale: Optional[float] = None):
-    """Causal attention in query chunks, each against its band of keys.
+    """Attention in query chunks, each against its band of keys.
 
-    Chunk ``[q0, q1)`` reads only keys ``[0, q1)``, so the work is the
-    causal work and the peak memory one (B, H, chunk_q, q1) score block.
-    Plain einsum and softmax, as in the JAX package.
+    Causal: chunk ``[q0, q1)`` reads only keys ``[0, q1)``, so the work is
+    the causal work and the peak memory one (B, H, chunk_q, q1) score
+    block.  ``causal=False`` (the BERT encoder): every chunk reads every
+    key, unmasked (the reference's all-true mask).  Plain einsum and
+    softmax, as in the JAX package.
     """
     b, s, h, d = q.shape
+    tk = k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     cq = min(chunk_q, s)
     outs = []
     for q0 in range(0, s, cq):
         q1 = min(q0 + cq, s)
-        k1 = min(q1, k.shape[1])
-        qpos = torch.arange(q0, q1, device=q.device)[:, None]
-        kpos = torch.arange(0, k1, device=q.device)[None, :]
+        k1 = min(q1, tk) if causal else tk
+        mask = None
+        if causal:
+            qpos = torch.arange(q0, q1, device=q.device)[:, None]
+            kpos = torch.arange(0, k1, device=q.device)[None, :]
+            mask = (kpos <= qpos)[None, None]
         outs.append(_softmax_attend(q[:, q0:q1], k[:, :k1], v[:, :k1],
-                                    (kpos <= qpos)[None, None], scale))
+                                    mask, scale))
     return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
 
 

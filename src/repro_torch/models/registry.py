@@ -3,8 +3,8 @@
 A ``Model`` bundles plain functions over a flat parameter dict
 (``{"embed": ..., "blocks.wq": ..., ...}``, leaf names and layouts as in
 the JAX package) and the device it runs on: the serving hooks of the
-decoder families and the training hooks of the ResNet, DenseNet and
-dense-LM families.
+decoder families (dense LMs, Mamba-2) and the training hooks of the
+ResNet, DenseNet, dense-LM, BERT and Mamba-2 families.
 """
 from __future__ import annotations
 
@@ -27,8 +27,9 @@ class Model:
     # dtype (what the serving functions expect; see transformer.prepare)
     prepare: Callable
     # training: loss_fn(params, batch, qflags) -> mean loss; qflags is one
-    # host-side bool per DPQuant policy layer.  forward(params, image,
-    # qflags) -> logits (resnet, densenet)
+    # host-side bool per DPQuant policy layer, or the trainer's flags
+    # tensor.  forward(params, image, qflags) -> logits (resnet,
+    # densenet); forward(params, tokens, qflags) -> logits (bert)
     forward: Optional[Callable] = None
     loss_fn: Optional[Callable] = None
     # ghost DP (dense_lm, resnet, densenet): per_example_loss(params,
@@ -45,6 +46,9 @@ class Model:
     # (logits, cache) with per-slot positions in cache["pos"]
     decode_slots: Optional[Callable] = None
     slot_cache_spec: Optional[Callable] = None
+    # KV-cache storage formats of the serve path; the callers pass a
+    # ``kv_fmt`` argument only for formats beyond "none", so a family
+    # without a KV cache takes none
     kv_formats: tuple = ("none",)
 
 
@@ -64,7 +68,7 @@ def build_model(config: ModelConfig, quant: Optional[QuantConfig] = None,
     when no GPU is available and ``device`` was not given)."""
     dev = resolve_device(device)
     quant = quant or QuantConfig()
-    for module in ("transformer", "resnet", "densenet"):
+    for module in ("transformer", "resnet", "densenet", "bert", "mamba2"):
         importlib.import_module(f"repro_torch.models.{module}")
     if config.family not in _BUILDERS:
         raise ValueError(f"unknown model family: {config.family}")

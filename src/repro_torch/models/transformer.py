@@ -54,20 +54,16 @@ _MATMUL_LEAVES = ("wq", "wk", "wv", "wo", "wi_gate", "wi_up", "wo_mlp")
 # --------------------------------------------------------------------------- #
 # params
 # --------------------------------------------------------------------------- #
-def init_params(seed: int, cfg: ModelConfig, device) -> dict:
-    """Random parameters from ``seed`` (same shapes and init scales as the
-    JAX package, not the same numbers: torch draws its own stream)."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+def init_block_stack(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    """The ``blocks.<leaf>`` stacks of ``cfg.n_layers`` pre-norm blocks,
+    drawn from ``gen`` (shapes and init scales of the JAX package's
+    ``init_block_stack``)."""
     pdt = torch_dtype(cfg.param_dtype)
     d, hp, kv, hd, f, L = (cfg.d_model, cfg.padded_heads, cfg.n_kv_heads,
                            cfg.head_dim, cfg.d_ff, cfg.n_layers)
     init = functools.partial(cm.dense_init, generator=gen, device=device,
                              dtype=pdt)
-    params = {
-        "embed": cm.embed_init((cfg.padded_vocab, d), generator=gen,
-                               device=device, dtype=pdt),
-        "final_norm": torch.zeros((d,), dtype=pdt, device=device),
+    blocks = {
         "blocks.attn_norm": torch.zeros((L, d), dtype=pdt, device=device),
         "blocks.wq": init((L, d, hp, hd), d),
         "blocks.wk": init((L, d, kv, hd), d),
@@ -79,9 +75,27 @@ def init_params(seed: int, cfg: ModelConfig, device) -> dict:
         "blocks.wo_mlp": init((L, f, d), f),
     }
     # zero the padded query heads so padding is semantics-preserving
-    params["blocks.wq"][:, :, cfg.n_heads:, :] = 0
+    blocks["blocks.wq"][:, :, cfg.n_heads:, :] = 0
+    return blocks
+
+
+def init_params(seed: int, cfg: ModelConfig, device) -> dict:
+    """Random parameters from ``seed`` (same shapes and init scales as the
+    JAX package, not the same numbers: torch draws its own stream)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    pdt = torch_dtype(cfg.param_dtype)
+    d = cfg.d_model
+    params = {
+        "embed": cm.embed_init((cfg.padded_vocab, d), generator=gen,
+                               device=device, dtype=pdt),
+        "final_norm": torch.zeros((d,), dtype=pdt, device=device),
+        **init_block_stack(gen, cfg, device),
+    }
     if not cfg.tie_embeddings:
-        params["lm_head"] = init((d, cfg.padded_vocab), d)
+        params["lm_head"] = cm.dense_init((d, cfg.padded_vocab), d,
+                                          generator=gen, device=device,
+                                          dtype=pdt)
     return params
 
 

@@ -28,7 +28,8 @@ Per-example quantization: the quantizer is the custom op
 becomes the rows of one kernel call, each row scaled by its own
 ``max|x|`` and all rows against one shared draw: what the JAX package
 computes when ``vmap`` hands each lane one example and an unbatched key.
-A weight is not batched and is quantized whole, as one row.
+A weight is not batched and is quantized whole, as one row; an
+activation in the weight's slot of ``qeinsum`` is batched like ``x``.
 
 ``qeinsum`` and ``qconv2d`` also have an explicit per-example mode
 (``per_example=True``), which the ghost engine's hooks
@@ -392,7 +393,12 @@ def qeinsum(spec: str, x: torch.Tensor, w: torch.Tensor, *, seed: int,
             per_example: bool = False, tap: Optional[torch.Tensor] = None,
             tap_norm: Optional[Callable] = None) -> torch.Tensor:
     """Quantization-aware einsum of an activation ``x`` (leading axis: the
-    examples) and a weight ``w``.  ``seed`` is host-side; ``flag`` is the
+    examples) and a weight ``w``, or a second activation in ``w``'s slot
+    (Mamba-2's SSD contractions, ``C B^T`` and ``gate @ (x dt)``): outside
+    ``vmap`` each operand is quantized whole, and under ``vmap`` (the DP
+    engine's per-example gradients) a batched ``w`` is quantized one row
+    per example with the stream's one draw, as a batched ``x`` is, by the
+    custom op's vmap rule.  ``seed`` is host-side; ``flag`` is the
     layer's policy flag, a device tensor or a host bool, as in
     :func:`qconv2d` (a host flag that is off, or ``fmt="none"``, runs the
     plain einsum unless it is tapped).

@@ -17,17 +17,21 @@ from repro_torch.serve.engine import sample_tokens
 
 
 def build_oneshot_fns(model, cache_len: int, kv_fmt: str = "none") -> Tuple:
-    """The (prefill, decode) pair for a cache of ``cache_len`` positions."""
+    """The (prefill, decode) pair for a cache of ``cache_len`` positions.
+    ``kv_fmt`` is passed on only beyond ``"none"``, as the JAX package's
+    registry fixes it: a family without a KV cache (Mamba-2) has no such
+    argument."""
     if kv_fmt not in model.kv_formats:
         raise ValueError(
             f"model family {model.config.family!r} does not support "
             f"kv_fmt={kv_fmt!r} (supported: {model.kv_formats})")
+    kv = {} if kv_fmt == "none" else {"kv_fmt": kv_fmt}
 
     def prefill_fn(params, batch):
-        return model.prefill(params, batch, cache_len=cache_len, kv_fmt=kv_fmt)
+        return model.prefill(params, batch, cache_len=cache_len, **kv)
 
     def decode_fn(params, cache, token):
-        return model.decode_step(params, cache, token, kv_fmt=kv_fmt)
+        return model.decode_step(params, cache, token, **kv)
 
     return prefill_fn, decode_fn
 

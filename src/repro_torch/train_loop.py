@@ -12,9 +12,9 @@ The counterpart of ``repro.train_loop``.  Per epoch:
      trainer's (policy_len,) float32 flags tensor ``qflags`` on the device
      (one copy an epoch), which the quantizers read on the device;
   3. ``steps_per_epoch`` DP-SGD/DP-Adam steps on Poisson-sampled batches
-     (images or token sequences);
-  4. optional eval (the ResNet and DenseNet families; a dense LM has no
-     eval set), and a checkpoint when a directory is given (params,
+     (images, token sequences, or labelled token sequences);
+  4. optional eval (the classification families: ResNet, DenseNet and
+     BERT; an LM has no eval set), and a checkpoint when a directory is given (params,
      optimizer state, accountant, scheduler, sampler and probe RNG).
 
 Two epoch executors (``RunConfig.epoch_executor``), as in the reference:
@@ -357,10 +357,16 @@ class Trainer:
         return float((preds == batch["label"].cpu().numpy()).mean())
 
     def _predict(self, batch, flags) -> np.ndarray:
-        if self.run.model.family not in ("resnet", "densenet"):
-            raise ValueError(f"no predict for family {self.run.model.family}")
+        """Class predictions of a classification family: a CNN's logits
+        of the images, BERT's of the [CLS] row through ``cls_w``,
+        ``cls_b``."""
+        inputs = {"resnet": "image", "densenet": "image", "bert": "tokens"}
+        family = self.run.model.family
+        if family not in inputs:
+            raise ValueError(f"no predict for family {family}")
         with torch.no_grad():
-            logits = self.model.forward(self.params, batch["image"], flags)
+            logits = self.model.forward(self.params, batch[inputs[family]],
+                                        flags)
         return logits.argmax(-1).cpu().numpy()
 
     # ------------------------------------------------------------------ #
