@@ -16,9 +16,14 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    ``luq_quant`` and
    ``ghost_norm_sq``; BERT-SNLI and Mamba-2-130m training: ``luq_quant``
    at a weight and at per-example rows (Mamba-2's the SSD's gate
-   operand) and ``per_sample_clip`` at their parameter counts; yi-6b
-   serving: the KV cache write, decode attention
-   and the quantized matmul), and times kernel, plain version, the least
+   operand) and ``per_sample_clip`` at their parameter counts;
+   RecurrentGemma-9B (cut to 5 layers) and InternVL2-1B training:
+   ``luq_quant`` at an MLP weight and a microbatch's MLP hidden rows,
+   ``per_sample_clip`` at their parameter counts (the Griffin's
+   2,174,889,984, the first row beyond 2^31 elements); yi-6b serving: the
+   KV cache write, decode attention and the quantized matmul; InternVL2-1B
+   serving: the quantized matmul, 8 rows x 896 x 151,680 against one
+   shared key), and times kernel, plain version, the least
    time the card could take (``bound_ms``) and, where PyTorch computes
    the same function, that yardstick (``library_ms``; for the LUQ matmul
    and the ghost norm, ``torch.bmm`` of the bf16 LUQ codes with float32
@@ -189,7 +194,37 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    layers (decode runs the conv on bf16 weights, prefill on float32
    ones, as the reference does; at random init each layer amplifies
    that rounding difference, and the bf16 full-depth difference is
-   printed); prints prefill ms and decode tokens/s.
+   printed); prints prefill ms and decode tokens/s;
+12. trains RecurrentGemma-9B (the Griffin hybrid) at full width cut to 5
+   layers (one (rec, rec, attn) superblock and the 2-layer recurrent
+   tail; 2,174,889,984 parameters, bf16 compute) the way of phases 9-10,
+   ``TRAIN_GRIFFIN_ARGV`` (``--batch 8 --microbatch 1 --seq-len 256``):
+   k = 4 of 5, the same checks;
+13. serves RecurrentGemma-9B whole (38 layers, 9,396,195,328 parameters)
+   through the oneshot engine (``SERVE_GRIFFIN_ARGV``: 4 prompts of 2,560
+   tokens, beyond the attention window of 2,048, 32 new tokens, greedy,
+   bf16, eager decode steps): the tokens' shape and range, no kernel of
+   the port launched; prints prefill ms, decode tokens/s and the peak
+   memory; then in float32 at 5 layers (the first superblock and the
+   tail) decode's logits against a prefill of the extended prompt within
+   1e-2 of the largest logit, for a 64-token prompt in a cache of 96
+   positions (32 steps; the ring of the window, which the reference sizes
+   by the prompt) and for a 2,100-token prompt (8 steps past the window);
+14. trains InternVL2-1B whole (24 layers, 499,280,768 parameters, bf16
+   compute) the same way, ``TRAIN_VLM_ARGV`` (``--batch 32 --microbatch
+   8 --seq-len 512``): k = 22 of 24, the same checks; and, with the
+   trained params on 2 sequences with a Gaussian vision prefix, the
+   masked prefix takes no part in the loss (the token ids under it change
+   nothing, bit for bit; the loss within 1e-5 of the mean NLL of the
+   unmasked predictions computed apart);
+15. serves InternVL2-1B whole through the oneshot engine
+   (``SERVE_VLM_ARGV``: 8 prompts of 512 positions, the first 256 a
+   Gaussian vision prefix, 32 new tokens, greedy, the luq_fp4 logits head
+   on the ``cuda`` backend): the tokens' shape and range, ``luq_matmul``
+   launched at prefill and at every decode step; prints prefill ms and
+   decode tokens/s; then in float32 with an exact head decode's logits
+   against a prefill of the extended prompt (the same vision prefix),
+   within 1e-2 of the largest logit.
 
 Each phase prints its wall, and a ``phase walls`` line sums them up.  The
 line before the last is ``{"kernels": [...]}``; the last line is
@@ -428,47 +463,55 @@ def check_decode_attn(torch, ops, ref, kvc, fmt, B, S, reps=50):
     }
 
 
-def check_luq_matmul(torch, ops, ref, folds, sm_clock_mhz, reps=10):
-    """The logits head, (R, 4096) x (4096, 64000), drawing its uniforms
-    with Philox from the logits head's keys, one key and one scale a row,
-    the keys an (R, 2) device tensor built from the rows' folds as the
-    graphs build them: at decode the slots' folds 2 pos + 1, at prefill
-    one row with the fold 2 prompt_len.  The plain version draws the same
-    stream in PyTorch, b in column chunks; the kernel must agree within
-    the tolerance and give the same bits twice; the device keys must give
-    the bits of the same keys as a host list, in the kernel and in the
-    plain version, and one row's device key the bits of its fold's shared
-    key (the lockstep prefill's branch)."""
+def check_luq_matmul(torch, ops, ref, folds, sm_clock_mhz, reps=10,
+                     K=4096, N=64000, shared=False):
+    """The logits head, (R, K) x (K, N) (yi-6b's 4096 x 64000 by default),
+    drawing its uniforms with Philox from the logits head's keys, one key
+    and one scale a row, the keys an (R, 2) device tensor built from the
+    rows' folds as the graphs build them: at decode the slots' folds 2 pos
+    + 1, at prefill one row with the fold 2 prompt_len.  ``shared``: the
+    R rows quantized as one matrix (one scale) against the one key of
+    ``folds[0]``, as a lockstep batch's prefill and decode quantize them
+    (the VLM's head).  The plain version draws the same stream in
+    PyTorch, b in column chunks; the kernel must agree within the
+    tolerance and give the same bits twice; the device keys must give the
+    bits of the same keys as a host list, in the kernel and in the plain
+    version, and one row's device key the bits of its fold's shared key
+    (the lockstep prefill's branch)."""
     from repro_torch.models.common import logits_key, logits_keys
     from repro_torch.quant import philox
     from repro_torch.quant.formats import luq_fp4, luq_fp4_codes
 
-    R, K, N = len(folds), 4096, 64000
-    key_list = [logits_key(f) for f in folds]
-    keys = logits_keys(torch.tensor(folds, dtype=torch.int32, device="cuda"))
+    R = len(folds)
+    key_list = [logits_key(f) for f in folds[:1 if shared else R]]
+    keys = (key_list[0] if shared else
+            logits_keys(torch.tensor(folds, dtype=torch.int32, device="cuda")))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2 + (R > 1))
     a = torch.randn(R, K, device="cuda", generator=gen)
     b = torch.randn(K, N, device="cuda", generator=gen) / 64
-    alpha_a = a.abs().amax(dim=1)
+    alpha_a = a.abs().amax() if shared else a.abs().amax(dim=1)
     alpha_b = b.abs().amax()
     args = (a, b, keys, alpha_a, alpha_b)
     out = ops.luq_matmul(*args)
     if not torch.equal(out, ops.luq_matmul(*args)):
         raise AssertionError(f"luq_matmul (R = {R}): two runs differ")
     want = ref.luq_matmul_keys_ref(*args)
-    if not torch.equal(out, ops.luq_matmul(a, b, key_list, alpha_a,
-                                           alpha_b)):
+    if not shared and not torch.equal(out, ops.luq_matmul(
+            a, b, key_list, alpha_a, alpha_b)):
         raise AssertionError("luq_matmul: device keys and host keys give "
                              "other bits")
-    if not torch.equal(want, ref.luq_matmul_keys_ref(a, b, key_list, alpha_a,
-                                                     alpha_b)):
+    if not shared and not torch.equal(want, ref.luq_matmul_keys_ref(
+            a, b, key_list, alpha_a, alpha_b)):
         raise AssertionError("luq_matmul's plain version: device keys and "
                              "host keys give other bits")
-    if R == 1 and not torch.equal(out, ops.luq_matmul(
+    if R == 1 and not shared and not torch.equal(out, ops.luq_matmul(
             a, b, key_list[0], alpha_a.reshape(()), alpha_b)):
         raise AssertionError("luq_matmul: one row's device key and its "
                              "shared key give other bits")
-    ua = torch.stack([philox.uniforms(k, 0, K, "cuda") for k in key_list])
+    if shared:
+        ua = philox.uniforms(key_list[0], 0, R * K, "cuda").reshape(R, K)
+    else:
+        ua = torch.stack([philox.uniforms(k, 0, K, "cuda") for k in key_list])
     aq = luq_fp4(a, ua, alpha_a.reshape(-1, 1))
     ca = luq_fp4_codes(a, ua, alpha_a.reshape(-1, 1))
     # Q(b) of each key's draw, in full (one GB each), and its bf16 codes
@@ -482,17 +525,24 @@ def check_luq_matmul(torch, ops, ref, folds, sm_clock_mhz, reps=10):
     bq, cb = torch.stack(bq), torch.stack(cb)
     # the yardsticks, one batched product of operands quantized
     # beforehand: the bf16 codes with float32 sums and output, scaled at
-    # the end (products of codes are exact), and the float32 values
-    aq3, ca3 = aq[:, None, :], ca[:, None, :]
-    scale = (alpha_a * alpha_b)[:, None, None]
+    # the end (products of codes are exact), and the float32 values; a
+    # shared key's rows are one batch entry
+    if shared:
+        aq3, ca3 = aq[None], ca[None]
+    else:
+        aq3, ca3 = aq[:, None, :], ca[:, None, :]
+    scale = (alpha_a * alpha_b).reshape(-1, 1, 1)
+
+    def rows(t):
+        return t[0] if shared else t[:, 0]
 
     def codes_bmm():
         return scale * torch.bmm(ca3, cb, out_dtype=torch.float32)
 
     err = (out - want).abs().max().item()
-    lib, lib32 = codes_bmm()[:, 0], torch.bmm(aq3, bq)[:, 0]
+    lib, lib32 = rows(codes_bmm()), rows(torch.bmm(aq3, bq))
     for i in range(R):
-        tol = 1e-5 * (aq[i].abs() @ bq[i].abs()) + 1e-6
+        tol = 1e-5 * (aq[i].abs() @ bq[0 if shared else i].abs()) + 1e-6
         for what, got in (("luq_matmul", out), ("the bf16 codes' bmm", lib),
                           ("the float32 bmm", lib32)):
             if not ((got[i] - want[i]).abs() <= tol).all():
@@ -501,7 +551,8 @@ def check_luq_matmul(torch, ops, ref, folds, sm_clock_mhz, reps=10):
                     f"{(got[i] - want[i]).abs().max().item()})")
     del lib, lib32
     # a, Q(a)'s scratch, b, the scales, the keys and the output
-    nbytes = 4 * (2 * R * K + K * N + R + 1 + 2 * R + R * N)
+    nbytes = 4 * (2 * R * K + K * N + alpha_a.numel() + 1
+                  + 2 * len(key_list) + R * N)
     # Philox calls: a's elements one a call; b's 4 a call, for each key
     calls = R * K + len(key_list) * K * N // 4
     flops = 2 * R * K * N + LUQ_OPS * (K * N + R * K)
@@ -609,21 +660,45 @@ def check_luq_quant(torch, ops, ref, rows, n, dtype, sm_clock_mhz, reps=50):
     }
 
 
+def _rows_product(torch, v, m):
+    """``v @ m`` of (B,) and (B, D): one call, or one a column chunk of
+    2^30 where D is beyond what one cuBLAS call takes."""
+    if m.shape[1] < 2 ** 31 - 1:
+        return v @ m
+    return torch.cat([v @ m[:, c0:c0 + 2 ** 30]
+                      for c0 in range(0, m.shape[1], 2 ** 30)])
+
+
 def check_per_sample_clip(torch, ops, ref, B, D, reps=10):
     """Per-example clip and sum of (B, D) rows, with a zero row and a row
-    whose norm is below C; the yardstick is two PyTorch calls:
-    ``torch.linalg.vector_norm(g, dim=1)``, then ``scale @ g``."""
+    whose norm is below C (given two rows); the yardstick is two PyTorch
+    calls:
+    ``torch.linalg.vector_norm(g, dim=1)``, then ``scale @ g`` (in
+    column chunks of 2^30 beyond cuBLAS's 2^31 - 1 columns)."""
     C = 1.0
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     g = torch.randn(B, D, device="cuda", generator=gen) * 1e-3
-    g[0] = 0.0
-    g[1] *= 0.1 / g[1].norm()
+    if B > 1:
+        g[0] = 0.0
+        g[1] *= 0.1 / g[1].norm()
     out, norms = ops.clip_and_sum(g, C)
     want, want_norms = ref.per_sample_clip_ref(g, C)
+    # the norms in float64, a chunk of columns at a time: the float32
+    # sums' rounding (the kernel's and the plain version's) against them
+    sq64 = torch.zeros(B, dtype=torch.float64, device="cuda")
+    step = (1 << 28) // B
+    for c0 in range(0, D, step):
+        sq64 += g[:, c0:c0 + step].double().square().sum(dim=1)
+    norms64 = sq64.sqrt()
+    norm_err = {
+        "kernel": ((norms.double() - norms64).abs() / norms64.clamp(
+            min=1e-30)).max().item(),
+        "plain": ((want_norms.double() - norms64).abs() / norms64.clamp(
+            min=1e-30)).max().item()}
     torch.testing.assert_close(norms, want_norms, rtol=1e-5, atol=0.0)
     scale = torch.clamp(C / torch.clamp(want_norms, min=1e-12), max=1.0)
     err = (out - want).abs()
-    tol = 1e-5 * (scale @ g.abs()) + 1e-12
+    tol = 1e-5 * _rows_product(torch, scale, g.abs()) + 1e-12
     if not (err <= tol).all():
         raise AssertionError(f"clip_and_sum outside tolerance (max abs err "
                              f"{err.max().item()})")
@@ -636,13 +711,15 @@ def check_per_sample_clip(torch, ops, ref, B, D, reps=10):
 
     def two_calls():
         n = torch.linalg.vector_norm(g, dim=1)
-        return torch.clamp(C / torch.clamp(n, min=1e-12), max=1.0) @ g
+        return _rows_product(
+            torch, torch.clamp(C / torch.clamp(n, min=1e-12), max=1.0), g)
 
     lib = two_calls()
     torch.testing.assert_close(lib, want, rtol=1e-4, atol=1e-6)
     nbytes = 4 * (B * D + D + B)
     return {
         "max_abs_err": max_err,
+        "norm_rel_err_float64": norm_err,
         "ms": time_ms(torch, lambda: ops.clip_and_sum(g, C), reps),
         "plain_ms": time_ms(torch, lambda: ref.per_sample_clip_ref(g, C), reps),
         **dict(zip(("bound_ms", "bound_by"), bound(nbytes, 4.0 * B * D))),
@@ -808,6 +885,18 @@ MAMBA2_PARAMS = 128_971_200
 # both operands per example (6 row calls each)
 BERT_PER_PASS = (12 * 6 * 2, 12 * 6 * 4)
 MAMBA2_PER_PASS = (24 * 2 * 2, 24 * (2 * 4 + 2 * 6))
+
+# RecurrentGemma-9B whole and cut to 5 layers, InternVL2-1B whole (the
+# JAX package's eval_shape)
+GRIFFIN_PARAMS = 9_396_195_328
+GRIFFIN_TRAIN_PARAMS = 2_174_889_984
+VLM_PARAMS = 499_280_768
+# quantize calls of one row and of rows a microbatch pass makes (2 and 4 a
+# projection): the 5-layer Griffin, four recurrent layers of 5 mixer and
+# 3 MLP projections and one attention layer of 4 and 3; InternVL2-1B, 24
+# layers of 7
+GRIFFIN_PER_PASS = (2 * 39, 4 * 39)
+VLM_PER_PASS = (24 * 7 * 2, 24 * 7 * 4)
 
 # Epsilon by epoch of each workload's run under commit 27090d7 (its
 # chip_smoke.py, the policy host bools, the first two epochs): the
@@ -984,8 +1073,8 @@ def train_cnn(torch, ops, wl, argv, want_k, want_params):
                 .conv_layers(cfg))
     q_convs, q_stems = passes * convs, passes
     calls = 6 * q_convs - 2 * q_stems
-    want_q = {"luq_quant": calls, "luq_quant[one_row]": 2 * q_convs - q_stems,
-              "luq_quant[rows]": 4 * q_convs - q_stems,
+    want_q = {"luq_quant": calls, "luq_quant[whole]": 2 * q_convs - q_stems,
+              "luq_quant[per_example]": 4 * q_convs - q_stems,
               "luq_quant[kernels]": 2 * calls}
     for key, n in want_q.items():
         if launches[key] != n:
@@ -2223,17 +2312,20 @@ def host_epsilon(run, n_data: int, epochs: int) -> list:
     return out
 
 
-def train_vmap_lm(torch, ops, wl, argv, want_k, want_params, per_pass):
-    """DP training of a token model whole (BERT-SNLI, Mamba-2-130m) in
-    vmap mode with the fused clip under the DPQuant scheduler, the
-    workload of ``argv`` (``repro_torch/launch/workload.py``), under the
-    scan executor: 3 epochs, the analysis in epochs 0 and 2, one graph of
-    the step and one of the probe step.  ``per_pass``: the quantize calls
-    of one row and of rows that one microbatch's forward and backward
+def train_vmap_lm(torch, ops, wl, argv, want_k, want_params, per_pass,
+                  n_layers=None, after=None):
+    """DP training of a token model (BERT-SNLI, Mamba-2-130m, Griffin,
+    InternVL2-1B) in vmap mode with the fused clip under the DPQuant
+    scheduler, the workload of ``argv`` (``repro_torch/launch/workload.py``)
+    at ``n_layers`` (None: the config's depth), under the scan executor: 3
+    epochs, the analysis in epochs 0 and 2, one graph of the step and one
+    of the probe step.  ``per_pass``: the quantize calls of whole tensors
+    and of per-example rows that one microbatch's forward and backward
     make.  Checks every loss finite, k, epsilon equal to a host
     accountant's, one capture of each graph, the parameter count and the
-    clip's and quantizer's launches; returns the launch counts and the
-    run's summary."""
+    clip's and quantizer's launches; ``after(trainer)``, if given, runs
+    on the trained model and its result joins the summary; returns the
+    launch counts and the run's summary."""
     from repro_torch.quant import backend as qbackend
     from repro_torch.train_loop import Trainer
 
@@ -2241,7 +2333,7 @@ def train_vmap_lm(torch, ops, wl, argv, want_k, want_params, per_pass):
             or qbackend.get_clip_sum("fused")[1] != "cuda"):
         raise AssertionError("the quantizer or the fused clip does not run "
                              "on the cuda backend")
-    run, ds, ev = wl.setup(argv)
+    run, ds, ev = wl.setup(argv, n_layers)
     if run.epoch_executor != "scan" or run.dp.grad_mode != "vmap":
         raise AssertionError(f"the workload runs {run.epoch_executor!r}, "
                              f"{run.dp.grad_mode!r}")
@@ -2299,17 +2391,21 @@ def train_vmap_lm(torch, ops, wl, argv, want_k, want_params, per_pass):
     passes = ((epochs * steps + out["warmups"]["epoch"]) * (batch // micro)
               + (probe_steps + out["warmups"]["probe"])
               * (probe_batch // micro))
-    one_row, rows = (passes * n for n in per_pass)
-    want = {"clip_and_sum": passes, "luq_quant": one_row + rows,
-            "luq_quant[one_row]": one_row, "luq_quant[rows]": rows,
-            "luq_quant[kernels]": 2 * (one_row + rows)}
+    whole, per_example = (passes * n for n in per_pass)
+    want = {"clip_and_sum": passes, "luq_quant": whole + per_example,
+            "luq_quant[whole]": whole, "luq_quant[per_example]": per_example,
+            "luq_quant[kernels]": 2 * (whole + per_example)}
     for key, n in want.items():
         if launches[key] != n:
             raise AssertionError(f"{name}: {key} launched {launches[key]} "
                                  f"times, want {n}")
     summary = {**out, "tokens_per_s": batch * seq / med[-1] * 1e3,
                "peak_gib": peak, "accuracy": accuracy,
-               "host_eps": want_eps}
+               "host_eps": want_eps, "wall_s": wall}
+    if after is not None:
+        summary["after"] = after(tr)
+        print(f"{name} after training: {json.dumps(summary['after'])}",
+              flush=True)
     del tr
     _free(torch)
     return launches, summary
@@ -2321,19 +2417,25 @@ def _logits_rel(torch, got, want) -> float:
             / want.float().abs().max()).item()
 
 
-def _decode_vs_prefill(torch, model, params, batch, steps: int):
+def _decode_vs_prefill(torch, model, params, batch, steps: int,
+                       cache_len=None, extra=None):
     """The largest ``_logits_rel`` over ``steps`` greedy decode steps of
     decode's logits against a prefill of the prompt extended by the
-    tokens so far, and the share of rows whose greedy tokens agree."""
+    tokens so far, and the share of rows whose greedy tokens agree.
+    ``cache_len``: the decode cache's positions (default: the prompt and
+    the steps); ``extra``: the batch's other inputs (the VLM's
+    ``vision_embeds``), in every prefill."""
     from repro_torch.serve import build_oneshot_fns
-    prefill, decode = build_oneshot_fns(model, batch.shape[1] + steps)
-    logits, cache = prefill(params, {"tokens": batch})
+    extra = extra or {}
+    prefill, decode = build_oneshot_fns(model,
+                                        cache_len or batch.shape[1] + steps)
+    logits, cache = prefill(params, {"tokens": batch, **extra})
     seq, worst, agree = batch, 0.0, []
     for _ in range(steps):
         tok = logits.argmax(-1)
         seq = torch.cat([seq, tok[:, None].to(seq.dtype)], dim=1)
         logits, cache = decode(params, cache, tok)
-        want, _ = prefill(params, {"tokens": seq})
+        want, _ = prefill(params, {"tokens": seq, **extra})
         worst = max(worst, _logits_rel(torch, logits, want))
         agree.append((logits.argmax(-1) == want.argmax(-1)).float().mean()
                      .item())
@@ -2362,29 +2464,15 @@ def serve_mamba2(torch, ops, wl):
     bf16 at full width cut to 2 layers, printed in bf16 at full depth."""
     import dataclasses
     from repro_torch.models.registry import build_model
-    from repro_torch.serve import build_oneshot_fns, oneshot_generate
 
-    model, params, batch, args = wl.serve_setup(wl.SERVE_MAMBA2_ARGV)
+    model, params, batch, args, gen, timings, launches, peak = _oneshot_run(
+        torch, ops, wl, wl.SERVE_MAMBA2_ARGV)
     cfg = model.config
     tokens = batch["tokens"]
     B, plen = tokens.shape
-    prefill, decode = build_oneshot_fns(model, plen + args.gen)
-    oneshot_generate(prefill, decode, params, batch, 4)       # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    gen, timings = oneshot_generate(prefill, decode, params, batch, args.gen)
-    launches = dict(ops.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    if gen.shape != (B, args.gen) or not (
-            (gen >= 0) & (gen < cfg.padded_vocab)).all():
-        raise AssertionError(f"{cfg.name}: generated {gen.shape} tokens, "
-                             f"range {gen.min()}..{gen.max()}")
     if any(launches.values()):
         raise AssertionError(f"{cfg.name} serving launched {launches}; its "
                              "path has no kernel of the port")
-    prefill_ms = time_ms(torch, lambda: prefill(params, batch), 5)
-    decode_tps = (args.gen - 1) * B / timings["decode_s"]
     full_rel, full_agree = _decode_vs_prefill(torch, model, params, tokens, 3)
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     m32 = build_model(cfg32, model.quant)
@@ -2398,10 +2486,11 @@ def serve_mamba2(torch, ops, wl):
         torch, build_model(cut, model.quant), p_cut, tokens, 3)
     summary = {
         "batch": B, "prompt": plen, "new_tokens": args.gen,
-        "prefill_ms": prefill_ms,
+        "prefill_ms": timings["prefill_ms"],
         "prefill_wall_ms": timings["prefill_s"] * 1e3,
         "decode_wall_ms": timings["decode_s"] * 1e3,
-        "decode_tokens_per_s": decode_tps, "peak_gib": peak,
+        "decode_tokens_per_s": timings["decode_tokens_per_s"],
+        "peak_gib": peak,
         "decode_vs_prefill": {
             "bf16_full_depth": {"rel": full_rel, "argmax_agree": full_agree},
             "float32_full_depth": {"rel": f32_rel, "argmax_agree": f32_agree,
@@ -2422,6 +2511,184 @@ def serve_mamba2(torch, ops, wl):
     del model, params
     _free(torch)
     return summary
+
+
+# phase 13's float32 decode against prefill at 5 layers: (prompt, cache
+# positions, steps): a prompt shorter than the window in a cache that
+# serves 96 positions (the reference's decode attends over the prompt's
+# length there), and one past the window
+GRIFFIN_DECODE_CASES = ((64, 96, 32), (2100, 2108, 8))
+GRIFFIN_DECODE_LAYERS = 5
+
+
+def _oneshot_run(torch, ops, wl, argv):
+    """The oneshot serving workload of ``argv``: a short warm-up, then the
+    timed run with the launches counted and the peak memory; returns
+    ``(model, params, batch, args, tokens, timings, launches, peak)``."""
+    from repro_torch.serve import build_oneshot_fns, oneshot_generate
+
+    model, params, batch, args = wl.serve_setup(argv)
+    cfg = model.config
+    prefill, decode = build_oneshot_fns(model,
+                                        args.prompt_len + args.gen)
+    oneshot_generate(prefill, decode, params, batch, 2)       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    gen, timings = oneshot_generate(prefill, decode, params, batch, args.gen)
+    launches = serve_launches(ops)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if gen.shape != (args.batch, args.gen) or not (
+            (gen >= 0) & (gen < cfg.padded_vocab)).all():
+        raise AssertionError(f"{cfg.name}: generated {gen.shape} tokens, "
+                             f"range {gen.min()}..{gen.max()}")
+    timings["prefill_ms"] = time_ms(torch, lambda: prefill(params, batch), 3)
+    timings["decode_tokens_per_s"] = ((args.gen - 1) * args.batch
+                                      / timings["decode_s"])
+    return model, params, batch, args, gen, timings, launches, peak
+
+
+def serve_griffin(torch, ops, wl):
+    """RecurrentGemma-9B whole through the oneshot engine
+    (``SERVE_GRIFFIN_ARGV``), no kernel of the port launched; then, in
+    float32 at 5 layers, decode against a prefill of the extended prompt
+    (``GRIFFIN_DECODE_CASES``), held at ``DECODE_F32_REL``."""
+    import dataclasses
+    from repro_torch.models.registry import build_model
+
+    t0 = time.perf_counter()
+    model, params, batch, args, gen, timings, launches, peak = _oneshot_run(
+        torch, ops, wl, wl.SERVE_GRIFFIN_ARGV)
+    cfg = model.config
+    n_params = sum(t.numel() for k, t in params.items())
+    if n_params != GRIFFIN_PARAMS:
+        raise AssertionError(f"{cfg.name}: {n_params} params, want "
+                             f"{GRIFFIN_PARAMS}")
+    if any(launches.values()):
+        raise AssertionError(f"{cfg.name} serving launched {launches}; its "
+                             "path has no kernel of the port")
+    B, plen = batch["tokens"].shape
+    if plen <= cfg.attn_window:
+        raise AssertionError("the workload's prompt does not pass the window")
+    # float32 at 5 layers: one superblock and the 2-layer tail
+    f32 = build_model(dataclasses.replace(cfg, compute_dtype="float32",
+                                          n_layers=GRIFFIN_DECODE_LAYERS),
+                      model.quant)
+    del params, model
+    _free(torch)
+    p32 = f32.prepare(f32.init(args.seed))
+    gen32 = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    cases = {}
+    for prompt, cache_len, steps in GRIFFIN_DECODE_CASES:
+        tokens = torch.randint(0, cfg.vocab_size, (2, prompt), device="cuda",
+                               generator=gen32)
+        rel, agree = _decode_vs_prefill(torch, f32, p32, tokens, steps,
+                                        cache_len=cache_len)
+        cases[f"prompt {prompt}, cache {cache_len}, {steps} steps"] = {
+            "rel": rel, "argmax_agree": agree, "held_at": DECODE_F32_REL}
+        if not rel <= DECODE_F32_REL:
+            raise AssertionError(f"griffin float32 decode vs prefill, prompt "
+                                 f"{prompt}: {rel} of the largest logit, "
+                                 f"want <= {DECODE_F32_REL}")
+    summary = {
+        "params": n_params, "batch": B, "prompt": plen,
+        "new_tokens": args.gen, "prefill_ms": timings["prefill_ms"],
+        "prefill_wall_ms": timings["prefill_s"] * 1e3,
+        "decode_wall_ms": timings["decode_s"] * 1e3,
+        "decode_tokens_per_s": timings["decode_tokens_per_s"],
+        "peak_gib": peak,
+        "decode_vs_prefill_float32_5_layers": cases,
+        "wall_s": time.perf_counter() - t0}
+    print(f"serve {cfg.name} oneshot: {json.dumps(summary)}; first row "
+          f"{gen[0, :16].tolist()}", flush=True)
+    del p32
+    _free(torch)
+    return summary
+
+
+def vlm_masked_prefix(torch, tr):
+    """With the trained params of an InternVL2-1B trainer ``tr``, on 2
+    sequences of the workload's length with a Gaussian vision prefix:
+    the token ids under the prefix change nothing, bit for bit, and the
+    loss is the mean NLL of the unmasked predictions computed apart
+    (within 1e-5)."""
+    from repro_torch.models import transformer as tfm
+
+    cfg = tr.run.model
+    nv, S = cfg.n_vision_tokens, tr.run.seq_len
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    tokens = torch.randint(0, cfg.vocab_size, (2, S), device="cuda",
+                           generator=gen)
+    vision = torch.randn((2, nv, cfg.d_model), device="cuda",
+                         generator=gen).to(torch.bfloat16)
+    flags = tr._set_flags(tr.scheduler.current.flags())
+    other = tokens.clone()
+    other[:, :nv] = (other[:, :nv] + 1) % cfg.vocab_size
+    with torch.no_grad():
+        loss = tr.model.loss_fn(tr.params, {"tokens": tokens,
+                                            "vision_embeds": vision}, flags)
+        same = tr.model.loss_fn(tr.params, {"tokens": other,
+                                             "vision_embeds": vision}, flags)
+        h = tfm.forward_hidden(tr.params, tokens, flags, cfg, tr.model.quant,
+                               inputs_embeds=vision)
+        logits = h[:, nv:-1].float() @ tr.params["embed"].float().T
+        logits[..., cfg.vocab_size:] = -1e30
+        nll = torch.nn.functional.cross_entropy(
+            logits.reshape(-1, logits.shape[-1]),
+            tokens[:, nv + 1:].reshape(-1).long())
+    if not torch.equal(loss, same):
+        raise AssertionError("vlm: the token ids under the vision prefix "
+                             "change the loss")
+    rel = abs(loss.item() - nll.item()) / abs(nll.item())
+    if not rel <= 1e-5:
+        raise AssertionError(f"vlm: loss {loss.item()} against the unmasked "
+                             f"predictions' mean NLL {nll.item()}")
+    return {"loss": loss.item(), "unmasked_mean_nll": nll.item(), "rel": rel}
+
+
+def serve_vlm(torch, ops, wl):
+    """InternVL2-1B whole through the oneshot engine (``SERVE_VLM_ARGV``,
+    the luq_fp4 head on the cuda backend): ``luq_matmul`` launched at
+    prefill and every decode step; then, in float32 with an exact head,
+    decode against a prefill of the extended prompt (the same vision
+    prefix), held at ``DECODE_F32_REL``; returns the summary and the
+    launches."""
+    import dataclasses
+    from repro_torch.config import QuantConfig
+    from repro_torch.models.registry import build_model
+
+    model, params, batch, args, gen, timings, launches, peak = _oneshot_run(
+        torch, ops, wl, wl.SERVE_VLM_ARGV)
+    cfg = model.config
+    want = {"luq_matmul[prefill]": 1, "luq_matmul[decode]": args.gen - 1}
+    for k, n in want.items():
+        if launches[k] != n:
+            raise AssertionError(f"{cfg.name} serving: {k} launched "
+                                 f"{launches[k]} times, want {n}")
+    f32 = build_model(dataclasses.replace(cfg, compute_dtype="float32"),
+                      QuantConfig(fmt="none"))
+    p32 = f32.prepare(f32.init(args.seed))
+    rel, agree = _decode_vs_prefill(
+        torch, f32, p32, batch["tokens"], 3,
+        extra={"vision_embeds": batch["vision_embeds"].float()})
+    summary = {
+        "batch": args.batch, "prompt": args.prompt_len,
+        "vision_tokens": cfg.n_vision_tokens, "new_tokens": args.gen,
+        "prefill_ms": timings["prefill_ms"],
+        "prefill_wall_ms": timings["prefill_s"] * 1e3,
+        "decode_wall_ms": timings["decode_s"] * 1e3,
+        "decode_tokens_per_s": timings["decode_tokens_per_s"],
+        "peak_gib": peak, "launches": launches,
+        "decode_vs_prefill_float32": {"rel": rel, "argmax_agree": agree,
+                                      "held_at": DECODE_F32_REL}}
+    print(f"serve {cfg.name} oneshot: {json.dumps(summary)}; first row "
+          f"{gen[0, :16].tolist()}", flush=True)
+    if not rel <= DECODE_F32_REL:
+        raise AssertionError(f"vlm float32 decode vs prefill: {rel} of the "
+                             f"largest logit, want <= {DECODE_F32_REL}")
+    del model, params, p32
+    _free(torch)
+    return summary, launches
 
 
 def serve_launches(ops) -> dict:
@@ -2516,6 +2783,12 @@ def main() -> int:
         name = f"luq_matmul[{branch}]"
         checks[name] = check_luq_matmul(torch, ops, ref, folds, sm_clock_mhz)
         print(f"{name} {checks[name]}")
+    # InternVL2-1B's lockstep head: 8 rows x 896 x 151,680, one shared key
+    # (the fold of the decode step at position 512)
+    checks["luq_matmul[vlm]"] = check_luq_matmul(
+        torch, ops, ref, [2 * 512 + 1] * 8, sm_clock_mhz, K=896, N=151_680,
+        shared=True)
+    print(f"luq_matmul[vlm] {checks['luq_matmul[vlm]']}")
     # the quantize op at its paths' shapes: ResNet-18's largest weight
     # (3x3x512x512) whole and largest activation under vmap (64 examples x
     # 32x32x64), float32; ResNet-50's (3x3x512x512; 64 x 32x32x256, a
@@ -2530,7 +2803,9 @@ def main() -> int:
     # activations (16 x 128 tokens x 768), float32; Mamba-2-130m's
     # in_proj weight (768 x 3352) whole, bf16, and the SSD's gate operand
     # of a microbatch (8 examples x 2 chunks x 24 heads x 256 x 256),
-    # float32
+    # float32; RecurrentGemma-9B's MLP weight (4096 x 12288) whole and
+    # one example's MLP hidden rows (256 tokens x 12288), InternVL2-1B's
+    # (896 x 4864; 8 x 512 tokens x 4864), bf16
     for name, rows, n, dtype in (
             ("luq_quant[resnet_weight]", 1, 3 * 3 * 512 * 512, torch.float32),
             ("luq_quant[resnet_activation]", 64, 32 * 32 * 64, torch.float32),
@@ -2557,19 +2832,31 @@ def main() -> int:
              wl.TRAIN_BERT_SEQ * 768, torch.float32),
             ("luq_quant[mamba2_weight]", 1, 768 * 3352, torch.bfloat16),
             ("luq_quant[mamba2_gate]", wl.TRAIN_MAMBA2_MICROBATCH,
-             2 * 24 * 256 * 256, torch.float32)):
+             2 * 24 * 256 * 256, torch.float32),
+            ("luq_quant[griffin_weight]", 1, 4096 * 12288, torch.bfloat16),
+            ("luq_quant[griffin_rows]", wl.TRAIN_GRIFFIN_MICROBATCH,
+             wl.TRAIN_GRIFFIN_SEQ * 12288, torch.bfloat16),
+            ("luq_quant[vlm_weight]", 1, 896 * 4864, torch.bfloat16),
+            ("luq_quant[vlm_rows]", wl.TRAIN_VLM_MICROBATCH,
+             wl.TRAIN_VLM_SEQ * 4864, torch.bfloat16)):
         checks[name] = check_luq_quant(torch, ops, ref, rows, n, dtype,
                                        sm_clock_mhz)
         print(f"{name} ({rows} x {n}, {dtype}) {checks[name]}")
     # the clip of a microbatch's per-example gradients: ResNet-18's,
-    # ResNet-50's and DenseNet-121's parameter counts
+    # ResNet-50's, DenseNet-121's, BERT-SNLI's, Mamba-2's, the 5-layer
+    # Griffin's (one row beyond 2^31 elements) and InternVL2-1B's
+    # parameter counts
     for name, b, d in (("per_sample_clip", 64, 11_190_891),
                        ("per_sample_clip[resnet50]", 64, 23_588_459),
                        ("per_sample_clip[densenet121]", 64, 6_990_251),
                        ("per_sample_clip[bert]", wl.TRAIN_BERT_MICROBATCH,
                         BERT_PARAMS),
                        ("per_sample_clip[mamba2]",
-                        wl.TRAIN_MAMBA2_MICROBATCH, MAMBA2_PARAMS)):
+                        wl.TRAIN_MAMBA2_MICROBATCH, MAMBA2_PARAMS),
+                       ("per_sample_clip[griffin]",
+                        wl.TRAIN_GRIFFIN_MICROBATCH, GRIFFIN_TRAIN_PARAMS),
+                       ("per_sample_clip[vlm]", wl.TRAIN_VLM_MICROBATCH,
+                        VLM_PARAMS)):
         checks[name] = check_per_sample_clip(torch, ops, ref, b, d)
         print(f"{name} ({b} x {d}) {checks[name]}")
         torch.cuda.empty_cache()
@@ -2798,6 +3085,34 @@ def main() -> int:
     serve_mamba2(torch, ops, wl)
 
     _phase_done(walls, "11 serve mamba2-130m")
+
+    # 12. RecurrentGemma-9B at full width, 5 layers, under DPQuant, scan
+    griffin_launches, griffin_summary = train_vmap_lm(
+        torch, ops, wl, wl.TRAIN_GRIFFIN_ARGV, 4, GRIFFIN_TRAIN_PARAMS,
+        GRIFFIN_PER_PASS, n_layers=wl.TRAIN_GRIFFIN_LAYERS)
+
+    _phase_done(walls, "12 train recurrentgemma-9b")
+
+    # 13. RecurrentGemma-9B whole, oneshot serving
+    serve_griffin(torch, ops, wl)
+
+    _phase_done(walls, "13 serve recurrentgemma-9b")
+
+    # 14. InternVL2-1B whole under DPQuant, scan
+    vlm_launches, vlm_summary = train_vmap_lm(
+        torch, ops, wl, wl.TRAIN_VLM_ARGV, 22, VLM_PARAMS, VLM_PER_PASS,
+        after=lambda tr: vlm_masked_prefix(torch, tr))
+    print(f"hybrid and vlm training ({card}): " + json.dumps(
+        {arch: {k: v[k] for k in keys + ("wall_s",)} for arch, v in
+         (("recurrentgemma-9b", griffin_summary),
+          ("internvl2-1b", vlm_summary))}))
+
+    _phase_done(walls, "14 train internvl2-1b")
+
+    # 15. InternVL2-1B oneshot serving, the luq_fp4 head
+    _, vlm_serve_launches = serve_vlm(torch, ops, wl)
+
+    _phase_done(walls, "15 serve internvl2-1b")
     del walls["start"]
     print(f"phase walls (s): {json.dumps(walls)}")
 
@@ -2817,26 +3132,28 @@ def main() -> int:
     }
     # launches of each row's kernel in its path's run: the training runs,
     # or the serving run of its KV format, or both serving runs
-    counts = {"luq_quant[resnet_weight]": train_launches["luq_quant[one_row]"],
+    counts = {"luq_quant[resnet_weight]": train_launches["luq_quant[whole]"],
               "luq_quant[resnet_activation]":
-                  train_launches["luq_quant[rows]"],
-              "luq_quant[lm_weight]": lm_launches["luq_quant[one_row]"],
-              "luq_quant[lm_rows]": lm_launches["luq_quant[rows]"],
+                  train_launches["luq_quant[per_example]"],
+              "luq_quant[lm_weight]": lm_launches["luq_quant[whole]"],
+              "luq_quant[lm_rows]": lm_launches["luq_quant[per_example]"],
               "per_sample_clip": train_launches["clip_and_sum"]}
     for arch, c in cnn_launches.items():
-        counts[f"luq_quant[{arch}_weight]"] = c["luq_quant[one_row]"]
-        counts[f"luq_quant[{arch}_activation]"] = c["luq_quant[rows]"]
+        counts[f"luq_quant[{arch}_weight]"] = c["luq_quant[whole]"]
+        counts[f"luq_quant[{arch}_activation]"] = c["luq_quant[per_example]"]
         counts[f"per_sample_clip[{arch}]"] = c["clip_and_sum"]
     for arch, (c, _) in ghost_runs.items():
-        counts[f"luq_quant[{arch}_ghost_weight]"] = c["luq_quant[one_row]"]
-        counts[f"luq_quant[{arch}_ghost_rows]"] = c["luq_quant[rows]"]
+        counts[f"luq_quant[{arch}_ghost_weight]"] = c["luq_quant[whole]"]
+        counts[f"luq_quant[{arch}_ghost_rows]"] = c["luq_quant[per_example]"]
     for dg in (2560, 6912):
         name = f"ghost_norm_sq[2560/{dg}]"
         counts[name] = lm_launches.get(name, 0)
     for arch, c, rows in (("bert", bert_launches, "activation"),
-                          ("mamba2", mamba_launches, "gate")):
-        counts[f"luq_quant[{arch}_weight]"] = c["luq_quant[one_row]"]
-        counts[f"luq_quant[{arch}_{rows}]"] = c["luq_quant[rows]"]
+                          ("mamba2", mamba_launches, "gate"),
+                          ("griffin", griffin_launches, "rows"),
+                          ("vlm", vlm_launches, "rows")):
+        counts[f"luq_quant[{arch}_weight]"] = c["luq_quant[whole]"]
+        counts[f"luq_quant[{arch}_{rows}]"] = c["luq_quant[per_example]"]
         counts[f"per_sample_clip[{arch}]"] = c["clip_and_sum"]
     for fmt in ("int8", "luq_fp4"):
         for branch in ("decode", "prefill"):
@@ -2846,12 +3163,16 @@ def main() -> int:
     for branch in ("decode", "prefill"):
         counts[f"luq_matmul[{branch}]"] = sum(
             c[f"luq_matmul[{branch}]"] for c in launches.values())
+    counts["luq_matmul[vlm]"] = vlm_serve_launches["luq_matmul"]
     kernels = []
     for name, numbers in checks.items():
         src, replaces = sources[name.partition("[")[0]]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": counts[name],
                         **numbers})
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        raise AssertionError(f"kernels never launched on their paths: {idle}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

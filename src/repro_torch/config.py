@@ -1,8 +1,9 @@
 """Config dataclasses and device resolution.
 
 The counterpart of ``repro.config``, cut to what the ported paths read
-(serving, DP-SGD training of the ResNet, DenseNet, BERT and Mamba-2
-families, ghost-mode DP-SGD training of the dense LMs and CNNs).  Dtypes are strings
+(serving, DP-SGD training of the ResNet, DenseNet, BERT, Mamba-2,
+Griffin and VLM families, ghost-mode DP-SGD training of the dense LMs and
+CNNs).  Dtypes are strings
 (as in the JAX package) mapped to ``torch.dtype`` by :func:`torch_dtype`.
 """
 from __future__ import annotations
@@ -55,7 +56,8 @@ def _round_up(x: int, m: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Architecture description (dense decoder-only LMs, ResNets,
-    DenseNets, the BERT encoder and Mamba-2)."""
+    DenseNets, the BERT encoder, Mamba-2, the Griffin hybrid and the
+    VLM backbone)."""
 
     name: str
     family: str
@@ -73,6 +75,12 @@ class ModelConfig:
     ssm_heads: int = 0
     ssm_head_dim: int = 64
     conv_width: int = 4
+    # --- hybrid (RG-LRU / griffin) ---
+    lru_width: int = 0
+    attn_window: int = 2048
+    block_pattern: Tuple[str, ...] = ()  # e.g. ("rec", "rec", "attn")
+    # --- vlm ---
+    n_vision_tokens: int = 0
     # --- cnn / bert ---
     num_classes: int = 0
     image_size: int = 32

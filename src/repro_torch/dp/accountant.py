@@ -67,17 +67,19 @@ def _log_erfc(x: float) -> float:
             + math.log1p(-0.5 / (x ** 2) + 0.75 / (x ** 4)))
 
 
-def _log_binom(alpha: float, i: int) -> Tuple[float, float]:
-    """(sign, log|binom(alpha, i)|) for real alpha, integer i >= 0."""
-    sign, logv = 1.0, 0.0
-    for k in range(1, i + 1):
-        term = (alpha - k + 1) / k
-        if term == 0.0:
-            return 0.0, -math.inf
-        if term < 0:
-            sign = -sign
-        logv += math.log(abs(term))
-    return sign, logv
+def _log_binom_next(alpha: float, i: int, sign: float,
+                    logv: float) -> Tuple[float, float]:
+    """(sign, log|binom(alpha, i)|) for real alpha, integer i >= 1, from
+    those of ``binom(alpha, i - 1)``: the product's next factor, the same
+    float operations in the same order as the product taken from k = 1."""
+    if sign == 0.0:
+        return 0.0, -math.inf
+    term = (alpha - i + 1) / i
+    if term == 0.0:
+        return 0.0, -math.inf
+    if term < 0:
+        sign = -sign
+    return sign, logv + math.log(abs(term))
 
 
 # --------------------------------------------------------------------------- #
@@ -98,8 +100,10 @@ def _compute_log_a_frac(q: float, sigma: float, alpha: float) -> float:
     log_a0, log_a1 = -math.inf, -math.inf
     z0 = sigma ** 2 * math.log(1.0 / q - 1.0) + 0.5
     i = 0
+    sign, log_coef = 1.0, 0.0                  # binom(alpha, 0)
     while True:
-        sign, log_coef = _log_binom(alpha, i)
+        if i:
+            sign, log_coef = _log_binom_next(alpha, i, sign, log_coef)
         j = alpha - i
         log_t0 = log_coef + i * math.log(q) + j * math.log(1 - q)
         log_t1 = log_coef + j * math.log(q) + i * math.log(1 - q)
@@ -154,6 +158,12 @@ def rdp_to_eps(rdp: Sequence[float], orders: Sequence[float],
 # --------------------------------------------------------------------------- #
 # Accountant
 # --------------------------------------------------------------------------- #
+# One SGM step's RDP at every order, by (sigma, q, orders): a pure
+# function of its key, shared by every accountant of the process (a
+# restored trainer's, a probe run's), so each is computed once.
+_RDP_CACHE: Dict[Tuple[float, float, Tuple[float, ...]],
+                 Tuple[float, ...]] = {}
+
 @dataclasses.dataclass
 class SGMEvent:
     noise_multiplier: float
@@ -168,7 +178,6 @@ class RDPAccountant:
     def __init__(self, orders: Sequence[float] = DEFAULT_ORDERS):
         self.orders = tuple(orders)
         self.history: List[SGMEvent] = []
-        self._rdp_cache: Dict[Tuple[float, float], Tuple[float, ...]] = {}
 
     # -- recording -------------------------------------------------------- #
     def step(self, *, noise_multiplier: float, sample_rate: float,
@@ -200,11 +209,11 @@ class RDPAccountant:
                    if label is None or ev.label == label)
 
     def _rdp_single(self, sigma: float, q: float) -> Tuple[float, ...]:
-        key = (sigma, q)
-        if key not in self._rdp_cache:
-            self._rdp_cache[key] = tuple(
+        key = (sigma, q, self.orders)
+        if key not in _RDP_CACHE:
+            _RDP_CACHE[key] = tuple(
                 compute_rdp_sgm(q, sigma, a) for a in self.orders)
-        return self._rdp_cache[key]
+        return _RDP_CACHE[key]
 
     def total_rdp(self, labels: Optional[Sequence[str]] = None) -> List[float]:
         total = [0.0] * len(self.orders)

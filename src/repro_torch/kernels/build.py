@@ -51,7 +51,7 @@ _SIGNATURES = {
     "repro_luq_quant_scratch": (_L, [_I, _L]),
     "repro_luq_quant": (_I, [_P, _I, _P, _I, _I, _L, _U, _U, _P, _P, _P,
                              _P]),
-    "repro_per_sample_clip_chunks": (_I, [_L]),
+    "repro_per_sample_clip_chunks": (_I, [_I, _L]),
     "repro_per_sample_clip": (_I, [_P, _P, _P, _P, _I, _L, ctypes.c_float,
                                    _P]),
     "repro_ghost_norm_partials": (_I, [_I]),

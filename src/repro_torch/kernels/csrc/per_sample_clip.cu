@@ -20,7 +20,8 @@
 // replays steps):
 //
 //   1. row_sumsq: block (b, p) sums the squares of column chunk p of row b
-//      into partial[b, p].  D is odd for ResNet-18, so rows b >= 1 do not
+//      into partial[b, p] (P = 64 chunks a row, more for fewer than 32
+//      rows: see repro_per_sample_clip_chunks).  D is odd for ResNet-18, so rows b >= 1 do not
 //      start on a 16-byte boundary (nor does row 0 of a view at an odd
 //      offset; both passes take the misalignment from the address): each
 //      chunk is a scalar head up to the next boundary, a float4 body (4
@@ -53,7 +54,9 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxChunks = 64;               // column chunks per row (P)
+constexpr int kMinChunks = 64;               // column chunks per row (P) ...
+constexpr int kTargetBlocks = 2048;          // ... or enough for B P blocks
+constexpr int kMaxChunks = 4096;
 constexpr long long kMinChunk = 4096;        // columns per chunk, at least
 constexpr int kMaxRows = 8192;               // B: scale[] in shared memory
 constexpr int kTile = 2048;                  // columns per block, pass 2
@@ -106,10 +109,12 @@ row_sumsq_kernel(const float* __restrict__ g, float* __restrict__ partial,
   const long long nb = (a1 - h) >> 2;
   const long long t = h + 4 * nb;
   const int tid = threadIdx.x;
-  float acc = 0.f;
+  // four independent sums a thread: a quarter of the terms each (the
+  // float32 rounding grows with the length of a sequential sum)
+  float acc0 = 0.f, acc1 = 0.f, acc2 = 0.f, acc3 = 0.f;
   if (tid < h - a0) {
     const float v = __ldg(g + a0 + tid);
-    acc = fmaf(v, v, acc);
+    acc0 = fmaf(v, v, acc0);
   }
   const float4* body = reinterpret_cast<const float4*>(g + h);
   long long i = tid;
@@ -118,16 +123,17 @@ row_sumsq_kernel(const float* __restrict__ g, float* __restrict__ partial,
     const float4 v1 = __ldg(body + i + kThreads);
     const float4 v2 = __ldg(body + i + 2 * kThreads);
     const float4 v3 = __ldg(body + i + 3 * kThreads);
-    acc = sumsq4(v0, acc);
-    acc = sumsq4(v1, acc);
-    acc = sumsq4(v2, acc);
-    acc = sumsq4(v3, acc);
+    acc0 = sumsq4(v0, acc0);
+    acc1 = sumsq4(v1, acc1);
+    acc2 = sumsq4(v2, acc2);
+    acc3 = sumsq4(v3, acc3);
   }
-  for (; i < nb; i += kThreads) acc = sumsq4(__ldg(body + i), acc);
+  for (; i < nb; i += kThreads) acc0 = sumsq4(__ldg(body + i), acc0);
   if (tid < a1 - t) {
     const float v = __ldg(g + t + tid);
-    acc = fmaf(v, v, acc);
+    acc1 = fmaf(v, v, acc1);
   }
+  float acc = (acc0 + acc1) + (acc2 + acc3);
   acc = warp_sum(acc);
   if ((tid & 31) == 0) warp_part[tid >> 5] = acc;
   __syncthreads();
@@ -256,18 +262,25 @@ column_sum_kernel(const float* __restrict__ g,
 
 }  // namespace
 
-// Number of column chunks P the first pass splits each row into; the
-// caller allocates `partial` as (B, P) float32.
-extern "C" int repro_per_sample_clip_chunks(long long D) {
+// Number of column chunks P the first pass splits each of the B rows
+// into: 64, or more for few long rows, so that the B P blocks cover the
+// card and no thread sums more than a few thousand terms (one row of 2.17
+// G floats in 64 chunks left 133 K terms a thread, and a norm off by
+// 1.2e-5); at least kMinChunk columns a chunk.  The caller allocates
+// `partial` as (B, P) float32.
+extern "C" int repro_per_sample_clip_chunks(int B, long long D) {
+  long long cap = (kTargetBlocks + B - 1) / (B > 0 ? B : 1);
+  if (cap < kMinChunks) cap = kMinChunks;
+  if (cap > kMaxChunks) cap = kMaxChunks;
   long long p = D / kMinChunk;
   if (p < 1) p = 1;
-  if (p > kMaxChunks) p = kMaxChunks;
+  if (p > cap) p = cap;
   return (int)p;
 }
 
 // g: (B, D), 4-byte aligned (a view at any element offset); out: (D,),
 // 16-byte aligned; norms: (B,); partial: (B, P) scratch with P =
-// repro_per_sample_clip_chunks(D).  All float32, contiguous, on the
+// repro_per_sample_clip_chunks(B, D).  All float32, contiguous, on the
 // device.  Returns the cudaError_t of the launches.
 extern "C" int repro_per_sample_clip(const void* g, void* out, void* norms,
                                      void* partial, int B, long long D,
@@ -276,7 +289,7 @@ extern "C" int repro_per_sample_clip(const void* g, void* out, void* norms,
       (uintptr_t)out % 16) {
     return (int)cudaErrorInvalidValue;
   }
-  const int P = repro_per_sample_clip_chunks(D);
+  const int P = repro_per_sample_clip_chunks(B, D);
   const cudaStream_t s = (cudaStream_t)stream;
   row_sumsq_kernel<<<dim3(B, P), kThreads, 0, s>>>(
       (const float*)g, (float*)partial, D, P);

@@ -32,12 +32,15 @@ LAUNCHES = {"luq_matmul": 0, "kv_quant_write": 0, "decode_attn_fused": 0,
 #: :func:`prefill_launches`) or a ``decode`` step's (anywhere else).
 LUQ_MATMUL_LAUNCHES = {"prefill": 0, "decode": 0}
 _LUQ_MATMUL_STEP = ["decode"]
-#: The ``luq_quant`` calls of :data:`LAUNCHES` by the number of rows: a
-#: tensor quantized whole (``one_row``: a weight, or anything outside
-#: vmap) or one row per example (``rows``: activations and cotangents
-#: under the DP engine's vmap); and the device ``kernels`` those calls
-#: launched (the row maxima and the rounding: two a call).
-LUQ_QUANT_LAUNCHES = {"one_row": 0, "rows": 0, "kernels": 0}
+#: The ``luq_quant`` calls of :data:`LAUNCHES` by operand: a tensor
+#: quantized as one row (``whole``: a weight, or anything outside vmap)
+#: or one row per example (``per_example``: activations and cotangents
+#: under the DP engine's vmap, the ghost hooks' batched operands; the
+#: calls inside :func:`per_example_launches`, at any number of examples);
+#: and the device ``kernels`` those calls launched (the row maxima and
+#: the rounding: two a call).
+LUQ_QUANT_LAUNCHES = {"whole": 0, "per_example": 0, "kernels": 0}
+_LUQ_QUANT_OPERAND = ["whole"]
 #: The ``ghost_norm_sq`` launches of :data:`LAUNCHES` by shape class, the
 #: operands' widths ``"{min(Dx, Dg)}/{max(Dx, Dg)}"`` (keys appear at the
 #: first launch of a class).
@@ -72,6 +75,17 @@ def prefill_launches():
         yield
     finally:
         _LUQ_MATMUL_STEP.pop()
+
+
+@contextlib.contextmanager
+def per_example_launches():
+    """Count the ``luq_quant`` launches inside as quantizing one row per
+    example (:data:`LUQ_QUANT_LAUNCHES`)."""
+    _LUQ_QUANT_OPERAND.append("per_example")
+    try:
+        yield
+    finally:
+        _LUQ_QUANT_OPERAND.pop()
 
 
 def launch_counts() -> dict:
@@ -374,7 +388,7 @@ def luq_quant(x: torch.Tensor, key, codes: bool = False,
                                   _stream(x.device))
     _raise_on_error(lib, err, "luq_quant")
     LAUNCHES["luq_quant"] += 1
-    LUQ_QUANT_LAUNCHES["one_row" if R == 1 else "rows"] += 1
+    LUQ_QUANT_LAUNCHES[_LUQ_QUANT_OPERAND[-1]] += 1
     LUQ_QUANT_LAUNCHES["kernels"] += 2
     return out
 
@@ -395,7 +409,7 @@ def clip_and_sum(grads: torch.Tensor, clip_norm: float):
     B, D = grads.shape
     _check("grads", grads, torch.float32, (B, D))
     lib = load_library()
-    P = lib.repro_per_sample_clip_chunks(D)
+    P = lib.repro_per_sample_clip_chunks(B, D)
     out = torch.empty((D,), dtype=torch.float32, device=grads.device)
     norms = torch.empty((B,), dtype=torch.float32, device=grads.device)
     partial = torch.empty((B * P,), dtype=torch.float32, device=grads.device)

@@ -7,7 +7,7 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_train \
         --workload resnet-ghost|resnet50-ghost
     PYTHONPATH=src python -m repro_torch.launch.profile_train \
-        --workload bert|mamba2
+        --workload bert|mamba2|griffin|vlm
     PYTHONPATH=src python -m repro_torch.launch.profile_train --executor loop
 
 ``resnet`` (the default) builds the training workload of
@@ -21,11 +21,15 @@ options with the conv taps in place of per-example gradients, pass 1 in
 chunks of 64 images), ``lm`` the LM workload (full-size stablelm-3b,
 ghost-mode DP-SGD, 8 x 256 tokens, pass 1 in chunks of 4, LUQ-FP4
 projections), ``bert`` BERT-SNLI whole (DP-AdamW, 256 x 128 tokens in
-microbatches of 16, the fused clip) and ``mamba2`` Mamba-2-130m whole
-(DP-SGD, 32 x 512 tokens in microbatches of 8, the fused clip); all but
+microbatches of 16, the fused clip), ``mamba2`` Mamba-2-130m whole
+(DP-SGD, 32 x 512 tokens in microbatches of 8, the fused clip),
+``griffin`` RecurrentGemma-9B at full width cut to 5 layers (8 x 256
+tokens, one example a microbatch) and ``vlm`` InternVL2-1B whole (32 x
+512 tokens in microbatches of 8, the vision prefix masked); all but
 ``resnet`` warm up with an epoch's steps under the scheduler's first
-selection (k = 8 of 9, 15 of 17, 56 of 62, 29 of 32, 11 of 12, 22 of 24
-layers), without the analysis's probe steps.  The steps run through ``--executor`` (default
+selection (k = 8 of 9, 15 of 17, 56 of 62, 29 of 32, 11 of 12, 22 of 24,
+4 of 5, 22 of 24 layers), without the analysis's probe steps.  The
+steps run through ``--executor`` (default
 ``scan``: replays of the step's CUDA graph, captured in the warm-up;
 ``loop``: one eager step after another).  Then it times the epoch's steps
 unprofiled under that policy, profiles as many more and prints:
@@ -103,7 +107,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     torch.backends.cudnn.allow_tf32 = False         # float32, as the CLI
     torch.backends.cuda.matmul.allow_tf32 = False
-    run, ds, _ = wl.setup(wl.TRAIN_WORKLOADS[args.workload])
+    run, ds, _ = wl.setup(*wl.TRAIN_WORKLOADS[args.workload])
     run = dataclasses.replace(run, epoch_executor=args.executor)
     tr = Trainer(run, ds, mode="dpquant", device="cuda")
     steps = (tr._train_steps_scan if args.executor == "scan"

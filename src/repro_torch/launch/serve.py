@@ -15,14 +15,28 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
         --smoke --device cpu --engine oneshot
 
+    # RecurrentGemma-9B whole (RG-LRU state and a ring KV cache of the
+    # attention window) and InternVL2-1B (a Gaussian vision prefix of 256
+    # embeddings, the luq_fp4 logits head), oneshot
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma-9b --engine oneshot --batch 4 \
+        --prompt-len 2560 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-1b \
+        --engine oneshot --batch 8 --prompt-len 512 --gen 32 \
+        --quant-fmt luq_fp4
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma-9b --smoke --device cpu --engine oneshot
+
     # chaos mode: a seeded FaultPlan through the supervisor, the fired
     # events written to a JSON log
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \
         --device cpu --fault-seed 0 --fault-log /tmp/f.json
 
 The flags are those of ``repro.launch.serve`` (as there, a family
-without per-slot decode, Mamba-2, runs ``--engine continuous`` through
-the oneshot engine, with a note), admission control
+without per-slot decode, Mamba-2, the Griffin hybrid or the VLM, runs
+``--engine continuous`` through the oneshot engine, with a note; the
+oneshot batch holds every input of the model's ``batch_spec``),
+admission control
 (``--deadline``, ``--max-queue``) and chaos mode (``--fault-seed``,
 ``--fault-log``) included, plus ``--device`` (default ``cuda``; without a
 GPU the run raises unless ``--device cpu`` is given) and ``--backend
@@ -50,20 +64,34 @@ def _random_prompt(rng: np.random.RandomState, length: int,
     return rng.randint(0, vocab, size=(length,)).astype(np.int32)
 
 
-def oneshot_batch(args, vocab: int, device) -> dict:
-    """The oneshot engine's ``--batch`` random prompts of ``--prompt-len``
-    tokens from ``--seed``, on ``device``."""
+def oneshot_batch(args, model) -> dict:
+    """The oneshot engine's batch, on the model's device: every key of the
+    model's ``batch_spec`` (token ids only without one), ``--batch`` rows
+    of ``--prompt-len`` positions from ``--seed``.  Integer inputs are
+    random token ids; float inputs (the VLM's ``vision_embeds``) are
+    Gaussian in their dtype, from a torch generator seeded with
+    ``--seed``."""
+    cfg = model.config
     rng = np.random.RandomState(args.seed)
-    tokens = np.stack([_random_prompt(rng, args.prompt_len, vocab)
+    tokens = np.stack([_random_prompt(rng, args.prompt_len, cfg.vocab_size)
                        for _ in range(args.batch)])
-    return {"tokens": torch.from_numpy(tokens).to(device)}
+    batch = {"tokens": torch.from_numpy(tokens).to(model.device)}
+    if model.batch_spec is not None:
+        gen = torch.Generator().manual_seed(args.seed)
+        for name, (shape, dtype) in model.batch_spec(
+                args.batch, args.prompt_len).items():
+            if not dtype.is_floating_point:
+                continue
+            batch[name] = torch.randn(shape, generator=gen).to(
+                model.device, dtype)
+    return batch
 
 
 def run_oneshot(model, params, args) -> None:
     """One fixed batch, prefill, lockstep decode."""
     prefill, decode = build_oneshot_fns(model, args.prompt_len + args.gen,
                                         kv_fmt=args.kv_fmt)
-    batch = oneshot_batch(args, model.config.vocab_size, model.device)
+    batch = oneshot_batch(args, model)
     gen, timings = oneshot_generate(prefill, decode, model.prepare(params),
                                     batch, args.gen,
                                     temperature=args.temperature,
@@ -194,7 +222,8 @@ def main(argv=None):
     engine = args.engine
     if engine == "continuous" and model.decode_slots is None:
         # only the dense transformer decodes per slot so far; the other
-        # decoder families run through the oneshot engine
+        # decoder families (Mamba-2, Griffin, the VLM) run through the
+        # oneshot engine
         print(f"note: {cfg.family!r} has no continuous-batching support "
               "yet; falling back to --engine oneshot")
         engine = "oneshot"

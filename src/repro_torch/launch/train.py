@@ -54,14 +54,23 @@
         --smoke --device cpu --batch 4 --microbatch 2 --seq-len 24 \
         --epochs 2 --steps-per-epoch 2
 
+    # RecurrentGemma-9B (vmap mode; the workload cuts the depth to 5
+    # layers, launch/workload.py) and InternVL2-1B whole, at smoke size
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch recurrentgemma-9b --smoke --device cpu --batch 4 \
+        --microbatch 2 --seq-len 16 --epochs 2 --steps-per-epoch 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch internvl2-1b \
+        --smoke --device cpu --batch 4 --microbatch 2 --seq-len 16 \
+        --epochs 2 --steps-per-epoch 2
+
     # preempted at global step 2 (a mid-epoch checkpoint, exit 0), then
     # resumed bit for bit by the same command without --preempt-at
     PYTHONPATH=src python -m repro_torch.launch.train --arch resnet18 \
         --smoke --device cpu --checkpoint-dir /tmp/ck --preempt-at 2
 
 The flags are those of ``repro.launch.train`` for these paths (the CNNs
-and the dense LMs, in vmap or ghost mode; BERT and Mamba-2 in vmap
-mode), among them
+and the dense LMs, in vmap or ghost mode; BERT, Mamba-2, the Griffin
+hybrid and the VLM in vmap mode), among them
 ``--executor scan|loop`` (default ``scan``: each epoch's steps replay one
 CUDA graph of the train step a quantization policy), ``--epoch-chunk``,
 ``--epoch-unroll`` (1 only), ``--checkpoint-dir`` (a rerun restores the
@@ -90,7 +99,8 @@ from repro_torch.runtime.preemption import Preempted, PreemptionHandler
 from repro_torch.train_loop import Trainer
 
 ARCHS = ("resnet18", "resnet50", "densenet121", "yi-6b", "gemma-7b",
-         "stablelm-3b", "yi-9b", "bert-snli", "mamba2-130m")
+         "stablelm-3b", "yi-9b", "bert-snli", "mamba2-130m",
+         "recurrentgemma-9b", "internvl2-1b")
 CNN_FAMILIES = ("resnet", "densenet")
 # the families with an eval set (class labels): the CNNs and BERT
 CLASSIFIER_FAMILIES = CNN_FAMILIES + ("bert",)
@@ -104,7 +114,9 @@ def make_dataset(cfg: ModelConfig, n: int, seq_len: int, seed: int = 0):
     if cfg.family == "bert":
         return NLIDataset(n=n, vocab=cfg.vocab_size, seq_len=seq_len,
                           num_classes=cfg.num_classes, seed=seed)
-    if cfg.family in ("dense_lm", "ssm"):
+    if cfg.family in ("dense_lm", "ssm", "hybrid", "vlm"):
+        # a VLM batch carries no vision_embeds here, as in the JAX CLI;
+        # its loss still leaves the vision prefix out
         return TokenDataset(n=n, vocab=cfg.vocab_size, seq_len=seq_len,
                             seed=seed)
     raise NotImplementedError(

@@ -69,6 +69,48 @@ mamba2-130m --engine oneshot``): a batch of 8 random prompts of 512
 tokens from seed 0, 64 new tokens, greedy, bf16 compute, eager decode
 steps (its logits are float32 einsums: no kernel of the port runs).
 
+RecurrentGemma-9B training (``TRAIN_GRIFFIN_ARGV``, ``launch.train --arch
+recurrentgemma-9b --mode dpquant --fmt luq_fp4 --backend cuda
+--clip-backend fused --batch 8 --microbatch 1 --seq-len 256 --epochs 3
+--steps-per-epoch 2``): the Griffin hybrid at full width (d_model 4096,
+lru_width 4096, d_ff 12288, 16 heads of 256 over one KV head, vocab
+256,000, window 2048, bf16 compute, float32 params) cut to
+``TRAIN_GRIFFIN_LAYERS`` = 5 layers, which its callers pass to
+:func:`setup` (no CLI flag: the argv alone trains all 38): one (rec,
+rec, attn) superblock and the 2-layer recurrent tail the 9B has (38 =
+12 x 3 + 2),
+2,174,889,984 parameters.  The reference's hybrid has no ghost hooks, so
+it trains in the vmap engine, where one example's gradient is a full
+float32 copy of the parameters (the tied embedding alone 4.2 GB); 38
+layers do not fit, and at 3 layers the scheduler's k = round(0.9 x 3) = 3
+would quantize every layer every epoch.  At 5, k = 4.  Planted-bigram
+tokens (4096 sequences, seed 0), SGD at lr 0.5, sigma = C = 1, the
+analysis in epochs 0 and 2 (6 probe runs x 2 reps at a probe batch of 8:
+microbatch 1 makes the probe batch the train batch's shape, so the probe
+graph's capture needs no eager warm-up).  At 256 tokens the window does
+not bite in training.
+
+RecurrentGemma-9B serving (``SERVE_GRIFFIN_ARGV``, ``launch.serve --arch
+recurrentgemma-9b --engine oneshot``), whole (38 layers, 9,396,195,328
+parameters): 4 random prompts of 2,560 tokens (beyond the window: the
+ring wraps in prefill), 32 new tokens, greedy, eager decode steps.
+
+InternVL2-1B training (``TRAIN_VLM_ARGV``, ``launch.train --arch
+internvl2-1b --mode dpquant --fmt luq_fp4 --backend cuda --clip-backend
+fused --batch 32 --microbatch 8 --seq-len 512 --epochs 3
+--steps-per-epoch 2``), whole (24 layers, d_model 896, 14 heads padded
+to 16 over 2 KV heads, d_ff 4864, vocab 151,655 padded to 151,680, bf16
+compute; 499,280,768 parameters): the first 256 predictions (the vision
+prefix) masked; planted-bigram tokens and no vision embeddings in a
+training batch, as in the reference's CLI; k = 22 of 24, the analysis in
+epochs 0 and 2 (25 probe runs x 2 reps at a probe batch of 32).
+
+InternVL2-1B serving (``SERVE_VLM_ARGV``, ``launch.serve --arch
+internvl2-1b --engine oneshot --quant-fmt luq_fp4``): 8 prompts of 512
+positions, the first 256 Gaussian ``vision_embeds`` (bf16, from the
+seed), 32 new tokens, greedy, the logits head through ``luq_matmul``
+(8 rows x 896 x 151,680, one shared key a step), eager decode steps.
+
 The ResNet-18 and ResNet-50 workloads again in ghost mode
 (``TRAIN_RESNET_GHOST_ARGV``, ``TRAIN_RESNET50_GHOST_ARGV``): the same
 command lines with ``--grad-mode ghost --clip-backend ref
@@ -169,23 +211,65 @@ SERVE_MAMBA2_ARGV = ("--arch", "mamba2-130m", "--engine", "oneshot",
                      "--batch", "8", "--prompt-len", "512", "--gen", "64",
                      "--seed", str(SEED))
 
-#: The training workloads by name (``profile_train --workload``).
-TRAIN_WORKLOADS = {"resnet": TRAIN_ARGV, "resnet50": TRAIN_RESNET50_ARGV,
-                   "densenet121": TRAIN_DENSENET121_ARGV,
-                   "resnet-ghost": TRAIN_RESNET_GHOST_ARGV,
-                   "resnet50-ghost": TRAIN_RESNET50_GHOST_ARGV,
-                   "lm": TRAIN_LM_ARGV, "bert": TRAIN_BERT_ARGV,
-                   "mamba2": TRAIN_MAMBA2_ARGV}
+TRAIN_GRIFFIN_EPOCHS, TRAIN_GRIFFIN_STEPS = 3, 2
+TRAIN_GRIFFIN_MICROBATCH, TRAIN_GRIFFIN_SEQ = 1, 256
+TRAIN_GRIFFIN_ARGV = (
+    "--arch", "recurrentgemma-9b", "--mode", "dpquant", "--fmt", "luq_fp4",
+    "--backend", "cuda", "--clip-backend", "fused",
+    "--batch", "8", "--microbatch", str(TRAIN_GRIFFIN_MICROBATCH),
+    "--seq-len", str(TRAIN_GRIFFIN_SEQ),
+    "--epochs", str(TRAIN_GRIFFIN_EPOCHS),
+    "--steps-per-epoch", str(TRAIN_GRIFFIN_STEPS),
+    "--dataset-size", str(TRAIN_DATASET))
+#: The depth ``TRAIN_GRIFFIN_ARGV`` trains at (width untouched)
+TRAIN_GRIFFIN_LAYERS = 5
+
+SERVE_GRIFFIN_ARGV = ("--arch", "recurrentgemma-9b", "--engine", "oneshot",
+                      "--batch", "4", "--prompt-len", "2560", "--gen", "32",
+                      "--seed", str(SEED))
+
+TRAIN_VLM_EPOCHS, TRAIN_VLM_STEPS = 3, 2
+TRAIN_VLM_MICROBATCH, TRAIN_VLM_SEQ = 8, 512
+TRAIN_VLM_ARGV = (
+    "--arch", "internvl2-1b", "--mode", "dpquant", "--fmt", "luq_fp4",
+    "--backend", "cuda", "--clip-backend", "fused",
+    "--batch", "32", "--microbatch", str(TRAIN_VLM_MICROBATCH),
+    "--seq-len", str(TRAIN_VLM_SEQ),
+    "--epochs", str(TRAIN_VLM_EPOCHS),
+    "--steps-per-epoch", str(TRAIN_VLM_STEPS),
+    "--dataset-size", str(TRAIN_DATASET))
+
+SERVE_VLM_ARGV = ("--arch", "internvl2-1b", "--engine", "oneshot",
+                  "--batch", "8", "--prompt-len", "512", "--gen", "32",
+                  "--quant-fmt", "luq_fp4", "--backend", "cuda",
+                  "--seed", str(SEED))
+
+#: The training workloads by name (``profile_train --workload``): each
+#: its argv and the depth it is cut to (None: the config's).
+TRAIN_WORKLOADS = {"resnet": (TRAIN_ARGV, None),
+                   "resnet50": (TRAIN_RESNET50_ARGV, None),
+                   "densenet121": (TRAIN_DENSENET121_ARGV, None),
+                   "resnet-ghost": (TRAIN_RESNET_GHOST_ARGV, None),
+                   "resnet50-ghost": (TRAIN_RESNET50_GHOST_ARGV, None),
+                   "lm": (TRAIN_LM_ARGV, None), "bert": (TRAIN_BERT_ARGV, None),
+                   "mamba2": (TRAIN_MAMBA2_ARGV, None),
+                   "griffin": (TRAIN_GRIFFIN_ARGV, TRAIN_GRIFFIN_LAYERS),
+                   "vlm": (TRAIN_VLM_ARGV, None)}
 
 
-def setup(argv) -> tuple:
+def setup(argv, n_layers=None) -> tuple:
     """``(run, dataset, eval_dataset)`` of the training workload of
     ``argv``, built by ``launch.train`` as the CLI builds them (the eval
-    set is None for an LM)."""
+    set is None for an LM), the model cut to ``n_layers`` if given."""
+    import dataclasses
+
     from repro_torch.launch import train
 
     args = train.parse_args(list(argv))
     run = train.build_run(args)
+    if n_layers is not None:
+        run = dataclasses.replace(
+            run, model=dataclasses.replace(run.model, n_layers=n_layers))
     return (run, *train.build_datasets(args, run.model))
 
 
@@ -210,5 +294,4 @@ def serve_setup(argv, device=None) -> tuple:
                                           if device else []))
     model, params = serve.build(args)
     return (model, model.prepare(params),
-            serve.oneshot_batch(args, model.config.vocab_size,
-                                model.device), args)
+            serve.oneshot_batch(args, model), args)

@@ -6,7 +6,8 @@ tensors: what serving, CNN training (``groupnorm``, ``dense_head``,
 ``softmax_xent``; the first two also take a ghost pass's per-example
 copies), dense-LM, BERT and Mamba-2 training (``qproj``,
 ``chunked_lm_loss``, ``softmax_xent``, the ghost hook of ``rmsnorm``)
-use.  Layouts follow the JAX package (activations
+use, and the Griffin hybrid's windowed attention and the VLM's masked
+loss.  Layouts follow the JAX package (activations
 (B, S, H, D)), except ``groupnorm``, which takes the NCHW activations of
 the port's convolutions.
 """
@@ -122,14 +123,17 @@ def _softmax_attend(q, k, v, mask, scale):
 
 
 def chunked_causal_attention(q, k, v, *, chunk_q: int, causal: bool = True,
+                             window: Optional[int] = None,
                              scale: Optional[float] = None):
     """Attention in query chunks, each against its band of keys.
 
-    Causal: chunk ``[q0, q1)`` reads only keys ``[0, q1)``, so the work is
-    the causal work and the peak memory one (B, H, chunk_q, q1) score
-    block.  ``causal=False`` (the BERT encoder): every chunk reads every
-    key, unmasked (the reference's all-true mask).  Plain einsum and
-    softmax, as in the JAX package.
+    Causal: chunk ``[q0, q1)`` reads only keys ``[k0, q1)``, so the work is
+    the causal work and the peak memory one (B, H, chunk_q, q1 - k0) score
+    block; ``k0`` is 0, or ``max(0, q0 - window)`` with a sliding
+    ``window`` (the Griffin hybrid's local attention: query ``p`` sees
+    keys ``p - window < kpos <= p``).  ``causal=False`` (the BERT
+    encoder): every chunk reads every key, unmasked (the reference's
+    all-true mask).  Plain einsum and softmax, as in the JAX package.
     """
     b, s, h, d = q.shape
     tk = k.shape[1]
@@ -139,12 +143,16 @@ def chunked_causal_attention(q, k, v, *, chunk_q: int, causal: bool = True,
     for q0 in range(0, s, cq):
         q1 = min(q0 + cq, s)
         k1 = min(q1, tk) if causal else tk
-        mask = None
-        if causal:
-            qpos = torch.arange(q0, q1, device=q.device)[:, None]
-            kpos = torch.arange(0, k1, device=q.device)[None, :]
-            mask = (kpos <= qpos)[None, None]
-        outs.append(_softmax_attend(q[:, q0:q1], k[:, :k1], v[:, :k1],
+        k0 = 0 if window is None else max(0, q0 - window)
+        qpos = torch.arange(q0, q1, device=q.device)[:, None]
+        kpos = torch.arange(k0, k1, device=q.device)[None, :]
+        mask = (kpos <= qpos) if causal else None
+        if window is not None:
+            band = kpos > qpos - window
+            mask = band if mask is None else mask & band
+        if mask is not None:
+            mask = mask[None, None]
+        outs.append(_softmax_attend(q[:, q0:q1], k[:, k0:k1], v[:, k0:k1],
                                     mask, scale))
     return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
 
@@ -162,12 +170,15 @@ def repeat_kv(x, n_rep: int):
 # losses
 # --------------------------------------------------------------------------- #
 def chunked_lm_loss(h, targets, embed, *, real_vocab: int, ce_chunk: int,
-                    per_example: bool = False, logits_tap=None):
+                    mask=None, per_example: bool = False, logits_tap=None):
     """Mean next-token cross-entropy without materializing (B, S, V).
 
     ``h``: (B, S, d) hidden states aligned with ``targets`` (B, S) ints;
     ``embed``: (V_pad, d), logits = h @ embed.T in float32, one sequence
     chunk of ``ce_chunk`` at a time; padded vocab entries are masked.
+    ``mask``: an optional (B, S) 0/1 loss mask (the VLM's vision prefix);
+    the loss is then the masked NLL sum over the mask's sum (at least 1),
+    per example with ``per_example``, as the JAX package normalizes it.
     ``per_example=True`` returns the (B,) per-example mean NLLs (each the
     loss of that example alone: the ghost engine's reweighting target).
     ``logits_tap``: the ghost pass-1 hook, a (B, S, V_pad) zero tensor
@@ -178,7 +189,7 @@ def chunked_lm_loss(h, targets, embed, *, real_vocab: int, ce_chunk: int,
     b, s, _ = h.shape
     cc = s if logits_tap is not None else min(ce_chunk, s)
     reduce = (lambda t: t.sum(dim=1)) if per_example else (lambda t: t.sum())
-    total = 0.0
+    total = denom = 0.0
     vocab_ok = torch.arange(embed.shape[0], device=h.device) < real_vocab
     emb32 = embed.float()
     hc_out = None
@@ -193,8 +204,16 @@ def chunked_lm_loss(h, targets, embed, *, real_vocab: int, ce_chunk: int,
         lse = torch.logsumexp(logits, dim=-1)
         tgt = torch.gather(logits, -1,
                            targets[:, s0:s1].long()[..., None])[..., 0]
-        total = total + reduce(lse - tgt)
-    loss = total / (s if per_example else b * s)
+        nll = lse - tgt
+        if mask is not None:
+            mc = mask[:, s0:s1].float()
+            nll = nll * mc
+            denom = denom + reduce(mc)
+        total = total + reduce(nll)
+    if mask is not None:
+        loss = total / torch.clamp(denom, min=1.0)
+    else:
+        loss = total / (s if per_example else b * s)
     if logits_tap is not None:
         return loss, hc_out
     return loss
@@ -205,12 +224,13 @@ def chunked_lm_loss(h, targets, embed, *, real_vocab: int, ce_chunk: int,
 # --------------------------------------------------------------------------- #
 def qproj(spec, x, w, *, seed: int, flag, quant_cfg, hooks=None):
     """Policy-gated quantized einsum (``repro_torch.quant.fake_quant``);
-    without a quant config (serving), the plain einsum.  ``hooks``: a
+    without a quant config (serving), the plain einsum.  Operands of two
+    dtypes are promoted to one, as ``jnp.einsum`` promotes them.  ``hooks``: a
     ghost pass's ``repro_torch.dp.ghost.GhostHooks``, whose ``qeinsum``
     then runs in its place."""
+    from repro_torch.quant.fake_quant import einsum, qeinsum
     if quant_cfg is None:
-        return torch.einsum(spec, x, w)
-    from repro_torch.quant.fake_quant import qeinsum
+        return einsum(spec, x, w)
     einsum = qeinsum if hooks is None else hooks.qeinsum
     return einsum(spec, x, w, seed=seed, flag=flag, fmt=quant_cfg.fmt,
                   q_fwd=quant_cfg.quantize_fwd,

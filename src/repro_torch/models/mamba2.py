@@ -179,9 +179,10 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, flag, seed: int,
     return y.reshape(b, S, H, P)[:, :S_orig].to(x.dtype)
 
 
-def _causal_conv(x, w, b, state=None):
-    """Depthwise causal conv and SiLU.  x: (B, S, D); w: (W, D); returns
-    (y, new_state), ``new_state`` the (B, W-1, D) trailing input rows for
+def _causal_conv(x, w, b, state=None, activation=F.silu):
+    """Depthwise causal conv, then ``activation`` (SiLU; None: none, as
+    the Griffin hybrid calls it).  x: (B, S, D); w: (W, D); returns (y,
+    new_state), ``new_state`` the (B, W-1, D) trailing input rows for
     decode.  ``x * w`` promotes as the reference's does (bf16 ``x`` and
     float32 ``w`` give float32)."""
     W = w.shape[0]
@@ -192,7 +193,8 @@ def _causal_conv(x, w, b, state=None):
     xp = torch.cat([pad, x], dim=1)
     y = sum(xp[:, i:i + x.shape[1]] * w[i][None, None, :] for i in range(W))
     new_state = xp[:, -(W - 1):] if W > 1 else None
-    return F.silu(y + b[None, None, :]), new_state
+    y = y + b[None, None, :]
+    return (y if activation is None else activation(y)), new_state
 
 
 def _split(zxbcdt, cfg: ModelConfig):

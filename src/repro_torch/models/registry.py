@@ -3,8 +3,9 @@
 A ``Model`` bundles plain functions over a flat parameter dict
 (``{"embed": ..., "blocks.wq": ..., ...}``, leaf names and layouts as in
 the JAX package) and the device it runs on: the serving hooks of the
-decoder families (dense LMs, Mamba-2) and the training hooks of the
-ResNet, DenseNet, dense-LM, BERT and Mamba-2 families.
+decoder families (dense LMs, Mamba-2, the Griffin hybrid, the VLM) and
+the training hooks of the ResNet, DenseNet, dense-LM, BERT, Mamba-2,
+Griffin and VLM families.
 """
 from __future__ import annotations
 
@@ -39,6 +40,9 @@ class Model:
     per_example_loss: Optional[Callable] = None
     ghost_mask: Optional[Callable] = None
     ghost_aux: Optional[Callable] = None
+    # batch_spec(batch, seq) -> {name: (shape, dtype)} of a batch's inputs
+    # (the VLM's carries ``vision_embeds``); None: token ids only
+    batch_spec: Optional[Callable] = None
     # serving (decoder families)
     prefill: Optional[Callable] = None       # (params, batch) -> (logits, cache)
     decode_step: Optional[Callable] = None   # (params, cache, token) -> (logits, cache)
@@ -68,7 +72,8 @@ def build_model(config: ModelConfig, quant: Optional[QuantConfig] = None,
     when no GPU is available and ``device`` was not given)."""
     dev = resolve_device(device)
     quant = quant or QuantConfig()
-    for module in ("transformer", "resnet", "densenet", "bert", "mamba2"):
+    for module in ("transformer", "resnet", "densenet", "bert", "mamba2",
+                   "griffin", "vlm"):
         importlib.import_module(f"repro_torch.models.{module}")
     if config.family not in _BUILDERS:
         raise ValueError(f"unknown model family: {config.family}")

@@ -122,17 +122,27 @@ def _head_t(params: dict, cfg: ModelConfig):
 
 
 def _embed_scale(cfg: ModelConfig) -> float:
-    """The gemma-style embedding scale, ``sqrt(d_model)`` rounded to the
-    compute dtype, as a host float (a captured step copies nothing from
-    the host)."""
+    """The gemma-style embedding scale of the ``dense_lm`` family,
+    ``sqrt(d_model)`` rounded to the compute dtype, as a host float (a
+    captured step copies nothing from the host); 1 for another family
+    (the VLM backbone), as in the JAX package."""
+    if cfg.family != "dense_lm":
+        return 1.0
     return float(torch.tensor(math.sqrt(cfg.d_model),
                               dtype=torch_dtype(cfg.compute_dtype)))
 
 
 def _embed(params, tokens, cfg: ModelConfig):
+    """The token embeddings in the compute dtype, scaled for ``dense_lm``."""
     cd = torch_dtype(cfg.compute_dtype)
-    x = params["embed"][tokens].to(cd)
-    return x * _embed_scale(cfg)
+    return params["embed"][tokens].to(cd) * _embed_scale(cfg)
+
+
+def _splice(x, inputs_embeds):
+    """``x`` with its first ``n`` positions replaced by ``inputs_embeds``
+    (B, n, d) (the VLM's ``vision_embeds``, in ``x``'s dtype)."""
+    n = inputs_embeds.shape[1]
+    return torch.cat([inputs_embeds.to(x.dtype), x[:, n:]], dim=1)
 
 
 # --------------------------------------------------------------------------- #
@@ -188,16 +198,20 @@ def mlp_block(x, blk, cfg: ModelConfig, quant=None, flag=False,
 # training: loss and ghost hooks
 # --------------------------------------------------------------------------- #
 def forward_hidden(params, tokens, qflags, cfg: ModelConfig,
-                   quant: QuantConfig, embed_tap=None, hooks=None):
+                   quant: QuantConfig, embed_tap=None, hooks=None,
+                   inputs_embeds=None):
     """Final-norm hidden states (B, S, d) of a training forward.
     ``embed_tap``: the ghost pass-1 gather hook, a (B, S, d) zero tensor
     added after the embedding scaling (its gradient is the cotangent the
     embedding's scatter consumes).  ``hooks``: a ghost pass's
     ``repro_torch.dp.ghost.GhostHooks``, handed to every projection and
-    norm."""
+    norm.  ``inputs_embeds`` (B, n, d): the VLM's ``vision_embeds``, in
+    place of the first ``n`` positions' embeddings."""
     x = _embed(params, tokens, cfg)
     if embed_tap is not None:
         x = x + embed_tap
+    if inputs_embeds is not None:
+        x = _splice(x, inputs_embeds)
     positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
     # one unbind per stacked leaf: its backward stacks the layers'
     # gradients once, where indexing layer by layer would add a zero-filled
@@ -240,21 +254,30 @@ def _remat(cfg: ModelConfig) -> bool:
 
 
 def lm_loss(params, batch, qflags, cfg: ModelConfig, quant: QuantConfig,
-            per_example: bool = False, ghost_taps=None, hooks=None):
+            loss_mask_prefix: int = 0, per_example: bool = False,
+            ghost_taps=None, hooks=None):
     """Next-token cross-entropy of ``batch["tokens"]`` (B, S): the mean, or
-    (B,) per example.  ``ghost_taps`` ({"embed_out", "logits"}, the
-    ``GhostAux`` taps) makes the return ``(loss, {"hidden": hc})``;
-    ``hooks``: the ghost pass's ``GhostHooks``.  The JAX package's
-    ``lm_loss`` also takes an rng, which it deletes; the port leaves it
-    out."""
+    (B,) per example.  ``batch["vision_embeds"]``, when present, replaces
+    the first positions' embeddings; ``loss_mask_prefix`` leaves the first
+    that many predictions out of the loss (the VLM's vision prefix).
+    ``ghost_taps`` ({"embed_out", "logits"}, the ``GhostAux`` taps) makes
+    the return ``(loss, {"hidden": hc})``; ``hooks``: the ghost pass's
+    ``GhostHooks``.  The JAX package's ``lm_loss`` also takes an rng,
+    which it deletes; the port leaves it out."""
     tokens = batch["tokens"]
     taps = ghost_taps or {}
     h = forward_hidden(params, tokens, qflags, cfg, quant,
-                       embed_tap=taps.get("embed_out"), hooks=hooks)
+                       embed_tap=taps.get("embed_out"), hooks=hooks,
+                       inputs_embeds=batch.get("vision_embeds"))
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"].T
+    mask = None
+    if loss_mask_prefix:
+        b, s = tokens.shape
+        keep = torch.arange(s - 1, device=tokens.device) >= loss_mask_prefix
+        mask = keep.float()[None, :].expand(b, s - 1)
     out = cm.chunked_lm_loss(h[:, :-1], tokens[:, 1:], head,
                              real_vocab=cfg.vocab_size, ce_chunk=cfg.ce_chunk,
-                             per_example=per_example,
+                             mask=mask, per_example=per_example,
                              logits_tap=taps.get("logits"))
     if ghost_taps is not None:
         loss, hc = out
@@ -383,6 +406,8 @@ def prefill(params, batch, cfg: ModelConfig, quant: QuantConfig,
             cache_len: Optional[int] = None, kv_fmt: str = "none",
             prompt_len=None):
     """Run the full prompt; return (last-token logits, filled KV cache).
+    ``batch["vision_embeds"]`` (the VLM's), when present, replaces the
+    first positions' embeddings.
 
     ``prompt_len`` supports bucketed prefill: the token batch may be padded
     beyond the real prompt, and the last-token logits, the cache position
@@ -401,6 +426,8 @@ def prefill(params, batch, cfg: ModelConfig, quant: QuantConfig,
     B, S = tokens.shape
     cache_len = cache_len or S
     x = _embed(params, tokens, cfg)
+    if "vision_embeds" in batch:
+        x = _splice(x, batch["vision_embeds"])
     positions = torch.arange(S, device=x.device)[None, :]
     ks, vs = [], []
     for i in range(cfg.n_layers):

@@ -64,6 +64,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
 from repro_torch.quant import backend as qbackend
 from repro_torch.quant.formats import STOCHASTIC_FORMATS
 
@@ -100,8 +101,9 @@ def _quantize_per_example(x, fmt: str, backend: str, seed: int, fold: int,
                           flag: Optional[torch.Tensor] = None):
     """One row per example (the leading axis), one shared draw."""
     rows = x.reshape(x.shape[0], -1)
-    return _quantize_rows(rows, fmt, backend, seed, fold,
-                          flag).reshape(x.shape)
+    with ops.per_example_launches():
+        return _quantize_rows(rows, fmt, backend, seed, fold,
+                              flag).reshape(x.shape)
 
 
 @torch.library.custom_op("repro_torch::fake_quant", mutates_args=())
@@ -332,6 +334,16 @@ class _ESpec(NamedTuple):
     tap_norm: Optional[Callable] = None   # (spec, x, g, flag) -> tap's grad
 
 
+def einsum(spec: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` of operands promoted to one dtype, as ``jnp.einsum``
+    promotes them (the Griffin hybrid's float32 conv output against its
+    bf16 gate weights gives a float32 product)."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return torch.einsum(spec, x, w)
+
+
 @functools.lru_cache(maxsize=None)
 def _terms(spec: str):
     """(x_term, w_term, out_term) of ``spec``; its transposes (dgrad
@@ -358,7 +370,7 @@ class _QEinsum(torch.autograd.Function):
         with torch.no_grad():
             xq = _q(x, spec, 0, spec.q_fwd, True, flag)
             wq = _q(w, spec, 1, spec.q_fwd, False, flag)
-            return torch.einsum(spec.spec, xq, wq)
+            return einsum(spec.spec, xq, wq)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -377,11 +389,11 @@ class _QEinsum(torch.autograd.Function):
             if ctx.needs_input_grad[0]:
                 wq = _q(w, spec, 2, spec.q_dgrad, False, flag)
                 gq = _q(g, spec, 3, spec.q_dgrad, True, flag)
-                dx = torch.einsum(f"{out},{w_term}->{x_term}", gq, wq)
+                dx = einsum(f"{out},{w_term}->{x_term}", gq, wq).to(x.dtype)
             if ctx.needs_input_grad[1]:
                 xq = _q(x, spec, 4, spec.q_wgrad, True, flag)
                 gq = _q(g, spec, 5, spec.q_wgrad, True, flag)
-                dw = torch.einsum(f"{x_term},{out}->{w_term}", xq, gq)
+                dw = einsum(f"{x_term},{out}->{w_term}", xq, gq).to(w.dtype)
             if ctx.tapped:
                 dtap = spec.tap_norm(spec, x, g, flag)
         return dx, dw, dtap, None, None
@@ -412,7 +424,7 @@ def qeinsum(spec: str, x: torch.Tensor, w: torch.Tensor, *, seed: int,
     nothing else of that engine."""
     dflag, quantized = _device_flag(flag, fmt)
     if tap is None and not quantized:
-        return torch.einsum(spec, x, w)
+        return einsum(spec, x, w)
     if tap is not None and tap_norm is None:
         raise ValueError("qeinsum: a tap needs its tap_norm")
     _terms(spec)

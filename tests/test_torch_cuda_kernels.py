@@ -475,15 +475,18 @@ def test_launch_counts_count_kernel_launches_only(cuda):
     rows = torch.randn(4, 64, device=cuda)
     ops.luq_quant(rows, (1, 2))
     ops.luq_quant(rows.cpu(), (1, 2))           # plain version: not counted
+    with ops.per_example_launches():
+        ops.luq_quant(rows[:1], (1, 2))
     ops.clip_and_sum(rows, 1.0)
     x, g, kx, kg = _ghost_inputs(cuda, 2, 8, 16, 24, 6)
     ops.ghost_norm_sq(x, g, kx, kg)
     ops.ghost_norm_sq(x.cpu(), g.cpu(), kx, kg)
     assert ops.LAUNCHES == {"luq_matmul": 0, "kv_quant_write": 1,
-                            "decode_attn_fused": 0, "luq_quant": 1,
+                            "decode_attn_fused": 0, "luq_quant": 2,
                             "clip_and_sum": 1, "ghost_norm_sq": 1}
     assert ops.LUQ_MATMUL_LAUNCHES == {"prefill": 0, "decode": 0}
-    assert ops.LUQ_QUANT_LAUNCHES == {"one_row": 0, "rows": 1, "kernels": 2}
+    assert ops.LUQ_QUANT_LAUNCHES == {"whole": 1, "per_example": 1,
+                                      "kernels": 4}
     assert ops.GHOST_NORM_LAUNCHES == {"16/24": 1}
 
 
@@ -669,8 +672,8 @@ def test_cnn_ghost_step_at_full_width(cuda, arch):
         .conv_layers(cfg)
     passes = 8 // 4 + 1                         # two chunks, then pass 2
     q_convs, q_stems = passes * sum(convs), passes
-    assert counts["luq_quant"] == {"one_row": 2 * q_convs - q_stems,
-                                   "rows": 4 * q_convs - q_stems,
+    assert counts["luq_quant"] == {"whole": 2 * q_convs - q_stems,
+                                   "per_example": 4 * q_convs - q_stems,
                                    "kernels": 2 * (6 * q_convs - 2 * q_stems)}
 
 

@@ -120,5 +120,31 @@ def test_kernel_wrappers_never_send_device_tensors_to_plain_versions():
                             "decode_attn_fused": 0, "luq_quant": 0,
                             "clip_and_sum": 0, "ghost_norm_sq": 0}
     assert ops.LUQ_MATMUL_LAUNCHES == {"prefill": 0, "decode": 0}
-    assert ops.LUQ_QUANT_LAUNCHES == {"one_row": 0, "rows": 0, "kernels": 0}
+    assert ops.LUQ_QUANT_LAUNCHES == {"whole": 0, "per_example": 0,
+                                      "kernels": 0}
     assert ops.GHOST_NORM_LAUNCHES == {}
+
+
+def test_luq_quant_launches_are_counted_by_operand(monkeypatch):
+    """The cuda quantizer hands ``ops.luq_quant`` a tensor quantized whole
+    (a weight, or an operand outside vmap) outside
+    ``ops.per_example_launches`` and per-example rows inside it, at any
+    number of examples, one included."""
+    from repro_torch.quant import fake_quant as fq
+    seen = []
+
+    def record(x, key, codes=False, flag=None):
+        seen.append((ops._LUQ_QUANT_OPERAND[-1], tuple(x.shape)))
+        return x.clone()
+    monkeypatch.setattr(ops, "luq_quant", record)
+    w = torch.randn(4, 8)
+    for n in (1, 3):
+        x = torch.randn(n, 5, 4)
+        torch.func.vmap(lambda xe: fq.fake_quant(xe, "luq_fp4", "cuda", 7, 0)
+                        + fq.fake_quant(w, "luq_fp4", "cuda", 7, 1).sum())(x)
+        fq._quantize_per_example(x, "luq_fp4", "cuda", 7, 2)
+    assert seen == [("per_example", (1, 20)), ("whole", (1, 32)),
+                    ("per_example", (1, 20)),
+                    ("per_example", (3, 20)), ("whole", (1, 32)),
+                    ("per_example", (3, 20))]
+    assert ops._LUQ_QUANT_OPERAND == ["whole"]
