@@ -16,10 +16,11 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    ``luq_quant`` and
    ``ghost_norm_sq``; BERT-SNLI and Mamba-2-130m training: ``luq_quant``
    at a weight and at per-example rows (Mamba-2's the SSD's gate
-   operand) and ``per_sample_clip`` at their parameter counts;
-   RecurrentGemma-9B (cut to 5 layers) and InternVL2-1B training:
-   ``luq_quant`` at an MLP weight and a microbatch's MLP hidden rows,
-   ``per_sample_clip`` at their parameter counts (the Griffin's
+   operand) and ``per_sample_clip`` at their parameter counts (of the
+   depth phases 10 and 14 train);
+   RecurrentGemma-9B (cut to 5 layers), InternVL2-1B and whisper-medium
+   training: ``luq_quant`` at an MLP weight and a microbatch's MLP hidden
+   rows, ``per_sample_clip`` at their parameter counts (the Griffin's
    2,174,889,984, the first row beyond 2^31 elements); yi-6b serving: the
    KV cache write, decode attention and the quantized matmul; InternVL2-1B
    serving: the quantized matmul, 8 rows x 896 x 151,680 against one
@@ -179,11 +180,12 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    every projection's six points in every pass (replays and warm-ups
    counted); prints each epoch's median step, the capture seconds, the
    analysis wall, the peak memory and the eval accuracy;
-10. trains Mamba-2-130m whole (24 layers, d_model 768, 128,971,200
-   parameters, bf16 compute, float32 params) the same way with DP-SGD,
-   ``--arch mamba2-130m --batch 32 --microbatch 8 --seq-len 512``: k =
-   22 of 24, the same checks (the SSD's two contractions quantize both
-   operands per example);
+10. trains Mamba-2-130m at full width (d_model 768, bf16 compute,
+   float32 params) cut to 6 of its 24 layers (61,218,480 parameters;
+   whole, it left phase 16 no time: ``CUT_LAYERS``) the same way with
+   DP-SGD, ``--arch mamba2-130m --batch 32 --microbatch 8 --seq-len
+   512``: k = 5 of 6, the same checks (the SSD's two contractions
+   quantize both operands per example);
 11. serves Mamba-2-130m whole through the oneshot engine (``launch.serve
    --arch mamba2-130m --engine oneshot``: 8 random prompts of 512
    tokens, 64 new tokens, greedy, bf16, eager decode steps): the tokens'
@@ -210,9 +212,10 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    1e-2 of the largest logit, for a 64-token prompt in a cache of 96
    positions (32 steps; the ring of the window, which the reference sizes
    by the prompt) and for a 2,100-token prompt (8 steps past the window);
-14. trains InternVL2-1B whole (24 layers, 499,280,768 parameters, bf16
-   compute) the same way, ``TRAIN_VLM_ARGV`` (``--batch 32 --microbatch
-   8 --seq-len 512``): k = 22 of 24, the same checks; and, with the
+14. trains InternVL2-1B at full width cut to 6 of its 24 layers
+   (226,749,824 parameters, bf16 compute; ``CUT_LAYERS``) the same
+   way, ``TRAIN_VLM_ARGV`` (``--batch 32 --microbatch 8 --seq-len
+   512``): k = 5 of 6, the same checks; and, with the
    trained params on 2 sequences with a Gaussian vision prefix, the
    masked prefix takes no part in the loss (the token ids under it change
    nothing, bit for bit; the loss within 1e-5 of the mean NLL of the
@@ -224,7 +227,23 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    launched at prefill and at every decode step; prints prefill ms and
    decode tokens/s; then in float32 with an exact head decode's logits
    against a prefill of the extended prompt (the same vision prefix),
-   within 1e-2 of the largest logit.
+   within 1e-2 of the largest logit;
+16. trains whisper-medium whole (24 encoder and 24 decoder layers,
+   757,983,232 parameters, bf16 compute, float32 params) the way of
+   phases 9-10, ``TRAIN_WHISPER_ARGV`` (``--batch 32 --microbatch 4
+   --seq-len 448``: each sequence with 448 Gaussian encoder frames, cast
+   to bf16 on the card): k = 43 of 48, the same checks (each microbatch
+   pass quantizes 384 projections, the cross-attention's K and V from the
+   encoder's output per example); prints the host time of a batch's
+   frames;
+17. serves whisper-medium whole through the oneshot engine
+   (``SERVE_WHISPER_ARGV``: 8 prompts of 384 tokens with 384 Gaussian
+   encoder frames, 64 new tokens, greedy, bf16, eager decode steps): the
+   parameter count, the cache's 448 rows, the tokens' shape and range, no
+   kernel of the port launched; prints prefill ms, decode tokens/s and
+   the peak memory; then in float32 at full depth decode's logits against
+   a prefill of the extended prompt (the same encoder frames), within
+   1e-2 of the largest logit.
 
 Each phase prints its wall, and a ``phase walls`` line sums them up.  The
 line before the last is ``{"kernels": [...]}``; the last line is
@@ -874,29 +893,42 @@ def host_calls(torch, fn) -> dict:
     return calls
 
 
-# The parameter counts of BERT-SNLI and Mamba-2-130m whole (those of the
-# JAX package's configs)
+# Phases 10 and 14 train Mamba-2-130m and InternVL2-1B at full width cut
+# to CUT_LAYERS layers (k = 5 of 6): whole, their analyses (25 probe runs x
+# 2 reps, twice) took 89 and 126 s of the script's 1,200 s on an H100,
+# which whisper-medium's phase 16 (331 s there) needs.  Their profile_train
+# workloads stay whole.
+CUT_LAYERS = 6
+# The parameter counts of BERT-SNLI whole and Mamba-2-130m cut (those of
+# the JAX package's configs, eval_shape)
 BERT_PARAMS = 136_806_915
-MAMBA2_PARAMS = 128_971_200
+MAMBA2_PARAMS = 61_218_480
 # quantize calls of one row (the weights) and of rows (per example) that
 # one microbatch's forward and backward make: BERT, 6 projections a layer
-# x 12 layers, each 2 one-row and 4 row calls; Mamba-2, 24 layers of the
-# in and out projections (2 and 4 each) and the SSD's two contractions,
-# both operands per example (6 row calls each)
+# x 12 layers, each 2 one-row and 4 row calls; Mamba-2, each layer's in
+# and out projections (2 and 4 each) and the SSD's two contractions, both
+# operands per example (6 row calls each)
 BERT_PER_PASS = (12 * 6 * 2, 12 * 6 * 4)
-MAMBA2_PER_PASS = (24 * 2 * 2, 24 * (2 * 4 + 2 * 6))
+MAMBA2_PER_PASS = (CUT_LAYERS * 2 * 2, CUT_LAYERS * (2 * 4 + 2 * 6))
 
-# RecurrentGemma-9B whole and cut to 5 layers, InternVL2-1B whole (the
-# JAX package's eval_shape)
+# RecurrentGemma-9B whole and cut to 5 layers, InternVL2-1B cut to
+# CUT_LAYERS (the JAX package's eval_shape)
 GRIFFIN_PARAMS = 9_396_195_328
 GRIFFIN_TRAIN_PARAMS = 2_174_889_984
-VLM_PARAMS = 499_280_768
+VLM_PARAMS = 226_749_824
 # quantize calls of one row and of rows a microbatch pass makes (2 and 4 a
 # projection): the 5-layer Griffin, four recurrent layers of 5 mixer and
-# 3 MLP projections and one attention layer of 4 and 3; InternVL2-1B, 24
+# 3 MLP projections and one attention layer of 4 and 3; InternVL2-1B,
 # layers of 7
 GRIFFIN_PER_PASS = (2 * 39, 4 * 39)
-VLM_PER_PASS = (24 * 7 * 2, 24 * 7 * 4)
+VLM_PER_PASS = (CUT_LAYERS * 7 * 2, CUT_LAYERS * 7 * 4)
+# whisper-medium whole (the JAX package's eval_shape); its projections a
+# microbatch pass: 24 encoder blocks of 6 (q, k, v, o, the MLP's two) and
+# 24 decoder blocks of 10 (self and cross q, k, v, o, the MLP's two), each
+# 2 one-row and 4 row calls (the cross K and V from the encoder's output,
+# per example too)
+WHISPER_PARAMS = 757_983_232
+WHISPER_PER_PASS = (2 * (24 * 6 + 24 * 10), 4 * (24 * 6 + 24 * 10))
 
 # Epsilon by epoch of each workload's run under commit 27090d7 (its
 # chip_smoke.py, the policy host bools, the first two epochs): the
@@ -2691,6 +2723,86 @@ def serve_vlm(torch, ops, wl):
     return summary, launches
 
 
+def whisper_input_host_ms(tr) -> dict:
+    """The host time a step of the whisper-medium trainer ``tr`` spends
+    making its batch: ``get`` of a batch from a fresh copy of its dataset
+    (the planted-bigram tokens, drawn and then cached, and the encoder
+    frames, drawn every time), and again with the tokens cached (the
+    frames alone)."""
+    import dataclasses
+    n = tr.run.global_batch
+    ds = dataclasses.replace(tr.dataset)          # its token cache empty
+    idx = list(range(n))
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        batch = ds.get(idx)
+        times.append((time.perf_counter() - t0) * 1e3)
+    shape = tuple(batch["enc_embeds"].shape)
+    return {"batch": n, "enc_embeds": shape, "get_ms": times[0],
+            "get_tokens_cached_ms": times[1]}
+
+
+def serve_whisper(torch, ops, wl):
+    """whisper-medium whole through the oneshot engine
+    (``SERVE_WHISPER_ARGV``: 8 prompts of 384 tokens with 384 Gaussian
+    encoder frames, 64 new tokens, greedy, bf16, eager decode steps): the
+    parameter count, the cache's 448 rows, the tokens' shape and range, no
+    kernel of the port launched (the path has none); then, in float32 at
+    full depth, decode against a prefill of the extended prompt (the same
+    encoder frames), held at ``DECODE_F32_REL``."""
+    import dataclasses
+    from repro_torch.config import QuantConfig
+    from repro_torch.models.registry import build_model
+
+    t0 = time.perf_counter()
+    model, params, batch, args, gen, timings, launches, peak = _oneshot_run(
+        torch, ops, wl, wl.SERVE_WHISPER_ARGV)
+    cfg = model.config
+    n_params = sum(t.numel() for t in params.values())
+    if n_params != WHISPER_PARAMS:
+        raise AssertionError(f"{cfg.name}: {n_params} params, want "
+                             f"{WHISPER_PARAMS}")
+    if any(launches.values()):
+        raise AssertionError(f"{cfg.name} serving launched {launches}; its "
+                             "path has no kernel of the port")
+    B, plen = batch["tokens"].shape
+    if batch["enc_embeds"].shape != (B, plen, cfg.d_model):
+        raise AssertionError(f"enc_embeds {tuple(batch['enc_embeds'].shape)}")
+    _, cache = model.prefill(params, batch, cache_len=plen + args.gen)
+    rows = cache["self_k"].shape[3], cache["cross_k"].shape[3]
+    if rows != (plen + args.gen,) * 2:
+        raise AssertionError(f"cache rows {rows}, want {plen + args.gen}")
+    del cache, params, model
+    _free(torch)
+    f32 = build_model(dataclasses.replace(cfg, compute_dtype="float32"),
+                      QuantConfig(fmt="none"))
+    p32 = f32.prepare(f32.init(args.seed))
+    rel, agree = _decode_vs_prefill(
+        torch, f32, p32, batch["tokens"], 3,
+        extra={"enc_embeds": batch["enc_embeds"].float()})
+    summary = {
+        "params": n_params, "batch": B, "prompt": plen,
+        "new_tokens": args.gen, "cache_rows": rows[0],
+        "prefill_ms": timings["prefill_ms"],
+        "prefill_wall_ms": timings["prefill_s"] * 1e3,
+        "decode_wall_ms": timings["decode_s"] * 1e3,
+        "decode_tokens_per_s": timings["decode_tokens_per_s"],
+        "peak_gib": peak, "launches": launches,
+        "decode_vs_prefill_float32": {"rel": rel, "argmax_agree": agree,
+                                      "held_at": DECODE_F32_REL},
+        "wall_s": time.perf_counter() - t0}
+    print(f"serve {cfg.name} oneshot (no kernel of the port on this path: "
+          f"float32 head, no KV format): {json.dumps(summary)}; first row "
+          f"{gen[0, :16].tolist()}", flush=True)
+    if not rel <= DECODE_F32_REL:
+        raise AssertionError(f"whisper float32 decode vs prefill: {rel} of "
+                             f"the largest logit, want <= {DECODE_F32_REL}")
+    del p32
+    _free(torch)
+    return summary
+
+
 def serve_launches(ops) -> dict:
     """The launch counts of a serving run, the matmul's and the KV
     write's also by the step that made them."""
@@ -2805,7 +2917,8 @@ def main() -> int:
     # of a microbatch (8 examples x 2 chunks x 24 heads x 256 x 256),
     # float32; RecurrentGemma-9B's MLP weight (4096 x 12288) whole and
     # one example's MLP hidden rows (256 tokens x 12288), InternVL2-1B's
-    # (896 x 4864; 8 x 512 tokens x 4864), bf16
+    # (896 x 4864; 8 x 512 tokens x 4864), whisper-medium's (1024 x 4096; a
+    # microbatch's 448 tokens x 4096), bf16
     for name, rows, n, dtype in (
             ("luq_quant[resnet_weight]", 1, 3 * 3 * 512 * 512, torch.float32),
             ("luq_quant[resnet_activation]", 64, 32 * 32 * 64, torch.float32),
@@ -2838,14 +2951,17 @@ def main() -> int:
              wl.TRAIN_GRIFFIN_SEQ * 12288, torch.bfloat16),
             ("luq_quant[vlm_weight]", 1, 896 * 4864, torch.bfloat16),
             ("luq_quant[vlm_rows]", wl.TRAIN_VLM_MICROBATCH,
-             wl.TRAIN_VLM_SEQ * 4864, torch.bfloat16)):
+             wl.TRAIN_VLM_SEQ * 4864, torch.bfloat16),
+            ("luq_quant[whisper_weight]", 1, 1024 * 4096, torch.bfloat16),
+            ("luq_quant[whisper_rows]", wl.TRAIN_WHISPER_MICROBATCH,
+             wl.TRAIN_WHISPER_SEQ * 4096, torch.bfloat16)):
         checks[name] = check_luq_quant(torch, ops, ref, rows, n, dtype,
                                        sm_clock_mhz)
         print(f"{name} ({rows} x {n}, {dtype}) {checks[name]}")
     # the clip of a microbatch's per-example gradients: ResNet-18's,
-    # ResNet-50's, DenseNet-121's, BERT-SNLI's, Mamba-2's, the 5-layer
-    # Griffin's (one row beyond 2^31 elements) and InternVL2-1B's
-    # parameter counts
+    # ResNet-50's, DenseNet-121's, BERT-SNLI's, the 6-layer Mamba-2's, the
+    # 5-layer Griffin's (one row beyond 2^31 elements), the 6-layer
+    # InternVL2-1B's and whisper-medium's parameter counts
     for name, b, d in (("per_sample_clip", 64, 11_190_891),
                        ("per_sample_clip[resnet50]", 64, 23_588_459),
                        ("per_sample_clip[densenet121]", 64, 6_990_251),
@@ -2856,7 +2972,9 @@ def main() -> int:
                        ("per_sample_clip[griffin]",
                         wl.TRAIN_GRIFFIN_MICROBATCH, GRIFFIN_TRAIN_PARAMS),
                        ("per_sample_clip[vlm]", wl.TRAIN_VLM_MICROBATCH,
-                        VLM_PARAMS)):
+                        VLM_PARAMS),
+                       ("per_sample_clip[whisper]",
+                        wl.TRAIN_WHISPER_MICROBATCH, WHISPER_PARAMS)):
         checks[name] = check_per_sample_clip(torch, ops, ref, b, d)
         print(f"{name} ({b} x {d}) {checks[name]}")
         torch.cuda.empty_cache()
@@ -3068,10 +3186,10 @@ def main() -> int:
 
     _phase_done(walls, "9 train bert-snli")
 
-    # 10. Mamba-2-130m whole under DPQuant, scan
+    # 10. Mamba-2-130m at full width, CUT_LAYERS layers, under DPQuant, scan
     mamba_launches, mamba_summary = train_vmap_lm(
-        torch, ops, wl, wl.TRAIN_MAMBA2_ARGV, 22, MAMBA2_PARAMS,
-        MAMBA2_PER_PASS)
+        torch, ops, wl, wl.TRAIN_MAMBA2_ARGV, 5, MAMBA2_PARAMS,
+        MAMBA2_PER_PASS, n_layers=CUT_LAYERS)
     keys = ("captures", "warmups", "capture_s", "probe_capture_s",
             "analysis_s", "median_step_ms_by_epoch", "tokens_per_s",
             "peak_gib", "eps", "accuracy")
@@ -3098,10 +3216,10 @@ def main() -> int:
 
     _phase_done(walls, "13 serve recurrentgemma-9b")
 
-    # 14. InternVL2-1B whole under DPQuant, scan
+    # 14. InternVL2-1B at full width, CUT_LAYERS layers, under DPQuant, scan
     vlm_launches, vlm_summary = train_vmap_lm(
-        torch, ops, wl, wl.TRAIN_VLM_ARGV, 22, VLM_PARAMS, VLM_PER_PASS,
-        after=lambda tr: vlm_masked_prefix(torch, tr))
+        torch, ops, wl, wl.TRAIN_VLM_ARGV, 5, VLM_PARAMS, VLM_PER_PASS,
+        n_layers=CUT_LAYERS, after=lambda tr: vlm_masked_prefix(torch, tr))
     print(f"hybrid and vlm training ({card}): " + json.dumps(
         {arch: {k: v[k] for k in keys + ("wall_s",)} for arch, v in
          (("recurrentgemma-9b", griffin_summary),
@@ -3113,6 +3231,21 @@ def main() -> int:
     _, vlm_serve_launches = serve_vlm(torch, ops, wl)
 
     _phase_done(walls, "15 serve internvl2-1b")
+
+    # 16. whisper-medium whole under DPQuant, scan
+    whisper_launches, whisper_summary = train_vmap_lm(
+        torch, ops, wl, wl.TRAIN_WHISPER_ARGV, 43, WHISPER_PARAMS,
+        WHISPER_PER_PASS, after=whisper_input_host_ms)
+    print(f"encdec training ({card}): " + json.dumps(
+        {"whisper-medium": {k: whisper_summary[k]
+                            for k in keys + ("wall_s", "after")}}))
+
+    _phase_done(walls, "16 train whisper-medium")
+
+    # 17. whisper-medium whole, oneshot serving
+    serve_whisper(torch, ops, wl)
+
+    _phase_done(walls, "17 serve whisper-medium")
     del walls["start"]
     print(f"phase walls (s): {json.dumps(walls)}")
 
@@ -3151,7 +3284,8 @@ def main() -> int:
     for arch, c, rows in (("bert", bert_launches, "activation"),
                           ("mamba2", mamba_launches, "gate"),
                           ("griffin", griffin_launches, "rows"),
-                          ("vlm", vlm_launches, "rows")):
+                          ("vlm", vlm_launches, "rows"),
+                          ("whisper", whisper_launches, "rows")):
         counts[f"luq_quant[{arch}_weight]"] = c["luq_quant[whole]"]
         counts[f"luq_quant[{arch}_{rows}]"] = c["luq_quant[per_example]"]
         counts[f"per_sample_clip[{arch}]"] = c["clip_and_sum"]

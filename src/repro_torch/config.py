@@ -2,8 +2,8 @@
 
 The counterpart of ``repro.config``, cut to what the ported paths read
 (serving, DP-SGD training of the ResNet, DenseNet, BERT, Mamba-2,
-Griffin and VLM families, ghost-mode DP-SGD training of the dense LMs and
-CNNs).  Dtypes are strings
+Griffin, VLM and encoder-decoder families, ghost-mode DP-SGD training of
+the dense LMs and CNNs).  Dtypes are strings
 (as in the JAX package) mapped to ``torch.dtype`` by :func:`torch_dtype`.
 """
 from __future__ import annotations
@@ -56,8 +56,8 @@ def _round_up(x: int, m: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Architecture description (dense decoder-only LMs, ResNets,
-    DenseNets, the BERT encoder, Mamba-2, the Griffin hybrid and the
-    VLM backbone)."""
+    DenseNets, the BERT encoder, Mamba-2, the Griffin hybrid, the VLM
+    backbone and the encoder-decoder)."""
 
     name: str
     family: str
@@ -81,6 +81,9 @@ class ModelConfig:
     block_pattern: Tuple[str, ...] = ()  # e.g. ("rec", "rec", "attn")
     # --- vlm ---
     n_vision_tokens: int = 0
+    # --- encdec ---
+    n_enc_layers: int = 0
+    n_dec_layers: int = 0
     # --- cnn / bert ---
     num_classes: int = 0
     image_size: int = 32
@@ -123,6 +126,8 @@ class ModelConfig:
 
     def policy_len(self) -> int:
         """Number of schedulable layers for DPQuant."""
+        if self.family == "encdec":
+            return self.n_enc_layers + self.n_dec_layers
         if self.family == "resnet":
             return sum(self.resnet_blocks) + 1
         if self.family == "densenet":

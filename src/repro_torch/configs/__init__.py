@@ -1,6 +1,6 @@
 """Architecture registry: the dense-LM presets, ResNet-18, ResNet-50,
-DenseNet-121, BERT-SNLI, Mamba-2-130m, RecurrentGemma-9B and
-InternVL2-1B.
+DenseNet-121, BERT-SNLI, Mamba-2-130m, RecurrentGemma-9B, InternVL2-1B
+and whisper-medium.
 
 ``get_config(arch_id)`` returns the full-scale ModelConfig;
 ``get_smoke_config(arch_id)`` a reduced same-family config for CPU tests.
@@ -15,7 +15,7 @@ from repro_torch.config import ModelConfig
 
 _MODULES = ["gemma_7b", "yi_9b", "yi_6b", "stablelm_3b", "resnet18",
             "resnet50", "densenet121", "bert_snli", "mamba2_130m",
-            "recurrentgemma_9b", "internvl2_1b"]
+            "recurrentgemma_9b", "internvl2_1b", "whisper_medium"]
 
 _REGISTRY: Dict[str, dict] = {}
 

@@ -8,7 +8,10 @@ size and number of classes; GTSRB-like: 43 classes, CIFAR-like: 10) and
 planted at random positions, SNLI-like: 3 classes).  The numpy
 generation is the JAX package's, draw for draw, so the same seed gives the
 same examples in both packages; ``get`` returns CPU tensors, which the
-trainer moves to its device.
+trainer moves to its device.  ``EncDecDataset`` (the encoder-decoder's
+tokens with Gaussian frame embeddings) has no counterpart there: the
+JAX package's CLI feeds that family tokens only, which its loss cannot
+take.
 
 Examples are index-addressable (``get(indices)``) so the Poisson
 subsampler can draw arbitrary subsets, and memoized: the first epoch pays
@@ -135,3 +138,25 @@ class NLIDataset:
         xs = np.stack([self._example(int(idx)) for idx in indices])
         return {"tokens": torch.from_numpy(xs),
                 "label": torch.from_numpy(np.ascontiguousarray(ys))}
+
+
+@dataclasses.dataclass
+class EncDecDataset(TokenDataset):
+    """``TokenDataset``'s sequences with the encoder's input: ``enc_embeds``
+    (seq_len, d_model) N(0, 1) float32 a sequence, drawn from the PCG64
+    stream of ``(seed, index)`` each time it is asked for (a Poisson
+    re-draw of an index returns the same example).  Not cached: at
+    whisper-medium's 448 x 1024 a dataset of 4096 would hold 7.5 GB."""
+    d_model: int = 0
+
+    def get(self, indices: np.ndarray) -> dict:
+        """{"tokens": (n, seq_len) int32, "enc_embeds": (n, seq_len,
+        d_model) float32}, on the CPU."""
+        out = super().get(indices)
+        embeds = np.empty((len(indices), self.seq_len, self.d_model),
+                          np.float32)
+        for row, idx in zip(embeds, indices):
+            np.random.default_rng([self.seed, int(idx)]).standard_normal(
+                dtype=np.float32, out=row)
+        out["enc_embeds"] = torch.from_numpy(embeds)
+        return out

@@ -7,7 +7,7 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_train \
         --workload resnet-ghost|resnet50-ghost
     PYTHONPATH=src python -m repro_torch.launch.profile_train \
-        --workload bert|mamba2|griffin|vlm
+        --workload bert|mamba2|griffin|vlm|whisper
     PYTHONPATH=src python -m repro_torch.launch.profile_train --executor loop
 
 ``resnet`` (the default) builds the training workload of
@@ -24,11 +24,13 @@ projections), ``bert`` BERT-SNLI whole (DP-AdamW, 256 x 128 tokens in
 microbatches of 16, the fused clip), ``mamba2`` Mamba-2-130m whole
 (DP-SGD, 32 x 512 tokens in microbatches of 8, the fused clip),
 ``griffin`` RecurrentGemma-9B at full width cut to 5 layers (8 x 256
-tokens, one example a microbatch) and ``vlm`` InternVL2-1B whole (32 x
-512 tokens in microbatches of 8, the vision prefix masked); all but
-``resnet`` warm up with an epoch's steps under the scheduler's first
-selection (k = 8 of 9, 15 of 17, 56 of 62, 29 of 32, 11 of 12, 22 of 24,
-4 of 5, 22 of 24 layers), without the analysis's probe steps.  The
+tokens, one example a microbatch), ``vlm`` InternVL2-1B whole (32 x
+512 tokens in microbatches of 8, the vision prefix masked) and
+``whisper`` whisper-medium whole (32 x 448 tokens and 448 encoder frames
+in microbatches of 4); all but ``resnet`` warm up with an epoch's steps
+under the scheduler's first selection (k = 8 of 9, 15 of 17, 56 of 62,
+29 of 32, 11 of 12, 22 of 24, 4 of 5, 22 of 24, 43 of 48 layers),
+without the analysis's probe steps.  The
 steps run through ``--executor`` (default
 ``scan``: replays of the step's CUDA graph, captured in the warm-up;
 ``loop``: one eager step after another).  Then it times the epoch's steps

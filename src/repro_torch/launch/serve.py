@@ -27,15 +27,25 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch recurrentgemma-9b --smoke --device cpu --engine oneshot
 
+    # whisper-medium whole (the encoder-decoder: 384 Gaussian encoder
+    # frames a prompt of 384 tokens, cross-attention K/V cached once),
+    # oneshot; at smoke size on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch whisper-medium --engine oneshot --batch 8 --prompt-len 384 \
+        --gen 64
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch whisper-medium --smoke --device cpu --engine oneshot
+
     # chaos mode: a seeded FaultPlan through the supervisor, the fired
     # events written to a JSON log
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \
         --device cpu --fault-seed 0 --fault-log /tmp/f.json
 
 The flags are those of ``repro.launch.serve`` (as there, a family
-without per-slot decode, Mamba-2, the Griffin hybrid or the VLM, runs
-``--engine continuous`` through the oneshot engine, with a note; the
-oneshot batch holds every input of the model's ``batch_spec``),
+without per-slot decode, Mamba-2, the Griffin hybrid, the VLM or the
+encoder-decoder, runs ``--engine continuous`` through the oneshot engine,
+with a note; the oneshot batch holds every input of the model's
+``batch_spec``),
 admission control
 (``--deadline``, ``--max-queue``) and chaos mode (``--fault-seed``,
 ``--fault-log``) included, plus ``--device`` (default ``cuda``; without a
@@ -68,9 +78,9 @@ def oneshot_batch(args, model) -> dict:
     """The oneshot engine's batch, on the model's device: every key of the
     model's ``batch_spec`` (token ids only without one), ``--batch`` rows
     of ``--prompt-len`` positions from ``--seed``.  Integer inputs are
-    random token ids; float inputs (the VLM's ``vision_embeds``) are
-    Gaussian in their dtype, from a torch generator seeded with
-    ``--seed``."""
+    random token ids; float inputs (the VLM's ``vision_embeds``, the
+    encoder-decoder's ``enc_embeds``, as long as the prompt) are Gaussian
+    in their dtype, from a torch generator seeded with ``--seed``."""
     cfg = model.config
     rng = np.random.RandomState(args.seed)
     tokens = np.stack([_random_prompt(rng, args.prompt_len, cfg.vocab_size)
@@ -222,8 +232,9 @@ def main(argv=None):
     engine = args.engine
     if engine == "continuous" and model.decode_slots is None:
         # only the dense transformer decodes per slot so far; the other
-        # decoder families (Mamba-2, Griffin, the VLM) run through the
-        # oneshot engine
+        # decoder families (Mamba-2, Griffin, the VLM, the encoder-decoder,
+        # whose prompts need more than tokens) run through the oneshot
+        # engine
         print(f"note: {cfg.family!r} has no continuous-batching support "
               "yet; falling back to --engine oneshot")
         engine = "oneshot"

@@ -63,6 +63,17 @@
         --smoke --device cpu --batch 4 --microbatch 2 --seq-len 16 \
         --epochs 2 --steps-per-epoch 2
 
+    # whisper-medium (the encoder-decoder) whole on the GPU, and at smoke
+    # size on the CPU: each sequence comes with Gaussian encoder frames
+    # (enc_embeds), as many as its tokens
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch whisper-medium --mode dpquant --fmt luq_fp4 --backend cuda \
+        --clip-backend fused --batch 32 --microbatch 4 --seq-len 448 \
+        --epochs 3 --steps-per-epoch 2
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch whisper-medium --smoke --device cpu --batch 4 \
+        --microbatch 2 --seq-len 16 --epochs 2 --steps-per-epoch 2
+
     # preempted at global step 2 (a mid-epoch checkpoint, exit 0), then
     # resumed bit for bit by the same command without --preempt-at
     PYTHONPATH=src python -m repro_torch.launch.train --arch resnet18 \
@@ -70,7 +81,7 @@
 
 The flags are those of ``repro.launch.train`` for these paths (the CNNs
 and the dense LMs, in vmap or ghost mode; BERT, Mamba-2, the Griffin
-hybrid and the VLM in vmap mode), among them
+hybrid, the VLM and the encoder-decoder in vmap mode), among them
 ``--executor scan|loop`` (default ``scan``: each epoch's steps replay one
 CUDA graph of the train step a quantization policy), ``--epoch-chunk``,
 ``--epoch-unroll`` (1 only), ``--checkpoint-dir`` (a rerun restores the
@@ -82,6 +93,15 @@ and ``--backend ref|cuda`` (default ``cuda``, the hand-written kernels;
 ``REPRO_QUANT_BACKEND`` overrides it).  Prints one line per
 epoch, ``epoch e: loss=... eps=... k=... acc=...``, as the JAX CLI does
 (``acc=None`` for an LM: it has no eval set).
+
+The reference's CLI cannot train the encoder-decoder: its
+``make_dataset`` gives that family a ``TokenDataset``, whose batches hold
+``tokens`` only, while the family's ``loss_fn`` reads
+``batch["enc_embeds"]`` and ``build_train_setup`` shards the batch by a
+``batch_spec`` that declares it, so the run stops at the batch's pytree
+("symmetric difference on key sets is enc_embeds").  This CLI feeds the
+family an ``EncDecDataset``: the same tokens with Gaussian frame
+embeddings drawn per example from ``--seed``.
 """
 from __future__ import annotations
 
@@ -92,15 +112,15 @@ import torch
 from repro_torch.config import (DPConfig, ModelConfig, OptimConfig,
                                 QuantConfig, RunConfig, resolve_device)
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.data.synthetic import (ImageClassDataset, NLIDataset,
-                                        TokenDataset)
+from repro_torch.data.synthetic import (EncDecDataset, ImageClassDataset,
+                                        NLIDataset, TokenDataset)
 from repro_torch.runtime.faults import FaultEvent, FaultPlan
 from repro_torch.runtime.preemption import Preempted, PreemptionHandler
 from repro_torch.train_loop import Trainer
 
 ARCHS = ("resnet18", "resnet50", "densenet121", "yi-6b", "gemma-7b",
          "stablelm-3b", "yi-9b", "bert-snli", "mamba2-130m",
-         "recurrentgemma-9b", "internvl2-1b")
+         "recurrentgemma-9b", "internvl2-1b", "whisper-medium")
 CNN_FAMILIES = ("resnet", "densenet")
 # the families with an eval set (class labels): the CNNs and BERT
 CLASSIFIER_FAMILIES = CNN_FAMILIES + ("bert",)
@@ -119,6 +139,9 @@ def make_dataset(cfg: ModelConfig, n: int, seq_len: int, seed: int = 0):
         # its loss still leaves the vision prefix out
         return TokenDataset(n=n, vocab=cfg.vocab_size, seq_len=seq_len,
                             seed=seed)
+    if cfg.family == "encdec":
+        return EncDecDataset(n=n, vocab=cfg.vocab_size, seq_len=seq_len,
+                             seed=seed, d_model=cfg.d_model)
     raise NotImplementedError(
         f"training the {cfg.family!r} family is not ported yet")
 

@@ -111,6 +111,26 @@ positions, the first 256 Gaussian ``vision_embeds`` (bf16, from the
 seed), 32 new tokens, greedy, the logits head through ``luq_matmul``
 (8 rows x 896 x 151,680, one shared key a step), eager decode steps.
 
+whisper-medium training (``TRAIN_WHISPER_ARGV``, ``launch.train --arch
+whisper-medium --mode dpquant --fmt luq_fp4 --backend cuda
+--clip-backend fused --batch 32 --microbatch 4 --seq-len 448 --epochs 3
+--steps-per-epoch 2``), whole (24 encoder and 24 decoder layers, d_model
+1024, 16 heads of 64, d_ff 4096, vocab 51,865 padded to 51,968, bf16
+compute, float32 params; 757,983,232 parameters): planted-bigram tokens
+(4096 sequences, seed 0) of 448 positions, whisper's decoder context,
+each with 448 Gaussian encoder frames (the reference ties the encoder's
+length to the decoder's), SGD at lr 0.5, sigma = C = 1, k = 43 of 48
+policy layers, the analysis in epochs 0 and 2 (49 probe runs x 2 reps at
+a probe batch of 32).  No ghost hooks in the reference: the vmap engine,
+one example's gradient a float32 copy of the parameters (3.03 GB); at
+microbatch 8 the clip's copy of them does not fit beside the graphs.
+
+whisper-medium serving (``SERVE_WHISPER_ARGV``, ``launch.serve --arch
+whisper-medium --engine oneshot``): 8 random prompts of 384 tokens, each
+with 384 Gaussian encoder frames (bf16, from the seed), 64 new tokens,
+greedy, so the cache holds 448 positions; eager decode steps, float32
+logits: no kernel of the port runs.
+
 The ResNet-18 and ResNet-50 workloads again in ghost mode
 (``TRAIN_RESNET_GHOST_ARGV``, ``TRAIN_RESNET50_GHOST_ARGV``): the same
 command lines with ``--grad-mode ghost --clip-backend ref
@@ -244,6 +264,21 @@ SERVE_VLM_ARGV = ("--arch", "internvl2-1b", "--engine", "oneshot",
                   "--quant-fmt", "luq_fp4", "--backend", "cuda",
                   "--seed", str(SEED))
 
+TRAIN_WHISPER_EPOCHS, TRAIN_WHISPER_STEPS = 3, 2
+TRAIN_WHISPER_MICROBATCH, TRAIN_WHISPER_SEQ = 4, 448
+TRAIN_WHISPER_ARGV = (
+    "--arch", "whisper-medium", "--mode", "dpquant", "--fmt", "luq_fp4",
+    "--backend", "cuda", "--clip-backend", "fused",
+    "--batch", "32", "--microbatch", str(TRAIN_WHISPER_MICROBATCH),
+    "--seq-len", str(TRAIN_WHISPER_SEQ),
+    "--epochs", str(TRAIN_WHISPER_EPOCHS),
+    "--steps-per-epoch", str(TRAIN_WHISPER_STEPS),
+    "--dataset-size", str(TRAIN_DATASET))
+
+SERVE_WHISPER_ARGV = ("--arch", "whisper-medium", "--engine", "oneshot",
+                      "--batch", "8", "--prompt-len", "384", "--gen", "64",
+                      "--seed", str(SEED))
+
 #: The training workloads by name (``profile_train --workload``): each
 #: its argv and the depth it is cut to (None: the config's).
 TRAIN_WORKLOADS = {"resnet": (TRAIN_ARGV, None),
@@ -254,7 +289,8 @@ TRAIN_WORKLOADS = {"resnet": (TRAIN_ARGV, None),
                    "lm": (TRAIN_LM_ARGV, None), "bert": (TRAIN_BERT_ARGV, None),
                    "mamba2": (TRAIN_MAMBA2_ARGV, None),
                    "griffin": (TRAIN_GRIFFIN_ARGV, TRAIN_GRIFFIN_LAYERS),
-                   "vlm": (TRAIN_VLM_ARGV, None)}
+                   "vlm": (TRAIN_VLM_ARGV, None),
+                   "whisper": (TRAIN_WHISPER_ARGV, None)}
 
 
 def setup(argv, n_layers=None) -> tuple:

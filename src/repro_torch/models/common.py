@@ -6,10 +6,10 @@ tensors: what serving, CNN training (``groupnorm``, ``dense_head``,
 ``softmax_xent``; the first two also take a ghost pass's per-example
 copies), dense-LM, BERT and Mamba-2 training (``qproj``,
 ``chunked_lm_loss``, ``softmax_xent``, the ghost hook of ``rmsnorm``)
-use, and the Griffin hybrid's windowed attention and the VLM's masked
-loss.  Layouts follow the JAX package (activations
-(B, S, H, D)), except ``groupnorm``, which takes the NCHW activations of
-the port's convolutions.
+use, the Griffin hybrid's windowed attention, the VLM's masked loss and
+the encoder-decoder's sinusoidal positions.  Layouts follow the JAX
+package (activations (B, S, H, D)), except ``groupnorm``, which takes the
+NCHW activations of the port's convolutions.
 """
 from __future__ import annotations
 
@@ -108,6 +108,20 @@ def rope(x, positions, theta=10_000.0):
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq_len: int, d_model: int, offset: int = 0,
+                         device=None):
+    """(seq_len, d_model) float32 sinusoidal embeddings of positions
+    ``offset .. offset + seq_len - 1``: the sines of the angles
+    ``pos / 10000^(2i / d_model)``, then their cosines (the encoder-decoder's
+    positions, as in the JAX package)."""
+    pos = torch.arange(offset, offset + seq_len, dtype=torch.float32,
+                       device=device)[:, None]
+    dim = torch.arange(d_model // 2, dtype=torch.float32,
+                       device=device)[None, :]
+    ang = pos / torch.pow(10_000.0, 2 * dim / d_model)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def _softmax_attend(q, k, v, mask, scale):

@@ -3,9 +3,9 @@
 A ``Model`` bundles plain functions over a flat parameter dict
 (``{"embed": ..., "blocks.wq": ..., ...}``, leaf names and layouts as in
 the JAX package) and the device it runs on: the serving hooks of the
-decoder families (dense LMs, Mamba-2, the Griffin hybrid, the VLM) and
-the training hooks of the ResNet, DenseNet, dense-LM, BERT, Mamba-2,
-Griffin and VLM families.
+decoder families (dense LMs, Mamba-2, the Griffin hybrid, the VLM, the
+encoder-decoder) and the training hooks of the ResNet, DenseNet,
+dense-LM, BERT, Mamba-2, Griffin, VLM and encoder-decoder families.
 """
 from __future__ import annotations
 
@@ -41,7 +41,8 @@ class Model:
     ghost_mask: Optional[Callable] = None
     ghost_aux: Optional[Callable] = None
     # batch_spec(batch, seq) -> {name: (shape, dtype)} of a batch's inputs
-    # (the VLM's carries ``vision_embeds``); None: token ids only
+    # (the VLM's carries ``vision_embeds``, the encoder-decoder's
+    # ``enc_embeds``); None: token ids only
     batch_spec: Optional[Callable] = None
     # serving (decoder families)
     prefill: Optional[Callable] = None       # (params, batch) -> (logits, cache)
@@ -73,7 +74,7 @@ def build_model(config: ModelConfig, quant: Optional[QuantConfig] = None,
     dev = resolve_device(device)
     quant = quant or QuantConfig()
     for module in ("transformer", "resnet", "densenet", "bert", "mamba2",
-                   "griffin", "vlm"):
+                   "griffin", "vlm", "encdec"):
         importlib.import_module(f"repro_torch.models.{module}")
     if config.family not in _BUILDERS:
         raise ValueError(f"unknown model family: {config.family}")

@@ -12,7 +12,9 @@ The counterpart of ``repro.train_loop``.  Per epoch:
      trainer's (policy_len,) float32 flags tensor ``qflags`` on the device
      (one copy an epoch), which the quantizers read on the device;
   3. ``steps_per_epoch`` DP-SGD/DP-Adam steps on Poisson-sampled batches
-     (images, token sequences, or labelled token sequences);
+     (images, token sequences, labelled token sequences, or token
+     sequences with the encoder's frame embeddings, cast to the compute
+     dtype on the device);
   4. optional eval (the classification families: ResNet, DenseNet and
      BERT; an LM has no eval set), and a checkpoint when a directory is given (params,
      optimizer state, accountant, scheduler, sampler and probe RNG).
@@ -102,6 +104,10 @@ class Trainer:
         self.device = self.model.device
         self.setup = build_train_setup(self.model, run)
         self.step_fn = self.setup.step_fn
+        spec = (self.model.batch_spec(1, 1)
+                if self.model.batch_spec is not None else {})
+        self._input_dtypes = {name: dtype for name, (_, dtype) in spec.items()
+                              if dtype.is_floating_point}
         # the policy flags the quantizers read on the device, one copy an
         # epoch (QuantPolicy.flags() stays the host tuple)
         self.qflags = torch.zeros((run.model.policy_len(),),
@@ -149,7 +155,11 @@ class Trainer:
 
     # ------------------------------------------------------------------ #
     def _to_device(self, batch: dict) -> dict:
-        return {k: v.to(self.device) for k, v in batch.items()}
+        """``batch`` on the device, a floating input of the model's
+        ``batch_spec`` (the encoder-decoder's float32 ``enc_embeds``) cast
+        there to the spec's dtype."""
+        return {k: v.to(self.device).to(self._input_dtypes.get(k, v.dtype))
+                for k, v in batch.items()}
 
     def _lr(self, step: int) -> torch.Tensor:
         """The schedule's learning rate at ``step``, a 0-dim float32 tensor
@@ -308,8 +318,9 @@ class Trainer:
             k = min(chunk, steps - done)
             t0 = time.perf_counter()
             flat = self.dataset.get(self.sampler.sample_epoch(k).reshape(-1))
-            batches = {name: t.reshape((k, -1) + tuple(t.shape[1:]))
-                       .to(self.device) for name, t in flat.items()}
+            batches = self._to_device(
+                {name: t.reshape((k, -1) + tuple(t.shape[1:]))
+                 for name, t in flat.items()})
             seeds = np.arange(self.step, self.step + k) + run.seed
             lrs = torch.tensor([self.schedule(self.step + i)
                                 for i in range(k)],

@@ -132,7 +132,8 @@ def _jax_reference(fmt: str, quantized: bool, case: str = "resnet18") -> dict:
                                   microbatch_size=MB),
                      optim=JOptimConfig(name="sgd", lr=LR), global_batch=B)
     model = jax_build_model(cfg, run.quant)
-    params = model.init(jax.random.PRNGKey(1))
+    # one compiled init (the eager one compiles every op on its own)
+    params = jax.jit(model.init)(jax.random.PRNGKey(1))
     rng = np.random.default_rng(5)
     s = cfg.image_size
     batch = {"image": rng.standard_normal((B, s, s, 3)).astype(np.float32),

@@ -30,7 +30,9 @@ torch.set_num_threads(1)
 def jax_smoke():
     """The JAX package's SMOKE params, a batch, and its logits and loss."""
     cfg = jax_smoke_config("resnet18")
-    params = jresnet.init_params(jax.random.PRNGKey(3), cfg)
+    # one compiled init (the eager one compiles every op on its own)
+    params = jax.jit(jresnet.init_params, static_argnums=1)(
+        jax.random.PRNGKey(3), cfg)
     rng = np.random.default_rng(0)
     image = rng.standard_normal((4, 16, 16, 3)).astype(np.float32)
     label = rng.integers(0, cfg.num_classes, 4).astype(np.int32)

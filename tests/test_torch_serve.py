@@ -55,7 +55,8 @@ def jax_model(arch):
     if arch not in _JAX_MODELS:
         model = jax_build_model(jax_smoke_config(arch), JQuant(fmt="none",
                                                                backend="ref"))
-        _JAX_MODELS[arch] = (model, model.init(jax.random.PRNGKey(0)))
+        # one compiled init (the eager one compiles every op on its own)
+        _JAX_MODELS[arch] = (model, jax.jit(model.init)(jax.random.PRNGKey(0)))
     return _JAX_MODELS[arch]
 
 
