@@ -19,9 +19,10 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    operand) and ``per_sample_clip`` at their parameter counts (of the
    depth phases 10 and 14 train);
    RecurrentGemma-9B (cut to 5 layers), InternVL2-1B and whisper-medium
-   training: ``luq_quant`` at an MLP weight and a microbatch's MLP hidden
-   rows, ``per_sample_clip`` at their parameter counts (the Griffin's
-   2,174,889,984, the first row beyond 2^31 elements); yi-6b serving: the
+   (cut to 12 + 12 layers) training: ``luq_quant`` at an MLP weight and a
+   microbatch's MLP hidden rows, ``per_sample_clip`` at their parameter
+   counts (the Griffin's 2,174,889,984, the first row beyond 2^31
+   elements); yi-6b serving: the
    KV cache write, decode attention and the quantized matmul; InternVL2-1B
    serving: the quantized matmul, 8 rows x 896 x 151,680 against one
    shared key), and times kernel, plain version, the least
@@ -228,12 +229,13 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    decode tokens/s; then in float32 with an exact head decode's logits
    against a prefill of the extended prompt (the same vision prefix),
    within 1e-2 of the largest logit;
-16. trains whisper-medium whole (24 encoder and 24 decoder layers,
-   757,983,232 parameters, bf16 compute, float32 params) the way of
+16. trains whisper-medium at full width cut to 12 encoder and 12
+   decoder layers (405,600,256 parameters, bf16 compute, float32 params;
+   whole, it left phase 18 no time: ``WHISPER_CUT_LAYERS``) the way of
    phases 9-10, ``TRAIN_WHISPER_ARGV`` (``--batch 32 --microbatch 4
    --seq-len 448``: each sequence with 448 Gaussian encoder frames, cast
-   to bf16 on the card): k = 43 of 48, the same checks (each microbatch
-   pass quantizes 384 projections, the cross-attention's K and V from the
+   to bf16 on the card): k = 22 of 24, the same checks (each microbatch
+   pass quantizes 192 projections, the cross-attention's K and V from the
    encoder's output per example); prints the host time of a batch's
    frames;
 17. serves whisper-medium whole through the oneshot engine
@@ -243,7 +245,32 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    kernel of the port launched; prints prefill ms, decode tokens/s and
    the peak memory; then in float32 at full depth decode's logits against
    a prefill of the extended prompt (the same encoder frames), within
-   1e-2 of the largest logit.
+   1e-2 of the largest logit;
+18. data parallelism on the one card: two ranks of this script
+   (``--dp-rank``) over gloo with CUDA tensors on a (2, 1) host mesh,
+   the loop executor's step: (a) stablelm-3b at full width cut to 2
+   layers (remat), ghost, 8 x 256 tokens, pass-1 chunks of 4: the
+   sharded ghost driver (each rank 4 sequences, one all-reduce of the
+   clipped sums) against rank 0's one-process driver: the metrics held
+   at rtol 2e-4 / atol 2e-5 in float32 and bf16, at fmt none and
+   luq_fp4; the sums at those tolerances in float32, and within the
+   relative L2 limits of ``DP_SUM_LIMITS`` in bf16 at fmt none and
+   luq_fp4, where a control with rank 1's quantizers keyed from another
+   seed must fail the limit (``ghost_norm_sq`` and ``luq_quant`` launched
+   on each rank for every layer, no clip); (b) ResNet-18 whole in the
+   vmap engine, 256 images in global microbatches of 64 (32 a rank): the
+   fused clip (launched once a local microbatch) with ``partial_accum``
+   off and the plain clip with it on (fused with it raises), at fmt none
+   and luq_fp4, against rank 0's one-process engine at the rank's
+   microbatch of 32 (the metrics held as in (a), the sums at rtol 2e-4 /
+   atol 2e-5 at fmt none and within their limit, with its control, at
+   luq_fp4) and at 64 (printed); after one DP
+   step of each workload through ``build_train_setup`` on the mesh the
+   ranks' params are the same bits; each part's wall and the
+   all-reduce's own time printed; (c) one rank under NCCL
+   (``--nccl-capture``): a ``StepGraph`` around ``all_reduce_sum``,
+   captured after the scan executor's warm-up (one collective, then the
+   step), gives back its input bit for bit on each replay.
 
 Each phase prints its wall, and a ``phase walls`` line sums them up.  The
 line before the last is ``{"kernels": [...]}``; the last line is
@@ -269,6 +296,7 @@ versions, library calls).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -922,13 +950,21 @@ VLM_PARAMS = 226_749_824
 # layers of 7
 GRIFFIN_PER_PASS = (2 * 39, 4 * 39)
 VLM_PER_PASS = (CUT_LAYERS * 7 * 2, CUT_LAYERS * 7 * 4)
-# whisper-medium whole (the JAX package's eval_shape); its projections a
-# microbatch pass: 24 encoder blocks of 6 (q, k, v, o, the MLP's two) and
-# 24 decoder blocks of 10 (self and cross q, k, v, o, the MLP's two), each
-# 2 one-row and 4 row calls (the cross K and V from the encoder's output,
+# whisper-medium whole (the JAX package's eval_shape), served whole in
+# phase 17.  Phase 16 trains it at full width cut to WHISPER_CUT_LAYERS
+# encoder and as many decoder blocks (k = 22 of 24): whole, its two
+# analyses of 98 probe replays made the phase 331 s and left phase 18 no
+# room in the script's 1,200 s (it ran 1,176 s on an H100 80GB HBM3 at
+# 700 W).  Its profile_train workload stays whole.  Its projections a
+# microbatch pass: encoder blocks of 6 (q, k, v, o, the MLP's two) and
+# decoder blocks of 10 (self and cross q, k, v, o, the MLP's two), each 2
+# one-row and 4 row calls (the cross K and V from the encoder's output,
 # per example too)
 WHISPER_PARAMS = 757_983_232
-WHISPER_PER_PASS = (2 * (24 * 6 + 24 * 10), 4 * (24 * 6 + 24 * 10))
+WHISPER_CUT_LAYERS = 12
+WHISPER_TRAIN_PARAMS = 405_600_256
+WHISPER_PER_PASS = (2 * WHISPER_CUT_LAYERS * (6 + 10),
+                    4 * WHISPER_CUT_LAYERS * (6 + 10))
 
 # Epsilon by epoch of each workload's run under commit 27090d7 (its
 # chip_smoke.py, the policy host bools, the first two epochs): the
@@ -2803,6 +2839,456 @@ def serve_whisper(torch, ops, wl):
     return summary
 
 
+# --------------------------------------------------------------------------- #
+# 18. data parallelism: two ranks on the one card (gloo), one under NCCL
+# --------------------------------------------------------------------------- #
+DP_RANKS = 2         # ranks sharing the card in 18a and 18b
+
+
+# The sharded sums against the one-process driver's where a rank's
+# shorter pass rounds in another order (bf16) or can flip a LUQ code
+# (luq_fp4): the relative L2 norm of the difference over every entry at
+# most this.  Set from the readings on an H100 80GB HBM3 at 700 W (3.4e-3
+# and 0.137, the same in every run; 2.6e-3 to 3.4e-3) at two to three
+# times them; each luq_fp4 limit must also fail a control in which rank 1
+# keys its quantizers from another seed (0.733 and 0.422 there).
+DP_SUM_LIMITS = {"18a bfloat16 none": 1e-2,
+                 "18a bfloat16 luq_fp4": 0.3,
+                 "18b luq_fp4": 1e-2}
+
+
+def _diffs(torch, got: dict, want: dict, metrics: dict,
+           wmetrics: dict) -> dict:
+    """The sums' largest absolute difference, that over the largest
+    |want|, and the relative L2 norm of the difference; both metrics."""
+    diff = max((got[k].float() - want[k].float()).abs().max().item()
+               for k in want)
+    scale = max(want[k].float().abs().max().item() for k in want)
+    dn = sum((got[k].float() - want[k].float()).square().sum().item()
+             for k in want)
+    wn = sum(want[k].float().square().sum().item() for k in want)
+    return {"sums": {"max_abs": diff,
+                     "rel_to_max": diff / scale if scale else diff,
+                     "rel_norm": (dn / wn) ** 0.5 if wn else dn ** 0.5},
+            "metrics": {k: [float(metrics[k]), float(wmetrics[k])]
+                        for k in wmetrics}}
+
+
+def _hold_dp(torch, name, got, want, metrics, wmetrics) -> dict:
+    """The sharded clipped sum and metrics against the one-process
+    driver's: the metrics at rtol 2e-4 / atol 2e-5 (the reference's
+    float32 tolerances); the sums at those tolerances, or, where
+    ``DP_SUM_LIMITS`` names ``name``, within its limit."""
+    out = _diffs(torch, got, want, metrics, wmetrics)
+    for k in wmetrics:
+        torch.testing.assert_close(
+            metrics[k], wmetrics[k], rtol=2e-4, atol=2e-5,
+            msg=lambda m, k=k: f"{name} metric {k}: {m}")
+    limit = DP_SUM_LIMITS.get(name)
+    if limit is None:
+        for k in want:
+            torch.testing.assert_close(
+                got[k], want[k], rtol=2e-4, atol=2e-5,
+                msg=lambda m, k=k: f"{name} {k}: {m}")
+    elif not out["sums"]["rel_norm"] <= limit:
+        raise AssertionError(f"{name}: sums {out['sums']} beyond the "
+                             f"limit {limit}")
+    return out
+
+
+def _control(torch, name, ctrl, want) -> dict:
+    """The control of ``name``'s limit: sums made with rank 1's
+    quantizers keyed from another seed must lie beyond it."""
+    sums = _diffs(torch, ctrl, want, {}, {})["sums"]
+    if not sums["rel_norm"] > DP_SUM_LIMITS[name]:
+        raise AssertionError(f"{name}: the limit {DP_SUM_LIMITS[name]} "
+                             f"passes a rank-dependent quantizer key "
+                             f"({sums})")
+    return sums
+
+
+@contextlib.contextmanager
+def _other_key_on_rank(rank: int):
+    """On a rank other than 0, the quantizers' (and the ghost-norm
+    kernel's) Philox streams keyed from another seed, for a control."""
+    from repro_torch.quant import fake_quant
+    key = fake_quant.stream_key
+    if rank != 0:
+        fake_quant.stream_key = lambda seed, fold: key(
+            (seed + 7919) % 2 ** 32, fold)
+    try:
+        yield
+    finally:
+        fake_quant.stream_key = key
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def dp_ghost_lm(torch, ops, wl, mesh) -> dict:
+    """18a on one rank: stablelm-3b at full width cut to 2 layers (remat),
+    ghost, 8 x 256 tokens, pass-1 chunks of 4.  The sharded driver (this
+    rank's 4 sequences, one all-reduce of the clipped sums) in float32 at
+    fmt none, and in bf16 (the config's) at fmt none and at luq_fp4;
+    rank 0 also runs the one-process unsharded driver on all 8 and holds
+    the two (``_hold_dp``): the metrics always at the float32
+    tolerances, the sums too in float32; in bf16 a rank's pass 2 over 4
+    sequences rounds its products and the embedding's scatter-sums in
+    another order than over 8 (on an H100 at 700 W: 4.6e-5 apart in
+    1,563 of the embedding's 128,778,240 entries at fmt none), and at
+    luq_fp4 such a difference can flip a code, so there the sums are held
+    within ``DP_SUM_LIMITS``, and at luq_fp4 a control with rank 1's
+    quantizers keyed from another seed must fail that limit; the kernels
+    each rank launched; then one full DP step of the LM workload through
+    ``build_train_setup`` on the mesh, after which the ranks' params must
+    be the same bits."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.config import QuantConfig
+    from repro_torch.dp.ghost import (ghost_clipped_grad_sum,
+                                      sharded_ghost_clipped_grad_sum)
+    from repro_torch.launch.steps import build_train_setup
+    from repro_torch.models.registry import build_model
+    from repro_torch.parallel.collectives import all_reduce_sum, replicas_agree
+
+    world = mesh.axis_group(mesh.axis_names)
+    run, ds, _ = wl.setup(wl.TRAIN_LM_ARGV, n_layers=2)
+    cfg = run.model
+    batch = {"tokens": ds.get(np.arange(wl.TRAIN_LM_BATCH))["tokens"].cuda()}
+    flags = torch.ones(cfg.policy_len(), device="cuda")
+    out = {}
+    for dtype, fmt in (("float32", "none"), ("bfloat16", "none"),
+                       ("bfloat16", "luq_fp4")):
+        model = build_model(dataclasses.replace(cfg, compute_dtype=dtype),
+                            QuantConfig(fmt=fmt, backend="cuda"))
+        params = model.init(wl.SEED)
+        if not replicas_agree(params.values(), world):
+            raise AssertionError("the ranks' initial params differ")
+        kw = dict(clip_norm=run.dp.clip_norm,
+                  hooked_mask=model.ghost_mask(params),
+                  aux=model.ghost_aux(flags),
+                  ghost_microbatch=wl.TRAIN_LM_CHUNK)
+
+        def pel(p, b, hooks):
+            return model.per_example_loss(p, b, flags, hooks=hooks)
+
+        def sharded():
+            return sharded_ghost_clipped_grad_sum(pel, params, batch,
+                                                  mesh=mesh, **kw)
+
+        sharded()                                   # warm-up
+        ops.reset_launch_counts()
+        (got, metrics), wall = _timed(torch, sharded)
+        launches = dict(ops.LAUNCHES)
+        _, ar_ms = _timed(torch, lambda: all_reduce_sum(
+            got, mesh.axis_group(("data",))))
+        res = {"wall_ms": wall, "all_reduce_ms": ar_ms,
+               "all_reduce_bytes": sum(t.numel() * 4 for t in got.values()),
+               "launches": launches}
+        if fmt == "luq_fp4" and (
+                launches["ghost_norm_sq"] < 7 * cfg.n_layers
+                or launches["luq_quant"] < 7 * cfg.n_layers
+                or launches["clip_and_sum"]):
+            raise AssertionError(f"18a {fmt}: launches {launches}")
+        name = f"18a {dtype} {fmt}"
+        if mesh.rank == 0:
+            (want, wmetrics), res["one_process_ms"] = _timed(
+                torch, lambda: ghost_clipped_grad_sum(pel, params, batch,
+                                                      **kw))
+            res.update(_hold_dp(torch, name, got, want, metrics, wmetrics))
+        if fmt == "luq_fp4":
+            del got
+            with _other_key_on_rank(mesh.rank):
+                got, _ = sharded()
+            if mesh.rank == 0:
+                res["control"] = _control(torch, name, got, want)
+        if mesh.rank == 0:
+            del want
+        out[f"{dtype} {fmt}"] = res
+        del got, params, model
+        _free(torch)
+
+    # one full DP step of the workload (loop executor) on the mesh
+    model = build_model(cfg, run.quant)
+    setup = build_train_setup(model, run, mesh)
+    if not setup.ghost_sharded:
+        raise AssertionError("18a: the LM workload's step is not sharded")
+    params = model.init(run.seed)
+    opt = setup.opt_init_fn(params)
+    lr = torch.tensor(run.optim.lr, device="cuda")
+    setup.step_fn(params, opt, batch, 0, flags, lr)          # warm-up
+    (p1, _, m), out["dp_step_ms"] = _timed(
+        torch, lambda: setup.step_fn(params, opt, batch, 1, flags, lr))
+    out["dp_step_loss"] = float(m["loss"])
+    out["params_agree"] = replicas_agree(p1.values(), world)
+    if not out["params_agree"]:
+        raise AssertionError("18a: the ranks' params differ after a step")
+    del p1, params, opt, model, setup
+    _free(torch)
+    return out
+
+
+def dp_vmap_resnet(torch, ops, wl, mesh) -> dict:
+    """18b on one rank: ResNet-18 whole in the vmap engine, a global batch
+    of 256 in global microbatches of 64, 32 a rank: the fused clip with
+    ``partial_accum`` off (the clip launched once a local microbatch) and
+    the plain clip with it on (``fused`` with ``partial_accum`` raises, as
+    in the reference), at fmt none and luq_fp4, each against rank 0's
+    one-process engine on the same 256 in microbatches of 32, the rank's
+    shapes (``_hold_dp``: the metrics at the float32 tolerances, the sums
+    too at fmt none and within ``DP_SUM_LIMITS`` at luq_fp4, where the
+    fused clip's run is repeated as a control with rank 1's quantizers
+    keyed from another seed, which must fail that limit), and in
+    microbatches of 64
+    (printed: cuDNN's per-example wgrads of 64 examples are not those of
+    32 in float32; on an H100 at 700 W 5.6e-5 apart in the stem at fmt
+    none); then one full DP step of the workload through
+    ``build_train_setup`` on the mesh with each setting, after which the
+    ranks' params must be the same bits.  Each engine call's wall is
+    printed beside one all-reduce of its sums (45 MB; the call makes 4
+    without ``partial_accum``, 1 with it)."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.config import QuantConfig
+    from repro_torch.dp.clip import per_example_clipped_grad_sum
+    from repro_torch.launch.steps import build_train_setup
+    from repro_torch.models.registry import build_model
+    from repro_torch.parallel.collectives import all_reduce_sum, replicas_agree
+
+    world = mesh.axis_group(mesh.axis_names)
+    shard = mesh.axis_group(("data",))
+    run, ds, _ = wl.setup(wl.TRAIN_ARGV)
+    mb = wl.TRAIN_MICROBATCH                      # the global microbatch
+    run = dataclasses.replace(run, dp=dataclasses.replace(
+        run.dp, microbatch_size=mb // DP_RANKS))
+    host = ds.get(np.arange(run.global_batch))
+    batch = {k: v.cuda() for k, v in host.items()}
+    flags = torch.ones(run.model.policy_len(), device="cuda")
+    try:
+        per_example_clipped_grad_sum(None, {}, batch, clip_norm=1.0,
+                                     microbatch_size=mb,
+                                     clip_backend="fused", shard=shard,
+                                     partial_accum=True)
+        raise AssertionError("18b: fused clip with partial_accum ran")
+    except ValueError:
+        pass
+    out = {}
+    for fmt in ("none", "luq_fp4"):
+        model = build_model(run.model, QuantConfig(fmt=fmt, backend="cuda"))
+        params = model.init(run.seed)
+
+        def loss_one(p, ex):
+            return model.loss_fn(p, {k: v[None] for k, v in ex.items()},
+                                 flags)
+
+        for clip, partial in (("fused", False), ("ref", True)):
+            def engine(sh, size=mb):
+                return per_example_clipped_grad_sum(
+                    loss_one, params, batch, clip_norm=run.dp.clip_norm,
+                    microbatch_size=size, clip_backend=clip, shard=sh,
+                    partial_accum=partial and sh is not None)
+
+            engine(shard)                           # warm-up
+            ops.reset_launch_counts()
+            (got, metrics), wall = _timed(torch, lambda: engine(shard))
+            launches = dict(ops.LAUNCHES)
+            want_clips = run.global_batch // mb if clip == "fused" else 0
+            if launches["clip_and_sum"] != want_clips:
+                raise AssertionError(f"18b {fmt} {clip}: clip launched "
+                                     f"{launches['clip_and_sum']} times, "
+                                     f"want {want_clips}")
+            _, ar_ms = _timed(torch, lambda: all_reduce_sum(got, shard))
+            res = {"wall_ms": wall, "all_reduce_ms": ar_ms,
+                   "launches": launches}
+            if mesh.rank == 0:
+                # the rank's shapes (microbatches of 32): the same
+                # per-example gradients, summed in another order
+                (want, wmetrics), res["one_process_ms"] = _timed(
+                    torch, lambda: engine(None, mb // DP_RANKS))
+                res.update(_hold_dp(torch, f"18b {fmt}", got, want,
+                                    metrics, wmetrics))
+                # the global microbatch of 64 in one process: other conv
+                # shapes (printed)
+                w64, m64 = engine(None)
+                res["vs_microbatch_64"] = _diffs(torch, got, w64, metrics,
+                                                 m64)
+                del w64
+            if fmt == "luq_fp4" and clip == "fused":
+                del got
+                with _other_key_on_rank(mesh.rank):
+                    got, _ = engine(shard)
+                if mesh.rank == 0:
+                    res["control"] = _control(torch, f"18b {fmt}", got,
+                                              want)
+            if mesh.rank == 0:
+                del want
+            out[f"{fmt} {clip} partial={partial}"] = res
+            del got
+            _free(torch)
+        del params, model
+        _free(torch)
+
+    for clip, partial in (("fused", False), ("ref", True)):
+        r = dataclasses.replace(run, dp=dataclasses.replace(
+            run.dp, clip_backend=clip, partial_accum=partial))
+        model = build_model(r.model, r.quant)
+        setup = build_train_setup(model, r, mesh)
+        params = model.init(r.seed)
+        opt = setup.opt_init_fn(params)
+        lr = torch.tensor(r.optim.lr, device="cuda")
+        setup.step_fn(params, opt, batch, 0, flags, lr)      # warm-up
+        (p1, _, m), ms = _timed(
+            torch, lambda: setup.step_fn(params, opt, batch, 1, flags, lr))
+        agree = replicas_agree(p1.values(), world)
+        out[f"dp_step {clip} partial={partial}"] = {
+            "ms": ms, "loss": float(m["loss"]), "params_agree": agree}
+        if not agree:
+            raise AssertionError(f"18b {clip}: the ranks' params differ")
+        del p1, params, opt, model, setup
+        _free(torch)
+    return out
+
+
+def dp_rank_main(argv) -> int:
+    """One rank of phase 18: ``chip_smoke.py --dp-rank RANK PORT OUT``
+    (started by :func:`data_parallel`): joins a gloo group of
+    ``DP_RANKS`` ranks on this card, runs 18a and 18b, and rank 0 writes
+    their results to ``OUT`` as JSON."""
+    import torch
+    import torch.distributed as dist
+
+    rank, port, path = int(argv[0]), int(argv[1]), argv[2]
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import workload as wl
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+
+    build.load_library()
+    init_distributed("cuda", share_device=True,
+                     init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                     world_size=DP_RANKS)
+    try:
+        mesh = make_host_mesh()
+        t0 = time.perf_counter()
+        out = {"lm": dp_ghost_lm(torch, ops, wl, mesh)}
+        out["lm"]["wall_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["resnet"] = dp_vmap_resnet(torch, ops, wl, mesh)
+        out["resnet"]["wall_s"] = time.perf_counter() - t0
+        out["backend"] = dist.get_backend()
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        Path(f"{path}.{rank}").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def nccl_capture_main(argv) -> int:
+    """18c: ``chip_smoke.py --nccl-capture PORT OUT``: one rank under
+    NCCL; a ``StepGraph`` around ``all_reduce_sum`` of a dict of float32
+    tensors, captured after the warm-up the scan executor's
+    ``EpochRunner`` runs (one collective on the group, then the step, on
+    the side stream), replayed twice with new inputs copied in between:
+    each replay gives back its input bit for bit."""
+    import torch
+    import torch.distributed as dist
+
+    port, path = int(argv[0]), argv[1]
+    sys.path.insert(0, str(SRC))
+    from repro_torch.graph import StepGraph
+    from repro_torch.launch.mesh import AxisGroup, init_distributed
+    from repro_torch.parallel.collectives import all_reduce_sum
+
+    dev = init_distributed("cuda", init_method=f"tcp://127.0.0.1:{port}",
+                           rank=0, world_size=1)
+    out = {"backend": dist.get_backend()}
+    try:
+        axis = AxisGroup(dist.group.WORLD, 0, 1)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        static = {"a": torch.randn(1 << 20, device=dev, generator=gen),
+                  "b": torch.randn(37, 5, device=dev, generator=gen)}
+
+        def fn():
+            return all_reduce_sum(static, axis)
+
+        def warmup():
+            # EpochRunner's: one collective on the group, then the step
+            dist.all_reduce(torch.zeros(1, device=dev))
+            return fn()
+
+        graph = StepGraph(fn, dev, warmup=warmup)
+        for i in range(2):
+            for t in static.values():
+                t.copy_(torch.randn(t.shape, device=dev, generator=gen))
+            got = graph()
+            torch.cuda.synchronize()
+            for k, t in static.items():
+                if not torch.equal(got[k], t):
+                    raise AssertionError(f"18c replay {i}: {k} differs")
+        out["replays"] = graph.replays
+        Path(path).write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawn(args: list, timeout: float) -> None:
+    """Run ``chip_smoke.py`` processes with ``args`` (one list each) at
+    once, print what they printed, and raise if one failed or outlived
+    ``timeout``; none is left running."""
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               *map(str, a)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for a in args]
+    try:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for a, p, log in zip(args, procs, logs):
+        for line in log.splitlines()[-40:]:
+            print(f"  [{a[0]} {a[1]}] {line}")
+        if p.returncode != 0:
+            raise AssertionError(f"{a}: exit code {p.returncode}")
+
+
+def data_parallel(torch, card: str) -> dict:
+    """Phase 18: ``DP_RANKS`` ranks on this card over gloo (18a, 18b:
+    :func:`dp_rank_main`), then one rank under NCCL (18c:
+    :func:`nccl_capture_main`); prints and returns their results."""
+    out_dir = ROOT / "build" / "chip_smoke_dp"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / "ranks.json"
+    port = _free_port()
+    t0 = time.perf_counter()
+    _spawn([["--dp-rank", r, port, path] for r in range(DP_RANKS)], 900)
+    ranks_s = time.perf_counter() - t0
+    result = json.loads(Path(f"{path}.0").read_text())
+    t0 = time.perf_counter()
+    _spawn([["--nccl-capture", _free_port(), out_dir / "nccl.json"]], 300)
+    result["nccl_capture"] = json.loads((out_dir / "nccl.json").read_text())
+    result["walls_s"] = {"ranks": ranks_s,
+                         "nccl_capture": time.perf_counter() - t0}
+    print(f"data parallel, {DP_RANKS} ranks on one card ({card}): "
+          f"{json.dumps(result)}", flush=True)
+    return result
+
+
 def serve_launches(ops) -> dict:
     """The launch counts of a serving run, the matmul's and the KV
     write's also by the step that made them."""
@@ -2961,7 +3447,7 @@ def main() -> int:
     # the clip of a microbatch's per-example gradients: ResNet-18's,
     # ResNet-50's, DenseNet-121's, BERT-SNLI's, the 6-layer Mamba-2's, the
     # 5-layer Griffin's (one row beyond 2^31 elements), the 6-layer
-    # InternVL2-1B's and whisper-medium's parameter counts
+    # InternVL2-1B's and the 12 + 12-layer whisper-medium's parameter counts
     for name, b, d in (("per_sample_clip", 64, 11_190_891),
                        ("per_sample_clip[resnet50]", 64, 23_588_459),
                        ("per_sample_clip[densenet121]", 64, 6_990_251),
@@ -2974,7 +3460,7 @@ def main() -> int:
                        ("per_sample_clip[vlm]", wl.TRAIN_VLM_MICROBATCH,
                         VLM_PARAMS),
                        ("per_sample_clip[whisper]",
-                        wl.TRAIN_WHISPER_MICROBATCH, WHISPER_PARAMS)):
+                        wl.TRAIN_WHISPER_MICROBATCH, WHISPER_TRAIN_PARAMS)):
         checks[name] = check_per_sample_clip(torch, ops, ref, b, d)
         print(f"{name} ({b} x {d}) {checks[name]}")
         torch.cuda.empty_cache()
@@ -3232,10 +3718,12 @@ def main() -> int:
 
     _phase_done(walls, "15 serve internvl2-1b")
 
-    # 16. whisper-medium whole under DPQuant, scan
+    # 16. whisper-medium at full width, WHISPER_CUT_LAYERS + as many layers,
+    # under DPQuant, scan
     whisper_launches, whisper_summary = train_vmap_lm(
-        torch, ops, wl, wl.TRAIN_WHISPER_ARGV, 43, WHISPER_PARAMS,
-        WHISPER_PER_PASS, after=whisper_input_host_ms)
+        torch, ops, wl, wl.TRAIN_WHISPER_ARGV, 22, WHISPER_TRAIN_PARAMS,
+        WHISPER_PER_PASS, n_layers=WHISPER_CUT_LAYERS,
+        after=whisper_input_host_ms)
     print(f"encdec training ({card}): " + json.dumps(
         {"whisper-medium": {k: whisper_summary[k]
                             for k in keys + ("wall_s", "after")}}))
@@ -3246,6 +3734,12 @@ def main() -> int:
     serve_whisper(torch, ops, wl)
 
     _phase_done(walls, "17 serve whisper-medium")
+
+    # 18. data parallelism: two ranks on this card over gloo, one under NCCL
+    _free(torch)
+    data_parallel(torch, card)
+
+    _phase_done(walls, "18 data parallel")
     del walls["start"]
     print(f"phase walls (s): {json.dumps(walls)}")
 
@@ -3315,4 +3809,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(dp_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--nccl-capture"]:
+        sys.exit(nccl_capture_main(sys.argv[2:]))
     sys.exit(main())

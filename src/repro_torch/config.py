@@ -156,14 +156,19 @@ class QuantConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DPConfig:
-    """DP-SGD and DPQuant-analysis knobs (the JAX package's, cut to the
-    ported engines: no ``partial_accum``, no ``ghost_sharded``)."""
+    """DP-SGD and DPQuant-analysis knobs, the JAX package's (without its
+    ``compress_cross_pod``, which no step there reads either)."""
 
     enabled: bool = True
     clip_norm: float = 1.0
     noise_multiplier: float = 1.0
     delta: float = 1e-5
     microbatch_size: int = 1
+    # "data_parallel": each microbatch holds microbatch_size examples per
+    # data shard (mb = microbatch_size * dp_degree, launch/steps.py);
+    # "single": mb = 1.
+    microbatch_mode: str = "data_parallel"
+    grad_accum_dtype: str = "float32"    # dtype of the clipped-grad sum
     # "ref": per-leaf norms and a scaled sum in PyTorch; "fused": flatten
     # each microbatch's per-example grads to (B, D) and run the
     # per_sample_clip kernel (repro_torch.kernels).
@@ -178,6 +183,11 @@ class DPConfig:
     # live state is one chunk of activations; numerically identical
     # (per-example quantization is chunk-invariant).
     ghost_microbatch: int = 0
+    # Data-parallel ghost driver (dp/ghost.sharded_ghost_clipped_grad_sum):
+    # "auto" = each rank runs both passes on its block of the batch when
+    # the mesh's data axes have degree > 1, its model axis degree 1 and
+    # the batch divides; "on" / "off" force the choice.
+    ghost_sharded: str = "auto"
     # DPQuant analysis (paper Table 3 defaults)
     analysis_interval: int = 2       # epochs between COMPUTELOSSIMPACT runs
     analysis_reps: int = 2           # R
@@ -187,6 +197,10 @@ class DPConfig:
     ema_alpha: float = 0.3           # EMA decay for policy scores
     beta: float = 10.0               # softmax temperature
     quant_fraction: float = 0.9      # fraction of layers quantized
+    # vmap engine on a mesh: each rank keeps its own clipped sum over the
+    # microbatches and the ranks reduce once a step, instead of once a
+    # microbatch
+    partial_accum: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

@@ -10,6 +10,15 @@ Two clip paths with the same metrics: ``"ref"`` takes per-leaf norms and
 a scaled sum in PyTorch; ``"fused"`` flattens the microbatch's
 per-example gradients to one (B, D) matrix and runs the ``clip_sum`` op,
 on CUDA the ``per_sample_clip`` kernel (``repro_torch.kernels``).
+
+Data parallel (``shard``, the ``AxisGroup`` of the ranks that split each
+microbatch): rank r computes its block of every microbatch, as the
+reference's ``micro_constrain`` shards the microbatch's example axis
+over the data axes.  Without ``partial_accum`` the ranks sum each
+microbatch's clipped sum (one all-reduce a microbatch, where the
+reference's sharded einsum reduces); with it each rank keeps its own sum
+and the ranks reduce once, at the end.  The norms and losses are
+gathered once, in batch order.
 """
 from __future__ import annotations
 
@@ -17,6 +26,8 @@ from typing import Callable, Tuple
 
 import torch
 from torch.func import grad_and_value, vmap
+
+from repro_torch.parallel.collectives import all_reduce_sum, gather_rows
 
 
 def _fused_clip_sum(grads: dict, mb: int, clip_norm: float):
@@ -44,37 +55,54 @@ def per_example_clipped_grad_sum(
     clip_norm: float,
     microbatch_size: int,
     clip_backend: str = "ref",
+    accum_dtype: torch.dtype = torch.float32,
+    shard=None,
+    partial_accum: bool = False,
 ) -> Tuple[dict, dict]:
     """Sum over the batch of per-example clipped gradients.
 
     ``loss_fn(params, example)`` returns the scalar loss of ONE example
     (leading batch dim already stripped).  Returns ``(grad_sum, metrics)``:
-    ``metrics`` holds the mean loss, the mean and max per-example gradient
-    norm and the fraction of examples clipped, as 0-dim tensors on the
-    params' device (no host sync).
+    the sums in ``accum_dtype``; ``metrics`` holds the mean loss, the mean
+    and max per-example gradient norm and the fraction of examples
+    clipped, as 0-dim tensors on the params' device (no host sync).
+    ``shard``: a ``repro_torch.launch.mesh.AxisGroup`` over which each
+    microbatch (``microbatch_size`` examples, the global microbatch) is
+    split, or None; ``partial_accum``: one reduction a step instead of
+    one a microbatch (module docstring).
     """
     if clip_backend not in ("ref", "fused"):
         raise ValueError(f"clip_backend must be 'ref' or 'fused', "
                          f"got {clip_backend!r}")
+    if partial_accum and clip_backend == "fused":
+        raise ValueError("clip_backend='fused' sums the whole microbatch in "
+                         "the kernel and cannot keep per-shard partial "
+                         "sums; disable partial_accum or use 'ref'")
     n = next(iter(batch.values())).shape[0]
     mb = microbatch_size
     if n % mb != 0:
         raise ValueError(f"batch {n} not divisible by microbatch {mb}")
+    parts = 1 if shard is None else shard.size
+    if mb % parts != 0:
+        raise ValueError(f"microbatch {mb} not divisible over {parts} ranks")
+    local = mb // parts
+    lo = 0 if shard is None else shard.index * local
     # randomness="same": the quantizers draw inside the vmapped function,
     # one draw shared by every example (as the JAX package's unbatched key)
     per_example = vmap(grad_and_value(loss_fn), in_dims=(None, 0),
                        randomness="same")
 
-    acc = {k: torch.zeros_like(p, dtype=torch.float32)
+    acc = {k: torch.zeros_like(p, dtype=accum_dtype)
            for k, p in params.items()}
     device = next(iter(params.values())).device
     loss_sum = torch.zeros((), dtype=torch.float32, device=device)
     all_norms = []
     for i in range(n // mb):
-        micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+        start = i * mb + lo
+        micro = {k: v[start:start + local] for k, v in batch.items()}
         grads, losses = per_example(params, micro)
         if clip_backend == "fused":
-            clipped, norms = _fused_clip_sum(grads, mb, clip_norm)
+            clipped, norms = _fused_clip_sum(grads, local, clip_norm)
         else:
             sq = sum(g.float().square().sum(dim=tuple(range(1, g.dim())))
                      for g in grads.values())
@@ -84,12 +112,24 @@ def per_example_clipped_grad_sum(
             clipped = {k: torch.einsum("b...,b->...", g.float(), scale)
                        for k, g in grads.items()}
         del grads
+        if shard is not None and not partial_accum:
+            clipped = all_reduce_sum(clipped, shard)
         for k in acc:
-            acc[k] += clipped[k]
+            acc[k] += clipped[k].to(accum_dtype)
         loss_sum += losses.sum()
         all_norms.append(norms)
 
     norms = torch.cat(all_norms)
+    if shard is not None:
+        if partial_accum:
+            acc = {k: v.to(accum_dtype) for k, v in all_reduce_sum(
+                {k: v.float() for k, v in acc.items()}, shard).items()}
+        # (ranks, microbatches x local norms + the loss sum), in batch order
+        rows = gather_rows(torch.cat([norms, loss_sum.reshape(1)])[None],
+                           shard)
+        loss_sum = rows[:, -1].sum()
+        norms = rows[:, :-1].reshape(parts, n // mb, local).transpose(
+            0, 1).reshape(-1)
     metrics = {
         "loss": loss_sum / n,
         "grad_norm_mean": norms.mean(),

@@ -3,7 +3,9 @@
 The counterpart of ``repro.dp.engine``.  ``grad_mode="vmap"``: per-example
 gradients from ``torch.func.vmap``, clipped and summed by
 ``repro_torch.dp.clip``.  ``grad_mode="ghost"``: the two-pass ghost-norm
-engine of ``repro_torch.dp.ghost`` (the dense LMs, ResNet and DenseNet).
+engine of ``repro_torch.dp.ghost`` (the dense LMs, ResNet and DenseNet),
+whose data-parallel driver runs both passes on each rank's block of the
+batch.
 Both are noised by ``repro_torch.dp.noise``; the train step
 (``repro_torch.launch.steps``) assembles them, as the JAX package's
 ``build_train_setup`` does.
@@ -30,6 +32,14 @@ def validate_grad_mode(dp: DPConfig, model=None) -> None:
     if dp.ghost_microbatch < 0:
         raise ValueError(f"dp.ghost_microbatch must be >= 0, "
                          f"got {dp.ghost_microbatch}")
+    if dp.ghost_sharded not in ("auto", "on", "off"):
+        raise ValueError(f"dp.ghost_sharded must be 'auto', 'on' or 'off', "
+                         f"got {dp.ghost_sharded!r}")
+    if dp.partial_accum:
+        raise ValueError("grad_mode='ghost' computes the clipped grad sum "
+                         "in one reweighted backward and keeps no per-shard "
+                         "partial sums; disable dp.partial_accum or use "
+                         "grad_mode='vmap'")
     if dp.clip_backend == "fused":
         raise ValueError("clip_backend='fused' operates on materialized "
                          "(B, D) per-example grads, which ghost mode never "

@@ -1,9 +1,11 @@
 """Ghost-norm two-pass DP-SGD gradient engine (``DPConfig.grad_mode="ghost"``).
 
-The counterpart of ``repro.dp.ghost``, without the sharded driver (a
-later slice).  The vmap path (``repro_torch.dp.clip``) materializes every
-per-example gradient: O(B x params) live memory.  Ghost clipping computes
-the same clipped sum without it:
+The counterpart of ``repro.dp.ghost``, with its data-parallel driver
+(:func:`sharded_ghost_clipped_grad_sum`: both passes on each rank's block
+of the batch, one all-reduce of the clipped sums).  The vmap path
+(``repro_torch.dp.clip``) materializes every per-example gradient: O(B
+x params) live memory.  Ghost clipping computes the same clipped sum
+without it:
 
 pass 1 -- norms
     One batched forward and backward per chunk of ``ghost_microbatch``
@@ -91,6 +93,8 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
+from repro_torch.parallel.collectives import all_reduce_sum, gather_rows
+from repro_torch.parallel.partitioner import axis_sizes, local_slice
 from repro_torch.quant import backend as qbackend
 from repro_torch.quant import fake_quant
 from repro_torch.quant.formats import STOCHASTIC_FORMATS
@@ -515,20 +519,10 @@ def _clip_metrics(losses, norms, clip_norm: float) -> dict:
     }
 
 
-def ghost_clipped_grad_sum(per_example_loss_fn: Callable, params: dict,
-                           batch: dict, *, clip_norm: float,
-                           hooked_mask: dict, aux: Optional[GhostAux] = None,
-                           ghost_microbatch: int = 0) -> Tuple[dict, dict]:
-    """Sum over the batch of per-example clipped gradients, ghost style.
-
-    ``per_example_loss_fn(params, batch, hooks) -> (B,)``: the batched
-    per-example losses under a :class:`GhostHooks` (pass 2's reweighted
-    backward; pass 1's too without ``aux``).  ``hooked_mask``: {name: bool}, True for leaves a hook
-    covers.  ``aux``: the model's :class:`GhostAux`; ``ghost_microbatch``:
-    pass-1 chunk size (0 = the whole batch).  Returns ``(grad_sum,
-    metrics)`` with float32 sums and the metrics of
-    ``repro_torch.dp.clip.per_example_clipped_grad_sum``.
-    """
+def _two_pass(per_example_loss_fn, params, batch, *, clip_norm, hooked_mask,
+              aux, ghost_microbatch):
+    """Both passes over ``batch``: ((float32) clipped-grad sums, (B,)
+    losses, (B,) norms)."""
     losses, norms = ghost_per_example_norms(
         per_example_loss_fn, params, batch, hooked_mask=hooked_mask,
         aux=aux, microbatch=ghost_microbatch)
@@ -542,4 +536,73 @@ def ghost_clipped_grad_sum(per_example_loss_fn: Callable, params: dict,
     grad_sum = {k: (torch.zeros_like(v, dtype=torch.float32) if g is None
                     else g.float())
                 for (k, v), g in zip(leaves.items(), grads)}
+    return grad_sum, losses, norms
+
+
+def ghost_clipped_grad_sum(per_example_loss_fn: Callable, params: dict,
+                           batch: dict, *, clip_norm: float,
+                           hooked_mask: dict, aux: Optional[GhostAux] = None,
+                           ghost_microbatch: int = 0,
+                           accum_dtype: torch.dtype = torch.float32
+                           ) -> Tuple[dict, dict]:
+    """Sum over the batch of per-example clipped gradients, ghost style.
+
+    ``per_example_loss_fn(params, batch, hooks) -> (B,)``: the batched
+    per-example losses under a :class:`GhostHooks` (pass 2's reweighted
+    backward; pass 1's too without ``aux``).  ``hooked_mask``: {name:
+    bool}, True for leaves a hook covers.  ``aux``: the model's
+    :class:`GhostAux`; ``ghost_microbatch``: pass-1 chunk size (0 = the
+    whole batch).  Returns ``(grad_sum, metrics)``: the sums in
+    ``accum_dtype`` (summed in float32), the metrics of
+    ``repro_torch.dp.clip.per_example_clipped_grad_sum``.
+    """
+    grad_sum, losses, norms = _two_pass(
+        per_example_loss_fn, params, batch, clip_norm=clip_norm,
+        hooked_mask=hooked_mask, aux=aux, ghost_microbatch=ghost_microbatch)
+    grad_sum = {k: g.to(accum_dtype) for k, g in grad_sum.items()}
     return grad_sum, _clip_metrics(losses, norms, clip_norm)
+
+
+def sharded_ghost_clipped_grad_sum(
+        per_example_loss_fn: Callable, params: dict, batch: dict, *,
+        clip_norm: float, hooked_mask: dict, mesh,
+        data_axes: Tuple[str, ...] = ("pod", "data"),
+        accum_dtype: torch.dtype = torch.float32,
+        aux: Optional[GhostAux] = None,
+        ghost_microbatch: int = 0) -> Tuple[dict, dict]:
+    """Data-parallel ghost driver: each rank runs both passes on its
+    contiguous block of the global ``batch``.
+
+    The counterpart of the reference's ``shard_map`` over the mesh's data
+    axes (``mesh``: a ``repro_torch.launch.mesh.CompatMesh``; every rank
+    holds the whole batch and the whole params).  A rank's pass-2 scales
+    are exactly its own examples', so its pass 2 gives the clipped sum of
+    its block; the ranks then combine those with ONE ``all_reduce``, no
+    per-chunk reduction.  Losses and norms are gathered in shard order
+    (= batch order), and the metrics are computed over the whole batch,
+    the unsharded driver's contract up to float32 summation order.
+    Axes of degree 1 are dropped; with none left this IS
+    :func:`ghost_clipped_grad_sum`.  A batch that does not divide over the
+    shards raises.
+    """
+    sizes = axis_sizes(mesh)
+    axes = tuple(a for a in data_axes if sizes.get(a, 1) > 1)
+    if not axes:
+        return ghost_clipped_grad_sum(
+            per_example_loss_fn, params, batch, clip_norm=clip_norm,
+            hooked_mask=hooked_mask, aux=aux,
+            ghost_microbatch=ghost_microbatch, accum_dtype=accum_dtype)
+    n = next(iter(batch.values())).shape[0]
+    axis = mesh.axis_group(axes)
+    if n % axis.size != 0:
+        raise ValueError(f"global batch {n} not divisible by the "
+                         f"{axis.size}-way data sharding {axes}")
+    block = local_slice(axes, n, mesh)
+    local = {k: v[block] for k, v in batch.items()}
+    grad_sum, losses, norms = _two_pass(
+        per_example_loss_fn, params, local, clip_norm=clip_norm,
+        hooked_mask=hooked_mask, aux=aux, ghost_microbatch=ghost_microbatch)
+    grad_sum = all_reduce_sum(grad_sum, axis)          # the one collective
+    rows = gather_rows(torch.stack([losses.float(), norms]).T, axis)
+    grad_sum = {k: g.to(accum_dtype) for k, g in grad_sum.items()}
+    return grad_sum, _clip_metrics(rows[:, 0], rows[:, 1], clip_norm)

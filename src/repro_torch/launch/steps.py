@@ -1,10 +1,21 @@
 """The train step: DP-SGD / DP-Adam or plain, as one functional call, and
 the ``scan`` executor's epoch program around it.
 
-The counterpart of ``repro.launch.steps.build_train_setup`` for one
-device (no mesh, no shardings, no sharded ghost driver): the clipped
+The counterpart of ``repro.launch.steps.build_train_setup``: the clipped
 gradient sum of the vmap engine (``dp.clip``) or the ghost engine
-(``dp.ghost``), noised, then the optimizer.  ``step_fn(params, opt_state,
+(``dp.ghost``), noised, then the optimizer.  On a mesh
+(``repro_torch.launch.mesh.CompatMesh``, one rank a device) the step is
+data parallel over the ``pod`` and ``data`` axes with the parameters
+replicated: every rank is given the same global batch and computes its
+share of it (the sharded ghost driver a contiguous block, the vmap
+engine its block of every microbatch), the ranks sum the clipped sums,
+and every rank adds the same noise (its generator in the same state on
+every rank, the reference's SPMD-consistent draw) divided by the global
+batch, so the update, and then the params, are the same bits on every
+rank.  The unsharded ghost driver (``ghost_sharded`` off, or a batch
+that does not divide) and ``dp.enabled=False`` run the whole batch on
+every rank.  A mesh whose ``model`` axis has degree > 1 (tensor and
+expert parallelism) is not ported and raises.  ``step_fn(params, opt_state,
 batch, seed, qflags, lr) -> (params, opt_state, metrics)`` returns new
 params and optimizer state and writes neither argument in place, which
 is what lets the DPQuant probes restore the model by keeping the old
@@ -26,17 +37,21 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 from torch.func import grad_and_value
 from torch.utils._pytree import tree_flatten, tree_leaves, tree_unflatten
 
-from repro_torch.config import RunConfig
+from repro_torch.config import RunConfig, torch_dtype
 from repro_torch.dp.clip import per_example_clipped_grad_sum
 from repro_torch.dp.engine import validate_grad_mode
-from repro_torch.dp.ghost import ghost_clipped_grad_sum
+from repro_torch.dp.ghost import (ghost_clipped_grad_sum,
+                                  sharded_ghost_clipped_grad_sum)
 from repro_torch.dp.noise import add_gaussian_noise
 from repro_torch.graph import StepGraph
+from repro_torch.launch.mesh import DATA_AXES, data_degree
 from repro_torch.models.registry import Model
 from repro_torch.optim import apply_updates, make_optimizer
+from repro_torch.parallel import partitioner as pt
 
 # Offset of the DP noise's generator seed from the step seed: each step
 # draws its noise from its own stream, seeded from the step seed alone
@@ -51,29 +66,84 @@ class TrainSetup:
     step_fn: Callable
     opt_init_fn: Callable
     noise_gen: torch.Generator
+    mesh: Optional[object] = None
+    #: whether the ghost step runs the sharded driver
+    ghost_sharded: bool = False
+    #: what a batch's size must be a multiple of: the vmap engine's
+    #: global microbatch, or the sharded ghost driver's shard count
+    batch_multiple: int = 1
 
 
-def build_train_setup(model: Model, run: RunConfig) -> TrainSetup:
+def _microbatch(run: RunConfig, mesh) -> int:
+    """The global microbatch: ``microbatch_size`` examples per data
+    shard, or 1 under ``microbatch_mode="single"`` (the reference's)."""
+    if run.dp.microbatch_mode == "single":
+        return 1
+    if run.dp.microbatch_mode != "data_parallel":
+        raise ValueError(f"dp.microbatch_mode must be 'data_parallel' or "
+                         f"'single', got {run.dp.microbatch_mode!r}")
+    mb = run.dp.microbatch_size * data_degree(mesh)
+    return max(1, min(mb, run.global_batch))
+
+
+def build_train_setup(model: Model, run: RunConfig, mesh=None) -> TrainSetup:
     if model.loss_fn is None:
         raise ValueError(f"model family {model.config.family!r} has no "
                          "training hooks in repro_torch yet")
     if run.dp.enabled:
         validate_grad_mode(run.dp, model)
     opt = make_optimizer(run.optim)
-    mb = max(1, min(run.dp.microbatch_size, run.global_batch))
+    mb = _microbatch(run, mesh)
+    accum_dtype = torch_dtype(run.dp.grad_accum_dtype)
     ghost = run.dp.enabled and run.dp.grad_mode == "ghost"
     noise_gen = torch.Generator(device=model.device)
 
+    # ---- the data-parallel strategy (the reference's, data axes only) ----
+    sizes = pt.axis_sizes(mesh) if mesh is not None else {}
+    model_degree = sizes.get("model", 1)
+    dp_shards = data_degree(mesh)
+    gs = run.dp.ghost_sharded
+    if ghost and gs == "on" and model_degree > 1:
+        raise ValueError("dp.ghost_sharded='on' requires params replicated "
+                         "over the data axes (model axis degree 1); use "
+                         "'auto'/'off' on model-parallel meshes")
+    if model_degree > 1:
+        raise NotImplementedError(
+            f"training on a mesh whose model axis has degree "
+            f"{model_degree} (tensor and expert parallelism) is not ported "
+            f"yet (ROADMAP.md section 1); the port trains on the data "
+            f"axes alone")
+    if gs == "on":
+        ghost_sharded = ghost and mesh is not None
+    else:
+        ghost_sharded = (gs == "auto" and ghost and dp_shards > 1
+                         and run.global_batch % dp_shards == 0)
+    shard, partial = None, False
+    if dp_shards > 1:
+        # the microbatch's example axis, laid out as the reference's
+        # micro_constrain lays it
+        entry = pt.assign_spec(("batch",), (mb,), mesh, pt.DEFAULT_RULES)[0]
+        shard = mesh.axis_group(pt.entry_axes(entry))
+        partial = run.dp.partial_accum and mb % dp_shards == 0
+        if shard.group is None:
+            shard = None
+
     def train_step(params, opt_state, batch, seed, qflags, lr):
         if ghost:
-            grad_sum, metrics = ghost_clipped_grad_sum(
-                lambda p, b, hooks: model.per_example_loss(
-                    p, b, qflags, hooks=hooks),
-                params, batch, clip_norm=run.dp.clip_norm,
-                hooked_mask=model.ghost_mask(params),
-                aux=(model.ghost_aux(qflags) if model.ghost_aux is not None
-                     else None),
-                ghost_microbatch=run.dp.ghost_microbatch)
+            kw = dict(clip_norm=run.dp.clip_norm,
+                      hooked_mask=model.ghost_mask(params),
+                      aux=(model.ghost_aux(qflags)
+                           if model.ghost_aux is not None else None),
+                      ghost_microbatch=run.dp.ghost_microbatch,
+                      accum_dtype=accum_dtype)
+            pel = lambda p, b, hooks: model.per_example_loss(  # noqa: E731
+                p, b, qflags, hooks=hooks)
+            if ghost_sharded:
+                grad_sum, metrics = sharded_ghost_clipped_grad_sum(
+                    pel, params, batch, mesh=mesh, data_axes=DATA_AXES, **kw)
+            else:
+                grad_sum, metrics = ghost_clipped_grad_sum(
+                    pel, params, batch, **kw)
         elif run.dp.enabled:
             def loss_one(p, ex):
                 return model.loss_fn(p, {k: v[None] for k, v in ex.items()},
@@ -81,7 +151,8 @@ def build_train_setup(model: Model, run: RunConfig) -> TrainSetup:
 
             grad_sum, metrics = per_example_clipped_grad_sum(
                 loss_one, params, batch, clip_norm=run.dp.clip_norm,
-                microbatch_size=mb, clip_backend=run.dp.clip_backend)
+                microbatch_size=mb, clip_backend=run.dp.clip_backend,
+                accum_dtype=accum_dtype, shard=shard, partial_accum=partial)
         else:
             grads, loss = grad_and_value(
                 lambda p: model.loss_fn(p, batch, qflags))(params)
@@ -101,7 +172,11 @@ def build_train_setup(model: Model, run: RunConfig) -> TrainSetup:
         return apply_updates(params, updates), new_opt, metrics
 
     return TrainSetup(step_fn=train_step, opt_init_fn=opt.init,
-                      noise_gen=noise_gen)
+                      noise_gen=noise_gen, mesh=mesh,
+                      ghost_sharded=ghost_sharded,
+                      batch_multiple=(dp_shards if ghost_sharded else
+                                      mb if run.dp.enabled and not ghost
+                                      else 1))
 
 
 class EpochRunner:
@@ -141,12 +216,27 @@ class EpochRunner:
     captured without one (``StepGraph(warm=False)``), so that the eager
     step's temporaries never need memory beside the pool's.  On the CPU
     the same step runs directly.
+
+    On a mesh of several ranks the step's collectives are captured with
+    it, which NCCL allows and gloo does not: on CUDA under gloo (ranks
+    sharing a card) the runner raises when it is made, and under NCCL the
+    warm-up first runs one collective on every group of the mesh, so that
+    each communicator exists before the capture.
     """
 
     def __init__(self, setup: TrainSetup, device, *, adopt: bool = True,
                  pool=None, warmed: Optional[set] = None):
-        self.setup = setup
         self.device = torch.device(device)
+        mesh = setup.mesh
+        self._mesh = (mesh if mesh is not None and mesh.devices.size > 1
+                      else None)
+        if (self._mesh is not None and self.device.type == "cuda"
+                and dist.get_backend() == "gloo"):
+            raise RuntimeError(
+                "the scan executor captures the step in a CUDA graph, and "
+                "gloo's collectives (ranks that share a card) cannot be "
+                "captured: use the loop executor")
+        self.setup = setup
         self.adopt = adopt
         self._leaves = None          # static params + opt state, flattened
         self._spec = None
@@ -204,9 +294,15 @@ class EpochRunner:
         self._batch = {k: v[0].clone() for k, v in batches.items()}
         self._lr = torch.zeros((), dtype=torch.float32, device=self.device)
         warm = key not in self._warmed
+
+        def warmup():
+            if self._mesh is not None:
+                self._mesh.warm_collectives(self.device)
+            return self._step(False)
+
         self._graph = StepGraph(
             lambda: self._step(True), self.device,
-            warmup=lambda: self._step(False), warm=warm,
+            warmup=warmup, warm=warm,
             generators=(self.setup.noise_gen,), pool=self._pool)
         if warm and self.device.type == "cuda":
             self._warmed.add(key)

@@ -74,6 +74,14 @@
         --arch whisper-medium --smoke --device cpu --batch 4 \
         --microbatch 2 --seq-len 16 --epochs 2 --steps-per-epoch 2
 
+    # data parallel: two ranks on the CPU (gloo), each with its block of
+    # every batch, one all-reduce of the clipped sums a step; on a node
+    # with one card a rank (NCCL), without --device cpu
+    PYTHONPATH=src python -m torch.distributed.run --nproc_per_node 2 \
+        -m repro_torch.launch.train --arch stablelm-3b --smoke \
+        --device cpu --grad-mode ghost --ghost-sharded on --executor loop \
+        --batch 4 --ghost-microbatch 2 --seq-len 16
+
     # preempted at global step 2 (a mid-epoch checkpoint, exit 0), then
     # resumed bit for bit by the same command without --preempt-at
     PYTHONPATH=src python -m repro_torch.launch.train --arch resnet18 \
@@ -86,13 +94,20 @@ hybrid, the VLM and the encoder-decoder in vmap mode), among them
 CUDA graph of the train step a quantization policy), ``--epoch-chunk``,
 ``--epoch-unroll`` (1 only), ``--checkpoint-dir`` (a rerun restores the
 latest checkpoint there and trains what is left of ``--epochs``, the
-run's total), ``--preempt-at`` and ``--handle-signals``, without
-``--ghost-sharded`` (not ported yet), plus ``--device`` (default
+run's total), ``--preempt-at``, ``--handle-signals`` and
+``--ghost-sharded``, plus ``--device`` (default
 ``cuda``; without a GPU the run raises unless ``--device cpu`` is given)
 and ``--backend ref|cuda`` (default ``cuda``, the hand-written kernels;
 ``REPRO_QUANT_BACKEND`` overrides it).  Prints one line per
 epoch, ``epoch e: loss=... eps=... k=... acc=...``, as the JAX CLI does
 (``acc=None`` for an LM: it has no eval set).
+
+Under ``python -m torch.distributed.run`` (``WORLD_SIZE`` in the
+environment) each rank joins the process group (``launch.mesh``: NCCL
+on CUDA, one card a rank, ``cuda:LOCAL_RANK``; gloo with ``--device
+cpu``), the run trains data parallel on the host mesh ``(world, 1)``
+over ``("data", "model")``, and rank 0 alone prints and writes
+checkpoints.
 
 The reference's CLI cannot train the encoder-decoder: its
 ``make_dataset`` gives that family a ``TokenDataset``, whose batches hold
@@ -106,14 +121,17 @@ embeddings drawn per example from ``--seed``.
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.config import (DPConfig, ModelConfig, OptimConfig,
                                 QuantConfig, RunConfig, resolve_device)
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.synthetic import (EncDecDataset, ImageClassDataset,
                                         NLIDataset, TokenDataset)
+from repro_torch.launch.mesh import init_distributed, make_host_mesh
 from repro_torch.runtime.faults import FaultEvent, FaultPlan
 from repro_torch.runtime.preemption import Preempted, PreemptionHandler
 from repro_torch.train_loop import Trainer
@@ -158,7 +176,8 @@ def build_run(args) -> RunConfig:
                     quant_fraction=args.quant_fraction,
                     clip_backend=args.clip_backend,
                     grad_mode=args.grad_mode,
-                    ghost_microbatch=args.ghost_microbatch),
+                    ghost_microbatch=args.ghost_microbatch,
+                    ghost_sharded=args.ghost_sharded),
         optim=OptimConfig(name=args.optimizer, lr=args.lr),
         global_batch=args.batch, seq_len=args.seq_len,
         steps_per_epoch=args.steps_per_epoch,
@@ -188,6 +207,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "clipping; dense LMs and CNNs)")
     ap.add_argument("--ghost-microbatch", type=int, default=0,
                     help="ghost pass-1 chunk size (0 = the whole batch)")
+    ap.add_argument("--ghost-sharded", default="auto",
+                    choices=["auto", "on", "off"],
+                    help="data-parallel ghost driver: each rank runs both "
+                         "passes on its block of the batch, one all-reduce "
+                         "of the clipped sums (auto = when the mesh's data "
+                         "axes have degree > 1)")
     ap.add_argument("--quant-fraction", type=float, default=0.9)
     ap.add_argument("--epochs", type=int, default=10)
     ap.add_argument("--steps-per-epoch", type=int, default=10)
@@ -238,7 +263,21 @@ def build_datasets(args, cfg: ModelConfig):
 
 def main(argv=None):
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    mesh = None
+    if "WORLD_SIZE" in os.environ:
+        device = init_distributed(args.device)
+        mesh = make_host_mesh()
+    else:
+        device = resolve_device(args.device)
+    try:
+        _train(args, device, mesh)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
+
+
+def _train(args, device, mesh) -> None:
+    lead = mesh is None or mesh.rank == 0     # the rank that prints
     # The configuration is float32: keep cuDNN's convolutions (and
     # cuBLAS's products) out of TF32.
     torch.backends.cudnn.allow_tf32 = False
@@ -253,9 +292,10 @@ def main(argv=None):
         handler = PreemptionHandler(faults=plan,
                                     handle_signals=args.handle_signals)
     tr = Trainer(run, ds, eval_dataset=ev, mode=args.mode, device=device,
-                 checkpoint_dir=args.checkpoint_dir, preemption=handler)
+                 checkpoint_dir=args.checkpoint_dir, preemption=handler,
+                 mesh=mesh)
     resumed = tr.restore_latest()
-    if resumed is not None:
+    if resumed is not None and lead:
         print(f"resumed from checkpoint at epoch {resumed}"
               + (" (mid-epoch)" if tr._mid_epoch is not None else ""))
     # --epochs is the run's *total* epoch count: train whatever is left
@@ -264,15 +304,17 @@ def main(argv=None):
     try:
         tr.train(remaining, eps_budget=args.eps, verbose=True)
     except Preempted as p:
-        print(f"preempted at step {p.step}; checkpoint written — rerun to "
-              "resume")
+        if lead:
+            print(f"preempted at step {p.step}; checkpoint written — rerun "
+                  "to resume")
         return
     finally:
         if tr.ckpt:
             tr.ckpt.wait()
     final = tr.history[-1]
-    print(f"final: loss={final.loss:.4f} eps={final.eps:.3f} "
-          f"acc={final.accuracy}")
+    if lead:
+        print(f"final: loss={final.loss:.4f} eps={final.eps:.3f} "
+              f"acc={final.accuracy}")
 
 
 if __name__ == "__main__":

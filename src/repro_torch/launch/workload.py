@@ -296,7 +296,8 @@ TRAIN_WORKLOADS = {"resnet": (TRAIN_ARGV, None),
 def setup(argv, n_layers=None) -> tuple:
     """``(run, dataset, eval_dataset)`` of the training workload of
     ``argv``, built by ``launch.train`` as the CLI builds them (the eval
-    set is None for an LM), the model cut to ``n_layers`` if given."""
+    set is None for an LM), the model cut to ``n_layers`` if given (an
+    encoder-decoder: each of its two stacks)."""
     import dataclasses
 
     from repro_torch.launch import train
@@ -304,8 +305,11 @@ def setup(argv, n_layers=None) -> tuple:
     args = train.parse_args(list(argv))
     run = train.build_run(args)
     if n_layers is not None:
+        cut = {"n_layers": n_layers}
+        if run.model.family == "encdec":
+            cut.update(n_enc_layers=n_layers, n_dec_layers=n_layers)
         run = dataclasses.replace(
-            run, model=dataclasses.replace(run.model, n_layers=n_layers))
+            run, model=dataclasses.replace(run.model, **cut))
     return (run, *train.build_datasets(args, run.model))
 
 

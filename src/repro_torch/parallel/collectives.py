@@ -1,0 +1,127 @@
+"""Collectives of the data-parallel step, over ``torch.distributed``.
+
+The counterpart of ``repro.parallel.collectives``.  Each takes the
+:class:`~repro_torch.launch.mesh.AxisGroup` of the ranks it reduces over
+and does nothing for a group of one (``group`` None).  The reference's
+``compat_shard_map`` has no counterpart: a rank already runs its own
+block of the batch, so the rank-local body of the sharded ghost driver
+(``repro_torch.dp.ghost.sharded_ghost_clipped_grad_sum``) takes its
+place, with these calls where the reference's body has ``psum`` and
+``all_gather``.
+
+Every collective is an ``all_reduce`` (SUM or MAX), which both backends
+have for CUDA tensors: gloo on CUDA tensors has only ``broadcast`` and
+``all_reduce``.  :func:`gather_rows` is therefore a SUM of a zero-filled
+buffer that each rank fills at its own offset; adding zeros is exact.
+
+``compressed_psum_pods``: int8-compressed all-reduce over the ``pod``
+axis.  Cross-pod links are the scarcest bandwidth at multi-pod scale,
+and DP-SGD gradients are unusually compressible because injected
+Gaussian noise dominates them.  Each leaf is quantized to int8 against
+one pod-wide max-abs scale with stochastic rounding (unbiased), summed
+as int32 over the pods, and multiplied back by the scale.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.distributed as dist
+
+
+def all_reduce_sum(tree: Dict[str, torch.Tensor],
+                   axis) -> Dict[str, torch.Tensor]:
+    """The sum over ``axis``'s ranks of a dict of float32 tensors: ONE
+    ``all_reduce`` of their concatenation; returns views of it."""
+    if axis.group is None:
+        return tree
+    flat = torch.cat([t.reshape(-1) for t in tree.values()])
+    dist.all_reduce(flat, group=axis.group)
+    out, start = {}, 0
+    for name, t in tree.items():
+        out[name] = flat[start:start + t.numel()].view(t.shape)
+        start += t.numel()
+    return out
+
+
+def gather_rows(x: torch.Tensor, axis) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along dim 0 in rank order (the
+    group's index), on every rank: an ``all_reduce`` SUM of a zero
+    (size, *x.shape) buffer that each rank fills at its own row."""
+    if axis.group is None:
+        return x
+    buf = x.new_zeros((axis.size,) + tuple(x.shape))
+    buf[axis.index] = x
+    dist.all_reduce(buf, group=axis.group)
+    return buf.reshape((-1,) + tuple(x.shape[1:]))
+
+
+def all_reduce_max(x: torch.Tensor, axis) -> torch.Tensor:
+    """The elementwise max over ``axis``'s ranks, in place."""
+    if axis.group is not None:
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=axis.group)
+    return x
+
+
+def compressed_psum_pods(partials: Dict[str, torch.Tensor], mesh,
+                         seed: int) -> Dict[str, torch.Tensor]:
+    """Reduce this pod's partial gradients over the ``pod`` axis.
+
+    ``partials``: ``{name: this rank's pod partial}`` (the reference's
+    leaves carry a leading pods dim sharded over "pod"; here a rank holds
+    its pod's slice).  Per leaf ``i``: the scale is the pod-wide max of
+    ``|x|`` over 127 (one MAX all-reduce; 1 where that is 0), the codes
+    ``clip(floor(x / scale) + (u < frac), -127, 127)`` with ``u`` drawn
+    from a generator seeded ``seed * 2**16 + i``, their int32 sum over the
+    pods multiplied back by the scale.  ``seed`` must be below 2**15 (a
+    CPU generator keeps 32 bits of its seed); the same on every rank.
+    """
+    if not 0 <= seed < 2 ** 15:
+        raise ValueError(f"seed must be in [0, 2**15), got {seed}")
+    axis = mesh.axis_group(("pod",))
+    out = {}
+    for i, (name, part) in enumerate(partials.items()):
+        x = part.float()
+        scale = all_reduce_max(x.abs().max() / 127.0, axis)
+        scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+        y = x / scale
+        lo = torch.floor(y)
+        gen = torch.Generator(device=x.device).manual_seed(seed * 2 ** 16 + i)
+        u = torch.rand(x.shape, generator=gen, device=x.device)
+        q = torch.clamp(lo + (u < (y - lo)).float(), -127, 127)
+        q = q.to(torch.int8).to(torch.int32)
+        if axis.group is not None:
+            dist.all_reduce(q, group=axis.group)
+        out[name] = q.float() * scale
+    return out
+
+
+_BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+_CHUNK = 1 << 24        # elements a step: 128 MB of int64 temporaries
+
+
+def fingerprint(tensors) -> torch.Tensor:
+    """Two int64 words per tensor that change with any bit of it: the sum
+    of its elements' bit patterns and their sum weighted by position (both
+    wrapping), computed ``_CHUNK`` elements at a time."""
+    out = []
+    for t in tensors:
+        bits = t.detach().reshape(-1).view(_BITS[t.element_size()])
+        acc = torch.zeros(2, dtype=torch.int64, device=t.device)
+        for s in range(0, bits.numel(), _CHUNK):
+            c = bits[s:s + _CHUNK].to(torch.int64)
+            pos = torch.arange(s + 1, s + 1 + c.numel(), device=t.device)
+            acc[0] += c.sum()
+            acc[1] += (c * pos).sum()
+        out.append(acc)
+    return torch.cat(out)
+
+
+def replicas_agree(tensors, axis) -> bool:
+    """Whether every rank of ``axis`` holds the same bits in ``tensors``:
+    ONE all-reduce MAX of their fingerprints and the fingerprints negated
+    (the max and the min at once)."""
+    fp = fingerprint(tensors)
+    both = all_reduce_max(torch.cat([fp, -fp]), axis)
+    hi, neg_lo = both.chunk(2)
+    return bool(torch.equal(hi, -neg_lo))

@@ -55,6 +55,20 @@ since the DP noise generator is re-seeded from the step seed before every
 step or replay and the quantizer's Philox keys ``(seed, 0x4C550000 +
 fold)`` do not change from step to step.
 
+Data parallel (``mesh``, a ``repro_torch.launch.mesh.CompatMesh`` over
+the ranks of ``torch.distributed``): every rank runs this loop with the
+same seed, so it draws the same global Poisson batches, probe batches,
+step seeds and learning rates, and charges its accountant the same; the
+step (``launch.steps.build_train_setup`` on the mesh) computes each
+rank's share of the batch and reduces the clipped sums, and the DPQuant
+probes run through that same step, so every rank sees the same losses
+and picks the same policies.  At the end of each epoch one all-reduce of
+a max and a min of the params' and the policy's fingerprints checks that
+the ranks agree, and raises if they do not.  A preemption poll is one
+MAX all-reduce of the ranks' requests, so a request on any rank stops
+every rank at the same step.  Only rank 0 prints and writes checkpoints
+(the others wait at a barrier); every rank restores.
+
 Also supports mode="pls" / mode="static" (ablations / baselines) and
 dp.enabled=False (the non-private comparison in paper Fig. 1a).
 """
@@ -66,6 +80,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.config import RunConfig, validate_executor
@@ -75,6 +90,7 @@ from repro_torch.dp.accountant import RDPAccountant
 from repro_torch.launch.steps import EpochRunner, build_train_setup
 from repro_torch.models.registry import Model, build_model
 from repro_torch.optim.schedule import make_schedule
+from repro_torch.parallel.collectives import replicas_agree
 from repro_torch.quant.backend import resolve_backend
 from repro_torch.runtime.preemption import Preempted, PreemptionHandler
 
@@ -93,7 +109,7 @@ class EpochStats:
 class Trainer:
     def __init__(self, run: RunConfig, dataset, *, mode: str = "dpquant",
                  eval_dataset=None, device=None, checkpoint_dir=None,
-                 preemption: Optional[PreemptionHandler] = None):
+                 preemption: Optional[PreemptionHandler] = None, mesh=None):
         resolve_backend(run.quant.backend)       # fail fast on a typo
         validate_executor(run)
         self.run = run
@@ -102,7 +118,14 @@ class Trainer:
         self.mode = mode
         self.model: Model = build_model(run.model, run.quant, device=device)
         self.device = self.model.device
-        self.setup = build_train_setup(self.model, run)
+        self.mesh = mesh
+        # the group of every rank, None without one (module docstring)
+        world = (mesh.axis_group(mesh.axis_names)
+                 if mesh is not None else None)
+        self._world = (world if world is not None and world.group is not None
+                       else None)
+        self.rank = 0 if mesh is None else mesh.rank
+        self.setup = build_train_setup(self.model, run, mesh)
         self.step_fn = self.setup.step_fn
         spec = (self.model.batch_spec(1, 1)
                 if self.model.batch_spec is not None else {})
@@ -213,6 +236,10 @@ class Trainer:
             if self.mode == "dpquant":
                 nb = min(run.dp.analysis_batch_size, run.global_batch)
                 nb = max(run.dp.microbatch_size, nb)
+                # a whole number of the step's microbatches (on a mesh the
+                # global one) or of the sharded ghost driver's shards
+                m = self.setup.batch_multiple
+                nb = -(-nb // m) * m
                 probe_batches = [self._to_device(self.dataset.get(
                     self._probe_rng.randint(0, self.dataset.n, nb)))
                     for _ in range(run.dp.analysis_reps)]
@@ -254,6 +281,10 @@ class Trainer:
                            quantized_layers=len(policy), accuracy=acc,
                            wall_s=time.time() - t0)
         self.history.append(stats)
+        if self._world is not None and not replicas_agree(
+                [*self.params.values(), self.qflags], self._world):
+            raise RuntimeError(f"epoch {epoch}: the ranks' params or "
+                               f"policies differ")
         if self.ckpt is not None:
             self.save(epoch)
         return stats
@@ -269,8 +300,17 @@ class Trainer:
         and consecutive identical SGM events merge), so the saved epsilon
         equals the uninterrupted run's at the same global step.
         """
-        if (epoch is None or self.preemption is None
-                or not self.preemption.should_preempt(self.step)):
+        if epoch is None or self.preemption is None:
+            return
+        fire = self.preemption.should_preempt(self.step)
+        if self._world is not None:
+            # the ranks act on one step together: any rank's request (a
+            # signal reaches one process) preempts every rank
+            flag = torch.tensor([float(fire)], device=self.device)
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX,
+                            group=self._world.group)
+            fire = bool(flag.item())
+        if not fire:
             return
         if self.ckpt is not None:
             self.save(epoch, epoch_step=epoch_step, epoch_losses=losses,
@@ -351,7 +391,7 @@ class Trainer:
         for e in range(start, start + epochs):
             stats = self.train_epoch(e)
             self._next_epoch = e + 1
-            if verbose:
+            if verbose and self.rank == 0:
                 print(f"epoch {e}: loss={stats.loss:.4f} eps={stats.eps:.3f} "
                       f"k={stats.quantized_layers} acc={stats.accuracy}",
                       flush=True)
@@ -388,7 +428,16 @@ class Trainer:
         the aux payload the accountant, the scheduler's EMA and policy,
         the sampler's and the probe RNG's stream positions, the history
         and, for a preemption save (``mid_epoch``), the epoch's step index
-        and its losses so far."""
+        and its losses so far.  On a mesh rank 0 writes it and every rank
+        waits at a barrier until it is on disk."""
+        if self.rank == 0:
+            self._save(epoch, epoch_step, epoch_losses, mid_epoch)
+        if self._world is not None:
+            if self.rank == 0:
+                self.ckpt.wait()
+            dist.barrier(group=self._world.group)
+
+    def _save(self, epoch, epoch_step, epoch_losses, mid_epoch) -> None:
         aux = {
             "accountant": self.accountant.state_dict(),
             "scheduler": self.scheduler.state_dict(),
