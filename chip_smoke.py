@@ -22,7 +22,10 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    (cut to 12 + 12 layers) training: ``luq_quant`` at an MLP weight and a
    microbatch's MLP hidden rows, ``per_sample_clip`` at their parameter
    counts (the Griffin's 2,174,889,984, the first row beyond 2^31
-   elements); yi-6b serving: the
+   elements); arctic-480b training (2 layers of 8 experts):
+   ``luq_quant`` at an expert stack whole (8 x 7168 x 4864) and one
+   example's dispatch buffer (8 x 80 x 7168), ``per_sample_clip`` at its
+   2,475,576,320 parameters; yi-6b serving: the
    KV cache write, decode attention and the quantized matmul; InternVL2-1B
    serving: the quantized matmul, 8 rows x 896 x 151,680 against one
    shared key), and times kernel, plain version, the least
@@ -270,7 +273,30 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    all-reduce's own time printed; (c) one rank under NCCL
    (``--nccl-capture``): a ``StepGraph`` around ``all_reduce_sum``,
    captured after the scan executor's warm-up (one collective, then the
-   step), gives back its input bit for bit on each replay.
+   step), gives back its input bit for bit on each replay;
+19. trains arctic-480b, the MoE family, at its full per-token width
+   (d_model 7168, 64 padded heads over 8 KV heads, expert d_ff 4864,
+   top-2 at capacity factor 1.25, the dense residual MLP, vocab 32,000,
+   bf16) cut to 2 layers of 8 experts (``TRAIN_MOE_CUT``: 2,475,576,320
+   parameters) the way of phases 9-10, ``TRAIN_MOE_ARGV`` (``--batch 8
+   --microbatch 1 --seq-len 256 --quant-fraction 0.5``): k = 1 of 2, the
+   same checks (each microbatch pass quantizes 20 projections); prints
+   the dropped share of (token, slot) pairs of a training batch by layer
+   (C = 80 a sequence against a mean load of 64); then, in float32 at the
+   same cut with the capacity factor at E / k (nothing dropped), 8 decode
+   steps after a prompt of 64 held against a prefill of the extended
+   prompt within 1e-2 of the largest logit, and at the published factor
+   the same gap printed, not held (the prompt's prefill drops pairs,
+   one-token decode never does);
+20. serves arctic-480b (128 experts, top-2) and kimi-k2-1t-a32b (384
+   experts, top-8), one after the other, one full layer with every
+   published expert (``SERVE_MOE_ARGV``, ``SERVE_MOE_CUT``: 8 prompts of
+   512 tokens, 32 new tokens, greedy, bf16, eager decode steps): the
+   parameter counts (13,904,794,624 and 18,204,218,368), the tokens'
+   shape and range, no kernel of the port launched, the prefill's logits
+   finite; prints prefill ms, decode tokens/s, a decode step's time
+   against reading every expert's weights once (8.0 and 10.1 ms at the
+   card's memory rate), the prefill's dropped share and the peak.
 
 Each phase prints its wall, and a ``phase walls`` line sums them up.  The
 line before the last is ``{"kernels": [...]}``; the last line is
@@ -965,6 +991,20 @@ WHISPER_CUT_LAYERS = 12
 WHISPER_TRAIN_PARAMS = 405_600_256
 WHISPER_PER_PASS = (2 * WHISPER_CUT_LAYERS * (6 + 10),
                     4 * WHISPER_CUT_LAYERS * (6 + 10))
+
+# arctic-480b at full per-token width cut to 2 layers of 8 experts
+# (TRAIN_MOE_CUT: one layer's 128 experts and one example's float32
+# gradient of them pass the card's 80 GB), trained in phase 19; served in
+# phase 20 at one layer with every published expert, as kimi-k2-1t-a32b
+# (the JAX package's eval_shape).  Ten projections a block (q, k, v, o,
+# the experts' gate, up and down, the dense residual's three), each 2
+# one-row and 4 row calls a microbatch pass
+MOE_TRAIN_PARAMS = 2_475_576_320
+MOE_SERVE_PARAMS = {"arctic-480b": 13_904_794_624,
+                    "kimi-k2-1t-a32b": 18_204_218_368}
+MOE_PER_PASS = (2 * 10 * 2, 4 * 10 * 2)
+# phase 19's float32 decode against prefill: 8 tokens after a prompt of 64
+MOE_DECODE_PROMPT, MOE_DECODE_STEPS = 64, 8
 
 # Epsilon by epoch of each workload's run under commit 27090d7 (its
 # chip_smoke.py, the policy host bools, the first two epochs): the
@@ -2381,11 +2421,12 @@ def host_epsilon(run, n_data: int, epochs: int) -> list:
 
 
 def train_vmap_lm(torch, ops, wl, argv, want_k, want_params, per_pass,
-                  n_layers=None, after=None):
+                  n_layers=None, after=None, cut=None):
     """DP training of a token model (BERT-SNLI, Mamba-2-130m, Griffin,
     InternVL2-1B) in vmap mode with the fused clip under the DPQuant
     scheduler, the workload of ``argv`` (``repro_torch/launch/workload.py``)
-    at ``n_layers`` (None: the config's depth), under the scan executor: 3
+    at ``n_layers`` (None: the config's depth) and the other config fields
+    of ``cut`` (the MoE workload's expert count), under the scan executor: 3
     epochs, the analysis in epochs 0 and 2, one graph of the step and one
     of the probe step.  ``per_pass``: the quantize calls of whole tensors
     and of per-example rows that one microbatch's forward and backward
@@ -2401,7 +2442,10 @@ def train_vmap_lm(torch, ops, wl, argv, want_k, want_params, per_pass,
             or qbackend.get_clip_sum("fused")[1] != "cuda"):
         raise AssertionError("the quantizer or the fused clip does not run "
                              "on the cuda backend")
-    run, ds, ev = wl.setup(argv, n_layers)
+    cut = dict(cut or {})
+    if n_layers is not None:
+        cut["n_layers"] = n_layers
+    run, ds, ev = wl.setup(argv, **cut)
     if run.epoch_executor != "scan" or run.dp.grad_mode != "vmap":
         raise AssertionError(f"the workload runs {run.epoch_executor!r}, "
                              f"{run.dp.grad_mode!r}")
@@ -2589,13 +2633,14 @@ GRIFFIN_DECODE_CASES = ((64, 96, 32), (2100, 2108, 8))
 GRIFFIN_DECODE_LAYERS = 5
 
 
-def _oneshot_run(torch, ops, wl, argv):
-    """The oneshot serving workload of ``argv``: a short warm-up, then the
-    timed run with the launches counted and the peak memory; returns
-    ``(model, params, batch, args, tokens, timings, launches, peak)``."""
+def _oneshot_run(torch, ops, wl, argv, cut=None):
+    """The oneshot serving workload of ``argv``, its config cut to the
+    fields of ``cut`` if given: a short warm-up, then the timed run with
+    the launches counted and the peak memory; returns ``(model, params,
+    batch, args, tokens, timings, launches, peak)``."""
     from repro_torch.serve import build_oneshot_fns, oneshot_generate
 
-    model, params, batch, args = wl.serve_setup(argv)
+    model, params, batch, args = wl.serve_setup(argv, **(cut or {}))
     cfg = model.config
     prefill, decode = build_oneshot_fns(model,
                                         args.prompt_len + args.gen)
@@ -3289,6 +3334,150 @@ def data_parallel(torch, card: str) -> dict:
     return result
 
 
+@contextlib.contextmanager
+def _moe_drops():
+    """Records the dropped share of (token, slot) pairs of each call of the
+    MoE capacity dispatch inside the block, in a list it yields."""
+    from repro_torch.models import moe
+    shares, orig = [], moe._positions
+
+    def spy(ids, n_experts, capacity):
+        pos, overflow = orig(ids, n_experts, capacity)
+        shares.append(overflow.float().mean().item())
+        return pos, overflow
+
+    moe._positions = spy
+    try:
+        yield shares
+    finally:
+        moe._positions = orig
+
+
+def moe_dropped_share(torch, tr) -> dict:
+    """With the trained params of the arctic-480b trainer ``tr``, a
+    training batch of the workload (its first ``global_batch`` sequences)
+    under the current policy: the dropped share of (token, slot) pairs in
+    each layer, the capacity and the mean load an expert."""
+    import numpy as np
+    from repro_torch.models import moe
+
+    cfg = tr.run.model
+    batch = tr._to_device(tr.dataset.get(np.arange(tr.run.global_batch)))
+    flags = tr._set_flags(tr.scheduler.current.flags())
+    with torch.no_grad(), _moe_drops() as shares:
+        loss = tr.model.loss_fn(tr.params, batch, flags)
+    S = tr.run.seq_len
+    return {"dropped_share_by_layer": shares,
+            "capacity": moe._capacity(cfg, S),
+            "mean_load": S * cfg.top_k / cfg.n_experts,
+            "loss": loss.item()}
+
+
+def moe_decode_vs_prefill(torch, wl) -> dict:
+    """The phase-19 cut of arctic-480b in float32 with the capacity factor
+    at E / k (C = S, nothing dropped): ``MOE_DECODE_STEPS`` greedy decode
+    steps after a prompt of ``MOE_DECODE_PROMPT`` tokens, each step's
+    logits against a prefill of the extended prompt, held at
+    ``DECODE_F32_REL``; at the published factor, where the prompt's
+    prefill drops pairs and one-token decode never does, the same gap
+    printed, not held."""
+    import dataclasses
+    from repro_torch.config import QuantConfig
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+
+    base = dataclasses.replace(get_config("arctic-480b"), **wl.TRAIN_MOE_CUT,
+                               compute_dtype="float32",
+                               param_dtype="float32")
+    full = dataclasses.replace(base, moe_capacity_factor=(
+        base.n_experts / base.top_k))
+    model = build_model(full, QuantConfig(fmt="none"))
+    params = model.prepare(model.init(SEED))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    tokens = torch.randint(0, base.vocab_size, (2, MOE_DECODE_PROMPT),
+                           device="cuda", generator=gen)
+    rel, agree = _decode_vs_prefill(torch, model, params, tokens,
+                                    MOE_DECODE_STEPS)
+    published = build_model(base, QuantConfig(fmt="none"))
+    with _moe_drops() as shares:
+        published.prefill(params, {"tokens": tokens})
+    pub_rel, pub_agree = _decode_vs_prefill(torch, published, params, tokens,
+                                            MOE_DECODE_STEPS)
+    out = {"factor_E_over_k": {"rel": rel, "argmax_agree": agree,
+                               "held_at": DECODE_F32_REL},
+           f"factor_{base.moe_capacity_factor}": {
+               "rel": pub_rel, "argmax_agree": pub_agree,
+               "prompt_dropped_share_by_layer": shares}}
+    del params
+    _free(torch)
+    if not rel <= DECODE_F32_REL:
+        raise AssertionError(f"moe float32 decode vs prefill at factor E/k: "
+                             f"{rel} of the largest logit, want <= "
+                             f"{DECODE_F32_REL}")
+    return out
+
+
+def serve_moe(torch, ops, wl) -> dict:
+    """arctic-480b and kimi-k2-1t-a32b, one after the other, one full
+    layer with every published expert through the oneshot engine
+    (``SERVE_MOE_ARGV``: 8 prompts of 512 tokens, 32 new tokens, greedy,
+    bf16, eager decode steps): the parameter count, the tokens' shape and
+    range, no kernel of the port launched, the prefill's logits finite;
+    prints prefill ms, decode tokens/s, a decode step's time against the
+    least time of reading every expert's weights once (and every weight
+    the step reads: the experts, attention, the residual MLP, the router
+    and the float32 head), the prefill's dropped share and the peak."""
+    out = {}
+    for arch in wl.MOE_SERVE_ARCHS:
+        t0 = time.perf_counter()
+        model, params, batch, args, gen, timings, launches, peak = \
+            _oneshot_run(torch, ops, wl, wl.SERVE_MOE_ARGV[arch],
+                         cut=wl.SERVE_MOE_CUT)
+        cfg = model.config
+        n_params = sum(t.numel() for k, t in params.items()
+                       if k != "head_f32")
+        if n_params != MOE_SERVE_PARAMS[arch]:
+            raise AssertionError(f"{arch}: {n_params} params, want "
+                                 f"{MOE_SERVE_PARAMS[arch]}")
+        if any(launches.values()):
+            raise AssertionError(f"{arch} serving launched {launches}; its "
+                                 "path has no kernel of the port")
+        with torch.no_grad(), _moe_drops() as shares:
+            logits, _ = model.prefill(params, batch)
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"{arch}: prefill logits not finite")
+        expert_bytes = sum(t.numel() * t.element_size()
+                           for k, t in params.items()
+                           if k.split(".")[-1] in ("e_gate", "e_up",
+                                                   "e_down"))
+        read_bytes = sum(t.numel() * t.element_size()
+                         for k, t in params.items() if k != "embed")
+        step_ms = timings["decode_s"] / (args.gen - 1) * 1e3
+        B, plen = batch["tokens"].shape
+        out[arch] = {
+            "params": n_params, "experts": cfg.n_experts,
+            "top_k": cfg.top_k, "layers": cfg.n_layers, "batch": B,
+            "prompt": plen, "new_tokens": args.gen,
+            "capacity_prefill": max(1, min(plen, math.ceil(
+                plen * cfg.top_k * cfg.moe_capacity_factor
+                / cfg.n_experts))),
+            "prefill_ms": timings["prefill_ms"],
+            "prefill_wall_ms": timings["prefill_s"] * 1e3,
+            "decode_wall_ms": timings["decode_s"] * 1e3,
+            "decode_step_ms": step_ms,
+            "decode_tokens_per_s": timings["decode_tokens_per_s"],
+            "decode_bound_experts_ms": expert_bytes / HBM_BYTES_PER_S * 1e3,
+            "decode_bound_all_weights_ms": read_bytes / HBM_BYTES_PER_S * 1e3,
+            "prefill_dropped_share": shares,
+            "peak_gib": peak, "wall_s": time.perf_counter() - t0}
+        print(f"serve {arch} oneshot, {cfg.n_layers} layer: "
+              f"{json.dumps(out[arch])}; first row {gen[0, :16].tolist()}",
+              flush=True)
+        del model, params, batch, logits
+        _free(torch)
+    return out
+
+
 def serve_launches(ops) -> dict:
     """The launch counts of a serving run, the matmul's and the KV
     write's also by the step that made them."""
@@ -3404,7 +3593,9 @@ def main() -> int:
     # float32; RecurrentGemma-9B's MLP weight (4096 x 12288) whole and
     # one example's MLP hidden rows (256 tokens x 12288), InternVL2-1B's
     # (896 x 4864; 8 x 512 tokens x 4864), whisper-medium's (1024 x 4096; a
-    # microbatch's 448 tokens x 4096), bf16
+    # microbatch's 448 tokens x 4096), bf16; arctic-480b's expert stack of
+    # the 8-expert cut (8 x 7168 x 4864) whole and one example's dispatch
+    # buffer (8 experts x 80 slots x 7168), bf16
     for name, rows, n, dtype in (
             ("luq_quant[resnet_weight]", 1, 3 * 3 * 512 * 512, torch.float32),
             ("luq_quant[resnet_activation]", 64, 32 * 32 * 64, torch.float32),
@@ -3440,14 +3631,19 @@ def main() -> int:
              wl.TRAIN_VLM_SEQ * 4864, torch.bfloat16),
             ("luq_quant[whisper_weight]", 1, 1024 * 4096, torch.bfloat16),
             ("luq_quant[whisper_rows]", wl.TRAIN_WHISPER_MICROBATCH,
-             wl.TRAIN_WHISPER_SEQ * 4096, torch.bfloat16)):
+             wl.TRAIN_WHISPER_SEQ * 4096, torch.bfloat16),
+            ("luq_quant[moe_expert_weight]", 1, 8 * 7168 * 4864,
+             torch.bfloat16),
+            ("luq_quant[moe_dispatch_rows]", wl.TRAIN_MOE_MICROBATCH,
+             8 * 80 * 7168, torch.bfloat16)):
         checks[name] = check_luq_quant(torch, ops, ref, rows, n, dtype,
                                        sm_clock_mhz)
         print(f"{name} ({rows} x {n}, {dtype}) {checks[name]}")
     # the clip of a microbatch's per-example gradients: ResNet-18's,
     # ResNet-50's, DenseNet-121's, BERT-SNLI's, the 6-layer Mamba-2's, the
     # 5-layer Griffin's (one row beyond 2^31 elements), the 6-layer
-    # InternVL2-1B's and the 12 + 12-layer whisper-medium's parameter counts
+    # InternVL2-1B's, the 12 + 12-layer whisper-medium's and the arctic-480b
+    # cut's (one row beyond 2^31) parameter counts
     for name, b, d in (("per_sample_clip", 64, 11_190_891),
                        ("per_sample_clip[resnet50]", 64, 23_588_459),
                        ("per_sample_clip[densenet121]", 64, 6_990_251),
@@ -3460,7 +3656,9 @@ def main() -> int:
                        ("per_sample_clip[vlm]", wl.TRAIN_VLM_MICROBATCH,
                         VLM_PARAMS),
                        ("per_sample_clip[whisper]",
-                        wl.TRAIN_WHISPER_MICROBATCH, WHISPER_TRAIN_PARAMS)):
+                        wl.TRAIN_WHISPER_MICROBATCH, WHISPER_TRAIN_PARAMS),
+                       ("per_sample_clip[moe]", wl.TRAIN_MOE_MICROBATCH,
+                        MOE_TRAIN_PARAMS)):
         checks[name] = check_per_sample_clip(torch, ops, ref, b, d)
         print(f"{name} ({b} x {d}) {checks[name]}")
         torch.cuda.empty_cache()
@@ -3740,6 +3938,27 @@ def main() -> int:
     data_parallel(torch, card)
 
     _phase_done(walls, "18 data parallel")
+
+    # 19. arctic-480b at full per-token width, 2 layers of 8 experts, under
+    # DPQuant, scan; then float32 decode against prefill of the same cut
+    moe_launches, moe_summary = train_vmap_lm(
+        torch, ops, wl, wl.TRAIN_MOE_ARGV, 1, MOE_TRAIN_PARAMS, MOE_PER_PASS,
+        cut=wl.TRAIN_MOE_CUT, after=lambda tr: moe_dropped_share(torch, tr))
+    moe_summary["decode_vs_prefill_float32"] = moe_decode_vs_prefill(torch,
+                                                                     wl)
+    print(f"moe training ({card}): " + json.dumps(
+        {"arctic-480b": {k: moe_summary[k] for k in
+                         keys + ("wall_s", "after",
+                                 "decode_vs_prefill_float32")}}))
+
+    _phase_done(walls, "19 train arctic-480b")
+
+    # 20. arctic-480b and kimi-k2-1t-a32b, one layer with every expert,
+    # oneshot serving
+    moe_serve = serve_moe(torch, ops, wl)
+    print(f"moe serving ({card}): " + json.dumps(moe_serve))
+
+    _phase_done(walls, "20 serve arctic-480b, kimi-k2-1t-a32b")
     del walls["start"]
     print(f"phase walls (s): {json.dumps(walls)}")
 
@@ -3783,6 +4002,10 @@ def main() -> int:
         counts[f"luq_quant[{arch}_weight]"] = c["luq_quant[whole]"]
         counts[f"luq_quant[{arch}_{rows}]"] = c["luq_quant[per_example]"]
         counts[f"per_sample_clip[{arch}]"] = c["clip_and_sum"]
+    counts["luq_quant[moe_expert_weight]"] = moe_launches["luq_quant[whole]"]
+    counts["luq_quant[moe_dispatch_rows]"] = \
+        moe_launches["luq_quant[per_example]"]
+    counts["per_sample_clip[moe]"] = moe_launches["clip_and_sum"]
     for fmt in ("int8", "luq_fp4"):
         for branch in ("decode", "prefill"):
             counts[f"kv_quant_write[{fmt}/{branch}]"] = \

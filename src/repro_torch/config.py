@@ -2,8 +2,8 @@
 
 The counterpart of ``repro.config``, cut to what the ported paths read
 (serving, DP-SGD training of the ResNet, DenseNet, BERT, Mamba-2,
-Griffin, VLM and encoder-decoder families, ghost-mode DP-SGD training of
-the dense LMs and CNNs).  Dtypes are strings
+Griffin, VLM, encoder-decoder and MoE families, ghost-mode DP-SGD
+training of the dense LMs and CNNs).  Dtypes are strings
 (as in the JAX package) mapped to ``torch.dtype`` by :func:`torch_dtype`.
 """
 from __future__ import annotations
@@ -57,7 +57,7 @@ def _round_up(x: int, m: int) -> int:
 class ModelConfig:
     """Architecture description (dense decoder-only LMs, ResNets,
     DenseNets, the BERT encoder, Mamba-2, the Griffin hybrid, the VLM
-    backbone and the encoder-decoder)."""
+    backbone, the encoder-decoder and the mixture-of-experts LMs)."""
 
     name: str
     family: str
@@ -68,6 +68,13 @@ class ModelConfig:
     head_dim: int = 0
     d_ff: int = 0
     vocab_size: int = 0
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    expert_d_ff: int = 0
+    dense_ff_residual: int = 0          # arctic-style dense residual MLP width
+    moe_impl: str = "dense"             # "dense" (small/smoke) | "capacity"
+    moe_capacity_factor: float = 1.25
     # --- SSM (mamba2 / SSD) ---
     ssm_state: int = 0
     ssm_chunk: int = 256
@@ -106,6 +113,9 @@ class ModelConfig:
     remat: bool = True
     pad_heads_to: int = 1                # pad n_heads up to a multiple of this
     pad_vocab_to: int = 128
+    # per-arch partitioner rule overrides: ((logical_name, ((axes...), ...)),
+    # ...), merged over partitioner.DEFAULT_RULES by the train step
+    sharding_overrides: Tuple = ()
 
     @property
     def padded_heads(self) -> int:

@@ -1,6 +1,7 @@
 """Architecture registry: the dense-LM presets, ResNet-18, ResNet-50,
-DenseNet-121, BERT-SNLI, Mamba-2-130m, RecurrentGemma-9B, InternVL2-1B
-and whisper-medium.
+DenseNet-121, BERT-SNLI, Mamba-2-130m, RecurrentGemma-9B, InternVL2-1B,
+whisper-medium and the mixture-of-experts LMs arctic-480b and
+kimi-k2-1t-a32b.
 
 ``get_config(arch_id)`` returns the full-scale ModelConfig;
 ``get_smoke_config(arch_id)`` a reduced same-family config for CPU tests.
@@ -15,7 +16,8 @@ from repro_torch.config import ModelConfig
 
 _MODULES = ["gemma_7b", "yi_9b", "yi_6b", "stablelm_3b", "resnet18",
             "resnet50", "densenet121", "bert_snli", "mamba2_130m",
-            "recurrentgemma_9b", "internvl2_1b", "whisper_medium"]
+            "recurrentgemma_9b", "internvl2_1b", "whisper_medium",
+            "arctic_480b", "kimi_k2_1t"]
 
 _REGISTRY: Dict[str, dict] = {}
 

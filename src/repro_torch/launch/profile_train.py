@@ -7,7 +7,7 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_train \
         --workload resnet-ghost|resnet50-ghost
     PYTHONPATH=src python -m repro_torch.launch.profile_train \
-        --workload bert|mamba2|griffin|vlm|whisper
+        --workload bert|mamba2|griffin|vlm|whisper|moe
     PYTHONPATH=src python -m repro_torch.launch.profile_train --executor loop
 
 ``resnet`` (the default) builds the training workload of
@@ -27,9 +27,11 @@ microbatches of 16, the fused clip), ``mamba2`` Mamba-2-130m whole
 tokens, one example a microbatch), ``vlm`` InternVL2-1B whole (32 x
 512 tokens in microbatches of 8, the vision prefix masked) and
 ``whisper`` whisper-medium whole (32 x 448 tokens and 448 encoder frames
-in microbatches of 4); all but ``resnet`` warm up with an epoch's steps
+in microbatches of 4) and ``moe`` arctic-480b at full per-token width cut
+to 2 layers of 8 experts (8 x 256 tokens, one example a microbatch,
+quant_fraction 0.5); all but ``resnet`` warm up with an epoch's steps
 under the scheduler's first selection (k = 8 of 9, 15 of 17, 56 of 62,
-29 of 32, 11 of 12, 22 of 24, 4 of 5, 22 of 24, 43 of 48 layers),
+29 of 32, 11 of 12, 22 of 24, 4 of 5, 22 of 24, 43 of 48, 1 of 2 layers),
 without the analysis's probe steps.  The
 steps run through ``--executor`` (default
 ``scan``: replays of the step's CUDA graph, captured in the warm-up;
@@ -109,7 +111,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     torch.backends.cudnn.allow_tf32 = False         # float32, as the CLI
     torch.backends.cuda.matmul.allow_tf32 = False
-    run, ds, _ = wl.setup(*wl.TRAIN_WORKLOADS[args.workload])
+    argv, cut = wl.TRAIN_WORKLOADS[args.workload]
+    run, ds, _ = wl.setup(argv, **cut)
     run = dataclasses.replace(run, epoch_executor=args.executor)
     tr = Trainer(run, ds, mode="dpquant", device="cuda")
     steps = (tr._train_steps_scan if args.executor == "scan"

@@ -36,14 +36,21 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch whisper-medium --smoke --device cpu --engine oneshot
 
+    # the MoE LMs (arctic-480b, kimi-k2-1t-a32b), oneshot: an unquantized
+    # KV cache and float32 logits; at smoke size on the CPU (on the card
+    # launch/workload.py's SERVE_MOE_ARGV serves one full layer)
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch kimi-k2-1t-a32b --smoke --device cpu --engine oneshot
+
     # chaos mode: a seeded FaultPlan through the supervisor, the fired
     # events written to a JSON log
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \
         --device cpu --fault-seed 0 --fault-log /tmp/f.json
 
 The flags are those of ``repro.launch.serve`` (as there, a family
-without per-slot decode, Mamba-2, the Griffin hybrid, the VLM or the
-encoder-decoder, runs ``--engine continuous`` through the oneshot engine,
+without per-slot decode, Mamba-2, the Griffin hybrid, the VLM, the
+encoder-decoder or the MoE LMs, runs ``--engine continuous`` through the
+oneshot engine,
 with a note; the oneshot batch holds every input of the model's
 ``batch_spec``),
 admission control
@@ -56,6 +63,7 @@ ref|cuda`` (default ``cuda``, the hand-written kernels;
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 import torch
@@ -211,12 +219,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def build(args) -> tuple:
+def build(args, **cut) -> tuple:
     """``(model, params)`` of the flags: the model on ``--device``, its
+    config cut to the fields of ``cut`` if any (``n_layers=1``), its
     params from ``--seed``; raises SystemExit for a family without a
     decoder."""
     cfg = (get_smoke_config(args.arch) if args.smoke
            else get_config(args.arch))
+    if cut:
+        cfg = dataclasses.replace(cfg, **cut)
     if not cfg.has_decoder:
         raise SystemExit(f"{args.arch} has no decoder; nothing to serve")
     quant = QuantConfig(fmt=args.quant_fmt, backend=args.backend)
@@ -233,8 +244,8 @@ def main(argv=None):
     if engine == "continuous" and model.decode_slots is None:
         # only the dense transformer decodes per slot so far; the other
         # decoder families (Mamba-2, Griffin, the VLM, the encoder-decoder,
-        # whose prompts need more than tokens) run through the oneshot
-        # engine
+        # whose prompts need more than tokens, the MoE LMs) run through
+        # the oneshot engine
         print(f"note: {cfg.family!r} has no continuous-batching support "
               "yet; falling back to --engine oneshot")
         engine = "oneshot"

@@ -121,8 +121,13 @@ def build_train_setup(model: Model, run: RunConfig, mesh=None) -> TrainSetup:
     shard, partial = None, False
     if dp_shards > 1:
         # the microbatch's example axis, laid out as the reference's
-        # micro_constrain lays it
-        entry = pt.assign_spec(("batch",), (mb,), mesh, pt.DEFAULT_RULES)[0]
+        # micro_constrain lays it, under the arch's rule overrides (the MoE
+        # configs shard the batch over "data" alone: the ranks of one data
+        # coordinate compute the same examples, and the clipped sums are
+        # reduced over the data group, not the world)
+        rules = pt.merge_rules(pt.DEFAULT_RULES,
+                               model.config.sharding_overrides)
+        entry = pt.assign_spec(("batch",), (mb,), mesh, rules)[0]
         shard = mesh.axis_group(pt.entry_axes(entry))
         partial = run.dp.partial_accum and mb % dp_shards == 0
         if shard.group is None:

@@ -74,6 +74,13 @@
         --arch whisper-medium --smoke --device cpu --batch 4 \
         --microbatch 2 --seq-len 16 --epochs 2 --steps-per-epoch 2
 
+    # the MoE family (vmap mode: no ghost hooks in the reference) at smoke
+    # size; on the GPU the workload cuts arctic-480b to 2 layers of 8
+    # experts at full width (launch/workload.py, TRAIN_MOE_ARGV)
+    PYTHONPATH=src python -m repro_torch.launch.train --arch arctic-480b \
+        --smoke --device cpu --batch 4 --microbatch 2 --seq-len 16 \
+        --epochs 2 --steps-per-epoch 2
+
     # data parallel: two ranks on the CPU (gloo), each with its block of
     # every batch, one all-reduce of the clipped sums a step; on a node
     # with one card a rank (NCCL), without --device cpu
@@ -89,7 +96,7 @@
 
 The flags are those of ``repro.launch.train`` for these paths (the CNNs
 and the dense LMs, in vmap or ghost mode; BERT, Mamba-2, the Griffin
-hybrid, the VLM and the encoder-decoder in vmap mode), among them
+hybrid, the VLM, the encoder-decoder and the MoE LMs in vmap mode), among them
 ``--executor scan|loop`` (default ``scan``: each epoch's steps replay one
 CUDA graph of the train step a quantization policy), ``--epoch-chunk``,
 ``--epoch-unroll`` (1 only), ``--checkpoint-dir`` (a rerun restores the
@@ -138,7 +145,8 @@ from repro_torch.train_loop import Trainer
 
 ARCHS = ("resnet18", "resnet50", "densenet121", "yi-6b", "gemma-7b",
          "stablelm-3b", "yi-9b", "bert-snli", "mamba2-130m",
-         "recurrentgemma-9b", "internvl2-1b", "whisper-medium")
+         "recurrentgemma-9b", "internvl2-1b", "whisper-medium",
+         "arctic-480b", "kimi-k2-1t-a32b")
 CNN_FAMILIES = ("resnet", "densenet")
 # the families with an eval set (class labels): the CNNs and BERT
 CLASSIFIER_FAMILIES = CNN_FAMILIES + ("bert",)
@@ -152,7 +160,7 @@ def make_dataset(cfg: ModelConfig, n: int, seq_len: int, seed: int = 0):
     if cfg.family == "bert":
         return NLIDataset(n=n, vocab=cfg.vocab_size, seq_len=seq_len,
                           num_classes=cfg.num_classes, seed=seed)
-    if cfg.family in ("dense_lm", "ssm", "hybrid", "vlm"):
+    if cfg.family in ("dense_lm", "moe_lm", "ssm", "hybrid", "vlm"):
         # a VLM batch carries no vision_embeds here, as in the JAX CLI;
         # its loss still leaves the vision prefix out
         return TokenDataset(n=n, vocab=cfg.vocab_size, seq_len=seq_len,

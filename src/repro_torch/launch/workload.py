@@ -131,6 +131,33 @@ with 384 Gaussian encoder frames (bf16, from the seed), 64 new tokens,
 greedy, so the cache holds 448 positions; eager decode steps, float32
 logits: no kernel of the port runs.
 
+arctic-480b training (``TRAIN_MOE_ARGV``, ``launch.train --arch
+arctic-480b --mode dpquant --fmt luq_fp4 --backend cuda --clip-backend
+fused --batch 8 --microbatch 1 --seq-len 256 --quant-fraction 0.5
+--epochs 3 --steps-per-epoch 2``): the MoE family at arctic's full
+per-token width (d_model 7168, 56 heads padded to 64 over 8 KV heads of
+128, expert d_ff 4864, top-2 at capacity factor 1.25, the dense residual
+MLP of 7168, vocab 32,000, tied, bf16 params and compute) cut by
+``TRAIN_MOE_CUT`` to 2 layers (of 35) of 8 experts (of 128), which its
+callers pass to :func:`setup`: 2,475,576,320 parameters.  One layer's 128
+experts hold 13.39 G parameters, and the vmap engine holds one example's
+float32 gradient beside the weights, so not even one whole layer trains
+on the card.  No ghost hooks in the reference: the vmap engine, one
+example a microbatch.  quant_fraction 0.5: k = 1 of 2 (at 0.9 k would be
+both layers and the scheduler would choose nothing).  Per sequence of 256
+tokens an expert takes C = ceil(256 x 2 x 1.25 / 8) = 80 pairs against a
+mean load of 64, so some pairs drop.  Planted-bigram tokens (4096
+sequences, seed 0), SGD at lr 0.5, sigma = C = 1, the analysis in epochs 0
+and 2 (3 probe runs x 2 reps at a probe batch of 8).
+
+MoE serving (``SERVE_MOE_ARGV``, ``launch.serve --arch <arch> --engine
+oneshot``) of one full layer with every published expert
+(``SERVE_MOE_CUT``): arctic-480b (128 experts, top-2, 13,904,794,624
+parameters; C = 10 a prompt of 512) and kimi-k2-1t-a32b (384 experts,
+top-8, head_dim 112, vocab 163,840; 18,204,218,368 parameters; C = 14), 8
+random prompts of 512 tokens, 32 new tokens, greedy, bf16, eager decode
+steps, float32 logits: no kernel of the port runs.
+
 The ResNet-18 and ResNet-50 workloads again in ghost mode
 (``TRAIN_RESNET_GHOST_ARGV``, ``TRAIN_RESNET50_GHOST_ARGV``): the same
 command lines with ``--grad-mode ghost --clip-backend ref
@@ -279,37 +306,68 @@ SERVE_WHISPER_ARGV = ("--arch", "whisper-medium", "--engine", "oneshot",
                       "--batch", "8", "--prompt-len", "384", "--gen", "64",
                       "--seed", str(SEED))
 
+TRAIN_MOE_EPOCHS, TRAIN_MOE_STEPS = 3, 2
+TRAIN_MOE_MICROBATCH, TRAIN_MOE_SEQ = 1, 256
+TRAIN_MOE_ARGV = (
+    "--arch", "arctic-480b", "--mode", "dpquant", "--fmt", "luq_fp4",
+    "--backend", "cuda", "--clip-backend", "fused",
+    "--batch", "8", "--microbatch", str(TRAIN_MOE_MICROBATCH),
+    "--seq-len", str(TRAIN_MOE_SEQ), "--quant-fraction", "0.5",
+    "--epochs", str(TRAIN_MOE_EPOCHS),
+    "--steps-per-epoch", str(TRAIN_MOE_STEPS),
+    "--dataset-size", str(TRAIN_DATASET))
+#: The cut ``TRAIN_MOE_ARGV`` trains at (every per-token width untouched)
+TRAIN_MOE_CUT = {"n_layers": 2, "n_experts": 8}
+
+MOE_SERVE_ARCHS = ("arctic-480b", "kimi-k2-1t-a32b")
+SERVE_MOE_ARGV = {arch: ("--arch", arch, "--engine", "oneshot",
+                         "--batch", "8", "--prompt-len", "512",
+                         "--gen", "32", "--seed", str(SEED))
+                  for arch in MOE_SERVE_ARCHS}
+#: One full layer with every published expert
+SERVE_MOE_CUT = {"n_layers": 1}
+
 #: The training workloads by name (``profile_train --workload``): each
-#: its argv and the depth it is cut to (None: the config's).
-TRAIN_WORKLOADS = {"resnet": (TRAIN_ARGV, None),
-                   "resnet50": (TRAIN_RESNET50_ARGV, None),
-                   "densenet121": (TRAIN_DENSENET121_ARGV, None),
-                   "resnet-ghost": (TRAIN_RESNET_GHOST_ARGV, None),
-                   "resnet50-ghost": (TRAIN_RESNET50_GHOST_ARGV, None),
-                   "lm": (TRAIN_LM_ARGV, None), "bert": (TRAIN_BERT_ARGV, None),
-                   "mamba2": (TRAIN_MAMBA2_ARGV, None),
-                   "griffin": (TRAIN_GRIFFIN_ARGV, TRAIN_GRIFFIN_LAYERS),
-                   "vlm": (TRAIN_VLM_ARGV, None),
-                   "whisper": (TRAIN_WHISPER_ARGV, None)}
+#: its argv and the config fields it is cut to (none: the config's).
+TRAIN_WORKLOADS = {"resnet": (TRAIN_ARGV, {}),
+                   "resnet50": (TRAIN_RESNET50_ARGV, {}),
+                   "densenet121": (TRAIN_DENSENET121_ARGV, {}),
+                   "resnet-ghost": (TRAIN_RESNET_GHOST_ARGV, {}),
+                   "resnet50-ghost": (TRAIN_RESNET50_GHOST_ARGV, {}),
+                   "lm": (TRAIN_LM_ARGV, {}), "bert": (TRAIN_BERT_ARGV, {}),
+                   "mamba2": (TRAIN_MAMBA2_ARGV, {}),
+                   "griffin": (TRAIN_GRIFFIN_ARGV,
+                               {"n_layers": TRAIN_GRIFFIN_LAYERS}),
+                   "vlm": (TRAIN_VLM_ARGV, {}),
+                   "whisper": (TRAIN_WHISPER_ARGV, {}),
+                   "moe": (TRAIN_MOE_ARGV, TRAIN_MOE_CUT)}
 
 
-def setup(argv, n_layers=None) -> tuple:
+def _cut(cfg, n_layers=None, **fields):
+    """``cfg`` with ``fields`` replaced and cut to ``n_layers`` if given
+    (an encoder-decoder: each of its two stacks)."""
+    import dataclasses
+
+    if n_layers is not None:
+        fields["n_layers"] = n_layers
+        if cfg.family == "encdec":
+            fields.update(n_enc_layers=n_layers, n_dec_layers=n_layers)
+    return dataclasses.replace(cfg, **fields) if fields else cfg
+
+
+def setup(argv, n_layers=None, **cut) -> tuple:
     """``(run, dataset, eval_dataset)`` of the training workload of
     ``argv``, built by ``launch.train`` as the CLI builds them (the eval
     set is None for an LM), the model cut to ``n_layers`` if given (an
-    encoder-decoder: each of its two stacks)."""
+    encoder-decoder: each of its two stacks) and to the other config
+    fields of ``cut`` (``n_experts=8``)."""
     import dataclasses
 
     from repro_torch.launch import train
 
     args = train.parse_args(list(argv))
     run = train.build_run(args)
-    if n_layers is not None:
-        cut = {"n_layers": n_layers}
-        if run.model.family == "encdec":
-            cut.update(n_enc_layers=n_layers, n_dec_layers=n_layers)
-        run = dataclasses.replace(
-            run, model=dataclasses.replace(run.model, **cut))
+    run = dataclasses.replace(run, model=_cut(run.model, n_layers, **cut))
     return (run, *train.build_datasets(args, run.model))
 
 
@@ -323,15 +381,16 @@ def train_lm_setup():
     return setup(TRAIN_LM_ARGV)
 
 
-def serve_setup(argv, device=None) -> tuple:
+def serve_setup(argv, device=None, **cut) -> tuple:
     """``(model, params, batch, args)`` of the oneshot serving workload of
     ``argv``, built as ``launch.serve`` builds them: the model on
-    ``device`` (default CUDA), its params from ``--seed`` prepared for
-    serving, the prompt batch on the device."""
+    ``device`` (default CUDA), cut to the config fields of ``cut``
+    (``n_layers=1``), its params from ``--seed`` prepared for serving,
+    the prompt batch on the device."""
     from repro_torch.launch import serve
 
     args = serve.parse_args(list(argv) + (["--device", device]
                                           if device else []))
-    model, params = serve.build(args)
+    model, params = serve.build(args, **cut)
     return (model, model.prepare(params),
             serve.oneshot_batch(args, model), args)

@@ -236,21 +236,26 @@ def chunked_lm_loss(h, targets, embed, *, real_vocab: int, ce_chunk: int,
 # --------------------------------------------------------------------------- #
 # quantized projections and the logits head
 # --------------------------------------------------------------------------- #
-def qproj(spec, x, w, *, seed: int, flag, quant_cfg, hooks=None):
+def qproj(spec, x, w, *, seed: int, flag, quant_cfg, hooks=None,
+          per_example: bool = False):
     """Policy-gated quantized einsum (``repro_torch.quant.fake_quant``);
     without a quant config (serving), the plain einsum.  Operands of two
     dtypes are promoted to one, as ``jnp.einsum`` promotes them.  ``hooks``: a
     ghost pass's ``repro_torch.dp.ghost.GhostHooks``, whose ``qeinsum``
-    then runs in its place."""
+    then runs in its place.  ``per_example``: ``x`` and its cotangent are
+    quantized one row per example (the leading axis), the grain of a
+    projection that the JAX package runs inside a ``vmap`` over the batch
+    (the MoE expert GEMMs)."""
     from repro_torch.quant.fake_quant import einsum, qeinsum
     if quant_cfg is None:
         return einsum(spec, x, w)
+    kw = {"per_example": True} if per_example else {}
     einsum = qeinsum if hooks is None else hooks.qeinsum
     return einsum(spec, x, w, seed=seed, flag=flag, fmt=quant_cfg.fmt,
                   q_fwd=quant_cfg.quantize_fwd,
                   q_dgrad=quant_cfg.quantize_dgrad,
                   q_wgrad=quant_cfg.quantize_wgrad,
-                  backend=quant_cfg.backend)
+                  backend=quant_cfg.backend, **kw)
 
 
 def logits_key(fold: int):

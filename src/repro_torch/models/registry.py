@@ -4,8 +4,9 @@ A ``Model`` bundles plain functions over a flat parameter dict
 (``{"embed": ..., "blocks.wq": ..., ...}``, leaf names and layouts as in
 the JAX package) and the device it runs on: the serving hooks of the
 decoder families (dense LMs, Mamba-2, the Griffin hybrid, the VLM, the
-encoder-decoder) and the training hooks of the ResNet, DenseNet,
-dense-LM, BERT, Mamba-2, Griffin, VLM and encoder-decoder families.
+encoder-decoder, the mixture-of-experts LMs) and the training hooks of
+the ResNet, DenseNet, dense-LM, BERT, Mamba-2, Griffin, VLM,
+encoder-decoder and MoE families.
 """
 from __future__ import annotations
 
@@ -74,7 +75,7 @@ def build_model(config: ModelConfig, quant: Optional[QuantConfig] = None,
     dev = resolve_device(device)
     quant = quant or QuantConfig()
     for module in ("transformer", "resnet", "densenet", "bert", "mamba2",
-                   "griffin", "vlm", "encdec"):
+                   "griffin", "vlm", "encdec", "moe"):
         importlib.import_module(f"repro_torch.models.{module}")
     if config.family not in _BUILDERS:
         raise ValueError(f"unknown model family: {config.family}")

@@ -33,9 +33,13 @@ activation in the weight's slot of ``qeinsum`` is batched like ``x``.
 
 ``qeinsum`` and ``qconv2d`` also have an explicit per-example mode
 (``per_example=True``), which the ghost engine's hooks
-(``repro_torch.dp.ghost.GhostHooks``) ask for in their batched passes:
-the batched operands (x, g) are quantized one row per example with one
-shared draw, exactly what the vmap rule computes, and the weight whole.
+(``repro_torch.dp.ghost.GhostHooks``) ask for in their batched passes,
+and the MoE expert GEMMs everywhere (the reference runs them inside a
+``vmap`` over the batch): the batched operands (x, g) are quantized one
+row per example with one shared draw, exactly what the vmap rule
+computes, and the weight whole.  That is the custom op
+``repro_torch::fake_quant_rows``, whose vmap rule makes the rows of every
+lane the rows of one call, so the grain holds inside the vmap engine too.
 In the norm pass the hooks also hand them a tap tensor and the function
 whose value on (x, g) is the tap's gradient.  Both arrive as arguments:
 this module imports nothing of the engine.
@@ -136,6 +140,41 @@ def _fake_quant_vmap(info, in_dims, x, fmt, backend, seed, fold, flag=None):
 fake_quant.register_vmap(_fake_quant_vmap)
 
 
+@torch.library.custom_op("repro_torch::fake_quant_rows", mutates_args=())
+def fake_quant_rows(x: torch.Tensor, fmt: str, backend: str, seed: int,
+                    fold: int, flag: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Quantize each ``x[i]`` (the leading axis: the examples) on its own
+    scale, all against one draw; with a device ``flag`` at 0, a copy of
+    ``x``.  The op behind ``per_example=True``: under ``vmap`` each lane's
+    rows stay rows of one call, so per-example operands quantize alike
+    inside and outside the vmap engine."""
+    return _quantize_per_example(x, fmt, backend, seed, fold, flag)
+
+
+@fake_quant_rows.register_fake
+def _(x, fmt, backend, seed, fold, flag=None):
+    return torch.empty_like(x)
+
+
+def _fake_quant_rows_vmap(info, in_dims, x, fmt, backend, seed, fold,
+                          flag=None):
+    """Batched: the lanes' rows, lane-major, are the rows of one call."""
+    if len(in_dims) > 5 and in_dims[5] is not None:
+        raise ValueError("fake_quant_rows: the policy flag cannot be "
+                         "batched")
+    bdim = in_dims[0]
+    if bdim is None:
+        return fake_quant_rows(x, fmt, backend, seed, fold, flag), None
+    xb = x.movedim(bdim, 0)
+    rows = xb.reshape(xb.shape[0] * xb.shape[1], *xb.shape[2:])
+    return fake_quant_rows(rows, fmt, backend, seed, fold,
+                           flag).reshape(xb.shape), 0
+
+
+fake_quant_rows.register_vmap(_fake_quant_rows_vmap)
+
+
 # --------------------------------------------------------------------------- #
 # convolution with the JAX package's "SAME" padding
 # --------------------------------------------------------------------------- #
@@ -215,8 +254,8 @@ def _q(t, spec, fold: int, on: bool, batched: bool, flag=None):
     if not (on and spec.quantized):
         return t
     if batched and spec.per_example:
-        return _quantize_per_example(t, spec.fmt, spec.backend, spec.seed,
-                                     fold, flag)
+        return fake_quant_rows(t, spec.fmt, spec.backend, spec.seed, fold,
+                               flag)
     return fake_quant(t, spec.fmt, spec.backend, spec.seed, fold, flag)
 
 

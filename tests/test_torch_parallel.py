@@ -28,6 +28,10 @@ One spawn of four gloo ranks as a (pod 2, data 2) mesh
   global microbatch of 8) with ``partial_accum`` off and on: the loss
   within 2e-3 of JAX's, the new params within rtol 1e-5 of the port's
   one-process step;
+* the MoE family's vmap step (arctic-smoke, fmt none, microbatch 1 a
+  data shard) under the FULL config's ``sharding_overrides``, which lay
+  the microbatch over ``data`` alone, so the two pods compute the same
+  examples: the new params within rtol 1e-5 of one process's step;
 * ``compressed_psum_pods``: relative error in (0, 0.02), the same result
   on every rank, exact when the partials are multiples of the scale;
 * every rank's params the same bits after each run of steps;
@@ -92,6 +96,7 @@ GHOST_CFG = dict(name="g", family="dense_lm", n_layers=2, d_model=32,
                  vocab_size=128, compute_dtype="float32", remat=True)
 B, S, CLIP, SIGMA, LR, STEPS = 8, 16, 0.8, 0.5, 0.1, 2
 VMAP_B, VMAP_SEED = 8, 5
+MOE_B = 8
 SUM_TOL = dict(rtol=2e-4, atol=2e-5)
 METRIC_TOL = dict(rtol=1e-4, atol=1e-6)
 STEP_TOL = dict(rtol=2e-4, atol=2e-4)
@@ -267,14 +272,14 @@ def test_unknown_microbatch_mode_raises():
 # four gloo ranks
 # --------------------------------------------------------------------------- #
 _RANK_SCRIPT = textwrap.dedent('''
-    import pickle, sys
+    import dataclasses, pickle, sys
     import numpy as np
     import torch
     import torch.distributed as dist
     torch.set_num_threads(1)
     from repro_torch.config import (DPConfig, ModelConfig, OptimConfig,
                                     QuantConfig, RunConfig)
-    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.convert import params_from_numpy
     from repro_torch.dp import ghost
     from repro_torch.launch.mesh import init_distributed, make_compat_mesh
@@ -391,6 +396,29 @@ _RANK_SCRIPT = textwrap.dedent('''
         if m is not None:
             agree(f"vmap {name}", p2.values())
         out["vmap"][name] = (p2, {k: float(v) for k, v in metrics.items()})
+
+    # the MoE family under its FULL config's rules: the microbatch over
+    # "data" alone, the two pods computing the same examples, the clipped
+    # sums reduced over the data group
+    mcfg = dataclasses.replace(
+        get_smoke_config("arctic-480b"),
+        sharding_overrides=get_config("arctic-480b").sharding_overrides)
+    mmodel = build_model(mcfg, QuantConfig(fmt="none"), device="cpu")
+    mtok = {"tokens": torch.from_numpy(inp["moe_tokens"])}
+    out["moe"] = {}
+    for name, m in (("mesh", mesh), ("one process", None)):
+        run = RunConfig(model=mcfg, quant=QuantConfig(fmt="none"),
+                        dp=DPConfig(microbatch_size=1, clip_norm=0.5),
+                        optim=OptimConfig(name="sgd", lr=0.1),
+                        global_batch=len(inp["moe_tokens"]), seq_len=12)
+        setup = build_train_setup(mmodel, run, m)
+        mp = params_from_numpy(inp["moe_params"], device="cpu")
+        p2, _, metrics = setup.step_fn(mp, setup.opt_init_fn(mp), mtok, 3,
+                                       torch.zeros(mcfg.policy_len()),
+                                       torch.tensor(0.1))
+        if m is not None:
+            agree("moe", p2.values())
+        out["moe"][name] = (p2, {k: float(v) for k, v in metrics.items()})
 
     # compressed_psum_pods: this pod's partial, then partials on the grid
     pod = mesh.coords["pod"]
@@ -538,6 +566,10 @@ def test_four_gloo_ranks(tmp_path, identity_format):
                                (STEPS, B, S)).astype(np.int32)
     vmap_tokens = rng.integers(0, jax_smoke_config("gemma-7b").vocab_size,
                                (VMAP_B, 16)).astype(np.int32)
+    moe_cfg = jax_smoke_config("arctic-480b")
+    moe_params = _numpy_params(moe_cfg, 4)
+    moe_tokens = rng.integers(0, moe_cfg.vocab_size,
+                              (MOE_B, 12)).astype(np.int32)
     scale = 2.0 ** -3
     grid = rng.integers(-126, 127, (2, 64, 32)).astype(np.float32)
     grid[0, 0, 0] = 127                    # the pod-wide max is 127 x scale
@@ -546,7 +578,8 @@ def test_four_gloo_ranks(tmp_path, identity_format):
            "ghost_params": ghost_params, "tokens": tokens,
            "step_tokens": step_tokens, "vmap_params": vmap_params,
            "vmap_tokens": vmap_tokens, "vmap_B": VMAP_B,
-           "vmap_seed": VMAP_SEED,
+           "vmap_seed": VMAP_SEED, "moe_params": moe_params,
+           "moe_tokens": moe_tokens,
            "pod_partials": rng.standard_normal((2, 64, 32)).astype(np.float32),
            "grid_partials": grid * scale, "ckpt": str(tmp_path / "ck")}
     path = tmp_path / "inputs.pkl"
@@ -611,6 +644,14 @@ def test_four_gloo_ranks(tmp_path, identity_format):
         got, metrics = out["vmap"][name]
         assert abs(metrics["loss"] - jloss) < 2e-3, (name, metrics, jloss)
         _close(got, want, name, rtol=1e-5, atol=0.0)
+
+    # the MoE step, its batch over "data" alone: the same update as one
+    # process (a reduction over the world would count each example twice)
+    want, wmetrics = out["moe"]["one process"]
+    got, metrics = out["moe"]["mesh"]
+    _close(got, want, "moe", rtol=1e-5, atol=0.0)
+    np.testing.assert_allclose(metrics["loss"], wmetrics["loss"], rtol=1e-6)
+    assert wmetrics["clip_fraction"] > 0
 
     # int8 compression over the pods
     got, exact = out["compressed"]
