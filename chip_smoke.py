@@ -296,7 +296,29 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    shape and range, no kernel of the port launched, the prefill's logits
    finite; prints prefill ms, decode tokens/s, a decode step's time
    against reading every expert's weights once (8.0 and 10.1 ms at the
-   card's memory rate), the prefill's dropped share and the peak.
+   card's memory rate), the prefill's dropped share and the peak;
+21. holds each workload of phases 4-20 against its roofline on the card:
+   ResNet-18 vmap and ghost, stablelm-3b ghost, BERT-SNLI, Mamba-2,
+   RecurrentGemma-9B, InternVL2-1B, whisper-medium and arctic-480b
+   training, the yi-6b decode tick (both KV formats) and the MoE layers'
+   decode steps, each at its phase's ``RunConfig`` and cut, are traced on
+   the host (``repro_torch.launch.op_analysis`` on ``meta`` tensors, in
+   ``ANALYSIS_WORKERS`` processes); prints each one's FLOPs by class,
+   bytes, the roofline terms (``repro_torch.launch.roofline``), dominant
+   term, ``bound_s``, model FLOPs and ``useful_ratio``, the wall its phase
+   measured (the fastest epoch's median step, a replay of the decode
+   graph, an eager MoE decode step), ``share = bound_s / wall`` and the
+   trace's peak beside the phase's ``max_memory_allocated``; every share
+   must be at most ``SHARE_LIMIT`` (1.05); a trace's kernel calls, on fake
+   CUDA tensors and on ``meta`` ones, must be the launches of one eager
+   step on the card (ResNet-18 vmap, stablelm-3b ghost at 2 layers, a
+   yi-6b decode tick at 2 layers: all six kernels), and at full depth the
+   tick's launches that the decode graph's capture ran; the phase's wall
+   must stay under ``ROOFLINE_PHASE_S`` (90 s).
+
+Every kernel row's ``bound_ms`` (and its side bounds) is
+``repro_torch.launch.roofline.kernel_cost`` at the card's peaks, the
+formulas the analysis costs each traced kernel call by.
 
 Each phase prints its wall, and a ``phase walls`` line sums them up.  The
 line before the last is ``{"kernels": [...]}``; the last line is
@@ -334,41 +356,19 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit):
-# memory rate, float32 outside the tensor cores (most kernels'
-# arithmetic), and bf16 on the tensor cores (products of values that bf16
-# holds exactly, summed in float32).
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
-BF16_TC_FLOPS_PER_S = 989e12
-# float32 operations of one LUQ rounding (abs, two divisions, log2,
-# floor, two exp2, clamps, compares, selects, sign, two products)
-LUQ_OPS = 24
-# 32-bit integer operations of one Philox4x32-10 call, at the least: 10
-# rounds of two 32 x 32 -> 64 multiplies (one IMAD.WIDE.U32 each gives
-# both words) and two three-input XORs (one LOP3 each), and one shift a
-# word for the uniforms: 10 * 4 + 4 = 44.  The key bumps are the same for
-# every call of a key and the float conversions are not int32 work; not
-# counted.  They run on the SMs' int32 lanes, 64 an SM a clock on Hopper:
-# 132 SMs x 64 x the SM clock (the card's maximum, from nvidia-smi) is
-# the int32 rate.
-PHILOX_INT_OPS = 44
-INT32_LANES = 132 * 64
 SEED = 0                  # of the kernel checks' inputs
 
 
-def bound(nbytes: float, flops: float, tc_flops: float = 0.0,
-          int_ops: float = 0.0, sm_clock_mhz: float = 0.0):
-    """(bound_ms, bound_by): the larger of bytes / memory rate and the
-    operations' time: ``flops`` at the float32 rate, ``tc_flops`` (work
-    the bf16 tensor cores could do exactly) at theirs, ``int_ops`` at the
-    int32 rate of ``sm_clock_mhz``, whichever is longest."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_int = (int_ops / (INT32_LANES * sm_clock_mhz * 1e6)
-             if int_ops else 0.0)
-    t_ops = max(flops / F32_FLOPS_PER_S, tc_flops / BF16_TC_FLOPS_PER_S,
-                t_int) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def kernel_bound(name: str, variant=None, sm_clock_mhz=None,
+                 **shape) -> dict:
+    """``{"bound_ms", "bound_by"}`` of kernel ``name`` at ``shape``: its
+    least work by ``repro_torch.launch.roofline.kernel_cost`` at the
+    card's peaks (at ``sm_clock_mhz``, the int32 work's clock)."""
+    from repro_torch.launch import roofline
+    clock = {} if sm_clock_mhz is None else {"sm_clock_mhz": sm_clock_mhz}
+    ms, by = roofline.bound(roofline.kernel_cost(name, variant, **shape),
+                            **clock)
+    return {"bound_ms": ms, "bound_by": by}
 
 
 def time_ms(torch, fn, reps: int) -> float:
@@ -460,17 +460,16 @@ def check_kv_write(torch, ops, ref, kvc, fmt, n0, n1, t, s, hd, wpos,
     ops.kv_quant_write(k, v, *again, fmt, wpos)
     if not all(torch.equal(a, b) for a, b in zip(again, cache)):
         raise AssertionError(f"kv_quant_write[{fmt}]: two runs differ")
-    rows = 2 * n0 * n1 * t
-    code_dim = cache[0].shape[-1]
-    nbytes = 2 * rows * hd + rows * (code_dim + 2) + (0 if wpos is None
-                                                      else 8 * n0)
+    shape = dict(rows=2 * n0 * n1 * t, head_dim=hd,
+                 code_dim=cache[0].shape[-1], elem=k.element_size(),
+                 slots=0 if wpos is None else n0)
     return {
         "max_abs_err": 0.0,
         "ms": time_ms(torch, lambda: ops.kv_quant_write(k, v, *cache, fmt,
                                                         wpos), reps),
         "plain_ms": time_ms(torch, lambda: ref.kv_quant_write_ref(
             k, v, *want, fmt, wpos), reps),
-        **dict(zip(("bound_ms", "bound_by"), bound(nbytes, 8.0 * rows * hd))),
+        **kernel_bound("kv_quant_write", **shape),
         "library_ms": None,
         "device_us": device_us(
             torch, lambda: ops.kv_quant_write(k, v, *cache, fmt, wpos),
@@ -518,16 +517,15 @@ def check_decode_attn(torch, ops, ref, kvc, fmt, B, S, reps=50):
     lib_out = sdpa(qd, kd, vd, attn_mask=mask, scale=hd ** -0.5)
     torch.testing.assert_close(lib_out.reshape(B, KV * g, hd), want,
                                atol=1e-3, rtol=1e-3)
-    live = sum(p + 1 for p in pos_list)
-    nbytes = (q.numel() * 4 * 2 + B * 4
-              + live * KV * (2 * kc.shape[-1] + 2 * 2))
-    flops = live * KV * g * (4 * hd + 8)
+    shape = dict(batch=B, kv_heads=KV, group=g, head_dim=hd,
+                 code_dim=kc.shape[-1],
+                 live_rows=sum(p + 1 for p in pos_list))
     return {
         "max_abs_err": err,
         "ms": time_ms(torch, lambda: ops.decode_attn_fused(*args, **kw), reps),
         "plain_ms": time_ms(torch, lambda: ref.decode_attn_ref(*args, **kw),
                             reps),
-        **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
+        **kernel_bound("decode_attn_fused", **shape),
         "library_ms": time_ms(torch, lambda: sdpa(qd, kd, vd, attn_mask=mask,
                                                   scale=hd ** -0.5), reps),
         "device_us": device_us(
@@ -623,22 +621,15 @@ def check_luq_matmul(torch, ops, ref, folds, sm_clock_mhz, reps=10,
                     f"{what} row {i} outside tolerance (max abs err "
                     f"{(got[i] - want[i]).abs().max().item()})")
     del lib, lib32
-    # a, Q(a)'s scratch, b, the scales, the keys and the output
-    nbytes = 4 * (2 * R * K + K * N + alpha_a.numel() + 1
-                  + 2 * len(key_list) + R * N)
-    # Philox calls: a's elements one a call; b's 4 a call, for each key
-    calls = R * K + len(key_list) * K * N // 4
-    flops = 2 * R * K * N + LUQ_OPS * (K * N + R * K)
+    shape = dict(rows=R, k=K, n=N, keys=len(key_list))
     result = {
         "max_abs_err": err,
         "ms": time_ms(torch, lambda: ops.luq_matmul(*args), reps),
         "plain_ms": time_ms(torch, lambda: ref.luq_matmul_keys_ref(*args), 3),
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound(nbytes, flops, int_ops=PHILOX_INT_OPS * calls,
-                         sm_clock_mhz=sm_clock_mhz))),
+        **kernel_bound("luq_matmul", sm_clock_mhz=sm_clock_mhz, **shape),
         # the previous design's convention: its uniforms read from memory
-        "bound_uniforms_from_memory_ms": bound(
-            nbytes + 4 * (R * K + len(key_list) * K * N), flops)[0],
+        "bound_uniforms_from_memory_ms": kernel_bound(
+            "luq_matmul", "uniforms_from_memory", **shape)["bound_ms"],
         "library_ms": time_ms(torch, codes_bmm, reps),
         "library_f32_ms": time_ms(torch, lambda: torch.bmm(aq3, bq), reps),
     }
@@ -697,28 +688,21 @@ def check_luq_quant(torch, ops, ref, rows, n, dtype, sm_clock_mhz, reps=50):
                             ops.luq_quant(x, key, codes=True))):
         raise AssertionError(f"luq_quant ({rows} x {n}, {dtype}): the flag "
                              "is not read as the plain version reads it")
-    elem = x.element_size()
-    numel = x.numel()
-    # the least work: each element read once and written once in its own
-    # dtype, the key's draws once (ceil(n / 4) Philox calls, shared by the
-    # rows) and LUQ's rounding of every element
-    calls = (n + 3) // 4
-    ops_bound = dict(flops=LUQ_OPS * numel, int_ops=PHILOX_INT_OPS * calls,
-                     sm_clock_mhz=sm_clock_mhz)
-    bound_one, by = bound(2 * elem * numel, **ops_bound)
+    shape = dict(rows=rows, n=n, elem=x.element_size(),
+                 sm_clock_mhz=sm_clock_mhz)
     return {
         "max_abs_err": 0.0,
         "ms": time_ms(torch, lambda: ops.luq_quant(x, key), reps),
         "plain_ms": time_ms(torch, lambda: ref.luq_quant_ref(x, key), reps),
-        "bound_ms": bound_one,
-        "bound_by": by,
+        **kernel_bound("luq_quant", **shape),
         # the kernel's own passes: x read twice (the row max, the
         # rounding), the result written once
-        "bound_three_passes_ms": bound(3 * elem * numel, **ops_bound)[0],
+        "bound_three_passes_ms": kernel_bound(
+            "luq_quant", "three_passes", **shape)["bound_ms"],
         # the first design's convention: float32 x and uniforms read, the
         # float32 result written
-        "bound_float32_uniforms_ms": bound(4 * (2 * numel + n + rows),
-                                           LUQ_OPS * numel)[0],
+        "bound_float32_uniforms_ms": kernel_bound(
+            "luq_quant", "float32_uniforms", **shape)["bound_ms"],
         "library_ms": None,
         "device_us": device_us(torch, lambda: ops.luq_quant(x, key),
                                ("luq_row_max_kernel", "luq_round_kernel"),
@@ -726,7 +710,8 @@ def check_luq_quant(torch, ops, ref, rows, n, dtype, sm_clock_mhz, reps=50):
         # the layer's flag at 0: x copied through, read once, written once
         "pass_ms": time_ms(torch, lambda: ops.luq_quant(x, key, flag=off),
                            reps),
-        "pass_bound_ms": bound(2 * elem * numel, 0.0)[0],
+        "pass_bound_ms": kernel_bound("luq_quant", "pass",
+                                      **shape)["bound_ms"],
         "pass_device_us": device_us(
             torch, lambda: ops.luq_quant(x, key, flag=off),
             ("luq_row_max_kernel", "luq_round_kernel"), reps),
@@ -789,18 +774,19 @@ def check_per_sample_clip(torch, ops, ref, B, D, reps=10):
 
     lib = two_calls()
     torch.testing.assert_close(lib, want, rtol=1e-4, atol=1e-6)
-    nbytes = 4 * (B * D + D + B)
+    shape = dict(rows=B, n=D)
     return {
         "max_abs_err": max_err,
         "norm_rel_err_float64": norm_err,
         "ms": time_ms(torch, lambda: ops.clip_and_sum(g, C), reps),
         "plain_ms": time_ms(torch, lambda: ref.per_sample_clip_ref(g, C), reps),
-        **dict(zip(("bound_ms", "bound_by"), bound(nbytes, 4.0 * B * D))),
+        **kernel_bound("clip_and_sum", **shape),
         # the floor of any kernel taking a (B, D) matrix from device
         # memory: each clip factor needs its whole row's norm before a
         # column can be summed, and the matrix is far beyond the L2, so it
         # is read twice
-        "bound_two_reads_ms": bound(nbytes + 4 * B * D, 4.0 * B * D)[0],
+        "bound_two_reads_ms": kernel_bound("clip_and_sum", "two_reads",
+                                           **shape)["bound_ms"],
         "library_ms": time_ms(torch, two_calls, reps),
         "device_us": device_us(torch, lambda: ops.clip_and_sum(g, C),
                                ("row_sumsq_kernel", "column_sum_kernel"),
@@ -894,24 +880,17 @@ def check_ghost_norm(torch, ops, ref, B, T, Dx, Dg, reps=20):
     if not (pass_err <= pass_tol).all() or passed[1].item() != 0.0:
         raise AssertionError(f"ghost_norm_sq at flag 0: {passed.tolist()} "
                              f"against {plain.tolist()}")
-    nbytes = 2 * (x.numel() + g.numel()) + 4 * B
-    # the least work: the LUQ rounding in float32 and the keys' draws, and
-    # each symmetric Gram's upper triangle with its diagonal, T (T + 1) / 2
-    # dot products of D, on the bf16 tensor cores (Q(v) / alpha = +-2^-k is
-    # exact in bf16), then the T (T + 1) / 2 products XX o GG and their sum
-    # in float32
-    luq = LUQ_OPS * B * T * (Dx + Dg)
-    grams = B * T * (T + 1) * (Dx + Dg)
-    # the convention of the other rows: both whole Grams in float32
-    full_f32 = 2 * B * T * T * (Dx + Dg) + 2 * B * T * T + luq
+    shape = dict(batch=B, t=T, dx=Dx, dg=Dg, elem_x=x.element_size(),
+                 elem_g=g.element_size())
     return {
         "max_abs_err": err.max().item(),
         "f32_values_err": f32_err,
         "ms": time_ms(torch, lambda: ops.ghost_norm_sq(*args), reps),
         "plain_ms": time_ms(torch, lambda: ref.ghost_norm_ref(*args), reps),
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound(nbytes, luq + B * T * (T + 1), grams))),
-        "bound_f32_full_grams_ms": bound(nbytes, full_f32)[0],
+        **kernel_bound("ghost_norm_sq", **shape),
+        # the convention of the other rows: both whole Grams in float32
+        "bound_f32_full_grams_ms": kernel_bound(
+            "ghost_norm_sq", "f32_full_grams", **shape)["bound_ms"],
         "library_ms": time_ms(torch, grams_bmm, reps),
         "library_f32_ms": time_ms(torch, grams_bmm_f32, reps),
         "device_us": device_us(
@@ -922,7 +901,8 @@ def check_ghost_norm(torch, ops, ref, B, T, Dx, Dg, reps=20):
         "pass_max_abs_err": pass_err.max().item(),
         "pass_ms": time_ms(torch, lambda: ops.ghost_norm_sq(*args, off),
                            reps),
-        "pass_bound_ms": bound(nbytes, B * T * (T + 1), grams)[0],
+        "pass_bound_ms": kernel_bound("ghost_norm_sq", "pass",
+                                      **shape)["bound_ms"],
         "pass_device_us": device_us(
             torch, lambda: ops.ghost_norm_sq(*args, off),
             ("luq_row_max_kernel", "luq_round_kernel", "gram_tiles_kernel",
@@ -2162,6 +2142,10 @@ def serve_yi6b(torch, kv_fmt, model, params, ops, wl):
     calls = host_calls(torch, engine.run)
     summary["host_calls_per_tick"] = {
         k: v / engine.metrics.decode_ticks for k, v in calls.items()}
+    # one decode tick: a replay of the decode graph (phase 21's wall), and
+    # the launches of the tick its capture ran
+    summary["decode_tick_ms"] = time_ms(torch, engine._decode, 20)
+    summary["tick_launches"] = engine._decode.recorded["launches"]
     # one K+V write a layer and decode tick, one a prefill
     want_kv = {"decode": model.config.n_layers * summary["decode_ticks"],
                "prefill": wl.REQUESTS}
@@ -3427,6 +3411,7 @@ def serve_moe(torch, ops, wl) -> dict:
     least time of reading every expert's weights once (and every weight
     the step reads: the experts, attention, the residual MLP, the router
     and the float32 head), the prefill's dropped share and the peak."""
+    from repro_torch.launch import roofline
     out = {}
     for arch in wl.MOE_SERVE_ARCHS:
         t0 = time.perf_counter()
@@ -3466,8 +3451,8 @@ def serve_moe(torch, ops, wl) -> dict:
             "decode_wall_ms": timings["decode_s"] * 1e3,
             "decode_step_ms": step_ms,
             "decode_tokens_per_s": timings["decode_tokens_per_s"],
-            "decode_bound_experts_ms": expert_bytes / HBM_BYTES_PER_S * 1e3,
-            "decode_bound_all_weights_ms": read_bytes / HBM_BYTES_PER_S * 1e3,
+            "decode_bound_experts_ms": roofline.memory_ms(expert_bytes),
+            "decode_bound_all_weights_ms": roofline.memory_ms(read_bytes),
             "prefill_dropped_share": shares,
             "peak_gib": peak, "wall_s": time.perf_counter() - t0}
         print(f"serve {arch} oneshot, {cfg.n_layers} layer: "
@@ -3476,6 +3461,237 @@ def serve_moe(torch, ops, wl) -> dict:
         del model, params, batch, logits
         _free(torch)
     return out
+
+
+# --------------------------------------------------------------------------- #
+# phase 21: each workload's step against its roofline
+# --------------------------------------------------------------------------- #
+SHARE_LIMIT = 1.05        # bound / wall above it: the count claims too much
+ROOFLINE_PHASE_S = 90.0   # phase 21's own limit
+ANALYSIS_WORKERS = 6      # phase 21's trace processes (the host has 8 cores)
+# the workloads whose kernel calls a trace must give as one eager step
+# launches them: ResNet-18 vmap (luq_quant, clip), stablelm-3b ghost at
+# phase 18's 2 layers (ghost_norm_sq) and a yi-6b decode tick at 2
+# layers (luq_matmul, kv_quant_write, decode_attn_fused)
+COUNT_LAYERS = 2
+
+
+def _eager_step_launches(torch, ops, run) -> dict:
+    """The kernel launches of one eager train step of ``run`` on the
+    card: random init, a zero batch of the trainer's shapes, every
+    layer's flag 1."""
+    from repro_torch.launch.op_analysis import train_batch_spec
+    from repro_torch.launch.steps import build_train_setup
+    from repro_torch.models.registry import build_model
+
+    model = build_model(run.model, run.quant, device="cuda")
+    setup = build_train_setup(model, run)
+    params = model.init(run.seed)
+    opt_state = setup.opt_init_fn(params)
+    batch = {k: torch.zeros(shape, dtype=dtype, device="cuda")
+             for k, (shape, dtype) in train_batch_spec(
+                 model, run.global_batch, run.seq_len).items()}
+    qflags = torch.ones((run.model.policy_len(),), device="cuda")
+    lr = torch.full((), run.optim.lr, device="cuda")
+    torch.cuda.synchronize()
+    before = ops.launch_counts()
+    out = setup.step_fn(params, opt_state, batch, None, qflags, lr)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts_since(before)["launches"]
+    del model, params, opt_state, out
+    _free(torch)
+    return launches
+
+
+def _decode_tick(torch, oa, wl, kv_fmt, n_layers=None, device="meta"):
+    """``(model, params, cache, tokens, active)`` of a yi-6b decode tick
+    (``wl.SLOTS`` slots of ``wl.MAX_SEQ`` positions, every slot active)
+    on ``device`` (a trace's, inside ``oa.fake_device``, or the card)."""
+    import dataclasses
+
+    from repro_torch.config import QuantConfig
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.slots import init_slot_cache
+
+    cfg = get_config(wl.ARCH)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    model = build_model(cfg, QuantConfig(fmt=wl.QUANT_FMT, backend="cuda"),
+                        device=device)
+    params = model.prepare(model.init(wl.SEED))
+    cache = init_slot_cache(model, wl.SLOTS, wl.MAX_SEQ, kv_fmt=kv_fmt)
+    tokens = torch.zeros((wl.SLOTS,), dtype=torch.int32, device=device)
+    active = torch.ones((wl.SLOTS,), dtype=torch.bool, device=device)
+    return model, params, cache, tokens, active
+
+
+def _trace_tick(torch, oa, wl, kv_fmt, n_layers=None, device="meta"):
+    """The analysis of one yi-6b decode tick (``model.decode_slots``, what
+    the engine's decode graph runs), with its ``model_flops``."""
+    from repro_torch.launch import roofline
+
+    with oa.fake_device(device) as dev:
+        model, params, cache, tokens, active = _decode_tick(
+            torch, oa, wl, kv_fmt, n_layers, dev)
+        with torch.no_grad():
+            res = oa.trace(lambda *a: model.decode_slots(*a, kv_fmt=kv_fmt),
+                           params, cache, tokens, active)
+        res["model_flops"] = roofline.model_flops(
+            model.config, params, "decode", wl.SLOTS, wl.MAX_SEQ)
+    return res
+
+
+def _hold_counts(name, got, want, kernels) -> None:
+    for k in kernels:
+        if got.get(k, 0) != want.get(k, 0) or not want.get(k, 0):
+            raise AssertionError(f"{name}: {k} traced {got.get(k, 0)} "
+                                 f"times, launched {want.get(k, 0)}")
+
+
+def _analysis_job(job) -> dict:
+    """One trace of phase 21 in a worker process (``meta`` tensors, no
+    device): ``("train", name, argv, cut)``, ``("tick", name, kv_fmt)`` or
+    ``("serve", name, arch)``; returns the analysis."""
+    import dataclasses
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(1)
+    from repro_torch.config import QuantConfig
+    from repro_torch.configs import get_config
+    from repro_torch.launch import op_analysis as oa
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import workload as wl
+
+    kind, _, arg = job[0], job[1], job[2:]
+    if kind == "train":
+        argv, cut = arg
+        run, _, _ = wl.setup(argv, **cut)
+        return oa.analyze_train(run)
+    if kind == "tick":
+        return _trace_tick(torch, oa, wl, arg[0])
+    args = serve_cli.parse_args(list(wl.SERVE_MOE_ARGV[arg[0]]))
+    cfg = dataclasses.replace(get_config(arg[0]), **wl.SERVE_MOE_CUT)
+    return oa.analyze_serve(
+        cfg, QuantConfig(fmt=args.quant_fmt, backend=args.backend),
+        "decode", args.batch, args.prompt_len + args.gen, seed=args.seed)
+
+
+def roofline_phase(torch, ops, wl, card, sm_clock_mhz, train_runs,
+                   yi6b_ticks, yi6b_peak, moe_serve) -> dict:
+    """Phase 21: each workload of the training and serving phases traced
+    on the host (``repro_torch.launch.op_analysis``, ``meta`` tensors: no
+    device memory; ``ANALYSIS_WORKERS`` processes, while this one runs
+    :func:`roofline_counts` on the card) at its phase's ``RunConfig`` and
+    cut, its terms (``launch.roofline``) held against the wall that phase
+    measured (the fastest epoch's median step; the decode graph's replay;
+    the MoE layer's eager decode step): every share ``bound_s / wall`` at
+    most ``SHARE_LIMIT``.  The trace's peak is printed beside the phase's
+    ``max_memory_allocated``.  At full depth a yi-6b tick's trace must
+    count the launches the decode graph's capture ran."""
+    import concurrent.futures
+    import multiprocessing
+
+    from repro_torch.launch import op_analysis as oa
+    from repro_torch.launch import roofline
+
+    jobs = ([("train", name, argv, cut)
+             for name, (argv, cut, _) in train_runs.items()]
+            + [("tick", f"yi-6b decode tick kv={kv}", kv) for kv in yi6b_ticks]
+            + [("serve", f"{arch} decode step", arch) for arch in moe_serve])
+    walls = {name: (min(summary["median_step_ms_by_epoch"]),
+                    summary["peak_gib"])
+             for name, (_, _, summary) in train_runs.items()}
+    walls.update({f"yi-6b decode tick kv={kv}": (s["decode_tick_ms"],
+                                                  yi6b_peak)
+                  for kv, s in yi6b_ticks.items()})
+    walls.update({f"{arch} decode step": (s["decode_step_ms"], s["peak_gib"])
+                  for arch, s in moe_serve.items()})
+    with concurrent.futures.ProcessPoolExecutor(
+            ANALYSIS_WORKERS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = {job[1]: pool.submit(_analysis_job, job) for job in jobs}
+        roofline_counts(torch, ops, wl, tuple(yi6b_ticks))
+        results = {name: f.result() for name, f in futures.items()}
+
+    out = {}
+    for name, res in results.items():
+        wall_ms, peak_gib = walls[name]
+        terms = roofline.derive(res, model_flops_per_device=res["model_flops"],
+                                sm_clock_mhz=sm_clock_mhz)
+        share = terms.bound_s / (wall_ms / 1e3)
+        rec = {"flops_by_class": terms.flops_by_class,
+               "int_ops": terms.int_ops, "bytes": terms.bytes_accessed,
+               "compute_s": terms.compute_s, "memory_s": terms.memory_s,
+               "collective_s": terms.collective_s,
+               "dominant": terms.dominant, "bound_s": terms.bound_s,
+               "model_flops": terms.model_flops_per_device,
+               "useful_ratio": terms.useful_ratio, "wall_ms": wall_ms,
+               "share": share, "trips": res.get("trips", 1),
+               "kernel_calls": oa.kernel_calls(res),
+               "analysis_peak_gib": res["peak_bytes"] / 2**30,
+               "measured_peak_gib": peak_gib, "warnings": res["warnings"],
+               "trace_s": res["trace_s"]}
+        print(f"roofline {name} ({card}): {json.dumps(rec)}", flush=True)
+        if not share <= SHARE_LIMIT:
+            raise AssertionError(f"{name}: bound {terms.bound_s} s over a "
+                                 f"{wall_ms} ms step is a share of {share}, "
+                                 f"above {SHARE_LIMIT}: the count claims "
+                                 "more work than the card did")
+        out[name] = {k: rec[k] for k in ("dominant", "bound_s", "wall_ms",
+                                         "share", "useful_ratio")}
+    for kv, summary in yi6b_ticks.items():
+        _hold_counts(f"yi-6b tick kv={kv} (full depth, the graph's capture)",
+                     oa.kernel_calls(results[f"yi-6b decode tick kv={kv}"]),
+                     summary["tick_launches"],
+                     ("luq_matmul", "kv_quant_write", "decode_attn_fused"))
+    return out
+
+
+def roofline_counts(torch, ops, wl, kv_fmts=("int8", "luq_fp4")) -> dict:
+    """The kernel calls of a trace, on fake CUDA tensors
+    (``FakeTensorMode``) and on ``meta`` ones alike, must be the launches
+    of one eager step on the card: ResNet-18 vmap at its 4 microbatches,
+    stablelm-3b ghost at 2 layers and a yi-6b decode tick at 2 layers, so
+    all six kernels."""
+    from repro_torch.launch import op_analysis as oa
+
+    counted = {}
+    for name, argv, cut, kernels in (
+            ("resnet18 vmap", wl.TRAIN_ARGV, {},
+             ("luq_quant", "clip_and_sum")),
+            ("stablelm-3b ghost", wl.TRAIN_LM_ARGV,
+             {"n_layers": COUNT_LAYERS}, ("ghost_norm_sq", "luq_quant"))):
+        run, _, _ = wl.setup(argv, **cut)
+        fake = oa.kernel_calls(oa.analyze_train(run, device="cuda"))
+        meta = oa.kernel_calls(oa.analyze_train(run))
+        eager = _eager_step_launches(torch, ops, run)
+        _hold_counts(f"{name} (fake cuda)", fake, eager, kernels)
+        _hold_counts(f"{name} (meta)", meta, eager, kernels)
+        counted[name] = eager
+    for kv_fmt in kv_fmts:
+        fake = oa.kernel_calls(_trace_tick(torch, oa, wl, kv_fmt,
+                                           COUNT_LAYERS, "cuda"))
+        model, *tick = _decode_tick(torch, oa, wl, kv_fmt, COUNT_LAYERS,
+                                    "cuda")
+        torch.cuda.synchronize()
+        before = ops.launch_counts()
+        with torch.no_grad():
+            model.decode_slots(*tick, kv_fmt=kv_fmt)
+        torch.cuda.synchronize()
+        eager = ops.launch_counts_since(before)["launches"]
+        del model, tick
+        _free(torch)
+        _hold_counts(f"yi-6b tick kv={kv_fmt} at {COUNT_LAYERS} layers "
+                     "(fake cuda)", fake, eager,
+                     ("luq_matmul", "kv_quant_write", "decode_attn_fused"))
+        counted[f"yi-6b tick kv={kv_fmt}"] = eager
+    print(f"roofline kernel calls: traces == one eager step's launches: "
+          f"{json.dumps(counted)}", flush=True)
+    return counted
 
 
 def serve_launches(ops) -> dict:
@@ -3800,9 +4016,10 @@ def main() -> int:
         params, {"tokens": tokens}, kv_fmt="int8"), 5)
     print(f"prefill (1 x 512 tokens, int8 cache): {prefill_ms} ms")
     torch.cuda.reset_peak_memory_stats()
-    launches = {}
+    launches, yi6b_ticks = {}, {}
     for kv_fmt in ("int8", "luq_fp4"):
         summary, counts = serve_yi6b(torch, kv_fmt, model, params, ops, wl)
+        yi6b_ticks[kv_fmt] = summary
         print(f"serve yi-6b kv={kv_fmt}: {summary['n_requests']} requests, "
               f"{summary['total_new_tokens']} tokens, "
               f"{summary['tokens_per_sec']} tok/s, "
@@ -3818,7 +4035,8 @@ def main() -> int:
               f"prompts {summary['prompt_lengths']}, launches (replays "
               f"counted) {counts}")
         launches[kv_fmt] = counts
-    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30} GiB")
+    yi6b_peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"peak device memory {yi6b_peak} GiB")
 
     _phase_done(walls, "7 serve yi-6b")
 
@@ -3959,6 +4177,36 @@ def main() -> int:
     print(f"moe serving ({card}): " + json.dumps(moe_serve))
 
     _phase_done(walls, "20 serve arctic-480b, kimi-k2-1t-a32b")
+
+    # 21. each workload's step traced on the host and held against its
+    # roofline on the card: its terms against the wall the phases measured
+    train_runs = {
+        "resnet18 vmap": (wl.TRAIN_ARGV, {}, train_summary),
+        "resnet18 ghost": (wl.TRAIN_RESNET_GHOST_ARGV, {},
+                           ghost_runs["resnet"][1]),
+        "stablelm-3b ghost": (wl.TRAIN_LM_ARGV, {},
+                              policy_graphs["stablelm-3b"]),
+        "bert-snli": (wl.TRAIN_BERT_ARGV, {}, bert_summary),
+        "mamba2-130m": (wl.TRAIN_MAMBA2_ARGV, {"n_layers": CUT_LAYERS},
+                        mamba_summary),
+        "recurrentgemma-9b": (wl.TRAIN_GRIFFIN_ARGV,
+                              {"n_layers": wl.TRAIN_GRIFFIN_LAYERS},
+                              griffin_summary),
+        "internvl2-1b": (wl.TRAIN_VLM_ARGV, {"n_layers": CUT_LAYERS},
+                         vlm_summary),
+        "whisper-medium": (wl.TRAIN_WHISPER_ARGV,
+                           {"n_layers": WHISPER_CUT_LAYERS},
+                           whisper_summary),
+        "arctic-480b": (wl.TRAIN_MOE_ARGV, wl.TRAIN_MOE_CUT, moe_summary)}
+    _free(torch)
+    shares = roofline_phase(torch, ops, wl, card, sm_clock_mhz, train_runs,
+                            yi6b_ticks, yi6b_peak, moe_serve)
+    print(f"roofline shares ({card}): " + json.dumps(shares))
+
+    _phase_done(walls, "21 roofline")
+    if walls["21 roofline"] > ROOFLINE_PHASE_S:
+        raise AssertionError(f"phase 21 took {walls['21 roofline']} s, "
+                             f"more than its {ROOFLINE_PHASE_S} s")
     del walls["start"]
     print(f"phase walls (s): {json.dumps(walls)}")
 

@@ -8,6 +8,7 @@ training of the dense LMs and CNNs).  Dtypes are strings
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional, Tuple
 
@@ -30,13 +31,48 @@ def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
+#: The device a shape-only trace names, innermost last (:func:`traced_device`).
+_TRACED = []
+
+
+@contextlib.contextmanager
+def traced_device(device):
+    """Name ``device`` for a trace on shape-only tensors
+    (``repro_torch.launch.op_analysis``: ``"meta"``, or ``"cuda"`` under
+    ``torch``'s ``FakeTensorMode``), where no device memory is touched:
+    inside, :func:`resolve_device` accepts it with or without a GPU and
+    :func:`generator` gives a CPU generator for it, since such a tensor's
+    draws read no generator.  Nothing else takes this way past the GPU
+    check."""
+    dev = torch.device(device)
+    if dev.type not in ("cuda", "meta"):
+        raise ValueError(f"a trace names 'cuda' or 'meta', got {dev}")
+    _TRACED.append(torch.device(dev.type, 0) if dev.type == "cuda" else dev)
+    try:
+        yield _TRACED[-1]
+    finally:
+        _TRACED.pop()
+
+
+def generator(device) -> torch.Generator:
+    """A random generator for draws on ``device``: the device's own, or
+    a CPU one for the device a trace names (:func:`traced_device`)."""
+    dev = torch.device(device)
+    if _TRACED and dev.type == _TRACED[-1].type:
+        return torch.Generator()
+    return torch.Generator(device=dev)
+
+
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks.
 
     ``None`` means ``"cuda"``.  A CUDA request on a machine without a
-    usable GPU raises; nothing drops quietly to the CPU.
+    usable GPU raises; nothing drops quietly to the CPU.  Inside
+    :func:`traced_device` the traced device is returned as named.
     """
     dev = torch.device("cuda" if device is None else device)
+    if _TRACED and dev.type == _TRACED[-1].type:
+        return _TRACED[-1]
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' (CLI: "
@@ -128,6 +164,10 @@ class ModelConfig:
         if self.vocab_size == 0:
             return 0
         return _round_up(self.vocab_size, self.pad_vocab_to)
+
+    @property
+    def sub_quadratic(self) -> bool:
+        return self.family in ("ssm", "hybrid")
 
     @property
     def has_decoder(self) -> bool:
@@ -224,6 +264,23 @@ class OptimConfig:
     weight_decay: float = 0.0
     warmup_steps: int = 0
     schedule: str = "constant"       # constant | cosine | linear
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One of the assigned input-shape cells."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)

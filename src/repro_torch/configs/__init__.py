@@ -19,6 +19,12 @@ _MODULES = ["gemma_7b", "yi_9b", "yi_6b", "stablelm_3b", "resnet18",
             "recurrentgemma_9b", "internvl2_1b", "whisper_medium",
             "arctic_480b", "kimi_k2_1t"]
 
+ASSIGNED_ARCHS: List[str] = [
+    "gemma-7b", "yi-9b", "stablelm-3b", "yi-6b", "kimi-k2-1t-a32b",
+    "arctic-480b", "whisper-medium", "mamba2-130m", "recurrentgemma-9b",
+    "internvl2-1b",
+]
+
 _REGISTRY: Dict[str, dict] = {}
 
 

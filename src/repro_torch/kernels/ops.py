@@ -10,13 +10,24 @@ Each wrapper takes tensors and:
   goes through the kernel or the call raises.
 
 The kernels (``csrc/*.cu``) are built at first use by ``kernels.build``.
+
+A third kind of tensor, one with a shape and no memory (a ``meta``
+tensor, or a fake one of ``torch``'s ``FakeTensorMode`` on a device other
+than the CPU), is what ``repro_torch.launch.op_analysis`` traces a step
+with: such a call launches nothing, tells the analysis
+(:func:`traced_launches`) which kernel it would launch, how many times
+and at what shape, and returns empty outputs of the kernel's shapes and
+dtypes.  Such a tensor outside an analysis raises (a ``meta`` one as
+a tensor of any device but the CPU and CUDA does).
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import math
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import load_library
@@ -111,6 +122,48 @@ def add_launch_counts(delta: dict, times: int) -> None:
                 target[name] = target.get(name, 0) + times * n
 
 
+#: The analyses a traced call reports to, innermost last: each a callable
+#: ``sink(kernel, launches, **shape)``, ``shape`` the keywords of
+#: ``repro_torch.launch.roofline.kernel_cost``.
+_TRACE_SINKS = []
+
+#: Rows of ``a`` a ``luq_matmul`` launch takes (``kMaxRows`` of
+#: ``csrc/luq_matmul.cu``; every launch checks the library's).
+LUQ_MATMUL_MAX_ROWS = 8
+
+
+@contextlib.contextmanager
+def traced_launches(sink):
+    """Report the kernel calls on shape-only tensors inside to ``sink``."""
+    _TRACE_SINKS.append(sink)
+    try:
+        yield
+    finally:
+        _TRACE_SINKS.pop()
+
+
+def _traced(*tensors) -> bool:
+    """True inside an analysis when a tensor is a ``meta`` one, or a fake
+    one on a device other than the CPU: the call is traced, not run.
+    Outside an analysis a fake tensor raises here, and a ``meta`` one in
+    :func:`_on_cpu`."""
+    if not any(t.device.type == "meta" or (isinstance(t, FakeTensor)
+                                           and t.device.type != "cpu")
+               for t in tensors):
+        return False
+    if _TRACE_SINKS:
+        return True
+    if any(isinstance(t, FakeTensor) for t in tensors):
+        raise RuntimeError(
+            "a kernel wrapper was given fake device tensors outside an "
+            "analysis (repro_torch.launch.op_analysis)")
+    return False
+
+
+def _trace(kernel: str, launches: int, **shape) -> None:
+    _TRACE_SINKS[-1](kernel, launches, **shape)
+
+
 def _on_cpu(*tensors) -> bool:
     """True when every tensor is on the CPU; raises on mixed or other
     devices so a CUDA tensor can never reach a plain version."""
@@ -192,6 +245,10 @@ def luq_matmul(a, b, keys, alpha_a, alpha_b) -> torch.Tensor:
     N = b.shape[1]
     key_list, per_row = philox.split_keys(keys, R)
     key_t = (keys,) if isinstance(keys, torch.Tensor) else ()
+    if _traced(a, b, *key_t):
+        _trace("luq_matmul", math.ceil(R / LUQ_MATMUL_MAX_ROWS), rows=R,
+               k=K, n=N, keys=R if per_row else 1)
+        return a.new_empty((R, N), dtype=torch.float32)
     if _on_cpu(a, b, *key_t):
         return ref.luq_matmul_keys_ref(a, b, keys, alpha_a, alpha_b)
     alpha_a = alpha_a.reshape(-1).expand(R).contiguous()
@@ -212,6 +269,9 @@ def luq_matmul(a, b, keys, alpha_a, alpha_b) -> torch.Tensor:
     lib = load_library()
     out = torch.empty((R, N), dtype=torch.float32, device=a.device)
     step = lib.repro_luq_matmul_max_rows()
+    if step != LUQ_MATMUL_MAX_ROWS:
+        raise RuntimeError(f"luq_matmul takes {step} rows a launch, the "
+                           f"wrapper says {LUQ_MATMUL_MAX_ROWS}")
     splits = lib.repro_luq_matmul_splits(K, N)
     # scratch: Q(a), and the K splits' partial sums
     aq = torch.empty((R, K), dtype=torch.float32, device=a.device)
@@ -255,11 +315,17 @@ def kv_quant_write(k, v, k_codes, v_codes, k_scales, v_scales, fmt: str,
     if fmt not in _KV_FMT_CODE:
         raise ValueError(f"kv_quant_write has no kernel for fmt {fmt!r}")
     tensors = (k, v, k_codes, v_codes, k_scales, v_scales)
-    if _on_cpu(*tensors, *(() if wpos is None else (wpos,))):
-        return ref.kv_quant_write_ref(*tensors, fmt, wpos)
+    wpos_t = () if wpos is None else (wpos,)
     N0, N1, T, hd = k.shape
     S = k_codes.shape[2]
     code_dtype, code_dim = kvc.code_spec(fmt, hd)
+    if _traced(*tensors, *wpos_t):
+        _trace("kv_quant_write", 1, rows=2 * N0 * N1 * T, head_dim=hd,
+               code_dim=code_dim, elem=k.element_size(),
+               slots=0 if wpos is None else N0)
+        return None
+    if _on_cpu(*tensors, *wpos_t):
+        return ref.kv_quant_write_ref(*tensors, fmt, wpos)
     if k.dtype not in (torch.float32, torch.bfloat16) or v.dtype != k.dtype:
         raise TypeError(f"kv_quant_write reads float32 or bf16 rows, got "
                         f"{k.dtype} / {v.dtype}")
@@ -309,11 +375,17 @@ def decode_attn_fused(q, k_codes, v_codes, k_scale, v_scale, pos, *,
     g = hp // n_kv
     if hp != g * n_kv:
         raise ValueError(f"{hp} query heads do not split over {n_kv} kv heads")
+    S = k_codes.shape[2]
+    code_dtype, code_dim = kvc.code_spec(fmt, hd)
+    if _traced(q, k_codes, v_codes, k_scale, v_scale):
+        # a trace sees no positions: every row of every slot attended,
+        # the most a call can need
+        _trace("decode_attn_fused", 1, batch=B, kv_heads=n_kv, group=g,
+               head_dim=hd, code_dim=code_dim, live_rows=B * S)
+        return q.new_empty((B, hp, hd), dtype=torch.float32)
     if _on_cpu(q, k_codes, v_codes, k_scale, v_scale):
         return ref.decode_attn_ref(q, k_codes, v_codes, k_scale, v_scale, pos,
                                    fmt=fmt, n_kv=n_kv, scale=scale)
-    S = k_codes.shape[2]
-    code_dtype, code_dim = kvc.code_spec(fmt, hd)
     lib = load_library()
     max_g, max_hd = ctypes.c_int(), ctypes.c_int()
     lib.repro_decode_attn_limits(ctypes.byref(max_g), ctypes.byref(max_hd))
@@ -367,7 +439,14 @@ def luq_quant(x: torch.Tensor, key, codes: bool = False,
     policy of each replay): at 0 ``x`` passes through bit for bit (codes:
     ``x`` in bf16), as the reference's ``lax.cond(flag > 0.5, q, id)``.
     """
-    if _on_cpu(x, *(() if flag is None else (flag,))):
+    flag_t = () if flag is None else (flag,)
+    if _traced(x, *flag_t):
+        if x.numel():
+            _trace("luq_quant", 1, rows=x.shape[0], n=x.shape[1],
+                   elem=x.element_size())
+        return torch.empty_like(x, dtype=torch.bfloat16 if codes
+                                else x.dtype)
+    if _on_cpu(x, *flag_t):
         return ref.luq_quant_ref(x, key, codes, flag)
     if x.dim() != 2 or x.dtype not in _LUQ_DTYPES or not x.is_contiguous():
         raise ValueError(f"luq_quant takes a contiguous (R, N) float32 or "
@@ -404,9 +483,12 @@ def clip_and_sum(grads: torch.Tensor, clip_norm: float):
     kernel sums in a fixed order (no atomics): the same input gives the
     same bits on every run.
     """
+    B, D = grads.shape
+    if _traced(grads):
+        _trace("clip_and_sum", 1, rows=B, n=D)
+        return grads.new_empty((D,)), grads.new_empty((B,))
     if _on_cpu(grads):
         return ref.per_sample_clip_ref(grads, clip_norm)
-    B, D = grads.shape
     _check("grads", grads, torch.float32, (B, D))
     lib = load_library()
     P = lib.repro_per_sample_clip_chunks(B, D)
@@ -452,10 +534,16 @@ def ghost_norm_sq(x, g, key_x, key_g, flag=None) -> torch.Tensor:
     ``||x_b^T g_b||_F^2`` of the unquantized operands (exact products for
     bf16 operands, summed in float32).
     """
-    if _on_cpu(x, g, *(() if flag is None else (flag,))):
-        return ref.ghost_norm_ref(x, g, key_x, key_g, flag)
+    flag_t = () if flag is None else (flag,)
     B, T, Dx = x.shape
     Dg = g.shape[2]
+    if _traced(x, g, *flag_t):
+        if B and T and Dx and Dg:
+            _trace("ghost_norm_sq", 1, batch=B, t=T, dx=Dx, dg=Dg,
+                   elem_x=x.element_size(), elem_g=g.element_size())
+        return x.new_empty((B,), dtype=torch.float32)
+    if _on_cpu(x, g, *flag_t):
+        return ref.ghost_norm_ref(x, g, key_x, key_g, flag)
     for name, t, d in (("x", x, Dx), ("g", g, Dg)):
         if t.dtype not in _LUQ_DTYPES:
             raise TypeError(f"{name}: expected float32 or bf16, got {t.dtype}")

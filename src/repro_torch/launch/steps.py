@@ -30,28 +30,38 @@ is None (the scan executor, which seeds it before each replay).
 :class:`EpochRunner` is the counterpart of ``build_epoch_fn``: k steps
 over static buffers, one CUDA graph of the step for every quantization
 policy (the policy flags are one of its static inputs).
+
+:func:`build_serve_setup` is the counterpart of the reference's: the
+oneshot prefill and decode functions and their abstract inputs as
+:class:`TensorSpec` trees, which :func:`eval_shape` derives (the
+reference's ``jax.eval_shape``) from one run on fake tensors.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 from torch.func import grad_and_value
-from torch.utils._pytree import tree_flatten, tree_leaves, tree_unflatten
+from torch.utils._pytree import (tree_flatten, tree_leaves, tree_map,
+                                 tree_unflatten)
 
-from repro_torch.config import RunConfig, torch_dtype
+from repro_torch.config import (RunConfig, generator, torch_dtype,
+                                traced_device)
 from repro_torch.dp.clip import per_example_clipped_grad_sum
 from repro_torch.dp.engine import validate_grad_mode
 from repro_torch.dp.ghost import (ghost_clipped_grad_sum,
                                   sharded_ghost_clipped_grad_sum)
 from repro_torch.dp.noise import add_gaussian_noise
 from repro_torch.graph import StepGraph
+from repro_torch.kernels import ops
 from repro_torch.launch.mesh import DATA_AXES, data_degree
 from repro_torch.models.registry import Model
 from repro_torch.optim import apply_updates, make_optimizer
 from repro_torch.parallel import partitioner as pt
+from repro_torch.serve.oneshot import build_oneshot_fns
 
 # Offset of the DP noise's generator seed from the step seed: each step
 # draws its noise from its own stream, seeded from the step seed alone
@@ -96,7 +106,7 @@ def build_train_setup(model: Model, run: RunConfig, mesh=None) -> TrainSetup:
     mb = _microbatch(run, mesh)
     accum_dtype = torch_dtype(run.dp.grad_accum_dtype)
     ghost = run.dp.enabled and run.dp.grad_mode == "ghost"
-    noise_gen = torch.Generator(device=model.device)
+    noise_gen = generator(model.device)
 
     # ---- the data-parallel strategy (the reference's, data axes only) ----
     sizes = pt.axis_sizes(mesh) if mesh is not None else {}
@@ -350,3 +360,99 @@ class EpochRunner:
                 out[n][i].copy_(m)
         params, opt_state = tree_unflatten(self._leaves, self._spec)
         return params, opt_state, out
+
+
+# --------------------------------------------------------------------------- #
+# serving, and abstract inputs
+# --------------------------------------------------------------------------- #
+class TensorSpec(NamedTuple):
+    """A tensor's shape and dtype: an abstract input (the reference's
+    ``jax.ShapeDtypeStruct``)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, TensorSpec)
+
+
+def spec_of(tree):
+    """``tree`` with every tensor replaced by its :class:`TensorSpec`."""
+    return tree_map(lambda t: TensorSpec(tuple(t.shape), t.dtype)
+                    if isinstance(t, torch.Tensor) else t, tree)
+
+
+def materialize(tree, device):
+    """``tree`` with every :class:`TensorSpec` replaced by zeros of its
+    shape and dtype on ``device`` (fake tensors under a fake mode)."""
+    return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                          device=device)
+                    if _is_spec(s) else s, tree, is_leaf=_is_spec)
+
+
+def eval_shape(fn, *args, device):
+    """The :class:`TensorSpec` tree of ``fn(*args)``, from one run on
+    shape-only tensors on ``device`` (a spec in ``args`` becomes one):
+    ``meta`` tensors, or fake ones of ``torch``'s ``FakeTensorMode`` on
+    another device (the mode already active, if one is).  Nothing is
+    allocated, and a kernel call launches nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    dev = torch.device(device)
+    with contextlib.ExitStack() as stack:
+        if dev.type != "meta" and torch._C._get_dispatch_mode(
+                torch._C._TorchDispatchModeKey.FAKE) is None:
+            stack.enter_context(FakeTensorMode(allow_non_fake_inputs=True))
+        if dev.type != "cpu":
+            stack.enter_context(traced_device(dev))
+        stack.enter_context(ops.traced_launches(lambda *a, **k: None))
+        return spec_of(fn(*materialize(args, dev)))
+
+
+def _serve_batch_spec(model: Model, batch_size: int, seq_len: int) -> dict:
+    """The :class:`TensorSpec` of a serving batch: every input of the
+    model's ``batch_spec``, or the token ids alone."""
+    spec = (model.batch_spec(batch_size, seq_len)
+            if model.batch_spec is not None
+            else {"tokens": ((batch_size, seq_len), torch.int32)})
+    return {name: TensorSpec(tuple(shape), dtype)
+            for name, (shape, dtype) in spec.items()}
+
+
+@dataclasses.dataclass
+class ServeSetup:
+    prefill_fn: Callable
+    decode_fn: Callable
+    prefill_abstract: Tuple
+    decode_abstract: Tuple
+    mesh: Optional[object] = None
+
+
+def build_serve_setup(model: Model, run: RunConfig, mesh, batch_size: int,
+                      seq_len: int, kv_fmt: str = "none") -> ServeSetup:
+    """The oneshot serving functions for ``batch_size`` sequences and a
+    cache of ``seq_len`` positions (``serve.oneshot.build_oneshot_fns``,
+    with its ``kv_fmt`` check), and their abstract inputs: the prepared
+    params and a batch of ``seq_len`` tokens for ``prefill_fn(params,
+    batch)``; the params, the cache a prefill of ``seq_len - 1`` tokens
+    leaves and one token a sequence for ``decode_fn(params, cache,
+    token)``.  No shardings: the serving mesh is not ported, and a mesh
+    of more than one rank raises."""
+    if mesh is not None and mesh.devices.size > 1:
+        raise NotImplementedError(
+            "serving on a mesh is not ported yet (ROADMAP.md section 1, "
+            "the serving engine's mesh)")
+    prefill_fn, decode_fn = build_oneshot_fns(model, seq_len, kv_fmt)
+    dev = model.device
+    params = eval_shape(lambda: model.prepare(model.init(run.seed)),
+                        device=dev)
+    batch = _serve_batch_spec(model, batch_size, seq_len)
+    cache = eval_shape(lambda p, b: prefill_fn(p, b)[1], params,
+                       _serve_batch_spec(model, batch_size,
+                                        max(1, seq_len - 1)), device=dev)
+    return ServeSetup(
+        prefill_fn=prefill_fn, decode_fn=decode_fn,
+        prefill_abstract=(params, batch),
+        decode_abstract=(params, cache,
+                         TensorSpec((batch_size,), torch.int32)),
+        mesh=mesh)

@@ -29,7 +29,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.config import ModelConfig, QuantConfig
+from repro_torch.config import (ModelConfig, QuantConfig, generator)
 from repro_torch.models import common as cm
 from repro_torch.models import resnet
 from repro_torch.models.registry import Model, register_family
@@ -41,7 +41,7 @@ BN_SIZE = 4          # bottleneck width: BN_SIZE * growth
 def init_params(seed: int, cfg: ModelConfig, device) -> dict:
     """Random parameters from ``seed`` (the JAX package's shapes and init
     scales, torch's own stream)."""
-    gen = torch.Generator(device=device)
+    gen = generator(device)
     gen.manual_seed(seed)
     g = cfg.growth_rate
 

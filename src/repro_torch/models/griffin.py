@@ -61,7 +61,8 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from repro_torch.config import ModelConfig, QuantConfig, torch_dtype
+from repro_torch.config import (ModelConfig, QuantConfig, generator,
+                                torch_dtype)
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tfm
 from repro_torch.models.mamba2 import _causal_conv, _softplus
@@ -132,7 +133,7 @@ def _init_mlp(init, cfg: ModelConfig, n: int, pdt, device) -> dict:
 def init_params(seed: int, cfg: ModelConfig, device) -> dict:
     """Random parameters from ``seed`` (the JAX package's shapes and init
     scales, torch's own stream)."""
-    gen = torch.Generator(device=device)
+    gen = generator(device)
     gen.manual_seed(seed)
     pdt = torch_dtype(cfg.param_dtype)
     _, n_super, n_tail = _layout(cfg)

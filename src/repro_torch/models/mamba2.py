@@ -39,7 +39,8 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from repro_torch.config import ModelConfig, QuantConfig, torch_dtype
+from repro_torch.config import (ModelConfig, QuantConfig, generator,
+                                torch_dtype)
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tfm
 from repro_torch.models.registry import Model, register_family
@@ -55,7 +56,7 @@ _MATMUL_LEAVES = ("in_proj", "out_proj")
 def init_params(seed: int, cfg: ModelConfig, device) -> dict:
     """Random parameters from ``seed`` (the JAX package's shapes and init
     scales, torch's own stream)."""
-    gen = torch.Generator(device=device)
+    gen = generator(device)
     gen.manual_seed(seed)
     pdt = torch_dtype(cfg.param_dtype)
     d, di, H, N = cfg.d_model, cfg.d_inner, cfg.ssm_heads, cfg.ssm_state

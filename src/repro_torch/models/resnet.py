@@ -29,7 +29,7 @@ import math
 
 import torch
 
-from repro_torch.config import ModelConfig, QuantConfig
+from repro_torch.config import (ModelConfig, QuantConfig, generator)
 from repro_torch.models import common as cm
 from repro_torch.models.registry import Model, register_family
 from repro_torch.quant.fake_quant import qconv2d
@@ -58,7 +58,7 @@ def _blocks(cfg: ModelConfig):
 def init_params(seed: int, cfg: ModelConfig, device) -> dict:
     """Random parameters from ``seed`` (the JAX package's shapes and init
     scales, torch's own stream)."""
-    gen = torch.Generator(device=device)
+    gen = generator(device)
     gen.manual_seed(seed)
 
     def conv(shape):                      # HWIO, He init

@@ -41,7 +41,8 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from repro_torch.config import ModelConfig, QuantConfig, torch_dtype
+from repro_torch.config import (ModelConfig, QuantConfig, generator,
+                                torch_dtype)
 from repro_torch.kernels import ops
 from repro_torch.models import common as cm
 from repro_torch.models.registry import Model, register_family
@@ -82,7 +83,7 @@ def init_block_stack(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
 def init_params(seed: int, cfg: ModelConfig, device) -> dict:
     """Random parameters from ``seed`` (same shapes and init scales as the
     JAX package, not the same numbers: torch draws its own stream)."""
-    gen = torch.Generator(device=device)
+    gen = generator(device)
     gen.manual_seed(seed)
     pdt = torch_dtype(cfg.param_dtype)
     d = cfg.d_model

@@ -842,3 +842,26 @@ def test_straggler_is_the_slowed_replica_on_the_card(cuda):
     assert all(r.status == "ok" for r in out.values())
     assert sup.dead == {5} and sup.events[0]["lost"] == [5]
     assert min(walls) > 0
+
+
+def test_fake_cuda_traces_count_as_meta_traces(cuda):
+    """``launch.op_analysis`` on fake CUDA tensors (``FakeTensorMode``)
+    counts what it counts on ``meta`` tensors, kernel calls included: a
+    SMOKE ResNet-18 vmap step and a SMOKE stablelm-3b ghost step."""
+    from repro_torch.launch import op_analysis as oa
+    from repro_torch.launch import train
+
+    for argv in (["--arch", "resnet18", "--smoke", "--mode", "dpquant",
+                  "--fmt", "luq_fp4", "--backend", "cuda", "--clip-backend",
+                  "fused", "--batch", "16", "--microbatch", "4"],
+                 ["--arch", "stablelm-3b", "--smoke", "--mode", "dpquant",
+                  "--fmt", "luq_fp4", "--backend", "cuda", "--grad-mode",
+                  "ghost", "--clip-backend", "ref", "--ghost-microbatch",
+                  "2", "--batch", "4", "--seq-len", "16"]):
+        run = train.build_run(train.parse_args(argv))
+        fake = oa.analyze_train(run, device="cuda")
+        meta = oa.analyze_train(run)
+        for key in ("flops", "flops_by_class", "bytes", "kernels",
+                    "peak_bytes", "warnings"):
+            assert fake[key] == meta[key], key
+        assert oa.kernel_calls(fake)["luq_quant"] > 0
