@@ -19,7 +19,7 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    operand) and ``per_sample_clip`` at their parameter counts (of the
    depth phases 10 and 14 train);
    RecurrentGemma-9B (cut to 5 layers), InternVL2-1B and whisper-medium
-   (cut to 12 + 12 layers) training: ``luq_quant`` at an MLP weight and a
+   (cut to 3 + 3 layers) training: ``luq_quant`` at an MLP weight and a
    microbatch's MLP hidden rows, ``per_sample_clip`` at their parameter
    counts (the Griffin's 2,174,889,984, the first row beyond 2^31
    elements); arctic-480b training (2 layers of 8 experts):
@@ -232,15 +232,15 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    decode tokens/s; then in float32 with an exact head decode's logits
    against a prefill of the extended prompt (the same vision prefix),
    within 1e-2 of the largest logit;
-16. trains whisper-medium at full width cut to 12 encoder and 12
-   decoder layers (405,600,256 parameters, bf16 compute, float32 params;
-   whole, it left phase 18 no time: ``WHISPER_CUT_LAYERS``) the way of
-   phases 9-10, ``TRAIN_WHISPER_ARGV`` (``--batch 32 --microbatch 4
-   --seq-len 448``: each sequence with 448 Gaussian encoder frames, cast
-   to bf16 on the card): k = 22 of 24, the same checks (each microbatch
-   pass quantizes 192 projections, the cross-attention's K and V from the
-   encoder's output per example); prints the host time of a batch's
-   frames;
+16. trains whisper-medium at full width cut to 3 encoder and 3
+   decoder layers (141,313,024 parameters, bf16 compute, float32 params;
+   whole, it left phase 18 no time, and deeper phase 22 too little:
+   ``WHISPER_CUT_LAYERS``) the way of phases 9-10, ``TRAIN_WHISPER_ARGV``
+   (``--batch 32 --microbatch 4 --seq-len 448``: each sequence with 448
+   Gaussian encoder frames, cast to bf16 on the card): k = 5 of 6, the
+   same checks (each microbatch pass quantizes 48 projections, the
+   cross-attention's K and V from the encoder's output per example);
+   prints the host time of a batch's frames;
 17. serves whisper-medium whole through the oneshot engine
    (``SERVE_WHISPER_ARGV``: 8 prompts of 384 tokens with 384 Gaussian
    encoder frames, 64 new tokens, greedy, bf16, eager decode steps): the
@@ -314,7 +314,41 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    step on the card (ResNet-18 vmap, stablelm-3b ghost at 2 layers, a
    yi-6b decode tick at 2 layers: all six kernels), and at full depth the
    tick's launches that the decode graph's capture ran; the phase's wall
-   must stay under ``ROOFLINE_PHASE_S`` (90 s).
+   must stay under ``ROOFLINE_PHASE_S`` (90 s);
+22. the model mesh axis on the one card: two ranks of this script
+   (``--tp-rank``) over gloo with CUDA tensors on a (1, 2) host mesh
+   over ``("data", "model")``, each holding its blocks of every layer
+   (``TrainSetup.shard``; its parameter bytes the sum of its
+   ``local_slice`` shapes), the loop executor's step: (c) the three
+   kernels of the sharded step on a rank's shard at the phase's shapes
+   (``luq_quant`` as ``luq_row_max``, an all-reduce MAX and
+   ``luq_round`` under the shard's index map, on a stablelm-3b q weight
+   split by heads, an arctic dispatch row split by experts and, for the
+   element path, an MLP of 6,910 split in two: bitwise the plain version
+   and the whole operand's slice; the split clip at the arctic cut's
+   per-rank row: norms rtol 1e-5; ``ghost_norm_sq`` of a column- and a
+   row-parallel tap, the ranks' parts within 1e-5 of sum |XX o GG| of
+   the whole operands), timed on rank 0; (a) stablelm-3b at full width
+   cut to 2 layers, ghost, 8 x 256 tokens, pass-1 chunks of 4, remat;
+   (b) arctic-480b at full per-token width cut to 2 layers of 8 experts,
+   4 a rank, vmap, 8 x 256 in microbatches of 1, the fused clip: the
+   sharded step's clipped sums and metrics (``TrainSetup.grad_fn``)
+   against the one-process step's, each rank holding its own blocks
+   against its own one-process run, alone on the card after the sharded
+   runs are freed: float32 at fmt none at rtol 2e-4 / atol 2e-5, bf16 at
+   fmt none (22a) and luq_fp4 (in float32 too in 22a) within
+   ``TP_SUM_LIMITS``, a control with
+   rank 1's quantizers keyed from another seed beyond it, the metrics at
+   rtol 2e-4 / atol 2e-5 in float32 and within the sums' limit
+   otherwise; arctic's dropped share of (token, slot) pairs in a forward
+   equal to the one-process forward's in every layer at fmt none in
+   float32 (under LUQ a code the row-parallel sums' order flips moves
+   the router's input: printed); (d) one DP step of each workload through
+   ``build_train_setup`` on the mesh: the replicated leaves the same bits
+   on both ranks, the update within ``TP_SUM_LIMITS`` of the one-process
+   step's; prints each part's walls, both ranks' peaks and the
+   one-process peak, the step wall and the count and bytes of the
+   model-group all-reduces.
 
 Every kernel row's ``bound_ms`` (and its side bounds) is
 ``repro_torch.launch.roofline.kernel_cost`` at the card's peaks, the
@@ -693,7 +727,9 @@ def check_luq_quant(torch, ops, ref, rows, n, dtype, sm_clock_mhz, reps=50):
     return {
         "max_abs_err": 0.0,
         "ms": time_ms(torch, lambda: ops.luq_quant(x, key), reps),
-        "plain_ms": time_ms(torch, lambda: ref.luq_quant_ref(x, key), reps),
+        # the plain version five times: at the expert stack it takes half
+        # a second a run, 27 s of the script at 50
+        "plain_ms": time_ms(torch, lambda: ref.luq_quant_ref(x, key), 5),
         **kernel_bound("luq_quant", **shape),
         # the kernel's own passes: x read twice (the row max, the
         # rounding), the result written once
@@ -958,17 +994,18 @@ GRIFFIN_PER_PASS = (2 * 39, 4 * 39)
 VLM_PER_PASS = (CUT_LAYERS * 7 * 2, CUT_LAYERS * 7 * 4)
 # whisper-medium whole (the JAX package's eval_shape), served whole in
 # phase 17.  Phase 16 trains it at full width cut to WHISPER_CUT_LAYERS
-# encoder and as many decoder blocks (k = 22 of 24): whole, its two
+# encoder and as many decoder blocks (k = 5 of 6): whole, its two
 # analyses of 98 probe replays made the phase 331 s and left phase 18 no
 # room in the script's 1,200 s (it ran 1,176 s on an H100 80GB HBM3 at
-# 700 W).  Its profile_train workload stays whole.  Its projections a
+# 700 W); at 12 + 12 (106-113 s), and at 6 + 6 (50.4 s, the script's
+# phases 1,113 s), it left phase 22 too little.  Its profile_train workload stays whole.  Its projections a
 # microbatch pass: encoder blocks of 6 (q, k, v, o, the MLP's two) and
 # decoder blocks of 10 (self and cross q, k, v, o, the MLP's two), each 2
 # one-row and 4 row calls (the cross K and V from the encoder's output,
 # per example too)
 WHISPER_PARAMS = 757_983_232
-WHISPER_CUT_LAYERS = 12
-WHISPER_TRAIN_PARAMS = 405_600_256
+WHISPER_CUT_LAYERS = 3
+WHISPER_TRAIN_PARAMS = 141_313_024
 WHISPER_PER_PASS = (2 * WHISPER_CUT_LAYERS * (6 + 10),
                     4 * WHISPER_CUT_LAYERS * (6 + 10))
 
@@ -3694,6 +3731,539 @@ def roofline_counts(torch, ops, wl, kv_fmts=("int8", "luq_fp4")) -> dict:
     return counted
 
 
+# --------------------------------------------------------------------------- #
+# 22. the model axis: two ranks that split every layer, on the one card
+# --------------------------------------------------------------------------- #
+TP_RANKS = 2         # ranks sharing the card in phase 22
+TP_DEVICE = "cuda"
+# 22c's operands: a stablelm-3b q weight (d, heads, head_dim), split by
+# heads; an arctic dispatch row (1, experts, slots, d), split by experts;
+# an MLP's hidden rows (examples, tokens, 6,910), split in two (the
+# element path); stablelm-3b's q / o taps (examples, tokens, d)
+TP_KERNEL_SHAPES = {"lm_weight": (2560, 32, 80),
+                    "moe_dispatch_rows": (1, 8, 80, 7168),
+                    "element_path": (4, 256, 6910),
+                    "ghost": (4, 256, 2560)}
+
+
+# The sharded clipped sums (and the DP step's update) against the
+# one-process ones where the sharded GEMMs' float32 order (a row-parallel
+# partial sum, a GEMM of another width) can flip a LUQ code or a bf16
+# rounding, and the flip cascades through the layers (and, in arctic,
+# through the router's top-k): the relative L2 norm of the difference over
+# every entry at most this.  Readings on an H100 80GB HBM3 at 700 W (the
+# same in two calls): 22a float32 luq_fp4 0.3046, bf16 none 0.00571, bf16
+# luq_fp4 0.3094, the step 4.29e-5; 22b float32 luq_fp4 0.5766, bf16
+# luq_fp4 0.7407 (with float32 luq_fp4 too, dropped from the phase for
+# its time), the step 2.92e-4; the controls, rank 1's quantizers
+# keyed from another seed, 0.863 (22a) and 1.288 (22b).  Each limit is two
+# to three times its reading, except 22b bf16 luq_fp4 (1.49 times): its
+# control lies 1.74 times above the reading, and every luq_fp4 limit must
+# fail its control.  float32 at fmt none is held at rtol 2e-4 / atol 2e-5.
+TP_SUM_LIMITS = {"22a float32 luq_fp4": 0.62,
+                 "22a bfloat16 none": 0.015,
+                 "22a bfloat16 luq_fp4": 0.62,
+                 "22b bfloat16 luq_fp4": 1.1,
+                 "22a step": 1e-4,
+                 "22b step": 7e-4}
+
+
+def _tp_stats(torch, got: dict, want: dict) -> list:
+    """[sum of squared differences, sum of squared wants, largest |diff|,
+    largest |want|] of two dicts of tensors (got may lie on the host)."""
+    out = [0.0, 0.0, 0.0, 0.0]
+    for k, w in want.items():
+        d = got[k].to(w.device).float() - w.float()
+        out[0] += d.square().sum().item()
+        out[1] += w.float().square().sum().item()
+        out[2] = max(out[2], d.abs().max().item())
+        out[3] = max(out[3], w.float().abs().max().item())
+        del d
+    return out
+
+
+def _tp_kernels(torch, ops, ref, mesh, sm_clock_mhz) -> dict:
+    """22c on one rank: the three kernels of the sharded step on this
+    rank's shard of an operand, at the phase's shapes, against the plain
+    version and, over both ranks, against the kernel's unsharded call on
+    the whole operand: ``luq_quant`` given the ranks' max (``luq_row_max``,
+    one all-reduce MAX, ``luq_round`` under the shard's index map), bit for
+    bit, on a map that keeps Philox groups whole (a stablelm-3b q weight
+    split by heads of 80; an arctic dispatch row split by experts) and on
+    one that does not (an MLP of 6,910 split in two: the element path);
+    the split clip (``clip_sumsq`` over the split columns, the
+    replicated ones on the group's first rank only, one all-reduce SUM,
+    ``clip_apply``) at the arctic cut's per-rank row: norms rtol 1e-5,
+    sums within 1e-5 of sum_b |scale_b g_bd|; ``ghost_norm_sq`` of a
+    column-parallel tap (the cotangent split) and a row-parallel one (the
+    input split), the ranks' parts summed, within 1e-5 of sum |XX o GG|.
+    Rank 0 times the kernels (``luq_row_max`` + ``luq_round``,
+    ``clip_sumsq`` + ``clip_apply``, the mapped ``ghost_norm_sq`` with its
+    row maxima) while rank 1 waits."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.launch import workload as wl
+    from repro_torch.launch.steps import build_train_setup
+    from repro_torch.models.registry import build_model
+    from repro_torch.parallel import axes as pax
+    from repro_torch.parallel.collectives import model_reduce_
+    from repro_torch.parallel import partitioner as pt
+    from repro_torch.quant.fake_quant import _index_map, stream_key
+
+    m = mesh.model_group()
+    key = stream_key(97 + 1, 1)
+    out = {}
+
+    def split(t, dim):
+        n = t.shape[dim] // m.size
+        return t.narrow(dim, m.index * n, n).contiguous(), (
+            dim, m.index * n, t.shape[dim])
+
+    def timed(name, fn, plain, bound, library=None, extra=None):
+        dist.barrier()
+        res = {}
+        if m.index == 0:
+            res = {"ms": time_ms(torch, fn, 20), "plain_ms":
+                   time_ms(torch, plain, 5), **bound,
+                   "library_ms": None if library is None
+                   else time_ms(torch, library, 20)}
+        dist.barrier()
+        res.update(extra or {})
+        out[name] = res
+
+    with pax.partitioning_context(m):
+        # luq_quant on shards: (name, whole operand, split dim, rows)
+        dev = TP_DEVICE
+        gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+        shp = TP_KERNEL_SHAPES
+        cases = (("luq_quant[tp_lm_weight]", shp["lm_weight"], 1, 1),
+                 ("luq_quant[tp_moe_dispatch_rows]",
+                  shp["moe_dispatch_rows"], 1, 1),
+                 ("element path", shp["element_path"], 2,
+                  shp["element_path"][0]))
+        for name, shape, dim, rows in cases:
+            whole = torch.randn(shape, device=dev, generator=gen)
+            whole = whole.clamp(-3.5, 3.5).bfloat16()
+            part, s = split(whole, dim)
+            imap = _index_map(part.shape, s)
+            prow = part.reshape(rows, -1)
+            alpha = model_reduce_(ops.luq_row_max(prow), "max")
+            got = ops.luq_round(prow, key, alpha, imap)
+            want = ops.luq_quant(whole.reshape(rows, -1), key).reshape(
+                whole.shape).narrow(dim, s[1], part.shape[dim])
+            if not (torch.equal(got.reshape(part.shape), want)
+                    and torch.equal(got, ref.luq_round_ref(
+                        prow, key, alpha, imap))):
+                raise AssertionError(f"22c {name}: the shard's rounding is "
+                                     f"not the whole operand's slice")
+            whole_groups = all(v % 4 == 0 for v in imap)
+            if (name == "element path") == whole_groups:
+                raise AssertionError(f"22c {name}: map {imap}")
+            bound = kernel_bound("luq_quant", rows=rows, n=prow.shape[1],
+                                 elem=2, sm_clock_mhz=sm_clock_mhz)
+            extra = {"max_abs_err": 0.0, "index_map": list(imap),
+                     "shard": list(part.shape)}
+            if name == "element path":
+                timed("luq_quant element path", lambda: ops.luq_round(
+                    prow, key, alpha, imap), lambda: ref.luq_round_ref(
+                    prow, key, alpha, imap), bound, extra=extra)
+                continue
+            timed(name, lambda: ops.luq_round(
+                prow, key, ops.luq_row_max(prow), imap),
+                lambda: ref.luq_round_ref(prow, key, ref.luq_row_max_ref(
+                    prow), imap), bound, extra=extra)
+        del whole, part, got, want
+        out["luq_quant[tp_lm_weight]"]["element_path"] = out.pop(
+            "luq_quant element path")
+
+        # the split clip at the arctic cut's per-rank row
+        run, _, _ = wl.setup(wl.TRAIN_MOE_ARGV, **wl.TRAIN_MOE_CUT)
+        model = build_model(run.model, run.quant, device=dev)
+        setup = build_train_setup(model, dataclasses.replace(
+            run, model_parallel=m.size), mesh)
+        shapes = setup.param_shapes
+        rep = sum(math.prod(shapes[k]) for k, s in setup.param_specs.items()
+                  if not pt.split_dims(s))
+        split_n = sum(math.prod(shapes[k]) for k in shapes) - rep
+        del model, setup
+        d_loc = split_n // m.size
+        cols = slice(m.index * d_loc, (m.index + 1) * d_loc)
+        # the whole row (9.9 GB) on one rank at a time: its kernel call,
+        # this rank's columns of it and of the result kept
+        for r in range(m.size):
+            if m.index == r:
+                gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+                whole = torch.randn(1, split_n + rep, device=dev,
+                                    generator=gen) * 1e-3
+                want, wnorms = ops.clip_and_sum(whole, 1.0)
+                want = torch.cat([want[cols], want[split_n:]])
+                local = torch.cat([whole[:, cols], whole[:, split_n:]],
+                                  dim=1)
+                del whole
+                _free(torch)
+            dist.barrier()
+        n_cols = local.shape[1] if m.index == 0 else d_loc
+        sumsq = model_reduce_(ops.clip_sumsq(local, n_cols), "sum")
+        got, norms = ops.clip_apply(local, sumsq, 1.0)
+        torch.testing.assert_close(norms, wnorms, rtol=1e-5, atol=0.0)
+        scale = torch.clamp(1.0 / torch.clamp(wnorms, min=1e-12), max=1.0)
+        max_err, step = 0.0, 1 << 28
+        for c0 in range(0, local.shape[1], step):
+            err = (got[c0:c0 + step] - want[c0:c0 + step]).abs()
+            tol = 1e-5 * scale[0] * local[0, c0:c0 + step].abs() + 1e-12
+            if not (err <= tol).all():
+                raise AssertionError(f"22c split clip: max abs err "
+                                     f"{err.max().item()}")
+            max_err = max(max_err, err.max().item())
+        del want, got, err, tol
+        _free(torch)
+
+        def lib():
+            n = torch.linalg.vector_norm(local, dim=1)
+            return _rows_product(torch, torch.clamp(
+                1.0 / torch.clamp(n, min=1e-12), max=1.0), local)
+
+        timed("per_sample_clip[tp_moe]",
+              lambda: ops.clip_apply(local, ops.clip_sumsq(local, n_cols),
+                                     1.0),
+              lambda: ref.clip_apply_ref(local, ref.clip_sumsq_ref(
+                  local, n_cols), 1.0),
+              kernel_bound("clip_and_sum", rows=1, n=local.shape[1]), lib,
+              {"max_abs_err": max_err, "row": local.shape[1],
+               "split_columns": d_loc, "replicated_columns": rep})
+        del local
+        _free(torch)
+
+        # ghost_norm_sq of a column- and a row-parallel tap: stablelm-3b's
+        # q projection (the cotangent split by heads) and its o projection
+        # (the input split), 4 sequences of 256 tokens, bf16
+        gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+        kx, kg = stream_key(97 * 1 + 3, 4), stream_key(97 * 1 + 3, 5)
+        x = torch.randn(shp["ghost"], device=dev, generator=gen)
+        g = torch.randn(shp["ghost"], device=dev, generator=gen) * 1e-3
+        x, g = x.bfloat16(), g.bfloat16()
+        B, T, D = shp["ghost"]
+        res = {}
+        for tap, (xs, gs) in (("column", (None, 2)), ("row", (2, None))):
+            xl, sx = split(x, 2) if xs else (x, None)
+            gl, sg = split(g, 2) if gs else (g, None)
+            ax = (None if sx is None else model_reduce_(ops.luq_row_max(
+                xl.reshape(B, -1)), "max"))
+            ag = (None if sg is None else model_reduce_(ops.luq_row_max(
+                gl.reshape(B, -1)), "max"))
+            mx = None if sx is None else _index_map(xl.shape, sx)
+            mg = None if sg is None else _index_map(gl.shape, sg)
+            part = ops.ghost_norm_sq(xl, gl, kx, kg, alpha_x=ax, alpha_g=ag,
+                                     map_x=mx, map_g=mg)
+            if not torch.equal(part, ops.ghost_norm_sq(
+                    xl, gl, kx, kg, alpha_x=ax, alpha_g=ag, map_x=mx,
+                    map_g=mg)):
+                raise AssertionError(f"22c ghost {tap}: two runs differ")
+            total = model_reduce_(part.clone(), "sum")
+            want = ops.ghost_norm_sq(x, g, kx, kg)
+            xq = ref.luq_quant_ref(x.reshape(B, -1), kx).reshape(
+                x.shape).double()
+            gq = ref.luq_quant_ref(g.reshape(B, -1), kg).reshape(
+                g.shape).double()
+            tol = 1e-5 * ((xq @ xq.transpose(1, 2)).abs()
+                          * (gq @ gq.transpose(1, 2)).abs()).sum(dim=(1, 2))
+            err = (total.double() - want.double()).abs()
+            if not (err <= tol).all():
+                raise AssertionError(f"22c ghost {tap}: {total.tolist()} "
+                                     f"against {want.tolist()}")
+            res[tap] = {"max_abs_err": err.max().item(),
+                        "plain_rel": ((part - ref.ghost_norm_ref(
+                            xl, gl, kx, kg, None, ax, ag, mx, mg)).abs()
+                            / part.abs().clamp(min=1e-30)).max().item(),
+                        "shard": [list(xl.shape), list(gl.shape)]}
+            del xq, gq
+            if tap == "column":
+                cx = ref.luq_quant_ref(xl.reshape(B, -1), kx, codes=True
+                                       ).reshape(xl.shape)
+                cg = ref.luq_round_ref(gl.reshape(B, -1), kg, ag, mg,
+                                       codes=True).reshape(gl.shape)
+
+                def grams():
+                    xx = torch.bmm(cx, cx.transpose(1, 2),
+                                   out_dtype=torch.float32)
+                    gg = torch.bmm(cg, cg.transpose(1, 2),
+                                   out_dtype=torch.float32)
+                    return (xx * gg).sum(dim=(1, 2))
+
+                args = (xl, gl, kx, kg)
+                timed("ghost_norm_sq[tp_lm]", lambda: ops.ghost_norm_sq(
+                    *args, alpha_g=ops.luq_row_max(gl.reshape(B, -1)),
+                    map_g=mg), lambda: ref.ghost_norm_ref(
+                    *args, None, None, ag, None, mg),
+                    kernel_bound("ghost_norm_sq", batch=B, t=T, dx=D,
+                                 dg=gl.shape[2], elem_x=2, elem_g=2),
+                    grams, res[tap])
+        out["ghost_norm_sq[tp_lm]"]["row_parallel"] = res["row"]
+    _free(torch)
+    return out
+
+
+def _tp_workload(torch, ops, wl, mesh, name, argv, cut, variants) -> dict:
+    """22a / 22b on one rank: the workload of ``argv`` at ``cut`` on the
+    (1, ``TP_RANKS``) mesh, each rank holding its blocks of every layer.
+    For each ``(dtype, fmt)`` of ``variants`` the sharded step's clipped
+    sums (``TrainSetup.grad_fn``, timed, its launches and model-group
+    all-reduces counted) and, at luq_fp4, a control with rank 1's
+    quantizers keyed from another seed; then one DP step of the workload's
+    own config (noise included) through ``build_train_setup`` on the
+    mesh, after which the replicated leaves must be the same bits on both
+    ranks.  Every result is kept on the host, the card emptied, and then
+    each rank in turn, alone on the card, runs the one-process step of
+    each variant and holds its own blocks against it: float32 at fmt none
+    at rtol 2e-4 / atol 2e-5, the others within ``TP_SUM_LIMITS`` (the
+    relative L2 over both ranks' blocks), the metrics at rtol 2e-4 / atol
+    2e-5; each control must lie beyond its limit."""
+    import dataclasses
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.config import QuantConfig
+    from repro_torch.launch.steps import build_train_setup
+    from repro_torch.models.registry import build_model
+    from repro_torch.parallel import axes as pax
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import partitioner as pt
+
+    m = mesh.model_group()
+    run, ds, _ = wl.setup(argv, **cut)
+    cfg = run.model
+    dev = TP_DEVICE
+    batch = {"tokens": ds.get(np.arange(run.global_batch))["tokens"].to(dev)}
+    flags = torch.ones(cfg.policy_len(), device=dev)
+    lr = torch.tensor(run.optim.lr, device=dev)
+    out, stash = {"variants": {}}, {}
+
+    def setup_of(dtype, fmt, mp):
+        r = dataclasses.replace(
+            run, model=dataclasses.replace(cfg, compute_dtype=dtype),
+            quant=QuantConfig(fmt=fmt, backend="cuda"), model_parallel=mp)
+        model = build_model(r.model, r.quant, device=dev)
+        return model, build_train_setup(model, r, mesh if mp > 1 else None)
+
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    for dtype, fmt in variants:
+        label = f"{name} {dtype} {fmt}"
+        model, setup = setup_of(dtype, fmt, m.size)
+        params = setup.shard(model.init(run.seed))
+        _free(torch)
+        held = sum(t.numel() * t.element_size() for t in params.values())
+        want_held = sum(math.prod(pt.local_shape(
+            setup.param_specs[k], setup.param_shapes[k], mesh))
+            * params[k].element_size() for k in params)
+        if held != want_held:
+            raise AssertionError(f"{label}: {held} bytes held, want "
+                                 f"{want_held}")
+        res = {"param_bytes": held}
+        ops.reset_launch_counts()
+        coll.reset_model_reduces()
+        (grads, metrics), res["wall_ms"] = _timed(
+            torch, lambda: setup.grad_fn(params, batch, flags))
+        res["launches"] = ops.launch_counts()
+        res["model_reduces"] = dict(coll.MODEL_REDUCES)
+        if cfg.family == "moe_lm":
+            # the dropped (token, slot) pairs of the sharded forward
+            with torch.no_grad(), pax.partitioning_context(m), \
+                    _moe_drops() as shares:
+                model.loss_fn(params, batch, flags)
+            res["dropped_share"] = shares
+        stash[label] = ({k: v.cpu() for k, v in grads.items()},
+                        {k: float(v) for k, v in metrics.items()})
+        del grads
+        if fmt == "luq_fp4":
+            with _other_key_on_rank(m.index):
+                grads, _ = setup.grad_fn(params, batch, flags)
+            stash[label + " control"] = ({k: v.cpu() for k, v in
+                                          grads.items()}, None)
+            del grads
+        out["variants"][label] = res
+        specs = setup.param_specs
+        del params, model, setup
+        _free(torch)
+    # one DP step of the workload's config on the mesh (noise included)
+    model, setup = setup_of(cfg.compute_dtype, run.quant.fmt, m.size)
+    params = setup.shard(model.init(run.seed))
+    opt = setup.opt_init_fn(params)
+    (p1, _, _), out["dp_step_ms"] = _timed(
+        torch, lambda: setup.step_fn(params, opt, batch, 1, flags, lr))
+    rep = [p1[k] for k, s in specs.items() if not pt.split_dims(s)]
+    if not coll.replicas_agree(rep, m):
+        raise AssertionError(f"{name}: the replicated leaves differ after a "
+                             f"step")
+    stash["step"] = ({k: (p1[k].float() - params[k].float()).cpu()
+                      for k in p1}, None)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["sharded_wall_s"] = time.perf_counter() - t_phase
+    del p1, params, opt, model, setup, rep
+    _free(torch)
+    dist.barrier()
+
+    # each rank alone on the card: the one-process steps, its own blocks
+    stats = {}
+    for r in range(m.size):
+        if m.index == r:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for dtype, fmt in variants:
+                label = f"{name} {dtype} {fmt}"
+                model, setup = setup_of(dtype, fmt, 1)
+                want, wmetrics = setup.grad_fn(model.init(run.seed), batch,
+                                               flags)
+                want = pt.shard_tree(want, specs, mesh)
+                got, metrics = stash[label]
+                if fmt == "none" and dtype == "float32":
+                    for k in want:
+                        torch.testing.assert_close(
+                            got[k].to(dev), want[k], rtol=2e-4, atol=2e-5,
+                            msg=lambda msg, k=k: f"{label} {k}: {msg}")
+                # the metrics at the float32 tolerances, or, where the
+                # sums have a limit (bf16: the row-parallel partials are
+                # rounded before they are summed), within it
+                limit = TP_SUM_LIMITS.get(label)
+                for k, v in wmetrics.items():
+                    torch.testing.assert_close(
+                        metrics[k], float(v), rtol=limit or 2e-4,
+                        atol=2e-5 if limit is None else 0.0,
+                        msg=lambda msg, k=k: f"{label} metric {k}: {msg}")
+                stats[label] = _tp_stats(torch, got, want)
+                if label + " control" in stash:
+                    stats[label + " control"] = _tp_stats(
+                        torch, stash[label + " control"][0], want)
+                out["variants"][label]["one_process_metrics"] = {
+                    k: float(v) for k, v in wmetrics.items()}
+                if cfg.family == "moe_lm":
+                    # at fmt none in float32 the router's input is the
+                    # same bits; under LUQ a code that the row-parallel
+                    # sums' order flips moves it (printed, not held)
+                    with torch.no_grad(), _moe_drops() as shares:
+                        model.loss_fn(model.init(run.seed), batch, flags)
+                    sharded = out["variants"][label]["dropped_share"]
+                    out["variants"][label]["one_process_dropped_share"] = \
+                        shares
+                    exact = dtype == "float32" and fmt == "none"
+                    if exact and shares != sharded:
+                        raise AssertionError(
+                            f"{label}: dropped shares {shares} one process, "
+                            f"{sharded} sharded")
+                del want, model, setup
+                _free(torch)
+            model, setup = setup_of(cfg.compute_dtype, run.quant.fmt, 1)
+            params = model.init(run.seed)
+            p1, _, _ = setup.step_fn(params, setup.opt_init_fn(params),
+                                     batch, 1, flags, lr)
+            step = pt.shard_tree({k: p1[k].float() - params[k].float()
+                                  for k in p1}, specs, mesh)
+            stats["step"] = _tp_stats(torch, stash["step"][0], step)
+            del p1, params, model, setup, step
+            out["one_process_peak_gib"] = (torch.cuda.max_memory_allocated()
+                                           / 2 ** 30)
+            out["one_process_wall_s"] = time.perf_counter() - t0
+            _free(torch)
+        dist.barrier()
+    # both ranks' blocks: the relative L2 over every entry
+    labels = sorted(stats)
+    sums = torch.tensor([stats[k][i] for k in labels for i in (0, 1)],
+                        dtype=torch.float64)
+    dist.all_reduce(sums, group=m.group)
+    maxes = torch.tensor([stats[k][2] for k in labels], dtype=torch.float64)
+    dist.all_reduce(maxes, op=dist.ReduceOp.MAX, group=m.group)
+    rel = {k: (sums[2 * i] / sums[2 * i + 1]).sqrt().item() if
+           sums[2 * i + 1] > 0 else sums[2 * i].sqrt().item()
+           for i, k in enumerate(labels)}
+    out["rel_l2"] = rel
+    out["max_abs"] = {k: maxes[i].item() for i, k in enumerate(labels)}
+    _hold_tp_limits(name, rel)
+    return out
+
+
+def _hold_tp_limits(name: str, rel: dict) -> None:
+    """Each relative L2 of 22a / 22b (``name``) within its limit of
+    ``TP_SUM_LIMITS``; each control beyond its variant's."""
+    for label, value in rel.items():
+        key = f"{name} step" if label == "step" else label.replace(
+            " control", "")
+        limit = TP_SUM_LIMITS.get(key)
+        if label.endswith(" control"):
+            if not value > limit:
+                raise AssertionError(f"{label}: {value} within the limit "
+                                     f"{limit}: a rank-dependent key passes")
+        elif limit is not None and not value <= limit:
+            raise AssertionError(f"{label}: relative L2 {value} beyond the "
+                                 f"limit {limit}")
+
+
+def tp_rank_main(argv) -> int:
+    """One rank of phase 22: ``chip_smoke.py --tp-rank RANK PORT OUT``
+    (started by :func:`model_parallel`): joins a gloo group of
+    ``TP_RANKS`` ranks on this card as a (1, ``TP_RANKS``) mesh over
+    ``("data", "model")``, runs 22c, 22a and 22b, and writes its results
+    to ``OUT.RANK`` as JSON."""
+    import torch
+    import torch.distributed as dist
+
+    rank, port, path, clock = (int(argv[0]), int(argv[1]), argv[2],
+                               float(argv[3]))
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.launch import workload as wl
+    from repro_torch.launch.mesh import init_distributed, make_compat_mesh
+
+    build.load_library()
+    init_distributed("cuda", share_device=True,
+                     init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                     world_size=TP_RANKS)
+    try:
+        mesh = make_compat_mesh((1, TP_RANKS), ("data", "model"))
+        out = {"backend": dist.get_backend()}
+        t0 = time.perf_counter()
+        out["kernels"] = _tp_kernels(torch, ops, ref, mesh, clock)
+        out["kernels_wall_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["lm"] = _tp_workload(
+            torch, ops, wl, mesh, "22a", wl.TRAIN_LM_ARGV, {"n_layers": 2},
+            (("float32", "none"), ("float32", "luq_fp4"),
+             ("bfloat16", "none"), ("bfloat16", "luq_fp4")))
+        out["lm"]["wall_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["moe"] = _tp_workload(
+            torch, ops, wl, mesh, "22b", wl.TRAIN_MOE_ARGV, wl.TRAIN_MOE_CUT,
+            (("float32", "none"), ("bfloat16", "luq_fp4")))
+        out["moe"]["wall_s"] = time.perf_counter() - t0
+        Path(f"{path}.{rank}").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def model_parallel(torch, card: str, sm_clock_mhz: float) -> dict:
+    """Phase 22: ``TP_RANKS`` ranks on this card over gloo, each holding
+    its blocks of every layer (:func:`tp_rank_main`); prints and returns
+    rank 0's results, both ranks' peaks and walls."""
+    out_dir = ROOT / "build" / "chip_smoke_tp"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / "ranks.json"
+    port = _free_port()
+    t0 = time.perf_counter()
+    _spawn([["--tp-rank", r, port, path, sm_clock_mhz]
+            for r in range(TP_RANKS)], 900)
+    ranks = [json.loads(Path(f"{path}.{r}").read_text())
+             for r in range(TP_RANKS)]
+    result = ranks[0]
+    result["per_rank"] = [{w: {k: r[w][k] for k in (
+        "peak_gib", "one_process_peak_gib", "sharded_wall_s",
+        "one_process_wall_s")} for w in ("lm", "moe")} for r in ranks]
+    result["wall_s"] = time.perf_counter() - t0
+    print(f"model parallel, {TP_RANKS} ranks on one card ({card}): "
+          f"{json.dumps(result)}", flush=True)
+    return result
+
+
 def serve_launches(ops) -> dict:
     """The launch counts of a serving run, the matmul's and the KV
     write's also by the step that made them."""
@@ -3858,7 +4428,7 @@ def main() -> int:
     # the clip of a microbatch's per-example gradients: ResNet-18's,
     # ResNet-50's, DenseNet-121's, BERT-SNLI's, the 6-layer Mamba-2's, the
     # 5-layer Griffin's (one row beyond 2^31 elements), the 6-layer
-    # InternVL2-1B's, the 12 + 12-layer whisper-medium's and the arctic-480b
+    # InternVL2-1B's, the 3 + 3-layer whisper-medium's and the arctic-480b
     # cut's (one row beyond 2^31) parameter counts
     for name, b, d in (("per_sample_clip", 64, 11_190_891),
                        ("per_sample_clip[resnet50]", 64, 23_588_459),
@@ -4137,7 +4707,7 @@ def main() -> int:
     # 16. whisper-medium at full width, WHISPER_CUT_LAYERS + as many layers,
     # under DPQuant, scan
     whisper_launches, whisper_summary = train_vmap_lm(
-        torch, ops, wl, wl.TRAIN_WHISPER_ARGV, 22, WHISPER_TRAIN_PARAMS,
+        torch, ops, wl, wl.TRAIN_WHISPER_ARGV, 5, WHISPER_TRAIN_PARAMS,
         WHISPER_PER_PASS, n_layers=WHISPER_CUT_LAYERS,
         after=whisper_input_host_ms)
     print(f"encdec training ({card}): " + json.dumps(
@@ -4207,6 +4777,14 @@ def main() -> int:
     if walls["21 roofline"] > ROOFLINE_PHASE_S:
         raise AssertionError(f"phase 21 took {walls['21 roofline']} s, "
                              f"more than its {ROOFLINE_PHASE_S} s")
+
+    # 22. the model axis: two ranks on this card over gloo, each holding its
+    # blocks of every layer; the three kernels on the shards
+    _free(torch)
+    tp = model_parallel(torch, card, sm_clock_mhz)
+    checks.update(tp["kernels"])
+
+    _phase_done(walls, "22 model parallel")
     del walls["start"]
     print(f"phase walls (s): {json.dumps(walls)}")
 
@@ -4254,6 +4832,14 @@ def main() -> int:
     counts["luq_quant[moe_dispatch_rows]"] = \
         moe_launches["luq_quant[per_example]"]
     counts["per_sample_clip[moe]"] = moe_launches["clip_and_sum"]
+    # phase 22's sharded steps at luq_fp4: the split calls
+    tp_lm = tp["lm"]["variants"]["22a bfloat16 luq_fp4"]["launches"]["split"]
+    tp_moe = tp["moe"]["variants"]["22b bfloat16 luq_fp4"]["launches"][
+        "split"]
+    counts["luq_quant[tp_lm_weight]"] = tp_lm["luq_round"]
+    counts["ghost_norm_sq[tp_lm]"] = tp_lm["ghost_norm_mapped"]
+    counts["luq_quant[tp_moe_dispatch_rows]"] = tp_moe["luq_round"]
+    counts["per_sample_clip[tp_moe]"] = tp_moe["clip_apply"]
     for fmt in ("int8", "luq_fp4"):
         for branch in ("decode", "prefill"):
             counts[f"kv_quant_write[{fmt}/{branch}]"] = \
@@ -4284,4 +4870,6 @@ if __name__ == "__main__":
         sys.exit(dp_rank_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--nccl-capture"]:
         sys.exit(nccl_capture_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--tp-rank"]:
+        sys.exit(tp_rank_main(sys.argv[2:]))
     sys.exit(main())

@@ -306,6 +306,10 @@ class RunConfig:
     epoch_chunk: int = 0
     # Steps per loop iteration of the reference's lax.scan; 1 only.
     epoch_unroll: int = 1
+    # The degree of the host mesh's ``model`` axis (tensor and expert
+    # parallelism: launch.mesh.make_host_mesh, the train CLI's
+    # --model-parallel); 1 = every rank holds whole params.
+    model_parallel: int = 1
 
 
 EPOCH_EXECUTORS = ("scan", "loop")

@@ -19,6 +19,17 @@ microbatch's clipped sum (one all-reduce a microbatch, where the
 reference's sharded einsum reduces); with it each rank keeps its own sum
 and the ranks reduce once, at the end.  The norms and losses are
 gathered once, in batch order.
+
+Model parallel (a model group in ``repro_torch.parallel.axes``): each
+rank holds only its shards of the split leaves, so its per-example rows
+hold only its columns.  Each rank takes its rows' squared norms, the
+group sums them (one all-reduce of (B,) a microbatch), and the clipped
+sum follows from the norms.  A leaf replicated over the group
+(``replicated``: the norm scales, a replicated KV projection, the
+router) is the same on every rank and counted once, by the group's
+first rank.  The fused path lays the replicated leaves after the split
+ones and runs the kernel's two passes apart (``clip_sumsq`` over the
+split columns, or every column on the first rank, then ``clip_apply``).
 """
 from __future__ import annotations
 
@@ -27,24 +38,41 @@ from typing import Callable, Tuple
 import torch
 from torch.func import grad_and_value, vmap
 
-from repro_torch.parallel.collectives import all_reduce_sum, gather_rows
+from repro_torch.parallel import axes
+from repro_torch.parallel.collectives import (all_reduce_sum, gather_rows,
+                                              model_reduce_)
 
 
-def _fused_clip_sum(grads: dict, mb: int, clip_norm: float):
+def _fused_clip_sum(grads: dict, mb: int, clip_norm: float,
+                    replicated: frozenset = frozenset()):
     """Flatten per-example grads to (B, D), clip and sum them in the
-    ``clip_sum`` op, unflatten the summed row."""
+    ``clip_sum`` op, unflatten the summed row.  On a model group the
+    split leaves come first, the norms are summed over the group
+    (module docstring)."""
     from repro_torch.quant import backend as qbackend
-    flat = torch.cat([g.reshape(mb, -1).float() for g in grads.values()],
+    split = axes.model_axis() is not None
+    order = (sorted(grads, key=lambda k: k in replicated) if split
+             else list(grads))
+    flat = torch.cat([grads[k].reshape(mb, -1).float() for k in order],
                      dim=1)
-    clip_impl, _ = qbackend.get_clip_sum("fused")
-    clipped_flat, norms = clip_impl(flat, clip_norm)
+    if split:
+        from repro_torch.kernels import ops
+        cols = (flat.shape[1] if axes.model_index() == 0 else
+                sum(grads[k][0].numel() for k in order
+                    if k not in replicated))
+        sumsq = model_reduce_(ops.clip_sumsq(flat, cols), "sum")
+        clipped_flat, norms = ops.clip_apply(flat, sumsq, clip_norm)
+    else:
+        clip_impl, _ = qbackend.get_clip_sum("fused")
+        clipped_flat, norms = clip_impl(flat, clip_norm)
     del flat
     clipped, start = {}, 0
-    for name, g in grads.items():
+    for name in order:
+        g = grads[name]
         size = g[0].numel()
         clipped[name] = clipped_flat[start:start + size].reshape(g.shape[1:])
         start += size
-    return clipped, norms
+    return {k: clipped[k] for k in grads}, norms
 
 
 def per_example_clipped_grad_sum(
@@ -58,6 +86,7 @@ def per_example_clipped_grad_sum(
     accum_dtype: torch.dtype = torch.float32,
     shard=None,
     partial_accum: bool = False,
+    replicated: frozenset = frozenset(),
 ) -> Tuple[dict, dict]:
     """Sum over the batch of per-example clipped gradients.
 
@@ -69,7 +98,8 @@ def per_example_clipped_grad_sum(
     ``shard``: a ``repro_torch.launch.mesh.AxisGroup`` over which each
     microbatch (``microbatch_size`` examples, the global microbatch) is
     split, or None; ``partial_accum``: one reduction a step instead of
-    one a microbatch (module docstring).
+    one a microbatch (module docstring).  ``replicated``: the leaves
+    the model group holds whole (counted once; module docstring).
     """
     if clip_backend not in ("ref", "fused"):
         raise ValueError(f"clip_backend must be 'ref' or 'fused', "
@@ -102,10 +132,15 @@ def per_example_clipped_grad_sum(
         micro = {k: v[start:start + local] for k, v in batch.items()}
         grads, losses = per_example(params, micro)
         if clip_backend == "fused":
-            clipped, norms = _fused_clip_sum(grads, local, clip_norm)
+            clipped, norms = _fused_clip_sum(grads, local, clip_norm,
+                                             replicated)
         else:
+            once = axes.model_index() == 0
             sq = sum(g.float().square().sum(dim=tuple(range(1, g.dim())))
-                     for g in grads.values())
+                     for k, g in grads.items()
+                     if once or k not in replicated)
+            if axes.model_axis() is not None:
+                sq = model_reduce_(sq.contiguous(), "sum")
             norms = torch.sqrt(sq)
             scale = torch.clamp(clip_norm / torch.clamp(norms, min=1e-12),
                                 max=1.0)

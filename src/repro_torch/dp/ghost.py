@@ -78,6 +78,20 @@ LUQ codes of the last projection's cotangent and, layer by layer, up to a
 third of them.  In float32 the batched GEMMs' ulps survive in the forward
 too, so codes flip from the first attention output on.
 
+Model parallel (a model group in ``repro_torch.parallel.axes``; the
+dense LMs).  The Gram identity adds over a split dim: a column-parallel
+projection's tap is ``sum(X X^T o G_s G_s^T)``, a row-parallel one's
+``sum(X_s X_s^T o G G^T)``, each rank's part of the norm; the vocab-
+parallel embedding and head give parts too (the model's ``GhostAux``).
+Pass 1 sums the (B,) parts over the group once a chunk.  A leaf the
+group holds whole (the norm scales, a replicated KV projection) has its
+whole norm on every rank and is counted by the group's first rank
+alone; the others compute it too and count it zero, so every rank runs
+the same ops and collectives.  A split operand's quantization takes its
+global scales and index map, in the fused kernel too.  Pass 2's scales
+are then the same on every rank, and pass 2 needs no collective of its
+own beyond the model's.
+
 The dense LMs have no fallback leaves (``per_example_state_bytes`` shows
 0); a leaf that no hook covers and the model's loss does not pass to
 :meth:`GhostHooks.leaf` raises.
@@ -93,7 +107,9 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-from repro_torch.parallel.collectives import all_reduce_sum, gather_rows
+from repro_torch.parallel import axes
+from repro_torch.parallel.collectives import (all_reduce_sum, gather_rows,
+                                              model_reduce_)
 from repro_torch.parallel.partitioner import axis_sizes, local_slice
 from repro_torch.quant import backend as qbackend
 from repro_torch.quant import fake_quant
@@ -138,10 +154,10 @@ class GhostHooks:
     def rmsnorm_scale(self, scale: torch.Tensor,
                       x: torch.Tensor) -> torch.Tensor:
         """``scale``, or in pass 1 with ``norm_scales`` its per-example
-        copy (:func:`tap_scale`)."""
+        copy (:func:`tap_scale`), counted once on a model group."""
         if self.tap is None or not self.norm_scales:
             return scale
-        return tap_scale(scale, self.tap, x)
+        return tap_scale(scale, self.tap, x, count=_once())
 
     def leaf(self, name: str, value: torch.Tensor, n: int) -> torch.Tensor:
         """The param ``name``: ``value`` itself, or in pass 1, when no hook
@@ -269,8 +285,40 @@ def _einsum_sq_norm(spec: str, xq, gq) -> torch.Tensor:
     return _matpair_sq_norm(xmat, gmat)
 
 
+def _once() -> float:
+    """The weight of a norm every rank of the model group computes whole:
+    1 on its first rank (or without a group), 0 on the others."""
+    return float(axes.model_index() == 0)
+
+
 def _tap_sq_norm(spec, x: torch.Tensor, g: torch.Tensor,
                  flag: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The (B,) per-example squared wgrad norms a ghost einsum emits: this
+    rank's part for a weight split over the model group, the whole norm
+    counted once for a replicated one (:func:`_once`); see
+    :func:`_tap_sq_norm_whole`."""
+    sq = _tap_sq_norm_whole(spec, x, g, flag)
+    if axes.model_axis() is not None and (spec.split is None
+                                          or spec.split[1] is None):
+        sq = sq * _once()
+    return sq
+
+
+def _split_operand(spec, which: int, t: torch.Tensor):
+    """``(index map, (B,) scales over the model group)`` of the per-example
+    rows of a split operand of a tapped einsum (``which``: 0 x, 2 the
+    output's cotangent), or (None, None)."""
+    split = None if spec.split is None else spec.split[which]
+    if split is None:
+        return None, None
+    from repro_torch.kernels import ops
+    rows = t.reshape(t.shape[0], -1).contiguous()
+    return (fake_quant._index_map(t.shape, split),
+            model_reduce_(ops.luq_row_max(rows), "max"))
+
+
+def _tap_sq_norm_whole(spec, x: torch.Tensor, g: torch.Tensor,
+                       flag: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The (B,) per-example squared wgrad norms a ghost einsum emits.
 
     ``spec`` is the einsum's ``fake_quant._ESpec``.  The quantization is
@@ -303,17 +351,27 @@ def _tap_sq_norm(spec, x: torch.Tensor, g: torch.Tensor,
         draws = spec.fmt in STOCHASTIC_FORMATS
         kx = fake_quant.stream_key(spec.seed, 4) if draws else None
         kg = fake_quant.stream_key(spec.seed, 5) if draws else None
+        map_x, alpha_x = _split_operand(spec, 0, x) if draws else (None,
+                                                                   None)
+        map_g, alpha_g = _split_operand(spec, 2, g) if draws else (None,
+                                                                   None)
+        kw = {} if map_x is None and map_g is None else dict(
+            alpha_x=alpha_x, alpha_g=alpha_g, map_x=map_x, map_g=map_g)
         with record_function("ghost.fused_norm"):
             if flag is None:
-                return impl(xmat, gmat, kx, kg)
+                return impl(xmat, gmat, kx, kg, **kw)
             fused = impl(xmat, gmat, kx, kg,
-                         *((flag,) if qbackend.reads_flag(impl) else ()))
+                         *((flag,) if qbackend.reads_flag(impl) else ()),
+                         **kw)
             return torch.where(flag > 0.5, fused,
                                _matpair_sq_norm(xmat, gmat))
-    xq = fake_quant._quantize_per_example(x, spec.fmt, spec.backend,
-                                          spec.seed, 4, flag)
-    gq = fake_quant._quantize_per_example(g, spec.fmt, spec.backend,
-                                          spec.seed, 5, flag)
+    splits = spec.split or (None, None, None)
+    xq = fake_quant._quantize_per_example(
+        x, spec.fmt, spec.backend, spec.seed, 4, flag,
+        fake_quant._index_map(x.shape, splits[0]))
+    gq = fake_quant._quantize_per_example(
+        g, spec.fmt, spec.backend, spec.seed, 5, flag,
+        fake_quant._index_map(g.shape, splits[2]))
     return _einsum_sq_norm(spec.spec, xq, gq)
 
 
@@ -378,40 +436,43 @@ def _conv_tap_sq_norm(spec, x: torch.Tensor, g: torch.Tensor,
 class _TapCopy(torch.autograd.Function):
     """Forward: ``value`` repeated for each of B examples, ``shape`` (B
     first).  Backward: the per-example gradients sum to the value's, and
-    their squared norms are the tap's gradient."""
+    their squared norms, times ``count``, are the tap's gradient."""
 
     @staticmethod
-    def forward(value, tap, shape):
+    def forward(value, tap, shape, count):
         return value.expand(shape).clone()
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         ctx.value_shape = inputs[0].shape
+        ctx.count = inputs[3]
 
     @staticmethod
     def backward(ctx, d_per_example):
         d = d_per_example.float()
         dtap = d.square().reshape(d.shape[0], -1).sum(dim=1)
+        if ctx.count != 1.0:
+            dtap = dtap * ctx.count
         dvalue = None
         if ctx.needs_input_grad[0]:
             dvalue = d_per_example.sum(dim=0).reshape(ctx.value_shape)
-        return dvalue, dtap, None
+        return dvalue, dtap, None, None
 
 
 def tap_scale(scale: torch.Tensor, tap: torch.Tensor,
-              x: torch.Tensor) -> torch.Tensor:
+              x: torch.Tensor, count: float = 1.0) -> torch.Tensor:
     """``scale`` (d,) as one copy per example of ``x`` (B, ..., d), shaped
     to broadcast against it; under a norm pass its per-example squared
-    gradient norms reach ``tap``."""
+    gradient norms, times ``count``, reach ``tap``."""
     shape = (x.shape[0],) + (1,) * (x.dim() - 1 - scale.dim()) + tuple(
         scale.shape)
-    return _TapCopy.apply(scale, tap, shape)
+    return _TapCopy.apply(scale, tap, shape, count)
 
 
 def tap_leaf(value: torch.Tensor, tap: torch.Tensor, n: int) -> torch.Tensor:
     """``value`` as ``n`` per-example copies, (n, *value.shape); under a
     norm pass their squared gradient norms reach ``tap``."""
-    return _TapCopy.apply(value, tap, (n, *value.shape))
+    return _TapCopy.apply(value, tap, (n, *value.shape), 1.0)
 
 
 # --------------------------------------------------------------------------- #
@@ -471,6 +532,9 @@ def _chunk_norms(per_example_loss_fn, params, chunk: dict,
     if aux is not None:
         with torch.no_grad():       # frees the pass's graph with ``fwd``
             sq = sq + aux.combine(dict(zip(taps, dtaps)), fwd, chunk)
+    if axes.model_axis() is not None:
+        # the ranks' parts of the norms, once a chunk
+        sq = model_reduce_(sq.float().contiguous(), "sum")
     return losses.detach(), sq
 
 

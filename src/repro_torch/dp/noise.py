@@ -11,6 +11,13 @@ gradients' device (the JAX package uses a step-derived threefry key; the
 two cannot give the same numbers, so the tests compare the noise
 statistically).  Per paper A.17 it is sampled and added in float32,
 before any quantization.
+
+On a model group (``layout``) a leaf split over the group adds its slice
+of the noise the one-process step draws for the whole leaf: every rank
+draws each whole leaf, in the same leaf order from the same generator
+state, and keeps its block, so the sharded sum plus noise is the
+one-process one.  The whole leaf's draw is a transient of the leaf's
+full size; a counter-based draw of the slice alone would avoid it.
 """
 from __future__ import annotations
 
@@ -19,12 +26,18 @@ import torch
 
 def add_gaussian_noise(grad_sum: dict, *, clip_norm: float,
                        noise_multiplier: float, batch_size: int,
-                       generator: torch.Generator) -> dict:
-    """Noise the clipped-gradient sum and average: returns the DP update."""
+                       generator: torch.Generator, layout=None) -> dict:
+    """Noise the clipped-gradient sum and average: returns the DP update.
+    ``layout``: ``{name: (whole shape, index)}`` of the leaves this rank
+    holds a block of (module docstring)."""
     std = noise_multiplier * clip_norm
     out = {}
+    layout = layout or {}
     for name, g in grad_sum.items():
-        noise = torch.randn(g.shape, generator=generator, device=g.device,
+        shape, index = layout.get(name, (g.shape, None))
+        noise = torch.randn(shape, generator=generator, device=g.device,
                             dtype=torch.float32)
+        if index is not None:
+            noise = noise[index]
         out[name] = (g.float() + std * noise) / batch_size
     return out

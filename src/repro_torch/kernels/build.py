@@ -51,13 +51,22 @@ _SIGNATURES = {
     "repro_luq_quant_scratch": (_L, [_I, _L]),
     "repro_luq_quant": (_I, [_P, _I, _P, _I, _I, _L, _U, _U, _P, _P, _P,
                              _P]),
+    "repro_luq_row_max": (_I, [_P, _I, _I, _L, _P, _P, _P]),
+    "repro_luq_round": (_I, [_P, _I, _P, _I, _I, _L, _U, _U, _P, _P, _L, _L,
+                             _L, _P, _P]),
     "repro_per_sample_clip_chunks": (_I, [_I, _L]),
+    "repro_per_sample_clip_sumsq": (_I, [_P, _P, _P, _I, _L, _L, _P]),
+    "repro_per_sample_clip_apply": (_I, [_P, _P, _P, _P, _I, _L,
+                                         ctypes.c_float, _P]),
     "repro_per_sample_clip": (_I, [_P, _P, _P, _P, _I, _L, ctypes.c_float,
                                    _P]),
     "repro_ghost_norm_partials": (_I, [_I]),
     "repro_ghost_norm_scratch": (_L, [_I, _I, _I, _I]),
     "repro_ghost_norm": (_I, [_P, _I, _P, _I, _U, _U, _U, _U, _P, _P, _I, _I,
                               _I, _I, _P, _P]),
+    "repro_ghost_norm_mapped": (_I, [_P, _I, _P, _I, _U, _U, _U, _U, _P, _P,
+                                     _I, _I, _I, _I, _P, _P, _L, _L, _L, _P,
+                                     _L, _L, _L, _P]),
     "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -57,6 +57,14 @@
 //      (alpha_x alpha_g)^2 in float32, the alphas those the quantize
 //      passes took.
 //
+// A shard of the examples' rows (an operand split over the model group:
+// the cotangent of a column-parallel projection, the input of a
+// row-parallel one) comes with its rows' alphas, the max over the ranks,
+// and its index map (repro_ghost_norm_mapped): its quantize pass is then
+// repro_luq_round alone, each element drawing at its index in the whole
+// row, and the result is this rank's part of the whole norm, since the
+// Gram identity adds over a split dim.
+//
 // No atomics: the same input gives the same bits on every run.  No limit
 // on T (the TPU wrapper's T <= 512 cap existed for VMEM only).  An
 // all-zero example has codes 0 and alpha 0: exactly 0.
@@ -81,6 +89,11 @@ extern "C" int repro_luq_quant(const void* x, int x_bf16, void* out,
                                int codes, int rows, long long n, uint32_t k0,
                                uint32_t k1, void* scratch, void* alpha_out,
                                const void* flag, void* stream);
+extern "C" int repro_luq_round(const void* x, int x_bf16, void* out,
+                               int codes, int rows, long long n, uint32_t k0,
+                               uint32_t k1, const void* alpha_in,
+                               void* alpha_out, long long blk, long long gblk,
+                               long long off, const void* flag, void* stream);
 
 namespace {
 
@@ -322,11 +335,35 @@ extern "C" long long repro_ghost_norm_scratch(int B, int T, int Dx, int Dg) {
 // out: (B,) float32; flag: one float32 (0: the operands unquantized) or
 // null (always quantize).  All on the device.  Returns the cudaError_t of
 // the launches.
-extern "C" int repro_ghost_norm(const void* x, int x_bf16, const void* g,
-                                int g_bf16, uint32_t kx0, uint32_t kx1,
-                                uint32_t kg0, uint32_t kg1, void* scratch,
-                                void* out, int B, int T, int Dx, int Dg,
-                                const void* flag, void* stream) {
+namespace {
+
+// One operand's codes and alphas: both passes of repro_luq_quant, or, with
+// its alphas given, repro_luq_round under its index map.
+int quantize_operand(const void* v, int v_bf16, __nv_bfloat16* codes, int B,
+                     long long n, uint32_t k0, uint32_t k1, void* part,
+                     float* alpha, const float* alpha_in, long long blk,
+                     long long gblk, long long off, const void* flag,
+                     cudaStream_t s) {
+  if (alpha_in == nullptr) {
+    return repro_luq_quant(v, v_bf16, codes, 1, B, n, k0, k1, part, alpha,
+                           flag, (void*)s);
+  }
+  return repro_luq_round(v, v_bf16, codes, 1, B, n, k0, k1, alpha_in, alpha,
+                         blk, gblk, off, flag, (void*)s);
+}
+
+}  // namespace
+
+// repro_ghost_norm with either operand a shard of the examples' rows:
+// alpha_x / alpha_g (B,) float32, its rows' alphas over every rank (null:
+// the operand is whole, its alphas taken here), and its index map
+// (blk, gblk, off) as repro_luq_round takes it.
+extern "C" int repro_ghost_norm_mapped(
+    const void* x, int x_bf16, const void* g, int g_bf16, uint32_t kx0,
+    uint32_t kx1, uint32_t kg0, uint32_t kg1, void* scratch, void* out, int B,
+    int T, int Dx, int Dg, const void* flag, const void* alpha_x,
+    long long bx, long long gx, long long ox, const void* alpha_g,
+    long long bg, long long gg, long long og, void* stream) {
   if (B < 1 || T < 1 || Dx < 1 || Dg < 1) return (int)cudaErrorInvalidValue;
   if (((uintptr_t)scratch & 15) != 0) return (int)cudaErrorMisalignedAddress;
   const int nt = (T + kTile - 1) / kTile;
@@ -340,11 +377,13 @@ extern "C" int repro_ghost_norm(const void* x, int x_bf16, const void* g,
   auto* ax = (float*)(base + sc.off[3]);
   auto* ag = (float*)(base + sc.off[4]);
   const cudaStream_t s = (cudaStream_t)stream;
-  int rc = repro_luq_quant(x, x_bf16, qx, 1, B, (long long)T * Dx, kx0, kx1,
-                           base + sc.off[5], ax, flag, (void*)s);
+  int rc = quantize_operand(x, x_bf16, qx, B, (long long)T * Dx, kx0, kx1,
+                            base + sc.off[5], ax, (const float*)alpha_x, bx,
+                            gx, ox, flag, s);
   if (rc != (int)cudaSuccess) return rc;
-  rc = repro_luq_quant(g, g_bf16, qg, 1, B, (long long)T * Dg, kg0, kg1,
-                       base + sc.off[6], ag, flag, (void*)s);
+  rc = quantize_operand(g, g_bf16, qg, B, (long long)T * Dg, kg0, kg1,
+                        base + sc.off[6], ag, (const float*)alpha_g, bg, gg,
+                        og, flag, s);
   if (rc != (int)cudaSuccess) return rc;
   const dim3 grid(P, B < kMaxGridY ? B : kMaxGridY);
   if (Dx % 8 == 0 && Dg % 8 == 0) {
@@ -359,4 +398,14 @@ extern "C" int repro_ghost_norm(const void* x, int x_bf16, const void* g,
   sum_partials_kernel<<<(B + 127) / 128, 128, 0, s>>>(partial, ax, ag,
                                                       (float*)out, B, P);
   return (int)cudaGetLastError();
+}
+
+extern "C" int repro_ghost_norm(const void* x, int x_bf16, const void* g,
+                                int g_bf16, uint32_t kx0, uint32_t kx1,
+                                uint32_t kg0, uint32_t kg1, void* scratch,
+                                void* out, int B, int T, int Dx, int Dg,
+                                const void* flag, void* stream) {
+  return repro_ghost_norm_mapped(x, x_bf16, g, g_bf16, kx0, kx1, kg0, kg1,
+                                 scratch, out, B, T, Dx, Dg, flag, nullptr, 0,
+                                 0, 0, nullptr, 0, 0, 0, stream);
 }

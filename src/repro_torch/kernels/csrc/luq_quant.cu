@@ -63,6 +63,26 @@
 //      is in flight while the arithmetic, which holds this pass, runs.
 //      Vector loads and stores (16 bytes of float32 or 8 of bf16 a group)
 //      when the row and pointers allow it, else one element at a time.
+//
+// A shard of an operand.  When a tensor is split over ranks (the model
+// axis: a column- or row-parallel projection's weight, activation or
+// cotangent), each rank holds a part of every row, and the shard must
+// round as the slice of the whole row's quantization: with the whole
+// row's alpha and each element's uniform drawn at its index in the whole
+// row.  The op then splits in two so the caller can take the max over
+// the ranks between them:
+//   repro_luq_row_max: pass 1, then luq_alpha_kernel folds each row's
+//      partials into alpha (R,) float32 (no flag: one read either way);
+//   repro_luq_round: luq_round_given_kernel, the rounding against the
+//      given alpha, each local element e at its global index
+//      G(e) = (e / blk) gblk + off + e % blk (a split dim of n_glob
+//      entries of `inner` elements each, of which the rank holds n_loc
+//      from entry o: blk = n_loc inner, gblk = n_glob inner, off = o
+//      inner; blk = 0 is the identity).  Where blk, gblk and off are
+//      multiples of 4, four local neighbours 4g .. 4g + 3 are one global
+//      group and share one Philox call; else (a head_dim or a split
+//      width that is not a multiple of 4) each element draws the call of
+//      its own group G / 4 and takes lane G % 4.
 // No --use_fast_math: luq.cuh's rounding is the plain version's float32
 // operations bit for bit only with IEEE log2f, division and conversions.
 #include <cuda_bf16.h>
@@ -325,6 +345,100 @@ luq_round_kernel(const T* __restrict__ x, O* __restrict__ out,
   }
 }
 
+// alpha[r] = the largest of row r's `parts` partial maxima (bits of
+// non-negative floats, compared as integers: exact in any order).
+__global__ void __launch_bounds__(kThreads)
+luq_alpha_kernel(const uint32_t* __restrict__ part, float* __restrict__ alpha,
+                 int rows, int parts) {
+  __shared__ uint32_t warp_max[kThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r = blockIdx.x; r < rows; r += gridDim.x) {
+    uint32_t m = 0u;
+    for (int p = threadIdx.x; p < parts; p += kThreads) {
+      m = max(m, __ldg(part + (long long)r * parts + p));
+    }
+    m = __reduce_max_sync(kFull, m);
+    if (lane == 0) warp_max[warp] = m;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      uint32_t b = 0u;
+#pragma unroll
+      for (int w = 0; w < kThreads / 32; ++w) b = max(b, warp_max[w]);
+      alpha[r] = __uint_as_float(b);
+    }
+    __syncthreads();
+  }
+}
+
+// The index in the whole row of a shard's element e (blk 0: e itself).
+struct IndexMap {
+  long long blk, gblk, off;
+};
+
+__device__ __forceinline__ long long global_of(long long e,
+                                               const IndexMap& m) {
+  return m.blk == 0 ? e : (e / m.blk) * m.gblk + m.off + e % m.blk;
+}
+
+__device__ __forceinline__ uint32_t lane_word(const Words& w, int lane) {
+  return lane == 0 ? w.w[0] : (lane == 1 ? w.w[1]
+                                         : (lane == 2 ? w.w[2] : w.w[3]));
+}
+
+// The rounding of a shard's rows against given scales: element e of row
+// r rounds against alpha_in[r] and the uniform of global_of(e).  kWhole:
+// the map keeps groups of 4 whole (one Philox call a group), else one
+// call an element.  The flag as in luq_round_kernel.
+template <typename T, typename O, bool kCodes, bool kVec, bool kWhole>
+__global__ void __launch_bounds__(kThreads, kRoundBlocksPerSm)
+luq_round_given_kernel(const T* __restrict__ x, O* __restrict__ out,
+                       const float* __restrict__ alpha_in,
+                       float* __restrict__ alpha_out,
+                       const float* __restrict__ flag, int rows, long long n,
+                       IndexMap map, RoundKeys rk) {
+  const long long groups = (n + 3) / 4;
+  const long long stride = (long long)gridDim.x * kThreads;
+  const bool on = flag_on(flag);
+  for (int r = blockIdx.y; r < rows; r += gridDim.y) {
+    const T* xr = x + (long long)r * n;
+    O* outr = out + (long long)r * n;
+    const float a = on ? __ldg(alpha_in + r) : 1.f;
+    if (alpha_out != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+      alpha_out[r] = a;
+    }
+    for (long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
+         g < groups; g += stride) {
+      if (!on) {
+        pass4<T, O, kVec>(xr, outr, 4 * g, n);
+        continue;
+      }
+      float v[4];
+      load4<T, kVec>(xr, 4 * g, n, v);
+      float q[4];
+      if constexpr (kWhole) {
+        const long long e0 = global_of(4 * g, map);
+        const Words w = philox_group((uint64_t)(e0 >> 2), 0u, rk);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          q[j] = luq_out<kCodes>(v[j], uniform24(w.w[j]), a);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          q[j] = 0.f;
+          if (4 * g + j < n) {
+            const long long e = global_of(4 * g + j, map);
+            const Words w = philox_group((uint64_t)(e >> 2), 0u, rk);
+            q[j] = luq_out<kCodes>(v[j], uniform24(lane_word(w, (int)(e & 3))),
+                                   a);
+          }
+        }
+      }
+      store4<O, kVec>(outr, 4 * g, n, q);
+    }
+  }
+}
+
 int parts_of(long long n) {
   long long p = (n + kMinPart - 1) / kMinPart;
   return (int)(p < 1 ? 1 : (p > kMaxParts ? kMaxParts : p));
@@ -422,4 +536,112 @@ extern "C" int repro_luq_quant(const void* x, int x_bf16, void* out,
                                                    rows, n, rk, s)
                : launch_aligned<float, float, false>(x, out, part, alpha, fl,
                                                      rows, n, rk, s);
+}
+
+namespace {
+
+template <typename T>
+int launch_row_max(const void* x, int rows, long long n, uint32_t* part,
+                   float* alpha, cudaStream_t s) {
+  const bool vec16 = (n * sizeof(T)) % 16 == 0 && (uintptr_t)x % 16 == 0;
+  const long long quantum = vec16 ? 16 / sizeof(T) : 1;
+  long long per = (n + parts_of(n) - 1) / parts_of(n);
+  per = (per + quantum - 1) / quantum * quantum;
+  const int parts = (int)((n + per - 1) / per);
+  const int gy = rows < kMaxGridY ? rows : kMaxGridY;
+  if (vec16) {
+    luq_row_max_kernel<T, true><<<dim3(parts, gy), kThreads, 0, s>>>(
+        (const T*)x, part, nullptr, rows, n, per);
+  } else {
+    luq_row_max_kernel<T, false><<<dim3(parts, gy), kThreads, 0, s>>>(
+        (const T*)x, part, nullptr, rows, n, per);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  luq_alpha_kernel<<<gy, kThreads, 0, s>>>(part, alpha, rows, parts);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename O, bool kCodes, bool kVec, bool kWhole>
+int launch_given4(const void* x, void* out, const float* alpha_in,
+                  float* alpha_out, const float* flag, int rows, long long n,
+                  const IndexMap& map, const RoundKeys& rk, cudaStream_t s) {
+  const long long groups = (n + 3) / 4;
+  const long long need = (groups + kThreads - 1) / kThreads;
+  const int gy = rows < kMaxGridY ? rows : kMaxGridY;
+  long long gx = wave_blocks() / gy;
+  gx = gx < 1 ? 1 : (gx > need ? need : gx);
+  luq_round_given_kernel<T, O, kCodes, kVec, kWhole>
+      <<<dim3((unsigned)gx, gy), kThreads, 0, s>>>(
+          (const T*)x, (O*)out, alpha_in, alpha_out, flag, rows, n, map, rk);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename O, bool kCodes>
+int launch_given(const void* x, void* out, const float* alpha_in,
+                 float* alpha_out, const float* flag, int rows, long long n,
+                 const IndexMap& map, const RoundKeys& rk, cudaStream_t s) {
+  const bool vec = n % 4 == 0 && (uintptr_t)x % (4 * sizeof(T)) == 0 &&
+                   (uintptr_t)out % (4 * sizeof(O)) == 0;
+  const bool whole = map.blk == 0 || (map.blk % 4 == 0 &&
+                                      map.gblk % 4 == 0 && map.off % 4 == 0);
+  if (vec) {
+    return whole ? launch_given4<T, O, kCodes, true, true>(
+                       x, out, alpha_in, alpha_out, flag, rows, n, map, rk, s)
+                 : launch_given4<T, O, kCodes, true, false>(
+                       x, out, alpha_in, alpha_out, flag, rows, n, map, rk, s);
+  }
+  return whole ? launch_given4<T, O, kCodes, false, true>(
+                     x, out, alpha_in, alpha_out, flag, rows, n, map, rk, s)
+               : launch_given4<T, O, kCodes, false, false>(
+                     x, out, alpha_in, alpha_out, flag, rows, n, map, rk, s);
+}
+
+}  // namespace
+
+// The row maxima alone: alpha_out (rows,) float32 = max |x[r]| of x
+// (rows, n), float32 or bf16; scratch: repro_luq_quant_scratch(rows, n)
+// words.  Two launches on `stream`.
+extern "C" int repro_luq_row_max(const void* x, int x_bf16, int rows,
+                                 long long n, void* scratch, void* alpha_out,
+                                 void* stream) {
+  if (rows < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  auto* part = (uint32_t*)scratch;
+  auto* alpha = (float*)alpha_out;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return x_bf16 ? launch_row_max<__nv_bfloat16>(x, rows, n, part, alpha, s)
+                : launch_row_max<float>(x, rows, n, part, alpha, s);
+}
+
+// The rounding alone, against the given alpha_in (rows,) float32, element
+// e at its global index (blk, gblk, off; blk = 0: e itself); alpha_out
+// (rows,) or null gets alpha_in (1 where the flag is 0).  Otherwise as
+// repro_luq_quant.  One launch on `stream`.
+extern "C" int repro_luq_round(const void* x, int x_bf16, void* out,
+                               int codes, int rows, long long n, uint32_t k0,
+                               uint32_t k1, const void* alpha_in,
+                               void* alpha_out, long long blk, long long gblk,
+                               long long off, const void* flag,
+                               void* stream) {
+  if (rows < 1 || n < 1 || alpha_in == nullptr || blk < 0 ||
+      (blk > 0 && (gblk < blk || off < 0 || off > gblk - blk))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const RoundKeys rk = philox_round_keys(k0, k1);
+  const IndexMap map{blk, gblk, off};
+  const auto* ain = (const float*)alpha_in;
+  auto* aout = (float*)alpha_out;
+  const auto* fl = (const float*)flag;
+  const cudaStream_t s = (cudaStream_t)stream;
+  using bf16 = __nv_bfloat16;
+  if (x_bf16) {
+    return codes ? launch_given<bf16, bf16, true>(x, out, ain, aout, fl, rows,
+                                                  n, map, rk, s)
+                 : launch_given<bf16, bf16, false>(x, out, ain, aout, fl,
+                                                   rows, n, map, rk, s);
+  }
+  return codes ? launch_given<float, bf16, true>(x, out, ain, aout, fl, rows,
+                                                 n, map, rk, s)
+               : launch_given<float, float, false>(x, out, ain, aout, fl,
+                                                   rows, n, map, rk, s);
 }

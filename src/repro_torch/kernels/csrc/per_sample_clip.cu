@@ -92,7 +92,7 @@ __device__ __forceinline__ int misalign_from_prev(const float* p) {
 
 __global__ void __launch_bounds__(kThreads)
 row_sumsq_kernel(const float* __restrict__ g, float* __restrict__ partial,
-                 long long D, int P) {
+                 long long D, long long ld, int P) {
   __shared__ float warp_part[kThreads / 32];
   const int b = blockIdx.x;
   const int p = blockIdx.y;
@@ -101,9 +101,10 @@ row_sumsq_kernel(const float* __restrict__ g, float* __restrict__ partial,
   const long long stop = start + chunk < D ? start + chunk : D;
   // element indices from g: [a0, h) head, [h, t) float4 body, [t, a1).
   // The head runs to the next 16-byte address, so any 4-byte aligned g
-  // (a view at any offset) takes the same path.
-  const long long a0 = (long long)b * D + start;
-  const long long a1 = (long long)b * D + stop;
+  // (a view at any offset) takes the same path.  Rows are ld apart (the
+  // first D columns of wider rows: the split clip's).
+  const long long a0 = (long long)b * ld + start;
+  const long long a1 = (long long)b * ld + stop;
   long long h = a0 + misalign_to_next(g + a0);
   if (h > a1) h = a1;
   const long long nb = (a1 - h) >> 2;
@@ -237,6 +238,19 @@ __device__ __forceinline__ void column_tile(const float* __restrict__ g,
   }
 }
 
+// sumsq[b] = the partials of row b added in order p = 0 .. P - 1: the
+// bits column_sum_kernel's prologue takes its norm from.
+__global__ void sum_partials_kernel(const float* __restrict__ partial,
+                                    float* __restrict__ sumsq, int B, int P) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const float* row = partial + (long long)b * P;
+  float s = 0.f;
+#pragma unroll 8
+  for (int p = 0; p < P; ++p) s += row[p];
+  sumsq[b] = s;
+}
+
 __global__ void __launch_bounds__(kThreads)
 column_sum_kernel(const float* __restrict__ g,
                   const float* __restrict__ partial,
@@ -260,6 +274,12 @@ column_sum_kernel(const float* __restrict__ g,
   }
 }
 
+}  // namespace
+
+namespace {
+int launch_column_sum(const void* g, const void* partial, void* norms,
+                      void* out, int B, long long D, int P, float clip_norm,
+                      cudaStream_t s);
 }  // namespace
 
 // Number of column chunks P the first pass splits each of the B rows
@@ -292,9 +312,54 @@ extern "C" int repro_per_sample_clip(const void* g, void* out, void* norms,
   const int P = repro_per_sample_clip_chunks(B, D);
   const cudaStream_t s = (cudaStream_t)stream;
   row_sumsq_kernel<<<dim3(B, P), kThreads, 0, s>>>(
-      (const float*)g, (float*)partial, D, P);
+      (const float*)g, (float*)partial, D, D, P);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  return launch_column_sum(g, partial, norms, out, B, D, P, clip_norm, s);
+}
+
+// The split clip (rows split over ranks: each rank holds some columns of
+// every row, and the norms are the sums of the ranks' squared norms).
+// Pass 1 alone: sumsq (B,) = squared norms of the first D columns of rows
+// ld apart, two launches (partial: (B, P) scratch, P =
+// repro_per_sample_clip_chunks(B, D)).
+extern "C" int repro_per_sample_clip_sumsq(const void* g, void* sumsq,
+                                           void* partial, int B, long long D,
+                                           long long ld, void* stream) {
+  if (B < 1 || B > kMaxRows || D < 1 || ld < D || (uintptr_t)g % 4) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int P = repro_per_sample_clip_chunks(B, D);
+  const cudaStream_t s = (cudaStream_t)stream;
+  row_sumsq_kernel<<<dim3(B, P), kThreads, 0, s>>>(
+      (const float*)g, (float*)partial, D, ld, P);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  sum_partials_kernel<<<(B + 127) / 128, 128, 0, s>>>(
+      (const float*)partial, (float*)sumsq, B, P);
+  return (int)cudaGetLastError();
+}
+
+// Pass 2 alone, given the rows' squared norms sumsq (B,): out (D,) and
+// norms (B,) as repro_per_sample_clip gives them (pass 2 reads sumsq as
+// a single partial a row).  One launch.
+extern "C" int repro_per_sample_clip_apply(const void* g, const void* sumsq,
+                                           void* out, void* norms, int B,
+                                           long long D, float clip_norm,
+                                           void* stream) {
+  if (B < 1 || B > kMaxRows || D < 1 || (uintptr_t)g % 4 ||
+      (uintptr_t)out % 16) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch_column_sum(g, sumsq, norms, out, B, D, 1, clip_norm,
+                           (cudaStream_t)stream);
+}
+
+namespace {
+
+int launch_column_sum(const void* g, const void* partial, void* norms,
+                      void* out, int B, long long D, int P, float clip_norm,
+                      cudaStream_t s) {
   // a persistent grid: as many blocks as fit on the card at once, each
   // adding the partials once and walking tiles k, k + grid, ...
   int dev = 0, sms = 0, per_sm = 0;
@@ -310,3 +375,5 @@ extern "C" int repro_per_sample_clip(const void* g, void* out, void* norms,
       D, P, clip_norm);
   return (int)cudaGetLastError();
 }
+
+}  // namespace

@@ -63,16 +63,26 @@ KV_WRITE_LAUNCHES = {"decode": 0, "prefill": 0}
 
 _KV_FMT_CODE = {"int8": 0, "luq_fp4": 1}
 
+#: The calls of three kernels on a shard of an operand split over the
+#: model group (the model axis), each already counted in :data:`LAUNCHES`
+#: where it quantizes or clips: ``luq_round`` (a ``luq_quant`` call given
+#: its rows' scales and an index map) and ``luq_row_max`` before it,
+#: ``clip_sumsq`` and ``clip_apply`` (the two passes of a
+#: ``clip_and_sum`` call), and ``ghost_norm_sq`` given an operand's
+#: scales (``ghost_norm_mapped``).
+SPLIT_LAUNCHES = {"luq_row_max": 0, "luq_round": 0, "clip_sumsq": 0,
+                  "clip_apply": 0, "ghost_norm_mapped": 0}
+
 
 _COUNTS = {"launches": LAUNCHES, "luq_matmul": LUQ_MATMUL_LAUNCHES,
            "luq_quant": LUQ_QUANT_LAUNCHES, "ghost_norm": GHOST_NORM_LAUNCHES,
-           "kv_write": KV_WRITE_LAUNCHES}
+           "kv_write": KV_WRITE_LAUNCHES, "split": SPLIT_LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     GHOST_NORM_LAUNCHES.clear()
     for counts in (LAUNCHES, LUQ_MATMUL_LAUNCHES, LUQ_QUANT_LAUNCHES,
-                   KV_WRITE_LAUNCHES):
+                   KV_WRITE_LAUNCHES, SPLIT_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -472,6 +482,95 @@ def luq_quant(x: torch.Tensor, key, codes: bool = False,
     return out
 
 
+def _index_map_args(index_map):
+    """``(blk, gblk, off)`` of an index map (``quant.philox.global_index``),
+    (0, 0, 0) for none (every element at its own index)."""
+    if index_map is None:
+        return 0, 0, 0
+    blk, gblk, off = (int(v) for v in index_map)
+    if not (0 < blk <= gblk and 0 <= off <= gblk - blk):
+        raise ValueError(f"bad index map {index_map!r}")
+    return blk, gblk, off
+
+
+def luq_row_max(x: torch.Tensor) -> torch.Tensor:
+    """The first pass of :func:`luq_quant` alone: (R,) float32 ``max|x[r]|``
+    of the rows of ``x`` (R, N), float32 or bf16, in two launches (the
+    partial maxima, then each row's).  For an operand split over ranks:
+    the caller takes the max over the ranks and hands it to
+    :func:`luq_round`."""
+    if _traced(x):
+        return x.new_empty((x.shape[0],), dtype=torch.float32)
+    if _on_cpu(x):
+        return ref.luq_row_max_ref(x)
+    if x.dim() != 2 or x.dtype not in _LUQ_DTYPES or not x.is_contiguous():
+        raise ValueError(f"luq_row_max takes a contiguous (R, N) float32 or "
+                         f"bf16 matrix, got {x.dtype} {tuple(x.shape)}")
+    R, N = x.shape
+    out = torch.empty((R,), dtype=torch.float32, device=x.device)
+    if x.numel() == 0:
+        return out.zero_()
+    lib = load_library()
+    scratch = torch.empty((lib.repro_luq_quant_scratch(R, N),),
+                          dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.repro_luq_row_max(_ptr(x), int(x.dtype == torch.bfloat16),
+                                    R, N, _ptr(scratch), _ptr(out),
+                                    _stream(x.device))
+    _raise_on_error(lib, err, "luq_row_max")
+    LUQ_QUANT_LAUNCHES["kernels"] += 2
+    SPLIT_LAUNCHES["luq_row_max"] += 1
+    return out
+
+
+def luq_round(x: torch.Tensor, key, alpha: torch.Tensor, index_map=None,
+              codes: bool = False, flag=None) -> torch.Tensor:
+    """The second pass of :func:`luq_quant` alone, one launch: the rows of
+    ``x`` (R, N) rounded against the given scales ``alpha`` (R,) float32
+    and the draw of ``key``, element n taking the uniform of its index in
+    the whole row under ``index_map`` ``(blk, gblk, off)``
+    (``quant.philox.global_index``; None: index n).  With the max of
+    every rank's :func:`luq_row_max` as ``alpha``, a shard of an operand
+    quantizes to the slice of the whole operand's quantization, bit for
+    bit.  Where the map keeps groups of 4 elements whole (``blk``,
+    ``gblk`` and ``off`` multiples of 4) the kernel draws one Philox call
+    a group, else one an element.  ``codes`` and ``flag``: as
+    :func:`luq_quant`."""
+    flag_t = () if flag is None else (flag,)
+    if _traced(x, alpha, *flag_t):
+        if x.numel():
+            _trace("luq_quant", 1, rows=x.shape[0], n=x.shape[1],
+                   elem=x.element_size())
+        return torch.empty_like(x, dtype=torch.bfloat16 if codes
+                                else x.dtype)
+    blk, gblk, off = _index_map_args(index_map)
+    if _on_cpu(x, alpha, *flag_t):
+        return ref.luq_round_ref(x, key, alpha, index_map, codes, flag)
+    if x.dim() != 2 or x.dtype not in _LUQ_DTYPES or not x.is_contiguous():
+        raise ValueError(f"luq_round takes a contiguous (R, N) float32 or "
+                         f"bf16 matrix, got {x.dtype} {tuple(x.shape)}")
+    R, N = x.shape
+    alpha = alpha.reshape(-1).contiguous()
+    _check("alpha", alpha, torch.float32, (R,))
+    k0, k1 = _one_key(key)
+    flag_p = _flag_ptr(flag, x.device)
+    out = torch.empty_like(x, dtype=torch.bfloat16 if codes else x.dtype)
+    if x.numel() == 0:
+        return out
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        err = lib.repro_luq_round(_ptr(x), int(x.dtype == torch.bfloat16),
+                                  _ptr(out), int(codes), R, N, k0, k1,
+                                  _ptr(alpha), None, blk, gblk, off, flag_p,
+                                  _stream(x.device))
+    _raise_on_error(lib, err, "luq_round")
+    LAUNCHES["luq_quant"] += 1
+    LUQ_QUANT_LAUNCHES[_LUQ_QUANT_OPERAND[-1]] += 1
+    LUQ_QUANT_LAUNCHES["kernels"] += 1
+    SPLIT_LAUNCHES["luq_round"] += 1
+    return out
+
+
 # --------------------------------------------------------------------------- #
 # clip_and_sum  (csrc/per_sample_clip.cu, replaces per_sample_clip)
 # --------------------------------------------------------------------------- #
@@ -504,10 +603,69 @@ def clip_and_sum(grads: torch.Tensor, clip_norm: float):
     return out, norms
 
 
+def clip_sumsq(grads: torch.Tensor, cols=None) -> torch.Tensor:
+    """The first pass of :func:`clip_and_sum` alone: (B,) float32 squared
+    norms of the rows of ``grads`` (B, D) over their first ``cols``
+    columns (all by default), two launches (the kernel's column-chunk
+    partials, then each row's sum in chunk order: the bits
+    :func:`clip_and_sum` takes its norms from).  For rows split over
+    ranks the caller sums the ranks' results and hands them to
+    :func:`clip_apply`."""
+    B, D = grads.shape
+    cols = D if cols is None else int(cols)
+    if not 0 <= cols <= D:
+        raise ValueError(f"clip_sumsq: {cols} columns of rows of {D}")
+    if _traced(grads):
+        return grads.new_empty((B,))
+    if _on_cpu(grads):
+        return ref.clip_sumsq_ref(grads, cols)
+    _check("grads", grads, torch.float32, (B, D))
+    out = torch.zeros((B,), dtype=torch.float32, device=grads.device)
+    if cols == 0:
+        return out
+    lib = load_library()
+    P = lib.repro_per_sample_clip_chunks(B, cols)
+    partial = torch.empty((B * P,), dtype=torch.float32, device=grads.device)
+    with torch.cuda.device(grads.device):
+        err = lib.repro_per_sample_clip_sumsq(
+            _ptr(grads), _ptr(out), _ptr(partial), B, cols, D,
+            _stream(grads.device))
+    _raise_on_error(lib, err, "clip_sumsq")
+    SPLIT_LAUNCHES["clip_sumsq"] += 1
+    return out
+
+
+def clip_apply(grads: torch.Tensor, sumsq: torch.Tensor, clip_norm: float):
+    """The second pass of :func:`clip_and_sum` alone, one launch: the
+    clipped sum of the rows of ``grads`` (B, D) whose squared norms
+    ``sumsq`` (B,) are given, and the norms.  On a sum of one rank's
+    :func:`clip_sumsq` it gives :func:`clip_and_sum`'s bits."""
+    B, D = grads.shape
+    if _traced(grads, sumsq):
+        _trace("clip_and_sum", 1, rows=B, n=D)
+        return grads.new_empty((D,)), grads.new_empty((B,))
+    if _on_cpu(grads, sumsq):
+        return ref.clip_apply_ref(grads, sumsq, clip_norm)
+    _check("grads", grads, torch.float32, (B, D))
+    _check("sumsq", sumsq, torch.float32, (B,))
+    lib = load_library()
+    out = torch.empty((D,), dtype=torch.float32, device=grads.device)
+    norms = torch.empty((B,), dtype=torch.float32, device=grads.device)
+    with torch.cuda.device(grads.device):
+        err = lib.repro_per_sample_clip_apply(
+            _ptr(grads), _ptr(sumsq), _ptr(out), _ptr(norms), B, D,
+            float(clip_norm), _stream(grads.device))
+    _raise_on_error(lib, err, "clip_apply")
+    LAUNCHES["clip_and_sum"] += 1
+    SPLIT_LAUNCHES["clip_apply"] += 1
+    return out, norms
+
+
 # --------------------------------------------------------------------------- #
 # ghost_norm_sq  (csrc/ghost_norm.cu, replaces the TPU kernel ghost_norm_gram)
 # --------------------------------------------------------------------------- #
-def ghost_norm_sq(x, g, key_x, key_g, flag=None) -> torch.Tensor:
+def ghost_norm_sq(x, g, key_x, key_g, flag=None, alpha_x=None,
+                  alpha_g=None, map_x=None, map_g=None) -> torch.Tensor:
     """LUQ-FP4 quantize + Grams + reduce in one call, per example:
     ``out[b] = ||Q(x_b)^T Q(g_b)||_F^2 = <Q(x_b)Q(x_b)^T, Q(g_b)Q(g_b)^T>``.
 
@@ -533,8 +691,16 @@ def ghost_norm_sq(x, g, key_x, key_g, flag=None) -> torch.Tensor:
     themselves, in bf16, with alpha 1, and the result is
     ``||x_b^T g_b||_F^2`` of the unquantized operands (exact products for
     bf16 operands, summed in float32).
+
+    An operand that is a shard of the examples' rows (split over the
+    model group) is given its rows' scales, ``alpha_x`` or ``alpha_g``
+    ((B,) float32, the max over the ranks), and its index map, ``map_x``
+    or ``map_g`` (:func:`luq_round`'s); its quantize pass is then
+    :func:`luq_round`'s alone, and the result is this rank's part of the
+    whole operands' norm (the Gram identity adds over a split dim).
     """
     flag_t = () if flag is None else (flag,)
+    mapped = alpha_x is not None or alpha_g is not None
     B, T, Dx = x.shape
     Dg = g.shape[2]
     if _traced(x, g, *flag_t):
@@ -542,8 +708,10 @@ def ghost_norm_sq(x, g, key_x, key_g, flag=None) -> torch.Tensor:
             _trace("ghost_norm_sq", 1, batch=B, t=T, dx=Dx, dg=Dg,
                    elem_x=x.element_size(), elem_g=g.element_size())
         return x.new_empty((B,), dtype=torch.float32)
-    if _on_cpu(x, g, *flag_t):
-        return ref.ghost_norm_ref(x, g, key_x, key_g, flag)
+    alphas = tuple(a for a in (alpha_x, alpha_g) if a is not None)
+    if _on_cpu(x, g, *flag_t, *alphas):
+        return ref.ghost_norm_ref(x, g, key_x, key_g, flag, alpha_x,
+                                  alpha_g, map_x, map_g)
     for name, t, d in (("x", x, Dx), ("g", g, Dg)):
         if t.dtype not in _LUQ_DTYPES:
             raise TypeError(f"{name}: expected float32 or bf16, got {t.dtype}")
@@ -558,13 +726,35 @@ def ghost_norm_sq(x, g, key_x, key_g, flag=None) -> torch.Tensor:
     # scratch: the codes of both operands, the alphas, the tile partials
     scratch = torch.empty((lib.repro_ghost_norm_scratch(B, T, Dx, Dg),),
                           dtype=torch.uint8, device=x.device)
+    if mapped:
+        given = []
+        for name, a in (("alpha_x", alpha_x), ("alpha_g", alpha_g)):
+            if a is not None:
+                a = a.reshape(-1).contiguous()
+                _check(name, a, torch.float32, (B,))
+            given.append(a)
+        alpha_x, alpha_g = given
+        bx, gx, ox = _index_map_args(map_x)
+        bg, gg, og = _index_map_args(map_g)
     with torch.cuda.device(x.device):
-        err = lib.repro_ghost_norm(
-            _ptr(x), int(x.dtype == torch.bfloat16), _ptr(g),
-            int(g.dtype == torch.bfloat16), kx0, kx1, kg0, kg1, _ptr(scratch),
-            _ptr(out), B, T, Dx, Dg, flag_p, _stream(x.device))
+        if mapped:
+            err = lib.repro_ghost_norm_mapped(
+                _ptr(x), int(x.dtype == torch.bfloat16), _ptr(g),
+                int(g.dtype == torch.bfloat16), kx0, kx1, kg0, kg1,
+                _ptr(scratch), _ptr(out), B, T, Dx, Dg, flag_p,
+                None if alpha_x is None else _ptr(alpha_x), bx, gx, ox,
+                None if alpha_g is None else _ptr(alpha_g), bg, gg, og,
+                _stream(x.device))
+        else:
+            err = lib.repro_ghost_norm(
+                _ptr(x), int(x.dtype == torch.bfloat16), _ptr(g),
+                int(g.dtype == torch.bfloat16), kx0, kx1, kg0, kg1,
+                _ptr(scratch), _ptr(out), B, T, Dx, Dg, flag_p,
+                _stream(x.device))
     _raise_on_error(lib, err, "ghost_norm_sq")
     LAUNCHES["ghost_norm_sq"] += 1
+    if mapped:
+        SPLIT_LAUNCHES["ghost_norm_mapped"] += 1
     shape_class = f"{min(Dx, Dg)}/{max(Dx, Dg)}"
     GHOST_NORM_LAUNCHES[shape_class] = GHOST_NORM_LAUNCHES.get(shape_class,
                                                                0) + 1

@@ -35,6 +35,49 @@ def luq_quant_ref(x, key, codes: bool = False, flag=None) -> torch.Tensor:
     return torch.where(flag.reshape(()) > 0.5, out, plain)
 
 
+def luq_row_max_ref(x) -> torch.Tensor:
+    """Plain version of ``luq_row_max``: (R,) float32 ``max|x[r]|``."""
+    return x.float().abs().amax(dim=1)
+
+
+def luq_round_ref(x, key, alpha, index_map=None, codes: bool = False,
+                  flag=None) -> torch.Tensor:
+    """Plain version of ``luq_round``: :func:`luq_quant_ref` with each
+    row's scale given (``alpha`` (R,)) and, with ``index_map``, each
+    element drawing the uniform of its index in the whole row
+    (``quant.philox.global_index``): a shard of a row quantized as the
+    whole row's slice."""
+    xf = x.float()
+    n = x.shape[1]
+    u = (philox.mapped_uniforms(key, n, index_map, x.device)
+         if index_map is not None else philox.row_uniforms(key, n, x.device))
+    a = alpha.float().reshape(-1, 1)
+    if codes:
+        out, plain = luq_fp4_codes(xf, u, a), x.bfloat16()
+    else:
+        out, plain = luq_fp4(xf, u, a).to(x.dtype), x
+    if flag is None:
+        return out
+    return torch.where(flag.reshape(()) > 0.5, out, plain)
+
+
+def clip_sumsq_ref(grads: torch.Tensor, cols=None) -> torch.Tensor:
+    """Plain version of ``clip_sumsq``: (B,) float32 sums of the squares
+    of each row's first ``cols`` columns (all of them by default)."""
+    g = grads.float() if cols is None else grads[:, :cols].float()
+    return torch.sum(g * g, dim=1)
+
+
+def clip_apply_ref(grads: torch.Tensor, sumsq: torch.Tensor,
+                   clip_norm: float):
+    """Plain version of ``clip_apply``: the clipped sum and the norms of
+    (B, D) rows whose squared norms ``sumsq`` (B,) are given."""
+    g = grads.float()
+    norms = torch.sqrt(sumsq.float())
+    scale = torch.clamp(clip_norm / torch.clamp(norms, min=1e-12), max=1.0)
+    return (g * scale[:, None]).sum(dim=0), norms
+
+
 def per_sample_clip_ref(grads: torch.Tensor, clip_norm: float):
     """Plain version of ``clip_and_sum``: (B, D) per-example rows ->
     (sum_b min(1, C / max(||g_b||, 1e-12)) * g_b, norms (B,))."""
@@ -44,7 +87,8 @@ def per_sample_clip_ref(grads: torch.Tensor, clip_norm: float):
     return (g * scale[:, None]).sum(dim=0), norms
 
 
-def ghost_norm_ref(x, g, key_x, key_g, flag=None) -> torch.Tensor:
+def ghost_norm_ref(x, g, key_x, key_g, flag=None, alpha_x=None,
+                   alpha_g=None, map_x=None, map_g=None) -> torch.Tensor:
     """Plain version of ``ghost_norm_sq``: per example b,
     ``<Q(x_b) Q(x_b)^T, Q(g_b) Q(g_b)^T>`` with x (B, T, Dx), g (B, T, Dg),
     each example quantized on its own scale against the draws of the keys
@@ -59,15 +103,16 @@ def ghost_norm_ref(x, g, key_x, key_g, flag=None) -> torch.Tensor:
     tolerance; the kernel, summing the exact codes, is within 1e-7)."""
     B = x.shape[0]
 
-    def q(v, key):
+    def q(v, key, alpha, index_map):
         rows = v.reshape(B, -1)
-        out = luq_quant_ref(rows, key)
+        out = (luq_quant_ref(rows, key) if alpha is None
+               else luq_round_ref(rows, key, alpha, index_map))
         if flag is not None:
             out = torch.where(flag.reshape(()) > 0.5, out.float(),
                               rows.bfloat16().float())
         return out.reshape(v.shape).double()
 
-    xq, gq = q(x, key_x), q(g, key_g)
+    xq, gq = q(x, key_x, alpha_x, map_x), q(g, key_g, alpha_g, map_g)
     xx = xq @ xq.transpose(1, 2)
     gg = gq @ gq.transpose(1, 2)
     return (xx * gg).sum(dim=(1, 2)).float()

@@ -14,6 +14,12 @@ gloo on the CPU.  Several ranks on one card need gloo (NCCL refuses two
 ranks on one device), which moves each collective through the host and
 cannot be captured in a CUDA graph; that is allowed only when the caller
 asks for it (``share_device=True``), never by default.
+
+:func:`make_production_mesh` is the reference's production layout,
+(16, 16) over ``("data", "model")`` or (2, 16, 16) over ``("pod",
+"data", "model")``, as a :class:`MeshLayout`: the ranks' arrangement
+without a process group, which the partitioner reads (the specs, a
+rank's block) whatever the world running it.
 """
 from __future__ import annotations
 
@@ -151,6 +157,13 @@ class CompatMesh:
             return AxisGroup(None, 0, 1)
         return self._groups[axes]
 
+    def model_group(self) -> AxisGroup:
+        """This rank's group over the ``model`` axis: the ranks that
+        split every layer (a group of one without that axis)."""
+        if "model" not in self.axis_names:
+            return AxisGroup(None, 0, 1)
+        return self._groups[("model",)]
+
     def warm_collectives(self, device) -> None:
         """One all-reduce of a one-element tensor on ``device`` in every
         group of the mesh: NCCL makes a group's communicator at its first
@@ -172,6 +185,37 @@ def make_compat_mesh(shape: Sequence[int], axes: Sequence[str]) -> CompatMesh:
                          f"{int(np.prod(shape))} ranks; the world has "
                          f"{world}")
     return CompatMesh(shape, axes)
+
+
+class MeshLayout:
+    """A mesh's layout alone: ``axis_names``, ``devices`` (the ranks, row
+    major) and the coordinates of ``rank``; no process group.  What the
+    partitioner reads of a :class:`CompatMesh`."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
+                 rank: int = 0):
+        self.axis_names = tuple(axis_names)
+        self.devices = np.arange(int(np.prod(shape))).reshape(tuple(shape))
+        self.rank = rank
+        self.coords = dict(zip(self.axis_names,
+                               (int(c) for c in np.unravel_index(
+                                   rank, self.devices.shape))))
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    def __repr__(self) -> str:
+        return f"MeshLayout({self.shape}, rank {self.rank})"
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         rank: int = 0) -> MeshLayout:
+    """The reference's production mesh: (16, 16) over ``("data",
+    "model")``, or (2, 16, 16) over ``("pod", "data", "model")``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return MeshLayout(shape, axes, rank)
 
 
 def make_host_mesh(model_parallel: int = 1) -> CompatMesh:

@@ -60,6 +60,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch.mesh import DATA_AXES, data_degree
 from repro_torch.models.registry import Model
 from repro_torch.optim import apply_updates, make_optimizer
+from repro_torch.parallel import axes as pax
 from repro_torch.parallel import partitioner as pt
 from repro_torch.serve.oneshot import build_oneshot_fns
 
@@ -82,6 +83,54 @@ class TrainSetup:
     #: what a batch's size must be a multiple of: the vmap engine's
     #: global microbatch, or the sharded ghost driver's shard count
     batch_multiple: int = 1
+    #: on a model-parallel mesh: each leaf's layout (``Spec``, the model
+    #: axis only) and whole shape; empty otherwise
+    param_specs: dict = dataclasses.field(default_factory=dict)
+    param_shapes: dict = dataclasses.field(default_factory=dict)
+    #: ``grad_fn(params, batch, qflags) -> (grads, metrics)``: the step's
+    #: gradient alone, the clipped sum before the noise under DP (this
+    #: rank's blocks of it on a model-parallel mesh)
+    grad_fn: Optional[Callable] = None
+
+    @property
+    def model_parallel(self) -> bool:
+        return any(pt.split_dims(s) for s in self.param_specs.values())
+
+    def _map(self, tree, fn):
+        """``fn`` applied to each dict of leaves keyed like the params in
+        ``tree`` (the params, an optimizer state's dicts)."""
+        if isinstance(tree, dict) and set(tree) == set(self.param_specs):
+            return fn(tree)
+        if isinstance(tree, tuple):
+            out = [self._map(t, fn) for t in tree]
+            return type(tree)(*out) if hasattr(tree, "_fields") else tuple(
+                out)
+        return tree
+
+    def shard(self, tree):
+        """This rank's blocks of a whole tree (params or optimizer
+        state); the tree itself off a model-parallel mesh."""
+        if not self.model_parallel:
+            return tree
+        return self._map(tree, lambda d: pt.shard_tree(
+            d, self.param_specs, self.mesh))
+
+    def unshard(self, tree):
+        """The whole tree from every rank's blocks, on every rank (a
+        collective: every rank of the mesh calls it)."""
+        if not self.model_parallel:
+            return tree
+        return self._map(tree, lambda d: pt.unshard_tree(
+            d, self.param_specs, self.param_shapes, self.mesh))
+
+    def whole_like(self, tree):
+        """Empty tensors of the whole tree's shapes (a restore's
+        template)."""
+        if not self.model_parallel:
+            return tree
+        return self._map(tree, lambda d: {
+            k: torch.empty(self.param_shapes[k], dtype=t.dtype,
+                           device=t.device) for k, t in d.items()})
 
 
 def _microbatch(run: RunConfig, mesh) -> int:
@@ -117,17 +166,33 @@ def build_train_setup(model: Model, run: RunConfig, mesh=None) -> TrainSetup:
         raise ValueError("dp.ghost_sharded='on' requires params replicated "
                          "over the data axes (model axis degree 1); use "
                          "'auto'/'off' on model-parallel meshes")
-    if model_degree > 1:
+    if model_degree > 1 and model.param_axes is None:
         raise NotImplementedError(
-            f"training on a mesh whose model axis has degree "
-            f"{model_degree} (tensor and expert parallelism) is not ported "
-            f"yet (ROADMAP.md section 1); the port trains on the data "
-            f"axes alone")
+            f"training the {model.config.family!r} family on a mesh whose "
+            f"model axis has degree {model_degree} is not ported yet: the "
+            f"family has no param_axes (ROADMAP.md section 1); the dense "
+            f"LMs and the MoE LMs train there")
     if gs == "on":
         ghost_sharded = ghost and mesh is not None
     else:
         ghost_sharded = (gs == "auto" and ghost and dp_shards > 1
+                         and model_degree == 1
                          and run.global_batch % dp_shards == 0)
+    rules = pt.merge_rules(pt.DEFAULT_RULES, model.config.sharding_overrides)
+    specs, shapes, layout, replicated = {}, {}, {}, frozenset()
+    model_axis = None
+    if model_degree > 1:
+        shapes = {k: tuple(v.shape) for k, v in eval_shape(
+            lambda: model.init(run.seed), device=model.device).items()}
+        specs = {k: pt.param_spec(v) for k, v in pt.tree_specs(
+            model.param_axes(), shapes, mesh, rules).items()}
+        replicated = frozenset(k for k, v in specs.items()
+                               if not pt.split_dims(v))
+        layout = {k: (shapes[k], tuple(
+            pt.local_slice(e, d, mesh) if e is not None else slice(None)
+            for e, d in zip(specs[k], shapes[k])))
+            for k in specs if k not in replicated}
+        model_axis = mesh.model_group()
     shard, partial = None, False
     if dp_shards > 1:
         # the microbatch's example axis, laid out as the reference's
@@ -135,8 +200,6 @@ def build_train_setup(model: Model, run: RunConfig, mesh=None) -> TrainSetup:
         # configs shard the batch over "data" alone: the ranks of one data
         # coordinate compute the same examples, and the clipped sums are
         # reduced over the data group, not the world)
-        rules = pt.merge_rules(pt.DEFAULT_RULES,
-                               model.config.sharding_overrides)
         entry = pt.assign_spec(("batch",), (mb,), mesh, rules)[0]
         shard = mesh.axis_group(pt.entry_axes(entry))
         partial = run.dp.partial_accum and mb % dp_shards == 0
@@ -144,6 +207,14 @@ def build_train_setup(model: Model, run: RunConfig, mesh=None) -> TrainSetup:
             shard = None
 
     def train_step(params, opt_state, batch, seed, qflags, lr):
+        with pax.partitioning_context(model_axis):
+            return _train_step(params, opt_state, batch, seed, qflags, lr)
+
+    def grad_fn(params, batch, qflags):
+        with pax.partitioning_context(model_axis):
+            return _grads(params, batch, qflags)
+
+    def _grads(params, batch, qflags):
         if ghost:
             kw = dict(clip_norm=run.dp.clip_norm,
                       hooked_mask=model.ghost_mask(params),
@@ -167,31 +238,37 @@ def build_train_setup(model: Model, run: RunConfig, mesh=None) -> TrainSetup:
             grad_sum, metrics = per_example_clipped_grad_sum(
                 loss_one, params, batch, clip_norm=run.dp.clip_norm,
                 microbatch_size=mb, clip_backend=run.dp.clip_backend,
-                accum_dtype=accum_dtype, shard=shard, partial_accum=partial)
+                accum_dtype=accum_dtype, shard=shard, partial_accum=partial,
+                replicated=replicated)
         else:
-            grads, loss = grad_and_value(
+            grad_sum, loss = grad_and_value(
                 lambda p: model.loss_fn(p, batch, qflags))(params)
             metrics = {"loss": loss}
+        return grad_sum, metrics
+
+    def _train_step(params, opt_state, batch, seed, qflags, lr):
+        grads, metrics = _grads(params, batch, qflags)
         if run.dp.enabled:
             if seed is not None:
                 noise_gen.manual_seed(NOISE_SEED_OFFSET + int(seed))
             # the expected batch size, as in the JAX package (a probe
             # batch of another size is divided by it too)
             grads = add_gaussian_noise(
-                grad_sum, clip_norm=run.dp.clip_norm,
+                grads, clip_norm=run.dp.clip_norm,
                 noise_multiplier=run.dp.noise_multiplier,
-                batch_size=run.global_batch, generator=noise_gen)
-            del grad_sum      # one float32 copy of the params fewer live
+                batch_size=run.global_batch, generator=noise_gen,
+                layout=layout)
         updates, new_opt = opt.update(grads, opt_state, params, lr)
         del grads
         return apply_updates(params, updates), new_opt, metrics
 
     return TrainSetup(step_fn=train_step, opt_init_fn=opt.init,
-                      noise_gen=noise_gen, mesh=mesh,
+                      noise_gen=noise_gen, mesh=mesh, grad_fn=grad_fn,
                       ghost_sharded=ghost_sharded,
                       batch_multiple=(dp_shards if ghost_sharded else
                                       mb if run.dp.enabled and not ghost
-                                      else 1))
+                                      else 1),
+                      param_specs=specs, param_shapes=shapes)
 
 
 class EpochRunner:

@@ -89,6 +89,14 @@
         --device cpu --grad-mode ghost --ghost-sharded on --executor loop \
         --batch 4 --ghost-microbatch 2 --seq-len 16
 
+    # tensor parallel: two ranks on the CPU (gloo) each holding half of
+    # every layer (heads, MLP columns, vocab rows; the MoE LMs' experts),
+    # the same loss, epsilon and k as one process
+    PYTHONPATH=src python -m torch.distributed.run --nproc_per_node 2 \
+        -m repro_torch.launch.train --arch stablelm-3b --smoke \
+        --device cpu --grad-mode ghost --model-parallel 2 --executor loop \
+        --batch 4 --ghost-microbatch 2 --seq-len 16
+
     # preempted at global step 2 (a mid-epoch checkpoint, exit 0), then
     # resumed bit for bit by the same command without --preempt-at
     PYTHONPATH=src python -m repro_torch.launch.train --arch resnet18 \
@@ -112,9 +120,11 @@ epoch, ``epoch e: loss=... eps=... k=... acc=...``, as the JAX CLI does
 Under ``python -m torch.distributed.run`` (``WORLD_SIZE`` in the
 environment) each rank joins the process group (``launch.mesh``: NCCL
 on CUDA, one card a rank, ``cuda:LOCAL_RANK``; gloo with ``--device
-cpu``), the run trains data parallel on the host mesh ``(world, 1)``
-over ``("data", "model")``, and rank 0 alone prints and writes
-checkpoints.
+cpu``), the run trains on the host mesh ``(world / m, m)`` over
+``("data", "model")``, ``m`` the ``--model-parallel`` degree (default
+1: data parallel alone; above 1 the dense and MoE LMs only, every other
+family raises), and rank 0 alone prints and writes checkpoints (whole
+trees).
 
 The reference's CLI cannot train the encoder-decoder: its
 ``make_dataset`` gives that family a ``TokenDataset``, whose batches hold
@@ -191,7 +201,7 @@ def build_run(args) -> RunConfig:
         steps_per_epoch=args.steps_per_epoch,
         steps=args.epochs * args.steps_per_epoch, seed=args.seed,
         epoch_executor=args.executor, epoch_chunk=args.epoch_chunk,
-        epoch_unroll=args.epoch_unroll)
+        epoch_unroll=args.epoch_unroll, model_parallel=args.model_parallel)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -255,6 +265,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "eviction notice) instead of dying mid-step")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="the host mesh's model axis degree under "
+                         "torch.distributed.run (tensor and expert "
+                         "parallelism; it must divide the world)")
     return ap.parse_args(argv)
 
 
@@ -271,11 +285,19 @@ def build_datasets(args, cfg: ModelConfig):
 
 def main(argv=None):
     args = parse_args(argv)
+    mp = build_run(args).model_parallel
     mesh = None
     if "WORLD_SIZE" in os.environ:
+        world = int(os.environ["WORLD_SIZE"])
+        if mp < 1 or world % mp:
+            raise ValueError(f"--model-parallel {mp} does not divide the "
+                             f"world of {world} ranks")
         device = init_distributed(args.device)
-        mesh = make_host_mesh()
+        mesh = make_host_mesh(mp)
     else:
+        if mp != 1:
+            raise ValueError("--model-parallel above 1 needs ranks: run "
+                             "under python -m torch.distributed.run")
         device = resolve_device(args.device)
     try:
         _train(args, device, mesh)

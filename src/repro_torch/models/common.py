@@ -184,7 +184,8 @@ def repeat_kv(x, n_rep: int):
 # losses
 # --------------------------------------------------------------------------- #
 def chunked_lm_loss(h, targets, embed, *, real_vocab: int, ce_chunk: int,
-                    mask=None, per_example: bool = False, logits_tap=None):
+                    mask=None, per_example: bool = False, logits_tap=None,
+                    vocab_split=None):
     """Mean next-token cross-entropy without materializing (B, S, V).
 
     ``h``: (B, S, d) hidden states aligned with ``targets`` (B, S) ints;
@@ -199,25 +200,47 @@ def chunked_lm_loss(h, targets, embed, *, real_vocab: int, ce_chunk: int,
     added to the raw logits (its gradient is the logits cotangent the head
     wgrad consumes); it forces ONE chunk and makes the return ``(loss,
     hc)``, ``hc`` the float32 hidden rows that entered the logits GEMM.
+
+    ``vocab_split`` ``(offset, whole)``: ``embed`` holds rows ``offset ..``
+    of the ``whole`` padded vocabulary, this rank's shard over the model
+    group (vocab parallel): the local logits, the log-sum-exp from the
+    group's max and its summed exponentials, and the target's logit from
+    the rank that holds its row (a ``logits_tap`` is the local logits').
     """
+    from repro_torch.parallel.collectives import (copy_to_model,
+                                                  max_over_model,
+                                                  reduce_from_model)
     b, s, _ = h.shape
     cc = s if logits_tap is not None else min(ce_chunk, s)
     reduce = (lambda t: t.sum(dim=1)) if per_example else (lambda t: t.sum())
     total = denom = 0.0
-    vocab_ok = torch.arange(embed.shape[0], device=h.device) < real_vocab
+    off = 0 if vocab_split is None else vocab_split[0]
+    n_loc = embed.shape[0]
+    vocab_ok = torch.arange(off, off + n_loc, device=h.device) < real_vocab
     emb32 = embed.float()
     hc_out = None
     for s0 in range(0, s, cc):
         s1 = min(s0 + cc, s)
         hc = h[:, s0:s1].float()
+        if vocab_split is not None:
+            hc = copy_to_model(hc)
         logits = torch.einsum("bsd,vd->bsv", hc, emb32)
         if logits_tap is not None:
             logits = logits + logits_tap
             hc_out = hc
         logits = torch.where(vocab_ok, logits, -1e30)
-        lse = torch.logsumexp(logits, dim=-1)
-        tgt = torch.gather(logits, -1,
-                           targets[:, s0:s1].long()[..., None])[..., 0]
+        tok = targets[:, s0:s1].long()
+        if vocab_split is None:
+            lse = torch.logsumexp(logits, dim=-1)
+            tgt = torch.gather(logits, -1, tok[..., None])[..., 0]
+        else:
+            top = max_over_model(logits.amax(dim=-1))
+            lse = top + torch.log(reduce_from_model(
+                torch.exp(logits - top[..., None]).sum(dim=-1)))
+            local = tok - off
+            inside = (local >= 0) & (local < n_loc)
+            tgt = torch.gather(logits, -1, local.clamp(0, n_loc - 1)[..., None])
+            tgt = reduce_from_model(torch.where(inside, tgt[..., 0], 0.0))
         nll = lse - tgt
         if mask is not None:
             mc = mask[:, s0:s1].float()
@@ -233,11 +256,42 @@ def chunked_lm_loss(h, targets, embed, *, real_vocab: int, ce_chunk: int,
     return loss
 
 
+def tp_split(local: int, whole: int, *dims):
+    """``qeinsum``'s ``split`` for a projection whose weight holds
+    ``local`` of the ``whole`` entries of a dim sharded over the model
+    group, ``dims`` that dim's index in x, w and the output (None: the
+    operand is whole), or None when nothing is split (one process, or a
+    replicated weight)."""
+    from repro_torch.parallel.axes import split_of
+    s = split_of(local, whole)
+    if s is None:
+        return None
+    return tuple(None if d is None else (d, s[0], s[1]) for d in dims)
+
+
+def row_parallel(x, w, cd, row):
+    """The operands of a projection in the compute dtype ``cd``; for a
+    row-parallel one (``row``, its ``split``) in float32, holding the
+    same values: its output is then this rank's partial sum in float32,
+    rounded to ``cd`` once, after the group's sum (:func:`reduce_partial`),
+    as one process's GEMM rounds its float32 sum once."""
+    w = w.to(cd)
+    if row is None:
+        return x, w
+    return x.float(), w.float()
+
+
+def reduce_partial(y, cd):
+    """The model group's sum of the float32 partials ``y``, in ``cd``."""
+    from repro_torch.parallel.collectives import reduce_from_model
+    return reduce_from_model(y).to(cd)
+
+
 # --------------------------------------------------------------------------- #
 # quantized projections and the logits head
 # --------------------------------------------------------------------------- #
 def qproj(spec, x, w, *, seed: int, flag, quant_cfg, hooks=None,
-          per_example: bool = False):
+          per_example: bool = False, split=None):
     """Policy-gated quantized einsum (``repro_torch.quant.fake_quant``);
     without a quant config (serving), the plain einsum.  Operands of two
     dtypes are promoted to one, as ``jnp.einsum`` promotes them.  ``hooks``: a
@@ -245,11 +299,14 @@ def qproj(spec, x, w, *, seed: int, flag, quant_cfg, hooks=None,
     then runs in its place.  ``per_example``: ``x`` and its cotangent are
     quantized one row per example (the leading axis), the grain of a
     projection that the JAX package runs inside a ``vmap`` over the batch
-    (the MoE expert GEMMs)."""
+    (the MoE expert GEMMs).  ``split``: ``qeinsum``'s, the operands'
+    dims this rank holds a shard of over the model group."""
     from repro_torch.quant.fake_quant import einsum, qeinsum
     if quant_cfg is None:
         return einsum(spec, x, w)
     kw = {"per_example": True} if per_example else {}
+    if split is not None:
+        kw["split"] = split
     einsum = qeinsum if hooks is None else hooks.qeinsum
     return einsum(spec, x, w, seed=seed, flag=flag, fmt=quant_cfg.fmt,
                   q_fwd=quant_cfg.quantize_fwd,

@@ -42,6 +42,18 @@ reference's do outside it.  The embedding is not scaled by
 sqrt(d_model).  Each block is recomputed in the backward under the
 dense family's remat rule (``transformer._remat``).
 
+Expert parallelism (a mesh whose ``model`` axis has degree > 1,
+``repro_torch.parallel.axes``): each rank holds E / m experts (its
+slices of ``e_gate``, ``e_up``, ``e_down``), the attention as the dense
+family splits it, and arctic's dense residual MLP tensor parallel.  The
+router and the dispatch (``_route``, ``_positions``) run replicated in
+float32, so every rank computes the same slots, capacity and dropped
+pairs as one process; a rank runs only its experts' slots, behind
+``copy_to_model``, the gates reach the combine through it too (each
+rank's cotangent covers its experts), and the experts' partial outputs,
+and the residual's, are summed by ``reduce_from_model`` (in float32,
+rounded to the compute dtype once, ``common.row_parallel``).
+
 Serving runs every projection unquantized (the reference's flags are 0
 there) and keeps an unquantized KV cache; the logits are the float32
 product of the last hidden row with the float32 embedding, not the
@@ -67,6 +79,8 @@ from repro_torch.config import (ModelConfig, QuantConfig, generator,
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tfm
 from repro_torch.models.registry import Model, register_family
+from repro_torch.parallel import axes as pax
+from repro_torch.parallel.collectives import copy_to_model
 from repro_torch.quant import kv_cache as kvc
 
 ATTN_LEAVES = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm")
@@ -80,6 +94,22 @@ _MATMUL_LEAVES = ("wq", "wk", "wv", "wo", "e_gate", "e_up", "e_down",
 def block_leaves(cfg: ModelConfig) -> tuple:
     return (ATTN_LEAVES + EXPERT_LEAVES
             + (RESIDUAL_LEAVES if cfg.dense_ff_residual else ()))
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """``{name: logical axes}`` of every parameter: the reference's
+    ``moe_block_axes`` under the port's flat names."""
+    axes = {k: v for k, v in tfm.BLOCK_AXES.items() if k in ATTN_LEAVES}
+    axes["router"] = ("layers", "embed", None)
+    axes["e_gate"] = ("layers", "experts", "embed", "expert_mlp")
+    axes["e_up"] = ("layers", "experts", "embed", "expert_mlp")
+    axes["e_down"] = ("layers", "experts", "expert_mlp", "embed")
+    if cfg.dense_ff_residual:
+        axes["r_gate"] = ("layers", "embed", "mlp")
+        axes["r_up"] = ("layers", "embed", "mlp")
+        axes["r_down"] = ("layers", "mlp", "embed")
+    return {"embed": ("vocab", "embed"), "final_norm": ("embed",),
+            **{f"blocks.{k}": v for k, v in axes.items()}}
 
 
 # --------------------------------------------------------------------------- #
@@ -176,43 +206,65 @@ def _dispatch_index(ids, pos, overflow, n_experts: int, capacity: int):
 def moe_ffn_capacity(h, blk, flag, seed: int, cfg: ModelConfig,
                      quant: Optional[QuantConfig]):
     """Capacity-based scatter/gather MoE of each example of ``h`` (B, S, d).
-    ``quant`` None: plain einsums (serving)."""
+    ``quant`` None: plain einsums (serving).  With this rank's shard of
+    the experts, its experts' part of the output (module docstring)."""
     B, S, d = h.shape
     E, k = cfg.n_experts, cfg.top_k
     C = _capacity(cfg, S)
     ids, gates = _route(h, blk["router"], cfg)              # (B, S, k)
     pos, overflow = _positions(ids, E, C)
     index = _dispatch_index(ids, pos, overflow, E, C)
+    n_loc = blk["e_gate"].shape[0]
+    split = cm.tp_split(n_loc, E, 1, 0, 1)
+    e0 = 0 if split is None else split[0][1]
+    if split is not None:
+        h = copy_to_model(h)
     xk = h[:, :, None, :].expand(B, S, k, d).reshape(B * S * k, d)
     buf = h.new_zeros((B * E * (C + 1), d)).index_add(0, index, xk)
-    xe = buf.reshape(B, E, C + 1, d)[:, :, :C]              # (B, E, C, d)
+    xe = buf.reshape(B, E, C + 1, d)[:, e0:e0 + n_loc, :C]  # (B, E, C, d)
     qp = functools.partial(cm.qproj, quant_cfg=quant, flag=flag,
-                           per_example=True)
+                           per_example=True, split=split)
     cd = h.dtype
     g = qp("becd,edf->becf", xe, blk["e_gate"].to(cd), seed=seed + 10)
     u = qp("becd,edf->becf", xe, blk["e_up"].to(cd), seed=seed + 11)
     ye = qp("becf,efd->becd", F.silu(g) * u, blk["e_down"].to(cd),
             seed=seed + 12)
-    ye_pad = F.pad(ye, (0, 0, 0, 1))                        # (B, E, C + 1, d)
+    # (B, E, C + 1, d): the other ranks' experts and the dropped slot zero
+    ye_pad = F.pad(ye, (0, 0, 0, 1, e0, E - e0 - n_loc))
     yk = ye_pad.reshape(B * E * (C + 1), d).index_select(0, index)
-    w = torch.where(overflow, 0.0, gates).to(ye.dtype)
-    return torch.einsum("bskd,bsk->bsd", yk.reshape(B, S, k, d), w)
+    w = torch.where(overflow, 0.0, gates)
+    if split is None:
+        return torch.einsum("bskd,bsk->bsd", yk.reshape(B, S, k, d),
+                            w.to(ye.dtype))
+    # this rank's experts' part in float32, rounded once after the sum
+    return torch.einsum("bskd,bsk->bsd", yk.reshape(B, S, k, d).float(),
+                        copy_to_model(w))
 
 
 def moe_ffn_dense(h, blk, flag, seed: int, cfg: ModelConfig,
                   quant: Optional[QuantConfig]):
     """Every expert on every token of ``h`` (B, S, d), combined with the
-    sparse gates."""
+    sparse gates; with this rank's shard of the experts, their part."""
     ids, gates = _route(h, blk["router"], cfg)              # (B, S, k)
+    n_loc = blk["e_gate"].shape[0]
+    split = cm.tp_split(n_loc, cfg.n_experts, None, 0, 1)
+    e0 = 0 if split is None else split[1][1]
+    if split is not None:
+        h, gates = copy_to_model(h), copy_to_model(gates)
     qp = functools.partial(cm.qproj, quant_cfg=quant, flag=flag,
                            per_example=True)
     cd = h.dtype
-    g = qp("bsd,edf->besf", h, blk["e_gate"].to(cd), seed=seed + 10)
-    u = qp("bsd,edf->besf", h, blk["e_up"].to(cd), seed=seed + 11)
+    g = qp("bsd,edf->besf", h, blk["e_gate"].to(cd), seed=seed + 10,
+           split=split)
+    u = qp("bsd,edf->besf", h, blk["e_up"].to(cd), seed=seed + 11,
+           split=split)
     y = qp("besf,efd->besd", F.silu(g) * u, blk["e_down"].to(cd),
-           seed=seed + 12)
-    arange = torch.arange(cfg.n_experts, device=h.device)
+           seed=seed + 12,
+           split=None if split is None else (split[2], split[1], split[2]))
+    arange = torch.arange(e0, e0 + n_loc, device=h.device)
     comb = ((ids[..., None] == arange).float() * gates[..., None]).sum(-2)
+    if split is not None:
+        return torch.einsum("besd,bse->bsd", y.float(), comb)
     return torch.einsum("besd,bse->bsd", y, comb.to(y.dtype))
 
 
@@ -223,15 +275,29 @@ def _ffn(cfg: ModelConfig):
 def _mlp(h, blk, flag, seed: int, cfg: ModelConfig,
          quant: Optional[QuantConfig]):
     """The routed experts and, for arctic, the dense residual MLP of the
-    normed hidden state ``h`` (B, S, d)."""
+    normed hidden state ``h`` (B, S, d).  The ranks' parts of each
+    sharded one are summed by its own ``reduce_from_model``: the experts'
+    sum is then the one-process combine's bits (a token's k terms, each
+    on one rank, added once), which one reduction of both parts would
+    not keep."""
     y = _ffn(cfg)(h, blk, flag, seed, cfg, quant)
+    if blk["e_gate"].shape[0] < cfg.n_experts:
+        y = cm.reduce_partial(y, h.dtype)
     if cfg.dense_ff_residual:
+        col = cm.tp_split(blk["r_gate"].shape[1], cfg.dense_ff_residual,
+                          None, 1, 2)
+        row = None if col is None else (col[2], (0,) + col[2][1:], None)
         qp = functools.partial(cm.qproj, quant_cfg=quant, flag=flag)
         cd = h.dtype
-        g = qp("bsd,df->bsf", h, blk["r_gate"].to(cd), seed=seed + 20)
-        u = qp("bsd,df->bsf", h, blk["r_up"].to(cd), seed=seed + 21)
-        y = y + qp("bsf,fd->bsd", F.silu(g) * u, blk["r_down"].to(cd),
-                   seed=seed + 22)
+        hr = h if col is None else copy_to_model(h)
+        g = qp("bsd,df->bsf", hr, blk["r_gate"].to(cd), seed=seed + 20,
+               split=col)
+        u = qp("bsd,df->bsf", hr, blk["r_up"].to(cd), seed=seed + 21,
+               split=col)
+        r = qp("bsf,fd->bsd", *cm.row_parallel(F.silu(g) * u, blk["r_down"],
+                                               cd, row),
+               seed=seed + 22, split=row)
+        y = y + (r if row is None else cm.reduce_partial(r, cd))
     return y
 
 
@@ -254,8 +320,10 @@ def _train_block(x, blk, **kw):
 # training
 # --------------------------------------------------------------------------- #
 def _embed(params, tokens, cfg: ModelConfig):
-    """Token embeddings in the compute dtype (unscaled, unlike dense_lm)."""
-    return params["embed"][tokens].to(torch_dtype(cfg.compute_dtype))
+    """Token embeddings in the compute dtype (unscaled, unlike dense_lm);
+    a vocab-parallel lookup of a sharded embedding."""
+    return tfm.vocab_lookup(params["embed"], tokens, cfg).to(
+        torch_dtype(cfg.compute_dtype))
 
 
 def forward_hidden(params, tokens, qflags, cfg: ModelConfig,
@@ -289,9 +357,10 @@ def lm_loss(params, batch, qflags, cfg: ModelConfig, quant: QuantConfig,
     also takes an rng, which it deletes; the port leaves it out."""
     tokens = batch["tokens"]
     h = forward_hidden(params, tokens, qflags, cfg, quant)
-    return cm.chunked_lm_loss(h[:, :-1], tokens[:, 1:], params["embed"],
-                              real_vocab=cfg.vocab_size,
-                              ce_chunk=cfg.ce_chunk, per_example=per_example)
+    return cm.chunked_lm_loss(
+        h[:, :-1], tokens[:, 1:], params["embed"], real_vocab=cfg.vocab_size,
+        ce_chunk=cfg.ce_chunk, per_example=per_example,
+        vocab_split=pax.split_of(params["embed"].shape[0], cfg.padded_vocab))
 
 
 # --------------------------------------------------------------------------- #
@@ -379,4 +448,5 @@ def build_moe_lm(cfg: ModelConfig, quant: QuantConfig, device) -> Model:
         prefill=functools.partial(prefill, cfg=cfg, quant=quant),
         decode_step=functools.partial(decode_step, cfg=cfg, quant=quant),
         kv_formats=("none",),
+        param_axes=functools.partial(param_axes, cfg),
     )

@@ -56,6 +56,11 @@ class Model:
     # ``kv_fmt`` argument only for formats beyond "none", so a family
     # without a KV cache takes none
     kv_formats: tuple = ("none",)
+    # param_axes() -> {name: logical axes} of every parameter (the
+    # reference's ``param_axes``): what lays the params out over a mesh's
+    # model axis (dense_lm, moe_lm); None: the family trains only with
+    # whole params on every rank
+    param_axes: Optional[Callable] = None
 
 
 _BUILDERS: Dict[str, Callable[..., Model]] = {}

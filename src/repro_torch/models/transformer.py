@@ -19,6 +19,23 @@ the compute dtype on every call, so gradients reach the float32 leaves.
 ``ghost_mask`` and ``make_ghost_aux`` are the ghost engine's hooks
 (``repro_torch.dp.ghost``): every leaf is covered, none falls back.
 
+Tensor parallelism (a mesh whose ``model`` axis has degree > 1; the
+rank's model group in ``repro_torch.parallel.axes``): each rank holds
+the shards ``param_axes`` and the partitioner's rules give it.  q, k, v,
+gate and up are column-parallel over the local heads or ``mlp`` slice,
+behind ``copy_to_model``; ``wo`` and ``wo_mlp`` are row-parallel, their
+partial outputs summed by ``reduce_from_model`` (in float32, rounded to
+the compute dtype once, ``common.row_parallel``).  Where the KV heads do
+not divide over the group the KV projections stay replicated (the rule's
+divisibility fallback): they run whole on every rank, their outputs'
+cotangents summed over the group, and the local query heads read the KV
+heads they map to.  The embedding is a vocab-parallel lookup and the
+loss vocab parallel (``common.chunked_lm_loss``).  Every split operand
+of a projection quantizes as the slice of the whole operand's
+quantization (``quant.fake_quant``), so the sharded step computes what
+the one-process step computes.  Without a model group the code is the
+unsharded code.
+
 Serving runs every projection unquantized (the JAX package's policy flag
 is 0 there); only the logits head goes through the quantizer dispatch
 (``common.qlogits``), and a quantized KV cache through the ``kv_write`` /
@@ -46,10 +63,36 @@ from repro_torch.config import (ModelConfig, QuantConfig, generator,
 from repro_torch.kernels import ops
 from repro_torch.models import common as cm
 from repro_torch.models.registry import Model, register_family
+from repro_torch.parallel import axes as pax
+from repro_torch.parallel.collectives import copy_to_model, reduce_from_model
 
 BLOCK_LEAVES = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "wi_gate",
                 "wi_up", "wo_mlp")
 _MATMUL_LEAVES = ("wq", "wk", "wv", "wo", "wi_gate", "wi_up", "wo_mlp")
+
+
+# The reference's logical axes of the block stack (BLOCK_AXES) and of the
+# whole tree (param_axes), under the port's flat, layer-stacked names.
+BLOCK_AXES = {
+    "attn_norm": ("layers", "embed"),
+    "wq": ("layers", "embed", "heads", "head_dim"),
+    "wk": ("layers", "embed", "kv_heads", "head_dim"),
+    "wv": ("layers", "embed", "kv_heads", "head_dim"),
+    "wo": ("layers", "heads", "head_dim", "embed"),
+    "mlp_norm": ("layers", "embed"),
+    "wi_gate": ("layers", "embed", "mlp"),
+    "wi_up": ("layers", "embed", "mlp"),
+    "wo_mlp": ("layers", "mlp", "embed"),
+}
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """``{name: logical axes}`` of every parameter."""
+    axes = {"embed": ("vocab", "embed"), "final_norm": ("embed",),
+            **{f"blocks.{k}": v for k, v in BLOCK_AXES.items()}}
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
 
 
 # --------------------------------------------------------------------------- #
@@ -133,10 +176,25 @@ def _embed_scale(cfg: ModelConfig) -> float:
                               dtype=torch_dtype(cfg.compute_dtype)))
 
 
+def vocab_lookup(embed, tokens, cfg: ModelConfig):
+    """``embed[tokens]``; for a vocab-sharded ``embed`` each rank looks up
+    the ids of its rows (zeros for the others') and the group sums the
+    rows, exactly (in float32, returned in ``embed``'s dtype)."""
+    split = pax.split_of(embed.shape[0], cfg.padded_vocab)
+    if split is None:
+        return embed[tokens]
+    n = embed.shape[0]
+    local = tokens.long() - split[0]
+    inside = (local >= 0) & (local < n)
+    rows = embed[local.clamp(0, n - 1)].float() * inside[..., None]
+    return reduce_from_model(rows).to(embed.dtype)
+
+
 def _embed(params, tokens, cfg: ModelConfig):
     """The token embeddings in the compute dtype, scaled for ``dense_lm``."""
     cd = torch_dtype(cfg.compute_dtype)
-    return params["embed"][tokens].to(cd) * _embed_scale(cfg)
+    return (vocab_lookup(params["embed"], tokens, cfg).to(cd)
+            * _embed_scale(cfg))
 
 
 def _splice(x, inputs_embeds):
@@ -171,16 +229,36 @@ def attention_block(x, blk, positions, cfg: ModelConfig, quant=None,
     cd = torch_dtype(cfg.compute_dtype)
     qp = functools.partial(cm.qproj, quant_cfg=quant, flag=flag, hooks=hooks)
     h = cm.rmsnorm(x, blk["attn_norm"], hooks=hooks).to(cd)
-    q = qp("bsd,dhk->bshk", h, blk["wq"].to(cd), seed=seed)
-    k = qp("bsd,dhk->bshk", h, blk["wk"].to(cd), seed=seed + 1)
-    v = qp("bsd,dhk->bshk", h, blk["wv"].to(cd), seed=seed + 2)
+    # tensor parallel: this rank's query heads, and its KV heads or all
+    hp, n_loc = cfg.padded_heads, blk["wq"].shape[1]
+    col = cm.tp_split(n_loc, hp, None, 1, 2)
+    kv_col = cm.tp_split(blk["wk"].shape[1], cfg.n_kv_heads, None, 1, 2)
+    hc = h if col is None else copy_to_model(h)
+    q = qp("bsd,dhk->bshk", hc, blk["wq"].to(cd), seed=seed, split=col)
+    kv_in = h if kv_col is None else hc
+    k = qp("bsd,dhk->bshk", kv_in, blk["wk"].to(cd), seed=seed + 1,
+           split=kv_col)
+    v = qp("bsd,dhk->bshk", kv_in, blk["wv"].to(cd), seed=seed + 2,
+           split=kv_col)
+    if col is not None and kv_col is None:
+        # replicated KV read by some query heads on each rank: their
+        # cotangents summed over the group
+        k, v = copy_to_model(k), copy_to_model(v)
     q = cm.rope(q, positions, cfg.rope_theta)
     k = cm.rope(k, positions, cfg.rope_theta)
     n_rep = cfg.padded_heads // cfg.n_kv_heads
+    kr, vr = cm.repeat_kv(k, n_rep), cm.repeat_kv(v, n_rep)
+    if col is not None and kv_col is None:
+        heads = slice(col[1][1], col[1][1] + n_loc)
+        kr, vr = kr[:, :, heads], vr[:, :, heads]
     out = cm.chunked_causal_attention(
-        q, cm.repeat_kv(k, n_rep), cm.repeat_kv(v, n_rep),
-        chunk_q=cfg.attn_chunk_q, scale=1.0 / math.sqrt(cfg.head_dim))
-    res = qp("bshk,hkd->bsd", out, blk["wo"].to(cd), seed=seed + 3)
+        q, kr, vr, chunk_q=cfg.attn_chunk_q,
+        scale=1.0 / math.sqrt(cfg.head_dim))
+    row = None if col is None else (col[2], (0,) + col[2][1:], None)
+    res = qp("bshk,hkd->bsd", *cm.row_parallel(out, blk["wo"], cd, row),
+             seed=seed + 3, split=row)
+    if row is not None:
+        res = cm.reduce_partial(res, cd)
     return res, (k, v)
 
 
@@ -189,10 +267,17 @@ def mlp_block(x, blk, cfg: ModelConfig, quant=None, flag=False,
     cd = torch_dtype(cfg.compute_dtype)
     qp = functools.partial(cm.qproj, quant_cfg=quant, flag=flag, hooks=hooks)
     h = cm.rmsnorm(x, blk["mlp_norm"], hooks=hooks).to(cd)
-    gate = qp("bsd,df->bsf", h, blk["wi_gate"].to(cd), seed=seed + 4)
-    up = qp("bsd,df->bsf", h, blk["wi_up"].to(cd), seed=seed + 5)
+    col = cm.tp_split(blk["wi_gate"].shape[1], cfg.d_ff, None, 1, 2)
+    if col is not None:
+        h = copy_to_model(h)
+    gate = qp("bsd,df->bsf", h, blk["wi_gate"].to(cd), seed=seed + 4,
+              split=col)
+    up = qp("bsd,df->bsf", h, blk["wi_up"].to(cd), seed=seed + 5, split=col)
     act = _activation(gate, up, cfg.mlp_activation)
-    return qp("bsf,fd->bsd", act, blk["wo_mlp"].to(cd), seed=seed + 6)
+    row = None if col is None else (col[2], (0,) + col[2][1:], None)
+    out = qp("bsf,fd->bsd", *cm.row_parallel(act, blk["wo_mlp"], cd, row),
+             seed=seed + 6, split=row)
+    return out if row is None else cm.reduce_partial(out, cd)
 
 
 # --------------------------------------------------------------------------- #
@@ -279,7 +364,9 @@ def lm_loss(params, batch, qflags, cfg: ModelConfig, quant: QuantConfig,
     out = cm.chunked_lm_loss(h[:, :-1], tokens[:, 1:], head,
                              real_vocab=cfg.vocab_size, ce_chunk=cfg.ce_chunk,
                              mask=mask, per_example=per_example,
-                             logits_tap=taps.get("logits"))
+                             logits_tap=taps.get("logits"),
+                             vocab_split=pax.split_of(head.shape[0],
+                                                      cfg.padded_vocab))
     if ghost_taps is not None:
         loss, hc = out
         return loss, {"hidden": hc}
@@ -317,11 +404,26 @@ def make_ghost_aux(qflags, cfg: ModelConfig, quant: QuantConfig):
     compute dtype.  The JAX package uses the unrounded ``sqrt(d_model)``
     here, which differs from its own forward's by the bf16 rounding
     (50.5 against 50.596 at d_model 2560) and equals it at float32.
+
+    Vocab parallel (the embedding, and an untied head, sharded over the
+    model group's vocab rows): the logits tap is the local logits', and
+    each rank's combine counts the tokens whose rows it holds (the
+    gather term and the cross term) and its logits columns (the head
+    term), its part of the norm; the engine sums the parts.  A vocab
+    that does not divide over the group leaves both replicated, and the
+    group's first rank alone counts them.
     """
     from repro_torch.dp.ghost import GhostAux, _matpair_sq_norm
 
     cd = torch_dtype(cfg.compute_dtype)
     emb_scale = _embed_scale(cfg)
+
+    def vocab_rows():
+        """(offset, rows) of the vocab this rank holds."""
+        axis, v = pax.model_axis(), cfg.padded_vocab
+        if axis is None or v % axis.size:
+            return 0, v
+        return axis.index * (v // axis.size), v // axis.size
 
     def make_taps(batch):
         b, t = batch["tokens"].shape
@@ -329,7 +431,7 @@ def make_ghost_aux(qflags, cfg: ModelConfig, quant: QuantConfig):
         return {
             "embed_out": torch.zeros((b, t, cfg.d_model), dtype=cd,
                                      device=dev),
-            "logits": torch.zeros((b, t - 1, cfg.padded_vocab),
+            "logits": torch.zeros((b, t - 1, vocab_rows()[1]),
                                   dtype=torch.float32, device=dev),
         }
 
@@ -341,15 +443,20 @@ def make_ghost_aux(qflags, cfg: ModelConfig, quant: QuantConfig):
         c = cots["embed_out"].float() * emb_scale            # (B, T, d)
         g = cots["logits"].float()                           # (B, S-1, Vp)
         h = fwd["hidden"].float()                            # (B, S-1, d)
-        tok = batch["tokens"].long()
-        eq = (tok[:, :, None] == tok[:, None, :]).float()
+        off, n = vocab_rows()
+        tok = batch["tokens"].long() - off
+        own = ((tok >= 0) & (tok < n)).float()          # rows held here
+        eq = (tok[:, :, None] == tok[:, None, :]).float() * own[:, :, None]
         sq_gather = (eq * (c @ c.transpose(1, 2))).sum(dim=(1, 2))
         sq_head = _matpair_sq_norm(h, g)
+        # replicated embedding and head on a model group: counted once
+        once = float(n < cfg.padded_vocab or pax.model_index() == 0)
         if not cfg.tie_embeddings:
-            return sq_gather + sq_head
-        g_tok = torch.gather(g, 2, tok[:, None, :].expand(-1, g.shape[1], -1))
+            return (sq_gather + sq_head) * once
+        g_tok = torch.gather(g, 2, tok.clamp(0, n - 1)[:, None, :].expand(
+            -1, g.shape[1], -1)) * own[:, None, :]
         cross = (g_tok * (h @ c.transpose(1, 2))).sum(dim=(1, 2))
-        return sq_gather + sq_head + 2.0 * cross
+        return (sq_gather + sq_head + 2.0 * cross) * once
 
     def covers(params):
         # embed and (untied) lm_head by the taps above; the *_norm scales
@@ -596,4 +703,5 @@ def build_dense_lm(cfg: ModelConfig, quant: QuantConfig, device) -> Model:
         decode_slots=functools.partial(decode_slots, cfg=cfg, quant=quant),
         slot_cache_spec=functools.partial(slot_cache_spec, cfg),
         kv_formats=("none", "int8", "luq_fp4"),
+        param_axes=functools.partial(param_axes, cfg),
     )

@@ -14,6 +14,17 @@ have for CUDA tensors: gloo on CUDA tensors has only ``broadcast`` and
 ``all_reduce``.  :func:`gather_rows` is therefore a SUM of a zero-filled
 buffer that each rank fills at its own offset; adding zeros is exact.
 
+The model group's collectives (``model_all_reduce``, :func:`copy_to_model`,
+:func:`reduce_from_model`, :func:`max_over_model`) run inside the model
+code of a rank that holds a shard of each layer (``repro_torch.parallel.
+axes``), also under the vmap engine's ``vmap(grad_and_value(...))``: the
+reduction is the custom op ``repro_torch::model_all_reduce``, whose vmap
+rule reduces the whole batched tensor at once (elementwise, so the batch
+dim passes through), and the two differentiable ones are autograd
+functions around it (Megatron's ``f`` and ``g``).  Each reduces in
+float32 (gloo has no bf16 sum on every build; a sum of one rank's value
+and zeros is exact) and is counted in :data:`MODEL_REDUCES`.
+
 ``compressed_psum_pods``: int8-compressed all-reduce over the ``pod``
 axis.  Cross-pod links are the scarcest bandwidth at multi-pod scale,
 and DP-SGD gradients are unusually compressible because injected
@@ -27,6 +38,128 @@ from typing import Dict
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.parallel import axes
+
+#: All-reduces over the model group since :func:`reset_model_reduces`:
+#: their number and the bytes each rank sent into them.
+MODEL_REDUCES = {"count": 0, "bytes": 0}
+
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def reset_model_reduces() -> None:
+    MODEL_REDUCES["count"] = MODEL_REDUCES["bytes"] = 0
+
+
+def model_reduce_(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+    """``x`` (float32, contiguous) reduced in place over this rank's model
+    group (nothing without one); returns it."""
+    axis = axes.model_axis()
+    if axis is not None:
+        dist.all_reduce(x, op=_REDUCE_OPS[op], group=axis.group)
+        MODEL_REDUCES["count"] += 1
+        MODEL_REDUCES["bytes"] += x.numel() * x.element_size()
+    return x
+
+
+@torch.library.custom_op("repro_torch::model_all_reduce", mutates_args=())
+def model_all_reduce(x: torch.Tensor, op: str) -> torch.Tensor:
+    """A float32 copy of ``x`` reduced (``op``: "sum" or "max") over the
+    model group."""
+    return model_reduce_(x.float().contiguous().clone(), op)
+
+
+@model_all_reduce.register_fake
+def _(x, op):
+    return torch.empty_like(x, dtype=torch.float32)
+
+
+def _model_all_reduce_vmap(info, in_dims, x, op):
+    """Batched: the whole batched tensor in one reduction."""
+    return model_all_reduce(x, op), in_dims[0]
+
+
+model_all_reduce.register_vmap(_model_all_reduce_vmap)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the cotangent summed over the model group."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x):
+        return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        # through the autograd function: a bare custom op call here, under
+        # torch.func's grad, would take the op's generated autograd
+        # function, which torch.func refuses
+        return _ReduceFromModel.apply(g)
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The sum over the model group forward; identity backward."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x):
+        return model_all_reduce(x, "sum").to(x.dtype)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _MaxOverModel(torch.autograd.Function):
+    """The max over the model group forward; no gradient.  (A bare call
+    of the custom op inside ``grad_and_value`` would take the op's
+    generated autograd function, which torch.func refuses.)"""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x):
+        return model_all_reduce(x, "max").to(x.dtype)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return None
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """Before a column-parallel projection: ``x`` itself, its cotangent
+    (each rank's part) summed over the model group."""
+    return x if axes.model_axis() is None else _CopyToModel.apply(x)
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """After a row-parallel projection: the ranks' partial ``x`` summed
+    (in float32, returned in ``x``'s dtype); the cotangent passes."""
+    return x if axes.model_axis() is None else _ReduceFromModel.apply(x)
+
+
+def max_over_model(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max of ``x`` over the model group, with no
+    gradient (a log-sum-exp's shift)."""
+    if axes.model_axis() is None:
+        return x.detach()
+    return _MaxOverModel.apply(x.detach())
 
 
 def all_reduce_sum(tree: Dict[str, torch.Tensor],

@@ -161,6 +161,31 @@ def reads_flag(impl: Callable) -> bool:
     return getattr(impl, "reads_flag", False)
 
 
+def quantize_split(rows, fmt: str, backend: str | None, key, index_map,
+                   reduce_max, flag=None):
+    """The ``quantize`` op on a shard of each row of ``rows`` (R, N), for
+    a stochastic format: the rows' scales ``reduce_max((R,) local
+    maxima)`` (the max over the ranks that hold the other shards), and
+    element n drawing the uniform of its index in the whole row under
+    ``index_map`` (``philox.global_index``); the slice of the whole rows'
+    quantization, bit for bit.  On the ``cuda`` backend for luq_fp4 the
+    ``luq_row_max`` and ``luq_round`` kernels (their plain versions on CPU
+    tensors), else in PyTorch.  ``flag``: the layer's device flag; at 0,
+    ``rows`` unchanged."""
+    impl, be = get_quantizer(fmt, backend)
+    if reads_flag(impl):
+        from repro_torch.kernels.ops import luq_round, luq_row_max
+        x = rows.contiguous()
+        return luq_round(x, key, reduce_max(luq_row_max(x)), index_map,
+                         flag=flag)
+    q = formats.make_quantizer(fmt)
+    xf = rows.float()
+    alpha = reduce_max(xf.abs().amax(dim=1))
+    u = philox.mapped_uniforms(key, rows.shape[1], index_map, rows.device)
+    out = q(xf, u, alpha[:, None]).to(rows.dtype)
+    return out if flag is None else torch.where(flag > 0.5, out, rows)
+
+
 def capability_table() -> Dict[str, Dict[str, Tuple[str, ...]]]:
     """{op: {backend: (natively supported formats...)}}."""
     table: Dict[str, Dict[str, list]] = {op: {b: [] for b in BACKENDS}
@@ -280,9 +305,12 @@ def _cuda_matmul(a, b, keys):
     return luq_matmul(a, b, keys, alpha_a, b.abs().amax())
 
 
-def _cuda_ghost_norm(x, g, kx, kg, flag=None):
+def _cuda_ghost_norm(x, g, kx, kg, flag=None, **split):
+    """``split``: a shard's scales and index maps (``ghost_norm_sq``'s
+    ``alpha_x``, ``alpha_g``, ``map_x``, ``map_g``)."""
     from repro_torch.kernels.ops import ghost_norm_sq
-    return ghost_norm_sq(x.contiguous(), g.contiguous(), kx, kg, flag)
+    return ghost_norm_sq(x.contiguous(), g.contiguous(), kx, kg, flag,
+                         **split)
 
 
 _cuda_quantize.reads_flag = True

@@ -44,6 +44,17 @@ In the norm pass the hooks also hand them a tap tensor and the function
 whose value on (x, g) is the tap's gradient.  Both arrive as arguments:
 this module imports nothing of the engine.
 
+Operands split over the model group.  On a mesh whose ``model`` axis has
+degree > 1 a column- or row-parallel projection (``qeinsum(split=...)``)
+holds a shard of its weight and of one activation: the input of a
+row-parallel projection, the output's cotangent of a column-parallel
+one.  Each quantize point of such an operand rounds as the slice of the
+whole operand's quantization: the rows' scales are the max over the
+model group (one all-reduce MAX of the (R,) row maxima a call) and each
+element draws at its index in the whole row
+(``qbackend.quantize_split``).  A replicated operand is quantized as on
+one process, the same bits on every rank.
+
 Policy flags.  On the training path a layer's ``flag`` is a one-element
 float32 device tensor, a view into the trainer's (policy_len,) flags
 tensor, as the reference's flags are traced scalars: the layer always
@@ -63,7 +74,7 @@ stem's images, no wgrad for the detached weights of the ghost norm pass.
 from __future__ import annotations
 
 import functools
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -87,6 +98,26 @@ def stream_key(seed: int, fold: int):
     return (int(seed), STREAM_WORD + int(fold))
 
 
+def _index_map(shape, split):
+    """The index map (``quant.philox.global_index``) of the rows of a
+    tensor of ``shape`` (one row: the whole tensor; or one row per entry
+    of its leading axis) whose dim ``split[0]`` is entries ``split[1] ..``
+    of ``split[2]``; None for an unsplit tensor."""
+    if split is None:
+        return None
+    dim, offset, whole = (int(v) for v in split)
+    inner = 1
+    for n in shape[dim + 1:]:
+        inner *= int(n)
+    return shape[dim] * inner, whole * inner, offset * inner
+
+
+def _reduce_max(alpha):
+    """The rows' scales over the model group: one all-reduce MAX."""
+    from repro_torch.parallel.collectives import model_reduce_
+    return model_reduce_(alpha.float().contiguous(), "max")
+
+
 def _quantize_rows(rows, fmt: str, backend: str, seed: int, fold: int,
                    flag: Optional[torch.Tensor] = None):
     """Each row of ``rows`` (R, N) quantized on its own scale against the
@@ -101,40 +132,56 @@ def _quantize_rows(rows, fmt: str, backend: str, seed: int, fold: int,
     return torch.where(flag > 0.5, q(rows, key), rows)
 
 
+def _quantize_shard(rows, fmt: str, backend: str, seed: int, fold: int,
+                    flag: Optional[torch.Tensor] = None, index_map=None):
+    """:func:`_quantize_rows`; with an ``index_map``, of rows that are a
+    shard of the model group's (module docstring; a deterministic format
+    is elementwise and needs nothing of the other shards)."""
+    if index_map is None or fmt not in STOCHASTIC_FORMATS:
+        return _quantize_rows(rows, fmt, backend, seed, fold, flag)
+    return qbackend.quantize_split(rows, fmt, backend, stream_key(seed, fold),
+                                   index_map, _reduce_max, flag)
+
+
 def _quantize_per_example(x, fmt: str, backend: str, seed: int, fold: int,
-                          flag: Optional[torch.Tensor] = None):
+                          flag: Optional[torch.Tensor] = None,
+                          index_map=None):
     """One row per example (the leading axis), one shared draw."""
     rows = x.reshape(x.shape[0], -1)
     with ops.per_example_launches():
-        return _quantize_rows(rows, fmt, backend, seed, fold,
-                              flag).reshape(x.shape)
+        return _quantize_shard(rows, fmt, backend, seed, fold, flag,
+                               index_map).reshape(x.shape)
 
 
 @torch.library.custom_op("repro_torch::fake_quant", mutates_args=())
 def fake_quant(x: torch.Tensor, fmt: str, backend: str, seed: int,
-               fold: int, flag: Optional[torch.Tensor] = None
-               ) -> torch.Tensor:
+               fold: int, flag: Optional[torch.Tensor] = None,
+               split: Optional[List[int]] = None) -> torch.Tensor:
     """Quantize ``x`` as one tensor (one scale, one draw of its size);
-    with a device ``flag`` at 0, a copy of ``x``."""
-    return _quantize_rows(x.reshape(1, -1), fmt, backend, seed, fold,
-                          flag).reshape(x.shape)
+    with a device ``flag`` at 0, a copy of ``x``.  ``split`` ``(dim,
+    offset, whole)``: ``x`` holds entries ``offset ..`` of the ``whole``
+    of its dim ``dim`` (module docstring)."""
+    return _quantize_shard(x.reshape(1, -1), fmt, backend, seed, fold, flag,
+                           _index_map(x.shape, split)).reshape(x.shape)
 
 
 @fake_quant.register_fake
-def _(x, fmt, backend, seed, fold, flag=None):
+def _(x, fmt, backend, seed, fold, flag=None, split=None):
     return torch.empty_like(x)
 
 
-def _fake_quant_vmap(info, in_dims, x, fmt, backend, seed, fold, flag=None):
+def _fake_quant_vmap(info, in_dims, x, fmt, backend, seed, fold, flag=None,
+                     split=None):
     """Batched over examples: one row per example, one shared draw.  The
     flag is the layer's, never batched."""
     if len(in_dims) > 5 and in_dims[5] is not None:
         raise ValueError("fake_quant: the policy flag cannot be batched")
     bdim = in_dims[0]
     if bdim is None:
-        return fake_quant(x, fmt, backend, seed, fold, flag), None
-    return _quantize_per_example(x.movedim(bdim, 0), fmt, backend, seed,
-                                 fold, flag), 0
+        return fake_quant(x, fmt, backend, seed, fold, flag, split), None
+    xb = x.movedim(bdim, 0)
+    return _quantize_per_example(xb, fmt, backend, seed, fold, flag,
+                                 _index_map(xb.shape[1:], split)), 0
 
 
 fake_quant.register_vmap(_fake_quant_vmap)
@@ -142,34 +189,37 @@ fake_quant.register_vmap(_fake_quant_vmap)
 
 @torch.library.custom_op("repro_torch::fake_quant_rows", mutates_args=())
 def fake_quant_rows(x: torch.Tensor, fmt: str, backend: str, seed: int,
-                    fold: int, flag: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
+                    fold: int, flag: Optional[torch.Tensor] = None,
+                    split: Optional[List[int]] = None) -> torch.Tensor:
     """Quantize each ``x[i]`` (the leading axis: the examples) on its own
     scale, all against one draw; with a device ``flag`` at 0, a copy of
     ``x``.  The op behind ``per_example=True``: under ``vmap`` each lane's
     rows stay rows of one call, so per-example operands quantize alike
-    inside and outside the vmap engine."""
-    return _quantize_per_example(x, fmt, backend, seed, fold, flag)
+    inside and outside the vmap engine.  ``split``: as :func:`fake_quant`
+    takes it, ``dim`` >= 1 (a dim of each example's row)."""
+    return _quantize_per_example(x, fmt, backend, seed, fold, flag,
+                                 _index_map(x.shape, split))
 
 
 @fake_quant_rows.register_fake
-def _(x, fmt, backend, seed, fold, flag=None):
+def _(x, fmt, backend, seed, fold, flag=None, split=None):
     return torch.empty_like(x)
 
 
 def _fake_quant_rows_vmap(info, in_dims, x, fmt, backend, seed, fold,
-                          flag=None):
+                          flag=None, split=None):
     """Batched: the lanes' rows, lane-major, are the rows of one call."""
     if len(in_dims) > 5 and in_dims[5] is not None:
         raise ValueError("fake_quant_rows: the policy flag cannot be "
                          "batched")
     bdim = in_dims[0]
     if bdim is None:
-        return fake_quant_rows(x, fmt, backend, seed, fold, flag), None
+        return fake_quant_rows(x, fmt, backend, seed, fold, flag,
+                               split), None
     xb = x.movedim(bdim, 0)
     rows = xb.reshape(xb.shape[0] * xb.shape[1], *xb.shape[2:])
-    return fake_quant_rows(rows, fmt, backend, seed, fold,
-                           flag).reshape(xb.shape), 0
+    return fake_quant_rows(rows, fmt, backend, seed, fold, flag,
+                           split).reshape(xb.shape), 0
 
 
 fake_quant_rows.register_vmap(_fake_quant_rows_vmap)
@@ -246,17 +296,28 @@ class _QSpec(NamedTuple):
     tap_norm: Optional[Callable] = None   # (spec, x, g, flag) -> tap's grad
 
 
+# the operand each fold quantizes: x (0, 4), w (1, 2), the output's
+# cotangent (3, 5), as indices into an _ESpec's ``split``
+_FOLD_OPERAND = (0, 1, 1, 2, 0, 2)
+
+
 def _q(t, spec, fold: int, on: bool, batched: bool, flag=None):
     """Fold ``fold`` of a ``_QSpec`` or ``_ESpec`` layer applied to ``t``
     when ``on`` and the layer is quantized: one row per example for a
     batched operand in per-example mode, else the whole tensor; ``t``
-    itself where the device ``flag`` is 0."""
+    itself where the device ``flag`` is 0.  A shard of a split operand
+    (an ``_ESpec``'s ``split``) rounds as the whole operand's slice."""
     if not (on and spec.quantized):
         return t
+    splits = getattr(spec, "split", None)
+    split = (list(splits[_FOLD_OPERAND[fold]])
+             if splits is not None and splits[_FOLD_OPERAND[fold]]
+             is not None else None)
     if batched and spec.per_example:
         return fake_quant_rows(t, spec.fmt, spec.backend, spec.seed, fold,
-                               flag)
-    return fake_quant(t, spec.fmt, spec.backend, spec.seed, fold, flag)
+                               flag, split)
+    return fake_quant(t, spec.fmt, spec.backend, spec.seed, fold, flag,
+                      split)
 
 
 def _device_flag(flag, fmt: str):
@@ -371,6 +432,9 @@ class _ESpec(NamedTuple):
     q_wgrad: bool
     per_example: bool     # batched operands quantized one row per example
     tap_norm: Optional[Callable] = None   # (spec, x, g, flag) -> tap's grad
+    # (x, w, out): each None or the (dim, offset, whole) of the operand's
+    # dim split over the model group; None: nothing split
+    split: Optional[Tuple] = None
 
 
 def einsum(spec: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -442,7 +506,8 @@ def qeinsum(spec: str, x: torch.Tensor, w: torch.Tensor, *, seed: int,
             flag, fmt: str = "luq_fp4", q_fwd: bool = True,
             q_dgrad: bool = True, q_wgrad: bool = True, backend: str = None,
             per_example: bool = False, tap: Optional[torch.Tensor] = None,
-            tap_norm: Optional[Callable] = None) -> torch.Tensor:
+            tap_norm: Optional[Callable] = None,
+            split: Optional[Tuple] = None) -> torch.Tensor:
     """Quantization-aware einsum of an activation ``x`` (leading axis: the
     examples) and a weight ``w``, or a second activation in ``w``'s slot
     (Mamba-2's SSD contractions, ``C B^T`` and ``gate @ (x dt)``): outside
@@ -460,8 +525,14 @@ def qeinsum(spec: str, x: torch.Tensor, w: torch.Tensor, *, seed: int,
     backward gives the tap the value of ``tap_norm`` on this einsum's
     ``_ESpec``, input and output cotangent.  The ghost engine's hooks ask
     for both (its per-example weight-gradient norms); this module knows
-    nothing else of that engine."""
+    nothing else of that engine.
+
+    ``split`` ``(x, w, out)``: on a model-parallel mesh, each None or the
+    ``(dim, offset, whole)`` of that operand's dim this rank holds a
+    shard of (module docstring); the output's entry is the cotangent's."""
     dflag, quantized = _device_flag(flag, fmt)
+    if split is not None and all(s is None for s in split):
+        split = None
     if tap is None and not quantized:
         return einsum(spec, x, w)
     if tap is not None and tap_norm is None:
@@ -469,5 +540,8 @@ def qeinsum(spec: str, x: torch.Tensor, w: torch.Tensor, *, seed: int,
     _terms(spec)
     espec = _ESpec(spec, fmt, qbackend.resolve_backend(backend), int(seed),
                    quantized, bool(q_fwd), bool(q_dgrad), bool(q_wgrad),
-                   bool(per_example), tap_norm)
+                   bool(per_example), tap_norm,
+                   None if split is None else tuple(
+                       None if s is None else tuple(int(v) for v in s)
+                       for s in split))
     return _QEinsum.apply(x, w, tap, dflag, espec)

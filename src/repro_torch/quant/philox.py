@@ -149,6 +149,44 @@ def row_uniforms(key: Key, n: int, device="cpu") -> torch.Tensor:
     return u
 
 
+def global_index(e: torch.Tensor, index_map) -> torch.Tensor:
+    """The index in the whole row of element ``e`` of a shard's row under
+    ``index_map`` ``(blk, gblk, off)``: a row whose dim of ``n_glob``
+    entries, ``inner`` elements each, holds only ``n_loc`` of them from
+    entry ``o`` keeps runs of ``blk = n_loc inner`` elements, each at
+    ``off = o inner`` within a run of ``gblk = n_glob inner`` of the whole
+    row: ``(e // blk) gblk + off + e % blk``."""
+    blk, gblk, off = (int(v) for v in index_map)
+    return (e // blk) * gblk + off + e % blk
+
+
+def mapped_uniforms(key: Key, n: int, index_map, device="cpu"):
+    """(n,) float32 uniforms of a shard's row of n elements, each drawn
+    at its index in the whole row (:func:`global_index`): what
+    :func:`row_uniforms` gives the whole row, at the shard's elements.
+    Kept on the CPU as :func:`row_uniforms` keeps its draws."""
+    cache = torch.device(device).type == "cpu"
+    k = ((int(key[0]) & MASK32, int(key[1]) & MASK32), int(n),
+         tuple(int(v) for v in index_map))
+    u = _ROW_CACHE.get(k) if cache else None
+    if u is not None:
+        _ROW_CACHE.move_to_end(k)
+        return u
+    out = torch.empty((n,), dtype=torch.float32, device=device)
+    step = 4 * _CHUNK_GROUPS
+    for e0 in range(0, n, step):
+        e = torch.arange(e0, min(n, e0 + step), device=device)
+        g = global_index(e, index_map)
+        u4 = _group_uniforms(key, 0, g // 4)
+        out[e0:e0 + len(e)] = torch.gather(u4, 1, (g % 4)[:, None])[:, 0]
+    if cache and 4 * n <= _ROW_CACHE_BYTES:
+        _ROW_CACHE[k] = out
+        while sum(t.numel() for t in _ROW_CACHE.values()) * 4 \
+                > _ROW_CACHE_BYTES:
+            _ROW_CACHE.popitem(last=False)
+    return out
+
+
 def split_keys(keys: Keys, rows: int):
     """``(list of keys, per_row)``: one ``(k0, k1)`` pair shared by every
     row, or one key a row: a sequence of ``rows`` pairs, or a (rows, 2)

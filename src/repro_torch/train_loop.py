@@ -69,6 +69,14 @@ MAX all-reduce of the ranks' requests, so a request on any rank stops
 every rank at the same step.  Only rank 0 prints and writes checkpoints
 (the others wait at a barrier); every rank restores.
 
+On a mesh whose ``model`` axis has degree > 1 each rank holds its blocks
+of the params and optimizer state (``TrainSetup.shard``), the replica
+check compares them over the data axes only (the ranks that hold the
+same blocks), and a checkpoint holds the whole tree, as the
+reference's does: every rank gathers it (``TrainSetup.unshard``) and
+rank 0 writes it; a restore, on any mesh, takes this rank's blocks of
+it.
+
 Also supports mode="pls" / mode="static" (ablations / baselines) and
 dp.enabled=False (the non-private comparison in paper Fig. 1a).
 """
@@ -87,6 +95,7 @@ from repro_torch.config import RunConfig, validate_executor
 from repro_torch.core.scheduler import DPQuantScheduler
 from repro_torch.data.poisson import PoissonSampler
 from repro_torch.dp.accountant import RDPAccountant
+from repro_torch.launch.mesh import DATA_AXES
 from repro_torch.launch.steps import EpochRunner, build_train_setup
 from repro_torch.models.registry import Model, build_model
 from repro_torch.optim.schedule import make_schedule
@@ -124,6 +133,12 @@ class Trainer:
                  if mesh is not None else None)
         self._world = (world if world is not None and world.group is not None
                        else None)
+        # the ranks that hold the same blocks of the params: the data axes
+        replicas = (mesh.axis_group(tuple(a for a in DATA_AXES
+                                          if a in mesh.axis_names))
+                    if mesh is not None else None)
+        self._replicas = (replicas if replicas is not None
+                          and replicas.group is not None else None)
         self.rank = 0 if mesh is None else mesh.rank
         self.setup = build_train_setup(self.model, run, mesh)
         self.step_fn = self.setup.step_fn
@@ -152,7 +167,7 @@ class Trainer:
         self.scheduler = DPQuantScheduler(
             n_layers=run.model.policy_len(), dp=run.dp, mode=mode,
             seed=run.seed)
-        self.params = self.model.init(run.seed)
+        self.params = self.setup.shard(self.model.init(run.seed))
         self.opt_state = self.setup.opt_init_fn(self.params)
         self.step = 0
         self.history: List[EpochStats] = []
@@ -281,8 +296,8 @@ class Trainer:
                            quantized_layers=len(policy), accuracy=acc,
                            wall_s=time.time() - t0)
         self.history.append(stats)
-        if self._world is not None and not replicas_agree(
-                [*self.params.values(), self.qflags], self._world):
+        if self._replicas is not None and not replicas_agree(
+                [*self.params.values(), self.qflags], self._replicas):
             raise RuntimeError(f"epoch {epoch}: the ranks' params or "
                                f"policies differ")
         if self.ckpt is not None:
@@ -429,15 +444,19 @@ class Trainer:
         the sampler's and the probe RNG's stream positions, the history
         and, for a preemption save (``mid_epoch``), the epoch's step index
         and its losses so far.  On a mesh rank 0 writes it and every rank
-        waits at a barrier until it is on disk."""
+        waits at a barrier until it is on disk.  The tree is the whole one
+        (every rank gathers its blocks on a model-parallel mesh)."""
+        tree = {"params": self.setup.unshard(self.params),
+                "opt": self.setup.unshard(self.opt_state)}
         if self.rank == 0:
-            self._save(epoch, epoch_step, epoch_losses, mid_epoch)
+            self._save(tree, epoch, epoch_step, epoch_losses, mid_epoch)
         if self._world is not None:
             if self.rank == 0:
                 self.ckpt.wait()
             dist.barrier(group=self._world.group)
 
-    def _save(self, epoch, epoch_step, epoch_losses, mid_epoch) -> None:
+    def _save(self, tree, epoch, epoch_step, epoch_losses,
+              mid_epoch) -> None:
         aux = {
             "accountant": self.accountant.state_dict(),
             "scheduler": self.scheduler.state_dict(),
@@ -450,8 +469,7 @@ class Trainer:
             "epoch_step": int(epoch_step),
             "epoch_losses": [float(x) for x in epoch_losses],
         }
-        self.ckpt.save(self.step, {"params": self.params,
-                                   "opt": self.opt_state}, aux)
+        self.ckpt.save(self.step, tree, aux)
 
     def restore_latest(self) -> Optional[int]:
         """Restore the latest valid checkpoint; returns its epoch (None:
@@ -459,13 +477,14 @@ class Trainer:
         restored tensors into its static buffers at its next call."""
         if self.ckpt is None:
             return None
-        res = self.ckpt.restore_latest({"params": self.params,
-                                        "opt": self.opt_state})
+        res = self.ckpt.restore_latest({
+            "params": self.setup.whole_like(self.params),
+            "opt": self.setup.whole_like(self.opt_state)})
         if res is None:
             return None
         _, tree, aux = res
-        self.params = tree["params"]
-        self.opt_state = tree["opt"]
+        self.params = self.setup.shard(tree["params"])
+        self.opt_state = self.setup.shard(tree["opt"])
         self.accountant = RDPAccountant.from_state_dict(aux["accountant"])
         self.scheduler.load_state_dict(aux["scheduler"])
         self.sampler.load_state_dict(aux["sampler"])

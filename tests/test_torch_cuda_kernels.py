@@ -865,3 +865,113 @@ def test_fake_cuda_traces_count_as_meta_traces(cuda):
                     "peak_bytes", "warnings"):
             assert fake[key] == meta[key], key
         assert oa.kernel_calls(fake)["luq_quant"] > 0
+
+
+# --------------------------------------------------------------------------- #
+# the kernels on shards of an operand split over ranks (the model axis)
+# --------------------------------------------------------------------------- #
+# (whole shape, split dim, rows, parts): maps that keep Philox groups whole
+# (a q weight split by heads of 80, a dispatch row split by experts) and
+# maps that do not (an MLP of 6,910 split in two, an odd inner width)
+SPLIT_CASES = [((2560, 32, 80), 1, 1, 2), ((1, 8, 80, 64), 1, 1, 2),
+               ((4, 16, 6910), 2, 4, 2), ((3, 9, 6, 5), 1, 3, 3)]
+
+
+@pytest.mark.parametrize("shape,dim,rows,parts", SPLIT_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("codes", [False, True])
+def test_luq_round_on_shards_is_the_whole_operands_slice(
+        cuda, shape, dim, rows, parts, dtype, codes):
+    """``luq_row_max`` of each shard, their max, ``luq_round`` under the
+    shard's index map: bitwise the plain version, and together the whole
+    operand's ``luq_quant`` bit for bit; with the flag at 0 the shard."""
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    whole = torch.randn(shape, device=cuda, generator=gen).to(dtype)
+    key = fq.stream_key(101, 3)
+    want = ops.luq_quant(whole.reshape(rows, -1), key, codes=codes).reshape(
+        shape)
+    n = shape[dim] // parts
+    shards = [whole.narrow(dim, i * n, n).contiguous() for i in range(parts)]
+    alpha = torch.stack([ops.luq_row_max(s.reshape(rows, -1))
+                         for s in shards]).amax(dim=0)
+    assert torch.equal(alpha, whole.reshape(rows, -1).float().abs().amax(1))
+    for i, s in enumerate(shards):
+        imap = fq._index_map(s.shape, (dim, i * n, shape[dim]))
+        got = ops.luq_round(s.reshape(rows, -1), key, alpha, imap,
+                            codes=codes)
+        assert torch.equal(got, ref.luq_round_ref(
+            s.reshape(rows, -1), key, alpha, imap, codes))
+        assert torch.equal(got.reshape(s.shape), want.narrow(dim, i * n, n))
+        off = torch.zeros((), device=cuda)
+        passed = ops.luq_round(s.reshape(rows, -1), key, alpha, imap,
+                               codes=codes, flag=off)
+        assert torch.equal(passed, s.reshape(rows, -1).to(passed.dtype))
+
+
+@pytest.mark.parametrize("B,D,split", [(4, 1_000_003, 700_001), (1, 5000, 17),
+                                       (64, 12289, 12288)])
+def test_split_clip_equals_the_whole_rows(cuda, B, D, split):
+    """Rows split over two ranks (``split`` columns each, the rest
+    replicated and counted by the first): ``clip_sumsq`` of each, summed,
+    then ``clip_apply``: norms rtol 1e-5 of ``clip_and_sum``'s, each
+    rank's sums within 1e-5 of sum_b |scale_b g_bd| of its columns; on
+    one rank the two passes are ``clip_and_sum``'s bits."""
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    whole = torch.randn(B, 2 * split + D, device=cuda, generator=gen) * 1e-3
+    want, norms = ops.clip_and_sum(whole, 1.0)
+    locs = [torch.cat([whole[:, i * split:(i + 1) * split],
+                       whole[:, 2 * split:]], dim=1) for i in range(2)]
+    sumsq = sum(ops.clip_sumsq(t, t.shape[1] if i == 0 else split)
+                for i, t in enumerate(locs))
+    scale = torch.clamp(1.0 / torch.clamp(norms, min=1e-12), max=1.0)
+    for i, t in enumerate(locs):
+        got, got_norms = ops.clip_apply(t, sumsq, 1.0)
+        torch.testing.assert_close(got_norms, norms, rtol=1e-5, atol=0.0)
+        w = torch.cat([want[i * split:(i + 1) * split], want[2 * split:]])
+        tol = 1e-5 * (scale @ t.abs()) + 1e-12
+        assert ((got - w).abs() <= tol).all()
+    one, one_norms = ops.clip_apply(whole, ops.clip_sumsq(whole), 1.0)
+    assert torch.equal(one, want) and torch.equal(one_norms, norms)
+
+
+@pytest.mark.parametrize("B,T,D,parts", [(4, 256, 2560, 2), (3, 33, 30, 3)])
+@pytest.mark.parametrize("tap", ["column", "row"])
+def test_ghost_norm_on_shards_adds_up(cuda, B, T, D, parts, tap):
+    """A column-parallel tap (the cotangent split) or a row-parallel one
+    (the input split): each shard's ``ghost_norm_sq`` given the split
+    operand's scales and index map, within 1e-5 of the plain version's,
+    and their sum within 1e-5 of sum_ij |XX_ij GG_ij| of the whole
+    operands' norm."""
+    gen = torch.Generator(device=cuda).manual_seed(B * T + D)
+    x = torch.randn(B, T, D, device=cuda, generator=gen).bfloat16()
+    g = (torch.randn(B, T, D, device=cuda, generator=gen) * 1e-3).bfloat16()
+    kx, kg = fq.stream_key(7, 4), fq.stream_key(7, 5)
+    want = ops.ghost_norm_sq(x, g, kx, kg)
+    n = D // parts
+    split = x if tap == "row" else g
+    alpha = split.reshape(B, -1).float().abs().amax(1)
+    total = torch.zeros_like(want)
+    for i in range(parts):
+        s = split[:, :, i * n:(i + 1) * n].contiguous()
+        imap = fq._index_map(s.shape, (2, i * n, D))
+        kw = (dict(alpha_x=alpha, map_x=imap) if tap == "row"
+              else dict(alpha_g=alpha, map_g=imap))
+        args = (s, g, kx, kg) if tap == "row" else (x, s, kx, kg)
+        part = ops.ghost_norm_sq(*args, **kw)
+        plain = ref.ghost_norm_ref(*args, None, kw.get("alpha_x"),
+                                   kw.get("alpha_g"), kw.get("map_x"),
+                                   kw.get("map_g"))
+        sq = ref.luq_round_ref(s.reshape(B, -1), kx if tap == "row" else kg,
+                               alpha, imap).reshape(s.shape).double()
+        other = (ref.luq_quant_ref(g.reshape(B, -1), kg) if tap == "row"
+                 else ref.luq_quant_ref(x.reshape(B, -1), kx)).reshape(
+            B, T, D).double()
+        tol = 1e-5 * ((sq @ sq.transpose(1, 2)).abs()
+                      * (other @ other.transpose(1, 2)).abs()).sum((1, 2))
+        assert ((part.double() - plain.double()).abs() <= tol).all()
+        total += part
+    xq = ref.luq_quant_ref(x.reshape(B, -1), kx).reshape(x.shape).double()
+    gq = ref.luq_quant_ref(g.reshape(B, -1), kg).reshape(g.shape).double()
+    tol = 1e-5 * ((xq @ xq.transpose(1, 2)).abs()
+                  * (gq @ gq.transpose(1, 2)).abs()).sum(dim=(1, 2))
+    assert ((total.double() - want.double()).abs() <= tol).all()

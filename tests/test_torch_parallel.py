@@ -4,8 +4,9 @@ vmap engine) against the JAX package's, on the CPU over gloo.
 
 The partitioner: every case of ``tests/test_partitioner.py`` through both
 packages' ``assign_spec`` on the same duck-typed mesh.  Validation: the
-reference's errors for ``ghost_sharded``, ``partial_accum``, a model axis
-of degree > 1, and the scan executor under gloo on CUDA.
+reference's errors for ``ghost_sharded``, ``partial_accum``, a family
+without ``param_axes`` on a model axis of degree > 1, and the scan
+executor under gloo on CUDA.
 
 One spawn of four gloo ranks as a (pod 2, data 2) mesh
 (``_RANK_SCRIPT``) runs, while this process compiles the JAX references:
@@ -183,8 +184,10 @@ def test_grad_mode_validation_matches_jax(field, value, match):
 
 def test_model_axis_raises():
     """``ghost_sharded='on'`` on a model-parallel mesh raises the
-    reference's error; any training mesh with a model axis of degree > 1
-    raises "not ported", never trains replicated."""
+    reference's error; a family without ``param_axes`` (BERT) on a mesh
+    with a model axis of degree > 1 raises "not ported", never trains
+    replicated."""
+    from repro_torch.configs import get_smoke_config
     cfg = ModelConfig(**GHOST_CFG)
     model = build_model(cfg, QuantConfig(fmt="none"), device="cpu")
     mesh = FakeMesh((2, 2), ("data", "model"))
@@ -197,10 +200,12 @@ def test_model_axis_raises():
             "data axes (model axis degree 1); use 'auto'/'off' on "
             "model-parallel meshes")):
         steps.build_train_setup(model, run, mesh)
+    bert = get_smoke_config("bert-snli")
+    bmodel = build_model(bert, QuantConfig(fmt="none"), device="cpu")
     for gs in ("auto", "off"):
-        run = RunConfig(model=cfg, dp=DPConfig(ghost_sharded=gs))
+        run = RunConfig(model=bert, dp=DPConfig(ghost_sharded=gs))
         with pytest.raises(NotImplementedError, match="not ported"):
-            steps.build_train_setup(model, run, mesh)
+            steps.build_train_setup(bmodel, run, mesh)
 
 
 def test_scan_under_gloo_on_cuda_raises(monkeypatch):
