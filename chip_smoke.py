@@ -348,7 +348,28 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    on both ranks, the update within ``TP_SUM_LIMITS`` of the one-process
    step's; prints each part's walls, both ranks' peaks and the
    one-process peak, the step wall and the count and bytes of the
-   model-group all-reduces.
+   model-group all-reduces;
+23. serving on the model axis, in phase 22's two ranks after their
+   training checks: (a) the three serving kernels on a rank's shard at
+   yi-6b's shapes, timed on rank 0 (``luq_matmul`` on the rank's 4096 x
+   32000 of the 64000-column head, 4 rows with a key a row and 1 row:
+   the whole head's columns bit for bit; ``decode_attn``'s two passes
+   apart, int8 and luq_fp4, at 4 slots x 4 KV heads x 8, head_dim 128,
+   each rank 512 of 1024 rows: merged over the ranks bit for bit the
+   whole cache's output; ``kv_quant_write`` of a tick's rows and of a
+   prompt's rows into a sequence shard: the held rows bitwise the whole
+   cache's slice, the others untouched); (b) yi-6b at full width cut to
+   ``TP_SERVE_LAYERS`` layers through ``ContinuousEngine`` on the mesh,
+   eager (gloo), the luq_fp4 head on the cuda backend, the workload's 8
+   greedy requests on 4 slots of 1024 positions with an int8 and a
+   luq_fp4 cache, split by heads and then by rows (``kv_seq``, forced by
+   a ``sharding_overrides`` rule): both ranks' tokens the same, the first
+   prompt's logits and the tokens within ``TP_SERVE_LIMITS`` of rank 0's
+   one-process engine, a control (rank 1's head keyed from another
+   seed) beyond them, every logits head on a vocab shard and, split by
+   rows, every KV write and attention on a sequence shard; (c)
+   arctic-480b at phase 22b's cut, oneshot in float32: a prefill and 8
+   decode steps against one process at rtol 2e-4 / atol 2e-5.
 
 Every kernel row's ``bound_ms`` (and its side bounds) is
 ``repro_torch.launch.roofline.kernel_cost`` at the card's peaks, the
@@ -4196,6 +4217,478 @@ def _hold_tp_limits(name: str, rel: dict) -> None:
                                  f"limit {limit}")
 
 
+# Phase 23 (serving on the model axis, in phase 22's ranks).  23b serves
+# yi-6b at full width cut to TP_SERVE_LAYERS layers: whole, over gloo on
+# the one card, eager, the engine took 25-40 s a run (400-640 ms a tick,
+# prefills included; 173 s for the phase's five runs), and at 8 layers
+# 36-79 s for the five runs, beyond the script's time.
+TP_SERVE_LAYERS = 4
+# 23b's limits: the first prompt's prefill logits through the sharded
+# model against the one-process model's (relative L2, at most), and the
+# share of the 8 requests' 256 greedy tokens equal to the one-process
+# engine's (at least), each KV format and cache split; each control (rank
+# 1's logits head keyed from another seed) must fail both.  Readings on
+# an H100 80GB HBM3 at 700 W, 4 layers: logits 0.0809 (split by heads)
+# and 0.0519 (by rows), the same for both KV formats; token shares 0.086 /
+# 0.230 (heads, int8 / luq_fp4) and 0.098 / 0.297 (rows); the control
+# 0.391 and 0.016.  (8 layers: 0.0695 and 0.0622, shares 0.086-0.156,
+# control 0.390 and 0.023; whole, 32 layers: 0.097-0.099 and
+# 0.098-0.137, control 0.387 and 0.031.)  A bf16 trunk of other GEMM
+# widths and float32 row-parallel sums moves the last hidden row by bf16
+# roundings, which flip LUQ codes of the head's operand (ROADMAP.md
+# section 3), and the greedy tokens of the random-init model follow the
+# flips.
+TP_SERVE_LIMITS = {"logits_rel_l2": 0.2, "token_share": 0.06}
+# 23c: arctic-480b at phase 22b's cut, float32, oneshot: 2 prompts of 64
+# tokens, 8 decode steps
+TP_MOE_SERVE = {"batch": 2, "prompt": 64, "steps": 8}
+
+
+def _tp_timed(torch, m, out, name, fn, plain, bound, library=None,
+              extra=None, plain_reps=5):
+    """``out[name]``: rank 0's times of ``fn`` (its kernels), ``plain``
+    and ``library`` and ``bound``, with ``extra``; the other ranks wait."""
+    import torch.distributed as dist
+    dist.barrier()
+    res = {}
+    if m.index == 0:
+        res = {"ms": time_ms(torch, fn, 20),
+               "plain_ms": time_ms(torch, plain, plain_reps), **bound,
+               "library_ms": None if library is None
+               else time_ms(torch, library, 20)}
+    dist.barrier()
+    res.update(extra or {})
+    out[name] = res
+
+
+def _tp_serve_kernels(torch, ops, ref, mesh, sm_clock_mhz) -> dict:
+    """23a on one rank: the three serving kernels on this rank's shard at
+    yi-6b's shapes, each against the kernel's call on the whole operand
+    (the same inputs on every rank) and its plain version: ``luq_matmul``
+    on the rank's 4096 x 32000 of the 64000-column head, given the whole
+    head's scale (one all-reduce MAX) and its column offset, 4 rows with a
+    device key each (a decode tick) and 1 row (a prefill), the whole
+    head's columns bit for bit; ``decode_attn`` over the rank's 512 of
+    1024 rows (4 slots x 4 KV heads x 8 query heads, head_dim 128), its
+    first pass on its rows, the ranks' partials gathered in rank order,
+    the merge over all, the whole cache's output bit for bit (int8 and
+    luq_fp4; slots whose rows lie on one rank only among them);
+    ``kv_quant_write`` of a tick's rows (4 slots, one past the end) and of
+    a 700-token prompt's 32 layers into the rank's rows, the held rows
+    the whole cache's slice bit for bit, the others untouched.  Rank 0
+    times each (the merge on the gathered partials; the collective
+    outside the time)."""
+    from repro_torch.parallel import axes as pax
+
+    m = mesh.model_group()
+    with pax.partitioning_context(m):
+        return _tp_serve_kernel_checks(torch, ops, ref, m, sm_clock_mhz)
+
+
+def _tp_serve_kernel_checks(torch, ops, ref, m, sm_clock_mhz) -> dict:
+    """:func:`_tp_serve_kernels` inside the model group's context."""
+    from repro_torch.models.common import logits_keys
+    from repro_torch.parallel.collectives import (gather_from_model,
+                                                  model_reduce_)
+    from repro_torch.quant import kv_cache as kvc
+    from repro_torch.quant import philox
+    from repro_torch.quant.formats import luq_fp4, luq_fp4_codes
+
+    dev = TP_DEVICE
+    out = {}
+    # the logits head: yi-6b's (4096, 64000), this rank's half
+    K, N = 4096, 64_000
+    n = N // m.size
+    c0 = m.index * n
+    for name, folds in (("luq_matmul[tp_decode]",
+                         [2 * p + 1 for p in (100, 300, 700, 1023)]),
+                        ("luq_matmul[tp_prefill]", [2 * 512])):
+        R = len(folds)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 30 + R)
+        a = torch.randn(R, K, device=dev, generator=gen)
+        b = torch.randn(K, N, device=dev, generator=gen) / 64
+        keys = logits_keys(torch.tensor(folds, dtype=torch.int32,
+                                        device=dev))
+        alpha_a = a.abs().amax(dim=1)
+        whole = ops.luq_matmul(a, b, keys, alpha_a, b.abs().amax())
+        shard = b[:, c0:c0 + n].contiguous()
+        del b
+        alpha_b = model_reduce_(shard.abs().amax().reshape(1).clone(),
+                                "max")[0]
+        args = (a, shard, keys, alpha_a, alpha_b)
+        got = ops.luq_matmul(*args, cols=(c0, N))
+        if not torch.equal(got, whole[:, c0:c0 + n]):
+            raise AssertionError(f"23a {name}: the shard's logits are not "
+                                 f"the whole head's columns")
+        del whole
+        if not torch.equal(got, ops.luq_matmul(*args, cols=(c0, N))):
+            raise AssertionError(f"23a {name}: two runs differ")
+        want = ref.luq_matmul_keys_ref(*args, cols=(c0, N))
+        # the tolerance from the quantized operands, and the yardstick's
+        # codes: each key's draw of the shard's columns
+        key_list = [(int(f), 17) for f in folds]
+        ua = torch.stack([philox.uniforms(k, 0, K, dev) for k in key_list])
+        aq = luq_fp4(a, ua, alpha_a.reshape(-1, 1))
+        ca = luq_fp4_codes(a, ua, alpha_a.reshape(-1, 1))
+        cb, err = [], 0.0
+        for i, k in enumerate(key_list):
+            ub = philox.uniforms_2d(k, 1, K, n, N, c0, dev)
+            tol = 1e-5 * (aq[i].abs() @ luq_fp4(shard, ub, alpha_b).abs()) \
+                + 1e-6
+            diff = (got[i] - want[i]).abs()
+            if not (diff <= tol).all():
+                raise AssertionError(f"23a {name} row {i}: max abs err "
+                                     f"{diff.max().item()}")
+            err = max(err, diff.max().item())
+            cb.append(luq_fp4_codes(shard, ub, alpha_b))
+            del ub, tol
+        cb = torch.stack(cb)
+        scale = (alpha_a * alpha_b).reshape(-1, 1, 1)
+        _tp_timed(torch, m, out, name,
+                  lambda: ops.luq_matmul(*args, cols=(c0, N)),
+                  lambda: ref.luq_matmul_keys_ref(*args, cols=(c0, N)),
+                  kernel_bound("luq_matmul", sm_clock_mhz=sm_clock_mhz,
+                               rows=R, k=K, n=n, keys=R),
+                  lambda: scale * torch.bmm(ca[:, None, :], cb,
+                                            out_dtype=torch.float32),
+                  {"max_abs_err": err, "shard": [K, n], "columns": c0},
+                  plain_reps=2)
+        del a, shard, got, want, cb, args
+        _free(torch)
+
+    # decode attention over a sequence shard: 4 slots x 4 KV heads x 8
+    # query heads, 1024 rows, 512 a rank
+    B, KV, g, hd, S = 4, 4, 8, 128, 1024
+    rows = S // m.size
+    r0 = m.index * rows
+    sl = slice(r0, r0 + rows)
+    pos_list = [63, 300, 700, S - 1]
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for fmt in ("int8", "luq_fp4"):
+        name = f"decode_attn_fused[tp_seq/{fmt}]"
+        gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+        kc, ks = kvc.kv_quant(fmt, torch.randn(B, KV, S, hd, device=dev,
+                                               generator=gen))
+        vc, vs = kvc.kv_quant(fmt, torch.randn(B, KV, S, hd, device=dev,
+                                               generator=gen))
+        q = torch.randn(B, KV * g, hd, device=dev, generator=gen)
+        kw = dict(fmt=fmt, n_kv=KV, scale=hd ** -0.5)
+        whole = ops.decode_attn_fused(q, kc, vc, ks, vs, pos, **kw)
+        mine = [t[:, :, sl].contiguous() for t in (kc, vc, ks, vs)]
+        part = ops.decode_attn_split(q, *mine, pos, row0=r0, seq_len=S,
+                                     **kw)
+        parts = gather_from_model(part[None], 0)
+        merge = dict(batch=B, n_kv=KV, group=g, head_dim=hd, rows=rows,
+                     seq_len=S)
+        got = ops.decode_attn_merge(parts, pos, **merge)
+        if not torch.equal(got, whole):
+            raise AssertionError(f"23a {name}: the merged shards are not "
+                                 f"the whole cache's output")
+        plain_part = ref.decode_attn_partial_ref(q, *mine, pos, row0=r0,
+                                                 **kw)
+        plain = ref.decode_attn_merge_ref(gather_from_model(
+            plain_part[None], 0))
+        err = (got - plain).abs().max().item()
+        torch.testing.assert_close(got, plain, atol=1e-5, rtol=1e-5)
+        kd = kvc.kv_dequant(fmt, mine[0], mine[2])
+        vd = kvc.kv_dequant(fmt, mine[1], mine[3])
+        mask = (torch.arange(r0, r0 + rows, device=dev)[None, :]
+                <= pos[:, None])[:, None, None, :]
+        qd = q.reshape(B, KV, g, hd)
+        live = sum(min(rows, max(0, min(p, S - 1) + 1 - r0))
+                   for p in pos_list)
+        # the two passes (the merge on the gathered partials; the
+        # collective between them not timed)
+        _tp_timed(
+            torch, m, out, name,
+            lambda: (ops.decode_attn_split(q, *mine, pos, row0=r0,
+                                           seq_len=S, **kw),
+                     ops.decode_attn_merge(parts, pos, **merge)),
+            lambda: ref.decode_attn_partial_ref(q, *mine, pos, row0=r0,
+                                                **kw),
+            kernel_bound("decode_attn_fused", batch=B, kv_heads=KV,
+                         group=g, head_dim=hd, code_dim=mine[0].shape[-1],
+                         live_rows=live),
+            lambda: sdpa(qd, kd, vd, attn_mask=mask, scale=hd ** -0.5),
+            {"max_abs_err": err, "rows": [r0, r0 + rows],
+             "live_rows": live})
+        del kc, vc, ks, vs, mine, whole, got, kd, vd
+        _free(torch)
+
+    # the KV write into a sequence shard: a tick's rows and a prompt's
+    for fmt in ("int8", "luq_fp4"):
+        for branch, (n0, n1, T, wpos) in (
+                ("decode", (4, 4, 1, [63, 700, S - 1, S + 5])),
+                ("prefill", (32, 4, 700, None))):
+            name = f"kv_quant_write[tp_seq/{fmt}/{branch}]"
+            gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+            k = (torch.randn(n0, n1, T, hd, device=dev, generator=gen)
+                 * 3).bfloat16()
+            v = torch.randn(n0, n1, T, hd, device=dev, generator=gen
+                            ).bfloat16()
+            w = (None if wpos is None else
+                 torch.tensor(wpos, device=dev).clamp(max=S - 1))
+            stale = _stale_kv_cache(torch, kvc, fmt, n0, n1, S, hd, gen)
+            whole = [c.clone() for c in stale]
+            ops.kv_quant_write(k, v, *whole, fmt, w)
+            mine = [c[:, :, sl].clone() for c in stale]
+            ops.kv_quant_write(k, v, *mine, fmt, w, r0, S)
+            if not all(torch.equal(a, b[:, :, sl])
+                       for a, b in zip(mine, whole)):
+                raise AssertionError(f"23a {name}: the shard's rows are not "
+                                     f"the whole cache's slice")
+            plain = [c[:, :, sl].clone() for c in stale]
+            ref.kv_quant_write_ref(k, v, *plain, fmt, w, r0, S)
+            if not all(torch.equal(a, b) for a, b in zip(mine, plain)):
+                raise AssertionError(f"23a {name}: the kernel and its plain "
+                                     f"version differ")
+            held = (sum(1 for p in wpos if r0 <= min(p, S - 1) < r0 + rows)
+                    if wpos is not None else max(0, min(rows, T - r0)))
+            per = 1 if wpos is not None else n0
+            _tp_timed(torch, m, out, name,
+                      lambda: ops.kv_quant_write(k, v, *mine, fmt, w, r0, S),
+                      lambda: ref.kv_quant_write_ref(k, v, *plain, fmt, w,
+                                                     r0, S),
+                      kernel_bound("kv_quant_write",
+                                   rows=2 * per * n1 * held, head_dim=hd,
+                                   code_dim=mine[0].shape[-1], elem=2,
+                                   slots=0 if wpos is None else n0),
+                      extra={"max_abs_err": 0.0, "held_rows": held,
+                             "rows": [r0, r0 + rows]})
+            del stale, whole, mine, plain, k, v
+    _free(torch)
+    return out
+
+
+@contextlib.contextmanager
+def _other_logits_key_on_rank(rank: int):
+    """On a rank other than 0, the logits head keyed from another seed
+    (a control of 23b)."""
+    from repro_torch.models import common as cm
+    seed = cm.LOGITS_SEED
+    if rank != 0:
+        cm.LOGITS_SEED = seed + 7919
+    try:
+        yield
+    finally:
+        cm.LOGITS_SEED = seed
+
+
+def _serve_reference(torch, model, params, wl, prompts) -> dict:
+    """One process's engine (graphed) of 23b's workload for each KV
+    format: its tokens, and the first prompt's prefill logits."""
+    from repro_torch.config import ServeConfig
+    from repro_torch.serve import ContinuousEngine
+
+    first = torch.from_numpy(prompts[0][None].astype("int64")).to(
+        TP_DEVICE)
+    out = {"tokens": {}, "logits": {}}
+    for kv_fmt in ("int8", "luq_fp4"):
+        engine = ContinuousEngine(model, params, ServeConfig(
+            max_slots=wl.SLOTS, max_seq=wl.MAX_SEQ,
+            max_new_tokens=wl.NEW_TOKENS, kv_fmt=kv_fmt))
+        for p in prompts:
+            engine.submit(p)
+        out["tokens"][kv_fmt] = {str(r): v.tokens.tolist()
+                                 for r, v in sorted(engine.run().items())}
+        out["logits"][kv_fmt] = model.prefill(params, {"tokens": first},
+                                              kv_fmt=kv_fmt)[0]
+        del engine
+        _free(torch)
+    return out
+
+
+def _tp_serve_engine(torch, ops, wl, mesh) -> dict:
+    """23b on one rank: yi-6b at full width, ``TP_SERVE_LAYERS`` layers,
+    through ``ContinuousEngine`` on the (1, ``TP_RANKS``) mesh, eager
+    (gloo), the luq_fp4 head on the ``cuda`` backend: the workload's 8
+    greedy requests on 4 slots of 1024 positions with an int8 and a
+    luq_fp4 KV cache, the cache split by heads (the rules' choice) and
+    then by rows (``kv_seq``, forced by a ``sharding_overrides`` rule; the
+    widths untouched).  Each run's tokens, the launch counts and the model
+    group's collectives of the run, its tick wall; rank 0 first runs one
+    process's engine of the same cut (graphed) and holds each run's
+    tokens (their share equal) and the first prompt's prefill logits
+    through the same layout (their relative L2) against it; a control
+    run keys rank 1's logits head from another seed."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.config import QuantConfig, ServeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.serve import ContinuousEngine
+    from repro_torch.serve.oneshot import build_oneshot_fns
+
+    m = mesh.model_group()
+    dev = TP_DEVICE
+    cfg = dataclasses.replace(get_config(wl.ARCH), n_layers=TP_SERVE_LAYERS)
+    quant = QuantConfig(fmt=wl.QUANT_FMT, backend="cuda")
+    models = {"kv_heads": build_model(cfg, quant, device=dev),
+              "kv_seq": build_model(dataclasses.replace(
+                  cfg, sharding_overrides=(("kv_heads", ()),)), quant,
+                  device=dev)}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = models["kv_heads"].prepare(models["kv_heads"].init(wl.SEED))
+    prompts = wl.prompts(cfg.vocab_size)
+    want = (_serve_reference(torch, models["kv_heads"], params, wl, prompts)
+            if m.index == 0 else None)
+    dist.barrier()
+    out = {"layers": TP_SERVE_LAYERS, "reference_s": time.perf_counter() - t0,
+           "runs": {}}
+    first = torch.from_numpy(prompts[0][None].astype("int64")).to(dev)
+
+    def serve(model, kv_fmt, control=False):
+        engine = ContinuousEngine(model, params, ServeConfig(
+            max_slots=wl.SLOTS, max_seq=wl.MAX_SEQ,
+            max_new_tokens=wl.NEW_TOKENS, kv_fmt=kv_fmt), mesh=mesh)
+        for p in prompts:
+            engine.submit(p)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        coll.reset_model_reduces()
+        t0 = time.perf_counter()
+        with _other_logits_key_on_rank(m.index if control else 0):
+            results = engine.run()
+        torch.cuda.synchronize()
+        res = {"wall_s": time.perf_counter() - t0,
+               "launches": ops.launch_counts(),
+               "model_collectives": dict(coll.MODEL_REDUCES)}
+        summary = engine.metrics.summary()
+        res["ticks"] = summary["decode_ticks"]
+        res["tick_wall_ms"] = summary["run_wall_s"] / res["ticks"] * 1e3
+        res["tokens"] = {str(r): v.tokens.tolist()
+                         for r, v in sorted(results.items())}
+        # the first prompt's prefill logits through the same layout
+        prefill, _ = build_oneshot_fns(model, wl.MAX_SEQ, kv_fmt,
+                                       layout=engine.layout)
+        with _other_logits_key_on_rank(m.index if control else 0):
+            logits, _ = prefill(engine.params, {"tokens": first})
+        if want is not None:
+            ref_tokens = want["tokens"][kv_fmt]
+            same = sum(int(a == b) for r, toks in res["tokens"].items()
+                       for a, b in zip(toks, ref_tokens[r]))
+            res["token_share"] = same / sum(len(t) for t in
+                                            ref_tokens.values())
+            w = want["logits"][kv_fmt]
+            res["logits_rel_l2"] = ((logits - w).norm() / w.norm()).item()
+        res.update(eager=engine._eager, kv_split=engine.layout.kv_split,
+                   decode_replays=engine.decode_replays,
+                   prefill_replays=engine.prefill_replays)
+        del engine, logits
+        _free(torch)
+        return res
+
+    for split, model in models.items():
+        for kv_fmt in ("int8", "luq_fp4"):
+            res = serve(model, kv_fmt)
+            if not (res["eager"] and res["kv_split"] == split
+                    and res["decode_replays"] == res["prefill_replays"]
+                    == 0):
+                raise AssertionError(f"23b {split} {kv_fmt}: eager "
+                                     f"{res['eager']}, split "
+                                     f"{res['kv_split']}, replays "
+                                     f"{res['decode_replays']} / "
+                                     f"{res['prefill_replays']}")
+            out["runs"][f"{split} {kv_fmt}"] = res
+    out["runs"]["kv_heads int8 control"] = serve(models["kv_heads"], "int8",
+                                                 control=True)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del params, models, want
+    _free(torch)
+    return out
+
+
+def _hold_tp_serve(ranks: list) -> None:
+    """23b: every rank's tokens the same in each run, each run within
+    ``TP_SERVE_LIMITS``, the control beyond both."""
+    runs = ranks[0]["serve"]["engine"]["runs"]
+    for label, res in runs.items():
+        for r in ranks[1:]:
+            if r["serve"]["engine"]["runs"][label]["tokens"] != res["tokens"]:
+                raise AssertionError(f"23b {label}: the ranks' tokens differ")
+        rel, share = res["logits_rel_l2"], res["token_share"]
+        within = (rel <= TP_SERVE_LIMITS["logits_rel_l2"]
+                  and share >= TP_SERVE_LIMITS["token_share"])
+        beyond = (rel > TP_SERVE_LIMITS["logits_rel_l2"]
+                  and share < TP_SERVE_LIMITS["token_share"])
+        if label.endswith("control") and not beyond:
+            raise AssertionError(f"23b {label}: {rel}, {share} within a "
+                                 f"limit of {TP_SERVE_LIMITS}")
+        if not label.endswith("control") and not within:
+            raise AssertionError(f"23b {label}: {rel}, {share} beyond "
+                                 f"{TP_SERVE_LIMITS}")
+
+
+def _tp_serve_moe(torch, mesh) -> dict:
+    """23c on one rank: arctic-480b at phase 22b's cut (2 layers of 8
+    experts, 4 a rank), float32, oneshot: the prefill of ``TP_MOE_SERVE``'s
+    prompts and its greedy decode steps on the (1, ``TP_RANKS``) mesh
+    (the experts split, the attention split by heads, the float32 head
+    split over the vocab and gathered); then rank 0 alone runs one
+    process's prefill and decode on the sharded run's tokens and holds
+    every step's logits at rtol 2e-4 / atol 2e-5."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.config import QuantConfig
+    from repro_torch.configs import get_config
+    from repro_torch.launch import workload as wl
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.layout import serve_layout
+    from repro_torch.serve.oneshot import build_oneshot_fns
+
+    m = mesh.model_group()
+    dev = TP_DEVICE
+    cfg = dataclasses.replace(get_config("arctic-480b"), **wl.TRAIN_MOE_CUT,
+                              compute_dtype="float32",
+                              param_dtype="float32")
+    model = build_model(cfg, QuantConfig(fmt="none"), device=dev)
+    Bm, P, steps = (TP_MOE_SERVE[k] for k in ("batch", "prompt", "steps"))
+    cache = P + steps
+    params = model.init(wl.SEED)
+    layout = serve_layout(model, mesh, {k: tuple(t.shape) for k, t in
+                                        params.items()}, Bm, cache, "none")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+    tokens = torch.randint(0, cfg.vocab_size, (Bm, P), device=dev,
+                           generator=gen)
+    local = model.prepare(layout.shard(params))
+
+    def run(fns, p, feed=None):
+        prefill, decode = fns
+        logits, c = prefill(p, {"tokens": tokens})
+        out, fed = [logits], []
+        for i in range(steps):
+            tok = (logits.argmax(-1) if feed is None else feed[i])
+            fed.append(tok)
+            logits, c = decode(p, c, tok)
+            out.append(logits)
+        return torch.stack(out), fed
+
+    t0 = time.perf_counter()
+    sharded, fed = run(build_oneshot_fns(model, cache, "none", layout=layout),
+                       local)
+    torch.cuda.synchronize()
+    res = {"sharded_wall_s": time.perf_counter() - t0,
+           "kv_split": layout.kv_split,
+           "experts_a_rank": local["blocks.e_gate"].shape[1]}
+    del local
+    _free(torch)
+    dist.barrier()
+    if m.index == 0:
+        want, _ = run(build_oneshot_fns(model, cache, "none"),
+                      model.prepare(params), fed)
+        torch.testing.assert_close(sharded, want, rtol=2e-4, atol=2e-5)
+        res["max_abs_err"] = (sharded - want).abs().max().item()
+        res["max_abs_logit"] = want.abs().max().item()
+        del want
+    del params, sharded
+    _free(torch)
+    dist.barrier()
+    return res
+
+
 def tp_rank_main(argv) -> int:
     """One rank of phase 22: ``chip_smoke.py --tp-rank RANK PORT OUT``
     (started by :func:`model_parallel`): joins a gloo group of
@@ -4235,6 +4728,18 @@ def tp_rank_main(argv) -> int:
             torch, ops, wl, mesh, "22b", wl.TRAIN_MOE_ARGV, wl.TRAIN_MOE_CUT,
             (("float32", "none"), ("bfloat16", "luq_fp4")))
         out["moe"]["wall_s"] = time.perf_counter() - t0
+        # 23: serving on the model axis, in the same ranks
+        t0 = time.perf_counter()
+        serve = {"kernels": _tp_serve_kernels(torch, ops, ref, mesh, clock)}
+        serve["kernels_wall_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        serve["engine"] = _tp_serve_engine(torch, ops, wl, mesh)
+        serve["engine"]["wall_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        serve["moe"] = _tp_serve_moe(torch, mesh)
+        serve["moe"]["wall_s"] = time.perf_counter() - t1
+        serve["wall_s"] = time.perf_counter() - t0
+        out["serve"] = serve
         Path(f"{path}.{rank}").write_text(json.dumps(out))
     finally:
         dist.destroy_process_group()
@@ -4254,13 +4759,29 @@ def model_parallel(torch, card: str, sm_clock_mhz: float) -> dict:
             for r in range(TP_RANKS)], 900)
     ranks = [json.loads(Path(f"{path}.{r}").read_text())
              for r in range(TP_RANKS)]
+    _hold_tp_serve(ranks)
     result = ranks[0]
     result["per_rank"] = [{w: {k: r[w][k] for k in (
         "peak_gib", "one_process_peak_gib", "sharded_wall_s",
         "one_process_wall_s")} for w in ("lm", "moe")} for r in ranks]
     result["wall_s"] = time.perf_counter() - t0
+    peaks = [r["serve"]["engine"]["peak_gib"] for r in ranks]
+    serve = result.pop("serve")
     print(f"model parallel, {TP_RANKS} ranks on one card ({card}): "
           f"{json.dumps(result)}", flush=True)
+    runs = serve["engine"]["runs"]
+    print(f"serving on the model axis, {TP_RANKS} ranks on one card "
+          f"({card}): " + json.dumps({
+              "kernels": serve["kernels"], "kernels_wall_s":
+              serve["kernels_wall_s"],
+              "engine": {**{k: v for k, v in serve["engine"].items()
+                            if k != "runs"},
+                         "runs": {label: {k: v for k, v in res.items()
+                                          if k != "tokens"}
+                                  for label, res in runs.items()}},
+              "peak_gib_by_rank": peaks,
+              "moe": serve["moe"], "wall_s": serve["wall_s"]}), flush=True)
+    result["serve"] = serve
     return result
 
 
@@ -4779,12 +5300,15 @@ def main() -> int:
                              f"more than its {ROOFLINE_PHASE_S} s")
 
     # 22. the model axis: two ranks on this card over gloo, each holding its
-    # blocks of every layer; the three kernels on the shards
+    # blocks of every layer; the three kernels on the shards.  23. serving
+    # on the model axis in the same ranks: the three serving kernels on a
+    # vocab or sequence shard, yi-6b through the engine, arctic oneshot
     _free(torch)
     tp = model_parallel(torch, card, sm_clock_mhz)
     checks.update(tp["kernels"])
+    checks.update(tp["serve"]["kernels"])
 
-    _phase_done(walls, "22 model parallel")
+    _phase_done(walls, "22-23 model parallel, serving on the model axis")
     del walls["start"]
     print(f"phase walls (s): {json.dumps(walls)}")
 
@@ -4840,6 +5364,35 @@ def main() -> int:
     counts["ghost_norm_sq[tp_lm]"] = tp_lm["ghost_norm_mapped"]
     counts["luq_quant[tp_moe_dispatch_rows]"] = tp_moe["luq_round"]
     counts["per_sample_clip[tp_moe]"] = tp_moe["clip_apply"]
+    # phase 23b's sharded engine runs (the control left out): every
+    # logits head on a vocab shard, every attention and KV write of the
+    # row-split cache on a sequence shard
+    runs = tp["serve"]["engine"]["runs"]
+    for label, run in runs.items():
+        c = run["launches"]
+        if label.endswith("control"):
+            continue
+        if c["split"]["luq_matmul_cols"] != c["launches"]["luq_matmul"]:
+            raise AssertionError(f"23b {label}: a logits head on the whole "
+                                 f"head")
+        if label.startswith("kv_seq") and not (
+                c["split"]["kv_quant_rows"] == c["launches"]["kv_quant_write"]
+                and c["split"]["decode_attn_split"]
+                == c["split"]["decode_attn_merge"]
+                == c["launches"]["decode_attn_fused"]):
+            raise AssertionError(f"23b {label}: a KV write or an attention "
+                                 f"on the whole cache: {c}")
+    for branch in ("decode", "prefill"):
+        counts[f"luq_matmul[tp_{branch}]"] = sum(
+            run["launches"]["luq_matmul"][branch]
+            for label, run in runs.items() if not label.endswith("control"))
+    for fmt in ("int8", "luq_fp4"):
+        c = runs[f"kv_seq {fmt}"]["launches"]
+        counts[f"decode_attn_fused[tp_seq/{fmt}]"] = \
+            c["split"]["decode_attn_split"]
+        for branch in ("decode", "prefill"):
+            counts[f"kv_quant_write[tp_seq/{fmt}/{branch}]"] = \
+                c["kv_write"][branch]
     for fmt in ("int8", "luq_fp4"):
         for branch in ("decode", "prefill"):
             counts[f"kv_quant_write[{fmt}/{branch}]"] = \

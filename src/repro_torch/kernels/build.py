@@ -39,13 +39,18 @@ _U = ctypes.c_uint32
 _LP = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "repro_luq_matmul": (_I, [_P, _P, _P, _P, _U, _U, _P, _I, _P, _P, _P, _I,
-                              _I, _I, _P]),
+                              _I, _I, _L, _L, _P]),
     "repro_luq_matmul_max_rows": (_I, []),
     "repro_luq_matmul_splits": (_I, [_I, _I]),
     "repro_kv_quant_write": (_I, [_P, _P, _I, _LP, _LP, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _I, _P]),
+                                  _I, _I, _I, _I, _I, _I, _L, _L, _P]),
     "repro_decode_attn": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, ctypes.c_float, _I, _P]),
+    "repro_decode_attn_split": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                     _I, _I, _I, _I, ctypes.c_float, _I,
+                                     _P]),
+    "repro_decode_attn_merge": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                     _P]),
     "repro_decode_attn_scratch": (_L, [_I, _I, _I, _I, _I]),
     "repro_decode_attn_limits": (_I, [ctypes.POINTER(_I), ctypes.POINTER(_I)]),
     "repro_luq_quant_scratch": (_L, [_I, _L]),

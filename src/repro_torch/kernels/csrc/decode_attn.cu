@@ -42,7 +42,18 @@
 //    query row j: the global max over the live splits, then the splits in
 //    split order, out = sum_i acc_i exp(m_i - M) / sum_i l_i exp(m_i - M).
 //
-// Both launches come from one C entry point on one stream.  No atomics:
+// A sequence shard (the cache split over the model group's ranks by its
+// rows, the reference's kv_seq fallback): repro_decode_attn_split runs
+// pass 1 alone over the rank's rows row_first .. row_first + S - 1 of a
+// cache of s_glob rows (split i of the rank owns the whole cache's rows
+// row_first + 64 i ..; a split wholly past a slot's position writes
+// nothing), the caller gathers the ranks' scratch in rank order, and
+// repro_decode_attn_merge runs pass 2 over all of them: the live splits
+// are those up to the position, rank by rank.  Where S is a multiple of
+// 64 the splits are the whole cache's, and the merged output is the whole
+// cache's bit for bit.
+//
+// Both launches of a whole cache come from one C entry point on one stream.  No atomics:
 // every sum has a fixed order, so two runs give the same bits.  Only rows
 // s <= pos[b] are read: masked rows have probability exactly zero in the
 // reference, and stale rows past pos may hold anything (they are never
@@ -176,8 +187,8 @@ decode_attn_split_kernel(const float* __restrict__ q,
                          const __nv_bfloat16* __restrict__ v_scale,
                          const int32_t* __restrict__ pos,
                          float* __restrict__ part, float* __restrict__ ml,
-                         int n_kv, int g, int S, int hd, float scale,
-                         bool vec) {
+                         int n_kv, int g, int S, int row_first, int s_glob,
+                         int hd, float scale, bool vec) {
   __shared__ __align__(16) uint8_t smem[kSmemBytes];
   uint8_t* s_k = smem + kOffK;
   uint8_t* s_v = smem + kOffV;
@@ -190,7 +201,9 @@ decode_attn_split_kernel(const float* __restrict__ q,
   const int n_split = gridDim.x;
   const int bk = blockIdx.y;                 // slot * n_kv + kv head
   const int slot = bk / n_kv;
-  const int last = min(pos[slot], S - 1);
+  // the slot's last live row, in this shard's rows (S of them from the
+  // whole cache's row_first)
+  const int last = min(min(pos[slot], s_glob - 1) - row_first, S - 1);
   const int s0 = split * kSplit;
   if (s0 > last) return;
   const int n = min(kSplit, last + 1 - s0);  // live rows of this split
@@ -323,35 +336,49 @@ decode_attn_split_kernel(const float* __restrict__ q,
 }
 
 // One block per (slot, kv head); warp j merges query row j's live splits.
+// The scratch holds `ranks` blocks of `rank_stride` floats, one a shard of
+// S rows (chunk splits each), its partial outputs first and its (max, sum)
+// pairs `ml_off` floats in; split i is split i % chunk of block i / chunk,
+// the whole cache's rows from (i / chunk) S + 64 (i % chunk).  A whole
+// cache is one block (chunk = its splits).
 __global__ void __launch_bounds__(kThreads)
-decode_attn_merge_kernel(const float* __restrict__ part,
-                         const float* __restrict__ ml,
+decode_attn_merge_kernel(const float* __restrict__ scratch, size_t ml_off,
+                         size_t rank_stride, int chunk,
                          const int32_t* __restrict__ pos,
                          float* __restrict__ out, int n_kv, int g, int S,
-                         int hd, int n_split) {
+                         int s_glob, int hd) {
   const int bk = blockIdx.x;
   const int j = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (j >= g) return;
-  const int live = min(pos[bk / n_kv], S - 1) / kSplit + 1;
-  const float* mlj = ml + (size_t)bk * n_split * kMaxG * 2 + j * 2;
+  const int last = min(pos[bk / n_kv], s_glob - 1);
+  const int r_last = last / S;
+  const int live = r_last * chunk + (last - r_last * S) / kSplit + 1;
+  // split i's (max, sum) of query row j, and its partial output row j
+  auto ml_of = [&](int i) {
+    return scratch + (size_t)(i / chunk) * rank_stride + ml_off +
+           (((size_t)bk * chunk + i % chunk) * kMaxG + j) * 2;
+  };
+  auto part_of = [&](int i) {
+    return reinterpret_cast<const float4*>(
+        scratch + (size_t)(i / chunk) * rank_stride +
+        (((size_t)bk * chunk + i % chunk) * g + j) * hd);
+  };
   float M = -INFINITY;
-  for (int i = lane; i < live; i += 32) M = fmaxf(M, mlj[i * kMaxG * 2]);
+  for (int i = lane; i < live; i += 32) M = fmaxf(M, ml_of(i)[0]);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     M = fmaxf(M, __shfl_xor_sync(kFull, M, off));
   }
   const bool lane_on = 4 * lane < hd;
-  const float4* src = reinterpret_cast<const float4*>(
-      part + ((size_t)bk * n_split * g + j) * hd) + lane;
-  const size_t split_stride = (size_t)g * hd / 4;          // in float4
   float l = 0.f;
   float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int i0 = 0; i0 < live; i0 += 32) {
     // lane t holds split i0 + t's factor and weighted sum
     const bool own = i0 + lane < live;
-    const float c_own = own ? expf(mlj[(i0 + lane) * kMaxG * 2] - M) : 0.f;
-    const float lc_own = own ? mlj[(i0 + lane) * kMaxG * 2 + 1] * c_own : 0.f;
+    const float* mli = own ? ml_of(i0 + lane) : nullptr;
+    const float c_own = own ? expf(mli[0] - M) : 0.f;
+    const float lc_own = own ? mli[1] * c_own : 0.f;
     const int stop = min(32, live - i0);
     for (int t0 = 0; t0 < stop; t0 += 8) {
       // the loads of 8 splits in flight, then their sums in split order
@@ -359,7 +386,7 @@ decode_attn_merge_kernel(const float* __restrict__ part,
 #pragma unroll
       for (int t = 0; t < 8; ++t) {
         x[t] = (lane_on && t0 + t < stop)
-            ? src[(size_t)(i0 + t0 + t) * split_stride]
+            ? part_of(i0 + t0 + t)[lane]
             : make_float4(0.f, 0.f, 0.f, 0.f);
       }
 #pragma unroll
@@ -384,6 +411,20 @@ decode_attn_merge_kernel(const float* __restrict__ part,
 
 int n_splits(int S) { return (S + kSplit - 1) / kSplit; }
 
+// Float32 elements of the scratch of one shard's pass 1, and where its
+// (max, sum) pairs start.
+long long scratch_floats(int B, int n_kv, int g, int S, int hd) {
+  return (long long)B * n_kv * n_splits(S) * ((long long)g * hd + 2 * kMaxG);
+}
+long long ml_offset(int B, int n_kv, int g, int S, int hd) {
+  return (long long)B * n_kv * n_splits(S) * g * hd;
+}
+
+bool bad_shape(int B, int n_kv, int g, int S, int hd) {
+  return B < 1 || n_kv < 1 || g < 1 || g > kMaxG || S < 1 || hd < 4 ||
+         hd > kMaxHd || hd % 4;
+}
+
 }  // namespace
 
 extern "C" int repro_decode_attn_limits(int* max_g, int* max_hd) {
@@ -393,27 +434,30 @@ extern "C" int repro_decode_attn_limits(int* max_g, int* max_hd) {
 }
 
 // Float32 elements of the scratch repro_decode_attn needs: each split's
-// partial output (g x hd) and its (max, sum) for kMaxG query rows.
+// partial output (g x hd) and its (max, sum) for kMaxG query rows.  The
+// same for one shard's repro_decode_attn_split, S its rows.
 extern "C" long long repro_decode_attn_scratch(int B, int n_kv, int g, int S,
                                                int hd) {
-  return (long long)B * n_kv * n_splits(S) * ((long long)g * hd + 2 * kMaxG);
+  return scratch_floats(B, n_kv, g, S, hd);
 }
 
-// q: (B, n_kv, g, hd) float32; k_codes/v_codes: (B, n_kv, S, hd) int8
-// (fmt 0) or (B, n_kv, S, hd / 2) packed uint8 (fmt 1); k_scale/v_scale:
-// (B, n_kv, S) bfloat16; pos: (B,) int32 with 0 <= pos; out: (B, n_kv, g,
-// hd) float32; scratch: repro_decode_attn_scratch(...) float32, 16-byte
-// aligned.  Two launches on `stream`.  Returns the cudaError_t of the
-// launches.
-extern "C" int repro_decode_attn(const void* q, const void* k_codes,
-                                 const void* v_codes, const void* k_scale,
-                                 const void* v_scale, const void* pos,
-                                 void* out, void* scratch, int B, int n_kv,
-                                 int g, int S, int hd, float scale, int fmt,
-                                 void* stream) {
-  if (B < 1 || n_kv < 1 || g < 1 || g > kMaxG || S < 1 || hd < 4 ||
-      hd > kMaxHd || hd % 4 || fmt < 0 || fmt > 1 ||
-      (uintptr_t)scratch % 16 || (uintptr_t)out % 16) {
+// Pass 1 over a shard: q: (B, n_kv, g, hd) float32; k_codes/v_codes: (B,
+// n_kv, S, hd) int8 (fmt 0) or (B, n_kv, S, hd / 2) packed uint8 (fmt 1),
+// rows row_first .. row_first + S - 1 of a cache of s_glob rows;
+// k_scale/v_scale: (B, n_kv, S) bfloat16; pos: (B,) int32 with 0 <= pos;
+// scratch: repro_decode_attn_scratch(B, n_kv, g, S, hd) float32, 16-byte
+// aligned.  One launch on `stream`.  Returns its cudaError_t.
+extern "C" int repro_decode_attn_split(const void* q, const void* k_codes,
+                                       const void* v_codes,
+                                       const void* k_scale,
+                                       const void* v_scale, const void* pos,
+                                       void* scratch, int B, int n_kv, int g,
+                                       int S, int row_first, int s_glob,
+                                       int hd, float scale, int fmt,
+                                       void* stream) {
+  if (bad_shape(B, n_kv, g, S, hd) || row_first < 0 ||
+      row_first + S > s_glob || fmt < 0 || fmt > 1 ||
+      (uintptr_t)scratch % 16) {
     return (int)cudaErrorInvalidValue;
   }
   const int n_split = n_splits(S);
@@ -421,23 +465,61 @@ extern "C" int repro_decode_attn(const void* q, const void* k_codes,
   const bool vec = row_bytes % 16 == 0 && (uintptr_t)k_codes % 16 == 0 &&
                    (uintptr_t)v_codes % 16 == 0;
   float* part = (float*)scratch;
-  float* ml = part + (size_t)B * n_kv * n_split * g * hd;
+  float* ml = part + ml_offset(B, n_kv, g, S, hd);
   const cudaStream_t s = (cudaStream_t)stream;
   const dim3 grid(n_split, B * n_kv);
   if (fmt == 0) {
     decode_attn_split_kernel<false><<<grid, kThreads, 0, s>>>(
         (const float*)q, (const uint8_t*)k_codes, (const uint8_t*)v_codes,
         (const __nv_bfloat16*)k_scale, (const __nv_bfloat16*)v_scale,
-        (const int32_t*)pos, part, ml, n_kv, g, S, hd, scale, vec);
+        (const int32_t*)pos, part, ml, n_kv, g, S, row_first, s_glob, hd,
+        scale, vec);
   } else {
     decode_attn_split_kernel<true><<<grid, kThreads, 0, s>>>(
         (const float*)q, (const uint8_t*)k_codes, (const uint8_t*)v_codes,
         (const __nv_bfloat16*)k_scale, (const __nv_bfloat16*)v_scale,
-        (const int32_t*)pos, part, ml, n_kv, g, S, hd, scale, vec);
+        (const int32_t*)pos, part, ml, n_kv, g, S, row_first, s_glob, hd,
+        scale, vec);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  decode_attn_merge_kernel<<<B * n_kv, kThreads, 0, s>>>(
-      part, ml, (const int32_t*)pos, (float*)out, n_kv, g, S, hd, n_split);
   return (int)cudaGetLastError();
+}
+
+// Pass 2 over `ranks` shards' pass 1, gathered in rank order: scratch:
+// ranks x repro_decode_attn_scratch(B, n_kv, g, S, hd) float32, 16-byte
+// aligned, the shards holding S rows each of a cache of s_glob <= ranks x S
+// rows; out: (B, n_kv, g, hd) float32.  One launch on `stream`.
+extern "C" int repro_decode_attn_merge(const void* scratch, const void* pos,
+                                       void* out, int B, int n_kv, int g,
+                                       int S, int s_glob, int hd, int ranks,
+                                       void* stream) {
+  if (bad_shape(B, n_kv, g, S, hd) || ranks < 1 || s_glob < 1 ||
+      s_glob > (long long)ranks * S || (uintptr_t)scratch % 16 ||
+      (uintptr_t)out % 16) {
+    return (int)cudaErrorInvalidValue;
+  }
+  decode_attn_merge_kernel<<<B * n_kv, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)scratch, (size_t)ml_offset(B, n_kv, g, S, hd),
+      (size_t)scratch_floats(B, n_kv, g, S, hd), n_splits(S),
+      (const int32_t*)pos, (float*)out, n_kv, g, S, s_glob, hd);
+  return (int)cudaGetLastError();
+}
+
+// q: (B, n_kv, g, hd) float32; k_codes/v_codes: (B, n_kv, S, hd) int8
+// (fmt 0) or (B, n_kv, S, hd / 2) packed uint8 (fmt 1); k_scale/v_scale:
+// (B, n_kv, S) bfloat16; pos: (B,) int32 with 0 <= pos; out: (B, n_kv, g,
+// hd) float32; scratch: repro_decode_attn_scratch(...) float32, 16-byte
+// aligned.  Two launches on `stream`: pass 1 over the whole cache, then
+// pass 2.  Returns the cudaError_t of the launches.
+extern "C" int repro_decode_attn(const void* q, const void* k_codes,
+                                 const void* v_codes, const void* k_scale,
+                                 const void* v_scale, const void* pos,
+                                 void* out, void* scratch, int B, int n_kv,
+                                 int g, int S, int hd, float scale, int fmt,
+                                 void* stream) {
+  const int err = repro_decode_attn_split(q, k_codes, v_codes, k_scale,
+                                          v_scale, pos, scratch, B, n_kv, g,
+                                          S, 0, S, hd, scale, fmt, stream);
+  if (err != (int)cudaSuccess) return err;
+  return repro_decode_attn_merge(scratch, pos, out, B, n_kv, g, S, S, hd, 1,
+                                 stream);
 }

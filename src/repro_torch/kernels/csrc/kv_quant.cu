@@ -18,6 +18,14 @@
 // layers' K and V stack, N0 = layers x batch, T = the prompt, from row 0.
 // Every other cache row is left as it is.
 //
+// A sequence shard (the cache split over the model group's ranks by its
+// rows, the reference's kv_seq fallback): the codes and scales hold rows
+// row0 .. row0 + S - 1 of a cache of s_glob rows.  Row t of (i, j) goes to
+// the whole cache's row w_i + t, w_i clamped into [0, s_glob - T], and is
+// written, at local row w_i + t - row0, only when the shard holds it; the
+// other rows of the call are skipped (one warp a row, so a whole warp
+// leaves).  A whole cache is row0 = 0, s_glob = S.
+//
 // Bound on this card: bytes (read 2 B a bf16 element, write 1 or 0.5 B
 // plus 2 B a row; a handful of float operations an element).  At the
 // decode shapes (2 x 16 rows of 128) that is nanoseconds: the launch is
@@ -61,6 +69,7 @@ struct KvArgs {
   __nv_bfloat16* scales[2];
   const long long* wpos;                     // (N0,) or null
   int n0, n1, t, s, hd;
+  long long row0, s_glob;                    // the shard's first row, rows
 };
 
 __device__ __forceinline__ unsigned fp4_code(float x, float safe) {
@@ -118,10 +127,11 @@ kv_quant_write_kernel(KvArgs a) {
                  t * (which ? a.stride[1][2] : a.stride[0][2]);
   void* codes = which ? a.codes[1] : a.codes[0];
   __nv_bfloat16* scales = which ? a.scales[1] : a.scales[0];
-  int w = a.wpos != nullptr ? (int)min(max(a.wpos[i], 0LL),
-                                       (long long)(a.s - a.t))
-                            : 0;
-  const long long dst = ((long long)i * a.n1 + j) * a.s + w + t;
+  const long long w = a.wpos != nullptr
+      ? min(max(a.wpos[i], 0LL), a.s_glob - a.t) : 0LL;
+  const long long local = w + t - a.row0;    // the row in this shard
+  if (local < 0 || local >= a.s) return;     // held by another rank
+  const long long dst = ((long long)i * a.n1 + j) * a.s + local;
   float amax = 0.f;
   float v[kMaxChunks][4];
   if constexpr (kVec) {
@@ -224,16 +234,20 @@ extern "C" const char* repro_cuda_error_string(int err) {
 // strides k_strides / v_strides (3 each: dims n0, n1, t; the last dim
 // contiguous); k_codes, v_codes: (n0, n1, s, hd) int8 (fmt 0) or
 // (n0, n1, s, hd / 2) uint8 (fmt 1, hd even); k_scales, v_scales: (n0,
-// n1, s) bfloat16; all contiguous.  wpos: (n0,) int64 or null.  One
-// launch on `stream`; returns its cudaError_t.
+// n1, s) bfloat16; all contiguous.  wpos: (n0,) int64 or null.  The
+// codes and scales hold rows row0 .. row0 + s - 1 of a cache of s_glob
+// rows (a whole cache: row0 0, s_glob s).  One launch on `stream`;
+// returns its cudaError_t.
 extern "C" int repro_kv_quant_write(const void* k, const void* v, int src_bf16,
                                     const long long* k_strides,
                                     const long long* v_strides, void* k_codes,
                                     void* v_codes, void* k_scales,
                                     void* v_scales, const void* wpos, int n0,
                                     int n1, int t, int s, int hd, int fmt,
+                                    long long row0, long long s_glob,
                                     void* stream) {
-  if (n0 < 1 || n1 < 1 || t < 1 || t > s || hd < 1 || fmt < 0 || fmt > 1 ||
+  if (n0 < 1 || n1 < 1 || t < 1 || t > s_glob || s < 1 || row0 < 0 ||
+      row0 + s > s_glob || hd < 1 || fmt < 0 || fmt > 1 ||
       (fmt == 1 && hd % 2) || 2LL * n0 * n1 * t > 0x7fffffffLL) {
     return (int)cudaErrorInvalidValue;
   }
@@ -254,6 +268,8 @@ extern "C" int repro_kv_quant_write(const void* k, const void* v, int src_bf16,
   a.t = t;
   a.s = s;
   a.hd = hd;
+  a.row0 = row0;
+  a.s_glob = s_glob;
   if (src_bf16) {
     launch<__nv_bfloat16>(a, fmt, (cudaStream_t)stream);
   } else {

@@ -59,6 +59,14 @@
 //      order; with a K split, a last kernel adds the splits in order.
 //   No atomics: the same inputs and keys give the same bits on every run.
 //
+// A vocab shard (the logits head split over the model group's ranks): b is
+// the rank's (K, N) block of columns col0 .. col0 + N - 1 of a (K, n_glob)
+// head.  Its element (k, n) draws at the whole head's counter k n_glob +
+// col0 + n, its scale alpha_b is the whole head's (the group's max, given
+// by the caller), and the K splits are chosen from n_glob: every column is
+// then summed in the whole head's order, and the shard's output is the
+// whole head's columns bit for bit.  A whole head is col0 = 0, n_glob = N.
+//
 // Numerics: Q(a) and Q(b) are, bit for bit, luq.cuh's rounding of the
 // plain version's uniforms (repro_torch.kernels.ref.luq_matmul_keys_ref;
 // the integer compares are the float ones, see luq.cuh); only the
@@ -156,7 +164,8 @@ __global__ void __launch_bounds__(kThreads)
 luq_matmul_kernel(const float* __restrict__ aq, const float* __restrict__ b,
                   const float* __restrict__ alpha_b_ptr, RoundKeys shared_key,
                   const uint32_t* __restrict__ row_keys, int rows, int K,
-                  int N, int k_per_split, float* __restrict__ dst) {
+                  int N, long long n_glob, long long col0, int k_per_split,
+                  float* __restrict__ dst) {
   __shared__ float red[kWarps][kRows][kCols];
   __shared__ RoundKeys row_key[kRows];
   const bool per_row = row_keys != nullptr;
@@ -179,8 +188,9 @@ luq_matmul_kernel(const float* __restrict__ aq, const float* __restrict__ b,
 
   if (n0 < N) {
     for (int k = kb + warp; k < ke; k += kWarps) {
-      const size_t e0 = (size_t)k * N + n0;
-      const float4 v = load4<kVec>(b, e0, n0, N);
+      const float4 v = load4<kVec>(b, (size_t)k * N + n0, n0, N);
+      // the draws' counter: this element's index in the whole head
+      const uint64_t e0 = (uint64_t)k * n_glob + col0 + n0;
       const float x[4] = {v.x, v.y, v.z, v.w};
       Pick q[4];
 #pragma unroll
@@ -259,9 +269,11 @@ extern "C" int repro_luq_matmul_splits(int K, int N) {
   return splits > 1 ? splits : 1;
 }
 
-// a: (rows, K); b: (K, N); alpha_a: (rows,); alpha_b: one float; aq:
-// (rows, K) scratch; partial: repro_luq_matmul_splits(K, N) * rows * N
-// scratch (unused for 1 split); out: (rows, N).  All float32, contiguous,
+// a: (rows, K); b: (K, N), columns col0 .. col0 + N - 1 of a (K, n_glob)
+// head (a whole head: col0 0, n_glob N); alpha_a: (rows,); alpha_b: one
+// float, the whole head's scale; aq: (rows, K) scratch; partial:
+// repro_luq_matmul_splits(K, n_glob) * rows * N scratch (unused for 1
+// split); out: (rows, N).  All float32, contiguous,
 // on the device.  Keys: row_keys, on the device, rows x 2 words (k0, k1),
 // one key a row; or, when row_keys is null, the key (k0, k1) shared by
 // every row; row0: the first row's index in the whole call (the shared
@@ -272,8 +284,10 @@ extern "C" int repro_luq_matmul(const void* a, const void* b,
                                 unsigned k0, unsigned k1,
                                 const void* row_keys, int row0, void* aq,
                                 void* partial, void* out, int rows, int K,
-                                int N, void* stream) {
-  if (rows < 1 || rows > kMaxRows || K < 1 || N < 1) {
+                                int N, long long n_glob, long long col0,
+                                void* stream) {
+  if (rows < 1 || rows > kMaxRows || K < 1 || N < 1 || col0 < 0 ||
+      col0 + N > n_glob || n_glob > 0x7fffffffLL) {
     return (int)cudaErrorInvalidValue;
   }
   const RoundKeys shared_key = repro_philox::philox_round_keys(k0, k1);
@@ -285,28 +299,35 @@ extern "C" int repro_luq_matmul(const void* a, const void* b,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const int splits = repro_luq_matmul_splits(K, N);
+  // the whole head's K splits, so a shard sums in the whole head's order
+  const int splits = repro_luq_matmul_splits(K, (int)n_glob);
   const int k_per_split = (K + splits - 1) / splits;
   const dim3 grid((N + kCols - 1) / kCols, splits);
   float* dst = splits > 1 ? (float*)partial : (float*)out;
-  const bool vec = N % 4 == 0 && ((uintptr_t)b & 15) == 0;
+  // whole 16-byte loads and whole Philox calls of 4 columns
+  const bool vec = N % 4 == 0 && n_glob % 4 == 0 && col0 % 4 == 0 &&
+                   ((uintptr_t)b & 15) == 0;
   const auto* aqf = (const float*)aq;
   const auto* bf = (const float*)b;
   const auto* ab = (const float*)alpha_b;
   if (vec) {
     if (rows == 1) {
       luq_matmul_kernel<true, 1><<<grid, kThreads, 0, s>>>(
-          aqf, bf, ab, shared_key, rk, rows, K, N, k_per_split, dst);
+          aqf, bf, ab, shared_key, rk, rows, K, N, n_glob, col0, k_per_split,
+          dst);
     } else if (rows <= 4) {
       luq_matmul_kernel<true, 4><<<grid, kThreads, 0, s>>>(
-          aqf, bf, ab, shared_key, rk, rows, K, N, k_per_split, dst);
+          aqf, bf, ab, shared_key, rk, rows, K, N, n_glob, col0, k_per_split,
+          dst);
     } else {
       luq_matmul_kernel<true, kMaxRows><<<grid, kThreads, 0, s>>>(
-          aqf, bf, ab, shared_key, rk, rows, K, N, k_per_split, dst);
+          aqf, bf, ab, shared_key, rk, rows, K, N, n_glob, col0, k_per_split,
+          dst);
     }
   } else {
     luq_matmul_kernel<false, kMaxRows><<<grid, kThreads, 0, s>>>(
-        aqf, bf, ab, shared_key, rk, rows, K, N, k_per_split, dst);
+        aqf, bf, ab, shared_key, rk, rows, K, N, n_glob, col0, k_per_split,
+          dst);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;

@@ -63,15 +63,21 @@ KV_WRITE_LAUNCHES = {"decode": 0, "prefill": 0}
 
 _KV_FMT_CODE = {"int8": 0, "luq_fp4": 1}
 
-#: The calls of three kernels on a shard of an operand split over the
+#: The calls of the kernels on a shard of an operand split over the
 #: model group (the model axis), each already counted in :data:`LAUNCHES`
-#: where it quantizes or clips: ``luq_round`` (a ``luq_quant`` call given
-#: its rows' scales and an index map) and ``luq_row_max`` before it,
-#: ``clip_sumsq`` and ``clip_apply`` (the two passes of a
-#: ``clip_and_sum`` call), and ``ghost_norm_sq`` given an operand's
-#: scales (``ghost_norm_mapped``).
+#: where it quantizes, clips or serves: training's ``luq_round`` (a
+#: ``luq_quant`` call given its rows' scales and an index map) and
+#: ``luq_row_max`` before it, ``clip_sumsq`` and ``clip_apply`` (the two
+#: passes of a ``clip_and_sum`` call), and ``ghost_norm_sq`` given an
+#: operand's scales (``ghost_norm_mapped``); serving's ``luq_matmul`` on
+#: a vocab shard (``luq_matmul_cols``), ``kv_quant_write`` into a
+#: sequence shard (``kv_quant_rows``), and the two passes of a
+#: ``decode_attn_fused`` call over a sequence shard, run apart
+#: (``decode_attn_split``, ``decode_attn_merge``).
 SPLIT_LAUNCHES = {"luq_row_max": 0, "luq_round": 0, "clip_sumsq": 0,
-                  "clip_apply": 0, "ghost_norm_mapped": 0}
+                  "clip_apply": 0, "ghost_norm_mapped": 0,
+                  "luq_matmul_cols": 0, "kv_quant_rows": 0,
+                  "decode_attn_split": 0, "decode_attn_merge": 0}
 
 
 _COUNTS = {"launches": LAUNCHES, "luq_matmul": LUQ_MATMUL_LAUNCHES,
@@ -236,7 +242,7 @@ def _one_key(key):
 # --------------------------------------------------------------------------- #
 # luq_matmul  (csrc/luq_matmul.cu, replaces the TPU kernel quant_matmul)
 # --------------------------------------------------------------------------- #
-def luq_matmul(a, b, keys, alpha_a, alpha_b) -> torch.Tensor:
+def luq_matmul(a, b, keys, alpha_a, alpha_b, cols=None) -> torch.Tensor:
     """LUQ-FP4 quantize-both-operands matmul: (R, K) x (K, N) -> float32,
     the uniforms drawn inside the kernel with Philox4x32-10.
 
@@ -250,9 +256,20 @@ def luq_matmul(a, b, keys, alpha_a, alpha_b) -> torch.Tensor:
     ``alpha_b``: () scale of ``b``.  ``a``, ``b`` and the scales float32.
     The kernel sums in a fixed order: the same inputs and keys give the
     same bits every run.
+
+    ``cols`` ``(col0, n_whole)``: ``b`` is a vocab shard, the columns
+    ``col0 .. col0 + N - 1`` of a head ``n_whole`` wide, and ``alpha_b``
+    the whole head's scale (the model group's max): each element draws at
+    its index in the whole head and the K splits are the whole head's, so
+    the result is the whole head's columns bit for bit (``None``: ``b``
+    is whole).
     """
     R, K = a.shape
     N = b.shape[1]
+    col0, n_whole = (0, N) if cols is None else (int(cols[0]), int(cols[1]))
+    if not 0 <= col0 <= n_whole - N:
+        raise ValueError(f"columns {col0} .. {col0 + N} of a head of "
+                         f"{n_whole}")
     key_list, per_row = philox.split_keys(keys, R)
     key_t = (keys,) if isinstance(keys, torch.Tensor) else ()
     if _traced(a, b, *key_t):
@@ -260,7 +277,8 @@ def luq_matmul(a, b, keys, alpha_a, alpha_b) -> torch.Tensor:
                k=K, n=N, keys=R if per_row else 1)
         return a.new_empty((R, N), dtype=torch.float32)
     if _on_cpu(a, b, *key_t):
-        return ref.luq_matmul_keys_ref(a, b, keys, alpha_a, alpha_b)
+        return ref.luq_matmul_keys_ref(a, b, keys, alpha_a, alpha_b,
+                                       cols=cols)
     alpha_a = alpha_a.reshape(-1).expand(R).contiguous()
     alpha_b = alpha_b.reshape(())
     _check("a", a, torch.float32, (R, K))
@@ -282,7 +300,7 @@ def luq_matmul(a, b, keys, alpha_a, alpha_b) -> torch.Tensor:
     if step != LUQ_MATMUL_MAX_ROWS:
         raise RuntimeError(f"luq_matmul takes {step} rows a launch, the "
                            f"wrapper says {LUQ_MATMUL_MAX_ROWS}")
-    splits = lib.repro_luq_matmul_splits(K, N)
+    splits = lib.repro_luq_matmul_splits(K, n_whole)
     # scratch: Q(a), and the K splits' partial sums
     aq = torch.empty((R, K), dtype=torch.float32, device=a.device)
     partial = torch.empty((splits * min(R, step) * N if splits > 1 else 1,),
@@ -295,10 +313,12 @@ def luq_matmul(a, b, keys, alpha_a, alpha_b) -> torch.Tensor:
                 _ptr(a[r0:r1]), _ptr(b), _ptr(alpha_a[r0:r1]), _ptr(alpha_b),
                 k0, k1, None if row_keys is None else _ptr(row_keys[r0:r1]),
                 r0, _ptr(aq[r0:r1]), _ptr(partial), _ptr(out[r0:r1]), r1 - r0,
-                K, N, stream)
+                K, N, n_whole, col0, stream)
             _raise_on_error(lib, err, "luq_matmul")
             LAUNCHES["luq_matmul"] += 1
             LUQ_MATMUL_LAUNCHES[_LUQ_MATMUL_STEP[-1]] += 1
+            if cols is not None:
+                SPLIT_LAUNCHES["luq_matmul_cols"] += 1
     return out
 
 
@@ -310,7 +330,7 @@ def _strides3(t: torch.Tensor):
 
 
 def kv_quant_write(k, v, k_codes, v_codes, k_scales, v_scales, fmt: str,
-                   wpos=None) -> None:
+                   wpos=None, row0: int = 0, seq_len=None) -> None:
     """Quantize the K and V rows of one call into the cache, in place, in
     one launch: what ``kv_cache.kv_write`` computes.
 
@@ -321,6 +341,12 @@ def kv_quant_write(k, v, k_codes, v_codes, k_scales, v_scales, fmt: str,
     / ``v_scales``: (N0, N1, S) bf16; ``wpos``: (N0,) int64 on the device
     (each slot's clamped position) or None (from row 0).  Row t of (i, j)
     lands at cache row ``wpos[i] + t``; no other row is touched.
+
+    A sequence shard: the codes and scales hold the rows ``row0 ..
+    row0 + S - 1`` of a cache of ``seq_len`` rows (default: the whole
+    cache, ``row0`` 0); row t of (i, j) goes to the whole cache's row
+    ``wpos[i] + t`` (clamped into ``[0, seq_len - T]``, from row 0
+    without ``wpos``), written only when the shard holds it.
     """
     if fmt not in _KV_FMT_CODE:
         raise ValueError(f"kv_quant_write has no kernel for fmt {fmt!r}")
@@ -328,14 +354,22 @@ def kv_quant_write(k, v, k_codes, v_codes, k_scales, v_scales, fmt: str,
     wpos_t = () if wpos is None else (wpos,)
     N0, N1, T, hd = k.shape
     S = k_codes.shape[2]
+    whole = S if seq_len is None else int(seq_len)
+    sharded = row0 != 0 or whole != S
+    if not (0 <= row0 <= whole - S):
+        raise ValueError(f"rows {row0} .. {row0 + S} of a cache of {whole}")
     code_dtype, code_dim = kvc.code_spec(fmt, hd)
     if _traced(*tensors, *wpos_t):
-        _trace("kv_quant_write", 1, rows=2 * N0 * N1 * T, head_dim=hd,
+        # the rows the shard writes: a tick's one row a slot that lands
+        # on some rank (counted in full: the most it can hold), or the
+        # prompt's rows inside the shard
+        held = T if wpos is not None else max(0, min(S, T - row0))
+        _trace("kv_quant_write", 1, rows=2 * N0 * N1 * held, head_dim=hd,
                code_dim=code_dim, elem=k.element_size(),
                slots=0 if wpos is None else N0)
         return None
     if _on_cpu(*tensors, *wpos_t):
-        return ref.kv_quant_write_ref(*tensors, fmt, wpos)
+        return ref.kv_quant_write_ref(*tensors, fmt, wpos, row0, seq_len)
     if k.dtype not in (torch.float32, torch.bfloat16) or v.dtype != k.dtype:
         raise TypeError(f"kv_quant_write reads float32 or bf16 rows, got "
                         f"{k.dtype} / {v.dtype}")
@@ -348,18 +382,20 @@ def kv_quant_write(k, v, k_codes, v_codes, k_scales, v_scales, fmt: str,
         _check(name, t, kvc.SCALE_DTYPE, (N0, N1, S))
     if wpos is not None:
         _check("wpos", wpos, torch.int64, (N0,))
-    if not 1 <= T <= S:
-        raise ValueError(f"{T} rows do not fit a cache of {S}")
+    if not 1 <= T <= whole:
+        raise ValueError(f"{T} rows do not fit a cache of {whole}")
     lib = load_library()
     with torch.cuda.device(k.device):
         err = lib.repro_kv_quant_write(
             _ptr(k), _ptr(v), int(k.dtype == torch.bfloat16), _strides3(k),
             _strides3(v), _ptr(k_codes), _ptr(v_codes), _ptr(k_scales),
             _ptr(v_scales), None if wpos is None else _ptr(wpos), N0, N1, T,
-            S, hd, _KV_FMT_CODE[fmt], _stream(k.device))
+            S, hd, _KV_FMT_CODE[fmt], row0, whole, _stream(k.device))
     _raise_on_error(lib, err, "kv_quant_write")
     LAUNCHES["kv_quant_write"] += 1
     KV_WRITE_LAUNCHES["prefill" if wpos is None else "decode"] += 1
+    if sharded:
+        SPLIT_LAUNCHES["kv_quant_rows"] += 1
 
 
 # --------------------------------------------------------------------------- #
@@ -397,12 +433,7 @@ def decode_attn_fused(q, k_codes, v_codes, k_scale, v_scale, pos, *,
         return ref.decode_attn_ref(q, k_codes, v_codes, k_scale, v_scale, pos,
                                    fmt=fmt, n_kv=n_kv, scale=scale)
     lib = load_library()
-    max_g, max_hd = ctypes.c_int(), ctypes.c_int()
-    lib.repro_decode_attn_limits(ctypes.byref(max_g), ctypes.byref(max_hd))
-    if g > max_g.value or hd > max_hd.value or hd % 4:
-        raise ValueError(
-            f"decode_attn_fused takes g <= {max_g.value} and head_dim a "
-            f"multiple of 4 up to {max_hd.value}; got g={g}, head_dim={hd}")
+    _decode_attn_checks(lib, q, n_kv)
     qf = q.float().contiguous()
     pos_b = torch.as_tensor(pos, device=q.device).to(torch.int32).expand(B)
     pos_b = pos_b.contiguous()
@@ -423,6 +454,123 @@ def decode_attn_fused(q, k_codes, v_codes, k_scale, v_scale, pos, *,
     _raise_on_error(lib, err, "decode_attn_fused")
     LAUNCHES["decode_attn_fused"] += 1
     return out.reshape(B, hp, hd)
+
+
+#: Cache rows a split of ``decode_attn.cu`` owns (its ``kSplit``).
+DECODE_ATTN_SPLIT = 64
+_DECODE_ATTN_MAX_G = 8
+
+
+def decode_attn_scratch(B: int, n_kv: int, g: int, S: int, hd: int) -> int:
+    """Float32 elements of one shard's pass-1 scratch
+    (``repro_decode_attn_scratch``): each split's partial output and its
+    (max, sum) for 8 query rows."""
+    return (B * n_kv * (-(-S // DECODE_ATTN_SPLIT))
+            * (g * hd + 2 * _DECODE_ATTN_MAX_G))
+
+
+def _decode_attn_checks(lib, q, n_kv):
+    B, hp, hd = q.shape
+    g = hp // n_kv
+    max_g, max_hd = ctypes.c_int(), ctypes.c_int()
+    lib.repro_decode_attn_limits(ctypes.byref(max_g), ctypes.byref(max_hd))
+    if g > max_g.value or hd > max_hd.value or hd % 4:
+        raise ValueError(
+            f"decode_attn_fused takes g <= {max_g.value} and head_dim a "
+            f"multiple of 4 up to {max_hd.value}; got g={g}, head_dim={hd}")
+    return B, hp, hd, g
+
+
+def decode_attn_split(q, k_codes, v_codes, k_scale, v_scale, pos, *,
+                      fmt: str, n_kv: int, scale: float, row0: int,
+                      seq_len: int) -> torch.Tensor:
+    """Pass 1 of :func:`decode_attn_fused` alone, over a sequence shard:
+    the codes and scales (B, KV, S, ...) hold the rows ``row0 .. row0 +
+    S - 1`` of a cache of ``seq_len`` rows, ``q`` (B, H, hd) every query
+    head.  Returns this rank's partials, one float32 tensor (on CUDA the
+    kernel's scratch, :func:`decode_attn_scratch` elements; on the CPU
+    ``kv_cache.attn_partial``'s (B, KV, g, hd + 2)).  Gather the ranks'
+    in rank order and hand them to :func:`decode_attn_merge`.  One
+    launch."""
+    if fmt not in _KV_FMT_CODE:
+        raise ValueError(f"decode_attn_split has no kernel for fmt {fmt!r}")
+    B, hp, hd = q.shape
+    g = hp // n_kv
+    S = k_codes.shape[2]
+    if hp != g * n_kv:
+        raise ValueError(f"{hp} query heads do not split over {n_kv} kv heads")
+    if not 0 <= row0 <= seq_len - S:
+        raise ValueError(f"rows {row0} .. {row0 + S} of a cache of "
+                         f"{seq_len}")
+    code_dtype, code_dim = kvc.code_spec(fmt, hd)
+    if _traced(q, k_codes, v_codes, k_scale, v_scale):
+        _trace("decode_attn_fused", 1, batch=B, kv_heads=n_kv, group=g,
+               head_dim=hd, code_dim=code_dim, live_rows=B * S)
+        return q.new_empty((decode_attn_scratch(B, n_kv, g, S, hd),),
+                           dtype=torch.float32)
+    if _on_cpu(q, k_codes, v_codes, k_scale, v_scale):
+        return ref.decode_attn_partial_ref(q, k_codes, v_codes, k_scale,
+                                           v_scale, pos, fmt=fmt, n_kv=n_kv,
+                                           scale=scale, row0=row0)
+    lib = load_library()
+    _decode_attn_checks(lib, q, n_kv)
+    qf = q.float().contiguous()
+    pos_b = torch.as_tensor(pos, device=q.device).to(torch.int32).expand(B)
+    pos_b = pos_b.contiguous()
+    _check("k_codes", k_codes, code_dtype, (B, n_kv, S, code_dim))
+    _check("v_codes", v_codes, code_dtype, (B, n_kv, S, code_dim))
+    _check("k_scale", k_scale, kvc.SCALE_DTYPE, (B, n_kv, S))
+    _check("v_scale", v_scale, kvc.SCALE_DTYPE, (B, n_kv, S))
+    _on_cpu(qf, pos_b, k_codes)
+    n = lib.repro_decode_attn_scratch(B, n_kv, g, S, hd)
+    if n != decode_attn_scratch(B, n_kv, g, S, hd):
+        raise RuntimeError("decode_attn's scratch size disagrees with the "
+                           "library's")
+    scratch = torch.empty((n,), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = lib.repro_decode_attn_split(
+            _ptr(qf), _ptr(k_codes), _ptr(v_codes), _ptr(k_scale),
+            _ptr(v_scale), _ptr(pos_b), _ptr(scratch), B, n_kv, g, S, row0,
+            seq_len, hd, float(scale), _KV_FMT_CODE[fmt], _stream(q.device))
+    _raise_on_error(lib, err, "decode_attn_split")
+    LAUNCHES["decode_attn_fused"] += 1
+    SPLIT_LAUNCHES["decode_attn_split"] += 1
+    return scratch
+
+
+def decode_attn_merge(parts, pos, *, batch: int, n_kv: int, group: int,
+                      head_dim: int, rows: int, seq_len: int) -> torch.Tensor:
+    """Pass 2 of :func:`decode_attn_fused` over the ranks' pass 1
+    (:func:`decode_attn_split`), ``parts`` (R, ...) stacked in rank order,
+    each over ``rows`` rows of a cache of ``seq_len``: the attention of
+    the whole cache, (B, H, hd) float32.  Where ``rows`` is a multiple of
+    64 the splits are the whole cache's, and the result is
+    :func:`decode_attn_fused`'s on the whole cache, bit for bit.  One
+    launch."""
+    B, hd, g = batch, head_dim, group
+    R = parts.shape[0]
+    if _traced(parts):
+        return parts.new_empty((B, n_kv * g, hd), dtype=torch.float32)
+    if _on_cpu(parts):
+        return ref.decode_attn_merge_ref(parts)
+    if seq_len > R * rows:
+        raise ValueError(f"{R} shards of {rows} rows hold no cache of "
+                         f"{seq_len}")
+    lib = load_library()
+    n = decode_attn_scratch(B, n_kv, g, rows, hd)
+    _check("parts", parts, torch.float32, (R, n))
+    pos_b = torch.as_tensor(pos, device=parts.device).to(
+        torch.int32).expand(B).contiguous()
+    _on_cpu(parts, pos_b)
+    out = torch.empty((B, n_kv, g, hd), dtype=torch.float32,
+                      device=parts.device)
+    with torch.cuda.device(parts.device):
+        err = lib.repro_decode_attn_merge(
+            _ptr(parts), _ptr(pos_b), _ptr(out), B, n_kv, g, rows, seq_len,
+            hd, R, _stream(parts.device))
+    _raise_on_error(lib, err, "decode_attn_merge")
+    SPLIT_LAUNCHES["decode_attn_merge"] += 1
+    return out.reshape(B, n_kv * g, hd)
 
 
 # --------------------------------------------------------------------------- #

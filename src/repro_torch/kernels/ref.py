@@ -135,7 +135,7 @@ def luq_matmul_ref(a, b, ua, ub, alpha_a, alpha_b) -> torch.Tensor:
 
 
 def luq_matmul_keys_ref(a, b, keys, alpha_a, alpha_b, *,
-                        prep=luq_fp4_prep, value=luq_fp4_value
+                        prep=luq_fp4_prep, value=luq_fp4_value, cols=None
                         ) -> torch.Tensor:
     """Plain version of ``luq_matmul``: :func:`luq_matmul_ref` fed the
     Philox draws of ``keys`` (``repro_torch.quant.philox``'s layout), as
@@ -149,9 +149,16 @@ def luq_matmul_keys_ref(a, b, keys, alpha_a, alpha_b, *,
     ``prep(x, alpha)`` and ``value(prepared, u)`` split the quantizer as
     :func:`luq_fp4_prep` and :func:`luq_fp4_value` (the default) split
     LUQ-FP4; the ``ref`` backend passes another stochastic format's.
+
+    ``cols`` ``(col0, n_whole)``: ``b`` is the columns ``col0 ..`` of a
+    head ``n_whole`` wide (a vocab shard), its element (k, n) drawn at
+    the whole head's index ``k n_whole + col0 + n``; ``alpha_b`` is then
+    the whole head's scale.  The shard's quantized operand is the whole
+    one's slice, bit for bit.
     """
     R, K = a.shape
     N = b.shape[1]
+    col0, n_whole = (0, N) if cols is None else (int(cols[0]), int(cols[1]))
     key_list, per_row = philox.split_keys(keys, R)
     dev = a.device
     alpha_a = torch.as_tensor(alpha_a, dtype=torch.float32,
@@ -165,18 +172,57 @@ def luq_matmul_keys_ref(a, b, keys, alpha_a, alpha_b, *,
     for n0, n1 in philox.column_chunks(K, N):
         prepared = prep(b[:, n0:n1].float(), alpha_b)
         for i, key in enumerate(key_list):
-            ub = philox.uniforms_2d(key, 1, K, n1 - n0, N, n0, dev)
+            ub = philox.uniforms_2d(key, 1, K, n1 - n0, n_whole,
+                                    col0 + n0, dev)
             rows = slice(i, i + 1) if per_row else slice(0, R)
             out[rows, n0:n1] = aq[rows] @ value(prepared, ub)
     return out
 
 
 def kv_quant_write_ref(k, v, k_codes, v_codes, k_scales, v_scales, fmt: str,
-                       wpos=None) -> None:
+                       wpos=None, row0: int = 0, seq_len=None) -> None:
     """Plain version of ``kv_quant_write``: ``kv_cache.kv_quant`` of the K
     and V rows, written at each row's cache position
-    (``kv_cache.kv_write``)."""
-    kvc.kv_write(fmt, k, v, k_codes, v_codes, k_scales, v_scales, wpos)
+    (``kv_cache.kv_write``; a sequence shard's rows alone with ``row0``
+    and ``seq_len``)."""
+    kvc.kv_write(fmt, k, v, k_codes, v_codes, k_scales, v_scales, wpos,
+                 row0, seq_len)
+
+
+def _kernel_scores(q, k_codes, v_codes, k_scale, fmt: str, n_kv: int,
+                   scale: float):
+    """The kernel's scores ``(q . k_unit) * (k_scale * scale)`` (B, KV, g,
+    S) and the unit V rows."""
+    B, hp, hd = q.shape
+    qg = q.reshape(B, n_kv, hp // n_kv, hd).float()
+    if fmt == "int8":
+        kunit, vunit = k_codes.float(), v_codes.float()
+    else:
+        kunit = kvc.fp4_decode_unit(kvc.fp4_unpack(k_codes))
+        vunit = kvc.fp4_decode_unit(kvc.fp4_unpack(v_codes))
+    scores = torch.einsum("bkgd,bksd->bkgs", qg, kunit)
+    return scores * (k_scale.float() * scale)[:, :, None, :], vunit
+
+
+def decode_attn_partial_ref(q, k_codes, v_codes, k_scale, v_scale, pos, *,
+                            fmt: str, n_kv: int, scale: float,
+                            row0: int = 0) -> torch.Tensor:
+    """Plain version of ``decode_attn_split``: the kernel's form of one
+    sequence shard's part (the rows ``row0 ..`` of the cache), as
+    ``kv_cache.attn_partial``'s (B, KV, g, hd + 2)."""
+    scores, vunit = _kernel_scores(q, k_codes, v_codes, k_scale, fmt, n_kv,
+                                   scale)
+    valid = kvc.shard_valid(pos, q.shape[0], k_codes.shape[2], row0,
+                            q.device)
+    return kvc.attn_partial(scores, valid, vunit, v_scale)
+
+
+def decode_attn_merge_ref(parts) -> torch.Tensor:
+    """Plain version of ``decode_attn_merge``: ``kv_cache.attn_merge`` of
+    the ranks' (R, B, KV, g, hd + 2) parts, (B, H, hd)."""
+    out = kvc.attn_merge(parts)
+    B, n_kv, g, hd = out.shape
+    return out.reshape(B, n_kv * g, hd)
 
 
 def decode_attn_ref(q, k_codes, v_codes, k_scale, v_scale, pos, *, fmt: str,
@@ -189,18 +235,9 @@ def decode_attn_ref(q, k_codes, v_codes, k_scale, v_scale, pos, *, fmt: str,
     two agree to float32 rounding.
     """
     B, hp, hd = q.shape
-    g = hp // n_kv
-    qg = q.reshape(B, n_kv, g, hd).float()
-    if fmt == "int8":
-        kunit, vunit = k_codes.float(), v_codes.float()
-    else:
-        kunit = kvc.fp4_decode_unit(kvc.fp4_unpack(k_codes))
-        vunit = kvc.fp4_decode_unit(kvc.fp4_unpack(v_codes))
-    scores = torch.einsum("bkgd,bksd->bkgs", qg, kunit)
-    scores = scores * (k_scale.float() * scale)[:, :, None, :]
-    pos_b = torch.as_tensor(pos, device=q.device).expand(B)
-    valid = (torch.arange(k_codes.shape[2], device=q.device)[None, None, None, :]
-             <= pos_b[:, None, None, None])
+    scores, vunit = _kernel_scores(q, k_codes, v_codes, k_scale, fmt, n_kv,
+                                   scale)
+    valid = kvc.shard_valid(pos, B, k_codes.shape[2], 0, q.device)
     scores = torch.where(valid, scores, -1e30)
     probs = torch.softmax(scores, dim=-1)
     ctx = torch.einsum("bkgs,bksd->bkgd",

@@ -13,9 +13,17 @@ holds, on the card's host or on a machine without a GPU alike:
 
 ``--mesh card`` (the default) is one H100.  ``single`` and ``multi`` are
 the reference's production meshes, (16, 16) and (2, 16, 16) over
-``(data, model)`` and ``(pod, data, model)``: their cells are written
-``skipped``, since the port has no ``model`` axis yet (the train step
-raises for a model degree above 1).  Outputs one JSON per cell under
+``(data, model)`` and ``(pod, data, model)``: a cell there traces one
+rank's shard program (rank 0's) in a world of 256 or 512 ranks made of
+``torch``'s fake process group (``op_analysis.fake_world``), its
+collectives counted and returning at once: its shard of the params over
+the ``model`` axis, its block of the batch over the data axes (the vmap
+engine's examples of each microbatch; serving's sequences), its shard of
+the KV cache (by heads, or by sequence rows where the KV heads do not
+divide the axis), the vocab-split logits.  ``fits`` compares the rank's
+own peak with the card's 80 GB.  The families without ``param_axes`` in
+the port (the encoder-decoder, Mamba-2, the Griffin hybrid, the VLM, the
+CNNs, BERT) are written ``skipped`` there.  Outputs one JSON per cell under
 ``--out`` (default ``results/dryrun_torch/``): the reference's fields
 (``status``, ``collectives``, ``warnings``, ``roofline``, ``n_params``,
 ``n_active_params``, ``n_devices``), the kernels' calls and costs,
@@ -29,6 +37,7 @@ the train CLI sets it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import time
@@ -48,16 +57,25 @@ def cell_skip_reason(cfg, shape) -> str:
     return ""
 
 
-def mesh_skip_reason(mesh: str) -> str:
-    """Why a production-mesh cell does not trace: the ``model`` axis."""
+def mesh_skip_reason(cfg, mesh: str) -> str:
+    """Why a production-mesh cell does not trace: the family has no
+    ``param_axes`` in the port, so its params cannot be laid out over
+    the ``model`` axis."""
+    from repro_torch.config import QuantConfig
+    from repro_torch.launch.op_analysis import fake_device
+    from repro_torch.models.registry import build_model
+
     if mesh == "card":
         return ""
+    with fake_device() as dev:
+        model = build_model(cfg, QuantConfig(), device=dev)
+    if model.param_axes is not None:
+        return ""
     sizes, names = PRODUCTION_MESHES[mesh]
-    return (f"SKIP(model axis): the {'x'.join(map(str, sizes))} mesh "
-            f"{names} shards parameters over the 'model' axis (degree "
-            f"{sizes[-1]}), which the port does not have yet (ROADMAP.md "
-            f"section 1, item 3: tensor and expert parallelism); its "
-            f"train step raises for a model degree above 1")
+    return (f"SKIP(param_axes): the {cfg.family!r} family has no "
+            f"param_axes in the port (ROADMAP.md section 1), so its "
+            f"params are not laid out over the 'model' axis of the "
+            f"{'x'.join(map(str, sizes))} mesh {names}")
 
 
 def _run_config(cfg, quant, shape, dp_overrides):
@@ -87,7 +105,7 @@ def run_cell(arch: str, shape_name: str, mesh: str = "card",
         cfg = dataclasses.replace(cfg, **overrides)
     rec = {"arch": arch, "shape": shape_name, "mesh": MESH_TAGS[mesh],
            "kind": shape.kind, "tag": extra_tag}
-    reason = cell_skip_reason(cfg, shape) or mesh_skip_reason(mesh)
+    reason = cell_skip_reason(cfg, shape) or mesh_skip_reason(cfg, mesh)
     if reason:
         rec["status"] = "skipped"
         rec["reason"] = reason
@@ -95,13 +113,17 @@ def run_cell(arch: str, shape_name: str, mesh: str = "card",
 
     quant = QuantConfig(fmt=fmt)
     t0 = time.perf_counter()
-    if shape.kind == "train":
-        analysis = op_analysis.analyze_train(
-            _run_config(cfg, quant, shape, dp_overrides))
-    else:
-        analysis = op_analysis.analyze_serve(cfg, quant, shape.kind,
-                                             shape.global_batch,
-                                             shape.seq_len)
+    world = (contextlib.nullcontext() if mesh == "card"
+             else op_analysis.fake_world(*PRODUCTION_MESHES[mesh]))
+    with world as ranks:
+        if shape.kind == "train":
+            analysis = op_analysis.analyze_train(
+                _run_config(cfg, quant, shape, dp_overrides), mesh=ranks)
+        else:
+            analysis = op_analysis.analyze_serve(cfg, quant, shape.kind,
+                                                 shape.global_batch,
+                                                 shape.seq_len, mesh=ranks)
+        n_devices = 1 if ranks is None else int(ranks.devices.size)
     rec["trace_s"] = time.perf_counter() - t0
     terms = roofline.derive(analysis,
                             model_flops_per_device=analysis["model_flops"])
@@ -115,7 +137,7 @@ def run_cell(arch: str, shape_name: str, mesh: str = "card",
         "trips": analysis.get("trips", 1),
         "n_params": analysis["n_params"],
         "n_active_params": analysis["n_active_params"],
-        "n_devices": 1,
+        "n_devices": n_devices,
         "peak_bytes": analysis["peak_bytes"],
         "fits": op_analysis.fits(analysis),
     })
@@ -136,7 +158,7 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", default="card",
                     choices=["card", "single", "multi", "both"],
                     help="card: one H100; single / multi: the production "
-                         "meshes (skipped: no model axis yet); both: the "
+                         "meshes (one rank's shard program); both: the "
                          "two production meshes")
     ap.add_argument("--fmt", default="luq_fp4")
     ap.add_argument("--tag", default="", help="variant tag for perf runs")

@@ -220,10 +220,14 @@ def make_production_mesh(*, multi_pod: bool = False,
 
 def make_host_mesh(model_parallel: int = 1) -> CompatMesh:
     """``(world // mp, mp)`` over ``("data", "model")``, the world being
-    every rank there is (1 without ``torch.distributed``)."""
+    every rank there is (1 without ``torch.distributed``); raises when
+    ``model_parallel`` does not divide it."""
     _, n = _rank_and_world()
-    mp = model_parallel if n % model_parallel == 0 else 1
-    return make_compat_mesh((n // mp, mp), ("data", "model"))
+    if model_parallel < 1 or n % model_parallel:
+        raise ValueError(f"model_parallel {model_parallel} does not divide "
+                         f"the world of {n} rank(s)")
+    return make_compat_mesh((n // model_parallel, model_parallel),
+                            ("data", "model"))
 
 
 def data_degree(mesh) -> int:

@@ -63,6 +63,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import math
 import time
 import weakref
 from typing import Callable
@@ -118,8 +119,11 @@ _MOVES = {
 }
 
 #: The collectives the port issues (``repro_torch.parallel.collectives``:
-#: ``all_reduce`` alone) by the reference's kinds.
-_COLLECTIVES = {"allreduce_": "all-reduce"}
+#: ``all_reduce``, and serving's ``all_gather``) by the reference's kinds;
+#: each counts its result's bytes (an all-gather's whole output), as the
+#: reference's analysis does.
+_COLLECTIVES = {"allreduce_": "all-reduce", "allgather_": "all-gather",
+                "_allgather_base_": "all-gather"}
 
 _CONVS = {_aten.convolution, _aten._convolution, _aten.convolution_backward,
           _aten.cudnn_convolution, _aten.convolution_overrideable,
@@ -143,10 +147,12 @@ def fake_device(device="meta"):
 
 
 def _tensors(x):
+    """The tensors of ``x``: a tensor, or lists of them (an all-gather's
+    outputs are a list of lists)."""
     if isinstance(x, torch.Tensor):
         return [x]
     if isinstance(x, (list, tuple)):
-        return [t for t in x if isinstance(t, torch.Tensor)]
+        return [t for v in x for t in _tensors(v)]
     return []
 
 
@@ -356,7 +362,12 @@ class OpAnalysis(TorchDispatchMode):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         if self._on and func.namespace not in ("prim", "profiler"):
-            if func.namespace == "repro_torch":
+            if func._schema.name == "repro_torch::model_all_reduce":
+                # the model group's all-reduce of a float32 copy (the op's
+                # own collective runs outside the mode)
+                x = args[0]
+                self.collectives["all-reduce"] += float(x.numel() * 4)
+            elif func.namespace == "repro_torch":
                 self._fake_quant(func, args, kwargs)
             elif func.namespace in ("c10d", "_c10d_functional"):
                 self._collective(func, args, kwargs)
@@ -447,9 +458,33 @@ def train_batch_spec(model, batch: int, seq: int) -> dict:
     return {"tokens": ((batch, seq), torch.int32)}
 
 
-def train_trips(run: RunConfig):
+@contextlib.contextmanager
+def fake_world(shape, axis_names, rank: int = 0):
+    """A world of ``prod(shape)`` ranks in which this process is ``rank``
+    and every collective only counts: ``torch``'s fake process group
+    (``torch.testing._internal.distributed.fake_pg``), whose collectives
+    return at once, on ``meta`` tensors too.  Yields the
+    ``launch.mesh.CompatMesh`` of ``shape`` over ``axis_names`` (its
+    groups made in the fake world); the world is torn down after."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.mesh import make_compat_mesh
+
+    if dist.is_initialized():
+        raise RuntimeError("a fake world needs a process without one")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=int(math.prod(shape)))
+    try:
+        yield make_compat_mesh(tuple(shape), tuple(axis_names))
+    finally:
+        dist.destroy_process_group()
+
+
+def train_trips(run: RunConfig, mesh=None):
     """``(trips, examples a trip)`` of the train step: the vmap engine's
-    microbatches, or the ghost engine's pass-1 chunks."""
+    microbatches (the global ones on ``mesh``), or the ghost engine's
+    pass-1 chunks."""
     from repro_torch.launch.steps import _microbatch
 
     B = run.global_batch
@@ -458,7 +493,7 @@ def train_trips(run: RunConfig):
     if run.dp.grad_mode == "ghost":
         chunk = run.dp.ghost_microbatch or B
     else:
-        chunk = _microbatch(run, None)
+        chunk = _microbatch(run, mesh)
     if B % chunk:
         return 1, B
     return B // chunk, chunk
@@ -469,14 +504,17 @@ def train_trips(run: RunConfig):
 _AFFINE_FROM = 2
 
 
-def _trace_train(run: RunConfig, device="meta") -> dict:
+def _trace_train(run: RunConfig, device="meta", mesh=None) -> dict:
     from repro_torch.launch.steps import build_train_setup
     from repro_torch.models.registry import build_model
 
     with fake_device(device) as dev, OpAnalysis() as a:
         model = build_model(run.model, run.quant, device=dev)
-        setup = build_train_setup(model, run)
-        params = model.init(run.seed)
+        setup = build_train_setup(model, run, mesh)
+        whole = model.init(run.seed)
+        # this rank's shard on a mesh's model axis (the whole batch: the
+        # engines take their rank's examples of each microbatch)
+        params = setup.shard(whole) if setup.model_parallel else whole
         opt_state = setup.opt_init_fn(params)
         batch = {name: torch.zeros(shape, dtype=dtype, device=dev)
                  for name, (shape, dtype) in train_batch_spec(
@@ -488,8 +526,8 @@ def _trace_train(run: RunConfig, device="meta") -> dict:
             out = setup.step_fn(params, opt_state, batch, None, qflags, lr)
             del out
         res = a.result()
-        res["n_params"] = roofline.count_params(params)
-        res["n_active_params"] = roofline.active_params(run.model, params)
+        res["n_params"] = roofline.count_params(whole)
+        res["n_active_params"] = roofline.active_params(run.model, whole)
         if run.model.family in ("resnet", "densenet"):
             # a CNN has no tokens: 3x one image's forward FLOPs an image
             with torch.no_grad():
@@ -498,11 +536,17 @@ def _trace_train(run: RunConfig, device="meta") -> dict:
             res["model_flops"] = 3.0 * one["flops"] * run.global_batch
         else:
             res["model_flops"] = roofline.model_flops(
-                run.model, params, "train", run.global_batch, run.seq_len)
+                run.model, whole, "train", run.global_batch, run.seq_len,
+                _devices(mesh))
     return res
 
 
-def analyze_train(run: RunConfig, *, device="meta") -> dict:
+def _devices(mesh) -> int:
+    """The ranks of ``mesh`` (1 for none)."""
+    return 1 if mesh is None else int(mesh.devices.size)
+
+
+def analyze_train(run: RunConfig, *, device="meta", mesh=None) -> dict:
     """The analysis of one train step of ``run`` (its own batch); with
     ``n_params``, ``n_active_params`` and ``model_flops`` (a CNN's: 3x the
     forward's FLOPs of its images).  The vmap
@@ -511,14 +555,14 @@ def analyze_train(run: RunConfig, *, device="meta") -> dict:
     those two traces take); the ghost engine is traced whole (its pass 2
     runs over the whole batch, so its peak is not affine in the
     chunks)."""
-    trips, chunk = train_trips(run)
+    trips, chunk = train_trips(run, mesh)
     at = _AFFINE_FROM
     if trips <= 2 * at + 1 or run.dp.grad_mode == "ghost":
-        res = _trace_train(run, device)
+        res = _trace_train(run, device, mesh)
         res["trips"] = trips
         return res
     one, two = (_trace_train(dataclasses.replace(run, global_batch=t * chunk),
-                             device) for t in (at, at + 1))
+                             device, mesh) for t in (at, at + 1))
     res = extrapolate(one, two, trips, at)
     # 6 N D and the attention term are linear in the batch
     res["model_flops"] = two["model_flops"] * trips / (at + 1)
@@ -527,12 +571,14 @@ def analyze_train(run: RunConfig, *, device="meta") -> dict:
 
 def analyze_serve(model_cfg, quant, kind: str, batch: int, seq_len: int, *,
                   kv_fmt: str = "none", seed: int = 0,
-                  device="meta") -> dict:
+                  device="meta", mesh=None) -> dict:
     """The analysis of one oneshot ``prefill`` of ``batch`` x ``seq_len``
     tokens, or one ``decode`` step over the cache of ``seq_len``
     positions that a prefill of ``seq_len - 1`` leaves
     (``steps.build_serve_setup``); with ``n_params``,
-    ``n_active_params`` and ``model_flops``."""
+    ``n_active_params`` and ``model_flops``.  On ``mesh``: this rank's
+    program, its shard of the params, its block of the batch and its
+    shard of the cache (``model_flops`` a device's share)."""
     from repro_torch.launch.steps import build_serve_setup, materialize
     from repro_torch.models.registry import build_model
 
@@ -542,7 +588,7 @@ def analyze_serve(model_cfg, quant, kind: str, batch: int, seq_len: int, *,
                     global_batch=batch, seq_len=seq_len)
     with fake_device(device) as dev, OpAnalysis() as a:
         model = build_model(model_cfg, quant, device=dev)
-        setup = build_serve_setup(model, run, None, batch, seq_len, kv_fmt)
+        setup = build_serve_setup(model, run, mesh, batch, seq_len, kv_fmt)
         fn, spec = ((setup.prefill_fn, setup.prefill_abstract)
                     if kind == "prefill"
                     else (setup.decode_fn, setup.decode_abstract))
@@ -551,11 +597,13 @@ def analyze_serve(model_cfg, quant, kind: str, batch: int, seq_len: int, *,
             out = fn(*args)
             del out
         res = a.result()
-        params = args[0]
-        res["n_params"] = roofline.count_params(params)
-        res["n_active_params"] = roofline.active_params(model_cfg, params)
-        res["model_flops"] = roofline.model_flops(model_cfg, params, kind,
-                                                  batch, seq_len)
+        # on a mesh, the whole params' counts (the reference's)
+        whole = model.init(seed) if mesh is not None else args[0]
+        res["n_params"] = roofline.count_params(whole)
+        res["n_active_params"] = roofline.active_params(model_cfg, whole)
+        res["model_flops"] = roofline.model_flops(model_cfg, whole, kind,
+                                                  batch, seq_len,
+                                                  _devices(mesh))
     return res
 
 

@@ -47,6 +47,13 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \
         --device cpu --fault-seed 0 --fault-log /tmp/f.json
 
+    # on a model group of 2 ranks (tensor parallel; the MoE LMs' experts
+    # split over the ranks), gloo on the CPU: the same tokens as one
+    # process, printed by rank 0
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc_per_node 2 -m repro_torch.launch.serve --arch yi-6b \
+        --smoke --device cpu --model-parallel 2 --kv-fmt int8
+
 The flags are those of ``repro.launch.serve`` (as there, a family
 without per-slot decode, Mamba-2, the Griffin hybrid, the VLM, the
 encoder-decoder or the MoE LMs, runs ``--engine continuous`` through the
@@ -58,23 +65,32 @@ admission control
 ``--fault-log``) included, plus ``--device`` (default ``cuda``; without a
 GPU the run raises unless ``--device cpu`` is given) and ``--backend
 ref|cuda`` (default ``cuda``, the hand-written kernels;
-``REPRO_QUANT_BACKEND`` overrides it).
+``REPRO_QUANT_BACKEND`` overrides it).  ``--model-parallel N`` (under
+``torch.distributed.run``, N the world: one model group) serves the dense
+LMs and the MoE LMs split over the ranks' ``model`` axis, as ``launch.
+train`` trains them: NCCL one card a rank (gloo on the CPU); the params
+are made whole on every rank and sharded once; rank 0 alone prints.
+Chaos mode does not run on a model group (the supervisor raises).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.config import QuantConfig, ServeConfig
 from repro_torch.configs import get_config, get_smoke_config, list_archs
+from repro_torch.launch.mesh import init_distributed, make_host_mesh
 from repro_torch.models.registry import build_model
 from repro_torch.runtime.faults import FaultPlan
 from repro_torch.runtime.supervisor import ServeSupervisor, run_supervised
 from repro_torch.serve import (ContinuousEngine, build_oneshot_fns,
                                oneshot_generate)
+from repro_torch.serve.layout import serve_layout
 
 
 def _random_prompt(rng: np.random.RandomState, length: int,
@@ -105,10 +121,21 @@ def oneshot_batch(args, model) -> dict:
     return batch
 
 
-def run_oneshot(model, params, args) -> None:
-    """One fixed batch, prefill, lockstep decode."""
-    prefill, decode = build_oneshot_fns(model, args.prompt_len + args.gen,
-                                        kv_fmt=args.kv_fmt)
+def _quiet(*args, **kwargs) -> None:
+    """``print`` on a rank other than 0."""
+
+
+def run_oneshot(model, params, args, mesh=None, print=print) -> None:
+    """One fixed batch, prefill, lockstep decode; on ``mesh``'s model
+    group, this rank's shard."""
+    cache_len = args.prompt_len + args.gen
+    layout = serve_layout(model, mesh, {k: tuple(t.shape) for k, t in
+                                        params.items()},
+                          args.batch, cache_len, args.kv_fmt)
+    prefill, decode = build_oneshot_fns(model, cache_len,
+                                        kv_fmt=args.kv_fmt, layout=layout)
+    if layout is not None:
+        params = layout.shard(params)
     batch = oneshot_batch(args, model)
     gen, timings = oneshot_generate(prefill, decode, model.prepare(params),
                                     batch, args.gen,
@@ -122,8 +149,9 @@ def run_oneshot(model, params, args) -> None:
     print("generated token ids:\n", gen)
 
 
-def run_continuous(model, params, args) -> None:
-    """Slot-pool engine with FCFS admission.
+def run_continuous(model, params, args, mesh=None, print=print) -> None:
+    """Slot-pool engine with FCFS admission (on ``mesh``'s model group,
+    this rank's shard).
 
     With ``--fault-seed`` the run goes through the supervisor under a
     seeded ``FaultPlan`` (chaos mode): faults are injected at their
@@ -144,7 +172,7 @@ def run_continuous(model, params, args) -> None:
                    "clock_freeze"),
             horizon=max(2, args.gen), n_slots=args.slots)
     engine = ContinuousEngine(model, params, serve, device=model.device,
-                              faults=faults)
+                              faults=faults, mesh=mesh)
     if faults is not None:
         ServeSupervisor(engine, faults=faults)
     rng = np.random.RandomState(args.seed)
@@ -216,6 +244,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "the supervisor (chaos mode)")
     ap.add_argument("--fault-log", default=None,
                     help="chaos mode: write the fired-fault JSON log here")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="ranks of the model axis, under "
+                         "torch.distributed.run (tensor and expert "
+                         "parallelism; the whole world: one model group)")
     return ap.parse_args(argv)
 
 
@@ -236,8 +268,31 @@ def build(args, **cut) -> tuple:
 
 
 def main(argv=None):
-    """Parse flags, build the model on its device, run the chosen engine."""
+    """Parse flags, build the model on its device, run the chosen engine
+    (on a model group under ``torch.distributed.run``)."""
     args = parse_args(argv)
+    mp = args.model_parallel
+    if "WORLD_SIZE" in os.environ:
+        world = int(os.environ["WORLD_SIZE"])
+        if world != mp:
+            raise ValueError(f"--model-parallel {mp} must be the world of "
+                             f"{world} ranks: serving runs one model group")
+        args.device = str(init_distributed(args.device))
+        mesh = make_host_mesh(mp)
+    else:
+        if mp != 1:
+            raise ValueError("--model-parallel above 1 needs ranks: run "
+                             "under python -m torch.distributed.run")
+        mesh = None
+    try:
+        _serve(args, mesh)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
+
+
+def _serve(args, mesh) -> None:
+    out = print if mesh is None or mesh.rank == 0 else _quiet
     model, params = build(args)
     cfg = model.config
     engine = args.engine
@@ -246,13 +301,13 @@ def main(argv=None):
         # decoder families (Mamba-2, Griffin, the VLM, the encoder-decoder,
         # whose prompts need more than tokens, the MoE LMs) run through
         # the oneshot engine
-        print(f"note: {cfg.family!r} has no continuous-batching support "
-              "yet; falling back to --engine oneshot")
+        out(f"note: {cfg.family!r} has no continuous-batching support "
+            "yet; falling back to --engine oneshot")
         engine = "oneshot"
     if engine == "oneshot":
-        run_oneshot(model, params, args)
+        run_oneshot(model, params, args, mesh, out)
     else:
-        run_continuous(model, params, args)
+        run_continuous(model, params, args, mesh, out)
 
 
 if __name__ == "__main__":

@@ -42,6 +42,7 @@ import contextlib
 import dataclasses
 from typing import Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.func import grad_and_value
@@ -503,6 +504,17 @@ class ServeSetup:
     prefill_abstract: Tuple
     decode_abstract: Tuple
     mesh: Optional[object] = None
+    #: this rank's layout on a mesh whose model axis has degree above 1
+    #: (``serve.layout.ServeLayout``), else None
+    layout: Optional[object] = None
+    #: the sequences this rank serves: the batch's block over the data
+    #: axes, as the rules lay it out
+    local_batch: int = 0
+
+    def shard(self, params):
+        """This rank's block of whole params (the params themselves
+        without a layout); ``model.prepare`` it before serving."""
+        return params if self.layout is None else self.layout.shard(params)
 
 
 def build_serve_setup(model: Model, run: RunConfig, mesh, batch_size: int,
@@ -513,23 +525,53 @@ def build_serve_setup(model: Model, run: RunConfig, mesh, batch_size: int,
     params and a batch of ``seq_len`` tokens for ``prefill_fn(params,
     batch)``; the params, the cache a prefill of ``seq_len - 1`` tokens
     leaves and one token a sequence for ``decode_fn(params, cache,
-    token)``.  No shardings: the serving mesh is not ported, and a mesh
-    of more than one rank raises."""
-    if mesh is not None and mesh.devices.size > 1:
-        raise NotImplementedError(
-            "serving on a mesh is not ported yet (ROADMAP.md section 1, "
-            "the serving engine's mesh)")
-    prefill_fn, decode_fn = build_oneshot_fns(model, seq_len, kv_fmt)
+    token)``.
+
+    On a mesh (the reference's ``NamedSharding`` of the params, the batch
+    and the cache): the inputs are this rank's, its shard of the params
+    over the model axis (``serve.layout``), its block of the batch over
+    the data axes (``batch`` under the rules), and its shard of that
+    batch's cache, and the functions run under its model group's
+    context; ``shard`` gives this rank's params of whole ones.  A data
+    rank serves its own sequences: nothing is reduced over the data
+    axes."""
+    from repro_torch.serve.layout import serve_layout
+
     dev = model.device
-    params = eval_shape(lambda: model.prepare(model.init(run.seed)),
+    layout, local_batch = None, batch_size
+    if mesh is not None:
+        rules = pt.merge_rules(pt.DEFAULT_RULES,
+                               model.config.sharding_overrides)
+        entry = pt.assign_spec(("batch",), (batch_size,), mesh, rules)[0]
+        local_batch = batch_size // max(1, int(np.prod(
+            [pt.axis_sizes(mesh)[a] for a in pt.entry_axes(entry)])))
+        shapes = {k: tuple(v.shape) for k, v in eval_shape(
+            lambda: model.init(run.seed), device=dev).items()}
+        layout = serve_layout(model, mesh, shapes, local_batch, seq_len,
+                              kv_fmt)
+    prefill_fn, decode_fn = build_oneshot_fns(model, seq_len, kv_fmt,
+                                              layout=layout)
+    shard = (lambda p: p) if layout is None else layout.shard
+    params = eval_shape(lambda: model.prepare(shard(model.init(run.seed))),
                         device=dev)
-    batch = _serve_batch_spec(model, batch_size, seq_len)
-    cache = eval_shape(lambda p, b: prefill_fn(p, b)[1], params,
-                       _serve_batch_spec(model, batch_size,
-                                        max(1, seq_len - 1)), device=dev)
+    batch = _serve_batch_spec(model, local_batch, seq_len)
+    if layout is None:
+        cache = eval_shape(lambda p, b: prefill_fn(p, b)[1], params,
+                           _serve_batch_spec(model, local_batch,
+                                             max(1, seq_len - 1)),
+                           device=dev)
+    else:
+        # this rank's shard of the cache, from its spec (a traced prefill
+        # would run the model group's collectives)
+        from repro_torch.models.transformer import kv_cache_spec
+        with layout.context():
+            spec = kv_cache_spec(model.config, local_batch, seq_len, kv_fmt)
+        cache = {name: TensorSpec(tuple(shape), dtype)
+                 for name, (shape, dtype) in spec.items() if name != "pos"}
+        cache["pos"] = max(1, seq_len - 1)
     return ServeSetup(
         prefill_fn=prefill_fn, decode_fn=decode_fn,
         prefill_abstract=(params, batch),
         decode_abstract=(params, cache,
-                         TensorSpec((batch_size,), torch.int32)),
-        mesh=mesh)
+                         TensorSpec((local_batch,), torch.int32)),
+        mesh=mesh, layout=layout, local_batch=local_batch)

@@ -328,7 +328,8 @@ def logits_keys(folds: torch.Tensor) -> torch.Tensor:
 
 
 def qlogits(h, head_t, *, quant_cfg,
-            folds: Union[int, Sequence[int], torch.Tensor]):
+            folds: Union[int, Sequence[int], torch.Tensor],
+            vocab: Optional[int] = None):
     """Serving logits through the quantizer-backend dispatcher.
 
     ``h``: (B, d) final hidden states; ``head_t``: (d, V) output projection
@@ -339,16 +340,37 @@ def qlogits(h, head_t, *, quant_cfg,
     a (B,) tensor, row i quantizes on its own with stream ``folds[i]``
     (per-slot decode; a tensor's keys are built and read on its device, so
     nothing of them goes through the host).
+
+    Vocab parallel (``vocab``, the whole head's width, and ``head_t``
+    this rank's (d, V / m) columns of it over the model group): ``h`` is
+    whole on every rank and draws from the same keys, the head's scale is
+    the group's max of the shards' (``max_over_model``), each column
+    draws at its index in the whole head (the ``matmul`` op's ``cols``),
+    and the (B, V / m) logits are gathered to (B, V) in rank order
+    (``gather_from_model``): every rank holds the whole head's logits,
+    bit for bit those of one process's ``cuda`` backend.  At ``none``
+    the local float32 product, gathered.
     """
+    from repro_torch.parallel.axes import split_of
+    from repro_torch.parallel.collectives import (gather_from_model,
+                                                  max_over_model)
+    split = None if vocab is None else split_of(head_t.shape[1], vocab)
     h32 = h.float()
+    head = head_t.float()
     if quant_cfg is None or quant_cfg.fmt == "none":
-        return h32 @ head_t.float()
-    from repro_torch.quant import backend as qbackend
-    mm, _ = qbackend.get_matmul(quant_cfg.fmt, quant_cfg.backend)
-    if isinstance(folds, torch.Tensor):
-        keys = logits_keys(folds)
-    elif isinstance(folds, int):
-        keys = logits_key(folds)
+        out = h32 @ head
     else:
-        keys = [logits_key(f) for f in folds]
-    return mm(h32, head_t.float(), keys)
+        from repro_torch.quant import backend as qbackend
+        mm, _ = qbackend.get_matmul(quant_cfg.fmt, quant_cfg.backend)
+        if isinstance(folds, torch.Tensor):
+            keys = logits_keys(folds)
+        elif isinstance(folds, int):
+            keys = logits_key(folds)
+        else:
+            keys = [logits_key(f) for f in folds]
+        kw = {}
+        if split is not None:
+            kw = {"cols": split,
+                  "alpha_b": max_over_model(head.abs().amax().reshape(1))[0]}
+        out = mm(h32, head, keys, **kw)
+    return out if split is None else gather_from_model(out, -1)

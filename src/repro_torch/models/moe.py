@@ -81,7 +81,6 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.registry import Model, register_family
 from repro_torch.parallel import axes as pax
 from repro_torch.parallel.collectives import copy_to_model
-from repro_torch.quant import kv_cache as kvc
 
 ATTN_LEAVES = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm")
 EXPERT_LEAVES = ("router", "e_gate", "e_up", "e_down")
@@ -370,14 +369,16 @@ def _layer(params: dict, cfg: ModelConfig, i: int) -> dict:
     return {leaf: params[f"blocks.{leaf}"][i] for leaf in block_leaves(cfg)}
 
 
-def _logits(params, x_last):
+def _logits(params, x_last, cfg: ModelConfig):
     """float32 logits of the final-norm last rows, against ``head_f32``
-    (``prepare``'s), or the embedding cast here."""
+    (``prepare``'s), or the embedding cast here; a vocab shard's gathered
+    (``common.qlogits`` at fmt none)."""
     head = params.get("head_f32")
     if head is None:
         head = params["embed"].float()
     h = cm.rmsnorm(x_last, params["final_norm"]).float()
-    return h @ head.T
+    return cm.qlogits(h, head.T, quant_cfg=None, folds=0,
+                      vocab=cfg.padded_vocab)
 
 
 @torch.no_grad()
@@ -398,41 +399,30 @@ def prefill(params, batch, cfg: ModelConfig, quant: QuantConfig,
                               quant=None)
         ks.append(k.transpose(1, 2))           # (B, KV, S, hd)
         vs.append(v.transpose(1, 2))
-    pad = (0, 0, 0, cache_len - S)
-    cache = {"k": F.pad(torch.stack(ks), pad), "v": F.pad(torch.stack(vs), pad),
-             "pos": S}
-    return _logits(params, x[:, -1]), cache
+    cache = tfm.prefill_cache(torch.stack(ks), torch.stack(vs), S, cache_len,
+                              "none", None)
+    return _logits(params, x[:, -1], cfg), cache
 
 
 @torch.no_grad()
 def decode_step(params, cache, token, cfg: ModelConfig, quant: QuantConfig):
     """Append one token (B,) to every row at ``cache["pos"]``; writes the
     cache in place and returns ``(logits, cache)``."""
-    cd = torch_dtype(cfg.compute_dtype)
     pos = int(cache["pos"])
     B = token.shape[0]
     x = _embed(params, token, cfg)
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    scale = 1.0 / math.sqrt(cfg.head_dim)
+    pos_dev = torch.full((B,), pos, dtype=torch.int32, device=x.device)
     for i in range(cfg.n_layers):
         blk = _layer(params, cfg, i)
-        kc, vc = cache["k"][i], cache["v"][i]          # (B, KV, S, hd) views
-        h = cm.rmsnorm(x, blk["attn_norm"]).to(cd)
-        q = torch.einsum("bd,dhk->bhk", h, blk["wq"].to(cd))
-        k = torch.einsum("bd,dhk->bhk", h, blk["wk"].to(cd))
-        v = torch.einsum("bd,dhk->bhk", h, blk["wv"].to(cd))
-        q = cm.rope(q[:, None], positions, cfg.rope_theta)[:, 0]
-        k = cm.rope(k[:, None], positions, cfg.rope_theta)[:, 0]
-        kc[:, :, pos] = k.to(kc.dtype)
-        vc[:, :, pos] = v.to(vc.dtype)
-        ctx = kvc.ref_decode_attn("none", q, kc, vc, None, None, pos,
-                                  n_kv=cfg.n_kv_heads, scale=scale)
-        x = x + torch.einsum("bhk,hkd->bd", ctx.to(cd), blk["wo"].to(cd))
-        h2 = cm.rmsnorm(x, blk["mlp_norm"]).to(cd)
+        # the dense family's one-token attention, its KV write and, on a
+        # model group, its split (transformer.decode_attention)
+        x = x + tfm.decode_attention(x, blk, tfm.layer_cache(cache, i),
+                                     pos_dev, cfg)
+        h2 = cm.rmsnorm(x, blk["mlp_norm"]).to(x.dtype)
         # each row's token alone through the dispatch (S = 1)
         x = x + _mlp(h2[:, None], blk, False, 97 * i, cfg, None)[:, 0]
     cache["pos"] = pos + 1
-    return _logits(params, x), cache
+    return _logits(params, x, cfg), cache
 
 
 # --------------------------------------------------------------------------- #
@@ -449,4 +439,5 @@ def build_moe_lm(cfg: ModelConfig, quant: QuantConfig, device) -> Model:
         decode_step=functools.partial(decode_step, cfg=cfg, quant=quant),
         kv_formats=("none",),
         param_axes=functools.partial(param_axes, cfg),
+        cache_axes=functools.partial(tfm.kv_cache_axes, cfg),
     )

@@ -61,6 +61,11 @@ class Model:
     # model axis (dense_lm, moe_lm); None: the family trains only with
     # whole params on every rank
     param_axes: Optional[Callable] = None
+    # cache_axes(kv_fmt="none") -> {name: logical axes} of the serving
+    # cache (the reference's ``kv_cache_axes``): what splits it over a
+    # model group (dense_lm, moe_lm); None: the family serves only with
+    # whole params on every rank
+    cache_axes: Optional[Callable] = None
 
 
 _BUILDERS: Dict[str, Callable[..., Model]] = {}

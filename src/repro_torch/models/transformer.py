@@ -39,7 +39,11 @@ unsharded code.
 Serving runs every projection unquantized (the JAX package's policy flag
 is 0 there); only the logits head goes through the quantizer dispatch
 (``common.qlogits``), and a quantized KV cache through the ``kv_write`` /
-``decode_attn`` ops.
+``decode_attn`` ops.  On a model group serving takes training's layout:
+the projections column- and row-parallel, the logits head split over the
+vocab and gathered, and the KV cache split by heads, or by sequence rows
+where the rules fall back to ``kv_seq`` (``kv_cache_axes``,
+``axes.kv_split``; ``decode_attention``).
 
 Caches are dicts: ``k``/``v`` (L, B, KV, S, code_dim) on the device, plus
 ``k_scale``/``v_scale`` (L, B, KV, S) bf16 when quantized, and ``pos``,
@@ -481,13 +485,46 @@ def _kv_impls(kv_fmt: str, quant: Optional[QuantConfig]):
     return kvw, attn
 
 
+def kv_cache_axes(cfg: ModelConfig, kv_fmt: str = "none") -> dict:
+    """``{name: logical axes}`` of a cache (the reference's
+    ``kv_cache_axes``): what lays it out over a mesh."""
+    del cfg
+    axes = {"k": ("layers", "batch", "kv_heads", "kv_seq", "head_dim"),
+            "v": ("layers", "batch", "kv_heads", "kv_seq", "head_dim"),
+            "pos": None}
+    if kv_fmt != "none":
+        axes["k_scale"] = ("layers", "batch", "kv_heads", "kv_seq")
+        axes["v_scale"] = ("layers", "batch", "kv_heads", "kv_seq")
+    return axes
+
+
+def _seq_rows(cache_len: int):
+    """``(row0, rows)`` of this rank's shard of a cache of ``cache_len``
+    rows split over its sequence (``axes.kv_split() == "kv_seq"``), or
+    None when the rank holds every row."""
+    if pax.kv_split() != pax.KV_SEQ:
+        return None
+    axis = pax.model_axis()
+    if cache_len % axis.size:
+        raise ValueError(f"a cache of {cache_len} rows does not split over "
+                         f"{axis.size} ranks")
+    rows = cache_len // axis.size
+    return axis.index * rows, rows
+
+
 def kv_cache_spec(cfg: ModelConfig, batch: int, seq_len: int,
                   kv_fmt: str = "none"):
-    """``{name: (shape, dtype)}`` of a cache; ``pos`` is host-side."""
+    """``{name: (shape, dtype)}`` of a cache; ``pos`` is host-side.  Under
+    a model group, this rank's shard (``axes.kv_split``)."""
     from repro_torch.quant import kv_cache as kvc
 
     cd = torch_dtype(cfg.compute_dtype)
     L, kv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    if pax.kv_split() == pax.KV_HEADS:
+        kv //= pax.model_axis().size
+    rows = _seq_rows(seq_len)
+    if rows is not None:
+        seq_len = rows[1]
     code_dt, code_dim = kvc.code_spec(kv_fmt, hd)
     spec = {
         "k": ((L, batch, kv, seq_len, code_dim), code_dt or cd),
@@ -507,6 +544,58 @@ def slot_cache_spec(cfg: ModelConfig, n_slots: int, max_seq: int,
     spec = kv_cache_spec(cfg, n_slots, max_seq, kv_fmt=kv_fmt)
     spec["pos"] = ((n_slots,), torch.int32)
     return spec
+
+
+def prefill_cache(ks, vs, plen, cache_len: int, kv_fmt: str,
+                  quant: Optional[QuantConfig]):
+    """The cache a prefill leaves: the K and V rows ``ks`` / ``vs`` (L, B,
+    KV, S, hd) of a prompt, in a cache of ``cache_len`` rows (zero past
+    the prompt: zero codes and zero scales), quantized for a quantized
+    ``kv_fmt``; ``pos`` is ``plen``.  On a sequence-split cache, this
+    rank's rows of it (the ``kv_write`` op given the shard)."""
+    from repro_torch.quant import kv_cache as kvc
+
+    L, B, KV, S, hd = ks.shape
+    rows = _seq_rows(cache_len)
+    if rows is None and kv_fmt == "none":
+        cache = {"k": ks, "v": vs, "pos": plen}
+    else:
+        kvw, _ = _kv_impls(kv_fmt, quant)
+        code_dtype, code_dim = kvc.code_spec(kv_fmt, hd)
+        n = S if rows is None else rows[1]
+        alloc = torch.empty if rows is None else torch.zeros
+        cache = {"pos": plen}
+        for name in ("k", "v"):
+            cache[name] = alloc((L, B, KV, n, code_dim),
+                                dtype=code_dtype or ks.dtype,
+                                device=ks.device)
+            if kv_fmt != "none":
+                cache[f"{name}_scale"] = alloc((L, B, KV, n),
+                                               dtype=kvc.SCALE_DTYPE,
+                                               device=ks.device)
+
+        def flat(t):
+            return None if t is None else t.reshape(L * B, KV, *t.shape[3:])
+
+        # every layer's K and V rows in one write, in the compute dtype
+        shard = () if rows is None else (rows[0], cache_len)
+        kvw(flat(ks), flat(vs), flat(cache["k"]), flat(cache["v"]),
+            flat(cache.get("k_scale")), flat(cache.get("v_scale")), None,
+            *shard)
+        if rows is not None:
+            return cache
+    if cache_len > S:
+        # zero rows past the prompt: they quantize to zero codes and zero
+        # scales, so padding after quantizing equals quantizing the padding
+        extra = cache_len - S
+        for name in ("k", "v", "k_scale", "v_scale"):
+            if name in cache:
+                t = cache[name]
+                # the sequence axis is 3: last of a scale array, second to
+                # last of a code array
+                cache[name] = F.pad(t, (0, extra) if t.dim() == 4
+                                    else (0, 0, 0, extra))
+    return cache
 
 
 @torch.no_grad()
@@ -529,6 +618,12 @@ def prefill(params, batch, cfg: ModelConfig, quant: QuantConfig,
     in the bucket).  The last real row is gathered on the device, the
     logits head's key is built there (one key for the one row: the bits
     of the int's shared key), and the cache's ``"pos"`` is that tensor.
+
+    Tensor parallel (a model group): the blocks run as training's
+    (``attention_block``, ``mlp_block``), the cache keeps this rank's KV
+    heads or its rows (``axes.kv_split``, ``prefill_cache``), and the
+    logits head is split over the vocab and gathered (``common.qlogits``):
+    every rank returns the whole logits.
     """
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -562,41 +657,94 @@ def prefill(params, batch, cfg: ModelConfig, quant: QuantConfig,
     # bare fold of the position would reuse the first decode step's stream)
     with ops.prefill_launches():
         logits = cm.qlogits(h_last, _head_t(params, cfg), quant_cfg=quant,
-                            folds=folds)
-    ks, vs = torch.stack(ks), torch.stack(vs)  # (L, B, KV, S, hd)
-    cache = {"k": ks, "v": vs, "pos": plen}
-    if kv_fmt != "none":
-        from repro_torch.quant import kv_cache as kvc
-
-        # every layer's K and V rows in one write, in the compute dtype
-        kvw, _ = _kv_impls(kv_fmt, quant)
-        L, KV, hd = ks.shape[0], ks.shape[2], ks.shape[4]
-        code_dtype, code_dim = kvc.code_spec(kv_fmt, hd)
-        cache = {"pos": plen}
-        for name in ("k", "v"):
-            cache[name] = torch.empty((L, B, KV, S, code_dim),
-                                      dtype=code_dtype, device=ks.device)
-            cache[f"{name}_scale"] = torch.empty((L, B, KV, S),
-                                                 dtype=kvc.SCALE_DTYPE,
-                                                 device=ks.device)
-
-        def rows(t):
-            return t.reshape(L * B, KV, S, *t.shape[4:])
-
-        kvw(rows(ks), rows(vs), rows(cache["k"]), rows(cache["v"]),
-            rows(cache["k_scale"]), rows(cache["v_scale"]), None)
-    if cache_len > S:
-        # zero rows past the prompt: they quantize to zero codes and zero
-        # scales, so padding after quantizing equals quantizing the padding
-        extra = cache_len - S
-        for name in ("k", "v", "k_scale", "v_scale"):
-            if name in cache:
-                t = cache[name]
-                # the sequence axis is 3: last of a scale array, second to
-                # last of a code array
-                cache[name] = F.pad(t, (0, extra) if t.dim() == 4
-                                    else (0, 0, 0, extra))
+                            folds=folds, vocab=cfg.padded_vocab)
+    cache = prefill_cache(torch.stack(ks), torch.stack(vs), plen, cache_len,
+                          kv_fmt, quant)
     return logits, cache
+
+
+def decode_attention(x, blk, layer_cache, pos, cfg: ModelConfig,
+                     quant: Optional[QuantConfig] = None,
+                     kv_fmt: str = "none"):
+    """One token's attention branch (B, d) in the compute dtype: each
+    row's K/V written at its position (clamped into the cache, as the
+    JAX package's dynamic_update_slice does) before attention reads it,
+    each row attending to rows ``<= pos``.  ``layer_cache``: the layer's
+    ``(k, v, k_scale, v_scale)`` views, written in place; ``pos`` (B,)
+    int on the device.
+
+    Tensor parallel: q, k and v column-parallel over this rank's heads
+    and ``wo`` row-parallel (a float32 partial rounded once after the
+    group's sum, ``common.row_parallel``).  On a cache split by heads the
+    rank attends with its own heads; otherwise every rank needs every
+    query head (gathered): on a sequence-split cache it writes the rows
+    it holds, runs the attention's first pass over them, and the ranks'
+    partials are gathered and merged (the ``decode_attn`` op's ``rows``),
+    on a whole cache it attends whole; either way it keeps its own
+    heads' context for ``wo``."""
+    from repro_torch.parallel.collectives import gather_from_model
+
+    cd = torch_dtype(cfg.compute_dtype)
+    kvw, attend = _kv_impls(kv_fmt, quant)
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    kc, vc, ksc, vsc = layer_cache
+    positions = pos[:, None]
+    h = cm.rmsnorm(x, blk["attn_norm"]).to(cd)
+    q = torch.einsum("bd,dhk->bhk", h, blk["wq"].to(cd))
+    k = torch.einsum("bd,dhk->bhk", h, blk["wk"].to(cd))
+    v = torch.einsum("bd,dhk->bhk", h, blk["wv"].to(cd))
+    q = cm.rope(q[:, None], positions, cfg.rope_theta)[:, 0]
+    k = cm.rope(k[:, None], positions, cfg.rope_theta)[:, 0]
+    if kc.shape[1] != k.shape[1]:
+        raise ValueError(f"the cache holds {kc.shape[1]} KV heads, this "
+                         f"rank's wk {k.shape[1]}")
+    n_loc = q.shape[1]
+    # the whole cache's rows S, and this rank's (first row, S) when it
+    # holds a sequence shard of them
+    S, rows = kc.shape[2], None
+    if pax.kv_split() == pax.KV_SEQ:
+        S *= pax.model_axis().size
+        rows = (pax.model_index() * kc.shape[2], S)
+    # each slot's row at its position: one launch for K and V
+    kvw(k[:, :, None], v[:, :, None], kc, vc, ksc, vsc,
+        pos.clamp(max=S - 1).long(), *(rows or ()))
+    if n_loc == cfg.padded_heads or k.shape[1] < cfg.n_kv_heads:
+        # unsharded, or a rank's heads over its own KV heads
+        ctx = attend(q, kc, vc, ksc, vsc, pos, n_kv=k.shape[1], scale=scale)
+    else:
+        q_all = gather_from_model(q, 1)
+        shard = {} if rows is None else {"rows": rows,
+                                         "gather": gather_from_model}
+        ctx = attend(q_all, kc, vc, ksc, vsc, pos, n_kv=cfg.n_kv_heads,
+                     scale=scale, **shard)
+        h0 = pax.model_index() * n_loc
+        ctx = ctx[:, h0:h0 + n_loc]
+    if n_loc == cfg.padded_heads:
+        return torch.einsum("bhk,hkd->bd", ctx.to(cd), blk["wo"].to(cd))
+    return cm.reduce_partial(torch.einsum("bhk,hkd->bd", ctx.float(),
+                                          blk["wo"].float()), cd)
+
+
+def _decode_mlp(x, blk, cfg: ModelConfig):
+    """One token's MLP branch (B, d): gate and up column-parallel over the
+    rank's ``mlp`` slice, ``wo_mlp`` row-parallel (tensor parallel)."""
+    cd = torch_dtype(cfg.compute_dtype)
+    h2 = cm.rmsnorm(x, blk["mlp_norm"]).to(cd)
+    gate = torch.einsum("bd,df->bf", h2, blk["wi_gate"].to(cd))
+    up = torch.einsum("bd,df->bf", h2, blk["wi_up"].to(cd))
+    act = _activation(gate, up, cfg.mlp_activation)
+    if blk["wi_gate"].shape[1] == cfg.d_ff:
+        return torch.einsum("bf,fd->bd", act, blk["wo_mlp"].to(cd))
+    return cm.reduce_partial(torch.einsum("bf,fd->bd", act.float(),
+                                          blk["wo_mlp"].float()), cd)
+
+
+def layer_cache(cache, i: int):
+    """Layer ``i``'s ``(k, v, k_scale, v_scale)`` views of a cache (the
+    scales None for an unquantized one)."""
+    scales = [cache[n][i] if n in cache else None
+              for n in ("k_scale", "v_scale")]
+    return (cache["k"][i], cache["v"][i], *scales)
 
 
 def _decode_trunk(params, cache, token, pos, cfg: ModelConfig,
@@ -604,41 +752,16 @@ def _decode_trunk(params, cache, token, pos, cfg: ModelConfig,
     """Shared one-token trunk for lockstep and slot decode.
 
     ``pos`` is a (B,) int tensor on the device.  Each row's K/V is written
-    at its own position (clamped into the cache, as the JAX package's
-    dynamic_update_slice does) before attention reads it, and each row
-    attends to rows ``<= pos``.  Writes the cache in place; returns the
-    final-norm hidden states (B, d) float32.
+    at its own position before attention reads it, and each row attends
+    to rows ``<= pos`` (``decode_attention``).  Writes the cache in place;
+    returns the final-norm hidden states (B, d) float32.
     """
-    cd = torch_dtype(cfg.compute_dtype)
     x = _embed(params, token, cfg)
-    positions = pos[:, None]
-    quantized = kv_fmt != "none"
-    kvw, attend = _kv_impls(kv_fmt, quant)
-    attn_scale = 1.0 / math.sqrt(cfg.head_dim)
-    S = cache["k"].shape[3]
-    wpos = pos.clamp(max=S - 1).long()
     for i in range(cfg.n_layers):
         blk = _layer(params, i)
-        kc, vc = cache["k"][i], cache["v"][i]          # (B, KV, S, Dc) views
-        h = cm.rmsnorm(x, blk["attn_norm"]).to(cd)
-        q = torch.einsum("bd,dhk->bhk", h, blk["wq"].to(cd))
-        k = torch.einsum("bd,dhk->bhk", h, blk["wk"].to(cd))
-        v = torch.einsum("bd,dhk->bhk", h, blk["wv"].to(cd))
-        q = cm.rope(q[:, None], positions, cfg.rope_theta)[:, 0]
-        k = cm.rope(k[:, None], positions, cfg.rope_theta)[:, 0]
-        ksc = vsc = None
-        if quantized:
-            ksc, vsc = cache["k_scale"][i], cache["v_scale"][i]
-        # each slot's row at its position: one launch for K and V
-        kvw(k[:, :, None], v[:, :, None], kc, vc, ksc, vsc, wpos)
-        ctx = attend(q, kc, vc, ksc, vsc, pos, n_kv=cfg.n_kv_heads,
-                     scale=attn_scale)
-        x = x + torch.einsum("bhk,hkd->bd", ctx.to(cd), blk["wo"].to(cd))
-        h2 = cm.rmsnorm(x, blk["mlp_norm"]).to(cd)
-        gate = torch.einsum("bd,df->bf", h2, blk["wi_gate"].to(cd))
-        up = torch.einsum("bd,df->bf", h2, blk["wi_up"].to(cd))
-        act = _activation(gate, up, cfg.mlp_activation)
-        x = x + torch.einsum("bf,fd->bd", act, blk["wo_mlp"].to(cd))
+        x = x + decode_attention(x, blk, layer_cache(cache, i), pos, cfg,
+                                 quant, kv_fmt)
+        x = x + _decode_mlp(x, blk, cfg)
     return cm.rmsnorm(x, params["final_norm"]).float()
 
 
@@ -653,7 +776,7 @@ def decode_step(params, cache, token, cfg: ModelConfig, quant: QuantConfig,
     h_last = _decode_trunk(params, cache, token, pos_dev, cfg, quant=quant,
                            kv_fmt=kv_fmt)
     logits = cm.qlogits(h_last, _head_t(params, cfg), quant_cfg=quant,
-                        folds=2 * pos + 1)
+                        folds=2 * pos + 1, vocab=cfg.padded_vocab)
     cache["pos"] = pos + 1
     return logits, cache
 
@@ -679,7 +802,7 @@ def decode_slots(params, cache, tokens, active, cfg: ModelConfig,
     h_last = _decode_trunk(params, cache, tokens, pos, cfg, quant=quant,
                            kv_fmt=kv_fmt)
     logits = cm.qlogits(h_last, _head_t(params, cfg), quant_cfg=quant,
-                        folds=2 * pos + 1)
+                        folds=2 * pos + 1, vocab=cfg.padded_vocab)
     pos.add_(torch.as_tensor(active, device=pos.device).to(pos.dtype))
     return logits, cache
 
@@ -704,4 +827,5 @@ def build_dense_lm(cfg: ModelConfig, quant: QuantConfig, device) -> Model:
         slot_cache_spec=functools.partial(slot_cache_spec, cfg),
         kv_formats=("none", "int8", "luq_fp4"),
         param_axes=functools.partial(param_axes, cfg),
+        cache_axes=functools.partial(kv_cache_axes, cfg),
     )

@@ -14,6 +14,14 @@ unsharded code.  The context is process-wide, not thread-local: one
 process is one rank, and the autograd engine runs a CUDA backward (and
 the recomputation of a checkpointed block) on a thread of its own, which
 must see the same group.
+
+Serving also needs the KV cache's layout, which the rules decide from the
+cache's shape (``kv_cache_axes``), not from a parameter's: ``kv_split``
+names the cache dim the model group splits, ``"kv_heads"`` (each rank
+the KV heads its ``wk`` and ``wv`` hold) or ``"kv_seq"`` (each rank the
+rows ``[r S / m, (r + 1) S / m)`` of every KV head: the reference's
+fallback where the KV heads do not divide the group), or None (every
+rank the whole cache).
 """
 from __future__ import annotations
 
@@ -37,26 +45,38 @@ STATE = "state"
 CONV = "conv"
 POD_CHUNK = "pod_chunk"
 
-_CTX = {"model": None}
+_CTX = {"model": None, "kv_split": None}
+KV_SPLITS = (None, KV_HEADS, KV_SEQ)
 
 
 @contextlib.contextmanager
-def partitioning_context(model_axis):
+def partitioning_context(model_axis, kv_split: Optional[str] = None):
     """Run the model code as this rank's shard of the ``model`` group
-    ``model_axis`` (an ``AxisGroup``; None or a group of one: unsharded)."""
-    prev = _CTX["model"]
+    ``model_axis`` (an ``AxisGroup``; None or a group of one: unsharded);
+    ``kv_split``: the KV cache dim the group splits (module docstring)."""
+    if kv_split not in KV_SPLITS:
+        raise ValueError(f"kv_split must be one of {KV_SPLITS}, got "
+                         f"{kv_split!r}")
+    prev = dict(_CTX)
     _CTX["model"] = (model_axis if model_axis is not None
                      and model_axis.size > 1 else None)
+    _CTX["kv_split"] = kv_split if _CTX["model"] is not None else None
     try:
         yield
     finally:
-        _CTX["model"] = prev
+        _CTX.update(prev)
 
 
 def model_axis():
     """This rank's model group, or None when the model code runs
     unsharded."""
     return _CTX["model"]
+
+
+def kv_split() -> Optional[str]:
+    """The KV cache dim the model group splits: ``"kv_heads"``,
+    ``"kv_seq"`` or None (module docstring)."""
+    return _CTX["kv_split"]
 
 
 def model_index() -> int:

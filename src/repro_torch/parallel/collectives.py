@@ -9,13 +9,16 @@ block of the batch, so the rank-local body of the sharded ghost driver
 place, with these calls where the reference's body has ``psum`` and
 ``all_gather``.
 
-Every collective is an ``all_reduce`` (SUM or MAX), which both backends
-have for CUDA tensors: gloo on CUDA tensors has only ``broadcast`` and
-``all_reduce``.  :func:`gather_rows` is therefore a SUM of a zero-filled
-buffer that each rank fills at its own offset; adding zeros is exact.
+Every collective of training is an ``all_reduce`` (SUM or MAX), which
+both backends have for CUDA tensors: gloo on CUDA tensors has only
+``broadcast`` and ``all_reduce``.  :func:`gather_rows` is therefore a SUM
+of a zero-filled buffer that each rank fills at its own offset; adding
+zeros is exact.  :func:`gather_from_model` takes an ``all_gather`` where
+the backend has one for the tensor.
 
 The model group's collectives (``model_all_reduce``, :func:`copy_to_model`,
-:func:`reduce_from_model`, :func:`max_over_model`) run inside the model
+:func:`reduce_from_model`, :func:`max_over_model`, and serving's
+:func:`gather_from_model`) run inside the model
 code of a rank that holds a shard of each layer (``repro_torch.parallel.
 axes``), also under the vmap engine's ``vmap(grad_and_value(...))``: the
 reduction is the custom op ``repro_torch::model_all_reduce``, whose vmap
@@ -41,8 +44,9 @@ import torch.distributed as dist
 
 from repro_torch.parallel import axes
 
-#: All-reduces over the model group since :func:`reset_model_reduces`:
-#: their number and the bytes each rank sent into them.
+#: Collectives over the model group since :func:`reset_model_reduces`
+#: (all-reduces, and serving's gathers, :func:`gather_from_model`): their
+#: number and the bytes each rank sent into them.
 MODEL_REDUCES = {"count": 0, "bytes": 0}
 
 _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
@@ -160,6 +164,36 @@ def max_over_model(x: torch.Tensor) -> torch.Tensor:
     if axes.model_axis() is None:
         return x.detach()
     return _MaxOverModel.apply(x.detach())
+
+
+def gather_from_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The model group's ``x`` concatenated along ``dim`` in rank order
+    (the group's index), on every rank; ``x`` itself without a group.
+    Serving's gather (the vocab shards of the logits, the query heads, the
+    split attention's partials), under ``no_grad``: no autograd rule.
+    An ``all_gather``, except under gloo on CUDA tensors, which has only
+    ``broadcast`` and ``all_reduce``: there an ``all_reduce`` SUM of a
+    float32 zero buffer that each rank fills at its own block (adding
+    zeros keeps every value but a -0, which becomes +0).  Counted in
+    :data:`MODEL_REDUCES` with the bytes this rank sent."""
+    axis = axes.model_axis()
+    if axis is None:
+        return x
+    x = x.contiguous()
+    dim = dim % x.dim()
+    if x.is_cuda and dist.get_backend(axis.group) == "gloo":
+        # in float32 (gloo has no bf16 sum on every build; the round trip
+        # of a bf16 value and the sum with zeros are exact)
+        buf = x.new_zeros((axis.size,) + tuple(x.shape), dtype=torch.float32)
+        buf[axis.index] = x
+        dist.all_reduce(buf, group=axis.group)
+        parts = buf.to(x.dtype).unbind(0)
+    else:
+        parts = [torch.empty_like(x) for _ in range(axis.size)]
+        dist.all_gather(parts, x, group=axis.group)
+    MODEL_REDUCES["count"] += 1
+    MODEL_REDUCES["bytes"] += x.numel() * x.element_size()
+    return torch.cat(parts, dim=dim)
 
 
 def all_reduce_sum(tree: Dict[str, torch.Tensor],

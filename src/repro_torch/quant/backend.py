@@ -12,7 +12,8 @@ The counterpart of ``repro.quant.backend``:
                   same bits on CPU tensors.  The primitive behind
                   ``fake_quant``: a tensor quantized whole is one row, a
                   microbatch of per-example tensors one row each.
-``"matmul"``      ``mm(a, b, keys) -> (R, N) float32``: quantize both
+``"matmul"``      ``mm(a, b, keys, cols=None, alpha_b=None) -> (R, N)
+                  float32``: quantize both
                   operands, then multiply.  ``keys`` is one Philox key
                   ``(k0, k1)`` (the whole matrix is quantized at once, as
                   the JAX op does with one key) or a list of R keys (each
@@ -20,14 +21,25 @@ The counterpart of ``repro.quant.backend``:
                   JAX package's per-slot vmap does).  The uniforms are the
                   ``repro_torch.quant.philox`` stream of each key (operand
                   0 for ``a``, 1 for ``b``), the same on CPU and card, and
-                  the ``cuda`` kernel draws them itself.
+                  the ``cuda`` kernel draws them itself.  ``cols``
+                  ``(col0, n_whole)`` and ``alpha_b``: ``b`` is a vocab
+                  shard, the columns ``col0 ..`` of a head ``n_whole``
+                  wide whose scale is ``alpha_b``; its product is the
+                  whole head's columns (``kernels.ops.luq_matmul``).
 ``"kv_write"``    ``kvw(k, v, kc, vc, ks, vs, wpos)``: quantize the K and V
                   rows (N0, N1, T, hd) of one call into the cache codes
                   (N0, N1, S, code_dim) and bf16 scales (N0, N1, S), in
                   place, row t of (i, j) at cache row ``wpos[i] + t``
                   (from row 0 when ``wpos`` is None), for the KV storage
                   formats (``"none"`` copies the rows, no scales).
-``"decode_attn"`` ``attn(q, kc, vc, ks, vs, pos, *, n_kv, scale) -> ctx``.
+                  A sequence shard (``row0``, ``seq_len``): the cache's
+                  rows ``row0 ..`` of ``seq_len``, the rows it holds
+                  written alone.
+``"decode_attn"`` ``attn(q, kc, vc, ks, vs, pos, *, n_kv, scale, rows=None,
+                  gather=None) -> ctx``.  A sequence shard (``rows``
+                  ``(row0, seq_len)``, ``q`` every query head): this
+                  rank's partials over its rows, ``gather(partials, 0)``
+                  of every rank's in rank order, then their merge.
 ``"clip_sum"``    ``cs(grads, clip_norm) -> (clipped_sum, norms)``: the DP
                   per-example clip and batch sum of (B, D) rows; format-
                   agnostic (registered under fmt ``"*"``) and selected by
@@ -220,19 +232,23 @@ def _ref_clip_sum(grads, clip_norm):
 def _ref_matmul(fmt: str) -> Callable:
     q = formats.make_quantizer(fmt)
     if fmt not in formats.STOCHASTIC_FORMATS:
-        return lambda a, b, keys: q(a, None).float() @ q(b, None).float()
+        # elementwise: a vocab shard's product is the whole one's columns
+        return lambda a, b, keys, cols=None, alpha_b=None: (
+            q(a, None).float() @ q(b, None).float())
     # the keyed plain matmul splits LUQ-FP4 itself; another format is
     # quantized whole against each draw
     split = {} if fmt == "luq_fp4" else {
         "prep": lambda x, alpha: (x, alpha),
         "value": lambda prepared, u: q(prepared[0], u, prepared[1])}
 
-    def mm(a, b, keys):
+    def mm(a, b, keys, cols=None, alpha_b=None):
         from repro_torch.kernels.ref import luq_matmul_keys_ref
         a, b = a.float(), b.float()
         _, per_row = philox.split_keys(keys, a.shape[0])
         alpha_a = a.abs().amax(dim=1) if per_row else a.abs().amax()
-        return luq_matmul_keys_ref(a, b, keys, alpha_a, b.abs().amax(),
+        if alpha_b is None:
+            alpha_b = b.abs().amax()
+        return luq_matmul_keys_ref(a, b, keys, alpha_a, alpha_b, cols=cols,
                                    **split)
 
     return mm
@@ -253,18 +269,24 @@ def _ref_ghost_norm(fmt: str) -> Callable:
 
 
 def _ref_kv_write(fmt: str) -> Callable:
-    def kvw(k, v, kc, vc, ks, vs, wpos):
+    def kvw(k, v, kc, vc, ks, vs, wpos, row0=0, seq_len=None):
         from repro_torch.quant import kv_cache
-        kv_cache.kv_write(fmt, k, v, kc, vc, ks, vs, wpos)
+        kv_cache.kv_write(fmt, k, v, kc, vc, ks, vs, wpos, row0, seq_len)
 
     return kvw
 
 
 def _ref_decode_attn(fmt: str) -> Callable:
-    def attn(q, kc, vc, ks, vs, pos, *, n_kv, scale):
+    def attn(q, kc, vc, ks, vs, pos, *, n_kv, scale, rows=None,
+             gather=None):
         from repro_torch.quant import kv_cache
-        return kv_cache.ref_decode_attn(fmt, q, kc, vc, ks, vs, pos,
-                                        n_kv=n_kv, scale=scale)
+        if rows is None:
+            return kv_cache.ref_decode_attn(fmt, q, kc, vc, ks, vs, pos,
+                                            n_kv=n_kv, scale=scale)
+        part = kv_cache.ref_decode_attn_partial(
+            fmt, q, kc, vc, ks, vs, pos, n_kv=n_kv, scale=scale,
+            row0=rows[0])
+        return kv_cache.attn_merge(gather(part[None], 0)).reshape(q.shape)
 
     return attn
 
@@ -296,13 +318,15 @@ def _cuda_clip_sum(grads, clip_norm):
     return clip_and_sum(grads, float(clip_norm))
 
 
-def _cuda_matmul(a, b, keys):
+def _cuda_matmul(a, b, keys, cols=None, alpha_b=None):
     from repro_torch.kernels.ops import luq_matmul
     a = a.float().contiguous()
     b = b.float().contiguous()
     _, per_row = philox.split_keys(keys, a.shape[0])
     alpha_a = a.abs().amax(dim=1) if per_row else a.abs().amax()
-    return luq_matmul(a, b, keys, alpha_a, b.abs().amax())
+    if alpha_b is None:
+        alpha_b = b.abs().amax()
+    return luq_matmul(a, b, keys, alpha_a, alpha_b.float(), cols=cols)
 
 
 def _cuda_ghost_norm(x, g, kx, kg, flag=None, **split):
@@ -318,18 +342,28 @@ _cuda_ghost_norm.reads_flag = True
 
 
 def _cuda_kv_write(fmt: str) -> Callable:
-    def kvw(k, v, kc, vc, ks, vs, wpos):
+    def kvw(k, v, kc, vc, ks, vs, wpos, row0=0, seq_len=None):
         from repro_torch.kernels.ops import kv_quant_write
-        kv_quant_write(k, v, kc, vc, ks, vs, fmt, wpos)
+        kv_quant_write(k, v, kc, vc, ks, vs, fmt, wpos, row0, seq_len)
 
     return kvw
 
 
 def _cuda_decode_attn(fmt: str) -> Callable:
-    def attn(q, kc, vc, ks, vs, pos, *, n_kv, scale):
-        from repro_torch.kernels.ops import decode_attn_fused
-        return decode_attn_fused(q, kc, vc, ks, vs, pos, fmt=fmt, n_kv=n_kv,
-                                 scale=scale)
+    def attn(q, kc, vc, ks, vs, pos, *, n_kv, scale, rows=None,
+             gather=None):
+        from repro_torch.kernels import ops
+        if rows is None:
+            return ops.decode_attn_fused(q, kc, vc, ks, vs, pos, fmt=fmt,
+                                         n_kv=n_kv, scale=scale)
+        part = ops.decode_attn_split(q, kc, vc, ks, vs, pos, fmt=fmt,
+                                     n_kv=n_kv, scale=scale, row0=rows[0],
+                                     seq_len=rows[1])
+        B, hp, hd = q.shape
+        return ops.decode_attn_merge(gather(part[None], 0), pos, batch=B,
+                                     n_kv=n_kv, group=hp // n_kv,
+                                     head_dim=hd, rows=kc.shape[2],
+                                     seq_len=rows[1])
 
     return attn
 

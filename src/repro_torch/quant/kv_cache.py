@@ -129,7 +129,7 @@ def kv_quant(fmt: str, x: torch.Tensor):
 
 
 def kv_write(fmt: str, k, v, k_codes, v_codes, k_scales, v_scales,
-             wpos=None) -> None:
+             wpos=None, row0: int = 0, seq_len=None) -> None:
     """Quantize K and V rows ``(N0, N1, T, hd)`` into the cache, in place.
 
     Row t of (i, j) lands at row ``w_i + t`` of ``k_codes`` / ``v_codes``
@@ -139,21 +139,41 @@ def kv_write(fmt: str, k, v, k_codes, v_codes, k_scales, v_scales,
     row at its position (T = 1), prefill a whole stack from row 0.  Every
     other row is left as it is.  ``fmt == "none"`` copies the rows into
     the cache's dtype and has no scales.
+
+    A sequence shard (``row0``, ``seq_len``): the codes and scales hold
+    the rows ``row0 ..`` of a cache of ``seq_len`` rows; row t of (i, j)
+    goes to the whole cache's row ``w_i + t`` (``w_i`` clamped into ``[0,
+    seq_len - T]``) and is written only when the shard holds it.  Nothing
+    is read to the host: a row the shard does not hold rewrites a row of
+    its own with its own value.
     """
     T, S = k.shape[2], k_codes.shape[2]
+    whole = S if seq_len is None else int(seq_len)
     for x, codes, scales in ((k, k_codes, k_scales), (v, v_codes, v_scales)):
         c, sc = kv_quant(fmt, x)
         if wpos is None:
-            codes[:, :, :T] = c.to(codes.dtype)
+            n = max(0, min(S, T - row0))
+            codes[:, :, :n] = c[:, :, row0:row0 + n].to(codes.dtype)
             if sc is not None:
-                scales[:, :, :T] = sc
+                scales[:, :, :n] = sc[:, :, row0:row0 + n]
             continue
         rows = torch.arange(x.shape[0], device=x.device)
-        w = torch.as_tensor(wpos, device=x.device).long().clamp(0, S - T)
+        w = torch.as_tensor(wpos, device=x.device).long().clamp(0, whole - T)
         for t in range(T):
-            codes[rows, :, w + t] = c[:, :, t].to(codes.dtype)
+            local = w + t - row0
+            if row0 == 0 and whole == S:
+                codes[rows, :, local] = c[:, :, t].to(codes.dtype)
+                if sc is not None:
+                    scales[rows, :, local] = sc[:, :, t]
+                continue
+            held = (local >= 0) & (local < S)
+            at = local.clamp(0, S - 1)
+            codes[rows, :, at] = torch.where(
+                held[:, None, None], c[:, :, t].to(codes.dtype),
+                codes[rows, :, at])
             if sc is not None:
-                scales[rows, :, w + t] = sc[:, :, t]
+                scales[rows, :, at] = torch.where(held[:, None], sc[:, :, t],
+                                                  scales[rows, :, at])
 
 
 def kv_dequant(fmt: str, codes: torch.Tensor, scales) -> torch.Tensor:
@@ -196,3 +216,58 @@ def ref_decode_attn(fmt: str, q, k_codes, v_codes, k_scale, v_scale, pos, *,
     probs = torch.softmax(scores, dim=-1)
     ctx = torch.einsum("bkgs,bksd->bkgd", probs.to(v.dtype), v)
     return ctx.reshape(B, hp, hd)
+
+
+# --------------------------------------------------------------------------- #
+# a sequence-split cache: each rank's partial attention, then the merge
+# --------------------------------------------------------------------------- #
+def attn_partial(scores, valid, v, v_scale=None):
+    """One shard's part of a softmax attention: ``scores`` (B, KV, g, S)
+    float32 over the shard's rows, ``valid`` (B, 1, 1, S) the rows
+    attended, ``v`` (B, KV, S, hd) the values (``v_scale`` (B, KV, S):
+    folded into the probabilities, the kernel's form).  Returns (B, KV,
+    g, hd + 2) float32: the unnormalised output ``sum_s p_s v_s`` with
+    ``p_s = exp(score_s - m)``, then ``m`` (the shard's max, -inf when it
+    holds no live row) and ``l = sum_s p_s``."""
+    s = torch.where(valid, scores, -torch.inf)
+    m = s.amax(dim=-1)
+    safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(s - safe[..., None])
+    lsum = p.sum(dim=-1)
+    if v_scale is not None:
+        p = p * v_scale.float()[:, :, None, :]
+    o = torch.einsum("bkgs,bksd->bkgd", p.to(v.dtype), v).float()
+    return torch.cat([o, m[..., None], lsum[..., None]], dim=-1)
+
+
+def attn_merge(parts):
+    """The attention of every rank's :func:`attn_partial` ``parts`` (R, B,
+    KV, g, hd + 2), stacked in rank order: (B, KV, g, hd) float32,
+    ``sum_r o_r e^(m_r - M) / sum_r l_r e^(m_r - M)``, ``M`` the max of
+    the ``m_r``; a shard with no live row weighs 0."""
+    o, m, lsum = parts[..., :-2], parts[..., -2], parts[..., -1]
+    c = torch.exp(m - m.amax(dim=0))
+    return (o * c[..., None]).sum(dim=0) / (lsum * c).sum(dim=0)[..., None]
+
+
+def shard_valid(pos, B: int, S: int, row0: int, device):
+    """(B, 1, 1, S) bools: the shard's rows ``row0 .. row0 + S - 1`` that a
+    slot at ``pos`` attends (the whole cache's rows ``<= pos``)."""
+    pos_b = torch.as_tensor(pos, device=device).expand(B)
+    rows = torch.arange(row0, row0 + S, device=device)
+    return rows[None, None, None, :] <= pos_b[:, None, None, None]
+
+
+def ref_decode_attn_partial(fmt: str, q, k_codes, v_codes, k_scale, v_scale,
+                            pos, *, n_kv: int, scale: float, row0: int = 0):
+    """:func:`ref_decode_attn` on a sequence shard, the rows ``row0 ..`` of
+    the cache, as :func:`attn_partial`'s (B, KV, g, hd + 2); ``q`` (B,
+    H, hd) holds every query head.  :func:`attn_merge` of every rank's
+    is :func:`ref_decode_attn` of the whole cache, to float32 rounding."""
+    B, hp, hd = q.shape
+    qg = q.reshape(B, n_kv, hp // n_kv, hd)
+    k = kv_dequant(fmt, k_codes, k_scale)
+    v = kv_dequant(fmt, v_codes, v_scale)
+    scores = torch.einsum("bkgd,bksd->bkgs", qg.float(), k.float()) * scale
+    return attn_partial(scores, shard_valid(pos, B, k.shape[2], row0,
+                                            q.device), v)

@@ -74,6 +74,13 @@ class ServeSupervisor:
         """
         if n_replicas < 1:
             raise ValueError("n_replicas must be >= 1")
+        if getattr(engine, "model_group", None) is not None:
+            # its heartbeats and stragglers read each rank's own wall
+            # clock, and a rank must not re-plan or drain alone
+            raise NotImplementedError(
+                "the supervisor does not run over an engine on a model "
+                "group: its heartbeat and straggler decisions read each "
+                "rank's wall clock (ROADMAP.md section 1)")
         self.engine = engine
         self.n_replicas = n_replicas
         self.faults = faults if faults is not None else engine.faults

@@ -45,6 +45,21 @@ Gumbel-max with the noise drawn from a generator seeded by
 :func:`sampling_seed` of ``(seed, request_id, position)``, so concurrent
 slots never share a stream and reruns are token-identical.
 
+A model group (``mesh=``, a mesh whose ``model`` axis has degree above
+1, each rank running one engine): the engine shards whole params once
+(``serve.layout``), holds its rank's shard of the slot cache (its KV
+heads, or its sequence rows where the heads do not divide the group),
+and runs the model code under the group's context, so every rank
+computes the same whole logits and samples the same tokens.  Admission,
+retirement and EOS follow from the tokens; what reads the wall clock
+(arrival gating, deadlines, the idle wait) reads rank 0's, broadcast over
+the group at every read, so every rank takes every host decision alike
+(the supervisor raises on a model group).  Under gloo on CUDA (ranks
+sharing a card) collectives cannot be captured: the constructor chooses,
+from the group's backend, to run the prefills and ticks eagerly, and
+``prefill_replays`` / ``decode_replays`` stay 0.  Under NCCL the engine
+captures as it does alone.
+
 Failure model: per-request deadlines (timeout retirement with partial
 results), queue overload (bounded queue, load shedding at submit) and
 injected faults (``runtime.faults.FaultPlan``: prefill and decode
@@ -67,6 +82,7 @@ status on its ``RequestResult``.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -74,9 +90,12 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from repro_torch.config import ServeConfig, resolve_device
 from repro_torch.graph import StepGraph
 from repro_torch.runtime.faults import DEFAULT_FREEZE_READS, FaultPlan
+from repro_torch.serve.layout import model_degree, serve_layout
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.slots import SlotPool, init_slot_cache
 
@@ -117,6 +136,20 @@ def sample_tokens(logits: torch.Tensor, temperature: float,
         u[i].uniform_(generator=gen)
     gumbel = -torch.log(-torch.log(u))
     return (logits.float() / temperature + gumbel).argmax(dim=-1)
+
+
+class _Eager:
+    """A step called as it is, every time (no graph): a ranks-sharing
+    model group's, whose collectives a CUDA graph cannot capture."""
+
+    replays = 0
+    capture_s = 0.0
+
+    def __init__(self, fn: Callable):
+        self.fn = fn
+
+    def __call__(self):
+        return self.fn()
 
 
 @dataclasses.dataclass
@@ -168,13 +201,17 @@ class ContinuousEngine:
     points (prefill dispatch, decode tick, slot cache, clock reads);
     ``on_tick``: an optional callback ``(tick_index, tick_wall_s, now_s)``
     run after every decode-tick attempt, the supervisor's hook
-    (``runtime.supervisor``).
+    (``runtime.supervisor``); ``mesh``: a ``launch.mesh.CompatMesh``
+    whose ``model`` axis this rank serves on (module docstring; its data
+    axes of degree 1: one model group a run), ``params`` whole.
     """
 
     def __init__(self, model, params, serve: ServeConfig, device=None,
                  faults: Optional[FaultPlan] = None,
-                 on_tick: Optional[Callable[[int, float, float], None]] = None):
-        """Check the model and device, prepare params, allocate the cache."""
+                 on_tick: Optional[Callable[[int, float, float], None]] = None,
+                 mesh=None):
+        """Check the model and device, shard and prepare params, allocate
+        the cache."""
         if model.decode_slots is None or model.slot_cache_spec is None:
             raise ValueError(
                 f"model family {model.config.family!r} does not support "
@@ -194,10 +231,35 @@ class ContinuousEngine:
         self.serve = serve
         self.faults = faults
         self.on_tick = on_tick
+        self.mesh = mesh
+        self.layout = None
+        #: This rank's model group (an ``AxisGroup``), or None alone.
+        self.model_group = None
+        # whether each step runs eagerly: decided here, once, from the
+        # model group's backend (gloo cannot be captured in a CUDA graph)
+        self._eager = False
+        if model_degree(mesh) > 1:
+            data = mesh.size([a for a in mesh.axis_names if a != "model"])
+            if data > 1:
+                raise NotImplementedError(
+                    f"the engine serves one model group; a mesh of {data} "
+                    f"data replicas runs one engine a replica (ROADMAP.md "
+                    f"section 1)")
+            self.layout = serve_layout(
+                model, mesh, {k: tuple(t.shape) for k, t in params.items()},
+                serve.max_slots, serve.max_seq, serve.kv_fmt)
+            params = self.layout.shard(params)
+            self.model_group = self.layout.model_axis
+            backend = dist.get_backend(self.model_group.group)
+            self._eager = self.device.type == "cuda" and backend == "gloo"
+            if self.device.type == "cuda" and not self._eager:
+                # NCCL makes a communicator at its first collective, which
+                # must not be inside a capture
+                mesh.warm_collectives(self.device)
         self.params = model.prepare(params)
         self.cache = None
         # the decode step, a CUDA graph on CUDA, made at its first call
-        self._decode: Optional[StepGraph] = None
+        self._decode = None
         # one prefill step a bucket, and its static input: the padded
         # tokens, then the prompt length
         self._prefills: Dict[int, StepGraph] = {}
@@ -232,8 +294,10 @@ class ContinuousEngine:
         K = self.serve.max_slots
         self._next_id = 0
         if self.cache is None:
-            self.cache = init_slot_cache(self.model, K, self.serve.max_seq,
-                                         kv_fmt=self.serve.kv_fmt)
+            with self._context():
+                self.cache = init_slot_cache(self.model, K,
+                                             self.serve.max_seq,
+                                             kv_fmt=self.serve.kv_fmt)
             # the decode step's token and active-mask inputs
             self._tokens_dev = torch.zeros((K,), dtype=torch.int32,
                                            device=self.device)
@@ -324,7 +388,7 @@ class ContinuousEngine:
         self.queue = collections.deque(
             sorted(self.queue, key=lambda r: r.arrival_time))
         t0 = time.perf_counter()
-        raw_now = clock or (lambda: time.perf_counter() - t0)
+        raw_now = self._shared(clock or (lambda: time.perf_counter() - t0))
 
         def now_fn():
             # clock_freeze: hold time still for a bounded number of reads
@@ -367,6 +431,41 @@ class ContinuousEngine:
             # still open cannot shorten the wall
             self.metrics.run_wall += raw_now()
         return dict(self.results)
+
+    # ------------------------------------------------------------------ #
+    # the model group
+    # ------------------------------------------------------------------ #
+    def _context(self):
+        """The model code's context on this rank (``serve.layout``)."""
+        if self.layout is None:
+            return contextlib.nullcontext()
+        return self.layout.context()
+
+    def _shared(self, clock: Callable[[], float]) -> Callable[[], float]:
+        """``clock`` alone; on a model group rank 0's reading, broadcast
+        over the group at every read (the ranks read it at the same points
+        of identical schedules, so every read pairs up)."""
+        axis = self.model_group
+        if axis is None:
+            return clock
+        src = dist.get_global_rank(axis.group, 0)
+        dev = ("cpu" if dist.get_backend(axis.group) == "gloo"
+               else self.device)
+
+        def now() -> float:
+            t = torch.tensor([clock() if axis.index == 0 else 0.0],
+                             dtype=torch.float64, device=dev)
+            dist.broadcast(t, src=src, group=axis.group)
+            return float(t.item())
+
+        return now
+
+    def _program(self, fn: Callable, pool=None):
+        """A step of the engine: a CUDA graph of ``fn`` on CUDA, or ``fn``
+        called as it is where the engine runs eagerly."""
+        if self._eager:
+            return _Eager(fn)
+        return StepGraph(fn, self.device, pool=pool)
 
     # ------------------------------------------------------------------ #
     # scheduler internals
@@ -433,24 +532,31 @@ class ContinuousEngine:
         buf.copy_(torch.from_numpy(host))
         step = self._prefills.get(bucket)
         if step is None:
-            if self.device.type == "cuda" and self._prefill_pool is None:
+            if (self.device.type == "cuda" and not self._eager
+                    and self._prefill_pool is None):
                 self._prefill_pool = torch.cuda.graph_pool_handle()
-            step = self._prefills[bucket] = StepGraph(
-                lambda: self._prefill_step(buf, bucket), self.device,
+            step = self._prefills[bucket] = self._program(
+                lambda: self._prefill_step(buf, bucket),
                 pool=self._prefill_pool)
         logits, pcache = step()
         self._write(pcache, slot, n)
         return logits
 
     def _prefill_step(self, buf: torch.Tensor, bucket: int):
-        return self.model.prefill(
-            self.params, {"tokens": buf[:bucket].view(1, bucket)},
-            prompt_len=buf[bucket], kv_fmt=self.serve.kv_fmt)
+        # a sequence-split cache: the prefill writes this rank's rows of
+        # the slot's whole max_seq rows
+        seq = ({"cache_len": self.serve.max_seq}
+               if self.layout is not None and self.layout.kv_split == "kv_seq"
+               else {})
+        with self._context():
+            return self.model.prefill(
+                self.params, {"tokens": buf[:bucket].view(1, bucket)},
+                prompt_len=buf[bucket], kv_fmt=self.serve.kv_fmt, **seq)
 
     def _write(self, pcache, slot: int, prompt_len: int):
         """Copy a B=1 prefill cache into ``slot`` (in place): its rows
-        [0, bucket) of every code and scale array; the slot's position is
-        ``prompt_len``."""
+        [0, bucket) of every code and scale array (a sequence shard: all
+        of this rank's rows); the slot's position is ``prompt_len``."""
         for name, arr in self.cache.items():
             if name == "pos":
                 self._pos[slot] = prompt_len
@@ -516,9 +622,10 @@ class ContinuousEngine:
             self._dirty = False
 
     def _decode_step(self):
-        logits, _ = self.model.decode_slots(
-            self.params, self.cache, self._tokens_dev, self._active_dev,
-            kv_fmt=self.serve.kv_fmt)
+        with self._context():
+            logits, _ = self.model.decode_slots(
+                self.params, self.cache, self._tokens_dev, self._active_dev,
+                kv_fmt=self.serve.kv_fmt)
         return logits
 
     def _step(self) -> torch.Tensor:
@@ -527,7 +634,7 @@ class ContinuousEngine:
         writes what the first replay writes (the same tokens at the same
         positions) and advances the positions, which are staged again."""
         if self._decode is None:
-            self._decode = StepGraph(self._decode_step, self.device)
+            self._decode = self._program(self._decode_step)
             self.cache["pos"].copy_(torch.from_numpy(self._pos))
         return self._decode()
 

@@ -7,6 +7,7 @@ batch's prompt length and decoded to the batch's generation length.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Tuple
 
@@ -16,22 +17,29 @@ import torch
 from repro_torch.serve.engine import sample_tokens
 
 
-def build_oneshot_fns(model, cache_len: int, kv_fmt: str = "none") -> Tuple:
+def build_oneshot_fns(model, cache_len: int, kv_fmt: str = "none",
+                      layout=None) -> Tuple:
     """The (prefill, decode) pair for a cache of ``cache_len`` positions.
     ``kv_fmt`` is passed on only beyond ``"none"``, as the JAX package's
     registry fixes it: a family without a KV cache (Mamba-2) has no such
-    argument."""
+    argument.  ``layout``: a ``serve.layout.ServeLayout``; the pair then
+    runs this rank's shard under the model group's context (its params
+    ``model.prepare(layout.shard(whole))``)."""
     if kv_fmt not in model.kv_formats:
         raise ValueError(
             f"model family {model.config.family!r} does not support "
             f"kv_fmt={kv_fmt!r} (supported: {model.kv_formats})")
     kv = {} if kv_fmt == "none" else {"kv_fmt": kv_fmt}
+    context = (layout.context if layout is not None
+               else contextlib.nullcontext)
 
     def prefill_fn(params, batch):
-        return model.prefill(params, batch, cache_len=cache_len, **kv)
+        with context():
+            return model.prefill(params, batch, cache_len=cache_len, **kv)
 
     def decode_fn(params, cache, token):
-        return model.decode_step(params, cache, token, **kv)
+        with context():
+            return model.decode_step(params, cache, token, **kv)
 
     return prefill_fn, decode_fn
 

@@ -975,3 +975,106 @@ def test_ghost_norm_on_shards_adds_up(cuda, B, T, D, parts, tap):
     tol = 1e-5 * ((xq @ xq.transpose(1, 2)).abs()
                   * (gq @ gq.transpose(1, 2)).abs()).sum(dim=(1, 2))
     assert ((total.double() - want.double()).abs() <= tol).all()
+
+
+# --------------------------------------------------------------------------- #
+# serving on the model axis: a vocab shard of the head, a sequence shard of
+# the KV cache
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("K,N,parts", [(4096, 64000, 2), (64, 1000, 4),
+                                       (40, 96, 3)])
+def test_luq_matmul_vocab_shards_are_the_whole_heads_columns(
+        cuda, per_row, K, N, parts):
+    """Each shard of the head's columns, given the whole head's scale and
+    its column offset, gives the whole head's columns bit for bit (the
+    whole head's draws and K splits), and its plain version within the
+    kernel's tolerance; N / parts = 333 takes the element path."""
+    gen = torch.Generator(device=cuda).manual_seed(K + N)
+    R = 4 if per_row else 1
+    a = torch.randn(R, K, device=cuda, generator=gen)
+    b = torch.randn(K, N, device=cuda, generator=gen) / 64
+    keys = ([(2 * p + 1, 17) for p in (10, 300, 700, 1023)] if per_row
+            else (2 * 512, 17))
+    alpha_a = a.abs().amax(dim=1) if per_row else a.abs().amax().reshape(1)
+    alpha_b = b.abs().amax()
+    whole = ops.luq_matmul(a, b, keys, alpha_a, alpha_b)
+    n = N // parts
+    for i in range(parts):
+        cols = slice(i * n, (i + 1) * n)
+        shard = b[:, cols].contiguous()
+        got = ops.luq_matmul(a, shard, keys, alpha_a, alpha_b,
+                             cols=(i * n, N))
+        assert torch.equal(got, whole[:, cols]), i
+        want = ref.luq_matmul_keys_ref(a, shard, keys, alpha_a, alpha_b,
+                                       cols=(i * n, N))
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("fmt", ["int8", "luq_fp4"])
+@pytest.mark.parametrize("S,parts", [(1024, 2), (256, 4), (200, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kv_quant_write_into_sequence_shards(cuda, fmt, S, parts, dtype):
+    """A tick's rows at each slot's position and a prompt's rows from row
+    0, into each rank's rows of the cache: the whole cache's slice bit for
+    bit, the rows the shard does not write untouched."""
+    N0, N1, hd = 4, 4, 128
+    gen = torch.Generator(device=cuda).manual_seed(S + parts)
+    stale = _kv_cache(cuda, fmt, N0, N1, S, hd, S)
+    rows = S // parts
+    for wpos, T in ((torch.tensor([3, rows - 1, rows + 5, S + 9],
+                                  device=cuda), 1), (None, S - 7)):
+        k = (torch.randn(N0, N1, T, hd, device=cuda, generator=gen) * 3).to(
+            dtype)
+        v = torch.randn(N0, N1, T, hd, device=cuda, generator=gen).to(dtype)
+        w = None if wpos is None else wpos.clamp(max=S - 1)
+        whole = [c.clone() for c in stale]
+        ops.kv_quant_write(k, v, *whole, fmt, w)
+        for r in range(parts):
+            sl = slice(r * rows, (r + 1) * rows)
+            got = [c[:, :, sl].clone() for c in stale]
+            ops.kv_quant_write(k, v, *got, fmt, w, r * rows, S)
+            want = [c[:, :, sl].clone() for c in stale]
+            ref.kv_quant_write_ref(k, v, *want, fmt, w, r * rows, S)
+            for g, x, y in zip(got, want, whole):
+                assert torch.equal(g, x) and torch.equal(g, y[:, :, sl])
+
+
+@pytest.mark.parametrize("fmt", ["int8", "luq_fp4"])
+@pytest.mark.parametrize("S,parts,g", [(1024, 2, 8), (512, 4, 8),
+                                       (200, 2, 3)])
+def test_decode_attn_sequence_shards_merge_to_the_whole_cache(
+        cuda, fmt, S, parts, g):
+    """Pass 1 over each rank's rows, the partials gathered in rank order,
+    pass 2 over all: where the rows a rank are a multiple of 64, the whole
+    cache's output bit for bit; else within float32 order of it.  Slots
+    whose position lies in the first shard (the later ones empty), in a
+    later one, and past the end."""
+    KV, hd = 4, 128
+    B = 4
+    gen = torch.Generator(device=cuda).manual_seed(S + g)
+    kc, ks = kvc.kv_quant(fmt, torch.randn(B, KV, S, hd, device=cuda,
+                                           generator=gen))
+    vc, vs = kvc.kv_quant(fmt, torch.randn(B, KV, S, hd, device=cuda,
+                                           generator=gen))
+    q = torch.randn(B, KV * g, hd, device=cuda, generator=gen)
+    pos = torch.tensor([5, S // parts + 70, S - 1, S + 40], dtype=torch.int32,
+                       device=cuda)
+    kw = dict(fmt=fmt, n_kv=KV, scale=hd ** -0.5)
+    whole = ops.decode_attn_fused(q, kc, vc, ks, vs, pos, **kw)
+    rows = S // parts
+    partials = []
+    for r in range(parts):
+        sl = slice(r * rows, (r + 1) * rows)
+        partials.append(ops.decode_attn_split(
+            q, *(t[:, :, sl].contiguous() for t in (kc, vc, ks, vs)), pos,
+            row0=r * rows, seq_len=S, **kw))
+    got = ops.decode_attn_merge(torch.stack(partials), pos, batch=B,
+                                n_kv=KV, group=g, head_dim=hd, rows=rows,
+                                seq_len=S)
+    if rows % 64 == 0:
+        assert torch.equal(got, whole)
+    torch.testing.assert_close(got, whole, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got, ref.decode_attn_ref(
+        q, kc, vc, ks, vs, pos, **kw), rtol=1e-5, atol=1e-5)

@@ -394,12 +394,33 @@ def test_dryrun_card_cell_is_ok_and_production_cells_skip(tmp_path):
     assert rec["kernels"]["luq_matmul"]["calls"] == math.ceil(
         SHAPES["decode_32k"].global_batch / ops.LUQ_MATMUL_MAX_ROWS)
     assert rec["n_devices"] == 1 and rec["n_params"] > 0
-    rc = dryrun.main(["--arch", "yi-6b", "--shape", "train_4k", "--mesh",
-                      "both", "--out", str(tmp_path)])
-    assert rc == 0
+    # the production meshes: one rank's shard program in a fake world of
+    # 256 or 512 ranks, its model-group collectives counted (the train
+    # step at full width, cut to 2 layers here for the test's time; the
+    # decode step whole through the CLI)
     import json
-    for mesh in ("single", "multi"):
-        cell = json.loads((tmp_path / f"yi-6b__train_4k__{mesh}.json")
+    for mesh, devices in (("single", 256), ("multi", 512)):
+        cell = dryrun.run_cell("yi-6b", "train_4k", mesh,
+                               overrides={"n_layers": 2})
+        assert cell["status"] == "ok", cell
+        assert cell["n_devices"] == devices
+        assert cell["collectives"]["all-reduce"] > 0
+        assert cell["fits"] is (cell["peak_bytes"] <= 80e9)
+        assert cell["roofline"]["collective_s"] > 0
+    for arch in ("yi-6b", "whisper-medium"):
+        assert dryrun.main(["--arch", arch, "--shape", "decode_32k",
+                            "--mesh", "both", "--out", str(tmp_path)]) == 0
+    for mesh, devices in (("single", 256), ("multi", 512)):
+        cell = json.loads((tmp_path / f"yi-6b__decode_32k__{mesh}.json")
                           .read_text())
+        assert cell["status"] == "ok" and cell["n_devices"] == devices
+        # the vocab shards' logits gathered, the row-parallel sums reduced
+        assert set(cell["collectives"]) == {"all-gather", "all-reduce"}
+        # the logits head on the rank's 4,000 of 64,000 columns
+        assert cell["kernels"]["luq_matmul"]["calls"] == math.ceil(
+            SHAPES["decode_32k"].global_batch // (devices // 16)
+            / ops.LUQ_MATMUL_MAX_ROWS)
+        cell = json.loads((tmp_path / f"whisper-medium__decode_32k__{mesh}"
+                           ".json").read_text())
         assert cell["status"] == "skipped"
-        assert "'model' axis" in cell["reason"]
+        assert "param_axes" in cell["reason"]
